@@ -9,12 +9,28 @@ Phases (any failure exits non-zero and prints no result line):
      inputs, requiring exact equality (integer outputs, tolerance 0): first
      at a small shape across commit caps, then at the main path's full
      shape (1,024 pods x 16,384 node columns), with each one's time;
-  4. the main path at 10,000 nodes x 1,000 pods (``random_cluster``):
-     ``Engine.score``, then three cold SCHEDULE cycles with the placements
-     bound between cycles through ``ClusterState.assign_pod`` and a fresh
-     1,000 pending pods each cycle.  Every result must equal the plain
-     path's (the same engine on the CPU, fed a twin store), and every
-     kernel's launch count must have moved during this phase.
+  4. the warm-start and residency kernels the same way (``sched_refresh``
+     at 16, 128 and 1,024 dirty rows, padded indices included, also held
+     against a cold key build; ``sched_rounds``, asserting the carry is
+     bit-identical after the launch; ``dstate_scatter`` with duplicate
+     padded indices, beside the equivalent ``index_copy_`` calls;
+     ``dstate_gate`` at NaN and boundary update times), and the
+     whole-table upload (``dstate_rows``, a transfer);
+  5. the cold path at 10,000 nodes x 1,000 pods (``random_cluster``) on
+     host-built node arrays (``device_state=False``): ``Engine.score``,
+     then three cold SCHEDULE cycles with the placements bound between
+     cycles through ``ClusterState.assign_pod`` and a fresh 1,000 pending
+     pods each cycle;
+  6. the warm path at the same size in the default serving configuration
+     (resident node tables, warm start): one fixed batch through five
+     SCHEDULE cycles — cold; unchanged store; NodeMetric updates on 100
+     nodes; a metric-expiry gate flip of 50 nodes with no row stamp
+     moving; updates on 5,000 nodes (past the 25% cold fallback) — each
+     with the launches the plan names.
+  Every result of phases 5 and 6 must equal the plain path's (the same
+  engine on the CPU, fed a twin store) and, in phase 6, a warm-disabled
+  engine's on the card; every kernel of each path must have launched
+  during that path, counted from 0 just before it.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX package.
@@ -46,6 +62,9 @@ CYCLES = 3
 # bound computed with it is a lower bound on the time.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# the host link of an H100 SXM: PCIe Gen5 x16, 128 GB/s both ways together
+# (NVIDIA's data sheet), so 64 GB/s host->device
+PCIE_BYTES_PER_S = 64e9
 
 
 class Mismatch(AssertionError):
@@ -149,6 +168,19 @@ def require_equal(what: str, got, want) -> int:
     return err
 
 
+def require_same(what: str, got, want) -> int:
+    """Fail unless every output equals the plain version's bit for bit
+    (NaN payloads included); return 0, the largest difference."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.contiguous().cpu(), w.contiguous().cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{what}: output {i} is {g.dtype} {tuple(g.shape)}, plain {w.dtype} "
+                 f"{tuple(w.shape)}")
+        if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+            fail(f"{what}: output {i} differs from the plain version")
+    return 0
+
+
 def build_inputs(pods, nodes, device, extra_scalars):
     """Dense inputs of one cycle as the engine builds them: (la_pods,
     nf_pods, la_nodes, nf_nodes, valid, weights, static, order, P)."""
@@ -157,7 +189,7 @@ def build_inputs(pods, nodes, device, extra_scalars):
     from koordinator_tpu_torch.service.state import ClusterState, next_bucket
     from koordinator_tpu_torch.utils.fixtures import NOW
 
-    st = ClusterState(extra_scalars=extra_scalars)
+    st = ClusterState(extra_scalars=extra_scalars, device_state=False)
     for n in nodes:
         st.upsert_node(n)
     eng = Engine(st, device=device)
@@ -171,7 +203,7 @@ def build_inputs(pods, nodes, device, extra_scalars):
         valid=convert.tensor(snap.valid, device),
         weights=eng._weights, static=eng._nf_static,
         order=convert.tensor(queue_order(pods, p_bucket), device),
-        p_real=len(pods),
+        p_real=len(pods), state=st,
     )
 
 
@@ -297,6 +329,215 @@ def check_kernels(inp, commit_cap: int, timed: bool):
     return recs
 
 
+def perturbed_nodes(la_nodes, nf_nodes, rows):
+    """A copy of the node inputs in which ``rows`` changed as a metric
+    update or a bind changes them: more load, more requested capacity, one
+    more pod, the LoadAware filter switched."""
+    la = la_nodes._replace(
+        base_nonprod=la_nodes.base_nonprod.clone(), base_prod=la_nodes.base_prod.clone(),
+        filter_active=la_nodes.filter_active.clone(),
+    )
+    nf = nf_nodes._replace(requested=nf_nodes.requested.clone(),
+                           num_pods=nf_nodes.num_pods.clone())
+    la.base_nonprod[rows] += la.alloc[rows] // 8
+    la.base_prod[rows] += la.alloc[rows] // 16
+    la.filter_active[rows] = ~la.filter_active[rows]
+    nf.requested[rows] += nf.alloc[rows] // 8
+    nf.num_pods[rows] += 1
+    return la, nf
+
+
+def padded(real: np.ndarray) -> np.ndarray:
+    """A power-of-two index (>= 16) that repeats its first row, as the
+    engine and the residency pad theirs."""
+    from koordinator_tpu_torch.service.state import next_bucket
+
+    idx = np.full(next_bucket(real.size, 16), real[0], dtype=np.int32)
+    idx[: real.size] = real
+    return idx
+
+
+def check_warm_kernels(inp, dirty_sizes, timed: bool, commit_cap: int = 16):
+    """The warm-start and residency kernels against their plain versions on
+    the inputs' device (raises ``Mismatch``); returns (kernel records,
+    transfer records) when ``timed``."""
+    from koordinator_tpu_torch.core import resolved
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+    from koordinator_tpu_torch.service import state as sm
+
+    la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+    la_nodes, nf_nodes, valid = inp["la_nodes"], inp["nf_nodes"], inp["valid"]
+    w, static, dev = inp["weights"], inp["static"], inp["valid"].device
+    pw = PluginWeights()
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    R, Rf, Rs = la_pods.est.shape[1], nf_pods.req.shape[1], nf_pods.req_score.shape[1]
+    BS = 16
+    rng = np.random.default_rng(SEED + 2)
+    _, q_la, q_nf, salts, pod_ok = resolved.kernel_queue(
+        la_pods, nf_pods, valid, inp["p_real"], inp["order"]
+    )
+    q_extra = pod_ok[:, None] & valid[None, :]
+    carry0 = resolved.schedule_keys(q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok,
+                                    salts, BS)
+    clone = lambda c: tuple(a.clone() for a in c)  # noqa: E731
+    err = {"sched_refresh": 0}
+    runs = {}
+    for D in dirty_sizes:
+        real = rng.choice(N, size=D - 3, replace=False).astype(np.int32)
+        idx = padded(real)
+        la2, nf2 = perturbed_nodes(la_nodes, nf_nodes, torch.from_numpy(real).to(dev).long())
+
+        def kernel_refresh(c, idx=idx, la2=la2, nf2=nf2):
+            return resolved.schedule_refresh(c, idx, q_la, la2, w, q_nf, nf2, static, valid,
+                                             pod_ok, salts, BS)
+
+        def plain_refresh(c, idx=idx, la2=la2, nf2=nf2):
+            return resolved.refresh_plain(*c, torch.from_numpy(idx).to(dev), q_la, la2, w, q_nf,
+                                          nf2, static, pw, q_extra, salts, BS)
+
+        got = kernel_refresh(clone(carry0))
+        require_equal(f"sched_refresh {P}x{N} D={idx.size}", got, plain_refresh(clone(carry0)))
+        cold = resolved.schedule_keys(q_la, la2, w, q_nf, nf2, static, valid, pod_ok, salts, BS)
+        require_equal(f"sched_refresh D={idx.size} against a cold key build", got, cold)
+        runs[idx.size] = (idx, la2, nf2, got, kernel_refresh, plain_refresh)
+
+    # the warm rounds at the main path's dirty count (128 rows)
+    D_main = 128 if 128 in runs else max(runs)
+    idx, la2, nf2, carry, kernel_refresh, plain_refresh = runs[D_main]
+    before = clone(carry)
+
+    def kernel_rounds():
+        return resolved.schedule_rounds_warm(carry, q_la, la2, w, q_nf, nf2, static, valid,
+                                             pod_ok, salts, commit_cap, BS)
+
+    def plain_rounds():
+        return resolved.run_rounds_plain(carry[0].clone(), carry[1].clone(), carry[2], q_la, la2,
+                                         w, q_nf, nf2, static, pw, q_extra, salts, commit_cap, BS)
+
+    hk, sk, rk = kernel_rounds()
+    for name, a, b in zip(("M", "Mb", "la_feas_T"), carry, before):
+        if not torch.equal(a, b):
+            fail(f"sched_rounds wrote its carry's {name}")
+    hp, sp, rp = plain_rounds()
+    err["sched_rounds"] = require_equal(
+        f"sched_rounds {P}x{N} K={commit_cap}", (hk, sk, rk),
+        (hp, sp, torch.tensor(rp, dtype=torch.int32)),
+    )
+    rounds = int(rp)
+
+    # the residency: the store's raw rows, resident on the device
+    st = inp["state"]
+    host = [getattr(st, a) for a in sm.DeviceResidency._ROWS]
+    bufs0 = sm.dstate_rows(host, dev)
+    rows = host[0].shape[0]
+    real = rng.choice(rows, size=min(100, rows // 4), replace=False).astype(np.int32)
+    idx_s = padded(real)
+    src = padded(rng.choice(rows, size=real.size, replace=False).astype(np.int32))
+    vals = tuple(np.ascontiguousarray(h[src]) for h in host)
+    work = {}
+
+    # all three take the index and rows from the host, as the residency
+    # hands them over, and move them to the card inside the timed call
+    def kernel_scatter():
+        return sm.dstate_scatter(work["bufs"], idx_s, vals)
+
+    def plain_scatter():
+        return sm.dstate_scatter_plain(work["bufs"], torch.from_numpy(idx_s).to(dev),
+                                       [torch.from_numpy(v).to(dev) for v in vals])
+
+    def library_scatter():
+        i = torch.from_numpy(idx_s).to(dev).long()
+        return tuple(b.index_copy_(0, i, torch.from_numpy(v).to(dev))
+                     for b, v in zip(work["bufs"], vals))
+
+    def reset_bufs():
+        work["bufs"] = clone(bufs0)
+
+    reset_bufs()
+    got = kernel_scatter()
+    reset_bufs()
+    err["dstate_scatter"] = require_same(f"dstate_scatter D={idx_s.size}", got, plain_scatter())
+    reset_bufs()
+    require_same("dstate_scatter against index_copy_", got, library_scatter())
+
+    # the gate at NaN and boundary update times
+    now = 1_000_010.0
+    exp = st.la_args.node_metric_expiration_seconds
+    raw = list(bufs0[:12])
+    ut = raw[4].clone()
+    has = raw[3].clone()
+    k = min(64, rows // 8)
+    ut[:k] = float("nan")
+    ut[k:2 * k] = now - exp  # now - ut == exp: expired
+    ut[2 * k:3 * k] = float(np.nextafter(now - exp, np.inf))  # just inside
+    ut[3 * k:4 * k] = now + 5.0  # a clock behind the metric
+    has[:4 * k] = True
+    raw[3], raw[4] = has, ut
+    err["dstate_gate"] = 0
+    for e, fexp in ((exp, True), (exp, False), (None, True), (0, True)):
+        g = sm.dstate_gate(raw, now, e, fexp)
+        p = sm.dstate_gate_plain(raw, now, e, fexp)
+        require_same(f"dstate_gate exp={e} fexp={fexp}", g, p)
+    print(f"  {P} pods x {N} nodes: sched_refresh at D={sorted(runs)}, sched_rounds "
+          f"({rounds} rounds, carry untouched), dstate_scatter (D={idx_s.size}) and "
+          f"dstate_gate equal plain")
+    if not timed:
+        return None
+
+    la_b = nbytes(*la_pods, *nf_pods)
+    row_b = sum(b[0].numel() * b.element_size() for b in bufs0)  # one node's row, all 19
+    ops = pair_ops(R, Rf, Rs)
+    recs = []
+    d_rows = np.unique(idx)
+    blocks = np.unique(d_rows // BS)
+    b, by = bound_ms(la_b + d_rows.size * (row_b + P * 5) + blocks.size * P * 4 * (1 + BS),
+                     d_rows.size * P * (ops + 4) + blocks.size * BS * P)
+    recs.append(dict(
+        name="sched_refresh", source="koordinator_tpu_torch/csrc/schedule.cu",
+        replaces="koordinator_tpu/service/engine.py:208", dirty_rows=int(idx.size),
+        ms=cuda_ms(lambda: kernel_refresh(work["c"]), setup=lambda: work.update(c=clone(carry0))),
+        plain_ms=cuda_ms(lambda: plain_refresh(work["c"]),
+                         setup=lambda: work.update(c=clone(carry0))),
+        bound_ms=b, bound_by=by, max_abs_err=err["sched_refresh"], library_ms=None,
+    ))
+    NB = carry[1].shape[0]
+    K = min(commit_cap, P)
+    nodes_b = nbytes(*la2, *nf2, valid)
+    b, by = bound_ms(nbytes(carry[1]) + rounds * K * P * (4 + 1) + la_b + nodes_b + P * (4 + 8),
+                     rounds * (NB * P + K * P * (ops + 4) + K * BS * P))
+    recs.append(dict(
+        name="sched_rounds", source="koordinator_tpu_torch/csrc/schedule.cu",
+        replaces="koordinator_tpu/service/engine.py:238", rounds=rounds,
+        ms=cuda_ms(kernel_rounds), plain_ms=cuda_ms(plain_rounds, reps=3),
+        bound_ms=b, bound_by=by, max_abs_err=err["sched_rounds"], library_ms=None,
+    ))
+    b, by = bound_ms(idx_s.nbytes + 2 * np.unique(idx_s).size * row_b, 0)
+    recs.append(dict(
+        name="dstate_scatter", source="koordinator_tpu_torch/csrc/dstate.cu",
+        replaces="koordinator_tpu/service/state.py:200", dirty_rows=int(idx_s.size),
+        ms=cuda_ms(kernel_scatter, setup=reset_bufs),
+        plain_ms=cuda_ms(plain_scatter, setup=reset_bufs),
+        library_ms=cuda_ms(library_scatter, setup=reset_bufs),
+        bound_ms=b, bound_by=by, max_abs_err=err["dstate_scatter"],
+    ))
+    b, by = bound_ms(rows * (1 + 8 + 1 + 1 + 1) + 4 * rows, rows * 8)
+    recs.append(dict(
+        name="dstate_gate", source="koordinator_tpu_torch/csrc/dstate.cu",
+        replaces="koordinator_tpu/service/state.py:222",
+        ms=cuda_ms(lambda: sm.dstate_gate(raw, now, exp, True)),
+        plain_ms=cuda_ms(lambda: sm.dstate_gate_plain(raw, now, exp, True)),
+        bound_ms=b, bound_by=by, max_abs_err=err["dstate_gate"], library_ms=None,
+    ))
+    up_b = sum(a.nbytes for a in host)
+    transfers = [dict(
+        name="dstate_rows", replaces="koordinator_tpu/service/state.py:194",
+        what="transfer, no arithmetic: one pinned copy_ per resident array",
+        bytes=up_b, ms=cuda_ms(lambda: sm.dstate_rows(host, dev)),
+        bound_ms=up_b / PCIE_BYTES_PER_S * 1e3, bound_by="bytes over PCIe Gen5 x16",
+    )]
+    return recs, transfers
+
+
 def drive_main_path(device, num_nodes: int, num_pods: int, pods, scalars):
     """SCORE, then CYCLES cold SCHEDULE cycles binding their placements,
     through ``Engine`` on the card, each result held against the same
@@ -310,8 +551,8 @@ def drive_main_path(device, num_nodes: int, num_pods: int, pods, scalars):
     from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster, random_pod
 
     t0 = time.perf_counter()
-    state = ClusterState(extra_scalars=scalars)
-    twin = ClusterState(extra_scalars=scalars)
+    state = ClusterState(extra_scalars=scalars, device_state=False)
+    twin = ClusterState(extra_scalars=scalars, device_state=False)
     for st in (state, twin):
         _, fleet = random_cluster(SEED, num_nodes=num_nodes, num_pods=0)
         for n in fleet:
@@ -373,6 +614,157 @@ def drive_main_path(device, num_nodes: int, num_pods: int, pods, scalars):
     return launches, main_ms, kernel_ms
 
 
+class uncounted:
+    """Launches made inside are taken back out of the kernels' counts:
+    the comparison engines' launches are not the main path's."""
+
+    def __enter__(self):
+        from koordinator_tpu_torch import cuda
+
+        self._kernels = cuda.KERNELS
+        self._saved = {name: k.launches for name, k in self._kernels.items()}
+        return self
+
+    def __exit__(self, *exc):
+        for name, k in self._kernels.items():
+            k.launches = self._saved[name]
+
+
+# the warm phase's cycles: (name, clock offset from NOW, NodeMetric updates
+# before the cycle, launches expected of the main engine; "refresh_rows" is
+# the padded dirty index the refresh takes, "cold" a cold init)
+WARM_CYCLES = (
+    ("cold", 0.0, 0, dict(schedule_keys=1, schedule_rounds=1, sched_refresh=0, sched_rounds=0,
+                          dstate_scatter=0, dstate_gate=1), dict(cold=True, full_upload=True)),
+    ("unchanged", 1.0, 0, dict(schedule_keys=0, schedule_rounds=0, sched_refresh=0,
+                               sched_rounds=1, dstate_scatter=0, dstate_gate=1),
+     dict(begin_hit=True)),
+    ("metrics on 100 nodes", 2.0, 100, dict(schedule_keys=0, schedule_rounds=0, sched_refresh=1,
+                                            sched_rounds=1, dstate_scatter=1, dstate_gate=1),
+     dict(refresh_rows=128)),
+    ("gate flip of 50 nodes", 10.0, 0, dict(schedule_keys=0, schedule_rounds=0, sched_refresh=1,
+                                            sched_rounds=1, dstate_scatter=0, dstate_gate=1),
+     dict(refresh_rows=64, stamps_still=True)),
+    ("metrics on 5,000 nodes", 11.0, 5000, dict(schedule_keys=1, schedule_rounds=1,
+                                                sched_refresh=0, sched_rounds=0,
+                                                dstate_scatter=0, dstate_gate=1),
+     dict(cold=True, full_upload=True)),
+)
+WARM_PATH_KERNELS = ("schedule_keys", "schedule_rounds", "sched_refresh", "sched_rounds",
+                     "dstate_scatter", "dstate_gate")
+
+
+def drive_warm_path(device, num_nodes: int, num_pods: int, scalars):
+    """The default serving configuration at full width: a resident store
+    (``device_state=True``) and a warm-start engine on the card, one fixed
+    batch through ``WARM_CYCLES``.  Each cycle's hosts, scores and
+    allocations are held against a warm-disabled engine on the same card
+    and store and against the CPU engine on a twin store; each cycle's
+    launches against the plan.  Returns (launches per kernel during this
+    phase, per-cycle records)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import CPU, MEMORY, NodeMetric
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.service.state import ClusterState, next_bucket
+    from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster, random_pod
+
+    t0 = time.perf_counter()
+    state = ClusterState(extra_scalars=scalars)
+    twin = ClusterState(extra_scalars=scalars)
+    exp = state.la_args.node_metric_expiration_seconds
+    _, fleet = random_cluster(SEED, num_nodes=num_nodes, num_pods=0)
+    names = [n.name for n in fleet]
+    rng = np.random.default_rng(SEED + 3)
+    order = rng.permutation(num_nodes)
+    horizon = [names[i] for i in order[:50]]  # live until NOW + 5, expired at NOW + 10
+    updates = {100: [names[i] for i in order[50:150]], 5000: [names[i] for i in order[150:5150]]}
+    for st in (state, twin):
+        for n in random_cluster(SEED, num_nodes=num_nodes, num_pods=0)[1]:
+            st.upsert_node(n)
+        for i, name in enumerate(horizon):
+            st.update_metric(name, NodeMetric(node_usage={CPU: 1000 + 10 * i, MEMORY: 4 << 30},
+                                              update_time=NOW + 5 - exp))
+        st.publish(NOW)
+    print(f"  ingest of two stores: {time.perf_counter() - t0:.1f} s")
+    eng, cold, ref = Engine(state, device=device), Engine(state, device=device), Engine(
+        twin, device="cpu")
+    cold.sched_warm_enabled = False
+    batch = lambda: [random_pod(np.random.default_rng([SEED, 4, i]), f"warm-pending-{i}",  # noqa: E731
+                                "pending") for i in range(num_pods)]
+    batches = {e: batch() for e in (eng, cold, ref)}
+    res = state.residency
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    records = []
+    with LaunchTimer() as timer:
+        for c, (name, dt, n_upd, plan, expect) in enumerate(WARM_CYCLES):
+            now = NOW + dt
+            for st in (state, twin):
+                for i, node in enumerate(updates.get(n_upd, ())):
+                    st.update_metric(node, NodeMetric(
+                        node_usage={CPU: 2000 + 7 * i, MEMORY: (2 + i % 7) << 30},
+                        update_time=now))
+            # the rows the updates dirtied refresh in the store's publish
+            # (host Python), timed apart from the engine call
+            t0 = time.perf_counter()
+            state.publish(now)
+            publish = (time.perf_counter() - t0) * 1e3
+            vers = state.sched_versions()
+            before = {k: v.launches for k, v in cuda.KERNELS.items()}
+            up0, warm0, begin0 = res.full_uploads, eng.sched_warm_hits, eng.sched_begin_hits
+            timer.take()
+            t0 = time.perf_counter()
+            hosts, scores, snap, allocs = eng.schedule(batches[eng], now=now)
+            wall = (time.perf_counter() - t0) * 1e3
+            k_ms = timer.take()
+            launched = {k: v.launches - before[k] for k, v in cuda.KERNELS.items()}
+            with uncounted():
+                ch, cs, _, ca = cold.schedule(batches[cold], now=now)
+            rh, rs, _, ra = ref.schedule(batches[ref], now=now)
+            require_equal(f"warm cycle {c} ({name}) vs warm-disabled", (hosts, scores), (ch, cs))
+            require_equal(f"warm cycle {c} ({name}) vs the CPU engine", (hosts, scores), (rh, rs))
+            if allocs != ca or allocs != ra:
+                fail(f"warm cycle {c} ({name}): allocation records differ")
+            counters = (eng.sched_warm_hits, eng.sched_cold_inits, eng.sched_begin_hits)
+            if counters != (ref.sched_warm_hits, ref.sched_cold_inits, ref.sched_begin_hits):
+                fail(f"warm cycle {c} ({name}): warm/cold/begin counters {counters} differ "
+                     f"from the CPU engine's")
+            want = {k: plan.get(k, 0) for k in launched}
+            if launched != want:
+                fail(f"warm cycle {c} ({name}): launches {launched}, planned {want}")
+            is_cold = eng.sched_warm_hits == warm0
+            if is_cold != bool(expect.get("cold")):
+                fail(f"warm cycle {c} ({name}): cold={is_cold}, planned {bool(expect.get('cold'))}")
+            if (res.full_uploads > up0) != bool(expect.get("full_upload")):
+                fail(f"warm cycle {c} ({name}): {res.full_uploads - up0} wholesale uploads")
+            if expect.get("begin_hit") and eng.sched_begin_hits != begin0 + 1:
+                fail(f"warm cycle {c} ({name}): the begin-input cache missed")
+            if "refresh_rows" in expect and next_bucket(eng.sched_last_dirty, 16) != \
+                    expect["refresh_rows"]:
+                fail(f"warm cycle {c} ({name}): refreshed {eng.sched_last_dirty} rows")
+            if expect.get("stamps_still") and state.sched_versions() != vers:
+                fail(f"warm cycle {c} ({name}): a row stamp moved")
+            res.verify()
+            busy = sum(k_ms.values())
+            rec = dict(cycle=name, publish_ms=publish, wall_ms=wall, kernel_ms=k_ms,
+                       launches=launched,
+                       placed=int((hosts >= 0).sum()), rounds=eng.last_rounds,
+                       dirty_rows=None if is_cold else eng.sched_last_dirty,
+                       warm_hits=eng.sched_warm_hits, cold_inits=eng.sched_cold_inits,
+                       begin_hits=eng.sched_begin_hits, full_uploads=res.full_uploads,
+                       scatters=res.scatters)
+            records.append(rec)
+            print(f"  cycle {c} ({name}): {rec['placed']}/{num_pods} placed in "
+                  f"{rec['rounds']} rounds, {'cold' if is_cold else 'warm'}, "
+                  f"dirty {rec['dirty_rows']}; publish {publish:.1f} ms, schedule "
+                  f"{wall:.1f} ms wall, kernels "
+                  f"{busy:.2f} ms: " + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(k_ms.items()))
+                  + f"; launches {({k: v for k, v in launched.items() if v})}; warm/cold/begin "
+                  f"{counters}; uploads {res.full_uploads}, scatters {res.scatters}", flush=True)
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA card", file=sys.stderr)
@@ -403,26 +795,44 @@ def main() -> int:
     for cap in (1, 16, 100):
         check_kernels(small, cap, timed=False)
     check_kernels(ragged(small, 300, 50), 16, timed=False)
+    check_warm_kernels(small, (16, 128), timed=False)
+    check_warm_kernels(small, (16,), timed=False, commit_cap=100)
     pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
     full = build_inputs(pods, nodes, dev, scalars)
     records = check_kernels(full, 16, timed=True)
+    warm_records, transfers = check_warm_kernels(full, (16, 128, 1024), timed=True)
+    records += warm_records
     del full
     torch.cuda.empty_cache()
 
-    print(f"main path: {NUM_NODES} nodes x {NUM_PODS} pods", flush=True)
-    launches, main_ms, main_kernel_ms = drive_main_path(dev, NUM_NODES, NUM_PODS, pods, scalars)
+    print(f"cold path: {NUM_NODES} nodes x {NUM_PODS} pods, host-built node arrays", flush=True)
+    cold_launches, main_ms, main_kernel_ms = drive_main_path(dev, NUM_NODES, NUM_PODS, pods,
+                                                             scalars)
+    print(f"warm path: {NUM_NODES} nodes x {NUM_PODS} pods, resident node tables", flush=True)
+    warm_launches, warm_cycles = drive_warm_path(dev, NUM_NODES, NUM_PODS, scalars)
+    for path, launched, kernels in (
+        ("cold", cold_launches, ("score", "schedule_keys", "schedule_rounds")),
+        ("warm", warm_launches, WARM_PATH_KERNELS),
+    ):
+        idle = [k for k in kernels if launched[k] == 0]
+        if idle:
+            fail(f"the {path} path never launched {idle}")
+    print(f"  launches on the cold path {cold_launches}; on the warm path {warm_launches}")
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "rounds")
-    # no single PyTorch call computes any of these functions, so there is
-    # no library time
-    kernels = [
-        {k: v for k, v in dict(rec, route="cuda", launches=launches[rec["name"]],
-                               library_ms=None).items() if k in keys}
-        for rec in records
-    ]
-    print(json.dumps({"kernels": kernels, "card": card, "main_path_ms": main_ms,
-                      "main_path_kernel_ms": main_kernel_ms}))
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "dirty_rows")
+    kernels = []
+    for rec in records:
+        name = rec["name"]
+        by_path = {"cold": cold_launches[name], "warm": warm_launches[name]}
+        # only dstate_scatter has a PyTorch call computing the same function
+        # (index_copy_); the others have none
+        rec = dict(rec, route="cuda", launches=sum(by_path.values()), launches_by_path=by_path)
+        rec.setdefault("library_ms", None)
+        kernels.append({k: v for k, v in rec.items() if k in keys})
+    print(json.dumps({"kernels": kernels, "transfers": transfers, "card": card,
+                      "main_path_ms": main_ms, "main_path_kernel_ms": main_kernel_ms,
+                      "warm_cycles": warm_cycles}))
     print(f"device: {kind} | {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

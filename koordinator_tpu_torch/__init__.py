@@ -7,12 +7,15 @@ framework-free modules it needs.  Every output is bit-identical to the JAX
 package's: all of the scoring and scheduling is int64/int32 math with Go's
 rounding.
 
-This slice carries the main path ``ClusterState`` -> ``Engine.score`` /
+The port carries the main path ``ClusterState`` -> ``Engine.score`` /
 ``Engine.schedule`` for plain pods under the default LeastAllocated
-configuration, with the two device kernels of that path written by hand in
-CUDA C++ for ``sm_90a`` (``csrc/``): ``score`` and the two launches of
-``schedule``.  Each kernel's wrapper runs its plain PyTorch version for CPU
-tensors and launches the kernel, or raises, for CUDA tensors.
+configuration, in the JAX package's default serving configuration: node
+tables resident on the device and the SCHEDULE warm start.  Its device
+kernels are written by hand in CUDA C++ for ``sm_90a`` (``csrc/``):
+``score``; the two launches of ``schedule``; the warm ``sched_refresh`` and
+``sched_rounds``; the residency's ``dstate_scatter`` and ``dstate_gate``.
+Each kernel's wrapper runs its plain PyTorch version for CPU tensors and
+launches the kernel, or raises, for CUDA tensors.
 
 Layout (the JAX package's, with the same relative module names):
   api/       object model (copy)
@@ -20,7 +23,7 @@ Layout (the JAX package's, with the same relative module names):
   golden/    nodefit_ref (copy), used by the NodeFit snapshot builder
   ops/       Go-exact rounding helpers (torch)
   snapshot/  numpy builders of the dense inputs (copies)
-  service/   transformers (copy); state and engine (this slice)
+  service/   transformers (copy); state (with the device residency), engine
   utils/     synthetic cluster fixtures (copy)
   csrc/      the CUDA kernels; ``cuda.py`` builds and binds them
   convert.py numpy arrays -> tensors on a device

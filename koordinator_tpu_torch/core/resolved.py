@@ -25,15 +25,22 @@ the winning node; only the <= commit_cap touched rows are rescored.
 Exactness needs the monotonicity above, hence LeastAllocated only; other
 strategies route to the scan, as in the JAX package.
 
-This slice covers plain pods: gang, quota and reservation inputs, the
-extra-score channel and the cross-cycle warm carry arrive with later slices
-and raise ``NotImplementedError`` here.
+The cross-cycle warm start keeps the init state (M, Mb, la_feas_T) as a
+carry: ``return_warm`` hands it out of a cold run, ``refresh_only`` with
+``dirty_cols`` rebuilds the carry's rows of the nodes that changed, and
+``warm_init`` starts the rounds from it.
+
+This slice covers plain pods: gang, quota and reservation inputs and the
+extra-score channel arrive with later slices and raise
+``NotImplementedError`` here.
 
 ``schedule_keys`` and ``schedule_rounds`` are the wrappers of the two CUDA
-launches of the ``schedule`` kernel (``csrc/schedule.cu``); ``schedule_fn``
-composes them the way the JAX package's ``schedule_fn`` (service/engine.py)
-composes its jitted cycle.  CPU tensors take the plain versions beside them;
-CUDA tensors launch the kernels or raise.
+launches of the cold ``schedule`` kernel (``csrc/schedule.cu``);
+``schedule_refresh`` and ``schedule_rounds_warm`` those of the warm
+``sched_refresh`` and ``sched_rounds``; ``schedule_fn`` composes the cold
+pair the way the JAX package's ``schedule_fn`` (service/engine.py) composes
+its jitted cycle.  CPU tensors take the plain versions beside them; CUDA
+tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -230,6 +237,26 @@ def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_
     return hosts, scores, rounds
 
 
+def refresh_plain(M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
+                  plugin_weights, q_extra, salts, block_size: int):
+    """The warm carry's delta refresh, in place: for the node rows
+    ``dirty`` [D] (padding repeats a real row), the real LoadAware filter
+    into ``la_feas_T``, the packed keys into ``M`` from the current node
+    state, then the block maxima of their blocks into ``Mb``.  Returns
+    (M, Mb, la_feas_T)."""
+    N, P = la_feas_T.shape
+    NB = Mb.shape[0]
+    d = dirty.to(torch.int64)
+    la_feas_T[d] = loadaware_filter(q_la, _rows(la_nodes, d)).T
+    M[d] = _touched_keys(
+        q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights, la_feas_T, q_extra.T,
+        salts.to(torch.int64), d, tie_base(N),
+    )
+    bc = torch.div(d, block_size, rounding_mode="floor")
+    Mb[bc] = M.view(NB, block_size, P)[bc].amax(dim=1)
+    return M, Mb, la_feas_T
+
+
 def _refuse(gang, quota, reservation, extra_scores):
     for name, val, slice_name in (
         ("gang", gang, CONSTRAINTS), ("quota", quota, CONSTRAINTS),
@@ -257,14 +284,34 @@ def schedule_batch_resolved(
     block_size: int = 16,
     extra_scores=None,
     return_rounds: bool = False,
+    warm_init: Optional[tuple] = None,
+    dirty_cols: Optional[torch.Tensor] = None,
+    refresh_only: bool = False,
+    return_warm: bool = False,
 ):
     """``schedule_batch`` bit-for-bit (same ``tie_break``), via
     prefix-committed rounds, plain PyTorch.  commit_cap and block_size do
-    not affect results.  Returns (hosts, scores[, rounds])."""
+    not affect results.  Returns (hosts, scores[, rounds][, warm]).
+
+    The warm start, as in the JAX package: ``warm_init`` (M [N_pad, P]
+    int32, Mb [NB, P] int32, la_feas_T [N, P] bool) is the init state a
+    cold run over the same inputs would build, and the rounds start from
+    it; ``refresh_only`` rebuilds its ``dirty_cols`` rows against the
+    current inputs and returns the refreshed carry instead of scheduling;
+    ``return_warm`` appends a cold run's init carry to the outputs.  The
+    caller's carry tensors are never written."""
     _refuse(gang, quota, reservation, extra_scores)
     P_full = la_pods.est.shape[0]
     N = la_nodes.alloc.shape[0]
     dev = la_pods.est.device
+    wants_warm = warm_init is not None or refresh_only or return_warm
+    if refresh_only and (warm_init is None or dirty_cols is None):
+        raise ValueError("refresh_only requires warm_init and dirty_cols")
+    if nf_static.strategy != "LeastAllocated" and wants_warm:
+        raise ValueError(
+            "warm-start schedule requires the LeastAllocated matrix engine "
+            "(monotonicity precondition)"
+        )
     if nf_static.strategy != "LeastAllocated":
         # monotonicity precondition: other strategies take the scan
         hosts, scores = schedule_batch(
@@ -279,16 +326,29 @@ def schedule_batch_resolved(
         q_extra = torch.ones((xs.shape[0], N), dtype=torch.bool, device=dev)
     else:
         q_extra = extra_feasible[xs]
-    M, Mb, la_feas_T = build_keys_plain(
-        q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, plugin_weights, q_extra, salts,
-        block_size,
-    )
+    if refresh_only:
+        return refresh_plain(
+            *(a.clone() for a in warm_init), dirty_cols, q_la, la_nodes, la_weights, q_nf,
+            nf_nodes, nf_static, plugin_weights, q_extra, salts, block_size,
+        )
+    if warm_init is not None:
+        M0, Mb0, la_feas_T = warm_init
+    else:
+        M0, Mb0, la_feas_T = build_keys_plain(
+            q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
+            salts, block_size,
+        )
     hosts_q, scores_q, rounds = run_rounds_plain(
-        M, Mb, la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static,
-        plugin_weights, q_extra, salts, commit_cap, block_size,
+        M0.clone(), Mb0.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes,
+        nf_static, plugin_weights, q_extra, salts, commit_cap, block_size,
     )
     hosts, scores = _submission_order(hosts_q, scores_q, xs, P_full)
-    return (hosts, scores, rounds) if return_rounds else (hosts, scores)
+    out = (hosts, scores)
+    if return_rounds:
+        out = out + (rounds,)
+    if return_warm:
+        out = out + ((M0, Mb0, la_feas_T),)
+    return out
 
 
 # ------------------------------------------------------------------ kernels
@@ -332,20 +392,10 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
     return M, Mb, la_feas_T
 
 
-def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
-                    pod_ok, salts, commit_cap: int, block_size: int):
-    """Second launch of the ``schedule`` kernel: the whole round loop under
-    the default plugin weights.  Returns (hosts [P] int32, scores [P]
-    int64, rounds as a 0-d int32 tensor) in queue order.  ``M``/``Mb`` are
-    consumed (updated in place); the node arrays are not touched (the
-    kernel commits into private copies)."""
-    if valid.device.type == "cpu":
-        q_extra = pod_ok[:, None] & valid[None, :]
-        hosts, scores, rounds = run_rounds_plain(
-            M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(),
-            q_extra, salts, commit_cap, block_size,
-        )
-        return hosts, scores, torch.tensor(rounds, dtype=torch.int32)
+def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
+                   valid, pod_ok, salts, commit_cap: int, block_size: int):
+    """One launch of the round-loop kernel on CUDA tensors, counted on
+    ``kernel``; ``M``/``Mb`` are updated in place."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     K = min(commit_cap, max(P, 1))
@@ -370,13 +420,96 @@ def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_s
     rounds = torch.zeros(1, dtype=torch.int32, device=dev)
     node_first = torch.empty(N, dtype=torch.int32, device=dev)
     if P and N:
-        cuda.SCHEDULE_ROUNDS.launch(
+        kernel.launch(
             args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
             salts.data_ptr(), P, N, block_size, tie_base(N), K, M.data_ptr(), Mb.data_ptr(),
             la_feas_T.data_ptr(), node_first.data_ptr(), hosts.data_ptr(), scores.data_ptr(),
             rounds.data_ptr(), cuda.device_index(dev), cuda.stream(dev),
         )
     return hosts, scores, rounds[0]
+
+
+def _plain_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
+                  pod_ok, salts, commit_cap: int, block_size: int):
+    q_extra = pod_ok[:, None] & valid[None, :]
+    hosts, scores, rounds = run_rounds_plain(
+        M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(),
+        q_extra, salts, commit_cap, block_size,
+    )
+    return hosts, scores, torch.tensor(rounds, dtype=torch.int32)
+
+
+def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
+                    pod_ok, salts, commit_cap: int, block_size: int):
+    """Second launch of the ``schedule`` kernel: the whole round loop under
+    the default plugin weights.  Returns (hosts [P] int32, scores [P]
+    int64, rounds as a 0-d int32 tensor) in queue order.  ``M``/``Mb`` are
+    consumed (updated in place); the node arrays are not touched (the
+    kernel commits into private copies)."""
+    args = (M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
+            salts, commit_cap, block_size)
+    if valid.device.type == "cpu":
+        return _plain_rounds(*args)
+    return _launch_rounds(cuda.SCHEDULE_ROUNDS, *args)
+
+
+def _check_carry(carry, N: int, P: int, block_size: int, dev) -> tuple:
+    NB = -(-N // block_size)
+    M, Mb, la_feas_T = carry
+    return (
+        cuda._checked(M, torch.int32, (NB * block_size, P), dev, "carry M"),
+        cuda._checked(Mb, torch.int32, (NB, P), dev, "carry Mb"),
+        cuda._checked(la_feas_T, torch.bool, (N, P), dev, "carry la_feas_T"),
+    )
+
+
+def schedule_rounds_warm(carry, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
+                         salts, commit_cap: int, block_size: int):
+    """The ``sched_rounds`` kernel: the round loop from a warm carry
+    (M, Mb, la_feas_T), launched on COPIES of M and Mb — the carry seeds
+    the next cycle and is never written.  Returns what ``schedule_rounds``
+    returns."""
+    P, N = q_la.est.shape[0], valid.shape[0]
+    M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, valid.device)
+    args = (M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
+            valid, pod_ok, salts, commit_cap, block_size)
+    if valid.device.type == "cpu":
+        return _plain_rounds(*args)
+    return _launch_rounds(cuda.SCHED_ROUNDS, *args)
+
+
+def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
+                     pod_ok, salts, block_size: int):
+    """The ``sched_refresh`` kernel: rebuild the carry's rows of the node
+    columns ``dirty`` ([D] int32 on the host, a power-of-two bucket padded
+    by repeating a real row) against the current node inputs, in place.
+    Returns the carry (M, Mb, la_feas_T)."""
+    P, N = q_la.est.shape[0], valid.shape[0]
+    dev = valid.device
+    M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, dev)
+    dirty = torch.as_tensor(dirty)
+    if dirty.dtype != torch.int32 or dirty.dim() != 1 or dirty.device.type != "cpu":
+        raise ValueError(f"dirty: expected a 1-D int32 host index, got {dirty.dtype} "
+                         f"{tuple(dirty.shape)} on {dirty.device}")
+    if dirty.numel() and (int(dirty.min()) < 0 or int(dirty.max()) >= N):
+        raise ValueError(f"dirty rows outside [0, {N})")
+    if dev.type == "cpu":
+        return refresh_plain(
+            M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
+            PluginWeights(), pod_ok[:, None] & valid[None, :], salts, block_size,
+        )
+    args = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
+    pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
+    salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
+    if P and dirty.numel():
+        d = dirty.pin_memory().to(dev, non_blocking=True)
+        cuda.SCHED_REFRESH.launch(
+            args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
+            salts.data_ptr(), P, N, block_size, tie_base(N), d.data_ptr(), int(d.shape[0]),
+            M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(), cuda.device_index(dev),
+            cuda.stream(dev),
+        )
+    return M, Mb, la_feas_T
 
 
 def schedule_fn(
@@ -396,10 +529,12 @@ def schedule_fn(
     ``p_real`` pod rows, queue order ``order``, the default plugin weights
     and the salted tie-break, as the JAX engine's ``schedule_fn`` runs it.
     Returns (hosts [P] int32, scores [P] int64, precommit [P] int32, rounds
-    as a 0-d int32 tensor) in submission order.
+    as a 0-d int32 tensor, warm) in submission order, where ``warm`` is the
+    init carry (M, Mb, la_feas_T) that seeds the next cycle's warm start
+    (the rounds run on copies of it).
 
     On CPU tensors a strategy other than LeastAllocated takes the scan (as
-    the JAX package does); on CUDA tensors it raises."""
+    the JAX package does) and ``warm`` is None; on CUDA tensors it raises."""
     P, N = la_pods.est.shape[0], valid.shape[0]
     dev = valid.device
     if nf_static.strategy != "LeastAllocated" and dev.type == "cpu":
@@ -408,7 +543,7 @@ def schedule_fn(
             la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
             extra_feasible=pad_rows[:, None] & valid[None, :], order=order, return_rounds=True,
         )
-        return hosts, scores, hosts, torch.tensor(rounds, dtype=torch.int32)
+        return hosts, scores, hosts, torch.tensor(rounds, dtype=torch.int32), None
     if not fits_i32(key_bound(PluginWeights()), N):
         raise later("the int64-key matrix engine (node axes beyond 2**21)", STRATEGIES)
     xs, q_la, q_nf, salts, pod_ok = kernel_queue(la_pods, nf_pods, valid, p_real, order)
@@ -416,8 +551,8 @@ def schedule_fn(
         q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, valid, pod_ok, salts, block_size,
     )
     hosts_q, scores_q, rounds = schedule_rounds(
-        M, Mb, la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, valid, pod_ok,
-        salts, commit_cap, block_size,
+        M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static,
+        valid, pod_ok, salts, commit_cap, block_size,
     )
     hosts, scores = _submission_order(hosts_q, scores_q, xs, P)
-    return hosts, scores, hosts, rounds
+    return hosts, scores, hosts, rounds, (M, Mb, la_feas_T)

@@ -1,4 +1,5 @@
-// SCHEDULE: the conflict-resolved cycle for plain pods, in two launches.
+// SCHEDULE: the conflict-resolved cycle for plain pods (cold key build and
+// round loop) and the warm carry's delta refresh.
 //
 // Replaces: the JAX package's `schedule` kernel, service/engine.py:155
 // schedule_fn -> core/resolved.py:204 schedule_batch_resolved, engine
@@ -27,6 +28,25 @@
 //    4 MB at 1,024 pods), but the rounds are sequential and one block uses
 //    one SM's bandwidth.  Right before fast: spreading the per-round max
 //    over the whole card is later work.
+//
+// 3. refresh_rows + refresh_blocks: the warm carry's delta refresh,
+//    replacing the JAX package's `sched_refresh` (service/engine.py:208
+//    sched_refresh_fn -> core/resolved.py:707-755, refresh_only).  For each
+//    dirty node row j (a power-of-two index padded by repeating a real
+//    row) and each pod, the real LoadAware filter into la_feas_T[j] and the
+//    packed key into M[j] through the same pair function as the cold build,
+//    so a refreshed key equals a cold-built one bit for bit; then, after a
+//    kernel boundary, the block maximum of every block that holds a dirty
+//    row.  In place (the JAX jit donates the carry).  Duplicate rows and
+//    blocks write identical values.  Bound on an H100: bytes (5 bytes a
+//    pair written for D rows, plus the re-read of the touched blocks); at
+//    D = 128 and 1,024 pods it is a few microseconds of work, so launch
+//    latency dominates.
+//
+// The warm rounds (`sched_rounds`, engine.py:238) are the rounds kernel
+// launched on copies of the carry's M and Mb (core/resolved.py
+// schedule_rounds_warm): the carry seeds the next cycle and is never
+// written.
 //
 // commit_cap (K) and block_size (BS) do not change results.  Padding slots
 // of a round (fewer than K commits) clamp to column N-1 and rewrite it with
@@ -229,6 +249,31 @@ __global__ void __launch_bounds__(1024) rounds_kernel(Cfg c, PodIn p, NodeIn n, 
   if (t == 0) *rounds_out = rounds;
 }
 
+// grid (pods / 128, min(D, 65535)); blockIdx.y strides over the dirty rows
+__global__ void refresh_rows(Cfg c, PodIn p, NodeIn n, const uint8_t* valid, const uint8_t* pod_ok,
+                             const int* salt, int P, int N, long long TB, const int* dirty, int D,
+                             int* M, uint8_t* la_feas_T) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= P) return;
+  for (int d = blockIdx.y; d < D; d += gridDim.y) {
+    const int j = dirty[d];
+    const bool laf = la_fit(c, p, n, q, j);
+    la_feas_T[(size_t)j * P + q] = laf;
+    M[(size_t)j * P + q] = pair_key(c, p, n, q, j, laf && valid[j] && pod_ok[q], salt[q], N, TB);
+  }
+}
+
+__global__ void refresh_blocks(const int* M, int* Mb, const int* dirty, int D, int P, int BS) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= P) return;
+  for (int d = blockIdx.y; d < D; d += gridDim.y) {
+    const int b = dirty[d] / BS;
+    int m = KOORD_NEGK;
+    for (int i = 0; i < BS; ++i) m = max(m, M[(size_t)(b * BS + i) * P + q]);
+    Mb[(size_t)b * P + q] = m;
+  }
+}
+
 size_t rounds_smem(int P, int K) { return (size_t)P * (3 * sizeof(int) + 3) + (size_t)K * (2 * sizeof(int) + 1); }
 
 }  // namespace
@@ -272,5 +317,25 @@ extern "C" int koord_sched_rounds(const void* const* pods, const void* const* no
       koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), (const uint8_t*)valid,
       (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, K, (int*)M, (int*)Mb,
       (const uint8_t*)la_feas_T, (int*)node_first, (int*)hosts, (long long*)scores, (int*)rounds);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int koord_sched_refresh(const void* const* pods, const void* const* nodes,
+                                   const long long* cfg, const void* la_w, const void* valid,
+                                   const void* pod_ok, const void* salt, int P, int N, int BS,
+                                   long long TB, const void* dirty, int D, void* M, void* Mb,
+                                   void* la_feas_T, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = 128;
+  dim3 grid((P + threads - 1) / threads, D < 65535 ? D : 65535);
+  refresh_rows<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), (const uint8_t*)valid,
+      (const uint8_t*)pod_ok, (const int*)salt, P, N, TB, (const int*)dirty, D, (int*)M,
+      (uint8_t*)la_feas_T);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  refresh_blocks<<<grid, threads, 0, (cudaStream_t)stream>>>((const int*)M, (int*)Mb,
+                                                             (const int*)dirty, D, P, BS);
   return (int)cudaGetLastError();
 }

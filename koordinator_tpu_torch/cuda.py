@@ -131,6 +131,7 @@ class Kernel:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 
 SCORE = Kernel("score", "koord_score", [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
 SCHEDULE_KEYS = Kernel(
@@ -141,7 +142,25 @@ SCHEDULE_ROUNDS = Kernel(
     "schedule", "koord_sched_rounds",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 )
-KERNELS = {"score": SCORE, "schedule_keys": SCHEDULE_KEYS, "schedule_rounds": SCHEDULE_ROUNDS}
+# the warm carry: the delta refresh, and the round loop launched on copies
+# of the carry (the same entry point as the cold rounds, counted apart)
+SCHED_REFRESH = Kernel(
+    "schedule", "koord_sched_refresh",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _I, _P, _P, _P, _I, _P],
+)
+SCHED_ROUNDS = Kernel("schedule", "koord_sched_rounds", SCHEDULE_ROUNDS.argtypes)
+# the device residency (csrc/dstate.cu)
+DSTATE_SCATTER = Kernel("dstate", "koord_dstate_scatter", [_I, _P, _P, _P, _P, _I, _I, _P])
+DSTATE_GATE = Kernel(
+    "dstate", "koord_dstate_gate",
+    [_I, _P, _P, _P, _P, _P, _D, _I, _I, _D, _I, _P, _P, _P, _P, _I, _P],
+)
+DSTATE_MAX_ARRAYS = 32  # KOORD_DSTATE_MAX_ARRAYS in csrc/dstate.cu
+KERNELS = {
+    "score": SCORE, "schedule_keys": SCHEDULE_KEYS, "schedule_rounds": SCHEDULE_ROUNDS,
+    "sched_refresh": SCHED_REFRESH, "sched_rounds": SCHED_ROUNDS,
+    "dstate_scatter": DSTATE_SCATTER, "dstate_gate": DSTATE_GATE,
+}
 
 # the largest dynamic shared memory one block may take on Hopper
 MAX_SMEM = 232_448

@@ -1,10 +1,11 @@
 """The port's ClusterState and Engine against the JAX package's, after the
 same store operations: node upserts past the initial capacity, metric
 updates, pod binds, unbinds and node removals with index reuse, then SCORE
-and several cold SCHEDULE cycles whose placements bind between cycles —
+and several SCHEDULE cycles whose placements bind between cycles —
 published arrays, totals, feasibility, hosts, scores and allocation
-records equal bit for bit.  The JAX side runs with ``device_state=False``,
-the configuration this slice ports.
+records equal bit for bit.  The JAX side runs with ``device_state=False``
+(host-built node arrays), the port with its default resident tables: the
+two paths serve the same answers.
 
 Also: the slice's refusals (``NotImplementedError``), the CUDA default of
 the entry points, and the port importing with JAX unavailable."""
@@ -160,8 +161,11 @@ def test_out_of_slice_pods_raise(field, value):
 
 def test_out_of_slice_store_and_modes_raise():
     st = _plain_state()
-    with pytest.raises(NotImplementedError, match="residency slice"):
-        ClusterState(device_state=True)
+    assert st.residency.enabled  # device_state=True is the default now
+    for call in (st.residency.policy_rows, st.residency.device_rows,
+                 lambda: st.residency.note_vocab_growth(("_pp_label",), False)):
+        with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
+            call()
     with pytest.raises(NotImplementedError, match="slice of the port"):
         st.set_topology("node-0", None)
     with pytest.raises(NotImplementedError, match="slice of the port"):
@@ -201,8 +205,9 @@ def test_entry_points_default_to_cuda():
 
 
 def test_port_runs_with_jax_unavailable():
-    """The port imports nothing of JAX or the JAX package: a SCORE and a
-    SCHEDULE cycle run in a process where importing jax fails."""
+    """The port imports nothing of JAX or the JAX package: a SCORE, a cold
+    and a warm SCHEDULE cycle over the resident tables run in a process
+    where importing jax fails."""
     code = textwrap.dedent(
         """
         import sys
@@ -214,13 +219,17 @@ def test_port_runs_with_jax_unavailable():
         from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster
         from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
         pods, nodes = random_cluster(1, num_nodes=50, num_pods=20)
-        st = ClusterState(extra_scalars=(BATCH_CPU, BATCH_MEMORY))
+        st = ClusterState(extra_scalars=(BATCH_CPU, BATCH_MEMORY), device_state=True)
         for n in nodes:
             st.upsert_node(n)
         eng = Engine(st, device="cpu")
         t, f, _ = eng.score(pods, now=NOW)
         h, s, _, _ = eng.schedule(pods, now=NOW)
         assert t.shape == (20, 256) and (h >= 0).any()
+        h2, s2, _, _ = eng.schedule(pods, now=NOW + 1)
+        assert (h2 == h).all() and (s2 == s).all()
+        assert (eng.sched_cold_inits, eng.sched_warm_hits) == (1, 1)
+        assert st.residency.full_uploads == 1 and st.residency.verify() == 19
         assert not any(m == "jax" or m.startswith(("jax.", "koordinator_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -11,13 +11,16 @@ The unmarked tests check, on any machine, the host side the kernels share:
 the configuration block's layout and the refusals before any launch.
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from koordinator_tpu_torch import cuda
 from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+from koordinator_tpu_torch.core import resolved
 from koordinator_tpu_torch.core.nodefit import NodeFitStatic
+from koordinator_tpu_torch.service import state as sm
 from koordinator_tpu_torch.utils.fixtures import random_cluster
 
 SCALARS = (BATCH_CPU, BATCH_MEMORY)
@@ -35,15 +38,18 @@ def _inputs(device, num_nodes, num_pods, seed=3):
     return chip_smoke.build_inputs(pods, nodes, device, SCALARS)
 
 
+COLD = ("score", "schedule_keys", "schedule_rounds")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_nodes,num_pods,cap", [
     (300, 50, 1), (300, 50, 16), (300, 50, 100), (1000, 200, 16),
     (300, 1500, 16),  # 2,048 pod rows: each of the 1,024 threads owns two
 ])
 def test_kernels_equal_plain(card, num_nodes, num_pods, cap):
-    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    before = {k: cuda.KERNELS[k].launches for k in COLD}
     chip_smoke.check_kernels(_inputs(card, num_nodes, num_pods), cap, timed=False)
-    assert all(cuda.KERNELS[k].launches == before[k] + 1 for k in before)
+    assert all(cuda.KERNELS[k].launches == before[k] + 1 for k in COLD)
 
 
 @pytest.mark.cuda
@@ -51,6 +57,23 @@ def test_kernels_equal_plain_ragged(card):
     """A node axis that is not a multiple of the block size, a pod axis
     that is not a power of two, a shuffled queue order."""
     chip_smoke.check_kernels(chip_smoke.ragged(_inputs(card, 300, 50), 300, 50), 16, timed=False)
+
+
+WARM = ("sched_refresh", "sched_rounds", "dstate_scatter", "dstate_gate")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_nodes,num_pods,dirty,cap", [
+    (300, 50, (16, 128), 16), (300, 50, (16,), 100), (1000, 200, (16, 128, 1024), 16),
+])
+def test_warm_kernels_equal_plain(card, num_nodes, num_pods, dirty, cap):
+    """``sched_refresh`` (also against a cold key build), ``sched_rounds``
+    (leaving its carry bit-identical), ``dstate_scatter`` with duplicate
+    padded indices and ``dstate_gate`` at NaN and boundary times."""
+    before = {k: cuda.KERNELS[k].launches for k in WARM}
+    chip_smoke.check_warm_kernels(_inputs(card, num_nodes, num_pods), dirty, timed=False,
+                                  commit_cap=cap)
+    assert all(cuda.KERNELS[k].launches > before[k] for k in WARM)
 
 
 def test_cfg_block_layout():
@@ -86,4 +109,74 @@ def test_checks_run_on_cpu_tensors():
     for cap in (1, 100):
         chip_smoke.check_kernels(x, cap, timed=False)
     chip_smoke.check_kernels(chip_smoke.ragged(x, 300, 50), 16, timed=False)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def _queue_inputs(num_nodes=40, num_pods=10):
+    x = _inputs(torch.device("cpu"), num_nodes, num_pods)
+    N = x["valid"].shape[0]
+    _, q_la, q_nf, salts, pod_ok = resolved.kernel_queue(
+        x["la_pods"], x["nf_pods"], x["valid"], x["p_real"], x["order"])
+    carry = resolved.schedule_keys(q_la, x["la_nodes"], x["weights"], q_nf, x["nf_nodes"],
+                                   x["static"], x["valid"], pod_ok, salts, 16)
+    rest = (x["la_nodes"], x["weights"], q_nf, x["nf_nodes"], x["static"], x["valid"], pod_ok,
+            salts)
+    return carry, q_la, rest, N
+
+
+def test_warm_wrappers_refuse_before_launch():
+    """Bad carries and dirty indices raise before any launch, on any
+    device."""
+    carry, q_la, rest, N = _queue_inputs()
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    ok = np.arange(16, dtype=np.int32)
+    for bad, match in (
+        (ok.astype(np.int64), "int32"),
+        (np.array([0, N], dtype=np.int32), "outside"),
+        (np.array([-1, 3], dtype=np.int32), "outside"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            resolved.schedule_refresh(carry, bad, q_la, *rest, 16)
+    M, Mb, feas = carry
+    for broken in ((M.to(torch.int64), Mb, feas), (M, Mb[:-1], feas), (M, Mb, feas.to(torch.int32))):
+        with pytest.raises(ValueError, match="carry"):
+            resolved.schedule_refresh(broken, ok, q_la, *rest, 16)
+        with pytest.raises(ValueError, match="carry"):
+            resolved.schedule_rounds_warm(broken, q_la, *rest, 16, 16)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_residency_wrappers_refuse_before_launch():
+    rng = np.random.default_rng(0)
+    host = [rng.integers(0, 9, size=(32, 2), dtype=np.int64), rng.random(32) < 0.5]
+    bufs = sm.dstate_rows(host, torch.device("cpu"))
+    idx = np.arange(16, dtype=np.int32)
+    vals = tuple(h[idx] for h in host)
+    for i, v, match in (
+        (idx.astype(np.int64), vals, "int32"),
+        (np.array([], dtype=np.int32), (), "non-empty"),
+        (np.full(16, 32, dtype=np.int32), vals, "outside"),
+        (idx, vals[:1], "value arrays"),
+        (idx, (vals[0][:, :1], vals[1]), "array 0"),
+        (idx, (vals[0], vals[1].astype(np.int64)), "array 1"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            sm.dstate_scatter(bufs, i, v)
+    raw = [torch.zeros(8, 2, dtype=torch.int64)] * 12
+    for k, t in ((3, torch.bool), (4, torch.float64), (6, torch.bool), (9, torch.bool),
+                 (11, torch.bool)):
+        raw[k] = torch.zeros(8, dtype=t)
+    for k, wrong in ((4, torch.zeros(8, dtype=torch.float32)), (3, torch.zeros(7, dtype=torch.bool))):
+        broken = list(raw)
+        broken[k] = wrong
+        with pytest.raises(ValueError, match=f"gate input {k}"):
+            sm.dstate_gate(broken, 0.0, 180, True)
+    sm.dstate_gate(raw, 0.0, 180, True)  # the well-formed rows pass
+
+
+def test_warm_checks_run_on_cpu_tensors():
+    """``chip_smoke``'s warm-kernel checks on CPU tensors, where every
+    wrapper takes its plain version: the comparison logic, and no launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    chip_smoke.check_warm_kernels(_inputs(torch.device("cpu"), 300, 50), (16, 128), timed=False)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before

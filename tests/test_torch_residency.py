@@ -1,0 +1,263 @@
+"""The port's device residency against the host arrays and the JAX package's.
+
+``ClusterState(device_state=True)`` keeps the node tables resident on the
+engine's device (here the CPU, where the plain versions of ``dstate_rows``,
+``dstate_scatter`` and ``dstate_gate`` run).  After op sequences — upserts
+past the capacity, metrics, binds, removals with index reuse — the resident
+tables equal the store's host arrays and the JAX package's resident tables,
+and the served (gated) node inputs equal the JAX package's.  Also: zero
+host->device bytes in steady state, the wholesale re-upload past 25% dirty
+rows, the audit that catches a corrupted row and rebuilds cold, the
+refusals of the policy and device tables, the gate at NaN and boundary
+times, the scatter with duplicate padded indices, and one device per store.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import koordinator_tpu.api.model as jm
+import koordinator_tpu_torch.api.model as tm
+from koordinator_tpu.service import state as jstate_mod
+from koordinator_tpu.service.state import ClusterState as JState
+from koordinator_tpu.utils import fixtures as jfx
+from koordinator_tpu_torch.service import state as sm
+from koordinator_tpu_torch.service.engine import Engine
+from koordinator_tpu_torch.service.state import ClusterState, ResidencyMismatch
+from koordinator_tpu_torch.utils import fixtures as tfx
+from torch_parity import assert_same, np_of
+
+NOW = jfx.NOW
+SCALARS = (jm.BATCH_CPU, jm.BATCH_MEMORY)
+CPU_DEV = torch.device("cpu")
+
+
+def _ops(st, fx, m, seed, num_nodes):
+    """A generator of op steps: upserts past the initial capacity, metric
+    updates, binds and unbinds, a removal and an add that reuses its row."""
+    _, nodes = fx.random_cluster(seed, num_nodes=num_nodes, num_pods=0)
+    for n in nodes[: num_nodes // 2]:
+        st.upsert_node(n)
+    yield "first half"
+    for n in nodes[num_nodes // 2:]:
+        st.upsert_node(n)
+    yield "upserts past the capacity"
+    rng = np.random.default_rng(seed + 1)
+    for i in rng.choice(num_nodes, 7, replace=False):
+        st.update_metric(f"node-{i}", m.NodeMetric(
+            node_usage={jm.CPU: int(rng.integers(100, 4000)),
+                        jm.MEMORY: int(rng.integers(1, 9)) << 30},
+            update_time=NOW - 10.0))
+    yield "metrics"
+    bound = fx.random_cluster(seed + 2, num_nodes=0, num_pods=10)[0]
+    for k, pod in enumerate(bound):
+        st.assign_pod(f"node-{k % num_nodes}", m.AssignedPod(pod=pod, assign_time=NOW - 5))
+    st.unassign_pod(bound[3].key)
+    yield "binds"
+    st.remove_node("node-2")
+    st.remove_node("node-5")
+    yield "removals"
+    st.upsert_node(m.Node(name="node-late", allocatable={jm.CPU: 64000, jm.MEMORY: 256 << 30}))
+    yield "an add into a freed row"
+
+
+def _jax_rows(jst):
+    return [np.asarray(b) for b in jst.residency._dres_tables["rows"].bufs]
+
+
+def _same_la(got, want):
+    for f in want._fields:
+        assert_same(getattr(got, f), getattr(want, f), f)
+
+
+@pytest.mark.parametrize("seed,num_nodes", [(31, 40), (32, 300)])
+def test_resident_tables_equal_host_and_jax_after_ops(seed, num_nodes):
+    j = JState(extra_scalars=SCALARS, initial_capacity=16)
+    t = ClusterState(extra_scalars=SCALARS, initial_capacity=16)
+    steps = zip(_ops(j, jfx, jm, seed, num_nodes), _ops(t, tfx, tm, seed, num_nodes))
+    for k, (step, _) in enumerate(steps):
+        now = NOW + k
+        j.publish(now)
+        t.publish(now)
+        jla, jnf, jvalid = j.residency.serving_node_inputs(now)
+        tla, tnf, tvalid = t.residency.serving_node_inputs(now, CPU_DEV)
+        _same_la(tla, jla)
+        for f in jnf._fields:
+            assert_same(getattr(tnf, f), getattr(jnf, f), f"{step}: {f}")
+        assert_same(tvalid, jvalid, f"{step}: valid")
+        for attr, buf, jbuf in zip(sm.DeviceResidency._ROWS, t.residency._rows.bufs,
+                                   _jax_rows(j)):
+            host = getattr(t, attr)
+            assert np.array_equal(np_of(buf), host, equal_nan=host.dtype.kind == "f"), attr
+            assert np.array_equal(np_of(buf), jbuf, equal_nan=host.dtype.kind == "f"), attr
+        assert t.residency.verify() == len(sm.DeviceResidency._ROWS)
+        for c in ("h2d_bytes_total", "full_uploads", "scatters", "last_dirty_rows"):
+            assert getattr(t.residency, c) == getattr(j.residency, c), f"{step}: {c}"
+        assert t.sched_versions() == j.sched_versions(), step
+    assert t.residency.scatters > 0
+    assert t.residency.full_uploads == (2 if num_nodes > 256 else 1)  # growth re-uploads
+
+
+def _store(n=120, **kw):
+    st = ClusterState(extra_scalars=SCALARS, **kw)
+    for node in tfx.random_cluster(41, num_nodes=n, num_pods=0)[1]:
+        st.upsert_node(node)
+    return st
+
+
+def test_steady_state_ships_no_bytes_and_one_row_ships_one_bucket():
+    st = _store()
+    eng = Engine(st, device="cpu")
+    pods = tfx.random_cluster(42, num_nodes=0, num_pods=12)[0]
+    eng.score(pods, now=NOW)
+    before = st.residency.h2d_bytes_total
+    eng.score(pods, now=NOW + 1)
+    eng.schedule(pods, now=NOW + 2)
+    assert st.residency.h2d_bytes_total == before
+    st.update_metric("node-3", tm.NodeMetric(node_usage={tm.CPU: 999, tm.MEMORY: 3 << 30},
+                                             update_time=NOW + 2))
+    uploads = st.residency.full_uploads
+    eng.score(pods, now=NOW + 3)
+    row = sum(getattr(st, a)[0].nbytes for a in sm.DeviceResidency._ROWS)
+    assert st.residency.full_uploads == uploads and st.residency.last_dirty_rows == 1
+    assert st.residency.h2d_bytes_total - before == 16 * 4 + 16 * row  # one padded bucket
+    assert st.residency.verify() == len(sm.DeviceResidency._ROWS)
+
+
+def test_dense_churn_reuploads_wholesale():
+    st = _store(n=120)  # capacity 256: 64 dirty rows is the line
+    eng = Engine(st, device="cpu")
+    pods = tfx.random_cluster(43, num_nodes=0, num_pods=8)[0]
+    eng.score(pods, now=NOW)
+    uploads, scatters = st.residency.full_uploads, st.residency.scatters
+    for i in range(70):
+        st.update_metric(f"node-{i}", tm.NodeMetric(node_usage={tm.CPU: 100 + i},
+                                                    update_time=NOW))
+    eng.score(pods, now=NOW + 1)
+    assert st.residency.full_uploads == uploads + 1 and st.residency.scatters == scatters
+    assert st.residency.last_dirty_rows == st.capacity
+    assert st.residency.verify() == len(sm.DeviceResidency._ROWS)
+
+
+def test_corrupted_row_raises_invalidates_and_rebuilds_cold():
+    st, host_twin = _store(), _store(device_state=False)
+    eng, ref = Engine(st, device="cpu"), Engine(host_twin, device="cpu")
+    pods = tfx.random_cluster(44, num_nodes=0, num_pods=10)[0]
+    eng.score(pods, now=NOW)
+    st.residency._rows.bufs[1][5, 0] += 1  # one resident row diverges
+    with pytest.raises(ResidencyMismatch, match="_la_base_nonprod"):
+        st.residency.verify()
+    assert st.residency._rows.bufs is None  # invalidated before raising
+    uploads = st.residency.full_uploads
+    got, want = eng.score(pods, now=NOW + 1), ref.score(pods, now=NOW + 1)
+    assert st.residency.full_uploads == uploads + 1
+    assert_same(got[0], want[0], "totals after the cold rebuild")
+    assert_same(got[1], want[1], "feasible after the cold rebuild")
+    assert st.residency.verify() == len(sm.DeviceResidency._ROWS)
+
+
+def test_periodic_audit_samples_a_rotating_window():
+    st = _store()
+    st.residency.verify_every, st.residency.verify_sample_rows = 2, 100
+    eng = Engine(st, device="cpu")
+    pods = tfx.random_cluster(45, num_nodes=0, num_pods=4)[0]
+    cursors = []
+    for k in range(6):
+        eng.score(pods, now=NOW + k)
+        cursors.append(st.residency._rows.audit_cursor)
+    assert st.residency.verifies == 3
+    assert cursors[1::2] == [100, 200, 0]  # 256 rows swept in windows of 100
+
+
+def test_policy_and_device_tables_raise():
+    st = _store(n=4)
+    for call in (st.residency.policy_rows, st.residency.device_rows,
+                 lambda: st.residency.note_vocab_growth(("_pp_taint",), False)):
+        with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
+            call()
+
+
+def test_one_device_per_store():
+    st = _store(n=4)
+    st.publish(NOW)
+    st.residency.serving_node_inputs(NOW, "cpu")
+    assert st.residency.device == CPU_DEV
+    with pytest.raises(ValueError, match="resident tables live on cpu"):
+        st.residency.serving_node_inputs(NOW, torch.device("meta"))
+
+
+def test_host_and_resident_paths_serve_the_same():
+    """``device_state=False`` is an explicit knob, not an escape: both paths
+    give the same SCORE and SCHEDULE answers, and an exclusion never
+    writes the resident valid mask."""
+    a, b = _store(), _store(device_state=False)
+    ea, eb = Engine(a, device="cpu"), Engine(b, device="cpu")
+    pods = tfx.random_cluster(46, num_nodes=0, num_pods=30)[0]
+    for k, excl in enumerate((None, ["node-1", "node-7"], ["node-1", "node-7"])):
+        ta, tb = ea.score(pods, now=NOW + k), eb.score(pods, now=NOW + k)
+        assert_same(ta[0], tb[0])
+        assert_same(ta[1], tb[1])
+        ha, hb = (e.schedule(pods, now=NOW + k, exclude=excl) for e in (ea, eb))
+        assert_same(ha[0], hb[0])
+        assert_same(ha[1], hb[1])
+        assert ha[3] == hb[3]
+        assert bool(np_of(a.residency._rows.bufs[-1])[a._imap.get("node-1")])
+    assert a.residency.verify() == len(sm.DeviceResidency._ROWS)
+    assert not b.residency.enabled and b.residency._rows.bufs is None
+
+
+def _raw_rows(n, seed, now, exp):
+    """The 12 raw LoadAware rows with update times at NaN, at the expiry
+    boundary, just inside it, ahead of the clock and random."""
+    rng = np.random.default_rng(seed)
+    R = 2
+    ints = lambda: rng.integers(0, 1 << 40, size=(n, R), dtype=np.int64)  # noqa: E731
+    bools = lambda: rng.random(n) < 0.6  # noqa: E731
+    ut = now - rng.uniform(0, 400, size=n)
+    e = exp or 180
+    ut[0:8] = np.nan
+    ut[8:16] = now - e
+    ut[16:24] = np.nextafter(now - e, np.inf)
+    ut[24:32] = np.nextafter(now - e, -np.inf)
+    ut[32:40] = now + 3.0
+    return (ints(), ints(), ints(), bools(), ut, ints(), bools(), ints(), ints(), bools(),
+            ints(), bools())
+
+
+@pytest.mark.parametrize("exp,fexp", [(180, True), (180, False), (None, True), (0, True)])
+def test_gate_matches_jax_at_nan_and_boundary_times(exp, fexp):
+    now = NOW + 0.25
+    raw = _raw_rows(96, 7, now, exp)
+    want = jstate_mod._dstate_jits()["dstate_gate"](
+        *(jnp.asarray(a) for a in raw), np.float64(now),
+        None if exp is None else float(exp), bool(fexp),
+    )
+    got = sm.dstate_gate(tuple(torch.from_numpy(a) for a in raw), now, exp, fexp)
+    _same_la(got, want)
+    from koordinator_tpu_torch.core.config import LoadAwareArgs
+    from koordinator_tpu_torch.snapshot.loadaware import assemble_node_arrays
+
+    args = LoadAwareArgs(node_metric_expiration_seconds=exp, filter_expired_node_metrics=fexp)
+    _same_la(got, assemble_node_arrays(*raw, args, now))
+
+
+def test_scatter_with_duplicate_padded_indices_matches_jax():
+    rng = np.random.default_rng(9)
+    host = [rng.integers(0, 1 << 50, size=(64, 3), dtype=np.int64),
+            rng.random(64) < 0.5, rng.uniform(0, 1e6, size=64)]
+    host[2][[3, 9]] = np.nan
+    real = np.array([5, 9, 40], dtype=np.int32)
+    idx = np.full(16, real[0], dtype=np.int32)
+    idx[:3] = real
+    src = np.full(16, 3, dtype=np.int64)
+    src[:3] = [3, 17, 63]
+    vals = tuple(np.ascontiguousarray(h[src]) for h in host)
+    kept = [h.copy() for h in host]
+    got = sm.dstate_scatter(sm.dstate_rows(host, CPU_DEV), idx, vals)
+    want = jstate_mod._dstate_jits()["dstate_scatter"](
+        tuple(jnp.asarray(h) for h in host), idx, vals)
+    for g, w in zip(got, want):
+        assert np.array_equal(np_of(g), np.asarray(w), equal_nan=g.dtype.is_floating_point)
+    for h, k in zip(host, kept):  # the resident buffers are copies
+        assert np.array_equal(h, k, equal_nan=h.dtype.kind == "f")

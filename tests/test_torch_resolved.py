@@ -104,13 +104,19 @@ def test_schedule_fn_on_cpu_matches_jax_engine_kernel(P, N, seed, cap):
         *j, extra_feasible=base, order=order, commit_cap=cap, impl="matrix_packed"
     )
     before = {k: v.launches for k, v in cuda.KERNELS.items()}
-    th, ts, pre, rounds = tres.schedule_fn(
+    th, ts, pre, rounds, warm = tres.schedule_fn(
         *t, torch.from_numpy(valid), p_real, torch.from_numpy(order), commit_cap=cap
     )
     assert_same(th, jh, "hosts")
     assert_same(ts, js, "scores")
     assert_same(pre, th, "precommit")
     assert int(rounds) > 0
+    jwarm = jres.schedule_batch_resolved(
+        *j, extra_feasible=base, order=order, commit_cap=cap, impl="matrix_packed",
+        return_warm=True,
+    )[2]
+    for g, w in zip(warm, jwarm):
+        assert_same(g, w, "init carry")
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
