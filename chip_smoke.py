@@ -185,7 +185,8 @@ def build_inputs(pods, nodes, device, extra_scalars):
     """Dense inputs of one cycle as the engine builds them: (la_pods,
     nf_pods, la_nodes, nf_nodes, valid, weights, static, order, P)."""
     from koordinator_tpu_torch import convert
-    from koordinator_tpu_torch.service.engine import Engine, queue_order
+    from koordinator_tpu_torch.core.gang import GangPodArrays, queue_sort_perm
+    from koordinator_tpu_torch.service.engine import Engine
     from koordinator_tpu_torch.service.state import ClusterState, next_bucket
     from koordinator_tpu_torch.utils.fixtures import NOW
 
@@ -202,7 +203,8 @@ def build_inputs(pods, nodes, device, extra_scalars):
         nf_nodes=convert.nf_nodes(snap.nf_nodes, device),
         valid=convert.tensor(snap.valid, device),
         weights=eng._weights, static=eng._nf_static,
-        order=convert.tensor(queue_order(pods, p_bucket), device),
+        order=queue_sort_perm(GangPodArrays(*map(torch.from_numpy, st.gangs.build(
+            pods, [None] * len(pods), p_bucket)[0]))).to(device),
         p_real=len(pods), state=st,
     )
 
@@ -765,6 +767,593 @@ def drive_warm_path(device, num_nodes: int, num_pods: int, scalars):
     return launches, records
 
 
+# --------------------------------------------------------------- constraints
+
+INF = 1 << 60
+
+
+def con_inputs_for(inp, seed: int):
+    """Gang, quota and reservation inputs for the kernel checks, made with
+    numpy from ``seed`` at the inputs' shape and laid out as the engine lays
+    them out: 50 gangs (gangs 1-3 one gang group, gang 4 non-strict, gang 5
+    with a bound child, gang 7 uninitialized, gang 9 once satisfied); a
+    three-level quota tree (root, 4 parents, 16 leaves) whose leaf limits
+    and mins bind mid-batch; 256 reservation rows, 200 live, on live nodes,
+    ordered with ties on odd rows, each pod matching up to 2.  Returns
+    (GangInputs, QuotaInputs, ReservationArrays, matched [P, Rv] bool,
+    match index [P, 2] int32, ranks [Rv] int64) on the inputs' device."""
+    from koordinator_tpu_torch import convert
+    from koordinator_tpu_torch.core import gang as tg, quota as tq, reservation as tr
+    from koordinator_tpu_torch.core.cycle import GangInputs, QuotaInputs
+
+    dev = inp["valid"].device
+    P, N = inp["la_pods"].est.shape[0], inp["valid"].shape[0]
+    axis = inp["state"].axis
+    p_real = inp["p_real"]
+    rng = np.random.default_rng(seed)
+    T = lambda a: convert.tensor(a, dev)  # noqa: E731
+
+    G = 51
+    gang = np.where(rng.random(P) < 0.6, rng.integers(1, G, P), 0).astype(np.int32)
+    gang[p_real:] = 0
+    min_member = np.r_[0, rng.integers(1, 5, G - 1)].astype(np.int64)
+    has_init, once = np.ones(G, dtype=bool), np.zeros(G, dtype=bool)
+    has_init[7], once[9] = False, True
+    group = np.arange(G, dtype=np.int32)
+    group[2] = group[3] = 1
+    bound = np.zeros(G, dtype=np.int64)
+    bound[5] = 1
+    non_strict = np.zeros(G, dtype=bool)
+    non_strict[4] = True
+    gangs = GangInputs(
+        pods=tg.GangPodArrays(gang=T(gang), priority=T(np.zeros(P, np.int64)),
+                              sub_priority=T(np.zeros(P, np.int64)),
+                              timestamp=T(np.zeros(P, np.float64))),
+        gangs=tg.GangArrays(min_member=T(min_member),
+                            member_count=T(np.bincount(gang, minlength=G).astype(np.int64)),
+                            has_init=T(has_init), once_satisfied=T(once), group=T(group),
+                            bound_count=T(bound), non_strict=T(non_strict)),
+    )
+
+    Q = 21
+    parent = np.zeros(Q, dtype=np.int32)
+    parent[5:] = 1 + np.arange(16) // 4
+    qrow = np.where(rng.random(P) < 0.7, rng.integers(5, Q, P), 0).astype(np.int32)
+    qrow[p_real:] = 0
+    req = rng.integers(100, 4000, (P, 2)).astype(np.int64)
+    present = rng.random((P, 2)) < 0.9
+    eff = np.where(present, req, 0)
+    demand = np.zeros((Q, 2), dtype=np.int64)
+    np.add.at(demand, qrow, eff)
+    np.add.at(demand, parent[qrow], np.where((qrow > 0)[:, None], eff, 0))
+    limit = np.full((Q, 2), INF, dtype=np.int64)
+    limit[1:5] = demand[1:5] * 8 // 10
+    limit[5:] = demand[5:] * 7 // 10
+    mn = np.full((Q, 2), INF, dtype=np.int64)
+    mn[5:] = demand[5:] * 4 // 10
+    zeros = np.zeros((Q, 2), dtype=np.int64)
+    quota = QuotaInputs(
+        pods=tq.QuotaPodArrays(req=T(req), present=T(present), quota=T(qrow),
+                               non_preemptible=T(rng.random(P) < 0.3)),
+        used=T(zeros), limit=T(limit), npu=T(zeros.copy()), min=T(mn), parent=T(parent),
+    )
+
+    Rv, live_rv = 256, 200
+    live = np.flatnonzero(inp["valid"].cpu().numpy())
+    node = live[rng.integers(0, live.size, Rv)].astype(np.int32)
+    node[live_rv:] = 0
+    alloc = np.zeros((Rv, len(axis)), dtype=np.int64)
+    allocated = np.zeros_like(alloc)
+    cpu, mem = axis.index("cpu"), axis.index("memory")
+    alloc[:live_rv, cpu], alloc[:live_rv, mem] = 4000, 16 << 30
+    allocated[:live_rv, cpu] = rng.integers(0, 1000, live_rv)
+    order = np.where(np.arange(Rv) % 2 == 1, rng.integers(1, 20, Rv), 0).astype(np.int64)
+    order[live_rv:] = 0
+    matched = np.zeros((P, Rv), dtype=bool)
+    midx = np.full((P, 2), -1, dtype=np.int32)
+    for i in range(p_real):
+        hits = np.sort(rng.choice(live_rv, int(rng.integers(0, 3)), replace=False))
+        matched[i, hits] = True
+        midx[i, :hits.size] = hits
+    rsv = tr.ReservationArrays(node=T(node), allocatable=T(alloc), allocated=T(allocated),
+                               order=T(order))
+    return gangs, quota, rsv, T(matched), T(midx), tr.order_ranks(T(order))[0]
+
+
+def con_for(inp, x, xs):
+    """The ``ConInputs`` of the checks' constraint inputs ``x`` in queue
+    order ``xs``, the reservation rows from the kernels under test."""
+    from koordinator_tpu_torch.core import reservation as tr
+    from koordinator_tpu_torch.core.cycle import ReservationInputs
+    from koordinator_tpu_torch.core.resolved import con_inputs
+
+    gangs, quota, rsv, matched, midx, rank = x
+    req, N = inp["nf_pods"].req, inp["valid"].shape[0]
+    r = ReservationInputs(rsv=rsv, matched=matched, rscore=tr.rsv_rscore(req, rsv),
+                          scores=tr.rsv_score(req, matched, N, rsv, rank))
+    return con_inputs(xs, gangs, quota, r, rsv_midx=midx, rsv_rank=rank)
+
+
+def check_con_kernels(inp, cpd: int, timed: bool, commit_cap: int = 16):
+    """The constrained instantiations of the schedule kernels against their
+    plain versions (raises ``Mismatch``): the key build, the round loop
+    (which must take the quota upper bound at least once and leave the
+    quota and reservation inputs untouched), the refresh of 128 padded
+    dirty rows (also against a cold key build) and the warm rounds (their
+    carry bit-identical after).  Returns the kernel records when
+    ``timed``."""
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+
+    la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+    la_nodes, nf_nodes, valid = inp["la_nodes"], inp["nf_nodes"], inp["valid"]
+    w, static, dev = inp["weights"], inp["static"], inp["valid"].device
+    pw = PluginWeights()
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    R, Rf, Rs = la_pods.est.shape[1], nf_pods.req.shape[1], nf_pods.req_score.shape[1]
+    BS, AD = 16, 8
+    x = con_inputs_for(inp, SEED + 11)
+    xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(la_pods, nf_pods, valid, inp["p_real"],
+                                                    inp["order"])
+    con = con_for(inp, x, xs)
+    q_extra = pod_ok[:, None] & valid[None, :] & rs.gang_pass(con)[:, None]
+    keys_args = (q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok, salts, BS)
+
+    def kernel_keys():
+        return rs.schedule_keys(*keys_args, con)
+
+    def plain_keys():
+        return rs.build_keys_plain(q_la, la_nodes, w, q_nf, nf_nodes, static, pw, q_extra, salts,
+                                   BS, rs._queue_rsv(con))
+
+    keys = kernel_keys()
+    err = {"schedule_keys_con": require_equal(f"schedule_keys_con {P}x{N}", keys, plain_keys())}
+    M0, Mb0, feas_T = keys
+    state0 = [t.clone() for t in (con.quota.used, con.quota.npu, con.rsv.allocated)]
+    node_args = (q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok, salts, commit_cap, BS)
+
+    def kernel_rounds(M, Mb):
+        return rs.schedule_rounds(M, Mb, feas_T, *node_args, con, cpd, AD)
+
+    def plain_rounds(M, Mb):
+        return rs._plain_rounds(M, Mb, feas_T, *node_args, con, cpd, AD)
+
+    got = kernel_rounds(M0.clone(), Mb0.clone())
+    want = plain_rounds(M0.clone(), Mb0.clone())
+    err["schedule_rounds_con"] = require_equal(
+        f"schedule_rounds_con {P}x{N} cpd={cpd}", got, want)
+    for a, b in zip((con.quota.used, con.quota.npu, con.rsv.allocated), state0):
+        if not torch.equal(a, b):
+            fail("schedule_rounds_con wrote its quota or reservation inputs")
+    rounds, ub = int(want[3][0]), int(want[3][1])
+    if ub == 0:
+        fail(f"schedule_rounds_con {P}x{N} cpd={cpd}: no round took the quota upper bound")
+    placed, pre = int((want[0] >= 0).sum()), int((want[2] >= 0).sum())
+
+    rng = np.random.default_rng(SEED + 12)
+    real = rng.choice(N, size=min(125, N // 2), replace=False).astype(np.int32)
+    idx = padded(real)
+    la2, nf2 = perturbed_nodes(la_nodes, nf_nodes, torch.from_numpy(real).to(dev).long())
+    clone = lambda c: tuple(a.clone() for a in c)  # noqa: E731
+
+    def kernel_refresh(c):
+        return rs.schedule_refresh(c, idx, q_la, la2, w, q_nf, nf2, static, valid, pod_ok, salts,
+                                   BS, con)
+
+    def plain_refresh(c):
+        return rs.refresh_plain(*c, torch.from_numpy(idx).to(dev), q_la, la2, w, q_nf, nf2,
+                                static, pw, q_extra, salts, BS, rs.rsv_view(con))
+
+    carry = kernel_refresh(clone(keys))
+    err["sched_refresh_con"] = require_equal(f"sched_refresh_con D={idx.size}", carry,
+                                             plain_refresh(clone(keys)))
+    cold = rs.schedule_keys(q_la, la2, w, q_nf, nf2, static, valid, pod_ok, salts, BS, con)
+    require_equal(f"sched_refresh_con D={idx.size} against a cold key build", carry, cold)
+    before = clone(carry)
+    warm_args = (q_la, la2, w, q_nf, nf2, static, valid, pod_ok, salts, commit_cap, BS, con, cpd,
+                 AD)
+
+    def kernel_warm():
+        return rs.schedule_rounds_warm(carry, *warm_args)
+
+    def plain_warm():
+        return rs._plain_rounds(carry[0].clone(), carry[1].clone(), carry[2], *warm_args)
+
+    got = kernel_warm()
+    for name, a, b in zip(("M", "Mb", "la_feas_T"), carry, before):
+        if not torch.equal(a, b):
+            fail(f"sched_rounds_con wrote its carry's {name}")
+    want_w = plain_warm()
+    err["sched_rounds_con"] = require_equal(f"sched_rounds_con {P}x{N} cpd={cpd}", got, want_w)
+    w_rounds = int(want_w[3][0])
+    print(f"  {P} pods x {N} nodes, constrained, check_parent_depth {cpd}: kernels equal plain; "
+          f"{rounds} rounds ({ub} on the quota upper bound), {placed} placed after the gang "
+          f"rollback of {pre}; refresh D={idx.size}; warm rounds {w_rounds}")
+    if not timed:
+        return None
+
+    work = {}
+
+    def reset():
+        work["M"], work["Mb"] = M0.clone(), Mb0.clone()
+
+    ops = pair_ops(R, Rf, Rs) + 6 * Rf * con.rsv_midx.shape[1] + 4
+    pods_b = nbytes(*la_pods, *nf_pods, con.rsv_midx, con.gang_row)
+    nodes_b = nbytes(*la_nodes, *nf_nodes, valid)
+    rsv_b = nbytes(con.rsv_scores) + nbytes(*con.rsv)
+    recs = []
+    b, by = bound_ms(pods_b + nodes_b + rsv_b + nbytes(M0, Mb0, feas_T), P * N * (ops + 4))
+    recs.append(dict(
+        name="schedule_keys_con", source="koordinator_tpu_torch/csrc/schedule.cu",
+        replaces="koordinator_tpu/core/resolved.py:765", ms=cuda_ms(kernel_keys),
+        plain_ms=cuda_ms(plain_keys), bound_ms=b, bound_by=by,
+        max_abs_err=err["schedule_keys_con"], library_ms=None,
+    ))
+    NB, K = Mb0.shape[0], min(commit_cap, P)
+    Q, R2 = con.quota.used.shape[0], 2 * con.quota.used.shape[1]
+    q_ops = P * (8 * R2 + 4 * AD * R2) + Q * R2 * 3
+    r_ops = rounds * (NB * P + K * P * (ops + 4) + K * BS * P + q_ops) + ub * P * AD * R2 * 8
+    r_bytes = (nbytes(Mb0) + rounds * K * P * (4 + 1 + 8) + pods_b + nodes_b
+               + nbytes(*con.quota.pods, *con.quota[1:]) + nbytes(*con.rsv) + P * (4 + 8 + 4))
+    b, by = bound_ms(r_bytes, r_ops)
+    recs.append(dict(
+        name="schedule_rounds_con", source="koordinator_tpu_torch/csrc/schedule.cu",
+        replaces="koordinator_tpu/core/resolved.py:835",
+        ms=cuda_ms(lambda: kernel_rounds(work["M"], work["Mb"]), setup=reset),
+        plain_ms=cuda_ms(lambda: plain_rounds(work["M"], work["Mb"]), reps=3, setup=reset),
+        bound_ms=b, bound_by=by, rounds=rounds, ub_rounds=ub,
+        max_abs_err=err["schedule_rounds_con"], library_ms=None,
+    ))
+    d_rows = np.unique(idx)
+    blocks = np.unique(d_rows // BS)
+    row_b = sum(a[0].numel() * a.element_size() for a in (*la2, *nf2))
+    b, by = bound_ms(pods_b + d_rows.size * (row_b + P * (5 + 8)) + blocks.size * P * 4 * (1 + BS),
+                     d_rows.size * P * (ops + 4) + blocks.size * BS * P)
+    recs.append(dict(
+        name="sched_refresh_con", source="koordinator_tpu_torch/csrc/schedule.cu",
+        replaces="koordinator_tpu/service/engine.py:208", dirty_rows=int(idx.size),
+        ms=cuda_ms(lambda: kernel_refresh(work["c"]), setup=lambda: work.update(c=clone(keys))),
+        plain_ms=cuda_ms(lambda: plain_refresh(work["c"]),
+                         setup=lambda: work.update(c=clone(keys))),
+        bound_ms=b, bound_by=by, max_abs_err=err["sched_refresh_con"], library_ms=None,
+    ))
+    b, by = bound_ms(r_bytes, w_rounds * (NB * P + K * P * (ops + 4) + K * BS * P + q_ops))
+    recs.append(dict(
+        name="sched_rounds_con", source="koordinator_tpu_torch/csrc/schedule.cu",
+        replaces="koordinator_tpu/service/engine.py:238", rounds=w_rounds,
+        ms=cuda_ms(kernel_warm), plain_ms=cuda_ms(plain_warm, reps=3), bound_ms=b, bound_by=by,
+        max_abs_err=err["sched_rounds_con"], library_ms=None,
+    ))
+    return recs
+
+
+def quota_trees():
+    """(name, groups) of the quota checks: the 500-group tree of the JAX
+    package's service benchmark (bench/bench_service.py:205-222: 20 groups
+    under the root, 480 under them), and a tree with absent max
+    dimensions, non-lending groups and scaled mins."""
+    from koordinator_tpu_torch.api.quota import ROOT_QUOTA, QuotaGroup
+
+    rng = np.random.default_rng(SEED + 13)
+    res = ("cpu", "memory")
+    bench = []
+    for i in range(500):
+        bench.append(QuotaGroup(
+            name=f"q{i}", parent=ROOT_QUOTA if i < 20 else f"q{int(rng.integers(0, 20))}",
+            min={r: int(rng.integers(0, 2000)) for r in res},
+            max={r: int(rng.integers(2000, 9000)) for r in res},
+            pod_requests={r: int(rng.integers(0, 5000)) for r in res},
+        ))
+    mixed = []
+    for i in range(60):
+        top = i < 6
+        mx = {r: int(rng.integers(2000, 90000)) for r in res}
+        if rng.random() < 0.3:
+            mx.pop("memory")  # absent: 2**60
+        mixed.append(QuotaGroup(
+            name=f"m{i}", parent=ROOT_QUOTA if top else f"m{int(rng.integers(0, 6))}",
+            min={r: int(rng.integers(0, 9000)) for r in res}, max=mx,
+            allow_lent=bool(rng.random() < 0.7), enable_scale_min=bool(rng.random() < 0.5),
+            shared_weight={r: int(rng.integers(0, 4)) for r in res} if rng.random() < 0.3 else None,
+            pod_requests={} if top else {r: int(rng.integers(0, 60000)) for r in res},
+            is_parent=top,
+        ))
+    return [("bench 500 groups", bench), ("absent max, scaled mins", mixed)]
+
+
+def check_quota_kernels(dev, timed: bool):
+    """``quota`` and ``quota_limit`` against ``refresh_runtime`` on the same
+    device tensors (raises ``Mismatch``); returns the records of the
+    500-group tree when ``timed``."""
+    from koordinator_tpu_torch import convert
+    from koordinator_tpu_torch.core import quota as tq
+    from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
+
+    recs = []
+    for name, groups in quota_trees():
+        qs = QuotaSnapshot(groups, ["cpu", "memory"])
+        qa = tq.QuotaArrays(*(convert.tensor(a, dev) for a in qs.arrays()))
+        levels = qs.level_tuple()
+        lv_t = [torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev) for a in levels]
+        errs = {}
+        for total in (np.array([1_000_000, 1_000_000]), np.array([40_000, 30_000])):
+            tot = convert.tensor(total.astype(np.int64), dev)
+            for scale in (True, False):
+                errs["quota"] = require_equal(
+                    f"quota ({name}, total {total.tolist()}, scale {scale})",
+                    (tq.quota_fn(qa, levels, tot, scale),),
+                    (tq.refresh_runtime(qa, lv_t, tot, scale),))
+            want = tq.refresh_runtime(qa, lv_t, tot)
+            want[0] = tq.INF
+            errs["quota_limit"] = require_equal(f"quota_limit ({name})",
+                                                (tq.quota_limit_fn(qa, levels, tot),), (want,))
+        print(f"  quota tree '{name}' ({len(groups)} groups, {len(levels)} levels): quota and "
+              f"quota_limit equal plain")
+        if timed and not recs:
+            Q, R = qs.min.shape
+            b, by = bound_ms(nbytes(*qa) + 2 * 8 + (Q + len(levels) + 1) * 4 + Q * R * 8,
+                             40 * Q * R)
+            for kname, fn in (("quota", lambda: tq.quota_fn(qa, levels, tot)),
+                              ("quota_limit", lambda: tq.quota_limit_fn(qa, levels, tot))):
+                recs.append(dict(
+                    name=kname, source="koordinator_tpu_torch/csrc/quota.cu",
+                    replaces=("koordinator_tpu/core/quota.py:138" if kname == "quota"
+                              else "koordinator_tpu/service/engine.py:316"),
+                    ms=cuda_ms(fn), plain_ms=cuda_ms(lambda: tq.refresh_runtime(qa, lv_t, tot)),
+                    bound_ms=b, bound_by=by, max_abs_err=errs[kname], library_ms=None,
+                    groups=Q - 1,
+                ))
+    return recs
+
+
+def check_rsv_kernels(inp, timed: bool):
+    """``rsv_rscore`` and ``rsv_score`` against ``score_reservation`` and
+    ``reservation_score`` at the inputs' shape with the checks' 256
+    reservation rows (raises ``Mismatch``)."""
+    from koordinator_tpu_torch.core import reservation as tr
+
+    _, _, rsv, matched, _, rank = con_inputs_for(inp, SEED + 11)
+    req, N = inp["nf_pods"].req, inp["valid"].shape[0]
+    P, Rf = req.shape
+    Rv = rsv.node.shape[0]
+    err = {
+        "rsv_rscore": require_equal(f"rsv_rscore {P}x{Rv}", (tr.rsv_rscore(req, rsv),),
+                                    (tr.score_reservation(req, rsv),)),
+        "rsv_score": require_equal(f"rsv_score {P}x{N}", (tr.rsv_score(req, matched, N, rsv, rank),),
+                                   (tr.reservation_score(req, matched, N, rsv),)),
+    }
+    print(f"  {P} pods x {Rv} reservations x {N} nodes: rsv_rscore and rsv_score equal plain")
+    if not timed:
+        return None
+    rsv_b = nbytes(*rsv, rank)
+    m = int(matched.sum())
+    b1 = bound_ms(nbytes(req) + rsv_b + P * Rv * 8, P * Rv * Rf * 6)
+    b2 = bound_ms(nbytes(req, matched) + rsv_b + P * N * 8, P * Rv + m * (Rf * 6 + 20))
+    return [
+        dict(name="rsv_rscore", source="koordinator_tpu_torch/csrc/reservation.cu",
+             replaces="koordinator_tpu/core/reservation.py:65",
+             ms=cuda_ms(lambda: tr.rsv_rscore(req, rsv)),
+             plain_ms=cuda_ms(lambda: tr.score_reservation(req, rsv)), bound_ms=b1[0],
+             bound_by=b1[1], max_abs_err=err["rsv_rscore"], library_ms=None),
+        dict(name="rsv_score", source="koordinator_tpu_torch/csrc/reservation.cu",
+             replaces="koordinator_tpu/core/reservation.py:96",
+             ms=cuda_ms(lambda: tr.rsv_score(req, matched, N, rsv, rank)),
+             plain_ms=cuda_ms(lambda: tr.reservation_score(req, matched, N, rsv)),
+             bound_ms=b2[0], bound_by=b2[1], max_abs_err=err["rsv_score"], library_ms=None),
+    ]
+
+
+# the constraint phase's cycles: (name, clock offset from NOW, launches
+# expected of the main engine, expectations)
+CON_CYCLES = (
+    ("cold", 0.0, dict(schedule_keys_con=1, schedule_rounds_con=1, quota_limit=1, rsv_rscore=1,
+                       rsv_score=1, dstate_gate=1), dict(cold=True)),
+    ("unchanged", 1.0, dict(sched_rounds_con=1, dstate_gate=1), dict(begin_hit=True)),
+    ("20 quota maxes lowered, metrics on 100 nodes", 2.0,
+     dict(sched_refresh_con=1, sched_rounds_con=1, quota_limit=1, dstate_scatter=1, dstate_gate=1),
+     dict(upper_bound=True)),
+    ("a reservation upserted", 3.0, dict(schedule_keys_con=1, schedule_rounds_con=1, rsv_rscore=1,
+                                         rsv_score=1, dstate_gate=1), dict(cold=True)),
+    ("assume with 8 pending reservations", 4.0,
+     dict(schedule_keys_con=1, schedule_rounds_con=1, rsv_rscore=1, rsv_score=1, dstate_gate=1),
+     dict(cold=True, assume=True)),
+    ("the next batch", 5.0, dict(schedule_keys_con=1, schedule_rounds_con=1, quota_limit=1,
+                                 rsv_rscore=1, rsv_score=1, dstate_scatter=1, dstate_gate=1),
+     dict(cold=True)),
+)
+CON_PATH_KERNELS = ("schedule_keys_con", "schedule_rounds_con", "sched_refresh_con",
+                    "sched_rounds_con", "quota", "quota_limit", "rsv_rscore", "rsv_score",
+                    "dstate_scatter", "dstate_gate")
+
+
+def con_store(scalars, num_nodes: int, device_state: bool = True):
+    """A store with the JAX package's service-benchmark constraint set
+    (bench/bench_service.py:130-170): quota total {cpu: N*8000, memory:
+    N*32Gi}; 100 flat groups, min {cpu 50,000, memory 200Gi}, max {cpu
+    400,000, memory 2,000Gi}; 50 gangs, min_member 2, 21 children,
+    create_time i; 200 reservations on random nodes, {cpu 4000, memory
+    16Gi}, ordered 1-999 on odd i."""
+    from koordinator_tpu_torch.api.quota import QuotaGroup
+    from koordinator_tpu_torch.service.constraints import GangInfo, ReservationInfo
+    from koordinator_tpu_torch.service.state import ClusterState
+    from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster
+
+    st = ClusterState(extra_scalars=scalars, device_state=device_state)
+    for n in random_cluster(SEED, num_nodes=num_nodes, num_pods=0)[1]:
+        st.upsert_node(n)
+    st.quota.set_total({"cpu": num_nodes * 8000, "memory": num_nodes * (32 << 30)})
+    for i in range(100):
+        st.quota.upsert(QuotaGroup(name=f"bq{i}", min={"cpu": 50_000, "memory": 200 << 30},
+                                   max={"cpu": 400_000, "memory": 2000 << 30}))
+    for i in range(50):
+        st.gangs.upsert(GangInfo(name=f"bg{i}", min_member=2, total_children=21,
+                                 create_time=float(i)))
+    rng = np.random.default_rng(SEED + 5)
+    for i in range(200):
+        st.reservations.upsert(ReservationInfo(
+            name=f"br{i}", node=f"node-{int(rng.integers(0, num_nodes))}",
+            allocatable={"cpu": 4000, "memory": 16 << 30},
+            order=int(rng.integers(1, 1000)) if i % 2 else 0))
+    st.publish(NOW)
+    return st
+
+
+def con_batch(num_pods: int, tag: str, seed: int):
+    """``num_pods`` pending pods, pod i in gang i mod 50, quota group i mod
+    100, and 2 random reservations (bench/bench_service.py:163-170)."""
+    from koordinator_tpu_torch.utils.fixtures import random_pod
+
+    rng = np.random.default_rng(seed)
+    pods = []
+    for i in range(num_pods):
+        p = random_pod(np.random.default_rng([seed, i]), f"{tag}-{i}", "pending")
+        p.gang, p.quota = f"bg{i % 50}", f"bq{i % 100}"
+        p.reservations = [f"br{int(rng.integers(0, 200))}" for _ in range(2)]
+        pods.append(p)
+    return pods
+
+
+def store_view(st) -> tuple:
+    """What ``assume=True`` writes into a store: quota used, reservation
+    allocations and bindings, gang satisfaction and bound children, the
+    pod -> node map."""
+    qs = st.quota.snapshot()
+    used, npu = st.quota.used_arrays(qs)
+    return (
+        used.tolist(), npu.tolist(),
+        sorted((r.name, r.node, sorted(r.allocated.items()), r.consumed_once,
+                r.unschedulable_count) for r in st.reservations._rsv.values()),
+        sorted((g.name, g.once_satisfied, sorted(g.bound)) for g in st.gangs._gangs.values()),
+        sorted(st._pod_node.items()),
+    )
+
+
+def drive_con_path(device, num_nodes: int, num_pods: int, scalars):
+    """The constraint phase at full width in the default serving
+    configuration (resident tables, warm start on): the service
+    benchmark's constraint set, one batch through ``CON_CYCLES`` and a
+    last ``Engine.quota_refresh``.  Every cycle's hosts, scores and
+    allocation records are held against a warm-disabled engine on the card
+    and the CPU engine, each on a store of its own fed the same operations;
+    the stores after ``assume`` against each other; each cycle's launches
+    against the plan.  Returns (launches per kernel during this phase,
+    per-cycle records)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import CPU, MEMORY, NodeMetric
+    from koordinator_tpu_torch.api.quota import QuotaGroup
+    from koordinator_tpu_torch.service.constraints import ReservationInfo
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    t0 = time.perf_counter()
+    stores = [con_store(scalars, num_nodes) for _ in range(3)]
+    print(f"  ingest of three stores: {time.perf_counter() - t0:.1f} s")
+    state = stores[0]
+    eng, cold, ref = (Engine(stores[0], device=device), Engine(stores[1], device=device),
+                      Engine(stores[2], device="cpu"))
+    cold.sched_warm_enabled = False
+    batch = {e: con_batch(num_pods, "con", SEED + 6) for e in (eng, cold, ref)}
+    rng = np.random.default_rng(SEED + 7)
+    metric_nodes = [f"node-{int(i)}" for i in rng.choice(num_nodes, 100, replace=False)]
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    records = []
+    with LaunchTimer() as timer:
+        for c, (name, dt, plan, expect) in enumerate(CON_CYCLES):
+            now = NOW + dt
+            for st in stores:
+                if c == 2:
+                    for i in range(20):
+                        st.quota.upsert(QuotaGroup(
+                            name=f"bq{i}", min={"cpu": 2_000, "memory": 8 << 30},
+                            max={"cpu": 10_000, "memory": 2000 << 30}))
+                    for i, node in enumerate(metric_nodes):
+                        st.update_metric(node, NodeMetric(
+                            node_usage={CPU: 3000 + 11 * i, MEMORY: (3 + i % 5) << 30},
+                            update_time=now))
+                if c == 3:
+                    st.reservations.upsert(ReservationInfo(
+                        name="br-new", node="node-5", allocatable={"cpu": 3000,
+                                                                   "memory": 8 << 30}, order=3))
+                if c == 4:
+                    for i in range(8):
+                        st.reservations.upsert(ReservationInfo(
+                            name=f"pend-{i}", node=None,
+                            allocatable={"cpu": 2000 + 250 * i, "memory": 4 << 30},
+                            priority=9000, create_time=float(i)))
+                if c == 5:
+                    for e in (eng, cold, ref):
+                        batch[e] = con_batch(num_pods, "con-next", SEED + 8)
+            t0 = time.perf_counter()
+            for st in stores:
+                st.publish(now)
+            publish = (time.perf_counter() - t0) * 1e3 / len(stores)
+            before = {k: v.launches for k, v in cuda.KERNELS.items()}
+            warm0, begin0 = eng.sched_warm_hits, eng.sched_begin_hits
+            assume = bool(expect.get("assume"))
+            timer.take()
+            t0 = time.perf_counter()
+            hosts, scores, snap, allocs = eng.schedule(batch[eng], now=now, assume=assume)
+            wall = (time.perf_counter() - t0) * 1e3
+            k_ms = timer.take()
+            launched = {k: v.launches - before[k] for k, v in cuda.KERNELS.items()}
+            rounds, ub = eng.last_rounds, eng.last_ub_rounds
+            with uncounted():
+                ch, cs, _, ca = cold.schedule(batch[cold], now=now, assume=assume)
+            rh, rs_, _, ra = ref.schedule(batch[ref], now=now, assume=assume)
+            require_equal(f"con cycle {c} ({name}) vs warm-disabled", (hosts, scores), (ch, cs))
+            require_equal(f"con cycle {c} ({name}) vs the CPU engine", (hosts, scores), (rh, rs_))
+            if allocs != ca or allocs != ra:
+                fail(f"con cycle {c} ({name}): allocation records differ")
+            counters = (eng.sched_warm_hits, eng.sched_cold_inits, eng.sched_begin_hits)
+            if counters != (ref.sched_warm_hits, ref.sched_cold_inits, ref.sched_begin_hits):
+                fail(f"con cycle {c} ({name}): warm/cold/begin counters {counters} differ from "
+                     f"the CPU engine's")
+            want = {k: plan.get(k, 0) for k in launched}
+            if launched != want:
+                fail(f"con cycle {c} ({name}): launches {launched}, planned {want}")
+            is_cold = eng.sched_warm_hits == warm0
+            if is_cold != bool(expect.get("cold")):
+                fail(f"con cycle {c} ({name}): cold={is_cold}, planned {bool(expect.get('cold'))}")
+            if expect.get("begin_hit") and eng.sched_begin_hits != begin0 + 1:
+                fail(f"con cycle {c} ({name}): the begin-input cache missed")
+            if expect.get("upper_bound") and ub == 0:
+                fail(f"con cycle {c} ({name}): no round took the quota upper bound")
+            if assume:
+                views = [store_view(st) for st in stores]
+                if views[0] != views[1] or views[0] != views[2]:
+                    fail(f"con cycle {c} ({name}): the stores differ after assume")
+                placed_rsv = eng.last_reservations_placed
+                if placed_rsv != ref.last_reservations_placed or not placed_rsv:
+                    fail(f"con cycle {c} ({name}): reserve pods placed {placed_rsv}, CPU "
+                         f"engine {ref.last_reservations_placed}")
+            state.residency.verify()
+            busy = sum(k_ms.values())
+            rec = dict(cycle=name, publish_ms=publish, wall_ms=wall, kernel_ms=k_ms,
+                       launches={k: v for k, v in launched.items() if v},
+                       placed=int((hosts >= 0).sum()), rounds=rounds, ub_rounds=ub,
+                       with_reservation=sum(1 for a in allocs if a and a["reservation"]),
+                       warm_hits=eng.sched_warm_hits, cold_inits=eng.sched_cold_inits,
+                       begin_hits=eng.sched_begin_hits)
+            records.append(rec)
+            print(f"  cycle {c} ({name}): {rec['placed']}/{len(hosts)} placed "
+                  f"({rec['with_reservation']} on a reservation) in {rounds} rounds, {ub} on the "
+                  f"quota upper bound, {'cold' if is_cold else 'warm'}; publish {publish:.1f} ms,"
+                  f" schedule {wall:.1f} ms wall, kernels {busy:.2f} ms: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(k_ms.items()))
+                  + f"; launches {rec['launches']}; warm/cold/begin {counters}", flush=True)
+        # the whole-tree runtime refresh (RefreshRuntime), on the quota kernel
+        args = (list(state.quota._groups.values()), state.quota.resources,
+                state.quota.cluster_total)
+        _, runtime = eng.quota_refresh(*args)
+        _, want = ref.quota_refresh(*args)
+        require_equal("Engine.quota_refresh", (runtime,), (want,))
+        print(f"  Engine.quota_refresh over {len(args[0])} groups equals the CPU engine's; "
+              f"{timer.take()}")
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA card", file=sys.stderr)
@@ -786,7 +1375,10 @@ def main() -> int:
         log = path.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "Compiling entry function" in line:
+                    # the kernel (templates: ILb0E plain, ILb1E constrained)
+                    line = line.split("'")[1] if "'" in line else line
+                if any(w in line for w in ("registers", "spill", "_Z")):
                     print(f"  ptxas {path.stem}: {line.strip()}")
 
     print("kernels vs plain versions:", flush=True)
@@ -797,11 +1389,19 @@ def main() -> int:
     check_kernels(ragged(small, 300, 50), 16, timed=False)
     check_warm_kernels(small, (16, 128), timed=False)
     check_warm_kernels(small, (16,), timed=False, commit_cap=100)
+    for cpd in (0, 2):
+        check_con_kernels(small, cpd, timed=False)
+    check_con_kernels(small, 0, timed=False, commit_cap=1)
+    check_rsv_kernels(small, timed=False)
     pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
     full = build_inputs(pods, nodes, dev, scalars)
     records = check_kernels(full, 16, timed=True)
     warm_records, transfers = check_warm_kernels(full, (16, 128, 1024), timed=True)
     records += warm_records
+    records += check_con_kernels(full, 0, timed=True)
+    check_con_kernels(full, 2, timed=False)
+    records += check_quota_kernels(dev, timed=True)
+    records += check_rsv_kernels(full, timed=True)
     del full
     torch.cuda.empty_cache()
 
@@ -810,21 +1410,28 @@ def main() -> int:
                                                              scalars)
     print(f"warm path: {NUM_NODES} nodes x {NUM_PODS} pods, resident node tables", flush=True)
     warm_launches, warm_cycles = drive_warm_path(dev, NUM_NODES, NUM_PODS, scalars)
+    print(f"constraint path: {NUM_NODES} nodes x {NUM_PODS} pods, gangs, quota and "
+          f"reservations, resident node tables", flush=True)
+    con_launches, con_cycles = drive_con_path(dev, NUM_NODES, NUM_PODS, scalars)
     for path, launched, kernels in (
         ("cold", cold_launches, ("score", "schedule_keys", "schedule_rounds")),
         ("warm", warm_launches, WARM_PATH_KERNELS),
+        ("constraint", con_launches, CON_PATH_KERNELS),
     ):
         idle = [k for k in kernels if launched[k] == 0]
         if idle:
             fail(f"the {path} path never launched {idle}")
-    print(f"  launches on the cold path {cold_launches}; on the warm path {warm_launches}")
+    print(f"  launches on the cold path {cold_launches}; on the warm path {warm_launches}; on "
+          f"the constraint path {con_launches}")
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "dirty_rows")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "ub_rounds",
+            "dirty_rows", "groups")
     kernels = []
     for rec in records:
         name = rec["name"]
-        by_path = {"cold": cold_launches[name], "warm": warm_launches[name]}
+        by_path = {"cold": cold_launches[name], "warm": warm_launches[name],
+                   "constraints": con_launches[name]}
         # only dstate_scatter has a PyTorch call computing the same function
         # (index_copy_); the others have none
         rec = dict(rec, route="cuda", launches=sum(by_path.values()), launches_by_path=by_path)
@@ -832,7 +1439,7 @@ def main() -> int:
         kernels.append({k: v for k, v in rec.items() if k in keys})
     print(json.dumps({"kernels": kernels, "transfers": transfers, "card": card,
                       "main_path_ms": main_ms, "main_path_kernel_ms": main_kernel_ms,
-                      "warm_cycles": warm_cycles}))
+                      "warm_cycles": warm_cycles, "constraint_cycles": con_cycles}))
     print(f"device: {kind} | {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -9,8 +9,9 @@
 * ``schedule_batch``: the Go scheduler's one-pod-at-a-time loop (vendored
   scheduleOne) as a Python loop in queue order, carrying the assume-path
   node state.  It is the oracle of ``core.resolved`` and the route for the
-  strategies the resolved engine cannot take.  Plain pods only: gang,
-  quota and reservation inputs arrive with a later slice of the port.
+  strategies the resolved engine cannot take.  Plain pods only: its gang,
+  quota and reservation branches arrive with the strategies slice, with
+  the scan on the card.
 
 Host selection is the score argmax; Go breaks exact ties by reservoir
 sampling, so any tied node is a legal reference outcome.  Two deterministic
@@ -26,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from koordinator_tpu_torch import cuda
+from koordinator_tpu_torch.core.gang import GangArrays, GangPodArrays
 from koordinator_tpu_torch.core.loadaware import (
     LoadAwareNodeArrays,
     LoadAwarePodArrays,
@@ -39,6 +41,8 @@ from koordinator_tpu_torch.core.nodefit import (
     nodefit_filter,
     nodefit_score,
 )
+from koordinator_tpu_torch.core.quota import QuotaPodArrays
+from koordinator_tpu_torch.core.reservation import ReservationArrays, restore_extra_free
 
 _TIE_HASH = 2654435761  # Knuth multiplicative hash (32-bit wraparound)
 
@@ -73,6 +77,35 @@ class PluginWeights(NamedTuple):
     numa: int = 1
 
 
+class GangInputs(NamedTuple):
+    pods: GangPodArrays
+    gangs: GangArrays
+
+
+class QuotaInputs(NamedTuple):
+    """Quota admission state for the batch: used/npu are the starting
+    aggregates (already summed up ancestor chains), limit/min as
+    ``core.quota.quota_prefilter`` takes them."""
+
+    pods: QuotaPodArrays
+    used: torch.Tensor  # [Q, R]
+    limit: torch.Tensor  # [Q, R]
+    npu: torch.Tensor  # [Q, R]
+    min: torch.Tensor  # [Q, R]
+    parent: torch.Tensor  # [Q] int32
+
+
+class ReservationInputs(NamedTuple):
+    """Reservations on the nodefit FILTER resource axis.  ``scores`` and
+    ``rscore`` are computed against the batch-start allocations and stay
+    fixed through the cycle; consumption is tracked live."""
+
+    rsv: ReservationArrays
+    matched: torch.Tensor  # [P, Rv] bool — owner/affinity match (host-side)
+    rscore: torch.Tensor  # [P, Rv] int64 — score_reservation
+    scores: torch.Tensor  # [P, N] int64 — reservation_score (normalized)
+
+
 def score_batch(
     la_pods: LoadAwarePodArrays,
     la_nodes: LoadAwareNodeArrays,
@@ -81,12 +114,21 @@ def score_batch(
     nf_nodes: NodeFitNodeArrays,
     nf_static: NodeFitStatic,
     plugin_weights: PluginWeights = PluginWeights(),
+    reservation: Optional[ReservationInputs] = None,
 ):
-    """([P, N] int64 weighted total scores, [P, N] bool feasibility)."""
+    """([P, N] int64 weighted total scores, [P, N] bool feasibility); a
+    reservation adds its restore to the filter and its scores to the
+    total."""
     la_s = loadaware_score(la_pods, la_nodes, la_weights)
     nf_s = nodefit_score(nf_pods, nf_nodes, nf_static)
     total = la_s * plugin_weights.loadaware + nf_s * plugin_weights.nodefit
-    feasible = loadaware_filter(la_pods, la_nodes) & nodefit_filter(nf_pods, nf_nodes, nf_static)
+    extra = None
+    if reservation is not None:
+        extra = restore_extra_free(reservation.matched, reservation.rsv, nf_nodes.alloc.shape[0])
+        total = total + reservation.scores * plugin_weights.reservation
+    feasible = loadaware_filter(la_pods, la_nodes) & nodefit_filter(
+        nf_pods, nf_nodes, nf_static, extra
+    )
     return total, feasible
 
 

@@ -76,12 +76,18 @@ def nodefit_score(pods: NodeFitPodArrays, nodes: NodeFitNodeArrays, static: Node
 
 
 def nodefit_filter(
-    pods: NodeFitPodArrays, nodes: NodeFitNodeArrays, static: NodeFitStatic
+    pods: NodeFitPodArrays, nodes: NodeFitNodeArrays, static: NodeFitStatic, extra_free=None
 ) -> torch.Tensor:
-    """[P, N] feasibility mask (True = fits), fit.go fitsRequest."""
+    """[P, N] feasibility mask (True = fits), fit.go fitsRequest.
+
+    extra_free: optional [P, N, Rf] per-pod free-capacity allowance — the
+    reservation BeforePreFilter restore (a pod matching a reservation on a
+    node sees its unallocated resources as free)."""
     always = torch.tensor(static.always_check, dtype=torch.bool, device=pods.req.device)
     req = pods.req[:, None, :]  # [P, 1, Rf]
     free = (nodes.alloc - nodes.requested)[None]  # [1, N, Rf]
+    if extra_free is not None:
+        free = free + extra_free
     checked = always[None, None, :] | (req > 0)
     insufficient = (checked & (req > free)).any(dim=-1)  # [P, N]
     all_zero = ~pods.has_any_request  # [P]

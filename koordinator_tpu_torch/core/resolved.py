@@ -30,32 +30,50 @@ carry: ``return_warm`` hands it out of a cold run, ``refresh_only`` with
 ``dirty_cols`` rebuilds the carry's rows of the nodes that changed, and
 ``warm_init`` starts the rounds from it.
 
-This slice covers plain pods: gang, quota and reservation inputs and the
-extra-score channel arrive with later slices and raise
-``NotImplementedError`` here.
+Gang, quota and reservation inputs take the constrained round loop
+(``run_rounds_plain`` with a ``ConInputs``): a pod commits only when its
+quota PreFilter verdict is provably the same under the committed
+aggregates and under committed + every earlier candidate's consumption; each committed pod
+nominates and consumes a matched reservation on its node; the reservation
+restore and frozen scores enter every key; after the rounds the gang
+Permit (``commit_gangs``) revokes the groups that missed their quorum.
+The extra-score channel arrives with a later slice and raises
+``NotImplementedError`` here, as do constraints under the scan.
 
 ``schedule_keys`` and ``schedule_rounds`` are the wrappers of the two CUDA
 launches of the cold ``schedule`` kernel (``csrc/schedule.cu``);
 ``schedule_refresh`` and ``schedule_rounds_warm`` those of the warm
 ``sched_refresh`` and ``sched_rounds``; ``schedule_fn`` composes the cold
 pair the way the JAX package's ``schedule_fn`` (service/engine.py) composes
-its jitted cycle.  CPU tensors take the plain versions beside them; CUDA
+its jitted cycle.  Given a ``ConInputs`` each launches the constrained
+instantiation.  CPU tensors take the plain versions beside them; CUDA
 tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from koordinator_tpu_torch import cuda
 from koordinator_tpu_torch.core.cycle import (
+    GangInputs,
     PluginWeights,
+    QuotaInputs,
+    ReservationInputs,
     schedule_batch,
     score_batch,
     tie_base,
     tie_salt,
+)
+from koordinator_tpu_torch.core.gang import (
+    GangArrays,
+    GangPodArrays,
+    commit_gangs,
+    dense_gangs,
+    gang_prefilter,
 )
 from koordinator_tpu_torch.core.loadaware import (
     LoadAwareNodeArrays,
@@ -70,7 +88,13 @@ from koordinator_tpu_torch.core.nodefit import (
     nodefit_filter,
     nodefit_score,
 )
-from koordinator_tpu_torch.slices import CONSTRAINTS, PLACEMENT, STRATEGIES, later
+from koordinator_tpu_torch.core.reservation import (
+    ReservationArrays,
+    match_index,
+    nominate_with_ranks,
+    order_ranks,
+)
+from koordinator_tpu_torch.slices import PLACEMENT, STRATEGIES, later
 
 # packed-key infeasible sentinel; the fits_i32 guard keeps every real key
 # clear of it
@@ -123,30 +147,53 @@ def _pack_keys(total, feas, salts, N: int, TB: int) -> torch.Tensor:
     return torch.where(feas, key, torch.full_like(key, NEGK))
 
 
+def _rsv_cols(rsv_node, remain, midx, q_scores, colsc):
+    """The reservation terms of the node columns ``colsc`` over the compact
+    matched view: ([P, K, Rf] restored free capacity — the sum of the
+    remainders of each pod's matched reservations on the column — and the
+    [P, K] frozen reservation scores).  int64 adds are exact, so the sum
+    over the matched rows equals the masked sum over every reservation."""
+    ok = midx >= 0
+    m = midx.clamp(min=0).long()
+    hit = ok[:, None, :] & (rsv_node.long()[m][:, None, :] == colsc[None, :, None])  # [P, K, Mm]
+    r_pm = remain[m]  # [P, Mm, Rf]
+    extra = torch.where(hit[..., None], r_pm[:, None], torch.zeros_like(r_pm[:, None])).sum(dim=2)
+    return extra, q_scores[:, colsc]
+
+
 def _touched_keys(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T, q_extra_T,
-                  salts, colsc, TB):
+                  salts, colsc, TB, rsv=None):
     """[K, P] int32 keys of the touched node rows ``colsc`` against the
-    current state (core/resolved.py touched_scores + the key repack)."""
+    current state (core/resolved.py touched_scores + the key repack);
+    ``rsv`` = (node, remain, midx, queue-order scores) adds the
+    reservation restore and score."""
     N = la.alloc.shape[0]
     la_cols, nf_cols = _rows(la, colsc), _rows(nf, colsc)
     tot = loadaware_score(q_la, la_cols, la_w) * plugin_weights.loadaware
     tot = tot + nodefit_score(q_nf, nf_cols, nf_static) * plugin_weights.nodefit
-    feas = la_feas_T[colsc].T & nodefit_filter(q_nf, nf_cols, nf_static) & q_extra_T[colsc].T
+    extra = None
+    if rsv is not None:
+        extra, rs = _rsv_cols(*rsv, colsc)
+        tot = tot + rs * plugin_weights.reservation
+    feas = (la_feas_T[colsc].T & nodefit_filter(q_nf, nf_cols, nf_static, extra)
+            & q_extra_T[colsc].T)
     rot = torch.remainder(colsc.to(torch.int64)[None, :] + salts[:, None], N)
     key = torch.where(feas, tot * TB + (TB - 1 - rot), torch.full_like(tot, NEGK))
     return key.T.to(torch.int32)
 
 
 def build_keys_plain(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
-                     salts, block_size: int):
+                     salts, block_size: int, reservation=None):
     """The cold init: (M [N_pad, P] int32, Mb [NB, P] int32, la_feas_T
     [N, P] bool) for pods already in queue order; ``q_extra`` [P, N] is
-    every mask beyond the two plugin filters."""
+    every mask beyond the two plugin filters; ``reservation`` (queue
+    order) adds its restore and scores."""
     P, N = q_la.est.shape[0], la_nodes.alloc.shape[0]
     TB = tie_base(N)
     NB = -(-N // block_size)
     la_feas_T = loadaware_filter(q_la, la_nodes).T.contiguous()
-    total, feas = score_batch(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights)
+    total, feas = score_batch(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights,
+                              reservation)
     M = _pack_keys(total, feas & q_extra, salts.to(torch.int64), N, TB).T.to(torch.int32)
     if NB * block_size != N:
         pad = torch.full((NB * block_size - N, P), NEGK, dtype=torch.int32, device=M.device)
@@ -156,42 +203,235 @@ def build_keys_plain(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_wei
     return M, Mb, la_feas_T
 
 
+def refresh_plain(M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
+                  plugin_weights, q_extra, salts, block_size: int, rsv=None):
+    """The warm carry's delta refresh, in place: for the node rows
+    ``dirty`` [D] (padding repeats a real row), the real LoadAware filter
+    into ``la_feas_T``, the packed keys into ``M`` from the current node
+    state, then the block maxima of their blocks into ``Mb``; ``rsv`` as
+    ``_touched_keys`` takes it, at the batch-start allocations.  Returns
+    (M, Mb, la_feas_T)."""
+    N, P = la_feas_T.shape
+    NB = Mb.shape[0]
+    d = dirty.to(torch.int64)
+    la_feas_T[d] = loadaware_filter(q_la, _rows(la_nodes, d)).T
+    M[d] = _touched_keys(
+        q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights, la_feas_T, q_extra.T,
+        salts.to(torch.int64), d, tie_base(N), rsv,
+    )
+    bc = torch.div(d, block_size, rounding_mode="floor")
+    Mb[bc] = M.view(NB, block_size, P)[bc].amax(dim=1)
+    return M, Mb, la_feas_T
+
+
+class ConInputs(NamedTuple):
+    """A cycle's gang, quota and reservation inputs as the constrained
+    kernels and their plain versions take them (``con_inputs``).  Pod axes
+    are in queue order unless noted."""
+
+    xs: torch.Tensor  # [P] queue position -> submission row
+    gang_row: torch.Tensor  # [P] int32
+    gangs: GangArrays  # [G], the optional fields filled
+    quota: Optional[QuotaInputs]  # pods in queue order
+    rsv: Optional[ReservationArrays]  # batch-start allocations
+    rsv_matched: Optional[torch.Tensor]  # [P, Rv] bool
+    rsv_midx: Optional[torch.Tensor]  # [P, Mm] int32 matched rows ascending, -1 past the last
+    rsv_rscore: Optional[torch.Tensor]  # [P_sub, Rv] int64, submission order
+    rsv_scores: Optional[torch.Tensor]  # [P_sub, N] int64, submission order
+    rsv_rank: Optional[torch.Tensor]  # [Rv] int64, order_ranks of rsv.order
+
+
+def con_inputs(xs, gang=None, quota=None, reservation=None, rsv_match_bound=None, rsv_midx=None,
+               rsv_rank=None) -> ConInputs:
+    """Lay the constraint inputs out in queue order ``xs``.  ``rsv_midx``
+    ([P_sub, Mm] int32, submission order) and ``rsv_rank`` may come from
+    the caller (the engine builds both on the host); otherwise they are
+    computed here, the match bound from ``matched`` unless given."""
+    P, dev = xs.shape[0], xs.device
+    if gang is None:
+        one = torch.ones(1, dtype=torch.int64, device=dev)
+        gangs = GangArrays(min_member=one * 0, member_count=one * 0,
+                           has_init=one.bool(), once_satisfied=~one.bool())
+        gang_row = torch.zeros(P, dtype=torch.int32, device=dev)
+    else:
+        gangs, gang_row = gang.gangs, gang.pods.gang[xs].to(torch.int32)
+    q_quota = None
+    if quota is not None:
+        q_quota = quota._replace(pods=_rows(quota.pods, xs))
+    rsv = matched = midx = rscore = scores = rank = None
+    if reservation is not None:
+        rsv, rscore, scores = reservation.rsv, reservation.rscore, reservation.scores
+        matched = reservation.matched[xs]
+        if rsv_midx is not None:
+            midx = rsv_midx[xs]
+        else:
+            bound = rsv_match_bound
+            if bound is None:
+                bound = int(matched.sum(dim=1).max()) if matched.numel() else 1
+            midx = match_index(matched, bound)
+        rank = order_ranks(rsv.order)[0] if rsv_rank is None else rsv_rank
+    return ConInputs(xs, gang_row, dense_gangs(gangs), q_quota, rsv, matched, midx, rscore,
+                     scores, rank)
+
+
+def gang_pass(con: ConInputs) -> torch.Tensor:
+    """[P] bool gang_prefilter in queue order."""
+    pods = GangPodArrays(gang=con.gang_row, priority=None, sub_priority=None, timestamp=None)
+    return gang_prefilter(pods, con.gangs)
+
+
+def rsv_view(con: ConInputs, allocated=None) -> tuple:
+    """(node, remainders, match index, queue-order scores): the reservation
+    terms the rescoring reads, at ``allocated`` (the batch start's when
+    None)."""
+    allocated = con.rsv.allocated if allocated is None else allocated
+    return (con.rsv.node, con.rsv.allocatable - allocated, con.rsv_midx,
+            con.rsv_scores[con.xs])
+
+
+def _queue_rsv(con: ConInputs) -> Optional[ReservationInputs]:
+    """The reservation inputs in queue order (the plain versions' view)."""
+    if con.rsv is None:
+        return None
+    return ReservationInputs(rsv=con.rsv, matched=con.rsv_matched, rscore=con.rsv_rscore[con.xs],
+                             scores=con.rsv_scores[con.xs])
+
+
+def _chain(quota: QuotaInputs, depth: int) -> torch.Tensor:
+    """[P, depth] the group rows each pod's consumption chain walks: its
+    group, then its ancestors (row 0, the root, contributes nothing)."""
+    g = quota.pods.quota.long()
+    out = []
+    for _ in range(depth):
+        out.append(g)
+        g = quota.parent[g].long()
+    return torch.stack(out, dim=1) if out else g[:, None][:, :0]
+
+
+def _admit(quota: QuotaInputs, used_at, npu_at, check_parent_depth: int) -> torch.Tensor:
+    """[P] PreFilter verdicts; used_at/npu_at map a [P] group vector to the
+    [P, R] aggregates seen at those groups (core/resolved.py
+    _admit_batched)."""
+    req, present = quota.pods.req, quota.pods.present
+    g = quota.pods.quota.long()
+
+    def admit_at(grp):
+        return (~present | (used_at(grp) + req <= quota.limit[grp])).all(dim=-1)
+
+    np_ok = (~present | (npu_at(g) + req <= quota.min[g])).all(dim=-1)
+    ok = admit_at(g) & (np_ok | ~quota.pods.non_preemptible)
+    grp = g
+    for _ in range(check_parent_depth):
+        grp = quota.parent[grp].long()
+        ok = ok & ((grp == 0) | admit_at(grp))
+    return ok
+
+
 def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-                     plugin_weights, q_extra, salts, commit_cap: int, block_size: int):
-    """The round loop from the cold init: (hosts [P] int32, scores [P]
-    int64, rounds) in queue order.  ``M``/``Mb`` are updated in place."""
+                     plugin_weights, q_extra, salts, commit_cap: int, block_size: int,
+                     con: Optional[ConInputs] = None, check_parent_depth: int = 0,
+                     ancestor_depth: int = 8):
+    """The round loop from the init state (core/resolved.py round_body):
+    per round every pending pod's pick, the first-picker rule, the prefix
+    cut at the first blocked pod and at K placements, the assume path
+    over <= K touched rows and their rescoring.  ``q_extra`` [P, N] holds
+    every pod/node mask (the gang prefilter included).  Returns (hosts,
+    scores, rounds) in queue order; ``M``/``Mb`` are updated in place.
+
+    With ``con``, the constrained loop: quota_certainty (a pod commits
+    only when its PreFilter verdict is provably the same under both
+    bounds), quota consumption, reservation nomination and consumption
+    with the restore in the rescoring, then commit_gangs.  It returns
+    (hosts, scores, precommit — before the gang rollback —, rounds, the
+    rounds that took the quota upper bound)."""
     P, N = q_la.est.shape[0], la_nodes.alloc.shape[0]
     dev = q_la.est.device
+    i64 = torch.int64
     K = min(commit_cap, max(P, 1))
     TB = tie_base(N)
     NB = Mb.shape[0]
-    salts64 = salts.to(torch.int64)
+    salts64 = salts.to(i64)
     qpos = torch.arange(P, device=dev)
     q_extra_T = q_extra.T
     committed = torch.zeros(P, dtype=torch.bool, device=dev)
     hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    scores = torch.zeros(P, dtype=torch.int64, device=dev)
+    scores = torch.zeros(P, dtype=i64, device=dev)
     la, nf = la_nodes, nf_nodes
-    i64 = torch.int64
-    rounds = 0
+    quota = None if con is None else con.quota
+    if quota is not None:
+        Rq = quota.used.shape[1]
+        Q = quota.parent.shape[0]
+        chain = _chain(quota, ancestor_depth)  # [P, D]
+        eff_req = torch.where(quota.pods.present, quota.pods.req, torch.zeros_like(quota.pods.req))
+        # [P, Q, 2R] what each pod's placement adds to each group: used | non-preemptible used
+        chain_w = torch.zeros((P, Q), dtype=i64, device=dev).index_put(
+            (qpos[:, None].expand_as(chain), chain), (chain != 0).to(i64), accumulate=True)
+        contrib = chain_w[:, :, None] * eff_req[:, None, :]
+        npm = quota.pods.non_preemptible.to(i64)[:, None, None]
+        contrib_all = torch.cat([contrib, contrib * npm], dim=-1)
+        used, npu = quota.used.clone(), quota.npu.clone()
+    rsv_alloc = None
+    if con is not None and con.rsv is not None:
+        rsv, rank = con.rsv, con.rsv_rank
+        Rv = rsv.node.shape[0]
+        # rank r's reservation at r - 1 (the ranks are dense, 0 last)
+        sorted_idx = torch.sort(torch.where(rank > 0, rank, torch.full_like(rank, Rv + 1)),
+                                stable=True).indices
+        rsv_alloc = rsv.allocated.clone()
+        q_rscore = con.rsv_rscore[con.xs]
+    rounds = ub_rounds = 0
     while P and not bool(committed.all()):
         pending = ~committed
-        vmax = Mb.amax(dim=0).to(i64)  # [P]
+        vmax = Mb.amax(dim=0).to(i64)
         placed = pending & (vmax > NEGK_THRESH)
         rot = TB - 1 - torch.remainder(vmax, TB)
         picks = torch.where(placed, torch.remainder(rot - salts64 + N, N), 0)
         pickscore = torch.where(placed, torch.div(vmax, TB, rounding_mode="floor"), 0)
 
-        # commit_core: first-picker rule, prefix cut, commit cap
-        blockers = pending & placed
+        # quota_certainty: the verdict under the committed aggregates (the
+        # lower bound) and under committed + every earlier candidate's
+        # consumption (the upper bound, exclusive prefix sums)
+        certain_admit = torch.ones(P, dtype=torch.bool, device=dev)
+        certain_reject = torch.zeros(P, dtype=torch.bool, device=dev)
+        if quota is not None:
+            admit_lo = _admit(quota, lambda g: used[g], lambda g: npu[g], check_parent_depth)
+            cand = pending & placed & admit_lo
+            contrib_cand = torch.where(cand[:, None, None], contrib_all,
+                                       torch.zeros_like(contrib_all))
+            tp = contrib_cand.sum(dim=0)  # [Q, 2R]
+            zero_r = torch.zeros_like(eff_req)
+            mr = torch.where(pending[:, None], eff_req, zero_r).amax(dim=0)
+            mr_npu = torch.where((pending & quota.pods.non_preemptible)[:, None], eff_req,
+                                 zero_r).amax(dim=0)
+            # the shortcut: every group keeps headroom for one more maximal
+            # request after every candidate consumed, so both bounds agree
+            safe = bool(
+                (used + tp[:, :Rq] + mr[None] <= quota.limit)[1:].all()
+                & (npu + tp[:, Rq:] + mr_npu[None] <= quota.min)[1:].all()
+            )
+            admit_hi = admit_lo
+            if not safe:
+                ub_rounds += 1
+                exc = torch.cumsum(contrib_cand, dim=0) - contrib_cand  # [P, Q, 2R]
+
+                def at_hi(lo, base):
+                    return lambda g: base[g] + exc[qpos, g, lo:lo + Rq]
+
+                admit_hi = _admit(quota, at_hi(0, used), at_hi(Rq, npu), check_parent_depth)
+            certain_admit, certain_reject = admit_hi, ~admit_lo
+
+        # commit_core: the first-picker rule among the blockers, the prefix
+        # cut at the first blocked pod and at K placements
+        blockers = pending & placed & ~certain_reject
         node_first = torch.full((N,), P, dtype=i64, device=dev).scatter_reduce(
             0, torch.where(blockers, picks, 0), torch.where(blockers, qpos, P),
             reduce="amin", include_self=True,
         )
-        blocked = blockers & (node_first[picks] != qpos)
+        is_first = blockers & (node_first[picks] == qpos)
+        blocked = blockers & ~(is_first & certain_admit)
         first_blocked = torch.where(blocked, qpos, P).min()
         in_prefix = pending & (qpos < first_blocked)
-        place_mask = in_prefix & placed
+        place_mask = in_prefix & placed & certain_admit
         placed_rank = torch.cumsum(place_mask.to(i64), 0)
         overflow = place_mask & (placed_rank > K)
         cutpos = torch.where(overflow, qpos, P).min()
@@ -201,8 +441,6 @@ def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_
         scores = torch.where(place_mask, pickscore, torch.where(in_prefix, 0, scores))
         committed = committed | in_prefix
 
-        # the assume path over <= K touched rows; padding slots clamp to
-        # N-1 and add zeros
         col_slot = torch.where(place_mask, placed_rank - 1, K)
         cols = torch.full((K + 1,), N, dtype=i64, device=dev).index_put(
             (col_slot[place_mask],), picks[place_mask])[:K]
@@ -224,46 +462,36 @@ def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_
             req_score=nf.req_score.index_add(0, colsc, q_nf.req_score[pod_slot] * sv),
             num_pods=nf.num_pods.index_add(0, colsc, slot_ok.to(i64)),
         )
+        if quota is not None:
+            dq = (contrib_all[pod_slot] * sv[:, None, :1]).sum(dim=0)
+            used, npu = used + dq[:, :Rq], npu + dq[:, Rq:]
+        rsv_terms = None
+        if rsv_alloc is not None:
+            # nominate per committed slot; committed pods sit on distinct
+            # nodes, so the nominated rows are distinct
+            noms, has = nominate_with_ranks(con.rsv_matched[pod_slot], q_rscore[pod_slot], rsv,
+                                            cols, rank, sorted_idx)
+            remain = rsv.allocatable - rsv_alloc
+            consume = torch.clamp(torch.minimum(q_nf.req[pod_slot], remain[noms]), min=0)
+            take = slot_ok & has
+            consume = torch.where(take[:, None], consume, torch.zeros_like(consume))
+            rsv_alloc = rsv_alloc.index_add(0, torch.where(take, noms, 0), consume)
+            rsv_terms = rsv_view(con, rsv_alloc)
 
-        # rescore the touched rows (duplicate padding rows carry identical
-        # keys), then re-reduce their blocks
         M[colsc] = _touched_keys(
             q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T, q_extra_T,
-            salts64, colsc, TB,
+            salts64, colsc, TB, rsv_terms,
         )
         bc = torch.div(colsc, block_size, rounding_mode="floor")
         Mb[bc] = M.view(NB, block_size, P)[bc].amax(dim=1)
         rounds += 1
-    return hosts, scores, rounds
-
-
-def refresh_plain(M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-                  plugin_weights, q_extra, salts, block_size: int):
-    """The warm carry's delta refresh, in place: for the node rows
-    ``dirty`` [D] (padding repeats a real row), the real LoadAware filter
-    into ``la_feas_T``, the packed keys into ``M`` from the current node
-    state, then the block maxima of their blocks into ``Mb``.  Returns
-    (M, Mb, la_feas_T)."""
-    N, P = la_feas_T.shape
-    NB = Mb.shape[0]
-    d = dirty.to(torch.int64)
-    la_feas_T[d] = loadaware_filter(q_la, _rows(la_nodes, d)).T
-    M[d] = _touched_keys(
-        q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights, la_feas_T, q_extra.T,
-        salts.to(torch.int64), d, tie_base(N),
-    )
-    bc = torch.div(d, block_size, rounding_mode="floor")
-    Mb[bc] = M.view(NB, block_size, P)[bc].amax(dim=1)
-    return M, Mb, la_feas_T
-
-
-def _refuse(gang, quota, reservation, extra_scores):
-    for name, val, slice_name in (
-        ("gang", gang, CONSTRAINTS), ("quota", quota, CONSTRAINTS),
-        ("reservation", reservation, CONSTRAINTS), ("extra_scores", extra_scores, PLACEMENT),
-    ):
-        if val is not None:
-            raise later(f"{name} inputs to the resolved engine", slice_name)
+    if con is None:
+        return hosts, scores, rounds
+    precommit = hosts
+    pods = GangPodArrays(gang=con.gang_row, priority=None, sub_priority=None, timestamp=None)
+    hosts, _ = commit_gangs(precommit, pods, con.gangs)
+    scores = torch.where(hosts >= 0, scores, torch.zeros_like(scores))
+    return hosts, scores, precommit, rounds, ub_rounds
 
 
 def schedule_batch_resolved(
@@ -276,14 +504,18 @@ def schedule_batch_resolved(
     plugin_weights: PluginWeights = PluginWeights(),
     extra_feasible: Optional[torch.Tensor] = None,
     order: Optional[torch.Tensor] = None,
-    gang=None,
-    quota=None,
-    reservation=None,
+    gang: Optional[GangInputs] = None,
+    quota: Optional[QuotaInputs] = None,
+    reservation: Optional[ReservationInputs] = None,
+    check_parent_depth: int = 0,
+    ancestor_depth: int = 8,
     commit_cap: int = 16,
     tie_break: str = "salted",
     block_size: int = 16,
     extra_scores=None,
     return_rounds: bool = False,
+    return_precommit: bool = False,
+    rsv_match_bound: Optional[int] = None,
     warm_init: Optional[tuple] = None,
     dirty_cols: Optional[torch.Tensor] = None,
     refresh_only: bool = False,
@@ -291,7 +523,15 @@ def schedule_batch_resolved(
 ):
     """``schedule_batch`` bit-for-bit (same ``tie_break``), via
     prefix-committed rounds, plain PyTorch.  commit_cap and block_size do
-    not affect results.  Returns (hosts, scores[, rounds][, warm]).
+    not affect results.  Returns (hosts, scores[, rounds][, precommit][,
+    warm]).
+
+    Gang, quota and reservation inputs take the constrained round loop:
+    quota admission decided only when provable, reservation restore,
+    scores and nomination, and the gang rollback after the rounds
+    (``precommit`` is the assignment before it).  The restore contracts
+    over the compact matched view (``rsv_match_bound`` matches per pod at
+    most; computed from ``matched`` when not given).
 
     The warm start, as in the JAX package: ``warm_init`` (M [N_pad, P]
     int32, Mb [NB, P] int32, la_feas_T [N, P] bool) is the init state a
@@ -300,7 +540,9 @@ def schedule_batch_resolved(
     current inputs and returns the refreshed carry instead of scheduling;
     ``return_warm`` appends a cold run's init carry to the outputs.  The
     caller's carry tensors are never written."""
-    _refuse(gang, quota, reservation, extra_scores)
+    if extra_scores is not None:
+        raise later("extra_scores inputs to the resolved engine", PLACEMENT)
+    constrained = gang is not None or quota is not None or reservation is not None
     P_full = la_pods.est.shape[0]
     N = la_nodes.alloc.shape[0]
     dev = la_pods.est.device
@@ -313,12 +555,18 @@ def schedule_batch_resolved(
             "(monotonicity precondition)"
         )
     if nf_static.strategy != "LeastAllocated":
+        if constrained:
+            raise later(f"gang, quota or reservation inputs under {nf_static.strategy} "
+                        "(the scan's constraint branches)", STRATEGIES)
         # monotonicity precondition: other strategies take the scan
         hosts, scores = schedule_batch(
             la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, plugin_weights,
             extra_feasible, order, tie_break,
         )
-        return (hosts, scores, 0) if return_rounds else (hosts, scores)
+        out = (hosts, scores)
+        if return_rounds:
+            out = out + (0,)
+        return out + (hosts,) if return_precommit else out
     if not fits_i32(key_bound(plugin_weights), N):
         raise later("the int64-key matrix engine (node axes beyond 2**21)", STRATEGIES)
     xs, q_la, q_nf, salts = _queue(la_pods, nf_pods, order, N, tie_break)
@@ -326,26 +574,41 @@ def schedule_batch_resolved(
         q_extra = torch.ones((xs.shape[0], N), dtype=torch.bool, device=dev)
     else:
         q_extra = extra_feasible[xs]
+    con = None
+    if constrained:
+        con = con_inputs(xs, gang, quota, reservation, rsv_match_bound)
+        q_extra = q_extra & gang_pass(con)[:, None]
     if refresh_only:
+        rsv = rsv_view(con) if con is not None and con.rsv is not None else None
         return refresh_plain(
             *(a.clone() for a in warm_init), dirty_cols, q_la, la_nodes, la_weights, q_nf,
-            nf_nodes, nf_static, plugin_weights, q_extra, salts, block_size,
+            nf_nodes, nf_static, plugin_weights, q_extra, salts, block_size, rsv,
         )
     if warm_init is not None:
         M0, Mb0, la_feas_T = warm_init
     else:
         M0, Mb0, la_feas_T = build_keys_plain(
             q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
-            salts, block_size,
+            salts, block_size, None if con is None else _queue_rsv(con),
         )
-    hosts_q, scores_q, rounds = run_rounds_plain(
-        M0.clone(), Mb0.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes,
-        nf_static, plugin_weights, q_extra, salts, commit_cap, block_size,
-    )
+    if con is None:
+        hosts_q, scores_q, rounds = run_rounds_plain(
+            M0.clone(), Mb0.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes,
+            nf_static, plugin_weights, q_extra, salts, commit_cap, block_size,
+        )
+        pre_q = hosts_q
+    else:
+        hosts_q, scores_q, pre_q, rounds, _ = run_rounds_plain(
+            M0.clone(), Mb0.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes,
+            nf_static, plugin_weights, q_extra, salts, commit_cap, block_size, con,
+            check_parent_depth, ancestor_depth,
+        )
     hosts, scores = _submission_order(hosts_q, scores_q, xs, P_full)
     out = (hosts, scores)
     if return_rounds:
         out = out + (rounds,)
+    if return_precommit:
+        out = out + (_submission_order(pre_q, scores_q, xs, P_full)[0],)
     if return_warm:
         out = out + ((M0, Mb0, la_feas_T),)
     return out
@@ -363,19 +626,113 @@ def kernel_queue(la_pods, nf_pods, valid, p_real: int, order):
     return xs, q_la, q_nf, salts, pod_ok
 
 
+def con_scratch_words(P: int, Q: int, Rq: int, G: int, cpd: int, ad: int) -> int:
+    """int64 words of the constrained round kernel's global scratch, in the
+    layout ``rounds_kernel`` reads (csrc/schedule.cu): the candidate
+    totals [Q, 2R], the exclusive prefixes at each pod's admission groups
+    [P, cpd+1, 2R], the gang counts [2, G], then int32 words for the
+    per-group entry lists (offsets [Q+1], entries [P * ad])."""
+    i32 = (Q + 1) + P * ad
+    return Q * 2 * Rq + P * (cpd + 1) * 2 * Rq + 2 * G + (i32 + 1) // 2
+
+
+_CON_PTRS = 26
+_CON_INTS = 10
+
+
+def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool, cpd: int,
+                     ad: int, w_rsv: int):
+    """The constrained kernels' (pointer table, int64 parameter block,
+    tensors to keep alive), laid out as ``koord_con`` in csrc/schedule.cu
+    reads them.  The round kernel (``rounds``) gets private copies of the
+    quota aggregates and the reservation allocations, which it updates."""
+    i64, i32, b = torch.int64, torch.int32, torch.bool
+    g = con.gangs
+    G = g.min_member.shape[0]
+    dummy = torch.zeros(1, dtype=i64, device=dev)
+    tabs = [
+        cuda._checked(con.gang_row, i32, (P,), dev, "gang rows"),
+        cuda._checked(g.min_member, i64, (G,), dev, "gang min_member"),
+        cuda._checked(g.member_count, i64, (G,), dev, "gang member_count"),
+        cuda._checked(g.has_init, b, (G,), dev, "gang has_init"),
+        cuda._checked(g.once_satisfied, b, (G,), dev, "gang once_satisfied"),
+        cuda._checked(g.group.to(i32), i32, (G,), dev, "gang group"),
+        cuda._checked(g.bound_count, i64, (G,), dev, "gang bound_count"),
+        cuda._checked(g.non_strict, b, (G,), dev, "gang non_strict"),
+    ]
+    q = con.quota
+    Q = Rq = 1
+    if q is not None:
+        Q, Rq = q.used.shape
+        if Rq > cuda.MAXR:
+            raise ValueError(f"{Rq} quota dimensions exceed {cuda.MAXR}")
+        if not 0 <= cpd < ad <= 16:
+            raise ValueError(f"the kernels take 0 <= check_parent_depth < ancestor_depth <= 16, "
+                             f"got {cpd}, {ad}")
+        used, npu = q.used, q.npu
+        if rounds:
+            used, npu = used.clone(), npu.clone()
+        tabs += [
+            cuda._checked(q.pods.quota, i32, (P,), dev, "quota rows"),
+            cuda._checked(q.pods.req, i64, (P, Rq), dev, "quota req"),
+            cuda._checked(q.pods.present, b, (P, Rq), dev, "quota present"),
+            cuda._checked(q.pods.non_preemptible, b, (P,), dev, "quota non_preemptible"),
+            cuda._checked(used, i64, (Q, Rq), dev, "quota used"),
+            cuda._checked(npu, i64, (Q, Rq), dev, "quota npu"),
+            cuda._checked(q.limit, i64, (Q, Rq), dev, "quota limit"),
+            cuda._checked(q.min, i64, (Q, Rq), dev, "quota min"),
+            cuda._checked(q.parent, i32, (Q,), dev, "quota parent"),
+        ]
+    else:
+        tabs += [dummy] * 9
+    Rv = Mm = 0
+    if con.rsv is not None:
+        r = con.rsv
+        Rv, Mm = r.node.shape[0], con.rsv_midx.shape[1]
+        P_sub = con.rsv_scores.shape[0]
+        allocated = r.allocated.clone() if rounds else r.allocated
+        tabs += [
+            cuda._checked(r.node, i32, (Rv,), dev, "reservation node"),
+            cuda._checked(r.allocatable, i64, (Rv, Rf), dev, "reservation allocatable"),
+            cuda._checked(allocated, i64, (Rv, Rf), dev, "reservation allocated"),
+            cuda._checked(con.rsv_rank, i64, (Rv,), dev, "reservation rank"),
+            cuda._checked(con.rsv_midx, i32, (P, Mm), dev, "reservation match index"),
+            cuda._checked(con.rsv_rscore, i64, (P_sub, Rv), dev, "reservation rscore"),
+            cuda._checked(con.rsv_scores, i64, (P_sub, N), dev, "reservation scores"),
+            cuda._checked(con.xs.to(i32), i32, (P,), dev, "queue order"),
+        ]
+    else:
+        tabs += [dummy] * 8
+    words = con_scratch_words(P, Q, Rq, G, cpd, ad) if rounds else 1
+    tabs.append(torch.empty(words, dtype=i64, device=dev))
+    ptrs = (ctypes.c_void_p * _CON_PTRS)(*(t.data_ptr() for t in tabs))
+    ints = (ctypes.c_longlong * _CON_INTS)(G, Q, Rq, Rv, Mm, cpd, ad, w_rsv, int(q is not None),
+                                            int(con.rsv is not None))
+    return ptrs, ints, (tabs, ptrs, ints)
+
+
 def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts,
-                  block_size: int):
+                  block_size: int, con: Optional[ConInputs] = None):
     """First launch of the ``schedule`` kernel: the cold key build for pods
     in queue order under the default plugin weights, the extra mask
-    factorized as ``pod_ok[q] & valid[n]``.  Returns (M, Mb, la_feas_T)."""
-    if valid.device.type == "cpu":
-        q_extra = pod_ok[:, None] & valid[None, :]
-        return build_keys_plain(
-            q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(), q_extra, salts,
-            block_size,
-        )
+    factorized as ``pod_ok[q] & valid[n]``; ``con`` adds the gang
+    prefilter and the reservation restore and scores (the constrained
+    instantiation).  Returns (M, Mb, la_feas_T)."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
+    if con is not None:  # the constraint inputs are checked on every device
+        con_args = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, 0, 1,
+                                    PluginWeights().reservation)
+    if dev.type == "cpu":
+        q_extra = pod_ok[:, None] & valid[None, :]
+        rsv = None
+        if con is not None:
+            q_extra = q_extra & gang_pass(con)[:, None]
+            rsv = _queue_rsv(con)
+        return build_keys_plain(
+            q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(), q_extra, salts,
+            block_size, rsv,
+        )
     args = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
     NB = -(-N // block_size)
     pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
@@ -383,23 +740,32 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
     M = torch.empty((NB * block_size, P), dtype=torch.int32, device=dev)
     Mb = torch.empty((NB, P), dtype=torch.int32, device=dev)
     la_feas_T = torch.empty((N, P), dtype=torch.bool, device=dev)
+    head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
+            salts.data_ptr(), P, N, block_size, tie_base(N))
+    tail = (M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(), cuda.device_index(dev),
+            cuda.stream(dev))
+    if con is None:
+        if P and N:
+            cuda.SCHEDULE_KEYS.launch(*head, *tail)
+        return M, Mb, la_feas_T
+    ptrs, ints, keep = con_args
     if P and N:
-        cuda.SCHEDULE_KEYS.launch(
-            args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-            salts.data_ptr(), P, N, block_size, tie_base(N), M.data_ptr(), Mb.data_ptr(),
-            la_feas_T.data_ptr(), cuda.device_index(dev), cuda.stream(dev),
-        )
+        cuda.SCHEDULE_KEYS_CON.launch(*head, ptrs, ints, *tail)
     return M, Mb, la_feas_T
 
 
 def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-                   valid, pod_ok, salts, commit_cap: int, block_size: int):
+                   valid, pod_ok, salts, commit_cap: int, block_size: int, con=None,
+                   check_parent_depth: int = 0, ancestor_depth: int = 8):
     """One launch of the round-loop kernel on CUDA tensors, counted on
     ``kernel``; ``M``/``Mb`` are updated in place."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     K = min(commit_cap, max(P, 1))
-    if cuda.rounds_smem(P, K) > cuda.MAX_SMEM:
+    smem = cuda.rounds_smem(P, K)
+    if con is not None:
+        smem = cuda.rounds_smem_con(P, K, ancestor_depth, con.quota is not None)
+    if smem > cuda.MAX_SMEM:
         raise ValueError(f"{P} pods exceed the round kernel's shared memory")
     NB = -(-N // block_size)
     la_mut = la_nodes._replace(
@@ -417,40 +783,71 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     la_feas_T = cuda._checked(la_feas_T, torch.bool, (N, P), dev, "la_feas_T")
     hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
     scores = torch.zeros(P, dtype=torch.int64, device=dev)
-    rounds = torch.zeros(1, dtype=torch.int32, device=dev)
     node_first = torch.empty(N, dtype=torch.int32, device=dev)
+    head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
+            salts.data_ptr(), P, N, block_size, tie_base(N), K)
+    if con is None:
+        rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+        if P and N:
+            kernel.launch(
+                *head, M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(), node_first.data_ptr(),
+                hosts.data_ptr(), scores.data_ptr(), rounds.data_ptr(), cuda.device_index(dev),
+                cuda.stream(dev),
+            )
+        return hosts, scores, rounds[0]
+    precommit = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    rounds = torch.zeros(2, dtype=torch.int32, device=dev)
+    ptrs, ints, keep = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, True,
+                                        check_parent_depth, ancestor_depth,
+                                        PluginWeights().reservation)
     if P and N:
         kernel.launch(
-            args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-            salts.data_ptr(), P, N, block_size, tie_base(N), K, M.data_ptr(), Mb.data_ptr(),
-            la_feas_T.data_ptr(), node_first.data_ptr(), hosts.data_ptr(), scores.data_ptr(),
+            *head, ptrs, ints, M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(),
+            node_first.data_ptr(), hosts.data_ptr(), scores.data_ptr(), precommit.data_ptr(),
             rounds.data_ptr(), cuda.device_index(dev), cuda.stream(dev),
         )
-    return hosts, scores, rounds[0]
+    return hosts, scores, precommit, rounds
 
 
 def _plain_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
-                  pod_ok, salts, commit_cap: int, block_size: int):
+                  pod_ok, salts, commit_cap: int, block_size: int, con=None,
+                  check_parent_depth: int = 0, ancestor_depth: int = 8):
     q_extra = pod_ok[:, None] & valid[None, :]
-    hosts, scores, rounds = run_rounds_plain(
+    if con is None:
+        hosts, scores, rounds = run_rounds_plain(
+            M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(),
+            q_extra, salts, commit_cap, block_size,
+        )
+        return hosts, scores, torch.tensor(rounds, dtype=torch.int32)
+    hosts, scores, pre, rounds, ub = run_rounds_plain(
         M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(),
-        q_extra, salts, commit_cap, block_size,
+        q_extra & gang_pass(con)[:, None], salts, commit_cap, block_size, con,
+        check_parent_depth, ancestor_depth,
     )
-    return hosts, scores, torch.tensor(rounds, dtype=torch.int32)
+    return hosts, scores, pre, torch.tensor([rounds, ub], dtype=torch.int32)
 
 
 def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
-                    pod_ok, salts, commit_cap: int, block_size: int):
+                    pod_ok, salts, commit_cap: int, block_size: int, con=None,
+                    check_parent_depth: int = 0, ancestor_depth: int = 8):
     """Second launch of the ``schedule`` kernel: the whole round loop under
     the default plugin weights.  Returns (hosts [P] int32, scores [P]
-    int64, rounds as a 0-d int32 tensor) in queue order.  ``M``/``Mb`` are
-    consumed (updated in place); the node arrays are not touched (the
-    kernel commits into private copies)."""
+    int64, rounds as a 0-d int32 tensor) in queue order; with ``con``
+    (the constrained instantiation) (hosts after the gang rollback,
+    scores, precommit hosts before it, [rounds, rounds that took the quota
+    upper bound] as an int32 tensor).  ``M``/``Mb`` are consumed (updated
+    in place); the node arrays, quota aggregates and reservation
+    allocations are not touched (the kernel commits into private
+    copies)."""
     args = (M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
-            salts, commit_cap, block_size)
+            salts, commit_cap, block_size, con, check_parent_depth, ancestor_depth)
     if valid.device.type == "cpu":
+        if con is not None:
+            _con_launch_args(con, q_la.est.shape[0], valid.shape[0], q_nf.req.shape[1],
+                             valid.device, False, check_parent_depth, ancestor_depth, 1)
         return _plain_rounds(*args)
-    return _launch_rounds(cuda.SCHEDULE_ROUNDS, *args)
+    return _launch_rounds(cuda.SCHEDULE_ROUNDS if con is None else cuda.SCHEDULE_ROUNDS_CON,
+                          *args)
 
 
 def _check_carry(carry, N: int, P: int, block_size: int, dev) -> tuple:
@@ -464,7 +861,8 @@ def _check_carry(carry, N: int, P: int, block_size: int, dev) -> tuple:
 
 
 def schedule_rounds_warm(carry, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
-                         salts, commit_cap: int, block_size: int):
+                         salts, commit_cap: int, block_size: int, con=None,
+                         check_parent_depth: int = 0, ancestor_depth: int = 8):
     """The ``sched_rounds`` kernel: the round loop from a warm carry
     (M, Mb, la_feas_T), launched on COPIES of M and Mb — the carry seeds
     the next cycle and is never written.  Returns what ``schedule_rounds``
@@ -472,17 +870,23 @@ def schedule_rounds_warm(carry, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
     P, N = q_la.est.shape[0], valid.shape[0]
     M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, valid.device)
     args = (M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-            valid, pod_ok, salts, commit_cap, block_size)
+            valid, pod_ok, salts, commit_cap, block_size, con, check_parent_depth,
+            ancestor_depth)
     if valid.device.type == "cpu":
+        if con is not None:
+            _con_launch_args(con, P, N, q_nf.req.shape[1], valid.device, False,
+                             check_parent_depth, ancestor_depth, 1)
         return _plain_rounds(*args)
-    return _launch_rounds(cuda.SCHED_ROUNDS, *args)
+    return _launch_rounds(cuda.SCHED_ROUNDS if con is None else cuda.SCHED_ROUNDS_CON, *args)
 
 
 def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
-                     pod_ok, salts, block_size: int):
+                     pod_ok, salts, block_size: int, con: Optional[ConInputs] = None):
     """The ``sched_refresh`` kernel: rebuild the carry's rows of the node
     columns ``dirty`` ([D] int32 on the host, a power-of-two bucket padded
-    by repeating a real row) against the current node inputs, in place.
+    by repeating a real row) against the current node inputs, in place;
+    ``con`` adds the gang prefilter and the reservation restore and scores
+    at the batch-start allocations (quota never enters the carry).
     Returns the carry (M, Mb, la_feas_T)."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
@@ -493,22 +897,34 @@ def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_stat
                          f"{tuple(dirty.shape)} on {dirty.device}")
     if dirty.numel() and (int(dirty.min()) < 0 or int(dirty.max()) >= N):
         raise ValueError(f"dirty rows outside [0, {N})")
+    if con is not None:
+        con_args = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, 0, 1,
+                                    PluginWeights().reservation)
     if dev.type == "cpu":
+        q_extra = pod_ok[:, None] & valid[None, :]
+        rsv = None
+        if con is not None:
+            q_extra = q_extra & gang_pass(con)[:, None]
+            if con.rsv is not None:
+                rsv = rsv_view(con)
         return refresh_plain(
             M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-            PluginWeights(), pod_ok[:, None] & valid[None, :], salts, block_size,
+            PluginWeights(), q_extra, salts, block_size, rsv,
         )
     args = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
     pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
     salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
     if P and dirty.numel():
         d = dirty.pin_memory().to(dev, non_blocking=True)
-        cuda.SCHED_REFRESH.launch(
-            args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-            salts.data_ptr(), P, N, block_size, tie_base(N), d.data_ptr(), int(d.shape[0]),
-            M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(), cuda.device_index(dev),
-            cuda.stream(dev),
-        )
+        head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
+                salts.data_ptr(), P, N, block_size, tie_base(N))
+        tail = (d.data_ptr(), int(d.shape[0]), M.data_ptr(), Mb.data_ptr(),
+                la_feas_T.data_ptr(), cuda.device_index(dev), cuda.stream(dev))
+        if con is None:
+            cuda.SCHED_REFRESH.launch(*head, *tail)
+        else:
+            ptrs, ints, keep = con_args
+            cuda.SCHED_REFRESH_CON.launch(*head, ptrs, ints, *tail)
     return M, Mb, la_feas_T
 
 
@@ -524,20 +940,31 @@ def schedule_fn(
     order: Optional[torch.Tensor] = None,
     commit_cap: int = 16,
     block_size: int = 16,
+    con_args: Optional[dict] = None,
+    check_parent_depth: int = 0,
+    ancestor_depth: int = 8,
 ):
-    """The ``schedule`` kernel for plain pods: live node columns x the first
-    ``p_real`` pod rows, queue order ``order``, the default plugin weights
-    and the salted tie-break, as the JAX engine's ``schedule_fn`` runs it.
-    Returns (hosts [P] int32, scores [P] int64, precommit [P] int32, rounds
-    as a 0-d int32 tensor, warm) in submission order, where ``warm`` is the
-    init carry (M, Mb, la_feas_T) that seeds the next cycle's warm start
-    (the rounds run on copies of it).
+    """The ``schedule`` kernel: live node columns x the first ``p_real``
+    pod rows, queue order ``order``, the default plugin weights and the
+    salted tie-break, as the JAX engine's ``schedule_fn`` runs it;
+    ``con_args`` (``con_inputs``' arguments besides the queue order)
+    selects the constrained instantiation.  Returns (hosts [P] int32,
+    scores [P] int64, precommit [P] int32, rounds, warm) in submission
+    order: ``precommit`` is the assignment before the gang rollback,
+    ``rounds`` an int32 tensor of the round count (with the count of
+    rounds that took the quota upper bound after it when constrained),
+    and ``warm`` the init carry (M, Mb, la_feas_T) that seeds the next
+    cycle's warm start (the rounds run on copies of it).
 
-    On CPU tensors a strategy other than LeastAllocated takes the scan (as
-    the JAX package does) and ``warm`` is None; on CUDA tensors it raises."""
+    On CPU tensors a strategy other than LeastAllocated takes the scan for
+    plain pods (as the JAX package does) and ``warm`` is None; on CUDA
+    tensors it raises."""
     P, N = la_pods.est.shape[0], valid.shape[0]
     dev = valid.device
     if nf_static.strategy != "LeastAllocated" and dev.type == "cpu":
+        if con_args is not None:
+            raise later(f"gang, quota or reservation inputs under {nf_static.strategy}",
+                        STRATEGIES)
         pad_rows = torch.arange(P, device=dev) < p_real
         hosts, scores, rounds = schedule_batch_resolved(
             la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
@@ -547,12 +974,20 @@ def schedule_fn(
     if not fits_i32(key_bound(PluginWeights()), N):
         raise later("the int64-key matrix engine (node axes beyond 2**21)", STRATEGIES)
     xs, q_la, q_nf, salts, pod_ok = kernel_queue(la_pods, nf_pods, valid, p_real, order)
+    con = None if con_args is None else con_inputs(xs, **con_args)
     M, Mb, la_feas_T = schedule_keys(
         q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, valid, pod_ok, salts, block_size,
+        con,
     )
-    hosts_q, scores_q, rounds = schedule_rounds(
+    out = schedule_rounds(
         M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static,
-        valid, pod_ok, salts, commit_cap, block_size,
+        valid, pod_ok, salts, commit_cap, block_size, con, check_parent_depth, ancestor_depth,
     )
+    if con is None:
+        hosts_q, scores_q, rounds = out
+        pre_q = hosts_q
+    else:
+        hosts_q, scores_q, pre_q, rounds = out
     hosts, scores = _submission_order(hosts_q, scores_q, xs, P)
-    return hosts, scores, hosts, rounds, (M, Mb, la_feas_T)
+    precommit = _submission_order(pre_q, scores_q, xs, P)[0]
+    return hosts, scores, precommit, rounds, (M, Mb, la_feas_T)

@@ -193,6 +193,118 @@ __device__ __forceinline__ long long pair_total(const Cfg& c, const PodIn& p, co
   return la_score(c, p, n, q, j) + nf_least(c, p, n, q, j);
 }
 
+// ------------------------------------------------------------ constraints
+//
+// The gang, quota and reservation inputs of the constrained SCHEDULE
+// kernels (core/resolved.py ConInputs), passed by value.  Pod axes are in
+// queue order (q) unless noted; the reservation scores are read through
+// `xs`, the queue position -> submission row map.
+struct ConIn {
+  int G, Q, Rq, Rv, Mm, cpd, ad;
+  long long w_rsv;  // the reservation plugin weight
+  int has_quota, has_rsv;
+  const int* gang_row;         // [P]
+  const long long* g_min;      // [G]
+  const long long* g_members;  // [G]
+  const uint8_t* g_init;       // [G]
+  const uint8_t* g_once;       // [G]
+  const int* g_group;          // [G]
+  const long long* g_bound;    // [G]
+  const uint8_t* g_nonstrict;  // [G]
+  const int* q_row;            // [P]
+  const long long* q_req;      // [P, Rq]
+  const uint8_t* q_present;    // [P, Rq]
+  const uint8_t* q_np;         // [P]
+  long long* q_used;           // [Q, Rq], the round kernel's private copy
+  long long* q_npu;            // [Q, Rq], likewise
+  const long long* q_limit;    // [Q, Rq]
+  const long long* q_min;      // [Q, Rq]
+  const int* q_parent;         // [Q]
+  const int* r_node;           // [Rv]
+  const long long* r_alloc;    // [Rv, Rf]
+  long long* r_allocated;      // [Rv, Rf], the round kernel's private copy
+  const long long* r_rank;     // [Rv] dense (order, index) ranks, 0 = unordered
+  const int* midx;             // [P, Mm] matched rows ascending, -1 past the last
+  const long long* rscore;     // [P_sub, Rv] submission order
+  const long long* rscores;    // [P_sub, N] submission order
+  const int* xs;               // [P]
+  long long* scratch;          // the round kernel's global scratch
+};
+
+#define KOORD_NUM_CON_PTRS 26
+#define KOORD_NUM_CON_INTS 10
+
+inline ConIn koord_con(const void* const* p, const long long* c) {
+  ConIn k;
+  k.G = (int)c[0];
+  k.Q = (int)c[1];
+  k.Rq = (int)c[2];
+  k.Rv = (int)c[3];
+  k.Mm = (int)c[4];
+  k.cpd = (int)c[5];
+  k.ad = (int)c[6];
+  k.w_rsv = c[7];
+  k.has_quota = (int)c[8];
+  k.has_rsv = (int)c[9];
+  k.gang_row = (const int*)p[0];
+  k.g_min = (const long long*)p[1];
+  k.g_members = (const long long*)p[2];
+  k.g_init = (const uint8_t*)p[3];
+  k.g_once = (const uint8_t*)p[4];
+  k.g_group = (const int*)p[5];
+  k.g_bound = (const long long*)p[6];
+  k.g_nonstrict = (const uint8_t*)p[7];
+  k.q_row = (const int*)p[8];
+  k.q_req = (const long long*)p[9];
+  k.q_present = (const uint8_t*)p[10];
+  k.q_np = (const uint8_t*)p[11];
+  k.q_used = (long long*)p[12];
+  k.q_npu = (long long*)p[13];
+  k.q_limit = (const long long*)p[14];
+  k.q_min = (const long long*)p[15];
+  k.q_parent = (const int*)p[16];
+  k.r_node = (const int*)p[17];
+  k.r_alloc = (const long long*)p[18];
+  k.r_allocated = (long long*)p[19];
+  k.r_rank = (const long long*)p[20];
+  k.midx = (const int*)p[21];
+  k.rscore = (const long long*)p[22];
+  k.rscores = (const long long*)p[23];
+  k.xs = (const int*)p[24];
+  k.scratch = (long long*)p[25];
+  return k;
+}
+
+// gang_prefilter (core/gang.py:71): PreFilter fast-fail, state-free per pod
+__device__ __forceinline__ bool gang_pass(const ConIn& k, int q) {
+  const int g = k.gang_row[q];
+  return g == 0 || (k.g_init[g] && (k.g_once[g] || k.g_members[g] >= k.g_min[g]));
+}
+
+// nodefit_filter with the reservation restore (core/nodefit.py:94,
+// core/reservation.py:50): the free capacity of node j gains, for each of
+// pod q's matched reservations bound to j, its unallocated remainder.
+__device__ __forceinline__ bool nf_fit_rsv(const Cfg& c, const PodIn& p, const NodeIn& n,
+                                           const ConIn& k, int q, int j) {
+  if (!(n.num_pods[j] + 1 <= n.allowed[j])) return false;
+  if (!p.has_any[q]) return true;
+  const int* mi = k.midx + (size_t)q * k.Mm;
+  bool hit = false;
+  for (int m = 0; m < k.Mm && mi[m] >= 0; ++m) hit |= k.r_node[mi[m]] == j;
+  for (int r = 0; r < c.Rf; ++r) {
+    long long req = p.req[(size_t)q * c.Rf + r];
+    long long free_ = n.nf_alloc[(size_t)j * c.Rf + r] - n.requested[(size_t)j * c.Rf + r];
+    if (hit)
+      for (int m = 0; m < k.Mm && mi[m] >= 0; ++m) {
+        const int v = mi[m];
+        if (k.r_node[v] == j)
+          free_ += k.r_alloc[(size_t)v * c.Rf + r] - k.r_allocated[(size_t)v * c.Rf + r];
+      }
+    if ((c.always[r] || req > 0) && req > free_) return false;
+  }
+  return true;
+}
+
 // pack_keys (core/resolved.py:698): score * TB + (TB-1 - rotated index),
 // or the sentinel when infeasible.  ``pre`` carries every mask the caller
 // already evaluated (loadaware filter, live column, real pod).
@@ -201,4 +313,18 @@ __device__ __forceinline__ int pair_key(const Cfg& c, const PodIn& p, const Node
   if (!pre || !nf_fit(c, p, n, q, j)) return KOORD_NEGK;
   long long rot = (j + salt) % N;
   return (int)(pair_total(c, p, n, q, j) * TB + (TB - 1 - rot));
+}
+
+// pair_key under the constraints: the gang prefilter is in ``pre``; the
+// reservation restore enters the fit and the frozen reservation score the
+// total (core/resolved.py masked_totals / touched_scores).
+__device__ __forceinline__ int pair_key_con(const Cfg& c, const PodIn& p, const NodeIn& n,
+                                            const ConIn& k, int q, int j, bool pre, int salt,
+                                            int N, long long TB) {
+  if (!k.has_rsv) return pair_key(c, p, n, q, j, pre, salt, N, TB);
+  if (!pre || !nf_fit_rsv(c, p, n, k, q, j)) return KOORD_NEGK;
+  const long long total =
+      pair_total(c, p, n, q, j) + k.rscores[(size_t)k.xs[q] * N + j] * k.w_rsv;
+  long long rot = (j + salt) % N;
+  return (int)(total * TB + (TB - 1 - rot));
 }

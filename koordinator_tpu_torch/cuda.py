@@ -149,6 +149,22 @@ SCHED_REFRESH = Kernel(
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _I, _P, _P, _P, _I, _P],
 )
 SCHED_ROUNDS = Kernel("schedule", "koord_sched_rounds", SCHEDULE_ROUNDS.argtypes)
+# the constrained instantiations (gang, quota, reservation): the same
+# launches with a constraint pointer table and parameter block
+SCHEDULE_KEYS_CON = Kernel(
+    "schedule", "koord_sched_keys_con",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P, _I, _P],
+)
+SCHEDULE_ROUNDS_CON = Kernel(
+    "schedule", "koord_sched_rounds_con",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+     _P],
+)
+SCHED_REFRESH_CON = Kernel(
+    "schedule", "koord_sched_refresh_con",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+)
+SCHED_ROUNDS_CON = Kernel("schedule", "koord_sched_rounds_con", SCHEDULE_ROUNDS_CON.argtypes)
 # the device residency (csrc/dstate.cu)
 DSTATE_SCATTER = Kernel("dstate", "koord_dstate_scatter", [_I, _P, _P, _P, _P, _I, _I, _P])
 DSTATE_GATE = Kernel(
@@ -156,10 +172,22 @@ DSTATE_GATE = Kernel(
     [_I, _P, _P, _P, _P, _P, _D, _I, _I, _D, _I, _P, _P, _P, _P, _I, _P],
 )
 DSTATE_MAX_ARRAYS = 32  # KOORD_DSTATE_MAX_ARRAYS in csrc/dstate.cu
+# the quota tree's runtime refresh (csrc/quota.cu): ``quota`` and the
+# admission limit ``quota_limit`` (row 0 := 2**60) share one entry point
+QUOTA = Kernel("quota", "koord_quota", [_P] * 10 + [_I] * 5 + [_P, _P, _I, _P])
+QUOTA_LIMIT = Kernel("quota", "koord_quota", QUOTA.argtypes)
+# the reservation plugin's scores (csrc/reservation.cu)
+RSV_RSCORE = Kernel("reservation", "koord_rsv_rscore", [_P] * 4 + [_I] * 3 + [_P, _I, _P])
+RSV_SCORE = Kernel("reservation", "koord_rsv_score", [_P] * 6 + [_I] * 4 + [_P, _I, _P])
+RSV_MAX = 4096  # KOORD_RSV_MAX in csrc/reservation.cu: reservations a score launch takes
 KERNELS = {
     "score": SCORE, "schedule_keys": SCHEDULE_KEYS, "schedule_rounds": SCHEDULE_ROUNDS,
     "sched_refresh": SCHED_REFRESH, "sched_rounds": SCHED_ROUNDS,
     "dstate_scatter": DSTATE_SCATTER, "dstate_gate": DSTATE_GATE,
+    "schedule_keys_con": SCHEDULE_KEYS_CON, "schedule_rounds_con": SCHEDULE_ROUNDS_CON,
+    "sched_refresh_con": SCHED_REFRESH_CON, "sched_rounds_con": SCHED_ROUNDS_CON,
+    "quota": QUOTA, "quota_limit": QUOTA_LIMIT, "rsv_rscore": RSV_RSCORE,
+    "rsv_score": RSV_SCORE,
 }
 
 # the largest dynamic shared memory one block may take on Hopper
@@ -170,6 +198,14 @@ def rounds_smem(P: int, K: int) -> int:
     """Dynamic shared memory of the round-loop kernel (mirrors
     ``rounds_smem`` in csrc/schedule.cu)."""
     return P * (3 * 4 + 3) + K * (2 * 4 + 1)
+
+
+def rounds_smem_con(P: int, K: int, ancestor_depth: int, has_quota: bool) -> int:
+    """Dynamic shared memory of the constrained instantiation (mirrors
+    ``rounds_smem_con`` in csrc/schedule.cu): a mask byte per pod, and with
+    quota each pod's chain of group rows."""
+    base = (P * (3 * 4 + 4) + K * (2 * 4 + 1) + 15) & ~15
+    return base + (P * ancestor_depth * 4 if has_quota else 0)
 
 
 def stream(device: torch.device) -> int:

@@ -19,9 +19,9 @@ which rebuilds only those rows of its key matrix.
 What this port does not carry raises ``NotImplementedError`` instead of
 serving a different answer: NUMA topologies, device inventories, hard node
 taints, assigned pods with required anti-affinity or device grants, and
-the policy/device resident tables that belong to them.  Quota, gang and
-reservation stores do not exist here; pods that reference them are refused
-by the engine.
+the policy/device resident tables that belong to them.  The gang, quota
+and reservation stores are the JAX package's (``service.constraints``),
+hooked into node removal, assign and unassign as there.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from koordinator_tpu_torch.api.model import AssignedPod, Node, NodeMetric
 from koordinator_tpu_torch.core.config import LoadAwareArgs, NodeFitArgs
 from koordinator_tpu_torch.core.loadaware import LoadAwareNodeArrays
 from koordinator_tpu_torch.core.nodefit import NodeFitNodeArrays
+from koordinator_tpu_torch.service.constraints import GangStore, QuotaStore, ReservationStore
 from koordinator_tpu_torch.snapshot import loadaware as la_snap
 from koordinator_tpu_torch.slices import PLACEMENT, later
 from koordinator_tpu_torch.snapshot import nodefit as nf_snap
@@ -481,10 +482,16 @@ class ClusterState:
         nf_args: Optional[NodeFitArgs] = None,
         extra_scalars: tuple = (),
         initial_capacity: int = 256,
+        quota_resources: tuple = ("cpu", "memory"),
         device_state: bool = True,
     ):
         self.la_args = la_args if la_args is not None else LoadAwareArgs()
         self.nf_args = nf_args if nf_args is not None else NodeFitArgs()
+        # cross-cycle constraint state (gangCache / GroupQuotaManager /
+        # reservation cache equivalents) — see service.constraints
+        self.gangs = GangStore()
+        self.quota = QuotaStore(quota_resources)
+        self.reservations = ReservationStore()
         # the NodeFit filter axis is fixed at config time (the Go shim
         # declares the scalar resources it schedules on)
         self.axis: List[str] = nf_snap.fixed_axis(extra_scalars, self.nf_args)
@@ -580,7 +587,13 @@ class ClusterState:
         if node is None:
             return
         for ap in node.assigned_pods:
-            self._pod_node.pop(ap.pod.key, None)
+            key = ap.pod.key
+            self._pod_node.pop(key, None)
+            # a removed node's pods release their quota, gang membership
+            # and reservation allocations, as unassign_pod does
+            self.quota.release(key)
+            self.gangs.note_unassign(key)
+            self.reservations.note_release(key)
         i = self._imap.remove(name)
         self._dirty.discard(name)
         self._clear_row(i)
@@ -619,9 +632,19 @@ class ClusterState:
         node.assigned_pods.append(assigned)
         self._pod_node[key] = node_name
         self._dirty.add(node_name)
+        # constraint-state hooks (idempotent by pod key): quota used walks
+        # the group chain, gang membership counts toward waiting+bound
+        # satisfaction
+        if assigned.pod.quota:
+            self.quota.consume(assigned.pod, assigned.pod.quota, assigned.pod.non_preemptible)
+        if assigned.pod.gang:
+            self.gangs.note_assign(key, assigned.pod.gang)
 
     def unassign_pod(self, pod_key: str) -> None:
         self._content_ver += 1
+        self.quota.release(pod_key)
+        self.gangs.note_unassign(pod_key)
+        self.reservations.note_release(pod_key)
         node_name = self._pod_node.pop(pod_key, None)
         if node_name is None:
             for aps in self._pending_assigns.values():
@@ -688,10 +711,11 @@ class ClusterState:
 
     @property
     def content_key(self) -> tuple:
-        """Equality token over the store's content within this process.
-        Node content only: the constraints slice adds the gang, quota and
-        reservation stores' versions, as the JAX package's key has them."""
-        return (self._content_ver,)
+        """Equality token over the store's content within this process:
+        node-side content (every mutator bumps ``_content_ver``) plus the
+        gang, quota and reservation stores' versions."""
+        return (self._content_ver, self.gangs.version, self.quota.version,
+                self.reservations.version)
 
     # ----------------------------- cross-cycle SCHEDULE warm-start surface
 

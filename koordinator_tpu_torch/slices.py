@@ -5,7 +5,6 @@ the port serves raises ``NotImplementedError`` through ``later``, never a
 silently different answer.
 """
 
-CONSTRAINTS = "the constraints slice"  # gang, quota, reservation
 PLACEMENT = "the placement-and-devices slice"
 STRATEGIES = "the strategies slice"
 

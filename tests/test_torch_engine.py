@@ -21,6 +21,8 @@ import torch
 
 import koordinator_tpu.api.model as jm
 import koordinator_tpu_torch.api.model as tm
+import koordinator_tpu_torch.api.quota as tq
+import koordinator_tpu_torch.service.constraints as tc
 from koordinator_tpu.service.engine import Engine as JEngine
 from koordinator_tpu.service.state import ClusterState as JState
 from koordinator_tpu.utils import fixtures as jfx
@@ -151,11 +153,32 @@ def _plain_state():
     ],
 )
 def test_out_of_slice_pods_raise(field, value):
-    eng = Engine(_plain_state(), device="cpu")
+    """Placement and device pods raise naming the placement-and-devices
+    slice.  Gang, quota and reservation pods are served under
+    LeastAllocated; under MostAllocated (the scan route) a batch the
+    stores constrain raises naming the strategies slice."""
+    from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
+
     pod = tm.Pod(name="p", requests={jm.CPU: 1000})
     setattr(pod, field, value)
+    if field in ("gang", "quota", "reservations"):
+        st = ClusterState(nf_args=NodeFitArgs(strategy=ScoringStrategyType.MOST_ALLOCATED),
+                          extra_scalars=SCALARS)
+        for n in tfx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
+            st.upsert_node(n)
+        st.gangs.upsert(tc.GangInfo(name="g1", min_member=1, total_children=1))
+        st.quota.upsert(tq.QuotaGroup(name="team-a", min={jm.CPU: 100}, max={jm.CPU: 9000}))
+        st.quota.set_total({jm.CPU: 64000, jm.MEMORY: 256 << 30})
+        st.reservations.upsert(tc.ReservationInfo(name="r1", node="node-1",
+                                                  allocatable={jm.CPU: 2000}))
+        eng = Engine(st, device="cpu")
+        eng.score([pod], now=NOW)  # SCORE ignores the constraint fields
+        with pytest.raises(NotImplementedError, match="strategies slice"):
+            eng.schedule([pod], now=NOW)
+        return
+    eng = Engine(_plain_state(), device="cpu")
     for call in (eng.score, eng.schedule):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
+        with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
             call([pod], now=NOW)
 
 
@@ -182,10 +205,12 @@ def test_out_of_slice_store_and_modes_raise():
     eng = Engine(st, device="cpu")
     with pytest.raises(NotImplementedError, match="slice of the port"):
         eng.schedule([cpuset], now=NOW)
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        eng.schedule([tm.Pod(name="p", requests={jm.CPU: 10})], now=NOW, assume=True)
-    with pytest.raises(NotImplementedError, match="constraints slice"):
-        eng.schedule([tm.Pod(name="p", requests={jm.CPU: 10})], now=NOW, assume=True)
+    with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
+        eng.schedule([cpuset], now=NOW, assume=True)
+    # assume=True is served now: the placement binds into the store
+    hosts, _, snap, _ = eng.schedule([tm.Pod(name="p", requests={jm.CPU: 10})], now=NOW,
+                                     assume=True)
+    assert hosts[0] >= 0 and st._pod_node["default/p"] == snap.names[hosts[0]]
 
 
 def test_off_axis_scalar_is_rejected_like_jax():
@@ -206,8 +231,9 @@ def test_entry_points_default_to_cuda():
 
 def test_port_runs_with_jax_unavailable():
     """The port imports nothing of JAX or the JAX package: a SCORE, a cold
-    and a warm SCHEDULE cycle over the resident tables run in a process
-    where importing jax fails."""
+    and a warm SCHEDULE cycle over the resident tables, and a constrained
+    cycle with ``assume=True``, run in a process where importing jax
+    fails."""
     code = textwrap.dedent(
         """
         import sys
@@ -230,6 +256,18 @@ def test_port_runs_with_jax_unavailable():
         assert (h2 == h).all() and (s2 == s).all()
         assert (eng.sched_cold_inits, eng.sched_warm_hits) == (1, 1)
         assert st.residency.full_uploads == 1 and st.residency.verify() == 19
+        # one constrained cycle: a gang, a quota group and a reservation
+        from koordinator_tpu_torch.api.quota import QuotaGroup
+        from koordinator_tpu_torch.service.constraints import GangInfo, ReservationInfo
+        st.gangs.upsert(GangInfo(name="g", min_member=2, total_children=2))
+        st.quota.upsert(QuotaGroup(name="q", min={"cpu": 1000}, max={"cpu": 90000}))
+        st.quota.set_total({"cpu": 400000, "memory": 1 << 40})
+        st.reservations.upsert(ReservationInfo(name="r", node=nodes[0].name,
+                                               allocatable={"cpu": 4000}))
+        pods[0].gang = pods[1].gang = "g"
+        pods[2].quota, pods[3].reservations = "q", ["r"]
+        h3, _, _, al = eng.schedule(pods, now=NOW + 2, assume=True)
+        assert (h3 >= 0).any() and st.gangs.get("g").once_satisfied == (h3[0] >= 0)
         assert not any(m == "jax" or m.startswith(("jax.", "koordinator_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

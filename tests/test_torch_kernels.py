@@ -180,3 +180,86 @@ def test_warm_checks_run_on_cpu_tensors():
     before = {k: v.launches for k, v in cuda.KERNELS.items()}
     chip_smoke.check_warm_kernels(_inputs(torch.device("cpu"), 300, 50), (16, 128), timed=False)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+CON = ("schedule_keys_con", "schedule_rounds_con", "sched_refresh_con", "sched_rounds_con",
+       "rsv_rscore", "rsv_score")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_nodes,num_pods,cpd,cap", [
+    (300, 50, 0, 16), (300, 50, 2, 1), (1000, 200, 0, 16), (1000, 200, 2, 100),
+])
+def test_con_kernels_equal_plain(card, num_nodes, num_pods, cpd, cap):
+    """The constrained schedule kernels (gang, quota, reservation) against
+    their plain versions: key build, round loop (taking the quota upper
+    bound), refresh and warm rounds."""
+    before = {k: cuda.KERNELS[k].launches for k in CON}
+    chip_smoke.check_con_kernels(_inputs(card, num_nodes, num_pods), cpd, timed=False,
+                                 commit_cap=cap)
+    assert all(cuda.KERNELS[k].launches > before[k] for k in CON)
+
+
+@pytest.mark.cuda
+def test_quota_and_reservation_kernels_equal_plain(card):
+    before = {k: cuda.KERNELS[k].launches for k in ("quota", "quota_limit")}
+    chip_smoke.check_quota_kernels(card, timed=False)
+    chip_smoke.check_rsv_kernels(_inputs(card, 1000, 200), timed=False)
+    assert all(cuda.KERNELS[k].launches > before[k] for k in ("quota", "quota_limit"))
+
+
+def test_con_checks_run_on_cpu_tensors():
+    """``chip_smoke``'s constraint checks on CPU tensors, where every
+    wrapper takes its plain version: the comparison logic, and no launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    x = _inputs(torch.device("cpu"), 300, 50)
+    for cpd in (0, 2):
+        chip_smoke.check_con_kernels(x, cpd, timed=False)
+    chip_smoke.check_rsv_kernels(x, timed=False)
+    chip_smoke.check_quota_kernels(torch.device("cpu"), timed=False)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_con_wrappers_refuse_before_launch():
+    """Bad dtypes and shapes of the constraint, quota and reservation
+    inputs raise before any launch, on any device."""
+    from koordinator_tpu_torch.core import quota as tq, reservation as tr
+    from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
+
+    cpu = torch.device("cpu")
+    x = _inputs(cpu, 40, 10)
+    gangs, quota, rsv, matched, midx, rank = chip_smoke.con_inputs_for(x, 1)
+    xs, q_la, q_nf, salts, pod_ok = resolved.kernel_queue(
+        x["la_pods"], x["nf_pods"], x["valid"], x["p_real"], x["order"])
+    req, N = x["nf_pods"].req, x["valid"].shape[0]
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    with pytest.raises(ValueError, match="reservation node"):
+        tr.rsv_rscore(req, rsv._replace(node=rsv.node.long()))
+    with pytest.raises(ValueError, match="matched"):
+        tr.rsv_score(req, matched[:, :-1], N, rsv, rank)
+    with pytest.raises(ValueError, match="reservation rank"):
+        tr.rsv_score(req, matched, N, rsv, rank.int())
+    con = chip_smoke.con_for(x, (gangs, quota, rsv, matched, midx, rank), xs)
+    args = (q_la, x["la_nodes"], x["weights"], q_nf, x["nf_nodes"], x["static"], x["valid"],
+            pod_ok, salts, 16)
+    for bad, match in (
+        (con._replace(gang_row=con.gang_row.long()), "gang rows"),
+        (con._replace(rsv_midx=con.rsv_midx[:, :1].long()), "match index"),
+        (con._replace(quota=con.quota._replace(limit=con.quota.limit.int())), "quota limit"),
+        (con._replace(rsv_scores=con.rsv_scores[:, :-1]), "reservation scores"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            resolved.schedule_keys(*args, bad)
+    M, Mb, feas = resolved.schedule_keys(*args, con)
+    with pytest.raises(ValueError, match="check_parent_depth"):
+        resolved.schedule_rounds(M, Mb, feas, *args[:-1], 16, 16, con, 8, 8)
+    snap = QuotaSnapshot(chip_smoke.quota_trees()[1][1], ["cpu", "memory"])
+    qa = tq.QuotaArrays(*(torch.from_numpy(np.asarray(a)) for a in snap.arrays()))
+    total = torch.tensor([9000, 900])
+    with pytest.raises(ValueError, match="quota parent"):
+        tq.quota_fn(qa._replace(parent=qa.parent.long()), snap.level_tuple(), total)
+    with pytest.raises(ValueError, match="level rows"):
+        tq.quota_limit_fn(qa, (np.array([0, 1]),), total)
+    with pytest.raises(ValueError, match="cluster total"):
+        tq.quota_fn(qa, snap.level_tuple(), total.int())
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before

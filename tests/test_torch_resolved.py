@@ -121,8 +121,18 @@ def test_schedule_fn_on_cpu_matches_jax_engine_kernel(P, N, seed, cap):
 
 
 def test_resolved_refuses_constraints():
+    """The scan's constraint branches (the strategies slice) and the
+    extra-score channel (the placement-and-devices slice) are not ported:
+    the resolved engine raises instead of answering."""
+    import __graft_entry__ as ge
+    from torch_parity import constraints_to_torch
+
+    gang, quota, rsv = ge._example_constraints(8, 16, Rf=5, seed=2)
+    g, q, r = constraints_to_torch(gang, quota, rsv)
+    most = to_torch(batch(8, 16, 0, "MostAllocated"))
+    for kw in ({"gang": g}, {"quota": q}, {"reservation": r}):
+        with pytest.raises(NotImplementedError, match="strategies slice"):
+            tres.schedule_batch_resolved(*most, **kw)
     t = to_torch(batch(8, 16, 0))
-    for kw in ({"gang": object()}, {"quota": object()}, {"reservation": object()},
-               {"extra_scores": torch.zeros(8, 16, dtype=torch.int64)}):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
-            tres.schedule_batch_resolved(*t, **kw)
+    with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
+        tres.schedule_batch_resolved(*t, extra_scores=torch.zeros(8, 16, dtype=torch.int64))

@@ -78,3 +78,29 @@ def assert_same(got, want, what: str = "") -> None:
     g, w = np_of(got), np_of(want)
     assert g.shape == w.shape, f"{what}: shape {g.shape} != {w.shape}"
     assert np.array_equal(g, w), f"{what}: first difference at {np.argwhere(g != w)[:3].tolist()}"
+
+
+def constraints_to_torch(gang=None, quota=None, reservation=None, device=CPU):
+    """The JAX package's GangInputs / QuotaInputs / ReservationInputs (numpy
+    or jnp fields) as the port's NamedTuples on ``device``; None stays None
+    at every level."""
+    from koordinator_tpu_torch.core import cycle as tc, gang as tg, quota as tq
+    from koordinator_tpu_torch.core import reservation as tr
+
+    def conv(cls, a):
+        return cls(*(None if getattr(a, f) is None else convert.tensor(getattr(a, f), device)
+                     for f in cls._fields))
+
+    g = q = r = None
+    if gang is not None:
+        g = tc.GangInputs(pods=conv(tg.GangPodArrays, gang.pods),
+                          gangs=conv(tg.GangArrays, gang.gangs))
+    if quota is not None:
+        q = tc.QuotaInputs(pods=conv(tq.QuotaPodArrays, quota.pods),
+                           **{f: convert.tensor(getattr(quota, f), device)
+                              for f in tc.QuotaInputs._fields[1:]})
+    if reservation is not None:
+        r = tc.ReservationInputs(rsv=conv(tr.ReservationArrays, reservation.rsv),
+                                 **{f: convert.tensor(getattr(reservation, f), device)
+                                    for f in tc.ReservationInputs._fields[1:]})
+    return g, q, r
