@@ -26,11 +26,20 @@ Phases (any failure exits non-zero and prints no result line):
      SCHEDULE cycles — cold; unchanged store; NodeMetric updates on 100
      nodes; a metric-expiry gate flip of 50 nodes with no row stamp
      moving; updates on 5,000 nodes (past the 25% cold fallback) — each
-     with the launches the plan names.
-  Every result of phases 5 and 6 must equal the plain path's (the same
-  engine on the CPU, fed a twin store) and, in phase 6, a warm-disabled
-  engine's on the card; every kernel of each path must have launched
-  during that path, counted from 0 just before it.
+     with the launches the plan names;
+  7. the constraint path: gangs, quota groups and reservations through
+     six cycles (``CON_CYCLES``) and ``Engine.quota_refresh``;
+  8. the placement-and-devices kernels (``placement``, ``dev_feasible``,
+     ``ds_score``, ``dstate_extend``, and the score and schedule kernels
+     with a random mask and extra scores) at the phase's shapes, then the
+     placement-and-devices path: selectors, taints, anti-affinity and
+     GPU/RDMA/cpuset pods over a fleet with device inventories and NUMA
+     topologies through six cycles (``PLACE_CYCLES``), the stores' device
+     state compared after ``assume``.
+  Every result of phases 5 to 8 must equal the plain path's (the same
+  engine on the CPU, fed a twin store) and, from phase 6 on, a
+  warm-disabled engine's on the card; every kernel of each path must have
+  launched during that path, counted from 0 just before it.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX package.
@@ -1354,6 +1363,583 @@ def drive_con_path(device, num_nodes: int, num_pods: int, scalars):
     return launches, records
 
 
+# ------------------------------------------------ placement and devices
+
+
+def placement_inputs(dev, M: int, N: int, Lb: int, seed: int):
+    """The ``placement`` kernel's inputs, made with numpy from ``seed``: N
+    node columns whose label vocab is Lb wide (one hostname label per node,
+    then 20 pools and 10 zones), two hard taints (on every 97th and every
+    89th node), 64 holder selectors and 64 assigned label sets counted on
+    random nodes; M signatures whose selectors name a pool and a zone (one
+    in eight adds a pair absent from the vocab), which tolerate no taint,
+    one or both, and list up to three holder and label-set columns."""
+    from koordinator_tpu_torch import convert
+    from koordinator_tpu_torch.core import placement as pl
+
+    rng = np.random.default_rng(seed)
+    T = lambda a: convert.tensor(a, dev)  # noqa: E731
+    host = Lb - 30
+    labels = np.zeros((N, Lb), dtype=bool)
+    rows = np.arange(N)
+    labels[rows, rows % host] = True
+    labels[rows, host + rows % 20] = True
+    labels[rows, host + 20 + rows % 10] = True
+    taints = np.zeros((N, 8), dtype=bool)
+    taints[::97, 0] = True
+    taints[::89, 1] = True
+    aa_cnt = np.zeros((N, 64), dtype=np.int32)
+    sig_cnt = np.zeros((N, 64), dtype=np.int32)
+    for a in (aa_cnt, sig_cnt):
+        a[rng.integers(0, N, 2000), rng.integers(0, 64, 2000)] = rng.integers(1, 3, 2000)
+    sel, tol, hold, aa = [], [], [], []
+    sel_cnt = np.zeros(M, dtype=np.int32)
+    for m in range(M):
+        pool = int(rng.integers(0, 20))
+        pairs = [host + pool, host + 20 + (pool % 10 if m % 4 else int(rng.integers(0, 10)))]
+        sel_cnt[m] = len(pairs) + (m % 8 == 0)  # an absent pair never matches
+        sel.append(pairs if m % 16 else [])
+        if m % 16 == 0:
+            sel_cnt[m] = 0
+        tol.append([[0, 1], [1], []][m % 3])
+        hold.append(sorted(rng.choice(64, int(rng.integers(0, 4)), replace=False).tolist()))
+        aa.append(sorted(rng.choice(64, int(rng.integers(0, 4)), replace=False).tolist()))
+    sigs = pl.PlacementSigs(*pl.csr(sel), torch.from_numpy(sel_cnt), *pl.csr(tol), *pl.csr(hold),
+                            *pl.csr(aa))
+    return sigs, (T(labels), T(taints), T(aa_cnt), T(sig_cnt))
+
+
+def check_placement_kernel(dev, M: int, N: int, Lb: int, timed: bool):
+    """``placement`` against its plain version (exact); its record when
+    ``timed``."""
+    from koordinator_tpu_torch.core import placement as pl
+
+    sigs, rows = placement_inputs(dev, M, N, Lb, SEED + 20)
+    got = pl.placement(sigs, *rows)
+    want = pl.placement_plain(sigs, *rows)
+    err = require_equal(f"placement {M}x{N} Lb={Lb}", (got,), (want,))
+    opened = int(want.sum())
+    if not 0 < opened < M * N:
+        fail(f"placement {M}x{N}: {opened} open pairs, the check is degenerate")
+    print(f"  placement {M} signatures x {N} nodes, Lb {Lb}, two hard taints: equal plain, "
+          f"{opened} open pairs")
+    if not timed:
+        return None
+    # the work this run's lists need: each listed column of the node rows
+    # read once, the mask written once; a few operations per list entry
+    need = 0
+    for off, idx, t in ((sigs.sel_off, sigs.sel_idx, rows[0]), (sigs.tol_off, sigs.tol_idx, rows[1]),
+                        (sigs.hold_off, sigs.hold_idx, rows[2]), (sigs.aa_off, sigs.aa_idx, rows[3])):
+        need += np.unique(idx.numpy()).size * N * t.element_size()
+    nnz = sum(t.numel() for t in (sigs.sel_idx, sigs.tol_idx, sigs.hold_idx, sigs.aa_idx))
+    b, by = bound_ms(need + M * N + nbytes(*sigs), (3 * nnz + 6 * M) * N)
+    return dict(name="placement", source="koordinator_tpu_torch/csrc/placement.cu",
+                replaces="koordinator_tpu/service/engine.py:276", max_abs_err=err,
+                ms=cuda_ms(lambda: pl.placement(sigs, *rows)),
+                plain_ms=cuda_ms(lambda: pl.placement_plain(sigs, *rows)),
+                bound_ms=b, bound_by=by, library_ms=None)
+
+
+def device_inputs(dev, M: int, N: int, Gm: int, seed: int):
+    """The device kernels' inputs, made with numpy from ``seed``: a third
+    of the N nodes hold 1..Gm GPUs with random free shares (padded slots
+    -1) and 0..16 VFs; M signatures of partial shares, whole-GPU counts,
+    GPU+RDMA draws, RDMA alone and one invalid count, and M GPU requests."""
+    from koordinator_tpu_torch import convert
+    from koordinator_tpu_torch.core import placement as pl
+
+    rng = np.random.default_rng(seed)
+    T = lambda a: convert.tensor(a, dev)  # noqa: E731
+    ng = np.where(rng.random(N) < 0.33, rng.integers(1, Gm + 1, N), 0)
+    slot = np.arange(Gm)[None, :] < ng[:, None]
+    free = np.where(rng.random((N, Gm)) < 0.5, 100, rng.integers(0, 100, (N, Gm)))
+    core = np.where(slot, free, -1).astype(np.int32)
+    mem = np.where(slot, np.where(free == 100, 100, rng.integers(0, 101, (N, Gm))), -1)
+    mem = mem.astype(np.int32)
+    full = ((core == 100) & (mem == 100)).sum(axis=1).astype(np.int32)
+    vfs = np.where(ng > 0, rng.integers(0, 17, N), 0).astype(np.int32)
+    kinds = [(True, False, 0, 50, 50, 0), (True, False, 0, 30, 70, 1), (True, True, 1, 0, 0, 0),
+             (True, True, 4, 0, 0, 1), (False, False, 0, 0, 0, 2), (True, True, 3, 0, 0, 0)]
+    cols = [[] for _ in range(7)]
+    for m in range(M):
+        has, multi, cnt, c, r, rd = kinds[m % len(kinds)]
+        for k, v in enumerate((has, multi, cnt, c + m % 3, r, rd, m != 7)):
+            cols[k].append(v)
+    sigs = pl.DeviceSigs(*(T(np.array(c, dtype=bool if k in (0, 1, 6) else np.int32))
+                           for k, c in enumerate(cols)))
+    alloc2 = np.repeat((100 * ng)[:, None], 2, axis=1).astype(np.int64)
+    used2 = np.stack([np.where(slot, 100 - core, 0).sum(1), np.where(slot, 100 - mem, 0).sum(1)],
+                     axis=1).astype(np.int64)
+    req = np.array([[(100, 100), (50, 50), (400, 400), (30, 60)][m % 4] for m in range(M)],
+                   dtype=np.int64)
+    return (T(core), T(mem), T(full), T(vfs), sigs), (T(req), T(alloc2), T(used2))
+
+
+def check_device_kernels(dev, M: int, N: int, Gm: int, timed: bool):
+    """``dev_feasible`` and ``ds_score`` against their plain versions
+    (exact); their records when ``timed``."""
+    from koordinator_tpu_torch.core import placement as pl
+
+    feas_in, score_in = device_inputs(dev, M, N, Gm, SEED + 21 + Gm)
+    err = {"dev_feasible": require_equal(f"dev_feasible {M}x{N} Gm={Gm}",
+                                         (pl.dev_feasible(*feas_in),),
+                                         (pl.dev_feasible_plain(*feas_in),)),
+           "ds_score": require_equal(f"ds_score {M}x{N} Gm={Gm}", (pl.ds_score(*score_in),),
+                                     (pl.ds_score_plain(*score_in),))}
+    print(f"  dev_feasible and ds_score {M} signatures x {N} nodes, Gm {Gm}: equal plain, "
+          f"{int(pl.dev_feasible_plain(*feas_in).sum())} feasible pairs")
+    if not timed:
+        return []
+    core, mem, full, vfs, sigs = feas_in
+    b1 = bound_ms(nbytes(core, mem, full, vfs, *sigs) + M * N, M * N * (2 * Gm + 4))
+    b2 = bound_ms(nbytes(*score_in) + M * N * 8, M * N * 12)
+    return [
+        dict(name="dev_feasible", source="koordinator_tpu_torch/csrc/device.cu",
+             replaces="koordinator_tpu/service/engine.py:292", max_abs_err=err["dev_feasible"],
+             ms=cuda_ms(lambda: pl.dev_feasible(*feas_in)),
+             plain_ms=cuda_ms(lambda: pl.dev_feasible_plain(*feas_in)), bound_ms=b1[0],
+             bound_by=b1[1], library_ms=None, gm=Gm),
+        dict(name="ds_score", source="koordinator_tpu_torch/csrc/device.cu",
+             replaces="koordinator_tpu/service/engine.py:384", max_abs_err=err["ds_score"],
+             ms=cuda_ms(lambda: pl.ds_score(*score_in)),
+             plain_ms=cuda_ms(lambda: pl.ds_score_plain(*score_in)), bound_ms=b2[0],
+             bound_by=b2[1], library_ms=None),
+    ]
+
+
+def check_extend_kernel(dev, N: int, timed: bool):
+    """``dstate_extend`` against its plain version: a [N, 256] bool table
+    widened to 512 (fill False) and a [N, 8] int32 one to 16 (fill -1) in
+    one launch, the sources untouched; ``F.pad`` on each beside it."""
+    import torch.nn.functional as F
+
+    from koordinator_tpu_torch.service import state as sm
+
+    rng = np.random.default_rng(SEED + 22)
+    a = torch.from_numpy(rng.random((N, 256)) < 0.01).to(dev)
+    b = torch.from_numpy(rng.integers(-1, 101, (N, 8)).astype(np.int32)).to(dev)
+    keep = (a.clone(), b.clone())
+    args = ([a, b], [512, 16], [False, -1])
+    got = sm.dstate_extend(*args)
+    err = require_same(f"dstate_extend {N} rows", got, sm.dstate_extend_plain(*args))
+    require_same("dstate_extend against F.pad",
+                 got, (F.pad(a, (0, 256), value=False), F.pad(b, (0, 8), value=-1)))
+    require_same("dstate_extend's sources", (a, b), keep)
+    print(f"  dstate_extend [{N}, 256] bool -> 512 and [{N}, 8] int32 -> 16: equal plain and "
+          f"F.pad, sources untouched")
+    if not timed:
+        return None
+    bb, by = bound_ms(nbytes(a, b) + nbytes(*got), 0)
+    return dict(name="dstate_extend", source="koordinator_tpu_torch/csrc/dstate.cu",
+                replaces="koordinator_tpu/service/state.py:208", max_abs_err=err,
+                ms=cuda_ms(lambda: sm.dstate_extend(*args)),
+                plain_ms=cuda_ms(lambda: sm.dstate_extend_plain(*args)),
+                library_ms=cuda_ms(lambda: (F.pad(a, (0, 256), value=False),
+                                            F.pad(b, (0, 8), value=-1))),
+                bound_ms=bb, bound_by=by)
+
+
+def extras_for(inp, seed: int):
+    """A placement-and-devices mask (about 90% open) and extra scores in
+    [0, 200] at the inputs' [P, N], made with numpy from ``seed``."""
+    from koordinator_tpu_torch import convert
+
+    P, N = inp["la_pods"].est.shape[0], inp["valid"].shape[0]
+    rng = np.random.default_rng(seed)
+    dev = inp["valid"].device
+    return (convert.tensor(rng.random((P, N)) < 0.9, dev),
+            convert.tensor(rng.integers(0, 201, (P, N)).astype(np.int64), dev))
+
+
+def check_extra_kernels(inp, con: bool, timed: bool, commit_cap: int = 16):
+    """The schedule kernels with the extra channel (a random mask and
+    extra scores), plain (``con`` False) or constrained, against their
+    plain versions: the key build, the round loop, a 128-row refresh (also
+    against a cold key build) and the warm rounds.  Then an all-open mask
+    with zero scores must repeat the results and round counts of the
+    launches without extras.  Returns {kernel: ms with extras} when
+    ``timed``."""
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.core.cycle import PluginWeights, score_batch, score_fn
+
+    la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+    la_nodes, nf_nodes, valid = inp["la_nodes"], inp["nf_nodes"], inp["valid"]
+    w, static, dev = inp["weights"], inp["static"], inp["valid"].device
+    pw = PluginWeights()
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    BS, AD = 16, 8
+    xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(la_pods, nf_pods, valid, inp["p_real"],
+                                                    inp["order"])
+    c = con_for(inp, con_inputs_for(inp, SEED + 11), xs) if con else None
+    x_feas, x_sc = extras_for(inp, SEED + 23)
+    xin = rs.extra_inputs(x_feas, x_sc, xs)
+    score_args = (la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid, x_sc)
+    if not con:  # the score kernel adds the extra scores
+        t, f = score_batch(*score_args[:6], pw)
+        require_equal(f"score with extra scores {P}x{N}", score_fn(*score_args),
+                      (t + x_sc, f & valid[None, :]))
+    tag = "_con" if con else ""
+    q_extra = pod_ok[:, None] & valid[None, :]
+    if con:
+        q_extra = q_extra & rs.gang_pass(c)[:, None]
+    q_extra_x, q_xsc = rs._q_extras(xin, q_extra)
+    rsv_q = rs._queue_rsv(c) if con else None
+    keys_args = (q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok, salts, BS, c)
+    node_args = (q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok, salts, commit_cap, BS)
+    con_kw = (c, 0, AD)
+
+    keys = rs.schedule_keys(*keys_args, xin)
+    require_equal(f"schedule_keys{tag} with extras {P}x{N}", keys, rs.build_keys_plain(
+        q_la, la_nodes, w, q_nf, nf_nodes, static, pw, q_extra_x, salts, BS, rsv_q, q_xsc))
+    got = rs.schedule_rounds(keys[0].clone(), keys[1].clone(), keys[2], *node_args, *con_kw,
+                             xin=xin)
+    want = rs._plain_rounds(keys[0].clone(), keys[1].clone(), keys[2], *node_args, *con_kw,
+                            xin=xin)
+    require_equal(f"schedule_rounds{tag} with extras {P}x{N}", got, want)
+    rounds = int(want[-1].view(-1)[0])
+    rng = np.random.default_rng(SEED + 24)
+    real = rng.choice(N, size=min(125, N // 2), replace=False).astype(np.int32)
+    idx = padded(real)
+    la2, nf2 = perturbed_nodes(la_nodes, nf_nodes, torch.from_numpy(real).to(dev).long())
+    clone = lambda t: tuple(a.clone() for a in t)  # noqa: E731
+    rargs = (q_la, la2, w, q_nf, nf2, static, valid, pod_ok, salts)
+    carry = rs.schedule_refresh(clone(keys), idx, *rargs, BS, c, xin)
+    require_equal(f"sched_refresh{tag} with extras D={idx.size}", carry, rs.refresh_plain(
+        *clone(keys), torch.from_numpy(idx).to(dev), q_la, la2, w, q_nf, nf2, static, pw,
+        q_extra_x, salts, BS, rs.rsv_view(c) if con else None, q_xsc))
+    require_equal(f"sched_refresh{tag} with extras against a cold key build", carry,
+                  rs.schedule_keys(*rargs, BS, c, xin))
+    warm_args = (q_la, la2, w, q_nf, nf2, static, valid, pod_ok, salts, commit_cap, BS, *con_kw)
+    got = rs.schedule_rounds_warm(carry, *warm_args, xin=xin)
+    want_w = rs._plain_rounds(carry[0].clone(), carry[1].clone(), carry[2], *warm_args, xin=xin)
+    require_equal(f"sched_rounds{tag} with extras {P}x{N}", got, want_w)
+
+    # neutral extras repeat the launches without them, round counts included
+    ones = rs.ExtraInputs(feas=torch.ones((N, P), dtype=torch.bool, device=dev),
+                          scores=torch.zeros((N, P), dtype=torch.int64, device=dev))
+    plain_keys = rs.schedule_keys(*keys_args)
+    require_equal(f"schedule_keys{tag}, neutral extras", rs.schedule_keys(*keys_args, ones),
+                  plain_keys)
+    base = rs.schedule_rounds(plain_keys[0].clone(), plain_keys[1].clone(), plain_keys[2],
+                              *node_args, *con_kw)
+    neutral = rs.schedule_rounds(plain_keys[0].clone(), plain_keys[1].clone(), plain_keys[2],
+                                 *node_args, *con_kw, xin=ones)
+    require_equal(f"schedule_rounds{tag}, neutral extras", neutral, base)
+    print(f"  {P} pods x {N} nodes{', constrained' if con else ''}, with extras: kernels equal "
+          f"plain, {rounds} rounds; neutral extras repeat {int(base[-1].view(-1)[0])} rounds")
+    if not timed:
+        return None
+    work = {}
+
+    def reset():
+        work["M"], work["Mb"] = keys[0].clone(), keys[1].clone()
+
+    out = {} if con else {"score": cuda_ms(lambda: score_fn(*score_args))}
+    return {
+        **out,
+        f"schedule_keys{tag}": cuda_ms(lambda: rs.schedule_keys(*keys_args, xin)),
+        f"schedule_rounds{tag}": cuda_ms(
+            lambda: rs.schedule_rounds(work["M"], work["Mb"], keys[2], *node_args, *con_kw,
+                                       xin=xin), setup=reset),
+        f"sched_refresh{tag}": cuda_ms(lambda: rs.schedule_refresh(work["c"], idx, *rargs, BS, c,
+                                                                   xin),
+                                       setup=lambda: work.update(c=clone(keys))),
+        f"sched_rounds{tag}": cuda_ms(lambda: rs.schedule_rounds_warm(carry, *warm_args, xin=xin)),
+    }
+
+
+# the placement-and-devices phase's cycles: (name, clock offset from NOW,
+# launches expected of the main engine, expectations)
+PLACE_CYCLES = (
+    ("cold, with a SCORE", 0.0, dict(placement=1, dev_feasible=1, ds_score=1, score=1,
+                                     schedule_keys=1, schedule_rounds=1, dstate_gate=1),
+     dict(cold=True)),
+    ("unchanged", 1.0, dict(sched_rounds=1, dstate_gate=1), dict(begin_hit=True)),
+    ("a label flipped, metrics on 100 nodes", 2.0,
+     dict(placement=1, dstate_scatter=2, sched_refresh=1, sched_rounds=1, dstate_gate=1),
+     dict(refresh_rows=128)),
+    ("vocab growth and a 16-GPU node", 3.0,
+     dict(placement=1, dev_feasible=1, ds_score=1, dstate_extend=2, dstate_scatter=3,
+          sched_refresh=1, sched_rounds=1, dstate_gate=1), dict(extends=2)),
+    ("assume", 4.0, dict(sched_rounds=1, dstate_gate=1), dict(begin_hit=True, assume=True)),
+    # the audit after the assume cycle already synced its policy and device
+    # rows; the rows table's refresh waits for this cycle's publish
+    ("the next batch", 5.0, dict(placement=1, dev_feasible=1, ds_score=1, schedule_keys=1,
+                                 schedule_rounds=1, dstate_scatter=1, dstate_gate=1),
+     dict(cold=True)),
+)
+PLACE_PATH_KERNELS = ("placement", "dev_feasible", "ds_score", "dstate_extend", "score",
+                      "schedule_keys", "schedule_rounds", "sched_refresh", "sched_rounds",
+                      "dstate_scatter", "dstate_gate")
+GB = 1 << 30
+
+
+def place_hosts(num_nodes: int) -> dict:
+    """The phase's roles by node index: the first fifth of the fleet (2,000
+    of 10,000) carry GPUs; every 10th of those runs single-numa-node and
+    every 10th + 5 amplifies CPU by 1.5; every 100th node is tainted
+    dedicated=infra; node-1 hosts the pinned whole-GPU pods and the 50
+    nodes after the GPU fleet the pinned anti-affinity pods."""
+    gpu = num_nodes // 5
+    return dict(gpu=gpu, pinned_gpu="node-1", pinned_aa=[f"node-{gpu + k}" for k in range(50)])
+
+
+def placement_store(scalars, num_nodes: int):
+    """A store with the composed benchmark's device and selector load
+    (bench/bench_composed.py:135-137, :154-175) and the device benchmark's
+    anti-affinity load (bench/bench_device.py:160-177), on
+    ``random_cluster(seed=7)``: labels {hostname, pool-(i mod 20), z(i mod
+    10)}; every 100th node tainted dedicated=infra:NoSchedule; the GPU
+    fleet with 8 GPUs (numa m // 4, pcie m // 2), 2 RDMA NICs of 8 VFs and
+    a 2-socket x 16-core x 2-thread topology; 2,000 assigned pods labelled
+    team t(j mod 50) on random nodes, every 20th with required
+    anti-affinity on its own team.  The pinned hosts are made roomy (128
+    cores, 1 TiB, no NodeMetric)."""
+    from koordinator_tpu_torch.api.model import CPU, MEMORY, AssignedPod, Pod
+    from koordinator_tpu_torch.core.deviceshare import GPUDevice, RDMADevice
+    from koordinator_tpu_torch.core.numa import CPUTopology
+    from koordinator_tpu_torch.service.state import ClusterState, NodeTopologyInfo
+    from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster
+
+    roles = place_hosts(num_nodes)
+    roomy = {roles["pinned_gpu"], *roles["pinned_aa"]}
+    st = ClusterState(extra_scalars=scalars)
+    _, fleet = random_cluster(SEED, num_nodes=num_nodes, num_pods=0)
+    for i, n in enumerate(fleet):
+        n.labels = dict(n.labels, **{"kubernetes.io/hostname": n.name, "pool": f"pool-{i % 20}",
+                                     "zone": f"z{i % 10}"})
+        if i % 100 == 99:
+            n.taints = [{"key": "dedicated", "value": "infra", "effect": "NoSchedule"}]
+        if n.name in roomy:
+            n.allocatable = {CPU: 128_000, MEMORY: 1024 * GB}
+            n.metric = None
+        st.upsert_node(n)
+    for i in range(roles["gpu"]):
+        name = fleet[i].name
+        st.set_devices(name, [GPUDevice(minor=m, numa_node=m // 4, pcie=m // 2) for m in range(8)],
+                       [RDMADevice(minor=m, numa_node=m, vfs_free=8) for m in range(2)])
+        st.set_topology(name, NodeTopologyInfo(
+            topo=CPUTopology(sockets=2, nodes_per_socket=1, cores_per_node=16, cpus_per_core=2),
+            policy="single-numa-node" if i % 10 == 0 else "none",
+            cpu_ratio=1.5 if i % 10 == 5 else 1.0))
+    rng = np.random.default_rng(SEED + 30)
+    for j in range(num_nodes // 5):
+        team = f"t{j % 50}"
+        st.assign_pod(fleet[int(rng.integers(0, num_nodes))].name, AssignedPod(
+            pod=Pod(name=f"held-{j}", namespace="held", requests={CPU: 500, MEMORY: GB},
+                    labels={"team": team}, anti_affinity={"team": team} if j % 20 == 0 else None),
+            assign_time=NOW))
+    st.publish(NOW)
+    return st
+
+
+def placement_batch(num_nodes: int, num_pods: int, tag: str, seed: int):
+    """``num_pods`` pending pods with the composed benchmark's mix
+    (bench/bench_composed.py:209-228): i mod 10 == 1 GPU pods of its four
+    signatures, i mod 50 == 2 LSR cpuset pods, i mod 5 == 3 node selectors
+    over pool x zone; then i mod 20 == 4 anti-affinity on team t(i mod 50)
+    (labelled so, pinned by hostname per team, so a team's second pod on a
+    host is demoted in the replay) and i mod 20 == 9 tolerating
+    dedicated=infra.  The first three whole-node GPU pods are pinned to one
+    8-GPU host: the third finds its devices taken."""
+    from koordinator_tpu_torch.api.model import CPU, MEMORY
+    from koordinator_tpu_torch.core.deviceshare import GPU_CORE, GPU_MEMORY_RATIO, RDMA
+    from koordinator_tpu_torch.utils.fixtures import random_pod
+
+    roles = place_hosts(num_nodes)
+    gpu_kinds = ({CPU: 4000, MEMORY: 16 * GB, GPU_CORE: 100, GPU_MEMORY_RATIO: 100},
+                 {CPU: 2000, MEMORY: 8 * GB, GPU_CORE: 50, GPU_MEMORY_RATIO: 50},
+                 {CPU: 8000, MEMORY: 64 * GB, GPU_CORE: 400, GPU_MEMORY_RATIO: 400},
+                 {CPU: 4000, MEMORY: 16 * GB, GPU_CORE: 100, GPU_MEMORY_RATIO: 100, RDMA: 2})
+    pods = []
+    for i in range(num_pods):
+        p = random_pod(np.random.default_rng([seed, i]), f"{tag}-{i}", "pending")
+        if i % 10 == 1:
+            kind = (i // 10) % 4
+            p.requests = dict(gpu_kinds[kind])
+            if kind == 2 and i < 120:
+                p.node_selector = {"kubernetes.io/hostname": roles["pinned_gpu"]}
+        elif i % 50 == 2:
+            p.requests, p.qos = {CPU: 8000, MEMORY: 16 * GB}, "LSR"
+        elif i % 5 == 3:
+            p.node_selector = {"pool": f"pool-{i % 20}", "zone": f"z{i % 10}"}
+        elif i % 20 == 4:
+            team = f"t{i % 50}"
+            p.labels, p.anti_affinity = {"team": team}, {"team": team}
+            p.node_selector = {"kubernetes.io/hostname": roles["pinned_aa"][i % 50]}
+        elif i % 20 == 9:
+            p.tolerations = [{"key": "dedicated", "operator": "Equal", "value": "infra",
+                              "effect": "NoSchedule"}]
+        pods.append(p)
+    return pods
+
+
+def device_view(st) -> tuple:
+    """The store's device state: grants by pod, free shares by GPU, free VFs
+    by NIC, held CPUs by node."""
+    return (
+        sorted((k, v[0], [tuple(x) for x in v[1]], [tuple(x) for x in v[2]], list(v[3]), v[4])
+               for k, v in st._dev_alloc.items()),
+        sorted((n, d.minor, d.core_free, d.memory_ratio_free) for n, ds in st._gpus.items()
+               for d in ds),
+        sorted((n, r.minor, r.vfs_free) for n, rs in st._rdma.items() for r in rs),
+        sorted((n, sorted((c, tuple(p)) for c, p in held.items()))
+               for n, held in st._cpus_taken.items() if held),
+    )
+
+
+def drive_placement_path(device, num_nodes: int, num_pods: int, scalars):
+    """The placement-and-devices phase at full width in the default serving
+    configuration (resident tables, warm start on): ``placement_store``
+    and ``placement_batch`` through ``PLACE_CYCLES``.  Every cycle's hosts,
+    scores and allocation records (grants included) are held against a
+    warm-disabled engine on the card and the CPU engine, each on a store
+    of its own fed the same operations; after ``assume`` the stores'
+    device state against each other; each cycle's launches against the
+    plan.  Returns (launches per kernel during this phase, per-cycle
+    records)."""
+    import copy
+
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import CPU, MEMORY, AssignedPod, NodeMetric, Pod
+    from koordinator_tpu_torch.core.deviceshare import GPUDevice, RDMADevice
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.service.state import next_bucket
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    t0 = time.perf_counter()
+    stores = [placement_store(scalars, num_nodes) for _ in range(3)]
+    print(f"  ingest of three stores: {time.perf_counter() - t0:.1f} s", flush=True)
+    state, res = stores[0], stores[0].residency
+    eng, cold, ref = (Engine(stores[0], device=device), Engine(stores[1], device=device),
+                      Engine(stores[2], device="cpu"))
+    cold.sched_warm_enabled = False
+    batch = {e: placement_batch(num_nodes, num_pods, "place", SEED + 31) for e in (eng, cold, ref)}
+    rng = np.random.default_rng(SEED + 32)
+    metric_nodes = [f"node-{int(i)}" for i in rng.choice(num_nodes, 100, replace=False)]
+    flip = f"node-{num_nodes - 2}"
+    on_card = device.type == "cuda"
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    records = []
+    with LaunchTimer() as timer:
+        for c, (name, dt, plan, expect) in enumerate(PLACE_CYCLES):
+            now = NOW + dt
+            for st in stores:
+                if c == 2:
+                    spec = copy.copy(st._nodes[flip])
+                    spec.labels = dict(spec.labels, flip="x")
+                    st.upsert_node(spec)
+                    for i, node in enumerate(metric_nodes):
+                        st.update_metric(node, NodeMetric(
+                            node_usage={CPU: 3000 + 11 * i, MEMORY: (3 + i % 5) * GB},
+                            update_time=now))
+                if c == 3:
+                    # assigned pods with new label sets, past the label-set
+                    # vocabulary's bucket; one node re-inventoried with 16 GPUs
+                    for k in range(st._Gb - len(st._sig_vocab) + 1):
+                        st.assign_pod(f"node-{100 + 7 * k}", AssignedPod(pod=Pod(
+                            name=f"grow-{k}", namespace="held", requests={CPU: 100},
+                            labels={"team": f"grow-{k}"}), assign_time=now))
+                    st.set_devices("node-3", [GPUDevice(minor=m, numa_node=m // 8, pcie=m // 4)
+                                              for m in range(16)],
+                                   [RDMADevice(minor=m, numa_node=m, vfs_free=8) for m in range(2)])
+                if c == 5:
+                    for e in (eng, cold, ref):
+                        batch[e] = placement_batch(num_nodes, num_pods, "place-next", SEED + 33)
+            t0 = time.perf_counter()
+            for st in stores:
+                st.publish(now)
+            publish = (time.perf_counter() - t0) * 1e3 / len(stores)
+            before = {k: v.launches for k, v in cuda.KERNELS.items()}
+            warm0, begin0 = eng.sched_warm_hits, eng.sched_begin_hits
+            up0, ext0 = res.full_uploads, res.extends
+            assume = bool(expect.get("assume"))
+            if on_card:
+                timer.take()
+            t0 = time.perf_counter()
+            score_wall = None
+            if c == 0:
+                totals, feasible, _ = eng.score(batch[eng], now=now)
+                score_wall = (time.perf_counter() - t0) * 1e3
+                rt, rf, _ = ref.score(batch[ref], now=now)
+                require_equal("placement SCORE vs the CPU engine", (totals, feasible), (rt, rf))
+                t0 = time.perf_counter()
+            hosts, scores, snap, allocs = eng.schedule(batch[eng], now=now, assume=assume)
+            wall = (time.perf_counter() - t0) * 1e3
+            k_ms = timer.take() if on_card else {}
+            launched = {k: v.launches - before[k] for k, v in cuda.KERNELS.items()}
+            demotions = dict(eng.last_demotions)
+            with uncounted():
+                ch, cs, _, ca = cold.schedule(batch[cold], now=now, assume=assume)
+            rh, rs_, _, ra = ref.schedule(batch[ref], now=now, assume=assume)
+            require_equal(f"place cycle {c} ({name}) vs warm-disabled", (hosts, scores), (ch, cs))
+            require_equal(f"place cycle {c} ({name}) vs the CPU engine", (hosts, scores),
+                          (rh, rs_))
+            if allocs != ca or allocs != ra:
+                fail(f"place cycle {c} ({name}): allocation records differ")
+            if demotions != ref.last_demotions or demotions != cold.last_demotions:
+                fail(f"place cycle {c} ({name}): demotions {demotions}, CPU engine "
+                     f"{ref.last_demotions}")
+            counters = (eng.sched_warm_hits, eng.sched_cold_inits, eng.sched_begin_hits)
+            if counters != (ref.sched_warm_hits, ref.sched_cold_inits, ref.sched_begin_hits):
+                fail(f"place cycle {c} ({name}): warm/cold/begin counters {counters} differ from "
+                     f"the CPU engine's")
+            want = {k: plan.get(k, 0) for k in launched}
+            if on_card and launched != want:
+                fail(f"place cycle {c} ({name}): launches {launched}, planned {want}")
+            is_cold = eng.sched_warm_hits == warm0
+            if is_cold != bool(expect.get("cold")):
+                fail(f"place cycle {c} ({name}): cold={is_cold}, planned {bool(expect.get('cold'))}")
+            if expect.get("begin_hit") and eng.sched_begin_hits != begin0 + 1:
+                fail(f"place cycle {c} ({name}): the begin-input cache missed")
+            if "refresh_rows" in expect and next_bucket(eng.sched_last_dirty, 16) != \
+                    expect["refresh_rows"]:
+                fail(f"place cycle {c} ({name}): refreshed {eng.sched_last_dirty} rows")
+            if c and res.full_uploads != up0:
+                fail(f"place cycle {c} ({name}): {res.full_uploads - up0} wholesale uploads")
+            if res.extends - ext0 != expect.get("extends", 0):
+                fail(f"place cycle {c} ({name}): {res.extends - ext0} table extensions")
+            if assume:
+                if min(demotions.values()) == 0:
+                    fail(f"place cycle {c} ({name}): demotions {demotions}, planned at least one "
+                         f"of each")
+                views = [device_view(st) for st in stores]
+                if views[0] != views[1] or views[0] != views[2] or not views[0][0]:
+                    fail(f"place cycle {c} ({name}): the stores' device state differs after "
+                         f"assume")
+                if sorted(state._pod_node.items()) != sorted(stores[2]._pod_node.items()):
+                    fail(f"place cycle {c} ({name}): the stores' placements differ")
+            res.verify()
+            placed = int((hosts >= 0).sum())
+            grants = sum(1 for a in allocs if a and ("devices" in a or "cpuset" in a))
+            busy = sum(k_ms.values())
+            rec = dict(cycle=name, publish_ms=publish, wall_ms=wall, score_wall_ms=score_wall,
+                       kernel_ms=k_ms, launches={k: v for k, v in launched.items() if v},
+                       placed=placed, grants=grants, demotions=demotions, rounds=eng.last_rounds,
+                       dirty_rows=None if is_cold else eng.sched_last_dirty,
+                       warm_hits=eng.sched_warm_hits, cold_inits=eng.sched_cold_inits,
+                       begin_hits=eng.sched_begin_hits, full_uploads=res.full_uploads,
+                       scatters=res.scatters, extends=res.extends,
+                       h2d_bytes=res.h2d_bytes_total,
+                       policy_bytes=res.table_bytes("policy"),
+                       device_bytes=res.table_bytes("device"))
+            records.append(rec)
+            print(f"  cycle {c} ({name}): {placed}/{len(hosts)} placed ({grants} with devices or "
+                  f"cpusets; demoted {demotions}) in {rec['rounds']} rounds, "
+                  f"{'cold' if is_cold else 'warm'}, dirty {rec['dirty_rows']}; publish "
+                  f"{publish:.1f} ms, schedule {wall:.1f} ms wall"
+                  + (f", score {score_wall:.1f} ms wall" if score_wall else "")
+                  + f", kernels {busy:.2f} ms: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(k_ms.items()))
+                  + f"; launches {rec['launches']}; warm/cold/begin {counters}; tables: policy "
+                  f"{rec['policy_bytes']} B, device {rec['device_bytes']} B, h2d "
+                  f"{rec['h2d_bytes']} B, uploads {res.full_uploads}, scatters {res.scatters}, "
+                  f"extends {res.extends}", flush=True)
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA card", file=sys.stderr)
@@ -1393,6 +1979,13 @@ def main() -> int:
         check_con_kernels(small, cpd, timed=False)
     check_con_kernels(small, 0, timed=False, commit_cap=1)
     check_rsv_kernels(small, timed=False)
+    check_placement_kernel(dev, 32, 600, 700, timed=False)
+    for gm in (8, 16):
+        check_device_kernels(dev, 16, 500, gm, timed=False)
+    check_extend_kernel(dev, 300, timed=False)
+    for con in (False, True):
+        check_extra_kernels(small, con, timed=False)
+    check_extra_kernels(small, True, timed=False, commit_cap=1)
     pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
     full = build_inputs(pods, nodes, dev, scalars)
     records = check_kernels(full, 16, timed=True)
@@ -1402,6 +1995,21 @@ def main() -> int:
     check_con_kernels(full, 2, timed=False)
     records += check_quota_kernels(dev, timed=True)
     records += check_rsv_kernels(full, timed=True)
+    # the placement-and-devices kernels at the phase's shapes, and the
+    # schedule kernels with a random mask and extra scores
+    n_cols = full["valid"].shape[0]
+    records.append(check_placement_kernel(dev, 256, n_cols, 16_384, timed=True))
+    dev_recs = {gm: check_device_kernels(dev, 16, n_cols, gm, timed=True) for gm in (8, 16)}
+    for rec, rec16 in zip(dev_recs[8], dev_recs[16]):
+        records.append(dict(rec, ms_gm16=rec16["ms"], plain_ms_gm16=rec16["plain_ms"],
+                            bound_ms_gm16=rec16["bound_ms"]))
+    records.append(check_extend_kernel(dev, n_cols, timed=True))
+    extra_ms = {}
+    for con in (False, True):
+        extra_ms.update(check_extra_kernels(full, con, timed=True))
+    for rec in records:
+        if rec["name"] in extra_ms:
+            rec["ms_extras"] = extra_ms[rec["name"]]
     del full
     torch.cuda.empty_cache()
 
@@ -1413,33 +2021,38 @@ def main() -> int:
     print(f"constraint path: {NUM_NODES} nodes x {NUM_PODS} pods, gangs, quota and "
           f"reservations, resident node tables", flush=True)
     con_launches, con_cycles = drive_con_path(dev, NUM_NODES, NUM_PODS, scalars)
+    print(f"placement-and-devices path: {NUM_NODES} nodes x {NUM_PODS} pods, selectors, taints, "
+          f"anti-affinity, GPU/RDMA/cpuset pods, resident node tables", flush=True)
+    place_launches, place_cycles = drive_placement_path(dev, NUM_NODES, NUM_PODS, scalars)
     for path, launched, kernels in (
         ("cold", cold_launches, ("score", "schedule_keys", "schedule_rounds")),
         ("warm", warm_launches, WARM_PATH_KERNELS),
         ("constraint", con_launches, CON_PATH_KERNELS),
+        ("placement", place_launches, PLACE_PATH_KERNELS),
     ):
         idle = [k for k in kernels if launched[k] == 0]
         if idle:
             fail(f"the {path} path never launched {idle}")
     print(f"  launches on the cold path {cold_launches}; on the warm path {warm_launches}; on "
-          f"the constraint path {con_launches}")
+          f"the constraint path {con_launches}; on the placement path {place_launches}")
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "ub_rounds",
-            "dirty_rows", "groups")
+            "dirty_rows", "groups", "ms_extras", "ms_gm16", "plain_ms_gm16", "bound_ms_gm16")
     kernels = []
     for rec in records:
         name = rec["name"]
         by_path = {"cold": cold_launches[name], "warm": warm_launches[name],
-                   "constraints": con_launches[name]}
-        # only dstate_scatter has a PyTorch call computing the same function
-        # (index_copy_); the others have none
+                   "constraints": con_launches[name], "placement": place_launches[name]}
+        # only dstate_scatter (index_copy_) and dstate_extend (F.pad) have a
+        # PyTorch call computing the same function; the others have none
         rec = dict(rec, route="cuda", launches=sum(by_path.values()), launches_by_path=by_path)
         rec.setdefault("library_ms", None)
         kernels.append({k: v for k, v in rec.items() if k in keys})
     print(json.dumps({"kernels": kernels, "transfers": transfers, "card": card,
                       "main_path_ms": main_ms, "main_path_kernel_ms": main_kernel_ms,
-                      "warm_cycles": warm_cycles, "constraint_cycles": con_cycles}))
+                      "warm_cycles": warm_cycles, "constraint_cycles": con_cycles,
+                      "placement_cycles": place_cycles}))
     print(f"device: {kind} | {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -140,22 +140,34 @@ def score_fn(
     nf_nodes: NodeFitNodeArrays,
     nf_static: NodeFitStatic,
     valid: torch.Tensor,
+    extra_scores: Optional[torch.Tensor] = None,
 ):
     """The ``score`` kernel: ``score_batch`` under the default plugin
     weights, as the JAX engine's ``score_fn`` calls it, with dead columns
-    masked infeasible.  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/score.cu`` (LeastAllocated only) or raise."""
+    masked infeasible and the batch's pre-weighted ``extra_scores`` [P, N]
+    (deviceshare, amplified CPU) added to the totals.  CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/score.cu`` (LeastAllocated
+    only) or raise."""
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    if extra_scores is not None and (extra_scores.dtype != torch.int64
+                                     or tuple(extra_scores.shape) != (P, N)
+                                     or extra_scores.device != valid.device):
+        raise ValueError(f"extra_scores: expected int64 {(P, N)} on {valid.device}, got "
+                         f"{extra_scores.dtype} {tuple(extra_scores.shape)} on "
+                         f"{extra_scores.device}")
     if valid.device.type == "cpu":
         totals, feasible = score_batch(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static)
+        if extra_scores is not None:
+            totals = totals + extra_scores
         return totals, feasible & valid[None, :]
-    P, N = la_pods.est.shape[0], valid.shape[0]
     args = cuda.pair_args(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, valid)
+    xsc = None if extra_scores is None else extra_scores.contiguous()
     totals = torch.empty((P, N), dtype=torch.int64, device=valid.device)
     feasible = torch.empty((P, N), dtype=torch.bool, device=valid.device)
     if P and N:
         cuda.SCORE.launch(
-            args.pods, args.nodes, args.cfg, args.la_w, args.valid, P, N,
-            totals.data_ptr(), feasible.data_ptr(),
+            args.pods, args.nodes, args.cfg, args.la_w, args.valid,
+            0 if xsc is None else xsc.data_ptr(), P, N, totals.data_ptr(), feasible.data_ptr(),
             cuda.device_index(valid.device), cuda.stream(valid.device),
         )
     return totals, feasible

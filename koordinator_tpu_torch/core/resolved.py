@@ -37,8 +37,16 @@ aggregates and under committed + every earlier candidate's consumption; each com
 nominates and consumes a matched reservation on its node; the reservation
 restore and frozen scores enter every key; after the rounds the gang
 Permit (``commit_gangs``) revokes the groups that missed their quorum.
-The extra-score channel arrives with a later slice and raises
-``NotImplementedError`` here, as do constraints under the scan.
+Constraints under the scan raise ``NotImplementedError`` (the strategies
+slice).
+
+The placement-and-devices channel: ``extra_feasible`` [P, N] (selectors,
+taints, anti-affinity, device and cpuset feasibility) is ANDed into every
+pair's feasibility and ``extra_scores`` [P, N] (the pre-weighted
+deviceshare and amplified-CPU scores) is added to every pair's total, both
+frozen for the batch like the reservation scores; ``extra_score_bound``
+joins the packed key's bound.  The kernels take them node-major in queue
+order (``ExtraInputs``).
 
 ``schedule_keys`` and ``schedule_rounds`` are the wrappers of the two CUDA
 launches of the cold ``schedule`` kernel (``csrc/schedule.cu``);
@@ -94,7 +102,7 @@ from koordinator_tpu_torch.core.reservation import (
     nominate_with_ranks,
     order_ranks,
 )
-from koordinator_tpu_torch.slices import PLACEMENT, STRATEGIES, later
+from koordinator_tpu_torch.slices import STRATEGIES, later
 
 # packed-key infeasible sentinel; the fits_i32 guard keeps every real key
 # clear of it
@@ -102,12 +110,39 @@ NEGK = -(1 << 30)
 NEGK_THRESH = -(1 << 29)
 
 
-def key_bound(plugin_weights: PluginWeights) -> int:
+def key_bound(plugin_weights: PluginWeights, extra_score_bound: int = 0) -> int:
     """The static score bound the packed key must hold (per-plugin scores
-    are <= MaxNodeScore after normalization)."""
+    are <= MaxNodeScore after normalization), plus the extra channel's."""
     return 100 * (
         plugin_weights.loadaware + plugin_weights.nodefit + plugin_weights.reservation
-    )
+    ) + extra_score_bound
+
+
+class ExtraInputs(NamedTuple):
+    """A batch's frozen placement-and-devices inputs as the schedule kernels
+    take them: node-major [N, P] in queue order, None when absent."""
+
+    feas: Optional[torch.Tensor]  # [N, P] bool, ANDed into feasibility
+    scores: Optional[torch.Tensor]  # [N, P] int64, added to the totals
+
+
+def extra_inputs(extra_feasible, extra_scores, xs) -> Optional[ExtraInputs]:
+    """Lay [P, N] submission-order extras out node-major in queue order
+    ``xs`` (glue on the device); None when both are absent."""
+    if extra_feasible is None and extra_scores is None:
+        return None
+    t = lambda a: None if a is None else a[xs].T.contiguous()  # noqa: E731
+    return ExtraInputs(feas=t(extra_feasible), scores=t(extra_scores))
+
+
+def _q_extras(xin: Optional[ExtraInputs], q_extra):
+    """The plain versions' view of ``xin``: (the mask ANDed into
+    ``q_extra`` [P, N], the [P, N] scores or None)."""
+    if xin is None:
+        return q_extra, None
+    if xin.feas is not None:
+        q_extra = q_extra & xin.feas.T
+    return q_extra, None if xin.scores is None else xin.scores.T
 
 
 def fits_i32(score_bound: int, num_nodes: int) -> bool:
@@ -162,11 +197,11 @@ def _rsv_cols(rsv_node, remain, midx, q_scores, colsc):
 
 
 def _touched_keys(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T, q_extra_T,
-                  salts, colsc, TB, rsv=None):
+                  salts, colsc, TB, rsv=None, q_xsc_T=None):
     """[K, P] int32 keys of the touched node rows ``colsc`` against the
     current state (core/resolved.py touched_scores + the key repack);
     ``rsv`` = (node, remain, midx, queue-order scores) adds the
-    reservation restore and score."""
+    reservation restore and score, ``q_xsc_T`` [N, P] the extra scores."""
     N = la.alloc.shape[0]
     la_cols, nf_cols = _rows(la, colsc), _rows(nf, colsc)
     tot = loadaware_score(q_la, la_cols, la_w) * plugin_weights.loadaware
@@ -175,6 +210,8 @@ def _touched_keys(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T
     if rsv is not None:
         extra, rs = _rsv_cols(*rsv, colsc)
         tot = tot + rs * plugin_weights.reservation
+    if q_xsc_T is not None:
+        tot = tot + q_xsc_T[colsc].T
     feas = (la_feas_T[colsc].T & nodefit_filter(q_nf, nf_cols, nf_static, extra)
             & q_extra_T[colsc].T)
     rot = torch.remainder(colsc.to(torch.int64)[None, :] + salts[:, None], N)
@@ -183,17 +220,20 @@ def _touched_keys(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T
 
 
 def build_keys_plain(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
-                     salts, block_size: int, reservation=None):
+                     salts, block_size: int, reservation=None, q_xsc=None):
     """The cold init: (M [N_pad, P] int32, Mb [NB, P] int32, la_feas_T
     [N, P] bool) for pods already in queue order; ``q_extra`` [P, N] is
     every mask beyond the two plugin filters; ``reservation`` (queue
-    order) adds its restore and scores."""
+    order) adds its restore and scores, ``q_xsc`` [P, N] the extra
+    scores."""
     P, N = q_la.est.shape[0], la_nodes.alloc.shape[0]
     TB = tie_base(N)
     NB = -(-N // block_size)
     la_feas_T = loadaware_filter(q_la, la_nodes).T.contiguous()
     total, feas = score_batch(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights,
                               reservation)
+    if q_xsc is not None:
+        total = total + q_xsc
     M = _pack_keys(total, feas & q_extra, salts.to(torch.int64), N, TB).T.to(torch.int32)
     if NB * block_size != N:
         pad = torch.full((NB * block_size - N, P), NEGK, dtype=torch.int32, device=M.device)
@@ -204,7 +244,7 @@ def build_keys_plain(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_wei
 
 
 def refresh_plain(M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-                  plugin_weights, q_extra, salts, block_size: int, rsv=None):
+                  plugin_weights, q_extra, salts, block_size: int, rsv=None, q_xsc=None):
     """The warm carry's delta refresh, in place: for the node rows
     ``dirty`` [D] (padding repeats a real row), the real LoadAware filter
     into ``la_feas_T``, the packed keys into ``M`` from the current node
@@ -217,7 +257,7 @@ def refresh_plain(M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes,
     la_feas_T[d] = loadaware_filter(q_la, _rows(la_nodes, d)).T
     M[d] = _touched_keys(
         q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights, la_feas_T, q_extra.T,
-        salts.to(torch.int64), d, tie_base(N), rsv,
+        salts.to(torch.int64), d, tie_base(N), rsv, None if q_xsc is None else q_xsc.T,
     )
     bc = torch.div(d, block_size, rounding_mode="floor")
     Mb[bc] = M.view(NB, block_size, P)[bc].amax(dim=1)
@@ -330,12 +370,13 @@ def _admit(quota: QuotaInputs, used_at, npu_at, check_parent_depth: int) -> torc
 def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
                      plugin_weights, q_extra, salts, commit_cap: int, block_size: int,
                      con: Optional[ConInputs] = None, check_parent_depth: int = 0,
-                     ancestor_depth: int = 8):
+                     ancestor_depth: int = 8, q_xsc=None):
     """The round loop from the init state (core/resolved.py round_body):
     per round every pending pod's pick, the first-picker rule, the prefix
     cut at the first blocked pod and at K placements, the assume path
     over <= K touched rows and their rescoring.  ``q_extra`` [P, N] holds
-    every pod/node mask (the gang prefilter included).  Returns (hosts,
+    every pod/node mask (the gang prefilter included), ``q_xsc`` [P, N]
+    the extra scores.  Returns (hosts,
     scores, rounds) in queue order; ``M``/``Mb`` are updated in place.
 
     With ``con``, the constrained loop: quota_certainty (a pod commits
@@ -353,6 +394,7 @@ def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_
     salts64 = salts.to(i64)
     qpos = torch.arange(P, device=dev)
     q_extra_T = q_extra.T
+    q_xsc_T = None if q_xsc is None else q_xsc.T
     committed = torch.zeros(P, dtype=torch.bool, device=dev)
     hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
     scores = torch.zeros(P, dtype=i64, device=dev)
@@ -480,7 +522,7 @@ def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_
 
         M[colsc] = _touched_keys(
             q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T, q_extra_T,
-            salts64, colsc, TB, rsv_terms,
+            salts64, colsc, TB, rsv_terms, q_xsc_T,
         )
         bc = torch.div(colsc, block_size, rounding_mode="floor")
         Mb[bc] = M.view(NB, block_size, P)[bc].amax(dim=1)
@@ -512,7 +554,8 @@ def schedule_batch_resolved(
     commit_cap: int = 16,
     tie_break: str = "salted",
     block_size: int = 16,
-    extra_scores=None,
+    extra_scores: Optional[torch.Tensor] = None,
+    extra_score_bound: int = 0,
     return_rounds: bool = False,
     return_precommit: bool = False,
     rsv_match_bound: Optional[int] = None,
@@ -539,9 +582,12 @@ def schedule_batch_resolved(
     it; ``refresh_only`` rebuilds its ``dirty_cols`` rows against the
     current inputs and returns the refreshed carry instead of scheduling;
     ``return_warm`` appends a cold run's init carry to the outputs.  The
-    caller's carry tensors are never written."""
-    if extra_scores is not None:
-        raise later("extra_scores inputs to the resolved engine", PLACEMENT)
+    caller's carry tensors are never written.
+
+    ``extra_scores`` [P, N] (pre-weighted, frozen for the batch) adds to
+    every pair's total; ``extra_score_bound`` bounds it for the packed
+    key.  The scan takes no extra scores: under another strategy they
+    raise naming the strategies slice."""
     constrained = gang is not None or quota is not None or reservation is not None
     P_full = la_pods.est.shape[0]
     N = la_nodes.alloc.shape[0]
@@ -558,6 +604,9 @@ def schedule_batch_resolved(
         if constrained:
             raise later(f"gang, quota or reservation inputs under {nf_static.strategy} "
                         "(the scan's constraint branches)", STRATEGIES)
+        if extra_scores is not None:
+            raise later(f"device or amplified-CPU scores under {nf_static.strategy} "
+                        "(the scan's extra-score branch)", STRATEGIES)
         # monotonicity precondition: other strategies take the scan
         hosts, scores = schedule_batch(
             la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, plugin_weights,
@@ -567,9 +616,10 @@ def schedule_batch_resolved(
         if return_rounds:
             out = out + (0,)
         return out + (hosts,) if return_precommit else out
-    if not fits_i32(key_bound(plugin_weights), N):
+    if not fits_i32(key_bound(plugin_weights, extra_score_bound), N):
         raise later("the int64-key matrix engine (node axes beyond 2**21)", STRATEGIES)
     xs, q_la, q_nf, salts = _queue(la_pods, nf_pods, order, N, tie_break)
+    q_xsc = None if extra_scores is None else extra_scores[xs]
     if extra_feasible is None:
         q_extra = torch.ones((xs.shape[0], N), dtype=torch.bool, device=dev)
     else:
@@ -582,26 +632,26 @@ def schedule_batch_resolved(
         rsv = rsv_view(con) if con is not None and con.rsv is not None else None
         return refresh_plain(
             *(a.clone() for a in warm_init), dirty_cols, q_la, la_nodes, la_weights, q_nf,
-            nf_nodes, nf_static, plugin_weights, q_extra, salts, block_size, rsv,
+            nf_nodes, nf_static, plugin_weights, q_extra, salts, block_size, rsv, q_xsc,
         )
     if warm_init is not None:
         M0, Mb0, la_feas_T = warm_init
     else:
         M0, Mb0, la_feas_T = build_keys_plain(
             q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
-            salts, block_size, None if con is None else _queue_rsv(con),
+            salts, block_size, None if con is None else _queue_rsv(con), q_xsc,
         )
     if con is None:
         hosts_q, scores_q, rounds = run_rounds_plain(
             M0.clone(), Mb0.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes,
-            nf_static, plugin_weights, q_extra, salts, commit_cap, block_size,
+            nf_static, plugin_weights, q_extra, salts, commit_cap, block_size, q_xsc=q_xsc,
         )
         pre_q = hosts_q
     else:
         hosts_q, scores_q, pre_q, rounds, _ = run_rounds_plain(
             M0.clone(), Mb0.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes,
             nf_static, plugin_weights, q_extra, salts, commit_cap, block_size, con,
-            check_parent_depth, ancestor_depth,
+            check_parent_depth, ancestor_depth, q_xsc,
         )
     hosts, scores = _submission_order(hosts_q, scores_q, xs, P_full)
     out = (hosts, scores)
@@ -638,6 +688,20 @@ def con_scratch_words(P: int, Q: int, Rq: int, G: int, cpd: int, ad: int) -> int
 
 _CON_PTRS = 26
 _CON_INTS = 10
+
+
+def _xin_args(xin: Optional[ExtraInputs], P: int, N: int, dev) -> tuple:
+    """The extras' two device pointers (0 when absent), checked before any
+    launch, and the tensors to keep alive."""
+    if xin is None:
+        return 0, 0, ()
+    feas = sc = None
+    if xin.feas is not None:
+        feas = cuda._checked(xin.feas, torch.bool, (N, P), dev, "extra feasibility")
+    if xin.scores is not None:
+        sc = cuda._checked(xin.scores, torch.int64, (N, P), dev, "extra scores")
+    return (0 if feas is None else feas.data_ptr(), 0 if sc is None else sc.data_ptr(),
+            (feas, sc))
 
 
 def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool, cpd: int,
@@ -712,26 +776,30 @@ def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool,
 
 
 def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts,
-                  block_size: int, con: Optional[ConInputs] = None):
+                  block_size: int, con: Optional[ConInputs] = None,
+                  xin: Optional[ExtraInputs] = None):
     """First launch of the ``schedule`` kernel: the cold key build for pods
     in queue order under the default plugin weights, the extra mask
     factorized as ``pod_ok[q] & valid[n]``; ``con`` adds the gang
     prefilter and the reservation restore and scores (the constrained
-    instantiation).  Returns (M, Mb, la_feas_T)."""
+    instantiation), ``xin`` the placement-and-devices mask and scores.
+    Returns (M, Mb, la_feas_T)."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     if con is not None:  # the constraint inputs are checked on every device
         con_args = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, 0, 1,
                                     PluginWeights().reservation)
+    xf, xsc, xkeep = _xin_args(xin, P, N, dev)
     if dev.type == "cpu":
         q_extra = pod_ok[:, None] & valid[None, :]
         rsv = None
         if con is not None:
             q_extra = q_extra & gang_pass(con)[:, None]
             rsv = _queue_rsv(con)
+        q_extra, q_xsc = _q_extras(xin, q_extra)
         return build_keys_plain(
             q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(), q_extra, salts,
-            block_size, rsv,
+            block_size, rsv, q_xsc,
         )
     args = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
     NB = -(-N // block_size)
@@ -741,7 +809,7 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
     Mb = torch.empty((NB, P), dtype=torch.int32, device=dev)
     la_feas_T = torch.empty((N, P), dtype=torch.bool, device=dev)
     head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-            salts.data_ptr(), P, N, block_size, tie_base(N))
+            salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N))
     tail = (M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(), cuda.device_index(dev),
             cuda.stream(dev))
     if con is None:
@@ -756,7 +824,7 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
 
 def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
                    valid, pod_ok, salts, commit_cap: int, block_size: int, con=None,
-                   check_parent_depth: int = 0, ancestor_depth: int = 8):
+                   check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
     """One launch of the round-loop kernel on CUDA tensors, counted on
     ``kernel``; ``M``/``Mb`` are updated in place."""
     P, N = q_la.est.shape[0], valid.shape[0]
@@ -781,11 +849,12 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     M = cuda._checked(M, torch.int32, (NB * block_size, P), dev, "M")
     Mb = cuda._checked(Mb, torch.int32, (NB, P), dev, "Mb")
     la_feas_T = cuda._checked(la_feas_T, torch.bool, (N, P), dev, "la_feas_T")
+    xf, xsc, xkeep = _xin_args(xin, P, N, dev)
     hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
     scores = torch.zeros(P, dtype=torch.int64, device=dev)
     node_first = torch.empty(N, dtype=torch.int32, device=dev)
     head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-            salts.data_ptr(), P, N, block_size, tie_base(N), K)
+            salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N), K)
     if con is None:
         rounds = torch.zeros(1, dtype=torch.int32, device=dev)
         if P and N:
@@ -811,25 +880,25 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
 
 def _plain_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
                   pod_ok, salts, commit_cap: int, block_size: int, con=None,
-                  check_parent_depth: int = 0, ancestor_depth: int = 8):
-    q_extra = pod_ok[:, None] & valid[None, :]
+                  check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
+    q_extra, q_xsc = _q_extras(xin, pod_ok[:, None] & valid[None, :])
     if con is None:
         hosts, scores, rounds = run_rounds_plain(
             M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(),
-            q_extra, salts, commit_cap, block_size,
+            q_extra, salts, commit_cap, block_size, q_xsc=q_xsc,
         )
         return hosts, scores, torch.tensor(rounds, dtype=torch.int32)
     hosts, scores, pre, rounds, ub = run_rounds_plain(
         M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(),
         q_extra & gang_pass(con)[:, None], salts, commit_cap, block_size, con,
-        check_parent_depth, ancestor_depth,
+        check_parent_depth, ancestor_depth, q_xsc,
     )
     return hosts, scores, pre, torch.tensor([rounds, ub], dtype=torch.int32)
 
 
 def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
                     pod_ok, salts, commit_cap: int, block_size: int, con=None,
-                    check_parent_depth: int = 0, ancestor_depth: int = 8):
+                    check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
     """Second launch of the ``schedule`` kernel: the whole round loop under
     the default plugin weights.  Returns (hosts [P] int32, scores [P]
     int64, rounds as a 0-d int32 tensor) in queue order; with ``con``
@@ -838,9 +907,10 @@ def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_s
     upper bound] as an int32 tensor).  ``M``/``Mb`` are consumed (updated
     in place); the node arrays, quota aggregates and reservation
     allocations are not touched (the kernel commits into private
-    copies)."""
+    copies).  ``xin`` is the batch's placement-and-devices mask and scores,
+    which the rescoring reads as the key build did."""
     args = (M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
-            salts, commit_cap, block_size, con, check_parent_depth, ancestor_depth)
+            salts, commit_cap, block_size, con, check_parent_depth, ancestor_depth, xin)
     if valid.device.type == "cpu":
         if con is not None:
             _con_launch_args(con, q_la.est.shape[0], valid.shape[0], q_nf.req.shape[1],
@@ -862,7 +932,7 @@ def _check_carry(carry, N: int, P: int, block_size: int, dev) -> tuple:
 
 def schedule_rounds_warm(carry, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
                          salts, commit_cap: int, block_size: int, con=None,
-                         check_parent_depth: int = 0, ancestor_depth: int = 8):
+                         check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
     """The ``sched_rounds`` kernel: the round loop from a warm carry
     (M, Mb, la_feas_T), launched on COPIES of M and Mb — the carry seeds
     the next cycle and is never written.  Returns what ``schedule_rounds``
@@ -871,7 +941,7 @@ def schedule_rounds_warm(carry, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
     M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, valid.device)
     args = (M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
             valid, pod_ok, salts, commit_cap, block_size, con, check_parent_depth,
-            ancestor_depth)
+            ancestor_depth, xin)
     if valid.device.type == "cpu":
         if con is not None:
             _con_launch_args(con, P, N, q_nf.req.shape[1], valid.device, False,
@@ -881,13 +951,15 @@ def schedule_rounds_warm(carry, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
 
 
 def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
-                     pod_ok, salts, block_size: int, con: Optional[ConInputs] = None):
+                     pod_ok, salts, block_size: int, con: Optional[ConInputs] = None,
+                     xin: Optional[ExtraInputs] = None):
     """The ``sched_refresh`` kernel: rebuild the carry's rows of the node
     columns ``dirty`` ([D] int32 on the host, a power-of-two bucket padded
     by repeating a real row) against the current node inputs, in place;
     ``con`` adds the gang prefilter and the reservation restore and scores
-    at the batch-start allocations (quota never enters the carry).
-    Returns the carry (M, Mb, la_feas_T)."""
+    at the batch-start allocations (quota never enters the carry), ``xin``
+    the batch's placement-and-devices mask and scores.  Returns the carry
+    (M, Mb, la_feas_T)."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, dev)
@@ -900,6 +972,7 @@ def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_stat
     if con is not None:
         con_args = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, 0, 1,
                                     PluginWeights().reservation)
+    xf, xsc, xkeep = _xin_args(xin, P, N, dev)
     if dev.type == "cpu":
         q_extra = pod_ok[:, None] & valid[None, :]
         rsv = None
@@ -907,9 +980,10 @@ def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_stat
             q_extra = q_extra & gang_pass(con)[:, None]
             if con.rsv is not None:
                 rsv = rsv_view(con)
+        q_extra, q_xsc = _q_extras(xin, q_extra)
         return refresh_plain(
             M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-            PluginWeights(), q_extra, salts, block_size, rsv,
+            PluginWeights(), q_extra, salts, block_size, rsv, q_xsc,
         )
     args = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
     pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
@@ -917,7 +991,7 @@ def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_stat
     if P and dirty.numel():
         d = dirty.pin_memory().to(dev, non_blocking=True)
         head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-                salts.data_ptr(), P, N, block_size, tie_base(N))
+                salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N))
         tail = (d.data_ptr(), int(d.shape[0]), M.data_ptr(), Mb.data_ptr(),
                 la_feas_T.data_ptr(), cuda.device_index(dev), cuda.stream(dev))
         if con is None:
@@ -943,12 +1017,18 @@ def schedule_fn(
     con_args: Optional[dict] = None,
     check_parent_depth: int = 0,
     ancestor_depth: int = 8,
+    extra_feasible: Optional[torch.Tensor] = None,
+    extra_scores: Optional[torch.Tensor] = None,
+    extra_score_bound: int = 0,
 ):
     """The ``schedule`` kernel: live node columns x the first ``p_real``
     pod rows, queue order ``order``, the default plugin weights and the
     salted tie-break, as the JAX engine's ``schedule_fn`` runs it;
     ``con_args`` (``con_inputs``' arguments besides the queue order)
-    selects the constrained instantiation.  Returns (hosts [P] int32,
+    selects the constrained instantiation; ``extra_feasible`` and
+    ``extra_scores`` ([P, N], submission order) are the batch's
+    placement-and-devices mask and pre-weighted scores, bounded by
+    ``extra_score_bound``.  Returns (hosts [P] int32,
     scores [P] int64, precommit [P] int32, rounds, warm) in submission
     order: ``precommit`` is the assignment before the gang rollback,
     ``rounds`` an int32 tensor of the round count (with the count of
@@ -965,23 +1045,28 @@ def schedule_fn(
         if con_args is not None:
             raise later(f"gang, quota or reservation inputs under {nf_static.strategy}",
                         STRATEGIES)
-        pad_rows = torch.arange(P, device=dev) < p_real
+        base = (torch.arange(P, device=dev) < p_real)[:, None] & valid[None, :]
+        if extra_feasible is not None:
+            base = base & extra_feasible
         hosts, scores, rounds = schedule_batch_resolved(
             la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
-            extra_feasible=pad_rows[:, None] & valid[None, :], order=order, return_rounds=True,
+            extra_feasible=base, order=order, return_rounds=True, extra_scores=extra_scores,
+            extra_score_bound=extra_score_bound,
         )
         return hosts, scores, hosts, torch.tensor(rounds, dtype=torch.int32), None
-    if not fits_i32(key_bound(PluginWeights()), N):
+    if not fits_i32(key_bound(PluginWeights(), extra_score_bound), N):
         raise later("the int64-key matrix engine (node axes beyond 2**21)", STRATEGIES)
     xs, q_la, q_nf, salts, pod_ok = kernel_queue(la_pods, nf_pods, valid, p_real, order)
     con = None if con_args is None else con_inputs(xs, **con_args)
+    xin = extra_inputs(extra_feasible, extra_scores, xs)
     M, Mb, la_feas_T = schedule_keys(
         q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, valid, pod_ok, salts, block_size,
-        con,
+        con, xin,
     )
     out = schedule_rounds(
         M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static,
         valid, pod_ok, salts, commit_cap, block_size, con, check_parent_depth, ancestor_depth,
+        xin,
     )
     if con is None:
         hosts_q, scores_q, rounds = out

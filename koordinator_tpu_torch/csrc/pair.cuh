@@ -305,14 +305,33 @@ __device__ __forceinline__ bool nf_fit_rsv(const Cfg& c, const PodIn& p, const N
   return true;
 }
 
+// The batch's frozen placement-and-devices inputs (core/resolved.py
+// ExtraInputs), node-major [N, P] in queue order, each null when absent: a
+// mask ANDed into every pair's feasibility and pre-weighted scores (the
+// deviceshare and amplified-CPU plugins) added to every pair's total.
+struct XIn {
+  const uint8_t* feas;
+  const long long* sc;
+};
+
+__device__ __forceinline__ bool x_feas(const XIn& x, int q, int j, int P) {
+  return !x.feas || x.feas[(size_t)j * P + q];
+}
+
+__device__ __forceinline__ long long x_score(const XIn& x, int q, int j, int P) {
+  return x.sc ? x.sc[(size_t)j * P + q] : 0;
+}
+
 // pack_keys (core/resolved.py:698): score * TB + (TB-1 - rotated index),
 // or the sentinel when infeasible.  ``pre`` carries every mask the caller
-// already evaluated (loadaware filter, live column, real pod).
+// already evaluated (loadaware filter, live column, real pod, the extra
+// mask); ``xadd`` is the pair's extra score.
 __device__ __forceinline__ int pair_key(const Cfg& c, const PodIn& p, const NodeIn& n, int q,
-                                        int j, bool pre, int salt, int N, long long TB) {
+                                        int j, bool pre, int salt, int N, long long TB,
+                                        long long xadd) {
   if (!pre || !nf_fit(c, p, n, q, j)) return KOORD_NEGK;
   long long rot = (j + salt) % N;
-  return (int)(pair_total(c, p, n, q, j) * TB + (TB - 1 - rot));
+  return (int)((pair_total(c, p, n, q, j) + xadd) * TB + (TB - 1 - rot));
 }
 
 // pair_key under the constraints: the gang prefilter is in ``pre``; the
@@ -320,11 +339,11 @@ __device__ __forceinline__ int pair_key(const Cfg& c, const PodIn& p, const Node
 // total (core/resolved.py masked_totals / touched_scores).
 __device__ __forceinline__ int pair_key_con(const Cfg& c, const PodIn& p, const NodeIn& n,
                                             const ConIn& k, int q, int j, bool pre, int salt,
-                                            int N, long long TB) {
-  if (!k.has_rsv) return pair_key(c, p, n, q, j, pre, salt, N, TB);
+                                            int N, long long TB, long long xadd) {
+  if (!k.has_rsv) return pair_key(c, p, n, q, j, pre, salt, N, TB, xadd);
   if (!pre || !nf_fit_rsv(c, p, n, k, q, j)) return KOORD_NEGK;
   const long long total =
-      pair_total(c, p, n, q, j) + k.rscores[(size_t)k.xs[q] * N + j] * k.w_rsv;
+      pair_total(c, p, n, q, j) + k.rscores[(size_t)k.xs[q] * N + j] * k.w_rsv + xadd;
   long long rot = (j + salt) % N;
   return (int)(total * TB + (TB - 1 - rot));
 }

@@ -9,6 +9,14 @@
 // and commit_gangs after the rounds, :900-913), and the warm `sched_refresh`
 // (engine.py:208) and `sched_rounds` (engine.py:238).
 //
+// The batch's placement-and-devices inputs (node selectors, taints,
+// anti-affinity, device and cpuset feasibility as a mask; the deviceshare
+// and amplified-CPU scores as a frozen addend, core/resolved.py
+// ExtraInputs) enter every key the same way in all three: the mask joins
+// the pair's feasibility and the score its total (key_of), so a rescored
+// or refreshed key still equals a cold-built one.  Absent extras are null
+// pointers and change nothing.
+//
 // Every kernel is a template over CON.  CON = false is the plain-pod
 // instantiation; CON = true adds the constraint branches, so the plain
 // path's code stays as it was and the constrained one compiles on its own.
@@ -80,12 +88,17 @@ constexpr uint8_t kReject = 8;   // quota: certainly rejected
 constexpr uint8_t kCand = 16;    // quota: a candidate of the upper bound
 constexpr long long kMinLL = (long long)(-0x7fffffffffffffffLL - 1);
 
+// the packed key of pod q on node j: the extra mask joins ``pre`` and the
+// extra score the total, in the cold build, the refresh and the rounds'
+// rescoring alike
 template <bool CON>
 __device__ __forceinline__ int key_of(const Cfg& c, const PodIn& p, const NodeIn& n,
-                                      const ConIn& k, int q, int j, bool pre, int salt, int N,
-                                      long long TB) {
-  if constexpr (CON) return pair_key_con(c, p, n, k, q, j, pre, salt, N, TB);
-  return pair_key(c, p, n, q, j, pre, salt, N, TB);
+                                      const ConIn& k, const XIn& x, int P, int q, int j, bool pre,
+                                      int salt, int N, long long TB) {
+  if (!pre || !x_feas(x, q, j, P)) return KOORD_NEGK;
+  const long long xadd = x_score(x, q, j, P);
+  if constexpr (CON) return pair_key_con(c, p, n, k, q, j, true, salt, N, TB, xadd);
+  return pair_key(c, p, n, q, j, true, salt, N, TB, xadd);
 }
 
 template <bool CON>
@@ -95,7 +108,7 @@ __device__ __forceinline__ bool pod_pass(const uint8_t* pod_ok, const ConIn& k, 
 }
 
 template <bool CON>
-__global__ void build_keys(Cfg c, PodIn p, NodeIn n, ConIn k, const uint8_t* valid,
+__global__ void build_keys(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
                            const uint8_t* pod_ok, const int* salt, int P, int N, int BS,
                            long long TB, int* M, int* Mb, uint8_t* la_feas_T) {
   int q = blockIdx.x * blockDim.x + threadIdx.x;
@@ -109,7 +122,7 @@ __global__ void build_keys(Cfg c, PodIn p, NodeIn n, ConIn k, const uint8_t* val
     if (j < N) {
       bool laf = la_fit(c, p, n, q, j);
       la_feas_T[(size_t)j * P + q] = laf;
-      key = key_of<CON>(c, p, n, k, q, j, laf && valid[j] && ok, salt[q], N, TB);
+      key = key_of<CON>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
     }
     M[(size_t)j * P + q] = key;
     best = max(best, key);
@@ -192,7 +205,8 @@ __device__ bool quota_admit(const ConIn& k, int q, const long long* exc) {
 // one block of up to 1,024 threads: at most 64 registers a thread
 template <bool CON>
 __global__ void __launch_bounds__(1024)
-    rounds_kernel(Cfg c, PodIn p, NodeIn n, ConIn k, const uint8_t* valid, const uint8_t* pod_ok,
+    rounds_kernel(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
+                  const uint8_t* pod_ok,
                   const int* salt, int P, int N, int BS, long long TB, int K, int* M, int* Mb,
                   const uint8_t* la_feas_T, int* node_first, int* hosts, long long* scores,
                   int* precommit, int* rounds_out) {
@@ -503,7 +517,7 @@ __global__ void __launch_bounds__(1024)
         if constexpr (CON) ok = s_ok[q];
         else ok = pod_ok[q];
         bool pre = la_feas_T[(size_t)j * P + q] && valid[j] && ok;
-        M[(size_t)j * P + q] = key_of<CON>(c, p, n, k, q, j, pre, salt[q], N, TB);
+        M[(size_t)j * P + q] = key_of<CON>(c, p, n, k, x, P, q, j, pre, salt[q], N, TB);
       }
     }
     __syncthreads();
@@ -550,7 +564,7 @@ __global__ void __launch_bounds__(1024)
 
 // grid (pods / 128, min(D, 65535)); blockIdx.y strides over the dirty rows
 template <bool CON>
-__global__ void refresh_rows(Cfg c, PodIn p, NodeIn n, ConIn k, const uint8_t* valid,
+__global__ void refresh_rows(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
                              const uint8_t* pod_ok, const int* salt, int P, int N, long long TB,
                              const int* dirty, int D, int* M, uint8_t* la_feas_T) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
@@ -560,7 +574,8 @@ __global__ void refresh_rows(Cfg c, PodIn p, NodeIn n, ConIn k, const uint8_t* v
     const int j = dirty[d];
     const bool laf = la_fit(c, p, n, q, j);
     la_feas_T[(size_t)j * P + q] = laf;
-    M[(size_t)j * P + q] = key_of<CON>(c, p, n, k, q, j, laf && valid[j] && ok, salt[q], N, TB);
+    M[(size_t)j * P + q] =
+        key_of<CON>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
   }
 }
 
@@ -586,25 +601,25 @@ size_t rounds_smem_con(int P, int K, int ad, int has_quota) {
 }
 
 int launch_keys(bool con, const void* const* pods, const void* const* nodes, const long long* cfg,
-                const void* la_w, const ConIn& k, const void* valid, const void* pod_ok,
-                const void* salt, int P, int N, int BS, long long TB, void* M, void* Mb,
-                void* la_feas_T, int device, void* stream) {
+                const void* la_w, const ConIn& k, const XIn& x, const void* valid,
+                const void* pod_ok, const void* salt, int P, int N, int BS, long long TB,
+                void* M, void* Mb, void* la_feas_T, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int threads = 128;
   dim3 grid((P + threads - 1) / threads, (N + BS - 1) / BS);
   auto kernel = con ? build_keys<true> : build_keys<false>;
   kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, (const uint8_t*)valid,
+      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
       (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, (int*)M, (int*)Mb,
       (uint8_t*)la_feas_T);
   return (int)cudaGetLastError();
 }
 
 int launch_rounds(bool con, const void* const* pods, const void* const* nodes,
-                  const long long* cfg, const void* la_w, const ConIn& k, const void* valid,
-                  const void* pod_ok, const void* salt, int P, int N, int BS, long long TB, int K,
-                  void* M, void* Mb, const void* la_feas_T, void* node_first, void* hosts,
+                  const long long* cfg, const void* la_w, const ConIn& k, const XIn& x,
+                  const void* valid, const void* pod_ok, const void* salt, int P, int N, int BS,
+                  long long TB, int K, void* M, void* Mb, const void* la_feas_T, void* node_first, void* hosts,
                   void* scores, void* precommit, void* rounds, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -614,7 +629,7 @@ int launch_rounds(bool con, const void* const* pods, const void* const* nodes,
   if (e != cudaSuccess) return (int)e;
   const int threads = P >= 1024 ? 1024 : ((P + 31) / 32) * 32;
   kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, (const uint8_t*)valid,
+      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
       (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, K, (int*)M, (int*)Mb,
       (const uint8_t*)la_feas_T, (int*)node_first, (int*)hosts, (long long*)scores,
       (int*)precommit, (int*)rounds);
@@ -622,9 +637,9 @@ int launch_rounds(bool con, const void* const* pods, const void* const* nodes,
 }
 
 int launch_refresh(bool con, const void* const* pods, const void* const* nodes,
-                   const long long* cfg, const void* la_w, const ConIn& k, const void* valid,
-                   const void* pod_ok, const void* salt, int P, int N, int BS, long long TB,
-                   const void* dirty, int D, void* M, void* Mb, void* la_feas_T, int device,
+                   const long long* cfg, const void* la_w, const ConIn& k, const XIn& x,
+                   const void* valid, const void* pod_ok, const void* salt, int P, int N, int BS,
+                   long long TB, const void* dirty, int D, void* M, void* Mb, void* la_feas_T, int device,
                    void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -632,7 +647,7 @@ int launch_refresh(bool con, const void* const* pods, const void* const* nodes,
   dim3 grid((P + threads - 1) / threads, D < 65535 ? D : 65535);
   auto kernel = con ? refresh_rows<true> : refresh_rows<false>;
   kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, (const uint8_t*)valid,
+      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
       (const uint8_t*)pod_ok, (const int*)salt, P, N, TB, (const int*)dirty, D, (int*)M,
       (uint8_t*)la_feas_T);
   e = cudaGetLastError();
@@ -647,73 +662,83 @@ ConIn no_con() {
   return k;
 }
 
+XIn x_in(const void* feas, const void* sc) {
+  return XIn{(const uint8_t*)feas, (const long long*)sc};
+}
+
 }  // namespace
 
 extern "C" const char* koord_strerror(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// Every entry point takes, after the salts, the batch's extras (XIn):
+// xfeas [N, P] bool and xsc [N, P] int64 in queue order, null when absent.
+
 extern "C" int koord_sched_keys(const void* const* pods, const void* const* nodes,
                                 const long long* cfg, const void* la_w, const void* valid,
-                                const void* pod_ok, const void* salt, int P, int N, int BS,
-                                long long TB, void* M, void* Mb, void* la_feas_T, int device,
-                                void* stream) {
-  return launch_keys(false, pods, nodes, cfg, la_w, no_con(), valid, pod_ok, salt, P, N, BS, TB,
-                     M, Mb, la_feas_T, device, stream);
+                                const void* pod_ok, const void* salt, const void* xfeas,
+                                const void* xsc, int P, int N, int BS, long long TB, void* M,
+                                void* Mb, void* la_feas_T, int device, void* stream) {
+  return launch_keys(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
+                     salt, P, N, BS, TB, M, Mb, la_feas_T, device, stream);
 }
 
 extern "C" int koord_sched_keys_con(const void* const* pods, const void* const* nodes,
                                     const long long* cfg, const void* la_w, const void* valid,
-                                    const void* pod_ok, const void* salt, int P, int N, int BS,
-                                    long long TB, const void* const* con, const long long* con_ints,
-                                    void* M, void* Mb, void* la_feas_T, int device, void* stream) {
-  return launch_keys(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), valid, pod_ok, salt,
-                     P, N, BS, TB, M, Mb, la_feas_T, device, stream);
+                                    const void* pod_ok, const void* salt, const void* xfeas,
+                                    const void* xsc, int P, int N, int BS, long long TB,
+                                    const void* const* con, const long long* con_ints, void* M,
+                                    void* Mb, void* la_feas_T, int device, void* stream) {
+  return launch_keys(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
+                     valid, pod_ok, salt, P, N, BS, TB, M, Mb, la_feas_T, device, stream);
 }
 
 extern "C" long long koord_sched_rounds_smem(int P, int K) { return (long long)rounds_smem(P, K); }
 
 extern "C" int koord_sched_rounds(const void* const* pods, const void* const* nodes,
                                   const long long* cfg, const void* la_w, const void* valid,
-                                  const void* pod_ok, const void* salt, int P, int N, int BS,
-                                  long long TB, int K,
+                                  const void* pod_ok, const void* salt, const void* xfeas,
+                                  const void* xsc, int P, int N, int BS, long long TB, int K,
                                   void* M, void* Mb, const void* la_feas_T, void* node_first,
                                   void* hosts, void* scores, void* rounds, int device,
                                   void* stream) {
-  return launch_rounds(false, pods, nodes, cfg, la_w, no_con(), valid, pod_ok, salt, P, N, BS,
-                       TB, K, M, Mb, la_feas_T, node_first, hosts, scores, nullptr, rounds,
-                       device, stream);
+  return launch_rounds(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
+                       salt, P, N, BS, TB, K, M, Mb, la_feas_T, node_first, hosts, scores,
+                       nullptr, rounds, device, stream);
 }
 
 extern "C" int koord_sched_rounds_con(const void* const* pods, const void* const* nodes,
                                       const long long* cfg, const void* la_w, const void* valid,
-                                      const void* pod_ok, const void* salt, int P, int N, int BS,
-                                      long long TB, int K, const void* const* con,
-                                      const long long* con_ints, void* M, void* Mb,
-                                      const void* la_feas_T, void* node_first, void* hosts,
-                                      void* scores, void* precommit, void* rounds, int device,
-                                      void* stream) {
-  return launch_rounds(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), valid, pod_ok,
-                       salt, P, N, BS, TB, K, M, Mb, la_feas_T, node_first, hosts, scores,
-                       precommit, rounds, device, stream);
+                                      const void* pod_ok, const void* salt, const void* xfeas,
+                                      const void* xsc, int P, int N, int BS, long long TB, int K,
+                                      const void* const* con, const long long* con_ints, void* M,
+                                      void* Mb, const void* la_feas_T, void* node_first,
+                                      void* hosts, void* scores, void* precommit, void* rounds,
+                                      int device, void* stream) {
+  return launch_rounds(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
+                       valid, pod_ok, salt, P, N, BS, TB, K, M, Mb, la_feas_T, node_first, hosts,
+                       scores, precommit, rounds, device, stream);
 }
 
 extern "C" int koord_sched_refresh(const void* const* pods, const void* const* nodes,
                                    const long long* cfg, const void* la_w, const void* valid,
-                                   const void* pod_ok, const void* salt, int P, int N, int BS,
-                                   long long TB, const void* dirty, int D, void* M, void* Mb,
-                                   void* la_feas_T, int device, void* stream) {
-  return launch_refresh(false, pods, nodes, cfg, la_w, no_con(), valid, pod_ok, salt, P, N, BS,
-                        TB, dirty, D, M, Mb, la_feas_T, device, stream);
+                                   const void* pod_ok, const void* salt, const void* xfeas,
+                                   const void* xsc, int P, int N, int BS, long long TB,
+                                   const void* dirty, int D, void* M, void* Mb, void* la_feas_T,
+                                   int device, void* stream) {
+  return launch_refresh(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
+                        salt, P, N, BS, TB, dirty, D, M, Mb, la_feas_T, device, stream);
 }
 
 extern "C" int koord_sched_refresh_con(const void* const* pods, const void* const* nodes,
                                        const long long* cfg, const void* la_w, const void* valid,
-                                       const void* pod_ok, const void* salt, int P, int N, int BS,
-                                       long long TB, const void* const* con,
-                                       const long long* con_ints, const void* dirty, int D,
-                                       void* M, void* Mb, void* la_feas_T, int device,
-                                       void* stream) {
-  return launch_refresh(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), valid, pod_ok,
-                        salt, P, N, BS, TB, dirty, D, M, Mb, la_feas_T, device, stream);
+                                       const void* pod_ok, const void* salt, const void* xfeas,
+                                       const void* xsc, int P, int N, int BS, long long TB,
+                                       const void* const* con, const long long* con_ints,
+                                       const void* dirty, int D, void* M, void* Mb,
+                                       void* la_feas_T, int device, void* stream) {
+  return launch_refresh(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
+                        valid, pod_ok, salt, P, N, BS, TB, dirty, D, M, Mb, la_feas_T, device,
+                        stream);
 }

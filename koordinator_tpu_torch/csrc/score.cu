@@ -4,7 +4,9 @@
 // Replaces: the JAX package's `score` kernel, service/engine.py:134
 // score_fn -> core/cycle.py:195 score_batch (LoadAware least-requested +
 // NodeFit LeastAllocated, weighted; LoadAware thresholds && NodeFit fit &&
-// the live-column mask), under the default profile's plugin weights.
+// the live-column mask), under the default profile's plugin weights, plus
+// the batch's pre-weighted extra scores (deviceshare, amplified CPU; [P, N]
+// int64, null when absent) as the JAX score_fn adds them.
 //
 // What bounds it on an H100: bytes.  The outputs alone are 9 bytes per
 // pair (144 MB at 1,024 x 16,384), against a few dozen integer operations
@@ -19,13 +21,14 @@
 
 namespace {
 
-__global__ void score_kernel(Cfg c, PodIn p, NodeIn n, const uint8_t* valid, int P, int N,
-                             long long* totals, uint8_t* feasible) {
+__global__ void score_kernel(Cfg c, PodIn p, NodeIn n, const uint8_t* valid,
+                             const long long* xsc, int P, int N, long long* totals,
+                             uint8_t* feasible) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   int q = blockIdx.y;
   if (j >= N || q >= P) return;
   size_t o = (size_t)q * N + j;
-  totals[o] = pair_total(c, p, n, q, j);
+  totals[o] = pair_total(c, p, n, q, j) + (xsc ? xsc[o] : 0);
   feasible[o] = valid[j] && la_fit(c, p, n, q, j) && nf_fit(c, p, n, q, j);
 }
 
@@ -36,15 +39,15 @@ extern "C" const char* koord_strerror(int code) {
 }
 
 extern "C" int koord_score(const void* const* pods, const void* const* nodes,
-                           const long long* cfg, const void* la_w, const void* valid, int P,
-                           int N,
-                           void* totals, void* feasible, int device, void* stream) {
+                           const long long* cfg, const void* la_w, const void* valid,
+                           const void* xsc, int P, int N, void* totals, void* feasible,
+                           int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int threads = 256;
   dim3 grid((N + threads - 1) / threads, P);
   score_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), (const uint8_t*)valid, P, N,
-      (long long*)totals, (uint8_t*)feasible);
+      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), (const uint8_t*)valid,
+      (const long long*)xsc, P, N, (long long*)totals, (uint8_t*)feasible);
   return (int)cudaGetLastError();
 }

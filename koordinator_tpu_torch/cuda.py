@@ -81,7 +81,8 @@ def build() -> Dict[str, Path]:
         rc = proc.wait()
         log.close()
         if rc != 0:
-            failed.append(f"{stem}.cu (see {todo[stem].with_suffix('.log')})")
+            tail = todo[stem].with_suffix(".log").read_text().splitlines()[-20:]
+            failed.append(f"{stem}.cu:\n" + "\n".join(tail))
         else:
             os.replace(tmp, todo[stem])
     if failed:
@@ -133,36 +134,38 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 
-SCORE = Kernel("score", "koord_score", [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
+SCORE = Kernel("score", "koord_score", [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
+# the schedule kernels' leading arguments: the pod, node and configuration
+# tables, the LoadAware weights, valid, pod_ok, the salts, then the batch's
+# placement-and-devices mask and scores ([N, P] queue order, 0 = absent)
+_SCHED_HEAD = [_P] * 9
 SCHEDULE_KEYS = Kernel(
-    "schedule", "koord_sched_keys",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _I, _P],
+    "schedule", "koord_sched_keys", _SCHED_HEAD + [_I, _I, _I, _L, _P, _P, _P, _I, _P],
 )
 SCHEDULE_ROUNDS = Kernel(
     "schedule", "koord_sched_rounds",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    _SCHED_HEAD + [_I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 )
 # the warm carry: the delta refresh, and the round loop launched on copies
 # of the carry (the same entry point as the cold rounds, counted apart)
 SCHED_REFRESH = Kernel(
     "schedule", "koord_sched_refresh",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _I, _P, _P, _P, _I, _P],
+    _SCHED_HEAD + [_I, _I, _I, _L, _P, _I, _P, _P, _P, _I, _P],
 )
 SCHED_ROUNDS = Kernel("schedule", "koord_sched_rounds", SCHEDULE_ROUNDS.argtypes)
 # the constrained instantiations (gang, quota, reservation): the same
 # launches with a constraint pointer table and parameter block
 SCHEDULE_KEYS_CON = Kernel(
     "schedule", "koord_sched_keys_con",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P, _I, _P],
+    _SCHED_HEAD + [_I, _I, _I, _L, _P, _P, _P, _P, _P, _I, _P],
 )
 SCHEDULE_ROUNDS_CON = Kernel(
     "schedule", "koord_sched_rounds_con",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-     _P],
+    _SCHED_HEAD + [_I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 )
 SCHED_REFRESH_CON = Kernel(
     "schedule", "koord_sched_refresh_con",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+    _SCHED_HEAD + [_I, _I, _I, _L, _P, _P, _P, _I, _P, _P, _P, _I, _P],
 )
 SCHED_ROUNDS_CON = Kernel("schedule", "koord_sched_rounds_con", SCHEDULE_ROUNDS_CON.argtypes)
 # the device residency (csrc/dstate.cu)
@@ -171,7 +174,14 @@ DSTATE_GATE = Kernel(
     "dstate", "koord_dstate_gate",
     [_I, _P, _P, _P, _P, _P, _D, _I, _I, _D, _I, _P, _P, _P, _P, _I, _P],
 )
+DSTATE_EXTEND = Kernel("dstate", "koord_dstate_extend", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P])
 DSTATE_MAX_ARRAYS = 32  # KOORD_DSTATE_MAX_ARRAYS in csrc/dstate.cu
+# the placement-policy mask (csrc/placement.cu): nine signature lists, the
+# four policy tables, their widths, M, N, the output
+PLACEMENT = Kernel("placement", "koord_placement", [_P] * 13 + [_I] * 6 + [_P, _I, _P])
+# device feasibility and the deviceshare score (csrc/device.cu)
+DEV_FEASIBLE = Kernel("device", "koord_dev_feasible", [_P] * 11 + [_I] * 3 + [_P, _I, _P])
+DS_SCORE = Kernel("device", "koord_ds_score", [_P] * 3 + [_I] * 2 + [_P, _I, _P])
 # the quota tree's runtime refresh (csrc/quota.cu): ``quota`` and the
 # admission limit ``quota_limit`` (row 0 := 2**60) share one entry point
 QUOTA = Kernel("quota", "koord_quota", [_P] * 10 + [_I] * 5 + [_P, _P, _I, _P])
@@ -187,7 +197,8 @@ KERNELS = {
     "schedule_keys_con": SCHEDULE_KEYS_CON, "schedule_rounds_con": SCHEDULE_ROUNDS_CON,
     "sched_refresh_con": SCHED_REFRESH_CON, "sched_rounds_con": SCHED_ROUNDS_CON,
     "quota": QUOTA, "quota_limit": QUOTA_LIMIT, "rsv_rscore": RSV_RSCORE,
-    "rsv_score": RSV_SCORE,
+    "rsv_score": RSV_SCORE, "placement": PLACEMENT, "dev_feasible": DEV_FEASIBLE,
+    "ds_score": DS_SCORE, "dstate_extend": DSTATE_EXTEND,
 }
 
 # the largest dynamic shared memory one block may take on Hopper

@@ -9,7 +9,13 @@ stores hold rides into the cycle: the coscheduling queue order and gang
 Permit, ElasticQuota admission against the runtime refresh, and the
 reservation restore, scores and nomination; ``assume=True`` applies the
 placements to the stores and schedules pending reservations' reserve pods
-first.  It returns what the JAX engine returns — ``(totals, feasible,
+first.  So do the placement policies and devices: node selectors, hard
+taints and tolerations, required anti-affinity both ways (the
+``placement`` kernel), GPU and RDMA requests and cpusets under the nodes'
+NUMA topology policies (``dev_feasible``, ``ds_score``, the host's exact
+walk where a policy or a cpuset needs it, and the amplified-CPU score),
+with the device and cpuset grants and the demotions of the allocation
+replay.  It returns what the JAX engine returns — ``(totals, feasible,
 snapshot)`` and ``(hosts, scores, snapshot, allocations)`` as numpy — bit
 for bit.
 
@@ -20,14 +26,15 @@ bucket; padded pod rows are masked infeasible and sliced off the result.
 Devices: the engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, where the plain PyTorch versions run).  With no card and
 no device asked for, construction raises.  A failed transfer or launch on
-the card raises; nothing falls back to the host arrays.  What this slice
-does not carry raises ``NotImplementedError``: pods with device, cpuset,
-node-selector or anti-affinity constraints, and gang, quota or
-reservation constraints under a strategy other than LeastAllocated.
+the card raises; nothing falls back to the host arrays.  What the port
+does not carry yet raises ``NotImplementedError`` naming its slice: gang,
+quota or reservation constraints and device scores under a strategy other
+than LeastAllocated, and ``score_breakdown``/``explain``.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Dict, List, NamedTuple, Optional
 
@@ -36,8 +43,10 @@ import torch
 
 from koordinator_tpu_torch import convert
 from koordinator_tpu_torch.api.model import AssignedPod, Pod
+from koordinator_tpu_torch.core import placement as pl
 from koordinator_tpu_torch.core import quota as quota_mod
 from koordinator_tpu_torch.core import reservation as rsv_mod
+from koordinator_tpu_torch.core import topologymanager as tm
 from koordinator_tpu_torch.core.cycle import (
     GangInputs,
     PluginWeights,
@@ -46,34 +55,49 @@ from koordinator_tpu_torch.core.cycle import (
     score_fn,
     tie_base,
 )
+from koordinator_tpu_torch.core.deviceshare import (
+    GPU_CORE,
+    GPU_MEMORY_RATIO,
+    RDMA,
+    allocate_joint,
+    allocate_rdma_vfs,
+    apply_allocation,
+    deviceshare_score,
+    gpu_topology_hints,
+    parse_gpu_request,
+)
 from koordinator_tpu_torch.core.gang import GangPodArrays, queue_sort_perm
+from koordinator_tpu_torch.core.nodefit import NodeFitNodeArrays, NodeFitPodArrays, nodefit_score
+from koordinator_tpu_torch.core.numa import FULL_PCPUS, amplified_cpu_score, take_cpus
 from koordinator_tpu_torch.core.resolved import (
     _submission_order,
     con_inputs,
+    extra_inputs,
     kernel_queue,
     schedule_fn,
     schedule_refresh,
     schedule_rounds_warm,
 )
 from koordinator_tpu_torch.service import transformers as tf
-from koordinator_tpu_torch.service.state import ClusterState, next_bucket
-from koordinator_tpu_torch.slices import PLACEMENT, STRATEGIES, later
+from koordinator_tpu_torch.service.descheduler import tolerates
+from koordinator_tpu_torch.service.state import ClusterState, cpu_allocs_from, next_bucket
+from koordinator_tpu_torch.slices import EXPLAIN, STRATEGIES, later
 from koordinator_tpu_torch.snapshot import loadaware as la_snap
 from koordinator_tpu_torch.snapshot import nodefit as nf_snap
 from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
 
-# the deviceshare plugin's resources (core/deviceshare.py in the JAX package)
-DEVICE_RESOURCES = (
-    "koordinator.sh/gpu-core",
-    "koordinator.sh/gpu-memory-ratio",
-    "koordinator.sh/rdma",
-)
+# the deviceshare plugin's resources, served by the device path, not the
+# NodeFit axis
+DEVICE_RESOURCES = (GPU_CORE, GPU_MEMORY_RATIO, RDMA)
 
 # the resolved engine's packed-key score bound under the default weight
 # profile, the JAX engine's _SCHED_SCORE_BOUND (service/engine.py:150):
 # the host decides warm-carry eligibility exactly as the JAX kernel does
 _w = PluginWeights()
 SCHED_SCORE_BOUND = 100 * (_w.loadaware + _w.nodefit + _w.reservation + _w.numa + _w.nodefit)
+# the extra channel's share of it: deviceshare (<= 100 * numa) and the
+# amplified-CPU delta (|.| <= 100 * nodefit)
+EXTRA_SCORE_BOUND = 100 * (_w.numa + _w.nodefit)
 del _w
 
 COMMIT_CAP = 16
@@ -87,20 +111,6 @@ def _pad_rows(arr: np.ndarray, p: int) -> np.ndarray:
         return arr
     pad = np.zeros((p - arr.shape[0],) + arr.shape[1:], dtype=arr.dtype)
     return np.concatenate([arr, pad], axis=0)
-
-
-def check_slice(pods: List[Pod]) -> None:
-    """Refuse every pod the port does not serve yet, naming what it carries
-    and the slice that brings it."""
-    for p in pods:
-        for what, hit in (
-            ("a device request", any(p.requests.get(r, 0) > 0 for r in DEVICE_RESOURCES)),
-            ("a cpuset request", p.wants_cpuset()),
-            ("a node selector", p.node_selector),
-            ("required anti-affinity", p.anti_affinity),
-        ):
-            if hit:
-                raise later(f"pod {p.key} carries {what}: scheduling it", PLACEMENT)
 
 
 def check_pods_axis(state: ClusterState, pods: List[Pod]) -> None:
@@ -170,12 +180,131 @@ class _Constraints(NamedTuple):
                 or self.rsv is not None)
 
 
+class _AdmittedBySig:
+    """(pod index, node name) -> the Filter-time admitted NUMA set, resolved
+    through the pod's request signature.  Missing == None ==
+    unconstrained."""
+
+    __slots__ = ("pod_sig", "by_sig")
+
+    def __init__(self, pod_sig, by_sig):
+        self.pod_sig = pod_sig
+        self.by_sig = by_sig
+
+    def get(self, key, default=None):
+        i, name = key
+        sig = self.pod_sig.get(i)
+        if sig is None:
+            return default
+        return self.by_sig.get(sig, {}).get(name, default)
+
+    def __bool__(self):
+        return bool(self.by_sig)
+
+
+class _TolView:
+    """A minimal pod stand-in for ``tolerates`` (it reads only
+    ``.tolerations``): the mask's pod side works from signatures."""
+
+    __slots__ = ("tolerations",)
+
+    def __init__(self, tolerations):
+        self.tolerations = tolerations
+
+
+def _mask_sig_key(p) -> tuple:
+    """The placement-policy signature of a pod: everything its mask row
+    depends on.  Identically constrained pods share one cached row."""
+    return (
+        tuple(sorted(p.node_selector.items())) if p.node_selector else None,
+        tuple(tuple(sorted(t.items())) for t in p.tolerations) if p.tolerations else (),
+        tuple(sorted(p.labels.items())) if p.labels else (),
+        tuple(sorted(p.anti_affinity.items())) if p.anti_affinity else None,
+    )
+
+
+def _device_sig(p, greq, wants_cs: bool) -> tuple:
+    """A device pod's request signature: (gpu request, rdma, and with a
+    cpuset its cpu, bind and exclusive policies)."""
+    return (greq, int(p.requests.get(RDMA, 0)),
+            p.requests.get("cpu", 0) if wants_cs else None,
+            p.cpu_bind_policy if wants_cs else None,
+            p.cpu_exclusive_policy if wants_cs else None)
+
+
+def _device_pods(pods) -> list:
+    """(index, pod, gpu request, wants a cpuset) of the pods the device
+    path serves: a GPU, RDMA or cpuset request."""
+    out = []
+    for i, p in enumerate(pods):
+        greq, cs = parse_gpu_request(p.requests), p.wants_cpuset()
+        if greq is not None or cs or int(p.requests.get(RDMA, 0)) > 0:
+            out.append((i, p, greq, cs))
+    return out
+
+
+def _amped_nodes(st) -> list:
+    """(name, topology) of the live nodes that amplify CPU."""
+    return [(name, info) for name, info in st._topo.items()
+            if info.cpu_ratio > 1.0 and st._imap.get(name) is not None]
+
+
+def _grant(st, dev_state, pod, node_name: str, greq, rdma_req: int, wants_cs: bool, mask_nodes):
+    """Phase A's grant for one pod on one node against the dry-run device
+    state (applied there on success): (gpu, rdma, cpuset) grants within
+    the admitted NUMA set ``mask_nodes`` (None = unconstrained), or None
+    when the node can no longer serve the request."""
+    def in_mask(devs):
+        return [d for d in devs if mask_nodes is None or d.numa_node in mask_nodes]
+
+    grant_gpu, grant_rdma, grant_cpus = [], [], []
+    if greq is not None:
+        joint = allocate_joint(in_mask(dev_state["gpus"].get(node_name, ())), greq[0], greq[1],
+                               rdma_devices=in_mask(dev_state["rdma"].get(node_name, ())),
+                               want_rdma=rdma_req > 0)
+        if joint is None:
+            return None
+        grant_gpu, grant_rdma = joint["gpu"], joint["rdma"]
+    elif rdma_req > 0:
+        # a standalone RDMA request: VFs without GPUs
+        vfs = allocate_rdma_vfs(in_mask(dev_state["rdma"].get(node_name, ())), rdma_req)
+        if vfs is None:
+            return None
+        grant_rdma = vfs
+    if wants_cs:
+        info = st._topo.get(node_name)
+        if info is None:
+            return None
+        taken = dev_state["cpus"].get(node_name, {})
+        mrc = info.max_ref_count
+        avail = [c for c in range(info.topo.num_cpus) if len(taken.get(c, ())) < mrc
+                 and (mask_nodes is None or info.topo.node_of_cpu(c) in mask_nodes)]
+        got = take_cpus(info.topo, avail, pod.requests.get("cpu", 0) // 1000,
+                        bind_policy=pod.cpu_bind_policy or FULL_PCPUS,
+                        allocated=cpu_allocs_from(taken), max_ref_count=mrc,
+                        exclusive_policy=pod.cpu_exclusive_policy or "")
+        if got is None:
+            return None
+        grant_cpus = got
+    if grant_gpu:
+        apply_allocation(dev_state["gpus"].get(node_name, ()), grant_gpu)
+    if grant_rdma:
+        by_minor = {r.minor: r for r in dev_state["rdma"].get(node_name, ())}
+        for minor, vfs_n in grant_rdma:
+            by_minor[minor].vfs_free -= vfs_n
+    if grant_cpus:
+        held = dev_state["cpus"].setdefault(node_name, {})
+        for c in grant_cpus:
+            held.setdefault(c, []).append(pod.cpu_exclusive_policy or "")
+    return grant_gpu, grant_rdma, grant_cpus
+
+
 class _DeferredSchedule:
     """An in-flight SCHEDULE: the kernels are launched, the host has not
     synchronized.  ``finish()`` is the one sync and host copy."""
 
     __slots__ = ("engine", "out_dev", "P", "snap", "pods", "now", "assume", "cin", "n_reserve",
-                 "rscore_dev")
+                 "rscore_dev", "admitted")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -204,6 +333,8 @@ class Engine:
         self.last_rounds = 0  # resolution rounds of the last SCHEDULE
         self.last_ub_rounds = 0  # of which took the quota upper-bound path
         self.last_reservations_placed: Dict[str, str] = {}
+        # pods the last SCHEDULE's allocation replay demoted, by cause
+        self.last_demotions = {"anti_affinity": 0, "devices": 0}
         # cross-cycle SCHEDULE warm start: the carry is the resolved
         # engine's init state (M, Mb, la_feas_T) on the device, with the key
         # it is valid under, the row-version watermarks to diff against and
@@ -226,12 +357,24 @@ class Engine:
         self.sched_last_dirty = 0  # rows the last warm cycle refreshed
         # dirty fraction above which the cold rebuild replaces the refresh
         self._sched_warm_max_frac = 0.25
+        # per-signature placement, device-feasibility and deviceshare-score
+        # rows on the device, each cache valid for one (epoch, capacity)
+        self._sel_rows: Dict[tuple, torch.Tensor] = {}
+        self._sel_rows_key: Optional[tuple] = None
+        self._dev_rows: Dict[tuple, tuple] = {}
+        self._dev_rows_key: Optional[tuple] = None
+        self._ds_rows: Dict[tuple, torch.Tensor] = {}
+        self._ds_rows_key: Optional[tuple] = None
+        # (fingerprint id, signature) -> (ok, admitted NUMA set) of the exact
+        # walk: valid forever, a changed node gets a new fingerprint id
+        self._dev_exact_memo: Dict[tuple, tuple] = {}
+        # the amplified-CPU delta: one (exact content key, [P, amped] delta)
+        self._amp_cache: Optional[tuple] = None
 
     def _prepare(self, pods: List[Pod]) -> List[Pod]:
         for stage in (tf.BEFORE_PRE_FILTER, tf.BEFORE_FILTER, tf.BEFORE_SCORE):
             pods = self.transformers.run(stage, pods, self.state)
         check_pods_axis(self.state, pods)
-        check_slice(pods)
         return pods
 
     def _pod_arrays_np(self, pods: List[Pod], p_bucket: int):
@@ -244,6 +387,289 @@ class Engine:
     def _pod_arrays(self, pods: List[Pod], p_bucket: int):
         la, nf = self._pod_arrays_np(pods, p_bucket)
         return convert.la_pods(la, self.device), convert.nf_pods(nf, self.device)
+
+    # ------------------------------------------ placement-policy inputs
+
+    def _node_selector_mask(self, pods: List[Pod], p_bucket: int, cap: int):
+        """[p_bucket, cap] bool on the engine's device, or None: node
+        selectors, untolerated hard taints and required anti-affinity both
+        ways, from the ``placement`` kernel over the store's policy rows.
+        Rows are cached per pod signature and invalidated by the policy
+        epoch; padded pod rows are all True.  None when nothing in the
+        batch or the fleet triggers a policy."""
+        st = self.state
+        if not (any(p.node_selector or p.anti_affinity for p in pods) or st._tainted_nodes
+                or st._aa_holder_count):
+            return None
+        key = (st.policy_epoch, cap)
+        if self._sel_rows_key != key:
+            self._sel_rows, self._sel_rows_key = {}, key
+        sigs = [_mask_sig_key(p) for p in pods]
+        missing = list(dict.fromkeys(s for s in sigs if s not in self._sel_rows))
+        if missing:
+            self._compute_mask_rows(missing)
+        uniq = list(dict.fromkeys(sigs))
+        slot = {s: k + 1 for k, s in enumerate(uniq)}
+        rows = torch.stack([torch.ones(cap, dtype=torch.bool, device=self.device)]
+                           + [self._sel_rows[s] for s in uniq])
+        pick = np.zeros(p_bucket, dtype=np.int64)
+        pick[: len(sigs)] = [slot[s] for s in sigs]
+        return rows[convert.tensor(pick, self.device)]
+
+    def _placement_sigs(self, sig_list: list) -> pl.PlacementSigs:
+        """The ``placement`` kernel's pod side for ``sig_list``: per
+        signature, the label columns of its selector pairs (a pair the
+        fleet never carried is absent from the vocab and counts in
+        ``sel_cnt`` only), the hard taints it does not tolerate, the holder
+        selectors that select it and the assigned label sets its own
+        anti-affinity selects, over the store's vocabularies."""
+        st = self.state
+        Mb = next_bucket(len(sig_list), 8)
+        sel, tol, hold, aa = ([[] for _ in range(Mb)] for _ in range(4))
+        sel_cnt = np.zeros(Mb, dtype=np.int32)
+        for m, (selector, tols, labels, anti) in enumerate(sig_list):
+            if selector:
+                sel_cnt[m] = len(selector)
+                sel[m] = [j for j in (st._label_vocab.get(pair) for pair in selector)
+                          if j is not None]
+            view = _TolView([dict(t) for t in tols])
+            tol[m] = [j for (tk, tv, te), j in st._taint_vocab.items()
+                      if not tolerates(view, {"key": tk, "value": tv, "effect": te})]
+            lab = dict(labels)
+            hold[m] = [j for sel_key, j in st._aa_vocab.items()
+                       if all(lab.get(kk) == vv for kk, vv in sel_key)]
+            if anti:
+                aa[m] = [j for sig_key, j in st._sig_vocab.items()
+                         if all(dict(sig_key).get(kk) == vv for kk, vv in anti)]
+        return pl.PlacementSigs(*pl.csr(sel), torch.from_numpy(sel_cnt), *pl.csr(tol),
+                                *pl.csr(hold), *pl.csr(aa))
+
+    def _compute_mask_rows(self, sig_list: list) -> None:
+        """Evaluate the ``placement`` kernel for the signatures missing from
+        the epoch cache."""
+        mask = pl.placement(self._placement_sigs(sig_list), *self._policy_node_rows())
+        for m, s in enumerate(sig_list):
+            self._sel_rows[s] = mask[m]
+
+    # ---------------------------------------------- resident node-side rows
+
+    def _policy_node_rows(self) -> tuple:
+        """(labels, taints, aa, sig) on the engine's device: the resident
+        policy table, or with ``device_state=False`` the host rows copied."""
+        st = self.state
+        if st.residency.enabled:
+            return st.residency.policy_rows(self.device)
+        return tuple(convert.tensor(getattr(st, a), self.device) for a in st.residency._POLICY)
+
+    def _device_node_rows(self) -> tuple:
+        """(core, mem, full, vfs, alloc2, used2) on the engine's device, as
+        ``_policy_node_rows`` serves the policy rows."""
+        st = self.state
+        if st.residency.enabled:
+            return st.residency.device_rows(self.device)
+        return tuple(convert.tensor(getattr(st, a), self.device) for a in st.residency._DEVICE)
+
+    # ------------------------------------------------------ device inputs
+
+    def _numa_device_inputs(self, pods: List[Pod], p_bucket: int, cap: int):
+        """(extra_scores [p_bucket, cap] int64 | None, extra_feasible
+        [p_bucket, cap] bool | None, admitted) on the engine's device — the
+        NUMA and deviceshare plugins at the Score/Filter cut points:
+
+        - joint-allocation feasibility of policy-free nodes from the
+          ``dev_feasible`` kernel over the device rows;
+        - nodes that need the combinatorial walk (a cpuset request, or a
+          topology policy other than none) grouped by device fingerprint
+          and walked once per (fingerprint, signature), memoized; the walk
+          overrides the dense row on the card;
+        - deviceshare's binpack score from the ``ds_score`` kernel; the
+          amplified-CPU delta from the host (float64, as the reference).
+
+        Per-signature rows are cached and invalidated by the device epoch.
+        Equal to the host-loop oracle (``numa_device_inputs_host``).
+        (None, None, {}) when no pod and no node needs any of it."""
+        st = self.state
+        relevant = _device_pods(pods)
+        amped = _amped_nodes(st)
+        if not relevant and not amped:
+            return None, None, {}
+        key = (st.device_epoch, cap)
+        if self._dev_rows_key != key:
+            self._dev_rows, self._dev_rows_key = {}, key
+        sig_groups: Dict[tuple, list] = {}
+        sig_rep: Dict[tuple, Pod] = {}
+        for i, p, greq, wants_cs in relevant:
+            sig = _device_sig(p, greq, wants_cs)
+            sig_groups.setdefault(sig, []).append(i)
+            sig_rep.setdefault(sig, p)
+        missing = [s for s in sig_groups if s not in self._dev_rows]
+        if missing:
+            self._compute_device_rows(missing, sig_rep, cap)
+        # assembly on the device: row 0 is the all-feasible row of pods the
+        # device path does not serve, then one row per signature
+        uniq = list(sig_groups)
+        pick = np.zeros(p_bucket, dtype=np.int64)
+        admitted_by_sig: Dict[tuple, dict] = {}
+        pod_sig: Dict[int, tuple] = {}
+        for k, sig in enumerate(uniq):
+            admitted_by_sig[sig] = self._dev_rows[sig][1]
+            for i in sig_groups[sig]:
+                pick[i] = k + 1
+                pod_sig[i] = sig
+        rows = torch.stack([torch.ones(cap, dtype=torch.bool, device=self.device)]
+                           + [self._dev_rows[s][0] for s in uniq])
+        feas = rows[convert.tensor(pick, self.device)]
+        admitted = _AdmittedBySig(pod_sig, admitted_by_sig)
+
+        gpu_pods = [(i, greq) for i, _, greq, _ in relevant if greq is not None]
+        score_rows = [torch.zeros(cap, dtype=torch.int64, device=self.device)]
+        pick[:] = 0
+        if gpu_pods and bool(st._dv_in_gpus.any()):
+            if self._ds_rows_key != key:
+                self._ds_rows, self._ds_rows_key = {}, key
+            greqs = list(dict.fromkeys(g for _, g in gpu_pods))
+            todo = [g for g in greqs if g not in self._ds_rows]
+            if todo:
+                self._compute_device_score_rows(todo, cap)
+            slot = {g: k + 1 for k, g in enumerate(greqs)}
+            score_rows += [self._ds_rows[g] for g in greqs]
+            for i, g in gpu_pods:
+                pick[i] = slot[g]
+        scores = torch.stack(score_rows)[convert.tensor(pick, self.device)]
+        # scoreWithAmplifiedCPUs delta on amplified nodes, every pod
+        if amped and pods:
+            self._amplified_scores_cached(pods, scores, amped)
+        return scores, feas, admitted
+
+    def _compute_device_rows(self, sig_list, sig_rep, cap: int) -> None:
+        """Feasibility rows for the signatures missing from the epoch cache:
+        one ``dev_feasible`` launch over every node for the cpuset-free
+        signatures, then on the card the candidate mask and the exact-walk
+        overrides (fingerprint-grouped, memoized), before the row is
+        cached."""
+        st = self.state
+        dense_sigs = [s for s in sig_list if s[2] is None]  # no cpuset
+        drows: Dict[tuple, torch.Tensor] = {}
+        if dense_sigs:
+            Mb = next_bucket(len(dense_sigs), 8)
+            has_gpu = np.zeros(Mb, dtype=bool)
+            is_multi = np.zeros(Mb, dtype=bool)
+            count = np.zeros(Mb, dtype=np.int32)
+            core_req = np.zeros(Mb, dtype=np.int32)
+            ratio_req = np.zeros(Mb, dtype=np.int32)
+            rdma_need = np.zeros(Mb, dtype=np.int32)
+            sig_valid = np.zeros(Mb, dtype=bool)
+            for m, (greq, rdma_req, _cs, _bp, _ep) in enumerate(dense_sigs):
+                sig_valid[m] = True
+                if greq is not None:
+                    has_gpu[m] = True
+                    c, r = greq
+                    if c >= 100:
+                        is_multi[m] = True
+                        count[m] = c // 100
+                        if c % 100:
+                            sig_valid[m] = False  # ValidateDeviceRequest
+                    else:
+                        core_req[m] = c
+                        ratio_req[m] = r
+                    # the joint draw takes ONE VF whatever the count
+                    rdma_need[m] = 1 if rdma_req > 0 else 0
+                else:
+                    rdma_need[m] = rdma_req
+            core, mem, full, vfs, _, _ = self._device_node_rows()
+            sigs = pl.DeviceSigs(*(convert.tensor(a, self.device) for a in (
+                has_gpu, is_multi, count, core_req, ratio_req, rdma_need, sig_valid)))
+            dense = pl.dev_feasible(core, mem, full, vfs, sigs)
+            for m, sg in enumerate(dense_sigs):
+                drows[sg] = dense[m]
+        if len(self._dev_exact_memo) > 200_000:
+            self._dev_exact_memo.clear()  # long-churn backstop
+        in_gpus, in_topo, in_rdma = st._dv_in_gpus[:cap], st._dv_in_topo[:cap], st._dv_in_rdma[:cap]
+        exact, fp_col = st._dv_exact[:cap], st._dv_fp[:cap]
+        for sig in sig_list:
+            greq, rdma_req, cs_cpu, _bp, _ep = sig
+            wants_cs = cs_cpu is not None
+            if greq is not None:
+                cand = in_gpus & in_topo if wants_cs else in_gpus
+            elif rdma_req > 0 and not wants_cs:
+                cand = in_rdma
+            else:
+                cand = in_topo
+            sig_masks: dict = {}
+            if wants_cs:
+                row = torch.zeros(cap, dtype=torch.bool, device=self.device)
+                exact_cols = np.flatnonzero(cand)
+            else:
+                row = drows[sig] & convert.tensor(cand, self.device)
+                exact_cols = np.flatnonzero(cand & exact)
+            if exact_cols.size:
+                uniq, inv = np.unique(fp_col[exact_cols], return_inverse=True)
+                ok_by = np.zeros(uniq.size, dtype=bool)
+                mask_by: list = [None] * uniq.size
+                for u in range(uniq.size):
+                    col = int(exact_cols[int(np.argmax(inv == u))])
+                    mkey = (int(uniq[u]), sig)
+                    hit = self._dev_exact_memo.get(mkey)
+                    if hit is None:
+                        hit = _eval_device_sig_view(
+                            self._device_view(st._imap._names[col], sig), sig, sig_rep[sig])
+                        self._dev_exact_memo[mkey] = hit
+                    ok_by[u], mask_by[u] = hit
+                row[convert.tensor(exact_cols, self.device)] = convert.tensor(ok_by[inv],
+                                                                              self.device)
+                for k in range(exact_cols.size):
+                    mn = mask_by[inv[k]]
+                    if ok_by[inv[k]] and mn is not None:
+                        sig_masks[st._imap._names[int(exact_cols[k])]] = mn
+            self._dev_rows[sig] = (row, sig_masks)
+
+    def _compute_device_score_rows(self, greqs, cap: int) -> None:
+        """deviceshare binpack score rows per distinct GPU request from the
+        ``ds_score`` kernel over the device aggregates, times the numa
+        weight, zero on nodes without GPUs."""
+        w = PluginWeights()
+        Mb = next_bucket(len(greqs), 8)
+        req = np.zeros((Mb, 2), dtype=np.int64)
+        for m, (c, r) in enumerate(greqs):
+            req[m] = (c, r)
+        _, _, _, _, alloc2, used2 = self._device_node_rows()
+        ds = pl.ds_score(convert.tensor(req, self.device), alloc2, used2)
+        off = convert.tensor(~self.state._dv_in_gpus[:cap], self.device)
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        for m, g in enumerate(greqs):
+            self._ds_rows[g] = torch.where(off, zero, ds[m] * w.numa)
+
+    def _device_view(self, name: str, sig: tuple):
+        """The node-local inputs the exact walk reads (live objects,
+        read-only)."""
+        st = self.state
+        wants_cs = sig[2] is not None
+        info = st._topo.get(name)
+        avail = (st.available_cpus(name, info.max_ref_count)
+                 if wants_cs and info is not None else [])
+        allocs = st.cpu_allocs(name) if wants_cs else {}
+        return (info, st._gpus.get(name, ()), st._rdma.get(name, ()), avail, allocs)
+
+    def _amplified_scores_cached(self, pods: List[Pod], scores: torch.Tensor, amped) -> None:
+        """Add the amplified-CPU delta (times the nodefit weight) into
+        ``scores`` at the amplified columns; the [P, amped] delta is cached
+        on the exact node rows and batch it is a function of."""
+        st = self.state
+        cpu_dim = st.rs.index("cpu") if "cpu" in st.rs else None
+        if cpu_dim is None:
+            return
+        idxs, rows, allocated, ratios = _amplified_inputs(st, amped)
+        nf_pods = nf_snap.build_pod_arrays(pods, st.nf_args, axis=st.axis)
+        key = _amplified_delta_key(idxs, rows, allocated, ratios, nf_pods)
+        cached = self._amp_cache
+        if cached is None or cached[0] != key:
+            delta = _amplified_delta(self._nf_static, nf_pods, rows, allocated, ratios, cpu_dim)
+            self._amp_cache = (key, delta)
+        else:
+            delta = cached[1]
+        cols = convert.tensor(np.asarray(idxs, dtype=np.int64), self.device)
+        add = convert.tensor(delta * PluginWeights().nodefit, self.device)
+        scores[: len(pods)].index_add_(1, cols, add)
 
     def _node_inputs(self, snap, now: float):
         """(la_nodes, nf_nodes, valid) on the engine's device.  With
@@ -262,19 +688,35 @@ class Engine:
     def score(self, pods: List[Pod], now: Optional[float] = None):
         """(totals [P, cap] int64, feasible [P, cap] bool, snapshot).
         Columns follow snapshot row indices; dead columns are infeasible.
-        Gang, quota and reservation fields do not enter SCORE, as in the
-        JAX package."""
+        The device and amplified-CPU scores add into the totals inside the
+        ``score`` kernel; the device and placement masks AND into the
+        feasibility on the card, before the host copy.  Gang, quota and
+        reservation fields do not enter SCORE, as in the JAX package."""
         pods = self._prepare(pods)
         now = time.time() if now is None else now
         snap = self.state.publish(now)
+        cap = snap.valid.shape[0]
         p_bucket = next_bucket(max(len(pods), 1), self._pod_bucket_min)
         la_pods, nf_pods = self._pod_arrays(pods, p_bucket)
+        x_scores, x_feas, _ = self._numa_device_inputs(pods, p_bucket, cap)
         la_nodes, nf_nodes, valid = self._node_inputs(snap, now)
         totals, feasible = score_fn(
-            la_pods, la_nodes, self._weights, nf_pods, nf_nodes, self._nf_static, valid
+            la_pods, la_nodes, self._weights, nf_pods, nf_nodes, self._nf_static, valid, x_scores
         )
+        for mask in (x_feas, self._node_selector_mask(pods, p_bucket, cap)):
+            if mask is not None:
+                feasible = feasible & mask
         P = len(pods)
         return totals[:P].cpu().numpy(), feasible[:P].cpu().numpy(), snap
+
+    def score_breakdown(self, pods: List[Pod], now: Optional[float] = None):
+        """The per-plugin query API: not ported yet (its ``la_score`` and
+        ``nf_score`` kernels come with the explain slice)."""
+        raise later("score_breakdown (the la_score and nf_score kernels)", EXPLAIN)
+
+    def explain(self, pods: List[Pod], now: Optional[float] = None):
+        """The EXPLAIN verb: not ported yet."""
+        raise later("explain (the per-pod schedule decomposition)", EXPLAIN)
 
     # --------------------------------------------------- constraint inputs
 
@@ -409,15 +851,17 @@ class Engine:
 
     def _pods_fingerprint(self, pods: List[Pod]) -> tuple:
         """Exact-content key over every pod field the SCHEDULE inputs read:
-        the snapshot builders, the queue sort and the gang, quota and
-        reservation builders.  The placement slice adds the fields it
-        reads."""
+        the snapshot builders, the queue sort, the gang, quota and
+        reservation builders, the device path (GPU/RDMA/cpuset signatures)
+        and the placement mask (``_mask_sig_key``)."""
         return tuple(
             (
                 p.name, p.namespace, tuple(sorted(p.requests.items())),
                 tuple(sorted(p.limits.items())), p.priority, p.priority_class_label,
                 p.qos_fallback_class, p.is_daemonset, p.sub_priority, p.create_time, p.gang,
-                p.quota, p.non_preemptible, tuple(p.reservations), p.qos,
+                p.quota, p.non_preemptible, tuple(p.reservations), p.qos, p.cpu_bind_policy,
+                p.cpu_exclusive_policy, parse_gpu_request(p.requests),
+                int(p.requests.get(RDMA, 0)), p.wants_cpuset(), _mask_sig_key(p),
             )
             for p in pods
         )
@@ -453,18 +897,27 @@ class Engine:
         in_key = (pods_fp, p_bucket, P, cap, st.content_key, st.warm_fence, excl,
                   self.sched_warm_token())
         if in_key == self._sched_inputs_key:
-            la_pods, nf_pods, excl_rows, cin, order = self._sched_inputs_val
+            (la_pods, nf_pods, excl_rows, cin, order, x_scores, extra,
+             admitted) = self._sched_inputs_val
             self.sched_begin_hits += 1
         else:
             la_np, nf_np = self._pod_arrays_np(pods, p_bucket)
             la_pods = convert.la_pods(la_np, self.device)
             nf_pods = convert.nf_pods(nf_np, self.device)
+            # the placement-and-devices inputs, composed on the card: the
+            # device mask AND the placement mask; the values are fresh
+            # tensors no later cycle writes
+            x_scores, extra, admitted = self._numa_device_inputs(pods, p_bucket, cap)
+            sel_mask = self._node_selector_mask(pods, p_bucket, cap)
+            if sel_mask is not None:
+                extra = sel_mask if extra is None else extra & sel_mask
             cin = self._constraint_inputs(pods, p_bucket, np.asarray(nf_np.req), cap)
             order = convert.tensor(cin.order, self.device)
             rows = [i for i in (st._imap.get(n) for n in excl) if i is not None]
             excl_rows = torch.tensor(rows, dtype=torch.int64, device=self.device) if rows else None
             self._sched_inputs_key = in_key
-            self._sched_inputs_val = (la_pods, nf_pods, excl_rows, cin, order)
+            self._sched_inputs_val = (la_pods, nf_pods, excl_rows, cin, order, x_scores, extra,
+                                      admitted)
         if cin.constrained and self._nf_static.strategy != "LeastAllocated":
             raise later(f"gang, quota or reservation constraints under "
                         f"{self._nf_static.strategy}", STRATEGIES)
@@ -498,6 +951,7 @@ class Engine:
             warm = carry["warm"]
             self.sched_last_dirty = int(dirty.size)
             xs, q_la, q_nf, salts, pod_ok = kernel_queue(la_pods, nf_pods, valid, P, order)
+            xin = extra_inputs(extra, x_scores, xs)
             if cin.constrained:
                 con_kw = dict(con=con_inputs(xs, **self._con_args(cin)),
                               check_parent_depth=CHECK_PARENT_DEPTH,
@@ -509,8 +963,9 @@ class Engine:
                 idx = np.full(next_bucket(int(dirty.size), 16), dirty[0], dtype=np.int32)
                 idx[: dirty.size] = dirty
                 warm = schedule_refresh(warm, idx, q_la, *node_args, BLOCK_SIZE,
-                                        **{k: v for k, v in con_kw.items() if k == "con"})
-            out = schedule_rounds_warm(warm, q_la, *node_args, COMMIT_CAP, BLOCK_SIZE, **con_kw)
+                                        con_kw.get("con"), xin)
+            out = schedule_rounds_warm(warm, q_la, *node_args, COMMIT_CAP, BLOCK_SIZE, xin=xin,
+                                       **con_kw)
             self.sched_warm_hits += 1
             if cin.constrained:
                 hosts_q, scores_q, pre_q, rounds = out
@@ -528,6 +983,7 @@ class Engine:
                 order, COMMIT_CAP, BLOCK_SIZE,
                 con_args=self._con_args(cin) if cin.constrained else None,
                 check_parent_depth=CHECK_PARENT_DEPTH, ancestor_depth=ANCESTOR_DEPTH,
+                extra_feasible=extra, extra_scores=x_scores, extra_score_bound=EXTRA_SCORE_BOUND,
             )
             self.sched_cold_inits += 1
         # the carry records the watermarks after this cycle's publish
@@ -542,7 +998,8 @@ class Engine:
                          rounds])
         return _DeferredSchedule(engine=self, out_dev=out, P=P, snap=snap, pods=pods, now=now,
                                  assume=assume, cin=cin, n_reserve=n_reserve,
-                                 rscore_dev=None if cin.rsv is None else cin.rsv.rscore)
+                                 rscore_dev=None if cin.rsv is None else cin.rsv.rscore,
+                                 admitted=admitted)
 
     @staticmethod
     def _con_args(cin: _Constraints) -> dict:
@@ -562,7 +1019,9 @@ class Engine:
 
         Returns (hosts [P] row index or -1, scores [P] int64, snapshot,
         allocations): ``allocations[i]`` is pod i's PreBind record
-        {node, reservation, consumed}, None for unplaced pods.  ``exclude``
+        {node, reservation, consumed}, with ``devices`` {gpu, rdma} and
+        ``cpuset`` grants where the pod asked for them, None for unplaced
+        pods (among them those the replay demoted).  ``exclude``
         names nodes no pod may take.  ``assume=True`` applies the
         placements to the stores (node rows, quota used, reservation
         allocations, gang satisfaction) and schedules the pending
@@ -579,7 +1038,7 @@ class Engine:
         self.last_rounds, self.last_ub_rounds = int(out[3 * P]), int(out[3 * P + 1])
         rscore = None if d.rscore_dev is None else d.rscore_dev.cpu().numpy()
         allocations = self._allocation_records(pods, hosts, precommit, cin, rscore, snap, d.now,
-                                               d.assume)
+                                               d.assume, d.admitted)
         scores = np.where(hosts >= 0, scores, 0)
         if d.assume and cin.gang_names:
             self._mark_satisfied_gangs(pods, hosts, cin)
@@ -602,29 +1061,58 @@ class Engine:
         return hosts, scores, snap, allocations
 
     def _allocation_records(self, pods, hosts, precommit, cin: _Constraints, rscore, snap, now,
-                            assume):
-        """Per-pod PreBind records: the reservation nomination replayed in
-        queue order (nominator.go:134-190) against live remainders, over
-        the PRE-commit placements so that gang-revoked pods still deplete
-        the remainders later pods saw; only surviving pods get records and,
-        with ``assume``, store effects.  (The JAX engine's demotions —
-        device and cpuset grants, in-batch anti-affinity — and the gang
-        rollback they trigger arrive with the placement-and-devices slice:
-        no pod of this slice is demoted.)"""
+                            assume, admitted=None):
+        """Per-pod PreBind records (the JAX engine's ``_allocation_records``),
+        in queue order; ``hosts`` is demoted in place.
+
+        Phase A, a dry run against copies of the device state: the
+        reservation nomination (nominator.go:134-190) against live
+        remainders over the PRE-commit placements, so that gang-revoked
+        pods still deplete what later pods saw; in-batch required
+        anti-affinity both ways against the pods placed earlier in the
+        queue; GPU/RDMA/cpuset grants within the Filter-time admitted NUMA
+        set.  A pod whose feasibility an earlier pod consumed is demoted to
+        unplaced.  Phase B: a demoted member of a strict, not once-satisfied
+        gang takes its whole gang group down.  Phase C: the survivors'
+        records and, with ``assume``, their store effects."""
+        st = self.state
         P = len(pods)
-        axis = self.state.axis
+        axis = st.axis
+        needs_dev = any(parse_gpu_request(p.requests) is not None
+                        or int(p.requests.get(RDMA, 0)) > 0 or p.wants_cpuset() for p in pods)
+        dev_state = ({"gpus": copy.deepcopy(st._gpus), "rdma": copy.deepcopy(st._rdma),
+                      "cpus": copy.deepcopy(st._cpus_taken)}
+                     if needs_dev else {"gpus": {}, "rdma": {}, "cpus": {}})
         remains = None
         if cin.rsv_np is not None:
             rsv_arr, matched = cin.rsv_np
             remains = np.asarray(rsv_arr.allocatable) - np.asarray(rsv_arr.allocated)
             rsv_nodes, rsv_order = np.asarray(rsv_arr.node), np.asarray(rsv_arr.order)
-        allocations: List[Optional[dict]] = [None] * P
+        gang_pods, gangs = cin.gang_np
+        gang_rows = np.asarray(gang_pods.gang)
+        gang_group = np.asarray(gangs.group)
+
+        plan: Dict[int, dict] = {}
+        demoted: List[int] = []
+        self.last_demotions = {"anti_affinity": 0, "devices": 0}
+        aa_active = any(p.anti_affinity for p in pods[:P])
+        batch_by_node: Dict[str, List] = {}
         for idx in cin.order:
             if idx >= P or precommit[idx] < 0:
                 continue
             pod, host = pods[idx], int(precommit[idx])
             node_name = snap.names[host]
-            nom = consume = None
+            entry: dict = {"node": node_name, "nom": None, "consume": None}
+            if aa_active and hosts[idx] >= 0:
+                for q in batch_by_node.get(node_name, ()):
+                    if (pod.anti_affinity and all(q.labels.get(k) == v
+                                                  for k, v in pod.anti_affinity.items())) or (
+                            q.anti_affinity and all(pod.labels.get(k) == v
+                                                    for k, v in q.anti_affinity.items())):
+                        hosts[idx] = -1
+                        demoted.append(idx)
+                        self.last_demotions["anti_affinity"] += 1
+                        break
             if remains is not None:
                 cand = np.flatnonzero(matched[idx] & (rsv_nodes == host))
                 if cand.size:
@@ -636,17 +1124,64 @@ class Engine:
                     pod_req = np.array([pod.requests.get(r, 0) for r in axis], dtype=np.int64)
                     consume = np.maximum(np.minimum(pod_req, remains[nom]), 0)
                     remains[nom] -= consume
-            if hosts[idx] < 0:
+                    entry["nom"], entry["consume"] = nom, consume
+            greq = parse_gpu_request(pod.requests)
+            rdma_req = int(pod.requests.get(RDMA, 0))
+            wants_cs = pod.wants_cpuset()
+            if (greq is not None or rdma_req > 0 or wants_cs) and hosts[idx] >= 0:
+                grants = _grant(st, dev_state, pod, node_name, greq, rdma_req, wants_cs,
+                                (admitted or {}).get((idx, node_name)))
+                if grants is None:
+                    # the batch-start feasibility was consumed by an earlier
+                    # pod: Reserve fails, the pod waits for the next cycle
+                    hosts[idx] = -1
+                    demoted.append(idx)
+                    self.last_demotions["devices"] += 1
+                else:
+                    entry["grants"] = grants
+            if aa_active and hosts[idx] >= 0:
+                batch_by_node.setdefault(node_name, []).append(pod)
+            plan[idx] = entry
+
+        # phase B: the gang-group rollback a demotion triggers
+        # (coscheduling Unreserve, core/core.go:356-360)
+        gang_nonstrict = (np.asarray(gangs.non_strict) if gangs.non_strict is not None
+                          else np.zeros(gang_group.shape[0], dtype=bool))
+        gang_once = np.asarray(gangs.once_satisfied)
+        bad_groups = {gang_group[gang_rows[i]] for i in demoted
+                      if gang_rows[i] > 0 and not gang_nonstrict[gang_rows[i]]
+                      and not gang_once[gang_rows[i]]}
+        if bad_groups:
+            for i in range(P):
+                if gang_rows[i] > 0 and gang_group[gang_rows[i]] in bad_groups:
+                    hosts[i] = -1
+
+        # phase C: the survivors' records and store effects
+        allocations: List[Optional[dict]] = [None] * P
+        for idx in cin.order:
+            if idx >= P or hosts[idx] < 0 or idx not in plan:
                 continue
+            pod, entry = pods[idx], plan[idx]
+            node_name = entry["node"]
             rec = {"node": node_name, "reservation": None, "consumed": {}}
-            if nom is not None:
-                rec["reservation"] = cin.rsv_names[nom]
-                rec["consumed"] = {r: int(v) for r, v in zip(axis, consume) if v}
+            if entry["nom"] is not None:
+                rec["reservation"] = cin.rsv_names[entry["nom"]]
+                rec["consumed"] = {r: int(v) for r, v in zip(axis, entry["consume"]) if v}
                 if assume:
-                    self.state.reservations.note_consume(pod.key, rec["reservation"],
-                                                         rec["consumed"])
+                    st.reservations.note_consume(pod.key, rec["reservation"], rec["consumed"])
+            grants = entry.get("grants")
+            if grants is not None:
+                if grants[0] or grants[1]:
+                    rec["devices"] = {"gpu": grants[0], "rdma": grants[1]}
+                if grants[2]:
+                    rec["cpuset"] = grants[2]
             if assume:
-                self.state.assign_pod(node_name, AssignedPod(pod=pod, assign_time=now))
+                # assign first: a moved pod releases its stale device record
+                # before the new grant is noted
+                st.assign_pod(node_name, AssignedPod(pod=pod, assign_time=now))
+                if grants is not None:
+                    st.note_device_alloc(pod.key, node_name, grants[0], grants[1], grants[2],
+                                         cpu_excl=pod.cpu_exclusive_policy or "")
             allocations[idx] = rec
         return allocations
 
@@ -677,3 +1212,291 @@ class Engine:
         runtime = quota_mod.quota_fn(self._tensors(quota_mod.QuotaArrays(*qs.arrays())),
                                      qs.level_tuple(), convert.tensor(total, self.device))
         return qs, runtime.cpu().numpy()
+
+
+# ------------------------------------------------ host-side device helpers
+
+
+def _eval_device_sig_view(view, sig, p) -> tuple:
+    """The reference-order combinatorial evaluation for ONE (node, request
+    signature): collect hints -> Admit under the node's policy -> allocate
+    against devices filtered to the admitted affinity
+    (AutopilotAllocator.filterNodeDevice).  Returns (ok, admitted NUMA set
+    | None).  Pure in ``view`` (topology, device lists, available CPUs, cpu
+    allocs — ``Engine._device_view``)."""
+    info, devs, rdma_devs, avail, allocs = view
+    greq, rdma_req, cs, _bp, _ep = sig
+    wants_cs = cs is not None
+    ok = True
+    providers = []
+    if greq is not None:
+        if not devs:
+            ok = False
+        else:
+            providers.append(gpu_topology_hints(devs, greq[0], greq[1]))
+    if wants_cs:
+        if info is None:
+            ok = False
+        else:
+            numa_ids = list(range(info.topo.num_nodes))
+            free = {n: {"cpu": 1000 * sum(1 for c in avail if info.topo.node_of_cpu(c) == n)}
+                    for n in numa_ids}
+            providers.append(tm.generate_resource_hints(
+                [(n, {"cpu": 1000 * info.topo.cpus_per_node}) for n in numa_ids], free,
+                {"cpu": p.requests.get("cpu", 0)}))
+    mask_nodes: Optional[set] = None
+    if ok and info is not None and info.policy != tm.POLICY_NONE:
+        best, admit = tm.merge(providers, list(range(info.topo.num_nodes)), info.policy)
+        ok &= admit
+        if ok and best.mask is not None:
+            mask_nodes = set(tm.mask_bits(best.mask))
+
+    def in_mask(ds):
+        return [d for d in ds if mask_nodes is None or d.numa_node in mask_nodes]
+
+    if ok and greq is not None:
+        ok &= allocate_joint(in_mask(devs), greq[0], greq[1], rdma_devices=in_mask(rdma_devs),
+                             want_rdma=rdma_req > 0) is not None
+    elif ok and rdma_req > 0:
+        # a standalone RDMA request: the node must yield the VFs
+        ok &= allocate_rdma_vfs(in_mask(rdma_devs), rdma_req) is not None
+    if ok and wants_cs:
+        sel_cpus = [c for c in avail
+                    if mask_nodes is None or info.topo.node_of_cpu(c) in mask_nodes]
+        ok &= take_cpus(info.topo, sel_cpus, p.requests.get("cpu", 0) // 1000,
+                        bind_policy=p.cpu_bind_policy or FULL_PCPUS, allocated=allocs,
+                        max_ref_count=info.max_ref_count,
+                        exclusive_policy=p.cpu_exclusive_policy or "") is not None
+    return bool(ok), mask_nodes
+
+
+def _amplified_inputs(state, amped):
+    """(idxs, rows, allocated, ratios): the amplified nodes' nodefit rows
+    (fresh numpy copies), their cpuset allocation milli-CPU and ratios."""
+    st = state
+    idxs = [st._imap.get(n) for n, _ in amped]
+    rows = NodeFitNodeArrays(
+        alloc=st._nf_alloc[idxs], requested=st._nf_requested[idxs],
+        num_pods=st._nf_num_pods[idxs], allowed_pods=st._nf_allowed[idxs],
+        alloc_score=st._nf_alloc_score[idxs], req_score=st._nf_req_score[idxs],
+    )
+    allocated = np.array([1000 * len(st._cpus_taken.get(n, ())) for n, _ in amped],
+                         dtype=np.int64)
+    ratios = np.array([info.cpu_ratio for _, info in amped])
+    return idxs, rows, allocated, ratios
+
+
+def _amplified_delta_key(idxs, rows, allocated, ratios, nf_pods) -> tuple:
+    """Exact content key of the delta matrix: equal key, equal delta."""
+    return (
+        tuple(idxs), tuple(np.asarray(a).tobytes() for a in rows), allocated.tobytes(),
+        ratios.tobytes(), np.asarray(nf_pods.req).tobytes(),
+        np.asarray(nf_pods.req_score).tobytes(), np.asarray(nf_pods.has_any_request).tobytes(),
+    )
+
+
+def _amplified_delta(nf_static, nf_pods, rows, allocated, ratios, cpu_dim) -> np.ndarray:
+    """[P, amped] int64 score delta, amplified minus plain nodefit, on the
+    host in float64 (``core.numa.amplified_cpu_score``)."""
+    t = lambda nt: type(nt)(*(torch.from_numpy(np.ascontiguousarray(a)) for a in nt))  # noqa: E731
+    pods, nodes = t(NodeFitPodArrays(*nf_pods)), t(rows)
+    amped = amplified_cpu_score(pods, nodes, nf_static, cpu_dim, torch.from_numpy(allocated),
+                                torch.from_numpy(ratios))
+    return (amped - nodefit_score(pods, nodes, nf_static)).numpy()
+
+
+def _apply_amplified_scores(state, nf_static, pods, scores: np.ndarray, amped) -> None:
+    """scoreWithAmplifiedCPUs (scoring.go:99-118): the amplified score
+    replaces the nodefit score on amplified nodes, so the delta carries
+    nodefit's weight.  Adds into the host ``scores`` in place."""
+    cpu_dim = state.rs.index("cpu") if "cpu" in state.rs else None
+    if cpu_dim is None:
+        return
+    idxs, rows, allocated, ratios = _amplified_inputs(state, amped)
+    nf_pods = nf_snap.build_pod_arrays(pods, state.nf_args, axis=state.axis)
+    delta = _amplified_delta(nf_static, nf_pods, rows, allocated, ratios, cpu_dim)
+    for col, ix in enumerate(idxs):
+        scores[: len(pods), ix] += delta[:, col] * PluginWeights().nodefit
+
+
+# ------------------------------------------------------ host-loop oracles
+#
+# The JAX package's pre-tensorization host loops, kept as the oracles the
+# tests hold the engine's placement and device inputs against.  Nothing on
+# the serving path calls them.
+
+
+def placement_mask_host(state, pods, p_bucket: int, cap: int):
+    """The host-loop placement mask: [p_bucket, cap] bool numpy, or None
+    when no pod and no node triggers a policy."""
+    st = state
+    if not (any(p.node_selector or p.anti_affinity for p in pods) or st._tainted_nodes
+            or st._aa_holder_count):
+        return None
+    tainted = []  # (row, [NoSchedule/NoExecute taints])
+    holders = []  # (row, [co-located pods' anti-affinity selectors])
+    for name in st._tainted_nodes:
+        ix, node = st._imap.get(name), st._nodes.get(name)
+        if ix is None or node is None:
+            continue
+        bad = [t for t in node.taints if t.get("effect") in ("NoSchedule", "NoExecute")]
+        if bad:
+            tainted.append((ix, bad))
+    for name in st._aa_holder_count:
+        ix, node = st._imap.get(name), st._nodes.get(name)
+        if ix is None or node is None:
+            continue
+        sels = [ap.pod.anti_affinity for ap in node.assigned_pods if ap.pod.anti_affinity]
+        if sels:
+            holders.append((ix, sels))
+    mask = np.ones((p_bucket, cap), dtype=bool)
+    memo: Dict[tuple, np.ndarray] = {}
+    aa_memo: Dict[tuple, list] = {}
+    for i, p in enumerate(pods):
+        if p.node_selector:
+            key = tuple(sorted(p.node_selector.items()))
+            row = memo.get(key)
+            if row is None:
+                names = None
+                for pair in key:
+                    rows = st._node_label_rows.get(pair)
+                    if not rows:
+                        names = set()
+                        break
+                    names = rows.copy() if names is None else names & rows
+                row = np.zeros(cap, dtype=bool)
+                for name in names or ():
+                    ix = st._imap.get(name)
+                    if ix is not None:
+                        row[ix] = True
+                memo[key] = row
+            mask[i] &= row
+        for ix, bad in tainted:
+            if any(not tolerates(p, t) for t in bad):
+                mask[i, ix] = False
+        for ix, sels in holders:
+            # an existing holder's anti-affinity selects the incoming pod
+            if any(all(p.labels.get(k) == v for k, v in s.items()) for s in sels):
+                mask[i, ix] = False
+        if p.anti_affinity:
+            # the incoming pod's own anti-affinity: nodes holding a pod it
+            # selects are closed
+            key = tuple(sorted(p.anti_affinity.items()))
+            closed = aa_memo.get(key)
+            if closed is None:
+                cand = None
+                for pair in key:
+                    rows = st._pod_label_rows.get(pair)
+                    if not rows:
+                        cand = set()
+                        break
+                    cand = set(rows) if cand is None else cand & rows.keys()
+                closed = []
+                for name in cand or ():
+                    node, ix = st._nodes.get(name), st._imap.get(name)
+                    if node is None or ix is None:
+                        continue
+                    if any(all(ap.pod.labels.get(k) == v for k, v in p.anti_affinity.items())
+                           for ap in node.assigned_pods):
+                        closed.append(ix)
+                aa_memo[key] = closed
+            for ix in closed:
+                mask[i, ix] = False
+    return mask
+
+
+def numa_device_inputs_host(state, nf_static, pods, p_bucket: int, cap: int):
+    """The host-loop NUMA/deviceshare walk: (extra_scores, extra_feasible,
+    admitted) as numpy, the oracle of ``Engine._numa_device_inputs``."""
+    st = state
+    relevant = _device_pods(pods)
+    amped = _amped_nodes(st)
+    if not relevant and not amped:
+        return None, None, {}
+    scores = np.zeros((p_bucket, cap), dtype=np.int64)
+    feas = np.ones((p_bucket, cap), dtype=bool)
+    dev_nodes = [(n, st._imap.get(n)) for n in sorted(st._gpus) if st._imap.get(n) is not None]
+    topo_nodes = {n: st._imap.get(n) for n in st._topo if st._imap.get(n) is not None}
+    rdma_nodes = {n: st._imap.get(n) for n in sorted(st._rdma) if st._imap.get(n) is not None}
+    memo: Dict[tuple, tuple] = {}
+    fp_cache: Dict[tuple, tuple] = {}
+
+    def fingerprint(name: str, needs_dev: bool, needs_cs: bool) -> tuple:
+        ck = (name, needs_dev, needs_cs)
+        fp = fp_cache.get(ck)
+        if fp is None:
+            parts = []
+            if needs_dev:
+                parts.append(tuple((d.minor, d.numa_node, d.pcie, d.core_free,
+                                    d.memory_ratio_free) for d in st._gpus.get(name, ())))
+                parts.append(tuple((r.minor, r.numa_node, r.vfs_free)
+                                   for r in st._rdma.get(name, ())))
+            info = st._topo.get(name)
+            if info is None:
+                parts.append(None)
+            else:
+                parts.append((info.topo.sockets, info.topo.nodes_per_socket,
+                              info.topo.cores_per_node, info.topo.cpus_per_core, info.policy,
+                              info.max_ref_count))
+                if needs_cs:
+                    parts.append(tuple(sorted((c, tuple(pols))
+                                              for c, pols in st._cpus_taken.get(name, {}).items())))
+            fp = tuple(parts)
+            fp_cache[ck] = fp
+        return fp
+
+    sig_groups: Dict[tuple, list] = {}
+    sig_info: Dict[tuple, tuple] = {}
+    for i, p, greq, wants_cs in relevant:
+        rdma_req = int(p.requests.get(RDMA, 0))
+        feas[i, :] = False
+        sig = _device_sig(p, greq, wants_cs)
+        sig_groups.setdefault(sig, []).append(i)
+        if sig not in sig_info:
+            if greq:
+                cand = dict(dev_nodes)
+            elif rdma_req > 0 and not wants_cs:
+                cand = dict(rdma_nodes)
+            else:
+                cand = dict(topo_nodes)
+            if greq and wants_cs:
+                cand = {n: ix for n, ix in cand.items() if n in topo_nodes}
+            sig_info[sig] = (p, greq, wants_cs, rdma_req, cand)
+    admitted_by_sig: Dict[tuple, dict] = {}
+    pod_sig: Dict[int, tuple] = {}
+    for sig, idxs in sig_groups.items():
+        p, greq, wants_cs, rdma_req, cand = sig_info[sig]
+        needs_dev = greq is not None or rdma_req > 0
+        row = np.zeros(cap, dtype=bool)
+        sig_masks: dict = {}
+        for name, ix in cand.items():
+            fp = fingerprint(name, needs_dev, wants_cs)
+            hit = memo.get((fp, sig))
+            if hit is None:
+                info = st._topo.get(name)
+                avail = (st.available_cpus(name, info.max_ref_count)
+                         if wants_cs and info is not None else [])
+                hit = _eval_device_sig_view(
+                    (info, st._gpus.get(name, ()), st._rdma.get(name, ()), avail,
+                     st.cpu_allocs(name)), sig, p)
+                memo[(fp, sig)] = hit
+            ok, mask_nodes = hit
+            row[ix] = ok
+            if ok:
+                sig_masks[name] = mask_nodes
+        admitted_by_sig[sig] = sig_masks
+        feas[np.asarray(idxs, dtype=np.int64)] = row[None, :]
+        for i in idxs:
+            pod_sig[i] = sig
+    admitted = _AdmittedBySig(pod_sig, admitted_by_sig)
+    # deviceshare Score for GPU pods over device nodes, pre-weighted
+    gpu_pods = [(i, p) for i, p, greq, _ in relevant if greq is not None]
+    if gpu_pods and dev_nodes:
+        ds = deviceshare_score([st._gpus[n] for n, _ in dev_nodes],
+                               [p.requests for _, p in gpu_pods])
+        for r, (i, _) in enumerate(gpu_pods):
+            for col, (_, ix) in enumerate(dev_nodes):
+                scores[i, ix] += ds[r, col] * PluginWeights().numa
+    if amped and pods:
+        _apply_amplified_scores(state, nf_static, pods, scores, amped)
+    return scores, feas, admitted

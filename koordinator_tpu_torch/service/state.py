@@ -1,35 +1,37 @@
 """Incremental sparse->dense snapshot store, with device-resident node tables.
 
-Informer-event deltas (node spec / NodeMetric / pod assign / pod delete —
-the events the Go shim forwards) refresh ONLY the touched node's dense row,
-so publish cost is O(dirty rows) + O(N) vectorized time-gating.  The rows
-are the JAX package's (service/state.py) bit for bit: the same builders
-(``snapshot.loadaware.node_row_raw``, ``snapshot.nodefit.node_row``), the
-same stable index map with smallest-index-first reuse, the same
-power-of-two capacity buckets.
+Informer-event deltas (node spec / NodeMetric / NRT and device inventories
+/ pod assign / pod delete — the events the Go shim forwards) refresh ONLY
+the touched node's dense rows, so publish cost is O(dirty rows) + O(N)
+vectorized time-gating.  The rows are the JAX package's (service/state.py)
+bit for bit: the same builders (``snapshot.loadaware.node_row_raw``,
+``snapshot.nodefit.node_row``), the same stable index map with
+smallest-index-first reuse, the same power-of-two capacity buckets, the
+same interning vocabularies for the placement-policy rows (taints, node
+labels, assigned pods' anti-affinity selectors and label sets) and the
+same device-inventory aggregates.
 
-Every row refresh stamps the row with a monotone epoch (``_row_ver``).
-The stamps drive two consumers that advance at different times and keep
-their own watermarks: the device residency (``DeviceResidency``, the
-default, ``device_state=True``), which keeps the node tables on the card
-and ships only the rows whose stamps moved (``dstate_scatter``), and the
+Every row refresh stamps the row with a monotone epoch, one family per
+table: ``_row_ver`` (la/nf rows), ``_pp_row_ver`` (policy rows, bumped only
+when a row actually changes) and ``_dv_row_ver`` (device rows).  The
+stamps drive two consumers that advance at different times and keep their
+own watermarks: the device residency (``DeviceResidency``, the default,
+``device_state=True``), which keeps the three tables on the card and ships
+only the rows whose stamps moved (``dstate_scatter``) or widens a table's
+vocabulary axis in place of a re-upload (``dstate_extend``), and the
 engine's SCHEDULE warm carry (``sched_versions``/``sched_dirty_rows``),
-which rebuilds only those rows of its key matrix.
-
-What this port does not carry raises ``NotImplementedError`` instead of
-serving a different answer: NUMA topologies, device inventories, hard node
-taints, assigned pods with required anti-affinity or device grants, and
-the policy/device resident tables that belong to them.  The gang, quota
-and reservation stores are the JAX package's (``service.constraints``),
-hooked into node removal, assign and unassign as there.
+which rebuilds only those rows of its key matrix.  The gang, quota and
+reservation stores are the JAX package's (``service.constraints``), hooked
+into node removal, assign and unassign as there.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import heapq
 import itertools
-from typing import Dict, List, NamedTuple, Optional, Set
+from typing import Dict, List, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -39,13 +41,36 @@ from koordinator_tpu_torch.api.model import AssignedPod, Node, NodeMetric
 from koordinator_tpu_torch.core.config import LoadAwareArgs, NodeFitArgs
 from koordinator_tpu_torch.core.loadaware import LoadAwareNodeArrays
 from koordinator_tpu_torch.core.nodefit import NodeFitNodeArrays
+from koordinator_tpu_torch.core.numa import CPUAlloc, CPUTopology
 from koordinator_tpu_torch.service.constraints import GangStore, QuotaStore, ReservationStore
 from koordinator_tpu_torch.snapshot import loadaware as la_snap
-from koordinator_tpu_torch.slices import PLACEMENT, later
 from koordinator_tpu_torch.snapshot import nodefit as nf_snap
 
 # process-unique ClusterState identities for engine-side warm-carry keys
 _SCHED_STORE_TOKENS = itertools.count(1)
+
+_VOCAB_MIN = 8  # smallest vocabulary-axis bucket of the policy/device rows
+
+
+@dataclasses.dataclass
+class NodeTopologyInfo:
+    """The node's NodeResourceTopology report as the scheduler consumes it:
+    CPU layout, the node's topology-manager policy, and the CPU
+    amplification ratio."""
+
+    topo: CPUTopology
+    policy: str = "none"  # none | best-effort | restricted | single-numa-node
+    cpu_ratio: float = 1.0
+    # kubelet CPU-sharing option: how many pods may share one CPU
+    # (cpu_accumulator.go maxRefCount; 1 = dedicated)
+    max_ref_count: int = 1
+
+
+def cpu_allocs_from(held: Dict[int, List[str]]):
+    """cpu id -> CPUAlloc from a holder-policies map (the one
+    representation the Filter-time walk and the allocation replay share)."""
+    return {c: CPUAlloc(ref_count=len(pols), exclusive_policies=tuple(pols))
+            for c, pols in held.items()}
 
 
 def next_bucket(n: int, minimum: int = 256) -> int:
@@ -269,6 +294,64 @@ def dstate_gate(raw, now: float, exp, fexp: bool) -> LoadAwareNodeArrays:
     )
 
 
+def _extend_inputs(bufs, new_cols, fills):
+    """Validate one vocab-axis widening before any launch: every buffer a
+    contiguous [N, c] table of one device and row count, widening to
+    ``new_cols`` >= c; ``fills`` fit the dtypes (bool, int32, int64)."""
+    if not (len(bufs) == len(new_cols) == len(fills)) or not bufs:
+        raise ValueError(f"{len(bufs)} buffers, {len(new_cols)} widths, {len(fills)} fills")
+    rows, dev = bufs[0].shape[0], bufs[0].device
+    for i, (b, nc, fl) in enumerate(zip(bufs, new_cols, fills)):
+        if (b.dim() != 2 or b.shape[0] != rows or b.device != dev or not b.is_contiguous()
+                or b.dtype not in (torch.bool, torch.int32, torch.int64)
+                or int(nc) < b.shape[1]):
+            raise ValueError(f"buffer {i}: {b.dtype} {tuple(b.shape)} on {b.device} cannot "
+                             f"widen to {nc} columns")
+        if b.dtype == torch.bool and fl not in (0, 1, False, True):
+            raise ValueError(f"buffer {i}: fill {fl!r} for a bool table")
+    return rows, dev
+
+
+def dstate_extend_plain(bufs, new_cols, fills) -> tuple:
+    """[N, c] -> fresh [N, c'] buffers: the old columns copied, the new ones
+    the fill."""
+    out = []
+    for b, nc, fl in zip(bufs, new_cols, fills):
+        wide = torch.full((b.shape[0], int(nc)), fl, dtype=b.dtype, device=b.device)
+        wide[:, : b.shape[1]] = b
+        out.append(wide)
+    return tuple(out)
+
+
+def dstate_extend(bufs, new_cols, fills) -> tuple:
+    """Widen resident tables' vocabulary axis: the JAX package's
+    ``dstate_extend`` (state.py:208).  Returns fresh [N, c'] buffers whose
+    old columns hold the resident bytes and whose new columns hold the
+    fill the host growth wrote; the old buffers are never written.  On
+    CUDA one launch of ``csrc/dstate.cu`` widens every buffer, walking a
+    descriptor table of (source, destination, widths, element size,
+    fill)."""
+    rows, dev = _extend_inputs(bufs, new_cols, fills)
+    if dev.type == "cpu":
+        return dstate_extend_plain(bufs, new_cols, fills)
+    n = len(bufs)
+    if n > cuda.DSTATE_MAX_ARRAYS:
+        raise ValueError(f"{n} buffers exceed {cuda.DSTATE_MAX_ARRAYS}")
+    out = tuple(torch.empty((rows, int(nc)), dtype=b.dtype, device=dev)
+                for b, nc in zip(bufs, new_cols))
+    if rows:
+        cuda.DSTATE_EXTEND.launch(
+            n, (ctypes.c_void_p * n)(*(b.data_ptr() for b in bufs)),
+            (ctypes.c_void_p * n)(*(o.data_ptr() for o in out)),
+            (ctypes.c_longlong * n)(*(b.shape[1] for b in bufs)),
+            (ctypes.c_longlong * n)(*(int(nc) for nc in new_cols)),
+            (ctypes.c_int * n)(*(b.element_size() for b in bufs)),
+            (ctypes.c_longlong * n)(*(int(fl) for fl in fills)),
+            rows, cuda.device_index(dev), cuda.stream(dev),
+        )
+    return out
+
+
 class ResidencyMismatch(AssertionError):
     """A resident device table diverged from its host-built oracle.  Raised
     by ``DeviceResidency.verify`` after invalidating, so the next read
@@ -280,10 +363,11 @@ class _ResidentTable:
     the engine's warm-carry watermark: a SCORE syncs the residency without
     touching the carry)."""
 
-    __slots__ = ("attrs", "bufs", "watermark", "shape_key", "audit_cursor")
+    __slots__ = ("attrs", "ver_attr", "bufs", "watermark", "shape_key", "audit_cursor")
 
-    def __init__(self, attrs: tuple):
+    def __init__(self, attrs: tuple, ver_attr: str):
         self.attrs = attrs
+        self.ver_attr = ver_attr
         self.bufs: Optional[tuple] = None
         self.watermark = 0
         self.shape_key: Optional[tuple] = None
@@ -299,21 +383,29 @@ def _norm_device(device) -> torch.device:
 
 class DeviceResidency:
     """The store's device-resident companion: the JAX package's
-    ``DeviceResidency`` (state.py:309) for the ``rows`` table — the la/nf
-    node rows and the valid mask, stamped by ``_row_ver``.
+    ``DeviceResidency`` (state.py:309), three tables, one per stamp family:
 
-    The tables live on one explicit device, bound by the first
-    ``serving_node_inputs(now, device)``; a read asking for another device
-    raises.  A cold table adopts wholesale (``dstate_rows``); a warm one
-    ships only the rows whose stamp moved past its watermark in one
-    ``dstate_scatter``; past ``scatter_max_frac`` of the capacity it
-    re-uploads wholesale.  A failed transfer or launch raises: nothing
-    falls back to the host arrays (``device_state=False`` is the explicit
-    host-built path).  ``verify`` bit-compares against the host arrays."""
+    - ``rows``   — the la/nf node rows and the valid mask (``_row_ver``);
+    - ``policy`` — the taint/label/anti-affinity rows (``_pp_row_ver``),
+      the ``placement`` kernel's node inputs;
+    - ``device`` — the device-inventory aggregates (``_dv_row_ver``), the
+      ``dev_feasible`` and ``ds_score`` kernels' node inputs.
+
+    The tables live on one explicit device, bound by the first read; a
+    read asking for another device raises.  A cold table adopts wholesale
+    (``dstate_rows``); a warm one ships only the rows whose stamp moved
+    past its watermark in one ``dstate_scatter``; past
+    ``scatter_max_frac`` of the capacity it re-uploads wholesale.  A
+    vocabulary-axis growth recorded by the store (``note_vocab_growth``)
+    widens the resident buffers on the device (``dstate_extend``) instead
+    of re-uploading; a capacity growth or a dtype change rebuilds cold.
+    A failed transfer or launch raises: nothing falls back to the host
+    arrays (``device_state=False`` is the explicit host-built path).
+    ``verify`` bit-compares against the host arrays."""
 
     #: serving reads between automatic bit-match audits (0 = never)
     verify_every = 64
-    #: rows the automatic audit compares (a rotating window)
+    #: rows per table the automatic audit compares (a rotating window)
     verify_sample_rows = 1024
     #: dirty fraction past which a wholesale re-upload replaces the scatter
     scatter_max_frac = 0.25
@@ -329,32 +421,58 @@ class DeviceResidency:
         "_nf_alloc_score", "_nf_req_score",
         "_valid",
     )
+    _POLICY = ("_pp_label", "_pp_taint", "_pp_aa", "_pp_sig")
+    _DEVICE = ("_dv_core", "_dv_mem", "_dv_full", "_dv_vfs", "_dv_alloc2", "_dv_used2")
 
     def __init__(self, state: "ClusterState", enabled: bool = True):
         self._state = state
         self.enabled = bool(enabled)
-        self._rows = _ResidentTable(self._ROWS)
+        self._tables: Dict[str, _ResidentTable] = {
+            "rows": _ResidentTable(self._ROWS, "_row_ver"),
+            "policy": _ResidentTable(self._POLICY, "_pp_row_ver"),
+            "device": _ResidentTable(self._DEVICE, "_dv_row_ver"),
+        }
         self.device: Optional[torch.device] = None
         # one-entry gated-la cache: SCORE and SCHEDULE in one cycle share
         # one dstate_gate launch
         self._gate_key: Optional[tuple] = None
         self._gate_val = None
+        # the fill each widened attr's new columns took on the host
+        # (``note_vocab_growth``): what dstate_extend writes
+        self._extend_fill: Dict[str, object] = {}
         self.h2d_bytes_total = 0
         self.full_uploads = 0
         self.scatters = 0
+        self.extends = 0
         self.last_dirty_rows = 0
         self.verifies = 0
         self._reads = 0
 
-    def invalidate(self) -> None:
-        """Drop the resident buffers: the next sync rebuilds cold (capacity
-        growth, a failed audit)."""
-        t = self._rows
-        t.bufs = None
-        t.shape_key = None
-        t.watermark = 0
+    def invalidate(self, table: Optional[str] = None) -> None:
+        """Drop one table's resident buffers, or all: the next sync rebuilds
+        cold (capacity growth, a failed audit)."""
+        for name, t in self._tables.items():
+            if table is None or name == table:
+                t.bufs = None
+                t.shape_key = None
+                t.watermark = 0
         self._gate_key = None
         self._gate_val = None
+
+    def is_warm(self, table: str = "rows") -> bool:
+        return self._tables[table].bufs is not None
+
+    def table_bytes(self, table: str) -> int:
+        """Bytes of a table's resident buffers (0 when cold)."""
+        t = self._tables[table]
+        return 0 if t.bufs is None else sum(b.numel() * b.element_size() for b in t.bufs)
+
+    def note_vocab_growth(self, attrs, fill) -> None:
+        """``ClusterState._grow_vocab``'s hook: the fill the host growth
+        wrote into each widened attr's new columns, so the next sync widens
+        the resident buffers on the device instead of re-uploading."""
+        for a in attrs:
+            self._extend_fill[a] = fill
 
     def _bind(self, device) -> torch.device:
         d = _norm_device(device)
@@ -366,28 +484,66 @@ class DeviceResidency:
             )
         return d
 
-    def _sync(self) -> tuple:
-        t, st = self._rows, self._state
+    def _vocab_extend(self, t: _ResidentTable, host, shape_key) -> bool:
+        """The warm vocabulary-growth path: when a table's shape change only
+        widens axis 1 of some [N, c] arrays (same rows, same dtypes, a fill
+        on record for each widened one) and leaves the others as they were,
+        widen the resident buffers with one ``dstate_extend``.  False for
+        any other reshape: the caller rebuilds cold.  (Unlike the JAX
+        package's, an array whose shape did not change may be 1-D, so the
+        device table, whose full-free and VF counts are [N], widens warm
+        too.)"""
+        if t.bufs is None or t.shape_key is None:
+            return False
+        grow = []
+        for k, ((oshape, odt), (nshape, ndt), attr) in enumerate(
+                zip(t.shape_key, shape_key, t.attrs)):
+            if odt != ndt:
+                return False
+            if oshape == nshape:
+                continue
+            if (len(oshape) != 2 or len(nshape) != 2 or oshape[0] != nshape[0]
+                    or nshape[1] < oshape[1] or attr not in self._extend_fill):
+                return False
+            grow.append(k)
+        if not grow:
+            return False
+        wide = dstate_extend([t.bufs[k] for k in grow], [host[k].shape[1] for k in grow],
+                             [self._extend_fill[t.attrs[k]] for k in grow])
+        bufs = list(t.bufs)
+        for k, b in zip(grow, wide):
+            bufs[k] = b
+        t.bufs = tuple(bufs)
+        t.shape_key = shape_key
+        self.extends += 1
+        return True
+
+    def _sync(self, name: str) -> tuple:
+        t, st = self._tables[name], self._state
         host = [getattr(st, a) for a in t.attrs]
         shape_key = tuple((a.shape, a.dtype.str) for a in host)
-        ver = st._row_ver
+        ver = getattr(st, t.ver_attr)
         if t.bufs is None or t.shape_key != shape_key:
-            # cold (first touch, capacity growth, invalidation)
-            t.bufs = dstate_rows(host, self.device)
-            t.shape_key = shape_key
-            t.watermark = int(ver.max(initial=0))
-            self.full_uploads += 1
-            self.last_dirty_rows = host[0].shape[0]
-            self.h2d_bytes_total += sum(a.nbytes for a in host)
-            self._gate_key = None
-            return t.bufs
+            if not self._vocab_extend(t, host, shape_key):
+                # cold (first touch, capacity growth, invalidation)
+                t.bufs = dstate_rows(host, self.device)
+                t.shape_key = shape_key
+                t.watermark = int(ver.max(initial=0))
+                self.full_uploads += 1
+                self.last_dirty_rows = host[0].shape[0]
+                self.h2d_bytes_total += sum(a.nbytes for a in host)
+                if name == "rows":
+                    self._gate_key = None
+                return t.bufs
+            # widened warm: the rows whose stamps moved scatter below, at
+            # the new width
         dirty = np.flatnonzero(ver > t.watermark)
         if dirty.size == 0:
             return t.bufs
         self.last_dirty_rows = int(dirty.size)
         if dirty.size >= self.scatter_max_frac * ver.shape[0]:
             t.bufs = None  # dense churn: re-upload wholesale
-            return self._sync()
+            return self._sync(name)
         db = next_bucket(int(dirty.size), 16)
         idx = np.full(db, dirty[0], dtype=np.int32)
         idx[: dirty.size] = dirty
@@ -396,7 +552,8 @@ class DeviceResidency:
         t.watermark = int(ver.max(initial=0))
         self.scatters += 1
         self.h2d_bytes_total += idx.nbytes + sum(v.nbytes for v in vals)
-        self._gate_key = None
+        if name == "rows":
+            self._gate_key = None
         return t.bufs
 
     def serving_node_inputs(self, now: float, device):
@@ -404,11 +561,13 @@ class DeviceResidency:
         synced and time-gated from ``now``.  The caller must not write
         them: clear a copy of ``valid`` to exclude nodes."""
         self._bind(device)
-        bufs = self._sync()
+        bufs = self._sync("rows")
         self._reads += 1
         if self.verify_every and self._reads % self.verify_every == 0:
             self.verify(sample=self.verify_sample_rows)
-        key = (self.full_uploads, self.scatters, float(now))
+        # every change of the rows table clears the key (``_sync``), so the
+        # clock is the whole key: syncing another table keeps the gate
+        key = float(now)
         if self._gate_key != key:
             la_args = self._state.la_args
             self._gate_val = dstate_gate(
@@ -418,56 +577,51 @@ class DeviceResidency:
             self._gate_key = key
         return self._gate_val, NodeFitNodeArrays(*bufs[12:18]), bufs[18]
 
-    def policy_rows(self):
-        raise later("the resident policy-row table (taints, labels, anti-affinity)", PLACEMENT)
+    def policy_rows(self, device) -> tuple:
+        """(labels, taints, aa, sig) resident on ``device``, freshly synced:
+        the ``placement`` kernel's node inputs."""
+        self._bind(device)
+        return self._sync("policy")
 
-    def device_rows(self):
-        raise later("the resident device-inventory table", PLACEMENT)
+    def device_rows(self, device) -> tuple:
+        """(core, mem, full, vfs, alloc2, used2) resident on ``device``,
+        freshly synced: the ``dev_feasible`` / ``ds_score`` node inputs."""
+        self._bind(device)
+        return self._sync("device")
 
-    def note_vocab_growth(self, attrs, fill) -> None:
-        raise later("vocab-axis growth of the policy/device tables (dstate_extend)", PLACEMENT)
-
-    def verify(self, sample: Optional[int] = None) -> int:
-        """Bit-compare the warm resident table against the live host arrays
-        after syncing it: every row (``sample=None``) or a ``sample``-row
-        rotating window.  Returns the number of arrays checked; raises
-        ``ResidencyMismatch`` (after invalidating) on any divergence."""
-        t = self._rows
-        if t.bufs is None:
-            return 0
-        self._sync()
-        rows = getattr(self._state, t.attrs[0]).shape[0]
-        if sample is None or sample >= rows:
-            lo, hi = 0, rows
-        else:
-            lo = t.audit_cursor % rows
-            hi = min(lo + sample, rows)
-            t.audit_cursor = hi % rows
-        for attr, buf in zip(t.attrs, t.bufs):
-            host = getattr(self._state, attr)[lo:hi]
-            dev = buf[lo:hi].cpu().numpy()
-            equal = host.shape == dev.shape and host.dtype == dev.dtype and np.array_equal(
-                host, dev, equal_nan=np.issubdtype(host.dtype, np.floating)
-            )
-            if not equal:
-                self.invalidate()
-                raise ResidencyMismatch(
-                    f"resident array {attr!r} diverged from the host oracle (rows {lo}:{hi})"
+    def verify(self, tables: Optional[tuple] = None, sample: Optional[int] = None) -> int:
+        """Bit-compare the warm resident tables against the live host arrays
+        after syncing each: every row (``sample=None``) or a ``sample``-row
+        rotating window per table.  Returns the number of arrays checked;
+        raises ``ResidencyMismatch`` (after invalidating) on any
+        divergence."""
+        checked = 0
+        for name, t in self._tables.items():
+            if (tables is not None and name not in tables) or t.bufs is None:
+                continue
+            self._sync(name)
+            rows = getattr(self._state, t.attrs[0]).shape[0]
+            if sample is None or sample >= rows:
+                lo, hi = 0, rows
+            else:
+                lo = t.audit_cursor % rows
+                hi = min(lo + sample, rows)
+                t.audit_cursor = hi % rows
+            for attr, buf in zip(t.attrs, t.bufs):
+                host = getattr(self._state, attr)[lo:hi]
+                dev = buf[lo:hi].cpu().numpy()
+                equal = host.shape == dev.shape and host.dtype == dev.dtype and np.array_equal(
+                    host, dev, equal_nan=np.issubdtype(host.dtype, np.floating)
                 )
+                if not equal:
+                    self.invalidate()
+                    raise ResidencyMismatch(
+                        f"resident table {name!r} array {attr!r} diverged from the host "
+                        f"oracle (rows {lo}:{hi})"
+                    )
+                checked += 1
         self.verifies += 1
-        return len(t.attrs)
-
-
-def _hard_taints(node: Node) -> bool:
-    return any(t.get("effect") in ("NoSchedule", "NoExecute") for t in node.taints)
-
-
-def _refuse_assigned(pods) -> None:
-    for ap in pods:
-        if ap.pod.anti_affinity:
-            raise later("assigned pods with required anti-affinity", PLACEMENT)
-        if ap.pod.device_allocation:
-            raise later("assigned pods holding devices or cpusets", PLACEMENT)
+        return checked
 
 
 class ClusterState:
@@ -499,6 +653,40 @@ class ClusterState:
         self._R = len(self.la_args.resources)
         self._Rf = len(self.axis)
         self._Rs = len(self.rs)
+        # NUMA topologies and device inventories (NRT / Device CRD
+        # informers); allocations are tracked per pod, so an authoritative
+        # re-inventory replays them
+        self._topo: Dict[str, NodeTopologyInfo] = {}
+        self._gpus: Dict[str, list] = {}  # name -> [GPUDevice]
+        self._rdma: Dict[str, list] = {}  # name -> [RDMADevice]
+        # name -> cpu id -> the exclusive-policy strings of its holders
+        # ("" = none); len(list) is the CPU's refcount
+        self._cpus_taken: Dict[str, Dict[int, List[str]]] = {}
+        # pod key -> (node, gpu grants, rdma grants, cpuset, cpu_excl)
+        self._dev_alloc: Dict[str, Tuple[str, list, list, list, str]] = {}
+        # placement-policy indexes: nodes with hard taints, per-node counts
+        # of assigned anti-affinity holders, and the inverted label indexes
+        # the host-loop mask walks: (k, v) -> nodes carrying that label,
+        # and (k, v) -> node -> count of assigned pods labelled so
+        self._tainted_nodes: Set[str] = set()
+        self._aa_holder_count: Dict[str, int] = {}
+        self._node_label_rows: Dict[Tuple[str, str], Set[str]] = {}
+        self._labels_indexed: Dict[str, Set[Tuple[str, str]]] = {}
+        self._pod_label_rows: Dict[Tuple[str, str], Dict[str, int]] = {}
+        # the policy and device rows' epochs: bumped only when a dense row
+        # actually changes (compare-and-bump), so a twin fed the same ops
+        # reproduces them
+        self._policy_epoch = 0
+        self._device_epoch = 0
+        # interning vocabularies (insertion order = first-seen order)
+        self._taint_vocab: Dict[Tuple[str, str, str], int] = {}
+        self._label_vocab: Dict[Tuple[str, str], int] = {}
+        self._aa_vocab: Dict[tuple, int] = {}  # anti-affinity selectors
+        self._sig_vocab: Dict[tuple, int] = {}  # assigned-pod label sets
+        self._fp_vocab: Dict[tuple, int] = {}  # device/topology fingerprints
+        # vocab-axis buckets (power-of-two growth)
+        self._Tb = self._Lb = self._Sb = self._Gb = _VOCAB_MIN
+        self._Gm = _VOCAB_MIN  # device columns per node
         self._imap = IndexMap()
         self._nodes: Dict[str, Node] = {}
         self._pod_node: Dict[str, str] = {}
@@ -549,8 +737,28 @@ class ClusterState:
         self._nf_alloc_score = g("_nf_alloc_score", self._Rs)
         self._nf_req_score = g("_nf_req_score", self._Rs)
         self._valid = g("_valid", 0, bool, False)
-        # per-row change stamps: the epoch at which each row last changed
+        # placement-policy rows [cap, vocab bucket]; the vocab axis grows
+        # apart, in _grow_vocab
+        self._pp_taint = g("_pp_taint", self._Tb, bool, False)
+        self._pp_label = g("_pp_label", self._Lb, bool, False)
+        self._pp_aa = g("_pp_aa", self._Sb, np.int32)
+        self._pp_sig = g("_pp_sig", self._Gb, np.int32)
+        # device-inventory rows
+        self._dv_core = g("_dv_core", self._Gm, np.int32, -1)
+        self._dv_mem = g("_dv_mem", self._Gm, np.int32, -1)
+        self._dv_full = g("_dv_full", 0, np.int32)
+        self._dv_vfs = g("_dv_vfs", 0, np.int32)
+        self._dv_alloc2 = g("_dv_alloc2", 2, np.int64)
+        self._dv_used2 = g("_dv_used2", 2, np.int64)
+        self._dv_in_gpus = g("_dv_in_gpus", 0, bool, False)
+        self._dv_in_rdma = g("_dv_in_rdma", 0, bool, False)
+        self._dv_in_topo = g("_dv_in_topo", 0, bool, False)
+        self._dv_exact = g("_dv_exact", 0, bool, False)  # policy != none
+        self._dv_fp = g("_dv_fp", 0, np.int64, -1)  # fingerprint id
+        # per-row change stamps, one family per table
         self._row_ver = g("_row_ver", 0)
+        self._pp_row_ver = g("_pp_row_ver", 0)
+        self._dv_row_ver = g("_dv_row_ver", 0)
         self._cap = cap
         self._copies = None
         # the resident shapes no longer match, and any warm carry was taken
@@ -563,20 +771,48 @@ class ClusterState:
     def upsert_node(self, node: Node) -> None:
         """Node spec event.  The node's live metric and assign cache are
         owned by their own delta streams and survive a spec upsert."""
-        if _hard_taints(node):
-            raise later("nodes with NoSchedule/NoExecute taints", PLACEMENT)
         self._content_ver += 1
         prev = self._nodes.get(node.name)
         if prev is not None:
             node.metric = prev.metric
             node.assigned_pods = prev.assigned_pods
-        else:
-            _refuse_assigned(node.assigned_pods)
         self._nodes[node.name] = node
+        # node-label inverted index: diff what the INDEX holds against the
+        # new label set (prev may be this same object)
+        old_labels = self._labels_indexed.get(node.name, set())
+        new_labels = set(node.labels.items())
+        for pair in old_labels - new_labels:
+            rows = self._node_label_rows.get(pair)
+            if rows is not None:
+                rows.discard(node.name)
+                if not rows:
+                    del self._node_label_rows[pair]
+        for pair in new_labels - old_labels:
+            self._node_label_rows.setdefault(pair, set()).add(node.name)
+        if new_labels:
+            self._labels_indexed[node.name] = new_labels
+        else:
+            self._labels_indexed.pop(node.name, None)
+        if prev is None:
+            # a Node built with assigned_pods then upserted indexes them too
+            for ap in node.assigned_pods:
+                self._index_pod_labels(node.name, ap.pod, +1)
+        if any(t.get("effect") in ("NoSchedule", "NoExecute") for t in node.taints):
+            self._tainted_nodes.add(node.name)
+        else:
+            self._tainted_nodes.discard(node.name)
+        holders = sum(1 for ap in node.assigned_pods if ap.pod.anti_affinity)
+        if holders:
+            self._aa_holder_count[node.name] = holders
+        else:
+            self._aa_holder_count.pop(node.name, None)
         i = self._imap.add(node.name)
         if i >= self._cap:
             self._grow(next_bucket(i + 1, self._cap * 2))
         self._dirty.add(node.name)
+        self._refresh_policy_row(node.name)
+        # device/topology state may have raced ahead of the node's upsert
+        self._refresh_device_row(node.name)
         for ap in self._pending_assigns.pop(node.name, ()):
             self.assign_pod(node.name, ap)
 
@@ -589,14 +825,31 @@ class ClusterState:
         for ap in node.assigned_pods:
             key = ap.pod.key
             self._pod_node.pop(key, None)
-            # a removed node's pods release their quota, gang membership
-            # and reservation allocations, as unassign_pod does
+            # a removed node's pods release their quota, gang membership,
+            # reservation allocations and device grants, as unassign_pod does
             self.quota.release(key)
             self.gangs.note_unassign(key)
             self.reservations.note_release(key)
+            self.release_device_alloc(key)
+        # the node's NRT and device inventories die with it
+        self.remove_topology(name)
+        self.remove_devices(name)
+        self._cpus_taken.pop(name, None)
+        self._tainted_nodes.discard(name)
+        self._aa_holder_count.pop(name, None)
+        for pair in self._labels_indexed.pop(name, set()):
+            rows = self._node_label_rows.get(pair)
+            if rows is not None:
+                rows.discard(name)
+                if not rows:
+                    del self._node_label_rows[pair]
+        for ap in node.assigned_pods:
+            self._index_pod_labels(name, ap.pod, -1)
         i = self._imap.remove(name)
         self._dirty.discard(name)
         self._clear_row(i)
+        self._zero_policy_row(i)
+        self._zero_device_row(i)
 
     def update_metric(self, name: str, metric: NodeMetric) -> None:
         """NodeMetric status event; ignored for unknown nodes (the shim may
@@ -608,17 +861,145 @@ class ClusterState:
         node.metric = metric
         self._dirty.add(name)
 
-    def set_topology(self, name: str, info) -> None:
-        raise later("NUMA topologies", PLACEMENT)
+    # ------------------------------------------------- topology / devices
+
+    def set_topology(self, name: str, info: NodeTopologyInfo) -> None:
+        """NRT report for a node; may race ahead of the node's upsert."""
+        self._content_ver += 1
+        self._topo[name] = info
+        self._cpus_taken.setdefault(name, {})
+        self._refresh_device_row(name)
+
+    def remove_topology(self, name: str) -> None:
+        self._content_ver += 1
+        self._topo.pop(name, None)
+        self._refresh_device_row(name)
 
     def set_devices(self, name: str, gpus: list, rdma: list = ()) -> None:
-        raise later("device inventories", PLACEMENT)
+        """Authoritative device inventory (Device CRD): fresh free state,
+        then the tracked pod allocations on this node replay onto it."""
+        self._content_ver += 1
+        self._gpus[name] = list(gpus)
+        self._rdma[name] = list(rdma)
+        gpu_by_minor = {d.minor: d for d in self._gpus[name]}
+        by_minor = {r.minor: r for r in self._rdma[name]}
+        for entry in self._dev_alloc.values():
+            node, galloc, ralloc = entry[0], entry[1], entry[2]
+            if node != name:
+                continue
+            for minor, core, ratio in galloc:
+                # a granted minor missing from the fresh inventory has
+                # nothing to replay onto
+                d = gpu_by_minor.get(minor)
+                if d is not None:
+                    d.core_free -= core
+                    d.memory_ratio_free -= ratio
+            for minor, vfs in ralloc:
+                if minor in by_minor:
+                    by_minor[minor].vfs_free -= vfs
+        self._refresh_device_row(name)
+
+    def remove_devices(self, name: str) -> None:
+        self._content_ver += 1
+        self._gpus.pop(name, None)
+        self._rdma.pop(name, None)
+        self._refresh_device_row(name)
+
+    def available_cpus(self, name: str, max_ref_count: int = 1) -> List[int]:
+        """CPUs whose refcount is below the sharing cap."""
+        info = self._topo.get(name)
+        if info is None:
+            return []
+        taken = self._cpus_taken.get(name, {})
+        return [c for c in range(info.topo.num_cpus) if len(taken.get(c, ())) < max_ref_count]
+
+    def cpu_allocs(self, name: str):
+        """cpu id -> CPUAlloc for the node's held CPUs."""
+        return cpu_allocs_from(self._cpus_taken.get(name, {}))
+
+    def note_device_alloc(self, pod_key: str, node: str, gpu: list, rdma: list, cpuset: list,
+                          cpu_excl: str = "") -> None:
+        """Record and apply a pod's device/cpuset allocation, keyed by pod so
+        the shim's authoritative assign and the engine's own assume
+        reconcile instead of double counting.  A different allocation for a
+        known pod releases the stale record first."""
+        from koordinator_tpu_torch.core.deviceshare import apply_allocation
+
+        self._content_ver += 1
+        if not (gpu or rdma or cpuset):
+            return
+        new_entry = (node, [tuple(x) for x in gpu], [tuple(x) for x in rdma], list(cpuset),
+                     cpu_excl)
+        prev = self._dev_alloc.get(pod_key)
+        if prev is not None:
+            if (prev[0] == new_entry[0] and [tuple(x) for x in prev[1]] == new_entry[1]
+                    and [tuple(x) for x in prev[2]] == new_entry[2]
+                    and list(prev[3]) == new_entry[3] and prev[4] == cpu_excl):
+                return  # identical replay: no-op
+            self.release_device_alloc(pod_key)
+        if gpu and node in self._gpus:
+            apply_allocation(self._gpus[node], gpu)
+        if rdma and node in self._rdma:
+            by_minor = {r.minor: r for r in self._rdma[node]}
+            for minor, vfs in rdma:
+                if minor in by_minor:
+                    by_minor[minor].vfs_free -= vfs
+        if cpuset:
+            held = self._cpus_taken.setdefault(node, {})
+            for c in cpuset:
+                held.setdefault(int(c), []).append(cpu_excl)
+        self._dev_alloc[pod_key] = (node, list(gpu), list(rdma), list(cpuset), cpu_excl)
+        self._refresh_device_row(node)
+
+    def release_device_alloc(self, pod_key: str) -> None:
+        self._content_ver += 1
+        entry = self._dev_alloc.pop(pod_key, None)
+        if entry is None:
+            return
+        node, gpu, rdma, cpuset, cpu_excl = entry
+        if gpu and node in self._gpus:
+            by_minor = {d.minor: d for d in self._gpus[node]}
+            for minor, core, ratio in gpu:
+                if minor in by_minor:
+                    by_minor[minor].core_free += core
+                    by_minor[minor].memory_ratio_free += ratio
+        if rdma and node in self._rdma:
+            by_minor = {r.minor: r for r in self._rdma[node]}
+            for minor, vfs in rdma:
+                if minor in by_minor:
+                    by_minor[minor].vfs_free += vfs
+        if cpuset:
+            held = self._cpus_taken.get(node, {})
+            for c in cpuset:
+                pols = held.get(int(c))
+                if pols is None:
+                    continue
+                if cpu_excl in pols:
+                    pols.remove(cpu_excl)
+                elif pols:
+                    pols.pop()
+                if not pols:
+                    del held[int(c)]
+        self._refresh_device_row(node)
+
+    def _index_pod_labels(self, node_name: str, pod, delta: int) -> None:
+        """Maintain the assigned-pod label inverted index."""
+        for pair in pod.labels.items():
+            rows = self._pod_label_rows.setdefault(pair, {})
+            n = rows.get(node_name, 0) + delta
+            if n > 0:
+                rows[node_name] = n
+            else:
+                rows.pop(node_name, None)
+                if not rows:
+                    del self._pod_label_rows[pair]
 
     def assign_pod(self, node_name: str, assigned: AssignedPod) -> None:
         """podAssignCache assign (pod_assign_cache.go:47): pod assumed/bound
         on the node.  Re-assign of a known pod moves it.  An assign for a
-        node not (yet) known is buffered and replayed on the node's upsert."""
-        _refuse_assigned([assigned])
+        node not (yet) known is buffered and replayed on the node's upsert.
+        A pod's device allocation annotation replays into the device
+        state."""
         self._content_ver += 1
         node = self._nodes.get(node_name)
         if node is None:
@@ -632,6 +1013,10 @@ class ClusterState:
         node.assigned_pods.append(assigned)
         self._pod_node[key] = node_name
         self._dirty.add(node_name)
+        self._index_pod_labels(node_name, assigned.pod, +1)
+        if assigned.pod.anti_affinity:
+            self._aa_holder_count[node_name] = self._aa_holder_count.get(node_name, 0) + 1
+        self._refresh_policy_row(node_name)
         # constraint-state hooks (idempotent by pod key): quota used walks
         # the group chain, gang membership counts toward waiting+bound
         # satisfaction
@@ -639,20 +1024,40 @@ class ClusterState:
             self.quota.consume(assigned.pod, assigned.pod.quota, assigned.pod.non_preemptible)
         if assigned.pod.gang:
             self.gangs.note_assign(key, assigned.pod.gang)
+        da = assigned.pod.device_allocation
+        if da:
+            self.note_device_alloc(
+                key, node_name, [tuple(x) for x in da.get("gpu", [])],
+                [tuple(x) for x in da.get("rdma", [])], list(da.get("cpuset", [])),
+                cpu_excl=assigned.pod.cpu_exclusive_policy or "",
+            )
 
     def unassign_pod(self, pod_key: str) -> None:
         self._content_ver += 1
         self.quota.release(pod_key)
         self.gangs.note_unassign(pod_key)
         self.reservations.note_release(pod_key)
+        self.release_device_alloc(pod_key)
         node_name = self._pod_node.pop(pod_key, None)
         if node_name is None:
             for aps in self._pending_assigns.values():
                 aps[:] = [ap for ap in aps if ap.pod.key != pod_key]
             return
         node = self._nodes[node_name]
+        for ap in node.assigned_pods:
+            if ap.pod.key != pod_key:
+                continue
+            self._index_pod_labels(node_name, ap.pod, -1)
+            if ap.pod.anti_affinity:
+                n = self._aa_holder_count.get(node_name, 0) - 1
+                if n > 0:
+                    self._aa_holder_count[node_name] = n
+                else:
+                    self._aa_holder_count.pop(node_name, None)
+            break
         node.assigned_pods = [ap for ap in node.assigned_pods if ap.pod.key != pod_key]
         self._dirty.add(node_name)
+        self._refresh_policy_row(node_name)
 
     # ------------------------------------------------------------- publish
 
@@ -675,6 +1080,171 @@ class ClusterState:
         self._valid[i] = False
         self._node_epoch += 1
         self._row_ver[i] = self._node_epoch
+
+    # ---------------------------------- placement-policy and device rows
+
+    def _grow_vocab(self, attrs, bucket_attr: str, need: int, fill=0) -> None:
+        """Widen the vocabulary axis of the given dense arrays to hold
+        column ``need`` (power-of-two growth), and record the fill so the
+        residency widens its buffers on the device."""
+        b = getattr(self, bucket_attr)
+        if need < b:
+            return
+        nb = b
+        while nb <= need:
+            nb <<= 1
+        for attr in attrs:
+            arr = getattr(self, attr)
+            wide = np.full((arr.shape[0], nb), fill, dtype=arr.dtype)
+            wide[:, : arr.shape[1]] = arr
+            setattr(self, attr, wide)
+        setattr(self, bucket_attr, nb)
+        self.residency.note_vocab_growth(attrs, fill)
+
+    def _intern(self, vocab: dict, key, attr: str, bucket_attr: str) -> int:
+        i = vocab.get(key)
+        if i is None:
+            i = len(vocab)
+            vocab[key] = i
+            self._grow_vocab((attr,), bucket_attr, i)
+        return i
+
+    def _refresh_policy_row(self, name: str) -> None:
+        """Recompute the node's dense taint/label/anti-affinity rows from
+        the live objects; bump the policy epoch ONLY if something changed."""
+        i = self._imap.get(name)
+        node = self._nodes.get(name)
+        if i is None or node is None:
+            return
+        t_ids = [
+            # missing keys stay None: tolerates() tells an absent value
+            # from an empty one
+            self._intern(self._taint_vocab, (t.get("key"), t.get("value"), t.get("effect")),
+                         "_pp_taint", "_Tb")
+            for t in node.taints
+            if t.get("effect") in ("NoSchedule", "NoExecute")
+        ]
+        l_ids = [self._intern(self._label_vocab, pair, "_pp_label", "_Lb")
+                 for pair in node.labels.items()]
+        aa_counts: Dict[int, int] = {}
+        sig_counts: Dict[int, int] = {}
+        for ap in node.assigned_pods:
+            if ap.pod.anti_affinity:
+                j = self._intern(self._aa_vocab, tuple(sorted(ap.pod.anti_affinity.items())),
+                                 "_pp_aa", "_Sb")
+                aa_counts[j] = aa_counts.get(j, 0) + 1
+            if ap.pod.labels:
+                j = self._intern(self._sig_vocab, tuple(sorted(ap.pod.labels.items())),
+                                 "_pp_sig", "_Gb")
+                sig_counts[j] = sig_counts.get(j, 0) + 1
+        new_t = np.zeros(self._Tb, dtype=bool)
+        new_t[t_ids] = True
+        new_l = np.zeros(self._Lb, dtype=bool)
+        new_l[l_ids] = True
+        new_aa = np.zeros(self._Sb, dtype=np.int32)
+        for j, c in aa_counts.items():
+            new_aa[j] = c
+        new_sig = np.zeros(self._Gb, dtype=np.int32)
+        for j, c in sig_counts.items():
+            new_sig[j] = c
+        if (np.array_equal(self._pp_taint[i], new_t) and np.array_equal(self._pp_label[i], new_l)
+                and np.array_equal(self._pp_aa[i], new_aa)
+                and np.array_equal(self._pp_sig[i], new_sig)):
+            return
+        self._pp_taint[i] = new_t
+        self._pp_label[i] = new_l
+        self._pp_aa[i] = new_aa
+        self._pp_sig[i] = new_sig
+        self._policy_epoch += 1
+        self._pp_row_ver[i] = self._policy_epoch
+
+    def _zero_policy_row(self, i: int) -> None:
+        if (self._pp_taint[i].any() or self._pp_label[i].any() or self._pp_aa[i].any()
+                or self._pp_sig[i].any()):
+            self._pp_taint[i] = False
+            self._pp_label[i] = False
+            self._pp_aa[i] = 0
+            self._pp_sig[i] = 0
+            self._policy_epoch += 1
+            self._pp_row_ver[i] = self._policy_epoch
+
+    def _device_fingerprint(self, name: str) -> Optional[tuple]:
+        """The node's device/topology/cpuset identity: two nodes with equal
+        fingerprints give identical joint-allocation answers for any
+        request signature, so the engine walks once per (fingerprint,
+        signature)."""
+        gpus = self._gpus.get(name)
+        rdma = self._rdma.get(name)
+        info = self._topo.get(name)
+        if gpus is None and rdma is None and info is None:
+            return None
+        return (
+            tuple((d.minor, d.numa_node, d.pcie, d.core_free, d.memory_ratio_free)
+                  for d in gpus or ()),
+            tuple((r.minor, r.numa_node, r.pcie, r.vfs_free) for r in rdma or ()),
+            None if info is None else (
+                info.topo.sockets, info.topo.nodes_per_socket, info.topo.cores_per_node,
+                info.topo.cpus_per_core, info.policy, info.max_ref_count,
+            ),
+            tuple(sorted((c, tuple(pols)) for c, pols in self._cpus_taken.get(name, {}).items())),
+        )
+
+    def _refresh_device_row(self, name: str) -> None:
+        """Recompute the node's dense device-inventory row (free shares,
+        full-free count, VF total, score aggregates, fingerprint id); bump
+        the device epoch only on an actual change."""
+        i = self._imap.get(name)
+        if i is None:
+            return
+        gpus = self._gpus.get(name)
+        rdma = self._rdma.get(name)
+        info = self._topo.get(name)
+        key = self._device_fingerprint(name)
+        fp = -1 if key is None else self._fp_vocab.setdefault(key, len(self._fp_vocab))
+        in_g, in_r, in_t = gpus is not None, rdma is not None, info is not None
+        if (self._dv_fp[i] == fp and self._dv_in_gpus[i] == in_g and self._dv_in_rdma[i] == in_r
+                and self._dv_in_topo[i] == in_t):
+            return  # the fingerprint covers every derived column below
+        ng = len(gpus) if gpus else 0
+        if ng > self._Gm:
+            self._grow_vocab(("_dv_core", "_dv_mem"), "_Gm", ng - 1, fill=-1)
+        new_core = np.full(self._Gm, -1, dtype=np.int32)
+        new_mem = np.full(self._Gm, -1, dtype=np.int32)
+        for k, d in enumerate(gpus or ()):
+            new_core[k] = d.core_free
+            new_mem[k] = d.memory_ratio_free
+        self._dv_core[i] = new_core
+        self._dv_mem[i] = new_mem
+        self._dv_full[i] = sum(1 for d in gpus or () if d.full_free())
+        self._dv_vfs[i] = sum(r.vfs_free for r in rdma or ())
+        self._dv_alloc2[i] = (100 * ng, 100 * ng)
+        self._dv_used2[i] = (sum(100 - d.core_free for d in gpus or ()),
+                             sum(100 - d.memory_ratio_free for d in gpus or ()))
+        self._dv_in_gpus[i] = in_g
+        self._dv_in_rdma[i] = in_r
+        self._dv_in_topo[i] = in_t
+        self._dv_exact[i] = in_t and info.policy != "none"
+        self._dv_fp[i] = fp
+        self._device_epoch += 1
+        self._dv_row_ver[i] = self._device_epoch
+
+    def _zero_device_row(self, i: int) -> None:
+        if not (self._dv_in_gpus[i] or self._dv_in_rdma[i] or self._dv_in_topo[i]
+                or self._dv_fp[i] != -1):
+            return
+        self._dv_core[i] = -1
+        self._dv_mem[i] = -1
+        self._dv_full[i] = 0
+        self._dv_vfs[i] = 0
+        self._dv_alloc2[i] = 0
+        self._dv_used2[i] = 0
+        self._dv_in_gpus[i] = False
+        self._dv_in_rdma[i] = False
+        self._dv_in_topo[i] = False
+        self._dv_exact[i] = False
+        self._dv_fp[i] = -1
+        self._device_epoch += 1
+        self._dv_row_ver[i] = self._device_epoch
 
     def _refresh_row(self, name: str) -> None:
         self._copies = None
@@ -710,14 +1280,25 @@ class ClusterState:
         return self._cap
 
     @property
+    def policy_epoch(self) -> int:
+        """Bumps whenever a node's taints, labels, or assigned-pod
+        anti-affinity/label-signature row actually changes."""
+        return self._policy_epoch
+
+    @property
+    def device_epoch(self) -> int:
+        """Bumps whenever a node's device inventory, NUMA topology, or
+        cpuset consumption row actually changes."""
+        return self._device_epoch
+
+    @property
     def content_key(self) -> tuple:
         """Equality token over the store's content within this process:
-        node-side content (every mutator bumps ``_content_ver``) plus the
-        gang, quota and reservation stores' versions."""
-        return (self._content_ver, self.gangs.version, self.quota.version,
-                self.reservations.version)
-
-    # ----------------------------- cross-cycle SCHEDULE warm-start surface
+        node-side content (every mutator bumps ``_content_ver``), the policy
+        and device epochs, and the gang, quota and reservation stores'
+        versions."""
+        return (self._content_ver, self._policy_epoch, self._device_epoch, self.gangs.version,
+                self.quota.version, self.reservations.version)
 
     @property
     def warm_fence(self) -> int:
@@ -732,15 +1313,17 @@ class ClusterState:
 
     def sched_versions(self) -> tuple:
         """The (node, policy, device) row-version watermarks a warm carry
-        records when it is taken.  Only the node rows exist in this port:
-        the policy and device slots are 0 until the placement-and-devices
-        slice brings their stamps."""
-        return (int(self._row_ver.max(initial=0)), 0, 0)
+        records when it is taken."""
+        return (int(self._row_ver.max(initial=0)), int(self._pp_row_ver.max(initial=0)),
+                int(self._dv_row_ver.max(initial=0)))
 
     def sched_dirty_rows(self, vers: tuple) -> np.ndarray:
-        """Node rows whose stamp advanced past the recorded watermarks
-        (int32, sorted): exactly the columns a warm carry must refresh."""
-        return np.flatnonzero(self._row_ver > vers[0]).astype(np.int32)
+        """Node rows whose la/nf, policy or device stamp advanced past the
+        recorded watermarks (int32, sorted): exactly the columns a warm
+        carry must refresh."""
+        v0, v1, v2 = vers
+        return np.flatnonzero((self._row_ver > v0) | (self._pp_row_ver > v1)
+                              | (self._dv_row_ver > v2)).astype(np.int32)
 
     def sched_gate_flips(self, now0: float, now1: float) -> np.ndarray:
         """Node rows whose LoadAware metric-expiry gate flips between the

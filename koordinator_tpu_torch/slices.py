@@ -5,8 +5,8 @@ the port serves raises ``NotImplementedError`` through ``later``, never a
 silently different answer.
 """
 
-PLACEMENT = "the placement-and-devices slice"
 STRATEGIES = "the strategies slice"
+EXPLAIN = "the explain slice"
 
 
 def later(what: str, slice_name: str) -> NotImplementedError:

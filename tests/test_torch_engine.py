@@ -133,10 +133,29 @@ def test_engine_other_strategy_on_cpu_matches_jax():
     assert_same(te.schedule(tp, now=NOW)[0], je.schedule(jp, now=NOW)[0])
 
 
-def _plain_state():
-    st = ClusterState(extra_scalars=SCALARS)
-    for n in tfx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
+def _plain_state(side=None):
+    """Eight random nodes; with ``side`` ("jax" or "torch") that package's
+    store, the first two nodes carrying a GPU node's inventory and a zone
+    label (the JAX side on host-built arrays)."""
+    if side is None:
+        st = ClusterState(extra_scalars=SCALARS)
+        for n in tfx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
+            st.upsert_node(n)
+        return st
+    from torch_parity import pkg
+
+    k = pkg(side)
+    fx = jfx if side == "jax" else tfx
+    st = (JState(extra_scalars=SCALARS, device_state=False) if side == "jax"
+          else ClusterState(extra_scalars=SCALARS))
+    for i, n in enumerate(fx.random_cluster(3, num_nodes=8, num_pods=0)[1]):
+        if i < 2:
+            n.labels = {"zone": "a"}
         st.upsert_node(n)
+    st.set_devices("node-0", [k.GPUDevice(minor=m, numa_node=m // 2) for m in range(4)],
+                   [k.RDMADevice(minor=0, vfs_free=2)])
+    st.set_devices("node-1", [k.GPUDevice(minor=0, core_free=60, memory_ratio_free=60)])
+    st.assign_pod("node-2", k.AssignedPod(pod=k.Pod(name="holder", labels={"app": "x"})))
     return st
 
 
@@ -153,10 +172,11 @@ def _plain_state():
     ],
 )
 def test_out_of_slice_pods_raise(field, value):
-    """Placement and device pods raise naming the placement-and-devices
-    slice.  Gang, quota and reservation pods are served under
-    LeastAllocated; under MostAllocated (the scan route) a batch the
-    stores constrain raises naming the strategies slice."""
+    """Gang, quota and reservation pods are served under LeastAllocated;
+    under MostAllocated (the scan route) a batch the stores constrain
+    raises naming the strategies slice.  Placement and device pods are
+    served: SCORE and SCHEDULE (with ``assume``) equal the JAX engine's,
+    allocation records and grants included."""
     from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
 
     pod = tm.Pod(name="p", requests={jm.CPU: 1000})
@@ -176,41 +196,62 @@ def test_out_of_slice_pods_raise(field, value):
         with pytest.raises(NotImplementedError, match="strategies slice"):
             eng.schedule([pod], now=NOW)
         return
-    eng = Engine(_plain_state(), device="cpu")
-    for call in (eng.score, eng.schedule):
-        with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
-            call([pod], now=NOW)
+    jst, tst = _plain_state("jax"), _plain_state("torch")
+    je, te = JEngine(jst), Engine(tst, device="cpu")
+    jpod = jm.Pod(name="p", requests={jm.CPU: 1000})
+    setattr(jpod, field, value)
+    for k in range(2):
+        assert_same(te.score([pod], now=NOW + k)[0], je.score([jpod], now=NOW + k)[0])
+        assert_same(te.score([pod], now=NOW + k)[1], je.score([jpod], now=NOW + k)[1])
+        th, ts, _, ta = te.schedule([pod], now=NOW + k, assume=k == 1)
+        jh, js, _, ja = je.schedule([jpod], now=NOW + k, assume=k == 1)
+        assert_same(th, jh)
+        assert_same(ts, js)
+        assert ta == ja
+    assert th[0] >= 0 and tst._dev_alloc == jst._dev_alloc
 
 
 def test_out_of_slice_store_and_modes_raise():
+    """What the port still refuses, naming the slice: device scores under
+    MostAllocated (the scan has no extra-score branch: the strategies
+    slice), and ``score_breakdown``/``explain`` (the explain slice).  The
+    store ops this slice brought are served: taints, topologies, device
+    inventories, anti-affinity holders and device grants, and a cpuset
+    pod, with ``assume`` too."""
+    from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
+    from torch_parity import pkg
+
+    t_pkg = pkg("torch")
     st = _plain_state()
-    assert st.residency.enabled  # device_state=True is the default now
-    for call in (st.residency.policy_rows, st.residency.device_rows,
-                 lambda: st.residency.note_vocab_growth(("_pp_label",), False)):
-        with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
-            call()
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        st.set_topology("node-0", None)
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        st.set_devices("node-0", [])
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        st.upsert_node(tm.Node(name="t", taints=[{"key": "k", "effect": "NoSchedule"}]))
-    holder = tm.Pod(name="h", anti_affinity={"app": "x"})
-    with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
-        st.assign_pod("node-0", tm.AssignedPod(pod=holder))
-    granted = tm.Pod(name="g", device_allocation={"cpuset": [0, 1]})
-    with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
-        st.assign_pod("node-0", tm.AssignedPod(pod=granted))
-    cpuset = tm.Pod(name="c", requests={jm.CPU: 2000}, qos="LSR")
+    assert st.residency.enabled  # device_state=True is the default
+    gpu = tm.Pod(name="g", requests={jm.CPU: 1000, "koordinator.sh/gpu-core": 50})
+    most = ClusterState(nf_args=NodeFitArgs(strategy=ScoringStrategyType.MOST_ALLOCATED),
+                        extra_scalars=SCALARS)
+    for n in tfx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
+        most.upsert_node(n)
+    most.set_devices("node-0", [t_pkg.GPUDevice(minor=0)])
+    eng_most = Engine(most, device="cpu")
+    eng_most.score([gpu], now=NOW)  # SCORE adds the device scores on any strategy
+    with pytest.raises(NotImplementedError, match="strategies slice"):
+        eng_most.schedule([gpu], now=NOW)
     eng = Engine(st, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        eng.schedule([cpuset], now=NOW)
-    with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
-        eng.schedule([cpuset], now=NOW, assume=True)
-    # assume=True is served now: the placement binds into the store
-    hosts, _, snap, _ = eng.schedule([tm.Pod(name="p", requests={jm.CPU: 10})], now=NOW,
-                                     assume=True)
-    assert hosts[0] >= 0 and st._pod_node["default/p"] == snap.names[hosts[0]]
+    for call in (eng.score_breakdown, eng.explain):
+        with pytest.raises(NotImplementedError, match="explain slice"):
+            call([gpu], now=NOW)
+    st.upsert_node(tm.Node(name="t", allocatable={jm.CPU: 64000, jm.MEMORY: 64 << 30},
+                           taints=[{"key": "k", "effect": "NoSchedule"}]))
+    st.set_topology("node-0", t_pkg.NodeTopologyInfo(topo=t_pkg.CPUTopology(
+        sockets=1, nodes_per_socket=2, cores_per_node=4, cpus_per_core=2)))
+    st.set_devices("node-1", [t_pkg.GPUDevice(minor=0)])
+    st.assign_pod("node-1", tm.AssignedPod(pod=tm.Pod(name="h", anti_affinity={"app": "x"})))
+    st.assign_pod("node-0", tm.AssignedPod(pod=tm.Pod(
+        name="held", device_allocation={"cpuset": [0, 1]})))
+    cpuset = tm.Pod(name="c", requests={jm.CPU: 2000}, qos="LSR")
+    hosts, _, snap, allocs = eng.schedule([cpuset], now=NOW)
+    assert snap.names[hosts[0]] == "node-0" and allocs[0]["cpuset"] == [2, 3]
+    hosts, _, snap, allocs = eng.schedule([cpuset, gpu], now=NOW, assume=True)
+    assert snap.names[hosts[1]] == "node-1" and allocs[1]["devices"]["gpu"] == [(0, 50, 50)]
+    assert st._dev_alloc["default/c"][3] == [2, 3] and st._pod_node["default/g"] == "node-1"
 
 
 def test_off_axis_scalar_is_rejected_like_jax():
@@ -231,9 +272,9 @@ def test_entry_points_default_to_cuda():
 
 def test_port_runs_with_jax_unavailable():
     """The port imports nothing of JAX or the JAX package: a SCORE, a cold
-    and a warm SCHEDULE cycle over the resident tables, and a constrained
-    cycle with ``assume=True``, run in a process where importing jax
-    fails."""
+    and a warm SCHEDULE cycle over the resident tables, a constrained cycle
+    with ``assume=True`` and a placement-and-devices cycle, run in a process
+    where importing jax fails."""
     code = textwrap.dedent(
         """
         import sys
@@ -268,6 +309,26 @@ def test_port_runs_with_jax_unavailable():
         pods[2].quota, pods[3].reservations = "q", ["r"]
         h3, _, _, al = eng.schedule(pods, now=NOW + 2, assume=True)
         assert (h3 >= 0).any() and st.gangs.get("g").once_satisfied == (h3[0] >= 0)
+        # one placement-and-devices cycle: a taint, a selector, anti-affinity,
+        # GPUs under a topology, a GPU pod and a cpuset pod, with assume
+        from koordinator_tpu_torch.api.model import AssignedPod, Node, Pod
+        from koordinator_tpu_torch.core.deviceshare import GPUDevice
+        from koordinator_tpu_torch.core.numa import CPUTopology
+        from koordinator_tpu_torch.service.state import NodeTopologyInfo
+        st.upsert_node(Node(name="t", allocatable={"cpu": 64000, "memory": 1 << 38},
+                            taints=[{"key": "k", "effect": "NoSchedule"}]))
+        st.set_devices(nodes[1].name, [GPUDevice(minor=m) for m in range(2)])
+        st.set_topology(nodes[1].name, NodeTopologyInfo(topo=CPUTopology(
+            sockets=1, nodes_per_socket=2, cores_per_node=4, cpus_per_core=2)))
+        st.assign_pod(nodes[2].name, AssignedPod(pod=Pod(name="h", labels={"a": "b"},
+                                                          anti_affinity={"a": "b"})))
+        gpu = Pod(name="gpu", requests={"cpu": 1000, "koordinator.sh/gpu-core": 100})
+        lsr = Pod(name="lsr", requests={"cpu": 2000}, qos="LSR")
+        sel = Pod(name="sel", requests={"cpu": 100}, node_selector={"absent": "x"})
+        h4, _, snap, al4 = eng.schedule([gpu, lsr, sel], now=NOW + 3, assume=True)
+        assert snap.names[h4[0]] == nodes[1].name and al4[0]["devices"]["gpu"]
+        assert snap.names[h4[1]] == nodes[1].name and al4[1]["cpuset"] and h4[2] == -1
+        assert st.residency.verify() == 19 + 4 + 6
         assert not any(m == "jax" or m.startswith(("jax.", "koordinator_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

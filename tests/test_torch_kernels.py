@@ -263,3 +263,111 @@ def test_con_wrappers_refuse_before_launch():
     with pytest.raises(ValueError, match="cluster total"):
         tq.quota_fn(qa, snap.level_tuple(), total.int())
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+PLACE = ("placement", "dev_feasible", "ds_score", "dstate_extend")
+EXTRA = ("score", "schedule_keys", "schedule_rounds", "sched_refresh", "sched_rounds",
+         "schedule_keys_con", "schedule_rounds_con", "sched_refresh_con", "sched_rounds_con")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,Lb,Gm", [(32, 600, 700, 8), (256, 2048, 4096, 16)])
+def test_placement_and_device_kernels_equal_plain(card, M, N, Lb, Gm):
+    """``placement``, ``dev_feasible``, ``ds_score`` and ``dstate_extend``
+    against their plain versions, exactly."""
+    before = {k: cuda.KERNELS[k].launches for k in PLACE}
+    chip_smoke.check_placement_kernel(card, M, N, Lb, timed=False)
+    chip_smoke.check_device_kernels(card, 16, N, Gm, timed=False)
+    chip_smoke.check_extend_kernel(card, N, timed=False)
+    assert all(cuda.KERNELS[k].launches > before[k] for k in PLACE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_nodes,num_pods,con,cap", [
+    (300, 50, False, 16), (300, 50, True, 1), (1000, 200, True, 16), (1000, 200, False, 100),
+])
+def test_extra_channel_kernels_equal_plain(card, num_nodes, num_pods, con, cap):
+    """The score and schedule kernels with a random placement mask and
+    extra scores against their plain versions; neutral extras repeat the
+    launches without them, round counts included."""
+    before = {k: cuda.KERNELS[k].launches for k in EXTRA}
+    chip_smoke.check_extra_kernels(_inputs(card, num_nodes, num_pods), con, timed=False,
+                                   commit_cap=cap)
+    tag = "_con" if con else ""
+    assert all(cuda.KERNELS[k + tag].launches > before[k + tag]
+               for k in ("schedule_keys", "schedule_rounds", "sched_refresh", "sched_rounds"))
+
+
+def test_placement_checks_run_on_cpu_tensors():
+    """``chip_smoke``'s placement, device, extension and extra-channel
+    checks on CPU tensors, where every wrapper takes its plain version: the
+    comparison logic, and no launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    cpu = torch.device("cpu")
+    chip_smoke.check_placement_kernel(cpu, 32, 600, 700, timed=False)
+    chip_smoke.check_device_kernels(cpu, 16, 500, 16, timed=False)
+    chip_smoke.check_extend_kernel(cpu, 300, timed=False)
+    x = _inputs(cpu, 300, 50)
+    for con in (False, True):
+        chip_smoke.check_extra_kernels(x, con, timed=False)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_placement_and_device_wrappers_refuse_before_launch():
+    """Bad dtypes and shapes of the new kernels' inputs and of the extra
+    channel raise before any launch, on any device."""
+    from koordinator_tpu_torch.core import placement as pl
+    from koordinator_tpu_torch.core.cycle import score_fn
+
+    cpu = torch.device("cpu")
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    (core, mem, full, vfs, sigs), (req, alloc2, used2) = chip_smoke.device_inputs(cpu, 8, 50, 8, 0)
+    with pytest.raises(ValueError, match="mem"):
+        pl.dev_feasible(core, mem[:, :4], full, vfs, sigs)
+    with pytest.raises(ValueError, match="vfs"):
+        pl.dev_feasible(core, mem, full, vfs.long(), sigs)
+    with pytest.raises(ValueError, match="count"):
+        pl.dev_feasible(core, mem, full, vfs, sigs._replace(count=sigs.count[:3]))
+    with pytest.raises(ValueError, match="req"):
+        pl.ds_score(req.int(), alloc2, used2)
+    with pytest.raises(ValueError, match="used2"):
+        pl.ds_score(req, alloc2, used2[:, :1])
+    psigs, rows = chip_smoke.placement_inputs(cpu, 8, 50, 64, 0)
+    with pytest.raises(ValueError, match="aa_cnt"):
+        pl.placement(psigs, rows[0], rows[1], rows[2].long(), rows[3])
+    with pytest.raises(ValueError, match="sel_cnt"):
+        pl.placement(psigs._replace(sel_cnt=psigs.sel_cnt.long()), *rows)
+    with pytest.raises(ValueError, match="cannot widen"):
+        sm.dstate_extend([torch.zeros((4, 8), dtype=torch.float32)], [16], [0])
+    with pytest.raises(ValueError, match="widths"):
+        sm.dstate_extend([torch.zeros((4, 8), dtype=torch.int32)], [16, 32], [0])
+    x = _inputs(cpu, 40, 10)
+    P, N = x["la_pods"].est.shape[0], x["valid"].shape[0]
+    args = (x["la_pods"], x["la_nodes"], x["weights"], x["nf_pods"], x["nf_nodes"], x["static"],
+            x["valid"])
+    with pytest.raises(ValueError, match="extra_scores"):
+        score_fn(*args, torch.zeros((P, N), dtype=torch.int32))
+    _, q_la, q_nf, salts, pod_ok = resolved.kernel_queue(
+        x["la_pods"], x["nf_pods"], x["valid"], x["p_real"], x["order"])
+    keys = (q_la, x["la_nodes"], x["weights"], q_nf, x["nf_nodes"], x["static"], x["valid"],
+            pod_ok, salts, 16)
+    for xin, match in (
+        (resolved.ExtraInputs(feas=torch.ones((P, N), dtype=torch.bool), scores=None),
+         "extra feasibility"),
+        (resolved.ExtraInputs(feas=None, scores=torch.zeros((N, P), dtype=torch.int32)),
+         "extra scores"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            resolved.schedule_keys(*keys, None, xin)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_placement_phase_runs_on_cpu():
+    """``chip_smoke``'s placement-and-devices phase at a small fleet on the
+    CPU, every engine on the plain versions: its twins, demotions, table
+    extensions and the stores' device state hold (the launch plan is the
+    card's alone), and nothing launches: the phase sets every count to 0
+    as it starts, and they stay there."""
+    launches, records = chip_smoke.drive_placement_path(torch.device("cpu"), 600, 300, SCALARS)
+    assert [r["extends"] for r in records][3] == 2 and all(r["placed"] for r in records)
+    assert not any(launches.values())

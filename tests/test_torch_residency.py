@@ -86,7 +86,7 @@ def test_resident_tables_equal_host_and_jax_after_ops(seed, num_nodes):
         for f in jnf._fields:
             assert_same(getattr(tnf, f), getattr(jnf, f), f"{step}: {f}")
         assert_same(tvalid, jvalid, f"{step}: valid")
-        for attr, buf, jbuf in zip(sm.DeviceResidency._ROWS, t.residency._rows.bufs,
+        for attr, buf, jbuf in zip(sm.DeviceResidency._ROWS, t.residency._tables["rows"].bufs,
                                    _jax_rows(j)):
             host = getattr(t, attr)
             assert np.array_equal(np_of(buf), host, equal_nan=host.dtype.kind == "f"), attr
@@ -145,10 +145,10 @@ def test_corrupted_row_raises_invalidates_and_rebuilds_cold():
     eng, ref = Engine(st, device="cpu"), Engine(host_twin, device="cpu")
     pods = tfx.random_cluster(44, num_nodes=0, num_pods=10)[0]
     eng.score(pods, now=NOW)
-    st.residency._rows.bufs[1][5, 0] += 1  # one resident row diverges
+    st.residency._tables["rows"].bufs[1][5, 0] += 1  # one resident row diverges
     with pytest.raises(ResidencyMismatch, match="_la_base_nonprod"):
         st.residency.verify()
-    assert st.residency._rows.bufs is None  # invalidated before raising
+    assert st.residency._tables["rows"].bufs is None  # invalidated before raising
     uploads = st.residency.full_uploads
     got, want = eng.score(pods, now=NOW + 1), ref.score(pods, now=NOW + 1)
     assert st.residency.full_uploads == uploads + 1
@@ -165,17 +165,38 @@ def test_periodic_audit_samples_a_rotating_window():
     cursors = []
     for k in range(6):
         eng.score(pods, now=NOW + k)
-        cursors.append(st.residency._rows.audit_cursor)
+        cursors.append(st.residency._tables["rows"].audit_cursor)
     assert st.residency.verifies == 3
     assert cursors[1::2] == [100, 200, 0]  # 256 rows swept in windows of 100
 
 
 def test_policy_and_device_tables_raise():
+    """The policy and device tables are served now, on the bound device
+    only; what still raises is a read on another device and a widening the
+    kernel cannot take (a narrower table, a width on a 1-D array)."""
+    from torch_parity import pkg
+
+    k = pkg("torch")
     st = _store(n=4)
-    for call in (st.residency.policy_rows, st.residency.device_rows,
-                 lambda: st.residency.note_vocab_growth(("_pp_taint",), False)):
-        with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
-            call()
+    st.upsert_node(k.Node(name="node-0", allocatable={"cpu": 1000}, labels={"zone": "a"},
+                          taints=[{"key": "k", "effect": "NoSchedule"}]))
+    st.set_devices("node-1", [k.GPUDevice(minor=m) for m in range(2)])
+    st.publish(NOW)
+    st.residency.serving_node_inputs(NOW, "cpu")
+    labels, taints, aa, sig = st.residency.policy_rows("cpu")
+    assert labels.shape == (st.capacity, st._Lb) and bool(taints[0].any())
+    core, mem, full, vfs, alloc2, used2 = st.residency.device_rows("cpu")
+    assert int(full[1]) == 2 and int(core[1, 2]) == -1
+    assert st.residency.verify() == 19 + 4 + 6
+    with pytest.raises(ValueError, match="resident tables live on cpu"):
+        st.residency.policy_rows(torch.device("meta"))
+    narrow = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="cannot widen"):
+        sm.dstate_extend([narrow], [4], [0])
+    with pytest.raises(ValueError, match="cannot widen"):
+        sm.dstate_extend([torch.zeros(4, dtype=torch.int32)], [8], [0])
+    with pytest.raises(ValueError, match="fill"):
+        sm.dstate_extend([torch.zeros((4, 8), dtype=torch.bool)], [16], [-1])
 
 
 def test_one_device_per_store():
@@ -202,9 +223,9 @@ def test_host_and_resident_paths_serve_the_same():
         assert_same(ha[0], hb[0])
         assert_same(ha[1], hb[1])
         assert ha[3] == hb[3]
-        assert bool(np_of(a.residency._rows.bufs[-1])[a._imap.get("node-1")])
+        assert bool(np_of(a.residency._tables["rows"].bufs[-1])[a._imap.get("node-1")])
     assert a.residency.verify() == len(sm.DeviceResidency._ROWS)
-    assert not b.residency.enabled and b.residency._rows.bufs is None
+    assert not b.residency.enabled and b.residency._tables["rows"].bufs is None
 
 
 def _raw_rows(n, seed, now, exp):

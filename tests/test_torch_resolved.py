@@ -121,18 +121,36 @@ def test_schedule_fn_on_cpu_matches_jax_engine_kernel(P, N, seed, cap):
 
 
 def test_resolved_refuses_constraints():
-    """The scan's constraint branches (the strategies slice) and the
-    extra-score channel (the placement-and-devices slice) are not ported:
-    the resolved engine raises instead of answering."""
+    """The scan's constraint branches and its extra-score branch (the
+    strategies slice) are not ported: under MostAllocated the resolved
+    engine raises instead of answering.  Under LeastAllocated the extra
+    channel is served: a random mask and extra scores in [0, 200] (with
+    their bound) give the JAX engine's hosts, scores and round count, also
+    with gang, quota and reservation inputs."""
     import __graft_entry__ as ge
     from torch_parity import constraints_to_torch
 
     gang, quota, rsv = ge._example_constraints(8, 16, Rf=5, seed=2)
     g, q, r = constraints_to_torch(gang, quota, rsv)
     most = to_torch(batch(8, 16, 0, "MostAllocated"))
-    for kw in ({"gang": g}, {"quota": q}, {"reservation": r}):
+    for kw in ({"gang": g}, {"quota": q}, {"reservation": r},
+               {"extra_scores": torch.zeros(8, 16, dtype=torch.int64)}):
         with pytest.raises(NotImplementedError, match="strategies slice"):
             tres.schedule_batch_resolved(*most, **kw)
-    t = to_torch(batch(8, 16, 0))
-    with pytest.raises(NotImplementedError, match="placement-and-devices slice"):
-        tres.schedule_batch_resolved(*t, extra_scores=torch.zeros(8, 16, dtype=torch.int64))
+    b = batch(8, 16, 0)
+    j, t = to_jax(b), to_torch(b)
+    rng = np.random.default_rng(5)
+    extra = rng.random((8, 16)) < 0.8
+    xsc = rng.integers(0, 201, (8, 16)).astype(np.int64)
+    for con in ({}, {"gang": (gang, g), "quota": (quota, q), "reservation": (rsv, r)}):
+        jkw = {k: v[0] for k, v in con.items()}
+        tkw = {k: v[1] for k, v in con.items()}
+        jh, js, jr = jres.schedule_batch_resolved(
+            *j, extra_feasible=extra, extra_scores=xsc, extra_score_bound=200,
+            impl="matrix_packed", return_rounds=True, **jkw)
+        th, ts, tr = tres.schedule_batch_resolved(
+            *t, extra_feasible=torch.from_numpy(extra), extra_scores=torch.from_numpy(xsc),
+            extra_score_bound=200, return_rounds=True, **tkw)
+        assert_same(th, jh, "hosts")
+        assert_same(ts, js, "scores")
+        assert tr == int(jr)

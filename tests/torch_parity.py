@@ -104,3 +104,89 @@ def constraints_to_torch(gang=None, quota=None, reservation=None, device=CPU):
                                  **{f: convert.tensor(getattr(reservation, f), device)
                                     for f in tc.ReservationInputs._fields[1:]})
     return g, q, r
+
+
+def pkg(which: str):
+    """One package's classes for building the same store on both sides:
+    ``which`` is "jax" (the JAX package) or "torch" (the port)."""
+    import types
+
+    if which == "jax":
+        import koordinator_tpu.api.model as m
+        import koordinator_tpu.core.deviceshare as ds
+        import koordinator_tpu.core.numa as nm
+        import koordinator_tpu.service.constraints as c
+        import koordinator_tpu.service.engine as e
+        import koordinator_tpu.service.state as s
+    else:
+        import koordinator_tpu_torch.api.model as m
+        import koordinator_tpu_torch.core.deviceshare as ds
+        import koordinator_tpu_torch.core.numa as nm
+        import koordinator_tpu_torch.service.constraints as c
+        import koordinator_tpu_torch.service.engine as e
+        import koordinator_tpu_torch.service.state as s
+    return types.SimpleNamespace(
+        which=which, Node=m.Node, Pod=m.Pod, AssignedPod=m.AssignedPod, NodeMetric=m.NodeMetric,
+        GPUDevice=ds.GPUDevice, RDMADevice=ds.RDMADevice, CPUTopology=nm.CPUTopology,
+        NodeTopologyInfo=s.NodeTopologyInfo, ClusterState=s.ClusterState, Engine=e.Engine,
+        GangInfo=c.GangInfo, ReservationInfo=c.ReservationInfo, engine_mod=e, state_mod=s,
+    )
+
+
+def engine_of(k, st):
+    """An engine over ``st``: the JAX package's, or the port's on the CPU."""
+    return k.Engine(st) if k.which == "jax" else k.Engine(st, device="cpu")
+
+
+def host(x):
+    """A mask or score matrix as numpy (None stays None)."""
+    return None if x is None else np_of(x)
+
+
+GB = 1 << 30
+
+
+def device_cluster(k, initial_capacity=16, device_state=True):
+    """The JAX package's device cluster (tests/test_state_incremental.py
+    ``_device_cluster``): 12 nodes with pool/zone labels, every 4th tainted
+    dedicated=ml:NoSchedule, every 3rd with 4 GPUs and one RDMA NIC, every
+    5th with a 2-NUMA topology (ep-0 single-numa-node), and 6 assigned pods
+    with team labels, the odd ones holding anti-affinity."""
+    st = k.ClusterState(initial_capacity=initial_capacity, device_state=device_state)
+    for i in range(12):
+        name = f"ep-{i}"
+        taints = ([{"key": "dedicated", "value": "ml", "effect": "NoSchedule"}]
+                  if i % 4 == 0 else [])
+        st.upsert_node(k.Node(name=name, allocatable={"cpu": 64000, "memory": 512 * GB,
+                                                      "pods": 64},
+                              labels={"pool": "gold" if i % 2 else "silver", "zone": f"z{i % 3}"},
+                              taints=taints))
+        if i % 3 == 0:
+            st.set_devices(name, [k.GPUDevice(minor=m, numa_node=m // 2, pcie=m // 2)
+                                  for m in range(4)], [k.RDMADevice(minor=0, vfs_free=4)])
+        if i % 5 == 0:
+            st.set_topology(name, k.NodeTopologyInfo(
+                topo=k.CPUTopology(sockets=1, nodes_per_socket=2, cores_per_node=4,
+                                   cpus_per_core=2),
+                policy="single-numa-node" if i == 0 else "none"))
+    for j in range(6):
+        st.assign_pod(f"ep-{j}", k.AssignedPod(pod=k.Pod(
+            name=f"held-{j}", requests={"cpu": 500}, labels={"team": f"t{j % 2}"},
+            anti_affinity={"team": f"t{(j + 1) % 2}"} if j % 2 else None)))
+    return st
+
+
+def policy_batch(k):
+    """The JAX package's mixed policy batch (``_policy_batch``)."""
+    gpu, rdma = "koordinator.sh/gpu-core", "koordinator.sh/rdma"
+    return [
+        k.Pod(name="b-gpu", requests={"cpu": 4000, "memory": GB, gpu: 100}),
+        k.Pod(name="b-share", requests={"cpu": 2000, "memory": GB, gpu: 50}),
+        k.Pod(name="b-multi", requests={"cpu": 8000, "memory": GB, gpu: 200, rdma: 1}),
+        k.Pod(name="b-rdma", requests={"cpu": 500, "memory": GB, rdma: 2}),
+        k.Pod(name="b-lsr", requests={"cpu": 4000, "memory": GB}, qos="LSR"),
+        k.Pod(name="b-sel", requests={"cpu": 1000, "memory": GB}, node_selector={"pool": "gold"},
+              labels={"team": "t0"}, anti_affinity={"team": "t1"},
+              tolerations=[{"key": "dedicated", "operator": "Exists", "effect": "NoSchedule"}]),
+        k.Pod(name="b-plain", requests={"cpu": 1000, "memory": GB}),
+    ]
