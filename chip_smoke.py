@@ -35,9 +35,20 @@ Phases (any failure exits non-zero and prints no result line):
      placement-and-devices path: selectors, taints, anti-affinity and
      GPU/RDMA/cpuset pods over a fleet with device inventories and NUMA
      topologies through six cycles (``PLACE_CYCLES``), the stores' device
-     state compared after ``assume``.
-  Every result of phases 5 to 8 must equal the plain path's (the same
-  engine on the CPU, fed a twin store) and, from phase 6 on, a
+     state compared after ``assume``;
+  9. the strategies' kernels: ``score`` under MostAllocated and
+     RequestedToCapacityRatio (the default and a non-monotone shape), the
+     ``scan`` kernel (plain and constrained, both tie-breaks, with and
+     without extras) and the int64-key matrix engine (plain and
+     constrained) against their plain versions, at the small and the full
+     shape; then the matrix route, ``schedule_fn(impl="matrix")`` at full
+     width against the int32 route;
+  10. the strategies path: MostAllocated over the constraint phase's store
+     and batch (``MOST_CYCLES``, then ``Engine.quota_refresh``) and
+     RequestedToCapacityRatio over the placement phase's (``RTC_CYCLES``),
+     every SCHEDULE a cold scan.
+  Every result of phases 5 to 8 and 10 must equal the plain path's (the
+  same engine on the CPU, fed a twin store) and, in phases 6 to 8, a
   warm-disabled engine's on the card; every kernel of each path must have
   launched during that path, counted from 0 just before it.
 
@@ -1175,7 +1186,7 @@ CON_PATH_KERNELS = ("schedule_keys_con", "schedule_rounds_con", "sched_refresh_c
                     "dstate_scatter", "dstate_gate")
 
 
-def con_store(scalars, num_nodes: int, device_state: bool = True):
+def con_store(scalars, num_nodes: int, device_state: bool = True, nf_args=None):
     """A store with the JAX package's service-benchmark constraint set
     (bench/bench_service.py:130-170): quota total {cpu: N*8000, memory:
     N*32Gi}; 100 flat groups, min {cpu 50,000, memory 200Gi}, max {cpu
@@ -1187,7 +1198,7 @@ def con_store(scalars, num_nodes: int, device_state: bool = True):
     from koordinator_tpu_torch.service.state import ClusterState
     from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster
 
-    st = ClusterState(extra_scalars=scalars, device_state=device_state)
+    st = ClusterState(extra_scalars=scalars, device_state=device_state, nf_args=nf_args)
     for n in random_cluster(SEED, num_nodes=num_nodes, num_pods=0)[1]:
         st.upsert_node(n)
     st.quota.set_total({"cpu": num_nodes * 8000, "memory": num_nodes * (32 << 30)})
@@ -1684,7 +1695,7 @@ def place_hosts(num_nodes: int) -> dict:
     return dict(gpu=gpu, pinned_gpu="node-1", pinned_aa=[f"node-{gpu + k}" for k in range(50)])
 
 
-def placement_store(scalars, num_nodes: int):
+def placement_store(scalars, num_nodes: int, nf_args=None):
     """A store with the composed benchmark's device and selector load
     (bench/bench_composed.py:135-137, :154-175) and the device benchmark's
     anti-affinity load (bench/bench_device.py:160-177), on
@@ -1703,7 +1714,7 @@ def placement_store(scalars, num_nodes: int):
 
     roles = place_hosts(num_nodes)
     roomy = {roles["pinned_gpu"], *roles["pinned_aa"]}
-    st = ClusterState(extra_scalars=scalars)
+    st = ClusterState(extra_scalars=scalars, nf_args=nf_args)
     _, fleet = random_cluster(SEED, num_nodes=num_nodes, num_pods=0)
     for i, n in enumerate(fleet):
         n.labels = dict(n.labels, **{"kubernetes.io/hostname": n.name, "pool": f"pool-{i % 20}",
@@ -1940,6 +1951,478 @@ def drive_placement_path(device, num_nodes: int, num_pods: int, scalars):
     return launches, records
 
 
+# ------------------------------------------------------------ strategies
+
+# the RequestedToCapacityRatio shapes of the checks, in config units
+# (utilization, score 0..10): the bin-packing default, and the parity
+# tests' non-monotone shape, whose decreasing segment interpolates with
+# truncation toward zero
+RTC_SHAPES = (("rtc", ((0, 0), (100, 10))),
+              ("rtc-nonmono", ((0, 2), (40, 10), (70, 3), (100, 6))))
+
+
+def strategy_statics(static) -> list:
+    """(name, NodeFitStatic) of MostAllocated and the two RTC shapes over
+    ``static``'s resources and weights, the shape scaled as
+    ``NodeFitArgs.scaled_shape`` scales it."""
+    import dataclasses
+
+    from koordinator_tpu_torch.core.config import NodeFitArgs
+
+    out = [("most", dataclasses.replace(static, strategy="MostAllocated"))]
+    for name, shape in RTC_SHAPES:
+        scaled = NodeFitArgs(shape=list(shape)).scaled_shape()
+        out.append((name, dataclasses.replace(static, strategy="RequestedToCapacityRatio",
+                                              shape=scaled)))
+    return out
+
+
+def check_strategy_score(inp, timed: bool):
+    """The ``score`` kernel under MostAllocated and both RTC shapes against
+    the plain ``score_batch`` (raises ``Mismatch``).  Returns {strategy:
+    (ms, plain ms)} when ``timed``."""
+    from koordinator_tpu_torch.core.cycle import PluginWeights, score_batch, score_fn
+
+    la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+    la_nodes, nf_nodes, valid, w = inp["la_nodes"], inp["nf_nodes"], inp["valid"], inp["weights"]
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    out = {}
+    for name, static in strategy_statics(inp["static"]):
+        def plain():
+            t, f = score_batch(la_pods, la_nodes, w, nf_pods, nf_nodes, static, PluginWeights())
+            return t, f & valid[None, :]
+
+        def kernel():
+            return score_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid)
+
+        got, want = kernel(), plain()
+        require_equal(f"score {name} {P}x{N}", got, want)
+        if len(set(want[0][want[1]].tolist()[:4096])) < 2:
+            fail(f"score {name}: the feasible totals do not vary")
+        if timed:
+            out[name] = (cuda_ms(kernel), cuda_ms(plain))
+    print(f"  {P} pods x {N} nodes: score under MostAllocated and RTC (default and non-monotone "
+          "shapes) equals plain")
+    return out if timed else None
+
+
+def scan_extras(inp, seed: int):
+    """A placement-and-devices mask (about 90% open) and extra scores in
+    [-100, 200] (negative like an amplified-CPU delta) at [P, N]."""
+    from koordinator_tpu_torch import convert
+
+    P, N = inp["la_pods"].est.shape[0], inp["valid"].shape[0]
+    rng = np.random.default_rng(seed)
+    dev = inp["valid"].device
+    return (convert.tensor(rng.random((P, N)) < 0.9, dev),
+            convert.tensor(rng.integers(-100, 201, (P, N)).astype(np.int64), dev))
+
+
+def check_scan_kernels(inp, static, con: bool, tie: str, extras: bool, timed: bool,
+                       cpd: int = 0):
+    """The ``scan`` kernel (``scan_con`` with gang, quota and reservation
+    inputs) through ``scan_fn`` against the plain ``schedule_batch`` on the
+    same submission-order inputs (raises ``Mismatch``); the node, quota
+    and reservation inputs must be left untouched.  Returns the kernel
+    record when ``timed``."""
+    from koordinator_tpu_torch.core import reservation as tr
+    from koordinator_tpu_torch.core.cycle import (
+        PluginWeights,
+        ReservationInputs,
+        scan_fn,
+        schedule_batch,
+    )
+
+    la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+    la_nodes, nf_nodes, valid, w = inp["la_nodes"], inp["nf_nodes"], inp["valid"], inp["weights"]
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    R, Rf, Rs = la_pods.est.shape[1], nf_pods.req.shape[1], nf_pods.req_score.shape[1]
+    AD = 8
+    p_real, order = inp["p_real"], inp["order"]
+    con_args, kw = None, {}
+    if con:
+        gangs, quota, rsv, matched, midx, rank = con_inputs_for(inp, SEED + 41)
+        req = nf_pods.req
+        r = ReservationInputs(rsv=rsv, matched=matched, rscore=tr.rsv_rscore(req, rsv),
+                              scores=tr.rsv_score(req, matched, N, rsv, rank))
+        con_args = dict(gang=gangs, quota=quota, reservation=r, rsv_midx=midx, rsv_rank=rank)
+        kw = dict(gang=gangs, quota=quota, reservation=r)
+    xf = xsc = None
+    if extras:
+        xf, xsc = scan_extras(inp, SEED + 42)
+    base = (torch.arange(P, device=valid.device) < p_real)[:, None] & valid[None, :]
+    if xf is not None:
+        base = base & xf
+    state0 = [t.clone() for t in (*la_nodes, *nf_nodes)]
+    if con:
+        state0 += [quota.used.clone(), quota.npu.clone(), rsv.allocated.clone()]
+
+    def kernel():
+        return scan_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid, p_real, order,
+                       con_args, cpd, AD, xf, xsc, tie)
+
+    def plain():
+        return schedule_batch(la_pods, la_nodes, w, nf_pods, nf_nodes, static, PluginWeights(),
+                              base, order, check_parent_depth=cpd, ancestor_depth=AD,
+                              tie_break=tie, extra_scores=xsc, **kw)
+
+    got, want = kernel(), plain()
+    tag = f"scan{'_con' if con else ''} {static.strategy} {tie}{' extras' if extras else ''}"
+    err = require_equal(f"{tag} {P}x{N}", got, want)
+    after = [*la_nodes, *nf_nodes] + ([quota.used, quota.npu, rsv.allocated] if con else [])
+    if not all(torch.equal(a, b) for a, b in zip(after, state0)):
+        fail(f"{tag}: the kernel wrote its inputs")
+    placed = int((want[0] >= 0).sum())
+    if placed == 0 or (con and placed == p_real):
+        fail(f"{tag}: {placed} of {p_real} placed: the check exercises too little")
+    print(f"  {P} pods x {N} nodes, {tag}{f' cpd={cpd}' if con else ''}: kernel equals plain, "
+          f"{placed} placed")
+    if not timed:
+        return None
+    ops = pair_ops(R, Rf, Rs) + (6 * Rf * 2 + 4 if con else 0)
+    in_b = nbytes(*la_pods, *nf_pods, *la_nodes, *nf_nodes, valid)
+    if extras:
+        in_b += nbytes(xf, xsc)
+    if con:
+        in_b += nbytes(con_args["reservation"].scores, *rsv, midx, *quota.pods, *quota[1:])
+    b, by = bound_ms(in_b + P * (4 + 8), P * N * ops)
+    return dict(
+        name="scan_con" if con else "scan", source="koordinator_tpu_torch/csrc/scan.cu",
+        replaces="koordinator_tpu/core/cycle.py:248", ms=cuda_ms(kernel),
+        plain_ms=cuda_ms(plain, reps=1), bound_ms=b, bound_by=by, max_abs_err=err,
+        library_ms=None, strategy=static.strategy, placed=placed,
+    )
+
+
+def check_matrix_kernels(inp, con: bool, extras: bool, timed: bool, commit_cap: int = 16):
+    """The int64-key matrix engine's kernels (``schedule_keys64``,
+    ``schedule_rounds64``, constrained with ``con``) against their plain
+    versions: the key build against ``build_keys_plain`` with int64 keys,
+    the round loop's hosts, scores (precommit) and round count against the
+    plain ``matrix`` engine (``run_matrix_plain``, JAX's run_matrix); the
+    round count must also equal the int32 engine's on the same inputs.
+    Returns the kernel records when ``timed``."""
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+
+    la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+    la_nodes, nf_nodes, valid, w = inp["la_nodes"], inp["nf_nodes"], inp["valid"], inp["weights"]
+    static, pw = inp["static"], PluginWeights()
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    R, Rf, Rs = la_pods.est.shape[1], nf_pods.req.shape[1], nf_pods.req_score.shape[1]
+    BS, AD = 16, 8
+    xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(la_pods, nf_pods, valid, inp["p_real"],
+                                                    inp["order"])
+    con_ = con_for(inp, con_inputs_for(inp, SEED + 11), xs) if con else None
+    xin = None
+    if extras:
+        xin = rs.extra_inputs(*extras_for(inp, SEED + 25), xs)
+    q_extra, q_xsc = rs._q_extras(xin, pod_ok[:, None] & valid[None, :])
+    if con:
+        q_extra = q_extra & rs.gang_pass(con_)[:, None]
+    rsv_q = rs._queue_rsv(con_) if con else None
+    keys_args = (q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok, salts, BS)
+
+    def kernel_keys():
+        return rs.schedule_keys(*keys_args, con_, xin, wide=True)
+
+    def plain_keys():
+        return rs.build_keys_plain(q_la, la_nodes, w, q_nf, nf_nodes, static, pw, q_extra, salts,
+                                   BS, rsv_q, q_xsc, torch.int64)
+
+    keys = kernel_keys()
+    tag = f"{'_con' if con else ''}{' extras' if extras else ''}"
+    err = {"schedule_keys64": require_equal(f"schedule_keys64{tag} {P}x{N}", keys, plain_keys())}
+    M0, Mb0, feas_T = keys
+    node_args = (q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok, salts, commit_cap, BS,
+                 con_, 0, AD, xin)
+
+    def kernel_rounds(M, Mb):
+        return rs.schedule_rounds(M, Mb, feas_T, *node_args)
+
+    def plain_rounds():
+        M, feas = rs.masked_init(q_la, la_nodes, w, q_nf, nf_nodes, static, pw, q_extra, rsv_q,
+                                 q_xsc)
+        return rs.run_matrix_plain(M, feas, q_la, la_nodes, w, q_nf, nf_nodes, static, pw,
+                                   q_extra, salts, commit_cap, con_, 0, AD, q_xsc)
+
+    got, want = kernel_rounds(M0.clone(), Mb0.clone()), plain_rounds()
+    if con:
+        want = (want[0], want[1], want[2], torch.tensor([want[3], want[4]], dtype=torch.int32))
+    else:
+        want = (want[0], want[1], torch.tensor(want[2], dtype=torch.int32))
+    err["schedule_rounds64"] = require_equal(f"schedule_rounds64{tag} {P}x{N}", got, want)
+    rounds = int(want[-1].view(-1)[0])
+    M32, Mb32, f32 = rs.schedule_keys(*keys_args, con_, xin)
+    narrow = rs.schedule_rounds(M32, Mb32, f32, *node_args)
+    require_equal(f"schedule_rounds64{tag}: the int32 engine's results and round count", got,
+                  narrow)
+    print(f"  {P} pods x {N} nodes, int64 keys{tag}: kernels equal the plain matrix engine, "
+          f"{rounds} rounds as the int32 engine")
+    if not timed:
+        return None
+    work = {}
+
+    def reset():
+        work["M"], work["Mb"] = M0.clone(), Mb0.clone()
+
+    sfx = "_con" if con else ""
+    ops = pair_ops(R, Rf, Rs) + (6 * Rf * 2 + 4 if con else 0)
+    pods_b = nbytes(*la_pods, *nf_pods)
+    nodes_b = nbytes(*la_nodes, *nf_nodes, valid)
+    b, by = bound_ms(pods_b + nodes_b + nbytes(M0, Mb0, feas_T), P * N * (ops + 4))
+    recs = [dict(
+        name=f"schedule_keys64{sfx}", source="koordinator_tpu_torch/csrc/schedule.cu",
+        replaces="koordinator_tpu/core/resolved.py:839", ms=cuda_ms(kernel_keys),
+        plain_ms=cuda_ms(plain_keys), bound_ms=b, bound_by=by,
+        max_abs_err=err["schedule_keys64"], library_ms=None,
+    )]
+    NB, K = Mb0.shape[0], min(commit_cap, P)
+    r_ops = rounds * (NB * P + K * P * (ops + 4) + K * BS * P)
+    r_bytes = nbytes(Mb0) + rounds * K * P * (8 + 1) + pods_b + nodes_b + P * (4 + 8)
+    b, by = bound_ms(r_bytes, r_ops)
+    recs.append(dict(
+        name=f"schedule_rounds64{sfx}", source="koordinator_tpu_torch/csrc/schedule.cu",
+        replaces="koordinator_tpu/core/resolved.py:839",
+        ms=cuda_ms(lambda: kernel_rounds(work["M"], work["Mb"]), setup=reset),
+        plain_ms=cuda_ms(plain_rounds, reps=1), bound_ms=b, bound_by=by, rounds=rounds,
+        max_abs_err=err["schedule_rounds64"], library_ms=None,
+    ))
+    return recs
+
+
+def drive_matrix_path(inp, con: bool):
+    """``schedule_fn(impl="matrix")`` at the inputs' full width, the route
+    the engine takes beyond 2**21 node columns: it must launch the int64-key
+    kernels and equal ``schedule_fn``'s int32 route (hosts, scores,
+    precommit, round count).  Returns the launches of the matrix call."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import reservation as tr
+    from koordinator_tpu_torch.core.cycle import ReservationInputs
+    from koordinator_tpu_torch.core.resolved import schedule_fn
+
+    args = (inp["la_pods"], inp["la_nodes"], inp["weights"], inp["nf_pods"], inp["nf_nodes"],
+            inp["static"], inp["valid"], inp["p_real"], inp["order"])
+    kw = {}
+    if con:
+        gangs, quota, rsv, matched, midx, rank = con_inputs_for(inp, SEED + 11)
+        req, N = inp["nf_pods"].req, inp["valid"].shape[0]
+        r = ReservationInputs(rsv=rsv, matched=matched, rscore=tr.rsv_rscore(req, rsv),
+                              scores=tr.rsv_score(req, matched, N, rsv, rank))
+        kw = dict(con_args=dict(gang=gangs, quota=quota, reservation=r, rsv_midx=midx,
+                                rsv_rank=rank))
+    with uncounted():
+        narrow = schedule_fn(*args, **kw)
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    wide = schedule_fn(*args, impl="matrix", **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    require_equal(f"schedule_fn(impl='matrix'){' constrained' if con else ''} vs int32 keys",
+                  wide[:4], narrow[:4])
+    if wide[4] is not None:
+        fail("the matrix route left a warm carry")
+    print(f"  schedule_fn(impl='matrix'){' constrained' if con else ''} at "
+          f"{inp['p_real']} x {inp['valid'].shape[0]}: equals the int32 route, "
+          f"{int(wide[3].view(-1)[0])} rounds, {wall:.1f} ms wall; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
+
+
+# the strategies phase: (name, clock offset, what changes before the cycle,
+# assume); every SCHEDULE is a cold scan (the begin cache may hit)
+MOST_CYCLES = (("cold, with a SCORE", 0.0, None, False),
+               ("unchanged", 1.0, None, False),
+               ("metrics on 100 nodes", 2.0, "metrics", False),
+               ("assume with 8 pending reservations", 3.0, "reserve", True))
+RTC_CYCLES = (("cold, with a SCORE", 0.0, None, False),
+              ("unchanged", 1.0, None, False),
+              ("assume", 2.0, None, True))
+STRATEGY_PATH_KERNELS = ("score", "scan", "scan_con", "quota", "quota_limit", "rsv_rscore",
+                         "rsv_score", "placement", "dev_feasible", "ds_score", "dstate_gate")
+PACKED = ("schedule_keys", "schedule_rounds", "sched_refresh", "sched_rounds",
+          "schedule_keys_con", "schedule_rounds_con", "sched_refresh_con", "sched_rounds_con",
+          "schedule_keys64", "schedule_rounds64", "schedule_keys64_con", "schedule_rounds64_con")
+
+
+def drive_strategy_path(device, num_nodes: int, num_pods: int, scalars):
+    """The strategies phase at full width: (a) MostAllocated over the
+    constraint phase's store and batch (``con_store``, ``con_batch``) —
+    SCORE, then ``MOST_CYCLES`` and ``Engine.quota_refresh``; (b)
+    RequestedToCapacityRatio with the default shape over the placement
+    phase's store and batch — SCORE, then ``RTC_CYCLES``.  Each result is
+    held against the CPU engine on a twin store (allocation records and
+    grants included); after ``assume`` the stores against each other.
+    Every SCHEDULE must take the scan kernel once and no packed-key
+    kernel.  Returns (launches per kernel during this phase, per-cycle
+    records)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import CPU, MEMORY, NodeMetric
+    from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
+    from koordinator_tpu_torch.service.constraints import ReservationInfo
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    on_card = device.type == "cuda"
+    runs = []
+    t0 = time.perf_counter()
+    most = NodeFitArgs(strategy=ScoringStrategyType.MOST_ALLOCATED)
+    rtc = NodeFitArgs(strategy=ScoringStrategyType.REQUESTED_TO_CAPACITY_RATIO)
+    stores = [con_store(scalars, num_nodes, nf_args=most) for _ in range(2)]
+    runs.append(("MostAllocated", stores, MOST_CYCLES,
+                 lambda tag, seed: con_batch(num_pods, tag, seed), store_view))
+    rstores = [placement_store(scalars, num_nodes, nf_args=rtc) for _ in range(2)]
+    runs.append(("RequestedToCapacityRatio", rstores, RTC_CYCLES,
+                 lambda tag, seed: placement_batch(num_nodes, num_pods, tag, seed), device_view))
+    print(f"  ingest of four stores: {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED + 51)
+    metric_nodes = [f"node-{int(i)}" for i in rng.choice(num_nodes, 100, replace=False)]
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    records = []
+    with LaunchTimer() as timer:
+        for strategy, pair, cycles, make_batch, view in runs:
+            eng, ref = Engine(pair[0], device=device), Engine(pair[1], device="cpu")
+            batch = {e: make_batch("strat", SEED + 52) for e in (eng, ref)}
+            for c, (name, dt, change, assume) in enumerate(cycles):
+                now = NOW + dt
+                for st in pair:
+                    if change == "metrics":
+                        for i, node in enumerate(metric_nodes):
+                            st.update_metric(node, NodeMetric(
+                                node_usage={CPU: 3000 + 11 * i, MEMORY: (3 + i % 5) << 30},
+                                update_time=now))
+                    if change == "reserve":
+                        for i in range(8):
+                            st.reservations.upsert(ReservationInfo(
+                                name=f"pend-{i}", node=None,
+                                allocatable={"cpu": 2000 + 250 * i, "memory": 4 << 30},
+                                priority=9000, create_time=float(i)))
+                t1 = time.perf_counter()
+                for st in pair:
+                    st.publish(now)
+                publish = (time.perf_counter() - t1) * 1e3 / len(pair)
+                before = {k: v.launches for k, v in cuda.KERNELS.items()}
+                begin0 = eng.sched_begin_hits
+                if on_card:
+                    timer.take()
+                score_wall = None
+                t1 = time.perf_counter()
+                if c == 0:
+                    totals, feasible, _ = eng.score(batch[eng], now=now)
+                    score_wall = (time.perf_counter() - t1) * 1e3
+                    rt, rf, _ = ref.score(batch[ref], now=now)
+                    require_equal(f"{strategy} SCORE vs the CPU engine", (totals, feasible),
+                                  (rt, rf))
+                    t1 = time.perf_counter()
+                hosts, scores, snap, allocs = eng.schedule(batch[eng], now=now, assume=assume)
+                wall = (time.perf_counter() - t1) * 1e3
+                k_ms = timer.take() if on_card else {}
+                launched = {k: v.launches - before[k] for k, v in cuda.KERNELS.items()}
+                demotions = dict(eng.last_demotions)
+                t1 = time.perf_counter()
+                rh, rs_, _, ra = ref.schedule(batch[ref], now=now, assume=assume)
+                cpu_wall = (time.perf_counter() - t1) * 1e3
+                what = f"{strategy} cycle {c} ({name})"
+                require_equal(f"{what} vs the CPU engine", (hosts, scores), (rh, rs_))
+                if allocs != ra:
+                    fail(f"{what}: allocation records differ")
+                if demotions != ref.last_demotions:
+                    fail(f"{what}: demotions {demotions}, CPU engine {ref.last_demotions}")
+                if (eng.last_rounds, eng.last_ub_rounds) != (0, 0):
+                    fail(f"{what}: rounds {eng.last_rounds}/{eng.last_ub_rounds} under the scan")
+                if eng.sched_warm_hits or eng.sched_cold_inits != c + 1:
+                    fail(f"{what}: warm {eng.sched_warm_hits}, cold {eng.sched_cold_inits}")
+                if name == "unchanged" and eng.sched_begin_hits != begin0 + 1:
+                    fail(f"{what}: the begin-input cache missed")
+                scans = launched["scan"] + launched["scan_con"]
+                if on_card and (scans != 1 or any(launched[k] for k in PACKED)):
+                    fail(f"{what}: launches {launched}: planned one scan, no packed-key kernel")
+                if assume:
+                    if view(pair[0]) != view(pair[1]):
+                        fail(f"{what}: the stores differ after assume")
+                    if strategy == "MostAllocated" and (
+                            eng.last_reservations_placed != ref.last_reservations_placed
+                            or not eng.last_reservations_placed):
+                        fail(f"{what}: reserve pods placed {eng.last_reservations_placed}")
+                    if strategy != "MostAllocated" and min(demotions.values()) == 0:
+                        fail(f"{what}: demotions {demotions}, planned at least one of each")
+                placed = int((hosts >= 0).sum())
+                grants = sum(1 for a in allocs if a and ("devices" in a or "cpuset" in a))
+                on_rsv = sum(1 for a in allocs if a and a.get("reservation"))
+                busy = sum(k_ms.values())
+                rec = dict(strategy=strategy, cycle=name, publish_ms=publish, wall_ms=wall,
+                           score_wall_ms=score_wall, cpu_wall_ms=cpu_wall, kernel_ms=k_ms,
+                           launches={k: v for k, v in launched.items() if v}, placed=placed,
+                           grants=grants, with_reservation=on_rsv, demotions=demotions,
+                           begin_hits=eng.sched_begin_hits)
+                records.append(rec)
+                print(f"  {strategy} cycle {c} ({name}): {placed}/{len(hosts)} placed ({on_rsv} "
+                      f"on a reservation, {grants} with devices or cpusets, demoted "
+                      f"{demotions}); publish {publish:.1f} ms, schedule {wall:.1f} ms wall"
+                      + (f", score {score_wall:.1f} ms wall" if score_wall else "")
+                      + f", kernels {busy:.2f} ms: "
+                      + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(k_ms.items()))
+                      + f"; CPU twin {cpu_wall:.0f} ms; launches {rec['launches']}", flush=True)
+            if strategy == "MostAllocated":
+                st = pair[0]
+                args = (list(st.quota._groups.values()), st.quota.resources,
+                        st.quota.cluster_total)
+                require_equal("MostAllocated Engine.quota_refresh", (eng.quota_refresh(*args)[1],),
+                              (ref.quota_refresh(*args)[1],))
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    return launches, records
+
+
+def check_strategies_small(small) -> None:
+    """The strategies' kernel checks at the small shape: ``score`` under
+    MostAllocated and both RTC shapes; the scan, plain and constrained
+    (check_parent_depth 0 and 2), under both tie-breaks, with and without
+    extras, under each strategy; the int64-key engine, plain and
+    constrained, with and without extras, across commit caps."""
+    check_strategy_score(small, timed=False)
+    for name, static in strategy_statics(small["static"]):
+        for tie in ("salted", "index"):
+            for extras in (False, True):
+                check_scan_kernels(small, static, False, tie, extras, timed=False)
+                check_scan_kernels(small, static, True, tie, extras, timed=False)
+        check_scan_kernels(small, static, True, "salted", True, timed=False, cpd=2)
+    for con in (False, True):
+        for extras in (False, True):
+            check_matrix_kernels(small, con, extras, timed=False)
+    check_matrix_kernels(small, True, True, timed=False, commit_cap=1)
+    check_matrix_kernels(small, False, False, timed=False, commit_cap=100)
+
+
+def check_strategies_full(full, records) -> list:
+    """The strategies' kernel checks at the full shape, timed: ``score``
+    under MostAllocated and both RTC shapes (their times join the score
+    record), the scan under each strategy (plain and constrained, salted,
+    with extras; the index tie-break untimed), and the int64-key engine
+    (plain and constrained, the constrained one with extras too).  Returns
+    the new kernel records."""
+    score_ms = check_strategy_score(full, timed=True)
+    for rec in records:
+        if rec["name"] == "score":
+            rec["strategies_ms"] = {k: {"ms": v[0], "plain_ms": v[1]} for k, v in score_ms.items()}
+    out = {}
+    for name, static in strategy_statics(full["static"]):
+        for con in (False, True):
+            rec = check_scan_kernels(full, static, con, "salted", True, timed=True)
+            check_scan_kernels(full, static, con, "index", False, timed=False)
+            if rec["name"] not in out:
+                out[rec["name"]] = dict(rec, variants={})
+            out[rec["name"]]["variants"][name] = {k: rec[k] for k in ("ms", "plain_ms",
+                                                                      "bound_ms", "placed")}
+    new = list(out.values())
+    new += check_matrix_kernels(full, False, False, timed=True)
+    new += check_matrix_kernels(full, True, False, timed=True)
+    check_matrix_kernels(full, True, True, timed=False)
+    return new
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA card", file=sys.stderr)
@@ -1986,6 +2469,7 @@ def main() -> int:
     for con in (False, True):
         check_extra_kernels(small, con, timed=False)
     check_extra_kernels(small, True, timed=False, commit_cap=1)
+    check_strategies_small(small)
     pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
     full = build_inputs(pods, nodes, dev, scalars)
     records = check_kernels(full, 16, timed=True)
@@ -2010,6 +2494,13 @@ def main() -> int:
     for rec in records:
         if rec["name"] in extra_ms:
             rec["ms_extras"] = extra_ms[rec["name"]]
+    # the strategies: score under MostAllocated and RTC, the scan (plain and
+    # constrained, both tie-breaks, with extras), the int64-key engine
+    records += check_strategies_full(full, records)
+    print(f"matrix route: {NUM_NODES} nodes x {NUM_PODS} pods, int64 keys", flush=True)
+    matrix_launches = drive_matrix_path(full, con=False)
+    con_matrix = drive_matrix_path(full, con=True)
+    matrix_launches = {k: v + con_matrix[k] for k, v in matrix_launches.items()}
     del full
     torch.cuda.empty_cache()
 
@@ -2024,26 +2515,36 @@ def main() -> int:
     print(f"placement-and-devices path: {NUM_NODES} nodes x {NUM_PODS} pods, selectors, taints, "
           f"anti-affinity, GPU/RDMA/cpuset pods, resident node tables", flush=True)
     place_launches, place_cycles = drive_placement_path(dev, NUM_NODES, NUM_PODS, scalars)
+    print(f"strategies path: {NUM_NODES} nodes x {NUM_PODS} pods, MostAllocated over gangs, "
+          f"quota and reservations; RequestedToCapacityRatio over selectors, taints, "
+          f"anti-affinity and GPU/RDMA/cpuset pods; the scan kernel", flush=True)
+    strat_launches, strat_cycles = drive_strategy_path(dev, NUM_NODES, NUM_PODS, scalars)
     for path, launched, kernels in (
         ("cold", cold_launches, ("score", "schedule_keys", "schedule_rounds")),
         ("warm", warm_launches, WARM_PATH_KERNELS),
         ("constraint", con_launches, CON_PATH_KERNELS),
         ("placement", place_launches, PLACE_PATH_KERNELS),
+        ("strategies", strat_launches, STRATEGY_PATH_KERNELS),
+        ("matrix", matrix_launches, ("schedule_keys64", "schedule_rounds64",
+                                     "schedule_keys64_con", "schedule_rounds64_con")),
     ):
         idle = [k for k in kernels if launched[k] == 0]
         if idle:
             fail(f"the {path} path never launched {idle}")
     print(f"  launches on the cold path {cold_launches}; on the warm path {warm_launches}; on "
-          f"the constraint path {con_launches}; on the placement path {place_launches}")
+          f"the constraint path {con_launches}; on the placement path {place_launches}; on the "
+          f"strategies path {strat_launches}; on the matrix route {matrix_launches}")
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "ub_rounds",
-            "dirty_rows", "groups", "ms_extras", "ms_gm16", "plain_ms_gm16", "bound_ms_gm16")
+            "dirty_rows", "groups", "ms_extras", "ms_gm16", "plain_ms_gm16", "bound_ms_gm16",
+            "strategies_ms", "variants", "placed")
     kernels = []
     for rec in records:
         name = rec["name"]
         by_path = {"cold": cold_launches[name], "warm": warm_launches[name],
-                   "constraints": con_launches[name], "placement": place_launches[name]}
+                   "constraints": con_launches[name], "placement": place_launches[name],
+                   "strategies": strat_launches[name], "matrix": matrix_launches[name]}
         # only dstate_scatter (index_copy_) and dstate_extend (F.pad) have a
         # PyTorch call computing the same function; the others have none
         rec = dict(rec, route="cuda", launches=sum(by_path.values()), launches_by_path=by_path)
@@ -2052,7 +2553,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "transfers": transfers, "card": card,
                       "main_path_ms": main_ms, "main_path_kernel_ms": main_kernel_ms,
                       "warm_cycles": warm_cycles, "constraint_cycles": con_cycles,
-                      "placement_cycles": place_cycles}))
+                      "placement_cycles": place_cycles, "strategy_cycles": strat_cycles}))
     print(f"device: {kind} | {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -8,17 +8,20 @@ package's: all of the scoring and scheduling is int64/int32 math with Go's
 rounding.
 
 The port carries the main path ``ClusterState`` -> ``Engine.score`` /
-``Engine.schedule`` under the default LeastAllocated configuration, in the
-JAX package's default serving configuration: node tables resident on the
+``Engine.schedule`` under all three NodeFit scoring strategies
+(LeastAllocated through the resolved engine, MostAllocated and
+RequestedToCapacityRatio through the greedy scan), in the JAX package's
+default serving configuration: node tables resident on the
 device and the SCHEDULE warm start, with the gang, quota and reservation
 constraints the stores hold, the placement policies (node selectors, hard
 taints, required anti-affinity) and the devices (GPU and RDMA requests,
 cpusets under NUMA topology policies, the deviceshare and amplified-CPU
 scores, the grants of ``assume=True``).  Its device kernels are written by
 hand in CUDA C++ for ``sm_90a`` (``csrc/``): ``score``; the two launches of
-``schedule``; the warm ``sched_refresh`` and ``sched_rounds`` (each
-schedule kernel in a plain-pod and a constrained instantiation, all taking
-the placement-and-devices mask and scores); the residency's
+``schedule`` (int32 keys, and int64 keys for the ``matrix`` engine); the
+``scan``; the warm ``sched_refresh`` and ``sched_rounds`` (each schedule
+kernel in a plain-pod and a constrained instantiation, all taking the
+placement-and-devices mask and scores); the residency's
 ``dstate_scatter``, ``dstate_extend`` and ``dstate_gate``; ``quota`` and
 ``quota_limit``; ``rsv_rscore`` and ``rsv_score``; ``placement``,
 ``dev_feasible`` and ``ds_score``.  Each kernel's wrapper runs its plain

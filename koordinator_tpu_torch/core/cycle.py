@@ -7,11 +7,20 @@
   hand-written kernel (``csrc/score.cu``).
 
 * ``schedule_batch``: the Go scheduler's one-pod-at-a-time loop (vendored
-  scheduleOne) as a Python loop in queue order, carrying the assume-path
-  node state.  It is the oracle of ``core.resolved`` and the route for the
-  strategies the resolved engine cannot take.  Plain pods only: its gang,
-  quota and reservation branches arrive with the strategies slice, with
-  the scan on the card.
+  scheduleOne) as a Python loop in queue order, carrying the live state the
+  assume path mutates (``CycleState``): the LoadAware estimates, the
+  NodeFit requested and pod counts, the ElasticQuota used aggregates up
+  the ancestor chain (re-checked per pod), and the reservation-restored
+  free capacity against the live reservation remainders, with each placed
+  pod nominating and consuming a matched reservation on its node; after
+  the loop ``commit_gangs`` revokes the gang groups that missed their
+  quorum.  It is the oracle of ``core.resolved`` and of the ``scan``
+  kernel, and the route for the strategies the resolved engine cannot take
+  (MostAllocated, RequestedToCapacityRatio).
+
+* ``scan_fn``: the wrapper of the ``scan`` kernel (``csrc/scan.cu``), the
+  whole loop in one launch: a CPU tensor takes ``schedule_batch``, a CUDA
+  tensor launches the kernel or raises.
 
 Host selection is the score argmax; Go breaks exact ties by reservoir
 sampling, so any tied node is a legal reference outcome.  Two deterministic
@@ -27,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from koordinator_tpu_torch import cuda
-from koordinator_tpu_torch.core.gang import GangArrays, GangPodArrays
+from koordinator_tpu_torch.core.gang import GangArrays, GangPodArrays, commit_gangs, gang_prefilter
 from koordinator_tpu_torch.core.loadaware import (
     LoadAwareNodeArrays,
     LoadAwarePodArrays,
@@ -42,7 +51,11 @@ from koordinator_tpu_torch.core.nodefit import (
     nodefit_score,
 )
 from koordinator_tpu_torch.core.quota import QuotaPodArrays
-from koordinator_tpu_torch.core.reservation import ReservationArrays, restore_extra_free
+from koordinator_tpu_torch.core.reservation import (
+    ReservationArrays,
+    nominate_on_node,
+    restore_extra_free,
+)
 
 _TIE_HASH = 2654435761  # Knuth multiplicative hash (32-bit wraparound)
 
@@ -77,6 +90,16 @@ class PluginWeights(NamedTuple):
     numa: int = 1
 
 
+class NumaInputs(NamedTuple):
+    """nodenumaresource at the Score cut point: the amplified-CPU (or NUMA
+    policy) scores and the host-side cpuset fit mask, computed against the
+    batch-start allocations; ``score_batch`` adds the scores under the numa
+    plugin weight and ANDs the mask."""
+
+    scores: torch.Tensor  # [P, N] int64
+    feasible: torch.Tensor  # [P, N] bool
+
+
 class GangInputs(NamedTuple):
     pods: GangPodArrays
     gangs: GangArrays
@@ -106,6 +129,50 @@ class ReservationInputs(NamedTuple):
     scores: torch.Tensor  # [P, N] int64 — reservation_score (normalized)
 
 
+class CycleState(NamedTuple):
+    """The live state the greedy assignment threads through the loop."""
+
+    la_nodes: LoadAwareNodeArrays
+    nf_nodes: NodeFitNodeArrays
+    quota_used: torch.Tensor  # [Q, R] (a placeholder without quota inputs)
+    quota_npu: torch.Tensor
+    rsv_allocated: torch.Tensor  # [Rv, Rf] (a placeholder without reservations)
+
+
+def _quota_admit(q: QuotaInputs, used, npu, i: int, check_parent_depth: int) -> bool:
+    """The single-pod quota PreFilter against the live used aggregates."""
+    g = int(q.pods.quota[i])
+    req, present = q.pods.req[i], q.pods.present[i]
+
+    def admit_at(grp: int) -> bool:
+        return bool((~present | (used[grp] + req <= q.limit[grp])).all())
+
+    ok = admit_at(g)
+    if bool(q.pods.non_preemptible[i]):
+        ok = ok and bool((~present | (npu[g] + req <= q.min[g])).all())
+    grp = g
+    for _ in range(check_parent_depth):
+        grp = int(q.parent[grp])
+        ok = ok and (grp == 0 or admit_at(grp))
+    return ok
+
+
+def _quota_consume(q: QuotaInputs, used, npu, i: int, ancestor_depth: int):
+    """updateGroupDeltaUsedNoLock: add the placed pod's request to its group
+    and every ancestor (the root row 0 excluded)."""
+    req = torch.where(q.pods.present[i], q.pods.req[i], torch.zeros_like(q.pods.req[i]))
+    np_ = bool(q.pods.non_preemptible[i])
+    used, npu = used.clone(), npu.clone()
+    g = int(q.pods.quota[i])
+    for _ in range(ancestor_depth):
+        if g != 0:
+            used[g] += req
+            if np_:
+                npu[g] += req
+        g = int(q.parent[g])
+    return used, npu
+
+
 def score_batch(
     la_pods: LoadAwarePodArrays,
     la_nodes: LoadAwareNodeArrays,
@@ -115,10 +182,12 @@ def score_batch(
     nf_static: NodeFitStatic,
     plugin_weights: PluginWeights = PluginWeights(),
     reservation: Optional[ReservationInputs] = None,
+    numa: Optional[NumaInputs] = None,
 ):
-    """([P, N] int64 weighted total scores, [P, N] bool feasibility); a
-    reservation adds its restore to the filter and its scores to the
-    total."""
+    """([P, N] int64 weighted total scores, [P, N] bool feasibility); the
+    NodeFit strategy comes from ``nf_static.strategy``.  A reservation adds
+    its restore to the filter and its scores to the total; ``numa`` adds
+    its scores (under the numa plugin weight) and ANDs its mask."""
     la_s = loadaware_score(la_pods, la_nodes, la_weights)
     nf_s = nodefit_score(nf_pods, nf_nodes, nf_static)
     total = la_s * plugin_weights.loadaware + nf_s * plugin_weights.nodefit
@@ -126,9 +195,13 @@ def score_batch(
     if reservation is not None:
         extra = restore_extra_free(reservation.matched, reservation.rsv, nf_nodes.alloc.shape[0])
         total = total + reservation.scores * plugin_weights.reservation
+    if numa is not None:
+        total = total + numa.scores * plugin_weights.numa
     feasible = loadaware_filter(la_pods, la_nodes) & nodefit_filter(
         nf_pods, nf_nodes, nf_static, extra
     )
+    if numa is not None:
+        feasible = feasible & numa.feasible
     return total, feasible
 
 
@@ -146,8 +219,8 @@ def score_fn(
     weights, as the JAX engine's ``score_fn`` calls it, with dead columns
     masked infeasible and the batch's pre-weighted ``extra_scores`` [P, N]
     (deviceshare, amplified CPU) added to the totals.  CPU tensors take the
-    plain version; CUDA tensors launch ``csrc/score.cu`` (LeastAllocated
-    only) or raise."""
+    plain version; CUDA tensors launch ``csrc/score.cu`` (every NodeFit
+    strategy) or raise."""
     P, N = la_pods.est.shape[0], valid.shape[0]
     if extra_scores is not None and (extra_scores.dtype != torch.int64
                                      or tuple(extra_scores.shape) != (P, N)
@@ -173,21 +246,25 @@ def score_fn(
     return totals, feasible
 
 
-def _assign_updates(la, nf, la_pods, nf_pods, i, host):
+def _assign_updates(state: CycleState, la_pods, nf_pods, i: int, host: int) -> CycleState:
     """The assume-path node-state updates for pod i placed on host."""
-    est = la_pods.est[i]
+    h = torch.tensor([host], device=la_pods.est.device)
+    est = la_pods.est[i][None]
+    la, nf = state.la_nodes, state.nf_nodes
     la = la._replace(
-        base_nonprod=la.base_nonprod.index_add(0, host, est[None]),
-        base_prod=la.base_prod.index_add(
-            0, host, (est * la_pods.is_prod_class[i].to(torch.int64))[None]
-        ),
+        base_nonprod=la.base_nonprod.index_add(0, h, est),
+        base_prod=la.base_prod.index_add(0, h, est * la_pods.is_prod_class[i].to(torch.int64)),
     )
     nf = nf._replace(
-        requested=nf.requested.index_add(0, host, nf_pods.req[i][None]),
-        req_score=nf.req_score.index_add(0, host, nf_pods.req_score[i][None]),
-        num_pods=nf.num_pods.index_add(0, host, torch.ones_like(host, dtype=torch.int64)),
+        requested=nf.requested.index_add(0, h, nf_pods.req[i][None]),
+        req_score=nf.req_score.index_add(0, h, nf_pods.req_score[i][None]),
+        num_pods=nf.num_pods.index_add(0, h, torch.ones_like(h, dtype=torch.int64)),
     )
-    return la, nf
+    return state._replace(la_nodes=la, nf_nodes=nf)
+
+
+def _rows(nt, i: int):
+    return type(nt)(*(a[i:i + 1] for a in nt))
 
 
 def schedule_batch(
@@ -200,38 +277,204 @@ def schedule_batch(
     plugin_weights: PluginWeights = PluginWeights(),
     extra_feasible: Optional[torch.Tensor] = None,
     order: Optional[torch.Tensor] = None,
+    gang: Optional[GangInputs] = None,
+    quota: Optional[QuotaInputs] = None,
+    reservation: Optional[ReservationInputs] = None,
+    check_parent_depth: int = 0,
+    ancestor_depth: int = 8,
     tie_break: str = "index",
+    extra_scores: Optional[torch.Tensor] = None,
 ):
-    """Greedy sequential batch assignment in queue order, plain pods.
+    """Greedy sequential batch assignment in queue order ``order`` (all
+    pods when None; pods it does not list stay unplaced).
 
-    Returns (hosts [P] int32 — node index or -1, scores [P] int64 — the
-    winning total, 0 when unplaced)."""
+    ``extra_scores`` [P, N] adds batch-frozen, pre-weighted score
+    components (deviceshare, amplified CPU); ``extra_feasible`` [P, N] is
+    ANDed into feasibility.  Under ``reservation`` each pod's restore is
+    taken against the LIVE reservation remainders (which may be negative
+    and are not clamped), its frozen reservation scores are added, and a
+    placed pod consumes its nominated reservation.  ``quota`` admits each
+    pod against the live aggregates and consumes on placement; ``gang``
+    masks pods failing the prefilter and, after the loop, revokes the gang
+    groups that missed minMember.  A pod that fits nowhere changes no
+    state.
+
+    Returns (hosts [P] int32 — node index or -1 after the gang commit,
+    scores [P] int64 — the winning total, 0 when unplaced)."""
     P = la_pods.est.shape[0]
     N = la_nodes.alloc.shape[0]
     dev = la_pods.est.device
+    i64 = torch.int64
     xs = torch.arange(P, device=dev) if order is None else order.to(dev)
     hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    scores = torch.zeros(P, dtype=torch.int64, device=dev)
-    neg = torch.tensor(-1 << 40, dtype=torch.int64, device=dev)
-    la, nf = la_nodes, nf_nodes
+    scores = torch.zeros(P, dtype=i64, device=dev)
+    neg = torch.tensor(-1 << 40, dtype=i64, device=dev)
+    gang_mask = None if gang is None else gang_prefilter(gang.pods, gang.gangs)
+    zero_q = torch.zeros((1, 1), dtype=i64, device=dev)
+    state = CycleState(
+        la_nodes=la_nodes, nf_nodes=nf_nodes,
+        quota_used=zero_q if quota is None else quota.used,
+        quota_npu=zero_q if quota is None else quota.npu,
+        rsv_allocated=zero_q if reservation is None else reservation.rsv.allocated,
+    )
+    if reservation is not None:
+        rsv = reservation.rsv
+        rsv_node = rsv.node.long()
     for i in xs.tolist():
-        la_p1 = LoadAwarePodArrays(*(a[i : i + 1] for a in la_pods))
-        nf_p1 = NodeFitPodArrays(*(a[i : i + 1] for a in nf_pods))
-        total, feasible = score_batch(la_p1, la, la_weights, nf_p1, nf, nf_static, plugin_weights)
-        total, feasible = total[0], feasible[0]
+        la_p1, nf_p1 = _rows(la_pods, i), _rows(nf_pods, i)
+        la_n, nf_n = state.la_nodes, state.nf_nodes
+        total = (loadaware_score(la_p1, la_n, la_weights)[0] * plugin_weights.loadaware
+                 + nodefit_score(nf_p1, nf_n, nf_static)[0] * plugin_weights.nodefit)
+        extra_free = None
+        if reservation is not None:
+            # the restore against the LIVE remaining reservation capacity
+            remain = rsv.allocatable - state.rsv_allocated  # [Rv, Rf]
+            contrib = torch.where(reservation.matched[i][:, None], remain,
+                                  torch.zeros_like(remain))
+            extra_free = torch.zeros((N, remain.shape[1]), dtype=i64, device=dev).index_add(
+                0, rsv_node, contrib)[None]
+            total = total + reservation.scores[i] * plugin_weights.reservation
+        feasible = (loadaware_filter(la_p1, la_n)[0]
+                    & nodefit_filter(nf_p1, nf_n, nf_static, extra_free)[0])
+        if extra_scores is not None:
+            total = total + extra_scores[i]
         if extra_feasible is not None:
             feasible = feasible & extra_feasible[i]
+        if gang_mask is not None and not bool(gang_mask[i]):
+            continue
+        if quota is not None and not _quota_admit(quota, state.quota_used, state.quota_npu, i,
+                                                  check_parent_depth):
+            continue
         if not bool(feasible.any()):
             continue
         masked = torch.where(feasible, total, neg)
         if tie_break == "salted":
-            salt = tie_salt(torch.tensor(i, device=dev), N).to(torch.int64)
+            salt = tie_salt(torch.tensor(i, device=dev), N).to(i64)
             host = int(torch.argmax(tie_keys(masked, salt)))
         else:
             host = int(torch.argmax(masked))
-        la, nf = _assign_updates(
-            la, nf, la_pods, nf_pods, i, torch.tensor([host], device=dev)
-        )
+        state = _assign_updates(state, la_pods, nf_pods, i, host)
+        if quota is not None:
+            used, npu = _quota_consume(quota, state.quota_used, state.quota_npu, i,
+                                       ancestor_depth)
+            state = state._replace(quota_used=used, quota_npu=npu)
+        if reservation is not None:
+            # the Reserve path: the nominated reservation's remainder
+            # shrinks for the next pod's restore
+            nom, has = nominate_on_node(reservation.matched[i], reservation.rscore[i], rsv, host)
+            if bool(has):
+                nom = int(nom)
+                remain = rsv.allocatable[nom] - state.rsv_allocated[nom]
+                consume = torch.clamp(torch.minimum(nf_pods.req[i], remain), min=0)
+                state = state._replace(
+                    rsv_allocated=state.rsv_allocated.index_add(
+                        0, torch.tensor([nom], device=dev), consume[None]))
         hosts[i] = host
         scores[i] = masked[host]
+    if gang is not None:
+        hosts, _ = commit_gangs(hosts, gang.pods, gang.gangs)
+        scores = torch.where(hosts >= 0, scores, torch.zeros_like(scores))
+    return hosts, scores
+
+
+def scan_fn(
+    la_pods: LoadAwarePodArrays,
+    la_nodes: LoadAwareNodeArrays,
+    la_weights: torch.Tensor,
+    nf_pods: NodeFitPodArrays,
+    nf_nodes: NodeFitNodeArrays,
+    nf_static: NodeFitStatic,
+    valid: torch.Tensor,
+    p_real: int,
+    order: Optional[torch.Tensor] = None,
+    con_args: Optional[dict] = None,
+    check_parent_depth: int = 0,
+    ancestor_depth: int = 8,
+    extra_feasible: Optional[torch.Tensor] = None,
+    extra_scores: Optional[torch.Tensor] = None,
+    tie_break: str = "salted",
+):
+    """The ``scan`` kernel: ``schedule_batch`` over the live node columns x
+    the first ``p_real`` pod rows in queue order ``order``, under the
+    default plugin weights, as the JAX engine's ``schedule_fn`` takes the
+    scan; ``con_args`` (``core.resolved.con_inputs``' arguments besides the
+    queue order) adds the gang, quota and reservation branches,
+    ``extra_feasible``/``extra_scores`` ([P, N] submission order) the
+    batch's placement-and-devices mask and pre-weighted scores.  Returns
+    (hosts [P] int32 after the gang commit, scores [P] int64) in submission
+    order.  CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/scan.cu`` (the constrained instantiation with ``con_args``) or
+    raise.  The node, quota and reservation inputs are never written."""
+    from koordinator_tpu_torch.core import resolved as rs
+
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    dev = valid.device
+    if tie_break not in ("salted", "index"):
+        raise ValueError(f"unknown tie_break {tie_break!r} (salted | index)")
+    if extra_scores is not None and (extra_scores.dtype != torch.int64
+                                     or tuple(extra_scores.shape) != (P, N)):
+        raise ValueError(f"extra_scores: expected int64 {(P, N)}, got {extra_scores.dtype} "
+                         f"{tuple(extra_scores.shape)}")
+    if dev.type == "cpu":
+        base = (torch.arange(P, device=dev) < p_real)[:, None] & valid[None, :]
+        if extra_feasible is not None:
+            base = base & extra_feasible
+        kw = {}
+        if con_args is not None:
+            kw = dict(gang=con_args.get("gang"), quota=con_args.get("quota"),
+                      reservation=con_args.get("reservation"))
+        return schedule_batch(
+            la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, PluginWeights(), base,
+            order, check_parent_depth=check_parent_depth, ancestor_depth=ancestor_depth,
+            tie_break=tie_break, extra_scores=extra_scores, **kw,
+        )
+    xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(la_pods, nf_pods, valid, p_real, order,
+                                                    tie_break)
+    con = None if con_args is None else rs.con_inputs(xs, **con_args)
+    xin = rs.extra_inputs(extra_feasible, extra_scores, xs)
+    hosts_q, scores_q = scan_launch(q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, valid,
+                                    pod_ok, salts, con, check_parent_depth, ancestor_depth, xin)
+    return rs._submission_order(hosts_q, scores_q, xs, P)
+
+
+def scan_launch(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts, con=None,
+                check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
+    """One launch of the ``scan`` kernel on CUDA tensors, pods in queue
+    order (``core.resolved.kernel_queue``), counted on ``cuda.SCAN`` or,
+    with a ``ConInputs``, ``cuda.SCAN_CON``.  The kernel commits into
+    private copies of the node rows, quota aggregates and reservation
+    allocations.  Returns (hosts [P] int32 after the gang commit, scores
+    [P] int64) in queue order."""
+    from koordinator_tpu_torch.core import resolved as rs
+
+    P, N = q_la.est.shape[0], valid.shape[0]
+    dev = valid.device
+    if dev.type != "cuda":
+        raise ValueError(f"the scan kernel takes CUDA tensors, got {dev}")
+    la_mut = la_nodes._replace(base_nonprod=la_nodes.base_nonprod.clone(),
+                               base_prod=la_nodes.base_prod.clone())
+    nf_mut = nf_nodes._replace(requested=nf_nodes.requested.clone(),
+                               req_score=nf_nodes.req_score.clone(),
+                               num_pods=nf_nodes.num_pods.clone())
+    args = cuda.pair_args(q_la, la_mut, la_w, q_nf, nf_mut, nf_static, valid)
+    pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
+    salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
+    xf, xsc, xkeep = rs._xin_args(xin, P, N, dev)
+    scratch = torch.zeros(cuda.SCAN_SCRATCH_WORDS, dtype=torch.int64, device=dev)
+    hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    scores = torch.zeros(P, dtype=torch.int64, device=dev)
+    head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
+            salts.data_ptr(), xf, xsc, P, N, tie_base(N))
+    tail = (scratch.data_ptr(), hosts.data_ptr(), scores.data_ptr(), cuda.device_index(dev),
+            cuda.stream(dev))
+    if con is None:
+        if P and N:
+            cuda.SCAN.launch(*head, *tail)
+        return hosts, scores
+    ptrs, ints, keep = rs._con_launch_args(con, P, N, q_nf.req.shape[1], dev, True,
+                                           check_parent_depth, ancestor_depth,
+                                           PluginWeights().reservation,
+                                           words=2 * con.gangs.min_member.shape[0])
+    if P and N:
+        cuda.SCAN_CON.launch(*head, ptrs, ints, *tail)
     return hosts, scores

@@ -4,7 +4,7 @@ The koord-scheduler runs the upstream NodeResourcesFit plugin from its
 vendored kube-scheduler (k8s.io/kubernetes v1.24) inside the per-node
 Filter/Score loops.  This module re-expresses both extension points over
 the dense layout, as the plain PyTorch version of the arithmetic the CUDA
-kernels evaluate per pair (``csrc/pair.cuh``, LeastAllocated only).
+kernels evaluate per pair (``csrc/pair.cuh``, all three strategies).
 
 Filter (noderesources/fit.go fitsRequest): a pod fits a node iff
   - len(nodeInfo.Pods) + 1 <= allocatable pod count, and

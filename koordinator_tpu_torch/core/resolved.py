@@ -23,7 +23,17 @@ hierarchy ``Mb``.  A round's pick is a max over ``Mb`` whose low bits are
 the winning node; only the <= commit_cap touched rows are rescored.
 
 Exactness needs the monotonicity above, hence LeastAllocated only; other
-strategies route to the scan, as in the JAX package.
+strategies (MostAllocated, RequestedToCapacityRatio) route to the scan
+(``core.cycle.schedule_batch``, with every constraint and the extras), as
+in the JAX package, and report 0 rounds.
+
+``impl`` picks the round engine as the JAX package does: ``"auto"`` takes
+``matrix_packed`` while the packed key's bound fits int32 (``fits_i32``)
+and the ``matrix`` engine beyond it: an [P, N] int64 masked score matrix
+whose round pick is a composite-key argmax (``run_matrix_plain``), with
+the same commit logic.  Its kernel holds the same composite key in int64
+lanes of the packed layout (``schedule_keys``/``schedule_rounds`` with
+``wide=True``).  An unknown ``impl`` raises ``ValueError`` on every path.
 
 The cross-cycle warm start keeps the init state (M, Mb, la_feas_T) as a
 carry: ``return_warm`` hands it out of a cold run, ``refresh_only`` with
@@ -37,8 +47,6 @@ aggregates and under committed + every earlier candidate's consumption; each com
 nominates and consumes a matched reservation on its node; the reservation
 restore and frozen scores enter every key; after the rounds the gang
 Permit (``commit_gangs``) revokes the groups that missed their quorum.
-Constraints under the scan raise ``NotImplementedError`` (the strategies
-slice).
 
 The placement-and-devices channel: ``extra_feasible`` [P, N] (selectors,
 taints, anti-affinity, device and cpuset feasibility) is ANDed into every
@@ -53,9 +61,10 @@ launches of the cold ``schedule`` kernel (``csrc/schedule.cu``);
 ``schedule_refresh`` and ``schedule_rounds_warm`` those of the warm
 ``sched_refresh`` and ``sched_rounds``; ``schedule_fn`` composes the cold
 pair the way the JAX package's ``schedule_fn`` (service/engine.py) composes
-its jitted cycle.  Given a ``ConInputs`` each launches the constrained
-instantiation.  CPU tensors take the plain versions beside them; CUDA
-tensors launch the kernels or raise.
+its jitted cycle, and sends other strategies to the ``scan`` kernel
+(``core.cycle.scan_fn``).  Given a ``ConInputs`` each launches the
+constrained instantiation.  CPU tensors take the plain versions beside
+them; CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -71,9 +80,11 @@ from koordinator_tpu_torch.core.cycle import (
     PluginWeights,
     QuotaInputs,
     ReservationInputs,
+    scan_fn,
     schedule_batch,
     score_batch,
     tie_base,
+    tie_keys,
     tie_salt,
 )
 from koordinator_tpu_torch.core.gang import (
@@ -102,12 +113,25 @@ from koordinator_tpu_torch.core.reservation import (
     nominate_with_ranks,
     order_ranks,
 )
-from koordinator_tpu_torch.slices import STRATEGIES, later
 
 # packed-key infeasible sentinel; the fits_i32 guard keeps every real key
 # clear of it
 NEGK = -(1 << 30)
 NEGK_THRESH = -(1 << 29)
+# the int64 lanes' sentinel (masked totals and int64 keys), the JAX NEG
+NEG = -(1 << 40)
+NEG_THRESH = -(1 << 39)
+IMPLS = ("auto", "matrix_packed", "matrix")
+
+
+def _sentinel(dtype: torch.dtype) -> tuple:
+    """(infeasible sentinel, placed threshold) of a key lane."""
+    return (NEGK, NEGK_THRESH) if dtype == torch.int32 else (NEG, NEG_THRESH)
+
+
+def check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (matrix_packed | matrix)")
 
 
 def key_bound(plugin_weights: PluginWeights, extra_score_bound: int = 0) -> int:
@@ -173,13 +197,14 @@ def _submission_order(hosts_q, scores_q, xs, P: int):
     return hosts, scores
 
 
-def _pack_keys(total, feas, salts, N: int, TB: int) -> torch.Tensor:
-    """[P, N] packed ordering keys (score * TB + rotated tie bits), int64."""
+def _pack_keys(total, feas, salts, N: int, TB: int, neg: int = NEGK) -> torch.Tensor:
+    """[P, N] packed ordering keys (score * TB + rotated tie bits), int64,
+    ``neg`` where infeasible."""
     rot = torch.remainder(
         torch.arange(N, dtype=torch.int64, device=total.device)[None, :] + salts[:, None], N
     )
     key = total * TB + (TB - 1 - rot)
-    return torch.where(feas, key, torch.full_like(key, NEGK))
+    return torch.where(feas, key, torch.full_like(key, neg))
 
 
 def _rsv_cols(rsv_node, remain, midx, q_scores, colsc):
@@ -196,13 +221,13 @@ def _rsv_cols(rsv_node, remain, midx, q_scores, colsc):
     return extra, q_scores[:, colsc]
 
 
-def _touched_keys(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T, q_extra_T,
-                  salts, colsc, TB, rsv=None, q_xsc_T=None):
-    """[K, P] int32 keys of the touched node rows ``colsc`` against the
-    current state (core/resolved.py touched_scores + the key repack);
-    ``rsv`` = (node, remain, midx, queue-order scores) adds the
-    reservation restore and score, ``q_xsc_T`` [N, P] the extra scores."""
-    N = la.alloc.shape[0]
+def _touched_scores(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T, q_extra_T,
+                    colsc, rsv=None, q_xsc_T=None):
+    """([P, K] int64 totals, [P, K] feasibility) of the touched node rows
+    ``colsc`` against the current state (core/resolved.py
+    touched_scores); ``rsv`` = (node, remain, midx, queue-order scores)
+    adds the reservation restore and score, ``q_xsc_T`` [N, P] the extra
+    scores."""
     la_cols, nf_cols = _rows(la, colsc), _rows(nf, colsc)
     tot = loadaware_score(q_la, la_cols, la_w) * plugin_weights.loadaware
     tot = tot + nodefit_score(q_nf, nf_cols, nf_static) * plugin_weights.nodefit
@@ -214,17 +239,29 @@ def _touched_keys(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T
         tot = tot + q_xsc_T[colsc].T
     feas = (la_feas_T[colsc].T & nodefit_filter(q_nf, nf_cols, nf_static, extra)
             & q_extra_T[colsc].T)
+    return tot, feas
+
+
+def _touched_keys(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T, q_extra_T,
+                  salts, colsc, TB, rsv=None, q_xsc_T=None, dtype=torch.int32):
+    """[K, P] keys (of ``dtype``) of the touched node rows ``colsc``
+    against the current state: ``_touched_scores`` and the key repack."""
+    N = la.alloc.shape[0]
+    tot, feas = _touched_scores(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T,
+                                q_extra_T, colsc, rsv, q_xsc_T)
     rot = torch.remainder(colsc.to(torch.int64)[None, :] + salts[:, None], N)
-    key = torch.where(feas, tot * TB + (TB - 1 - rot), torch.full_like(tot, NEGK))
-    return key.T.to(torch.int32)
+    key = torch.where(feas, tot * TB + (TB - 1 - rot), torch.full_like(tot, _sentinel(dtype)[0]))
+    return key.T.to(dtype)
 
 
 def build_keys_plain(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
-                     salts, block_size: int, reservation=None, q_xsc=None):
-    """The cold init: (M [N_pad, P] int32, Mb [NB, P] int32, la_feas_T
-    [N, P] bool) for pods already in queue order; ``q_extra`` [P, N] is
-    every mask beyond the two plugin filters; ``reservation`` (queue
-    order) adds its restore and scores, ``q_xsc`` [P, N] the extra
+                     salts, block_size: int, reservation=None, q_xsc=None,
+                     key_dtype: torch.dtype = torch.int32):
+    """The cold init: (M [N_pad, P], Mb [NB, P] of ``key_dtype`` — int32
+    for the packed engine, int64 for the matrix engine's kernel —,
+    la_feas_T [N, P] bool) for pods already in queue order; ``q_extra``
+    [P, N] is every mask beyond the two plugin filters; ``reservation``
+    (queue order) adds its restore and scores, ``q_xsc`` [P, N] the extra
     scores."""
     P, N = q_la.est.shape[0], la_nodes.alloc.shape[0]
     TB = tie_base(N)
@@ -234,9 +271,10 @@ def build_keys_plain(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_wei
                               reservation)
     if q_xsc is not None:
         total = total + q_xsc
-    M = _pack_keys(total, feas & q_extra, salts.to(torch.int64), N, TB).T.to(torch.int32)
+    neg = _sentinel(key_dtype)[0]
+    M = _pack_keys(total, feas & q_extra, salts.to(torch.int64), N, TB, neg).T.to(key_dtype)
     if NB * block_size != N:
-        pad = torch.full((NB * block_size - N, P), NEGK, dtype=torch.int32, device=M.device)
+        pad = torch.full((NB * block_size - N, P), neg, dtype=key_dtype, device=M.device)
         M = torch.cat([M, pad], dim=0)
     M = M.contiguous()
     Mb = M.view(NB, block_size, P).amax(dim=1)
@@ -367,34 +405,21 @@ def _admit(quota: QuotaInputs, used_at, npu_at, check_parent_depth: int) -> torc
     return ok
 
 
-def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-                     plugin_weights, q_extra, salts, commit_cap: int, block_size: int,
-                     con: Optional[ConInputs] = None, check_parent_depth: int = 0,
-                     ancestor_depth: int = 8, q_xsc=None):
-    """The round loop from the init state (core/resolved.py round_body):
-    per round every pending pod's pick, the first-picker rule, the prefix
-    cut at the first blocked pod and at K placements, the assume path
-    over <= K touched rows and their rescoring.  ``q_extra`` [P, N] holds
-    every pod/node mask (the gang prefilter included), ``q_xsc`` [P, N]
-    the extra scores.  Returns (hosts,
-    scores, rounds) in queue order; ``M``/``Mb`` are updated in place.
-
-    With ``con``, the constrained loop: quota_certainty (a pod commits
-    only when its PreFilter verdict is provably the same under both
-    bounds), quota consumption, reservation nomination and consumption
-    with the restore in the rescoring, then commit_gangs.  It returns
+def _round_loop(pick, rescore, q_la, la_nodes, q_nf, nf_nodes, commit_cap: int,
+                con: Optional[ConInputs], check_parent_depth: int, ancestor_depth: int):
+    """The rounds shared by both engines (core/resolved.py quota_certainty
+    and commit_core): per round every pending pod's pick from ``pick()``
+    -> (picks [P], pick scores [P], has a feasible column [P]), the quota
+    certainty, the first-picker rule, the prefix cut at the first blocked
+    pod and at K placements, the assume path over <= K touched rows, then
+    ``rescore(la, nf, rsv_terms, colsc)`` of the touched columns.  Returns
     (hosts, scores, precommit — before the gang rollback —, rounds, the
-    rounds that took the quota upper bound)."""
+    rounds that took the quota upper bound) in queue order."""
     P, N = q_la.est.shape[0], la_nodes.alloc.shape[0]
     dev = q_la.est.device
     i64 = torch.int64
     K = min(commit_cap, max(P, 1))
-    TB = tie_base(N)
-    NB = Mb.shape[0]
-    salts64 = salts.to(i64)
     qpos = torch.arange(P, device=dev)
-    q_extra_T = q_extra.T
-    q_xsc_T = None if q_xsc is None else q_xsc.T
     committed = torch.zeros(P, dtype=torch.bool, device=dev)
     hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
     scores = torch.zeros(P, dtype=i64, device=dev)
@@ -424,11 +449,10 @@ def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_
     rounds = ub_rounds = 0
     while P and not bool(committed.all()):
         pending = ~committed
-        vmax = Mb.amax(dim=0).to(i64)
-        placed = pending & (vmax > NEGK_THRESH)
-        rot = TB - 1 - torch.remainder(vmax, TB)
-        picks = torch.where(placed, torch.remainder(rot - salts64 + N, N), 0)
-        pickscore = torch.where(placed, torch.div(vmax, TB, rounding_mode="floor"), 0)
+        picks, pickscore, any_ok = pick()
+        placed = pending & any_ok
+        picks = torch.where(placed, picks, 0)
+        pickscore = torch.where(placed, pickscore, 0)
 
         # quota_certainty: the verdict under the committed aggregates (the
         # lower bound) and under committed + every earlier candidate's
@@ -519,21 +543,107 @@ def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_
             consume = torch.where(take[:, None], consume, torch.zeros_like(consume))
             rsv_alloc = rsv_alloc.index_add(0, torch.where(take, noms, 0), consume)
             rsv_terms = rsv_view(con, rsv_alloc)
+        rescore(la, nf, rsv_terms, colsc)
+        rounds += 1
+    precommit = hosts
+    if con is not None:
+        pods = GangPodArrays(gang=con.gang_row, priority=None, sub_priority=None, timestamp=None)
+        hosts, _ = commit_gangs(precommit, pods, con.gangs)
+        scores = torch.where(hosts >= 0, scores, torch.zeros_like(scores))
+    return hosts, scores, precommit, rounds, ub_rounds
 
+
+def _loop_result(out, con):
+    """The round loop's results as the callers return them: (hosts, scores,
+    rounds), or with ``con`` (hosts, scores, precommit, rounds, rounds on
+    the quota upper bound)."""
+    return (out[0], out[1], out[3]) if con is None else out
+
+
+def run_rounds_plain(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
+                     plugin_weights, q_extra, salts, commit_cap: int, block_size: int,
+                     con: Optional[ConInputs] = None, check_parent_depth: int = 0,
+                     ancestor_depth: int = 8, q_xsc=None):
+    """The packed engine's round loop from the init state (core/resolved.py
+    round_body): each round's picks are the per-pod maxima over ``Mb``
+    decoded from the keys' low bits; the touched rows are rekeyed and
+    their blocks re-reduced.  ``M``/``Mb`` hold int32 keys (the packed
+    engine) or int64 keys (the matrix engine's kernel layout) and are
+    updated in place.  ``q_extra`` [P, N] holds every pod/node mask (the
+    gang prefilter included), ``q_xsc`` [P, N] the extra scores.  Returns
+    (hosts, scores, rounds) in queue order; with ``con`` the constrained
+    loop (quota certainty and consumption, reservation nomination and
+    consumption with the restore in the rescoring, then commit_gangs),
+    returning (hosts, scores, precommit — before the gang rollback —,
+    rounds, the rounds that took the quota upper bound)."""
+    N = la_nodes.alloc.shape[0]
+    TB = tie_base(N)
+    NB = Mb.shape[0]
+    P = M.shape[1]
+    thresh = _sentinel(M.dtype)[1]
+    salts64 = salts.to(torch.int64)
+    q_extra_T = q_extra.T
+    q_xsc_T = None if q_xsc is None else q_xsc.T
+
+    def pick():
+        vmax = Mb.amax(dim=0).to(torch.int64)
+        rot = TB - 1 - torch.remainder(vmax, TB)
+        picks = torch.remainder(rot - salts64 + N, N)
+        return picks, torch.div(vmax, TB, rounding_mode="floor"), vmax > thresh
+
+    def rescore(la, nf, rsv_terms, colsc):
         M[colsc] = _touched_keys(
             q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas_T, q_extra_T,
-            salts64, colsc, TB, rsv_terms, q_xsc_T,
+            salts64, colsc, TB, rsv_terms, q_xsc_T, M.dtype,
         )
         bc = torch.div(colsc, block_size, rounding_mode="floor")
         Mb[bc] = M.view(NB, block_size, P)[bc].amax(dim=1)
-        rounds += 1
-    if con is None:
-        return hosts, scores, rounds
-    precommit = hosts
-    pods = GangPodArrays(gang=con.gang_row, priority=None, sub_priority=None, timestamp=None)
-    hosts, _ = commit_gangs(precommit, pods, con.gangs)
-    scores = torch.where(hosts >= 0, scores, torch.zeros_like(scores))
-    return hosts, scores, precommit, rounds, ub_rounds
+
+    return _loop_result(_round_loop(pick, rescore, q_la, la_nodes, q_nf, nf_nodes, commit_cap,
+                                    con, check_parent_depth, ancestor_depth), con)
+
+
+def masked_init(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
+                reservation=None, q_xsc=None):
+    """The matrix engine's init state: (M [P, N] int64 masked totals, NEG
+    where infeasible, la_feas_T [N, P] bool) for pods in queue order
+    (core/resolved.py run_matrix)."""
+    la_feas_T = loadaware_filter(q_la, la_nodes).T.contiguous()
+    total, feas = score_batch(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, plugin_weights,
+                              reservation)
+    if q_xsc is not None:
+        total = total + q_xsc
+    M = torch.where(feas & q_extra, total, torch.full_like(total, NEG))
+    return M, la_feas_T
+
+
+def run_matrix_plain(M, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
+                     plugin_weights, q_extra, salts, commit_cap: int,
+                     con: Optional[ConInputs] = None, check_parent_depth: int = 0,
+                     ancestor_depth: int = 8, q_xsc=None):
+    """The matrix engine's round loop (core/resolved.py run_matrix) from
+    ``masked_init``: each round's pick is the composite-key argmax of the
+    [P, N] masked totals (the score, then the rotated index: salts of 0
+    give the lowest index), the touched columns are rescored.  ``M`` is
+    updated in place.  Returns what ``run_rounds_plain`` returns; the
+    outputs and the round count equal the int64-key kernel's."""
+    N = la_nodes.alloc.shape[0]
+    salts64 = salts.to(torch.int64)
+    q_extra_T = q_extra.T
+    q_xsc_T = None if q_xsc is None else q_xsc.T
+
+    def pick():
+        picks = torch.argmax(tie_keys(M, salts64[:, None]), dim=1)
+        pickval = M.gather(1, picks[:, None])[:, 0]
+        return picks, pickval, pickval > NEG_THRESH
+
+    def rescore(la, nf, rsv_terms, colsc):
+        tot, feas = _touched_scores(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights,
+                                    la_feas_T, q_extra_T, colsc, rsv_terms, q_xsc_T)
+        M[:, colsc] = torch.where(feas, tot, torch.full_like(tot, NEG))
+
+    return _loop_result(_round_loop(pick, rescore, q_la, la_nodes, q_nf, nf_nodes, commit_cap,
+                                    con, check_parent_depth, ancestor_depth), con)
 
 
 def schedule_batch_resolved(
@@ -563,11 +673,19 @@ def schedule_batch_resolved(
     dirty_cols: Optional[torch.Tensor] = None,
     refresh_only: bool = False,
     return_warm: bool = False,
+    impl: str = "auto",
 ):
     """``schedule_batch`` bit-for-bit (same ``tie_break``), via
     prefix-committed rounds, plain PyTorch.  commit_cap and block_size do
     not affect results.  Returns (hosts, scores[, rounds][, precommit][,
     warm]).
+
+    ``impl`` as in the JAX package: ``"auto"`` takes ``matrix_packed``
+    when the packed key's bound fits int32, else ``matrix`` (also when
+    ``matrix_packed`` is asked for beyond the bound); an unknown name
+    raises ``ValueError`` on every path.  Under a strategy other than
+    LeastAllocated the scan answers, with every constraint and the extras,
+    reporting 0 rounds and its post-commit hosts as ``precommit``.
 
     Gang, quota and reservation inputs take the constrained round loop:
     quota admission decided only when provable, reservation restore,
@@ -586,8 +704,8 @@ def schedule_batch_resolved(
 
     ``extra_scores`` [P, N] (pre-weighted, frozen for the batch) adds to
     every pair's total; ``extra_score_bound`` bounds it for the packed
-    key.  The scan takes no extra scores: under another strategy they
-    raise naming the strategies slice."""
+    key."""
+    check_impl(impl)
     constrained = gang is not None or quota is not None or reservation is not None
     P_full = la_pods.est.shape[0]
     N = la_nodes.alloc.shape[0]
@@ -601,23 +719,25 @@ def schedule_batch_resolved(
             "(monotonicity precondition)"
         )
     if nf_static.strategy != "LeastAllocated":
-        if constrained:
-            raise later(f"gang, quota or reservation inputs under {nf_static.strategy} "
-                        "(the scan's constraint branches)", STRATEGIES)
-        if extra_scores is not None:
-            raise later(f"device or amplified-CPU scores under {nf_static.strategy} "
-                        "(the scan's extra-score branch)", STRATEGIES)
         # monotonicity precondition: other strategies take the scan
         hosts, scores = schedule_batch(
             la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, plugin_weights,
-            extra_feasible, order, tie_break,
+            extra_feasible, order, gang, quota, reservation, check_parent_depth, ancestor_depth,
+            tie_break, extra_scores,
         )
         out = (hosts, scores)
         if return_rounds:
             out = out + (0,)
         return out + (hosts,) if return_precommit else out
-    if not fits_i32(key_bound(plugin_weights, extra_score_bound), N):
-        raise later("the int64-key matrix engine (node axes beyond 2**21)", STRATEGIES)
+    fits = fits_i32(key_bound(plugin_weights, extra_score_bound), N)
+    if impl == "auto" or not fits:
+        impl = "matrix_packed" if fits else "matrix"
+    if wants_warm and impl != "matrix_packed":
+        raise ValueError(
+            "warm-start flags require the matrix_packed engine (score bound "
+            f"{key_bound(plugin_weights, extra_score_bound)} with tie base {tie_base(N)} does "
+            "not fit the int32 key lane)"
+        )
     xs, q_la, q_nf, salts = _queue(la_pods, nf_pods, order, N, tie_break)
     q_xsc = None if extra_scores is None else extra_scores[xs]
     if extra_feasible is None:
@@ -634,25 +754,32 @@ def schedule_batch_resolved(
             *(a.clone() for a in warm_init), dirty_cols, q_la, la_nodes, la_weights, q_nf,
             nf_nodes, nf_static, plugin_weights, q_extra, salts, block_size, rsv, q_xsc,
         )
-    if warm_init is not None:
-        M0, Mb0, la_feas_T = warm_init
-    else:
-        M0, Mb0, la_feas_T = build_keys_plain(
-            q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
-            salts, block_size, None if con is None else _queue_rsv(con), q_xsc,
+    rsv_q = None if con is None else _queue_rsv(con)
+    if impl == "matrix":
+        M0, la_feas_T = masked_init(q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static,
+                                    plugin_weights, q_extra, rsv_q, q_xsc)
+        out = run_matrix_plain(
+            M0, la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, plugin_weights,
+            q_extra, salts, commit_cap, con, check_parent_depth, ancestor_depth, q_xsc,
         )
-    if con is None:
-        hosts_q, scores_q, rounds = run_rounds_plain(
-            M0.clone(), Mb0.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes,
-            nf_static, plugin_weights, q_extra, salts, commit_cap, block_size, q_xsc=q_xsc,
-        )
-        pre_q = hosts_q
     else:
-        hosts_q, scores_q, pre_q, rounds, _ = run_rounds_plain(
+        if warm_init is not None:
+            M0, Mb0, la_feas_T = warm_init
+        else:
+            M0, Mb0, la_feas_T = build_keys_plain(
+                q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, plugin_weights, q_extra,
+                salts, block_size, rsv_q, q_xsc,
+            )
+        out = run_rounds_plain(
             M0.clone(), Mb0.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes,
             nf_static, plugin_weights, q_extra, salts, commit_cap, block_size, con,
             check_parent_depth, ancestor_depth, q_xsc,
         )
+    if con is None:
+        hosts_q, scores_q, rounds = out
+        pre_q = hosts_q
+    else:
+        hosts_q, scores_q, pre_q, rounds, _ = out
     hosts, scores = _submission_order(hosts_q, scores_q, xs, P_full)
     out = (hosts, scores)
     if return_rounds:
@@ -667,11 +794,12 @@ def schedule_batch_resolved(
 # ------------------------------------------------------------------ kernels
 
 
-def kernel_queue(la_pods, nf_pods, valid, p_real: int, order):
+def kernel_queue(la_pods, nf_pods, valid, p_real: int, order, tie_break: str = "salted"):
     """The kernels' pod inputs in queue order, as the JAX engine's
-    ``schedule_fn`` lays them out: (xs, pod arrays in queue order, salted
-    tie salts, ``pod_ok`` marking the real, unpadded pod rows)."""
-    xs, q_la, q_nf, salts = _queue(la_pods, nf_pods, order, valid.shape[0], "salted")
+    ``schedule_fn`` lays them out: (xs, pod arrays in queue order, the tie
+    salts — 0 under ``"index"`` —, ``pod_ok`` marking the real, unpadded
+    pod rows)."""
+    xs, q_la, q_nf, salts = _queue(la_pods, nf_pods, order, valid.shape[0], tie_break)
     pod_ok = (torch.arange(la_pods.est.shape[0], device=valid.device) < p_real)[xs]
     return xs, q_la, q_nf, salts, pod_ok
 
@@ -705,11 +833,13 @@ def _xin_args(xin: Optional[ExtraInputs], P: int, N: int, dev) -> tuple:
 
 
 def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool, cpd: int,
-                     ad: int, w_rsv: int):
+                     ad: int, w_rsv: int, words: Optional[int] = None):
     """The constrained kernels' (pointer table, int64 parameter block,
-    tensors to keep alive), laid out as ``koord_con`` in csrc/schedule.cu
-    reads them.  The round kernel (``rounds``) gets private copies of the
-    quota aggregates and the reservation allocations, which it updates."""
+    tensors to keep alive), laid out as ``koord_con`` in csrc/pair.cuh
+    reads them.  The round and scan kernels (``rounds``) get private copies
+    of the quota aggregates and the reservation allocations, which they
+    update, and a zeroed global scratch of ``words`` int64 words (the
+    round kernel's ``con_scratch_words`` when None)."""
     i64, i32, b = torch.int64, torch.int32, torch.bool
     g = con.gangs
     G = g.min_member.shape[0]
@@ -767,8 +897,9 @@ def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool,
         ]
     else:
         tabs += [dummy] * 8
-    words = con_scratch_words(P, Q, Rq, G, cpd, ad) if rounds else 1
-    tabs.append(torch.empty(words, dtype=i64, device=dev))
+    if words is None:
+        words = con_scratch_words(P, Q, Rq, G, cpd, ad) if rounds else 1
+    tabs.append(torch.zeros(max(words, 1), dtype=i64, device=dev))
     ptrs = (ctypes.c_void_p * _CON_PTRS)(*(t.data_ptr() for t in tabs))
     ints = (ctypes.c_longlong * _CON_INTS)(G, Q, Rq, Rv, Mm, cpd, ad, w_rsv, int(q is not None),
                                             int(con.rsv is not None))
@@ -777,15 +908,19 @@ def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool,
 
 def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts,
                   block_size: int, con: Optional[ConInputs] = None,
-                  xin: Optional[ExtraInputs] = None):
+                  xin: Optional[ExtraInputs] = None, wide: bool = False):
     """First launch of the ``schedule`` kernel: the cold key build for pods
     in queue order under the default plugin weights, the extra mask
     factorized as ``pod_ok[q] & valid[n]``; ``con`` adds the gang
     prefilter and the reservation restore and scores (the constrained
-    instantiation), ``xin`` the placement-and-devices mask and scores.
-    Returns (M, Mb, la_feas_T)."""
+    instantiation), ``xin`` the placement-and-devices mask and scores;
+    ``wide`` builds the matrix engine's int64 keys (``schedule_keys64``)
+    instead of the packed int32 ones.  LeastAllocated only (``ValueError``
+    otherwise).  Returns (M, Mb, la_feas_T)."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
+    kdt = torch.int64 if wide else torch.int32
+    cuda.require_least_allocated(nf_static, "the schedule key build")
     if con is not None:  # the constraint inputs are checked on every device
         con_args = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, 0, 1,
                                     PluginWeights().reservation)
@@ -799,14 +934,14 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
         q_extra, q_xsc = _q_extras(xin, q_extra)
         return build_keys_plain(
             q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(), q_extra, salts,
-            block_size, rsv, q_xsc,
+            block_size, rsv, q_xsc, kdt,
         )
     args = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
     NB = -(-N // block_size)
     pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
     salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
-    M = torch.empty((NB * block_size, P), dtype=torch.int32, device=dev)
-    Mb = torch.empty((NB, P), dtype=torch.int32, device=dev)
+    M = torch.empty((NB * block_size, P), dtype=kdt, device=dev)
+    Mb = torch.empty((NB, P), dtype=kdt, device=dev)
     la_feas_T = torch.empty((N, P), dtype=torch.bool, device=dev)
     head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
             salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N))
@@ -814,11 +949,12 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
             cuda.stream(dev))
     if con is None:
         if P and N:
-            cuda.SCHEDULE_KEYS.launch(*head, *tail)
+            (cuda.SCHEDULE_KEYS64 if wide else cuda.SCHEDULE_KEYS).launch(*head, *tail)
         return M, Mb, la_feas_T
     ptrs, ints, keep = con_args
     if P and N:
-        cuda.SCHEDULE_KEYS_CON.launch(*head, ptrs, ints, *tail)
+        (cuda.SCHEDULE_KEYS64_CON if wide else cuda.SCHEDULE_KEYS_CON).launch(*head, ptrs, ints,
+                                                                             *tail)
     return M, Mb, la_feas_T
 
 
@@ -830,9 +966,11 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     K = min(commit_cap, max(P, 1))
-    smem = cuda.rounds_smem(P, K)
+    kdt = M.dtype
+    kb = 8 if kdt == torch.int64 else 4
+    smem = cuda.rounds_smem(P, K, kb)
     if con is not None:
-        smem = cuda.rounds_smem_con(P, K, ancestor_depth, con.quota is not None)
+        smem = cuda.rounds_smem_con(P, K, ancestor_depth, con.quota is not None, kb)
     if smem > cuda.MAX_SMEM:
         raise ValueError(f"{P} pods exceed the round kernel's shared memory")
     NB = -(-N // block_size)
@@ -846,8 +984,8 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     args = cuda.pair_args(q_la, la_mut, la_w, q_nf, nf_mut, nf_static, valid)
     pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
     salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
-    M = cuda._checked(M, torch.int32, (NB * block_size, P), dev, "M")
-    Mb = cuda._checked(Mb, torch.int32, (NB, P), dev, "Mb")
+    M = cuda._checked(M, kdt, (NB * block_size, P), dev, "M")
+    Mb = cuda._checked(Mb, kdt, (NB, P), dev, "Mb")
     la_feas_T = cuda._checked(la_feas_T, torch.bool, (N, P), dev, "la_feas_T")
     xf, xsc, xkeep = _xin_args(xin, P, N, dev)
     hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
@@ -908,7 +1046,10 @@ def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_s
     in place); the node arrays, quota aggregates and reservation
     allocations are not touched (the kernel commits into private
     copies).  ``xin`` is the batch's placement-and-devices mask and scores,
-    which the rescoring reads as the key build did."""
+    which the rescoring reads as the key build did.  int64 ``M``/``Mb``
+    (``schedule_keys(wide=True)``) take the matrix engine's int64-key
+    round loop (``schedule_rounds64``).  LeastAllocated only."""
+    cuda.require_least_allocated(nf_static, "the schedule round loop")
     args = (M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
             salts, commit_cap, block_size, con, check_parent_depth, ancestor_depth, xin)
     if valid.device.type == "cpu":
@@ -916,8 +1057,11 @@ def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_s
             _con_launch_args(con, q_la.est.shape[0], valid.shape[0], q_nf.req.shape[1],
                              valid.device, False, check_parent_depth, ancestor_depth, 1)
         return _plain_rounds(*args)
-    return _launch_rounds(cuda.SCHEDULE_ROUNDS if con is None else cuda.SCHEDULE_ROUNDS_CON,
-                          *args)
+    if M.dtype == torch.int64:
+        kernel = cuda.SCHEDULE_ROUNDS64 if con is None else cuda.SCHEDULE_ROUNDS64_CON
+    else:
+        kernel = cuda.SCHEDULE_ROUNDS if con is None else cuda.SCHEDULE_ROUNDS_CON
+    return _launch_rounds(kernel, *args)
 
 
 def _check_carry(carry, N: int, P: int, block_size: int, dev) -> tuple:
@@ -937,6 +1081,7 @@ def schedule_rounds_warm(carry, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
     (M, Mb, la_feas_T), launched on COPIES of M and Mb — the carry seeds
     the next cycle and is never written.  Returns what ``schedule_rounds``
     returns."""
+    cuda.require_least_allocated(nf_static, "the warm round loop")
     P, N = q_la.est.shape[0], valid.shape[0]
     M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, valid.device)
     args = (M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
@@ -960,6 +1105,7 @@ def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_stat
     at the batch-start allocations (quota never enters the carry), ``xin``
     the batch's placement-and-devices mask and scores.  Returns the carry
     (M, Mb, la_feas_T)."""
+    cuda.require_least_allocated(nf_static, "the warm refresh")
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, dev)
@@ -1020,6 +1166,7 @@ def schedule_fn(
     extra_feasible: Optional[torch.Tensor] = None,
     extra_scores: Optional[torch.Tensor] = None,
     extra_score_bound: int = 0,
+    impl: str = "auto",
 ):
     """The ``schedule`` kernel: live node columns x the first ``p_real``
     pod rows, queue order ``order``, the default plugin weights and the
@@ -1036,32 +1183,28 @@ def schedule_fn(
     and ``warm`` the init carry (M, Mb, la_feas_T) that seeds the next
     cycle's warm start (the rounds run on copies of it).
 
-    On CPU tensors a strategy other than LeastAllocated takes the scan for
-    plain pods (as the JAX package does) and ``warm`` is None; on CUDA
-    tensors it raises."""
+    The routes are the JAX package's: a strategy other than LeastAllocated
+    takes the ``scan`` kernel (``core.cycle.scan_fn``: its hosts after the
+    gang commit are also its ``precommit``, its rounds 0); LeastAllocated
+    whose packed key bound does not fit int32, or ``impl="matrix"``, takes
+    the int64-key kernels; neither leaves a warm carry (``warm`` None).
+    An unknown ``impl`` raises ``ValueError``."""
+    check_impl(impl)
     P, N = la_pods.est.shape[0], valid.shape[0]
     dev = valid.device
-    if nf_static.strategy != "LeastAllocated" and dev.type == "cpu":
-        if con_args is not None:
-            raise later(f"gang, quota or reservation inputs under {nf_static.strategy}",
-                        STRATEGIES)
-        base = (torch.arange(P, device=dev) < p_real)[:, None] & valid[None, :]
-        if extra_feasible is not None:
-            base = base & extra_feasible
-        hosts, scores, rounds = schedule_batch_resolved(
-            la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
-            extra_feasible=base, order=order, return_rounds=True, extra_scores=extra_scores,
-            extra_score_bound=extra_score_bound,
+    if nf_static.strategy != "LeastAllocated":
+        hosts, scores = scan_fn(
+            la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, valid, p_real, order,
+            con_args, check_parent_depth, ancestor_depth, extra_feasible, extra_scores,
         )
-        return hosts, scores, hosts, torch.tensor(rounds, dtype=torch.int32), None
-    if not fits_i32(key_bound(PluginWeights(), extra_score_bound), N):
-        raise later("the int64-key matrix engine (node axes beyond 2**21)", STRATEGIES)
+        return hosts, scores, hosts, torch.zeros(2, dtype=torch.int32, device=dev), None
+    wide = impl == "matrix" or not fits_i32(key_bound(PluginWeights(), extra_score_bound), N)
     xs, q_la, q_nf, salts, pod_ok = kernel_queue(la_pods, nf_pods, valid, p_real, order)
     con = None if con_args is None else con_inputs(xs, **con_args)
     xin = extra_inputs(extra_feasible, extra_scores, xs)
     M, Mb, la_feas_T = schedule_keys(
         q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, valid, pod_ok, salts, block_size,
-        con, xin,
+        con, xin, wide,
     )
     out = schedule_rounds(
         M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static,
@@ -1075,4 +1218,4 @@ def schedule_fn(
         hosts_q, scores_q, pre_q, rounds = out
     hosts, scores = _submission_order(hosts_q, scores_q, xs, P)
     precommit = _submission_order(pre_q, scores_q, xs, P)[0]
-    return hosts, scores, precommit, rounds, (M, Mb, la_feas_T)
+    return hosts, scores, precommit, rounds, None if wide else (M, Mb, la_feas_T)

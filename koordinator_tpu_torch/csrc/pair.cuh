@@ -1,17 +1,23 @@
 // The per-(pod, node) score and feasibility shared by every kernel of the
-// port: the SCORE kernel (score.cu), the SCHEDULE key build and the
-// SCHEDULE round loop's rescoring of touched rows (schedule.cu).  One
-// __device__ definition guarantees that all three evaluate the same int64
-// arithmetic, which the resolved engine's exactness argument needs (a
-// rescored key must equal the key a cold build would produce).
+// port: the SCORE kernel (score.cu), the SCHEDULE key builds and round
+// loops' rescoring of touched rows (schedule.cu) and the greedy scan
+// (scan.cu).  One __device__ definition guarantees that all of them
+// evaluate the same int64 arithmetic, which the resolved engine's exactness
+// argument needs (a rescored key must equal the key a cold build would
+// produce).
 //
-// The arithmetic is the JAX package's score_batch (core/cycle.py:195) for
-// the LeastAllocated NodeFit strategy under the default profile's plugin
-// weights (1 each), as the JAX engine's score_fn and schedule_fn call it:
-//   total = loadaware_score + least_allocated_score
+// The arithmetic is the JAX package's score_batch (core/cycle.py:195) under
+// the default profile's plugin weights (1 each), as the JAX engine's
+// score_fn and schedule_fn call it, for the three NodeFit scoring
+// strategies (core/nodefit.py:163-234), chosen by the strategy id in Cfg:
+//   total = loadaware_score + nodefit_score
 //   feasible = loadaware_filter && nodefit_filter (&& caller's masks)
-// All divisions have non-negative operands, so C++ truncation equals the
-// floor the reference computes.
+// Every division but one has non-negative operands, so C++ truncation
+// equals the floor the reference computes.  The exception is the
+// RequestedToCapacityRatio shape's interpolation on a decreasing segment,
+// whose numerator is negative: there the reference truncates toward zero
+// as Go does, and so does C++ `/`.  The packed keys are decoded with floor
+// division (key_floor_mod), since extra scores may make a total negative.
 #pragma once
 
 #include <cstdint>
@@ -19,16 +25,28 @@
 #define KOORD_MAXR 8
 #define KOORD_NEGK (-(1 << 30))      // packed-key infeasible sentinel
 #define KOORD_NEGK_THRESH (-(1 << 29))
+#define KOORD_MAX_SHAPE 101  // RTC shape points: strictly increasing utilizations in 0..100
+
+// NodeFit scoring strategies (core/config.py ScoringStrategyType)
+#define KOORD_LEAST_ALLOCATED 0
+#define KOORD_MOST_ALLOCATED 1
+#define KOORD_REQUESTED_TO_CAPACITY_RATIO 2
 
 // The configuration, passed by value as a kernel parameter: the axis
-// widths and NodeFit's static config, built once on the host, and the
-// LoadAware resource weights, read on the device.
+// widths and NodeFit's static config (weights, filter classes, the scoring
+// strategy and the RequestedToCapacityRatio shape with its scores scaled to
+// 0..100), built once on the host, and the LoadAware resource weights, read
+// on the device.
 struct Cfg {
   int R, Rf, Rs;
   const long long* la_w;  // [R], device
   long long nf_w[KOORD_MAXR];
   int always[KOORD_MAXR];
   int bypass[KOORD_MAXR];
+  int strategy;  // KOORD_LEAST_ALLOCATED, ...
+  int npts;      // RTC shape points, >= 1 under that strategy
+  int shp_u[KOORD_MAX_SHAPE];
+  int shp_s[KOORD_MAX_SHAPE];
 };
 
 // Pending pods, row-major, in the order the caller chose (queue order for
@@ -67,7 +85,7 @@ struct NodeIn {
 
 #define KOORD_NUM_POD_PTRS 7
 #define KOORD_NUM_NODE_PTRS 17
-#define KOORD_CFG_LEN (3 + 3 * KOORD_MAXR)
+#define KOORD_CFG_LEN (3 + 3 * KOORD_MAXR + 2 + 2 * KOORD_MAX_SHAPE)
 
 inline Cfg koord_cfg(const long long* c, const void* la_w) {
   Cfg g;
@@ -79,6 +97,13 @@ inline Cfg koord_cfg(const long long* c, const void* la_w) {
     g.nf_w[i] = c[3 + i];
     g.always[i] = (int)c[3 + KOORD_MAXR + i];
     g.bypass[i] = (int)c[3 + 2 * KOORD_MAXR + i];
+  }
+  const long long* t = c + 3 + 3 * KOORD_MAXR;
+  g.strategy = (int)t[0];
+  g.npts = (int)t[1];
+  for (int i = 0; i < KOORD_MAX_SHAPE; ++i) {
+    g.shp_u[i] = (int)t[2 + i];
+    g.shp_s[i] = (int)t[2 + KOORD_MAX_SHAPE + i];
   }
   return g;
 }
@@ -153,6 +178,69 @@ __device__ __forceinline__ long long nf_least(const Cfg& c, const PodIn& p, cons
   return wsum == 0 ? 0 : acc / wsum;
 }
 
+// most_allocated_score (core/nodefit.py:181): req * 100 / cap per included
+// resource, an overcommitted resource clamped to its capacity (it scores
+// 100, not 0), weighted mean as above.
+__device__ __forceinline__ long long nf_most(const Cfg& c, const PodIn& p, const NodeIn& n,
+                                             int q, int j) {
+  long long acc = 0, wsum = 0;
+  for (int r = 0; r < c.Rs; ++r) {
+    long long cap = n.alloc_score[(size_t)j * c.Rs + r];
+    long long preq = p.req_score[(size_t)q * c.Rs + r];
+    if (cap == 0 || (c.bypass[r] && preq == 0)) continue;
+    long long req = preq + n.nreq_score[(size_t)j * c.Rs + r];
+    if (req > cap) req = cap;
+    acc += req * 100 / cap * c.nf_w[r];
+    wsum += c.nf_w[r];
+  }
+  return wsum == 0 ? 0 : acc / wsum;
+}
+
+// _broken_linear (core/nodefit.py:199): the shape's score at utilization
+// u, interpolated on the first segment whose end is >= u.  On a decreasing
+// segment the numerator is negative and `/` truncates toward zero, as Go's
+// integer division does.
+__device__ __forceinline__ long long broken_linear(const Cfg& c, long long u) {
+  if (u <= c.shp_u[0]) return c.shp_s[0];
+  for (int i = 1; i < c.npts; ++i) {
+    if (u <= c.shp_u[i]) {
+      const long long u0 = c.shp_u[i - 1], s0 = c.shp_s[i - 1];
+      return s0 + (c.shp_s[i] - s0) * (u - u0) / (c.shp_u[i] - u0);
+    }
+  }
+  return c.shp_s[c.npts - 1];
+}
+
+// requested_to_capacity_ratio_score (core/nodefit.py:216): the shape at the
+// utilization "100 minus the free percent" (100 when overcommitted); a
+// resource enters the weight sum only where its raw score is > 0; the mean
+// rounds half up.
+__device__ __forceinline__ long long nf_rtc(const Cfg& c, const PodIn& p, const NodeIn& n, int q,
+                                            int j) {
+  long long acc = 0, wsum = 0;
+  for (int r = 0; r < c.Rs; ++r) {
+    long long cap = n.alloc_score[(size_t)j * c.Rs + r];
+    long long preq = p.req_score[(size_t)q * c.Rs + r];
+    if (cap == 0 || (c.bypass[r] && preq == 0)) continue;
+    long long req = preq + n.nreq_score[(size_t)j * c.Rs + r];
+    long long util = req > cap ? 100 : 100 - (cap - req) * 100 / cap;
+    long long s = broken_linear(c, util);
+    if (s > 0) {
+      acc += s * c.nf_w[r];
+      wsum += c.nf_w[r];
+    }
+  }
+  return wsum == 0 ? 0 : (2 * acc + wsum) / (2 * wsum);
+}
+
+// nodefit_score (core/nodefit.py:71): the configured strategy
+__device__ __forceinline__ long long nf_score(const Cfg& c, const PodIn& p, const NodeIn& n,
+                                              int q, int j) {
+  if (c.strategy == KOORD_MOST_ALLOCATED) return nf_most(c, p, n, q, j);
+  if (c.strategy == KOORD_REQUESTED_TO_CAPACITY_RATIO) return nf_rtc(c, p, n, q, j);
+  return nf_least(c, p, n, q, j);
+}
+
 // nodefit_filter (core/nodefit.py:94).
 __device__ __forceinline__ bool nf_fit(const Cfg& c, const PodIn& p, const NodeIn& n, int q,
                                        int j) {
@@ -190,7 +278,7 @@ __device__ __forceinline__ bool la_fit(const Cfg& c, const PodIn& p, const NodeI
 
 __device__ __forceinline__ long long pair_total(const Cfg& c, const PodIn& p, const NodeIn& n,
                                                 int q, int j) {
-  return la_score(c, p, n, q, j) + nf_least(c, p, n, q, j);
+  return la_score(c, p, n, q, j) + nf_score(c, p, n, q, j);
 }
 
 // ------------------------------------------------------------ constraints
@@ -322,28 +410,51 @@ __device__ __forceinline__ long long x_score(const XIn& x, int q, int j, int P) 
   return x.sc ? x.sc[(size_t)j * P + q] : 0;
 }
 
+// The key lanes: the packed int32 keys of the matrix_packed engine (the
+// sentinel KOORD_NEGK) and the int64 keys of the matrix engine, which hold
+// the same composite key with the JAX package's NEG = -(1 << 40) sentinel.
+template <typename KT>
+struct KeyLane;
+template <>
+struct KeyLane<int> {
+  static constexpr int neg = KOORD_NEGK;
+  static constexpr int thresh = KOORD_NEGK_THRESH;
+};
+template <>
+struct KeyLane<long long> {
+  static constexpr long long neg = -(1LL << 40);
+  static constexpr long long thresh = -(1LL << 39);
+};
+
+// the composite key's low part, floor(key) mod TB (TB > 0), for any sign
+__device__ __forceinline__ long long key_floor_mod(long long key, long long TB) {
+  const long long m = key % TB;
+  return m < 0 ? m + TB : m;
+}
+
 // pack_keys (core/resolved.py:698): score * TB + (TB-1 - rotated index),
 // or the sentinel when infeasible.  ``pre`` carries every mask the caller
 // already evaluated (loadaware filter, live column, real pod, the extra
 // mask); ``xadd`` is the pair's extra score.
-__device__ __forceinline__ int pair_key(const Cfg& c, const PodIn& p, const NodeIn& n, int q,
-                                        int j, bool pre, int salt, int N, long long TB,
-                                        long long xadd) {
-  if (!pre || !nf_fit(c, p, n, q, j)) return KOORD_NEGK;
+template <typename KT>
+__device__ __forceinline__ KT pair_key(const Cfg& c, const PodIn& p, const NodeIn& n, int q, int j,
+                                       bool pre, int salt, int N, long long TB, long long xadd) {
+  if (!pre || !nf_fit(c, p, n, q, j)) return KeyLane<KT>::neg;
   long long rot = (j + salt) % N;
-  return (int)((pair_total(c, p, n, q, j) + xadd) * TB + (TB - 1 - rot));
+  return (KT)((pair_total(c, p, n, q, j) + xadd) * TB + (TB - 1 - rot));
 }
 
 // pair_key under the constraints: the gang prefilter is in ``pre``; the
 // reservation restore enters the fit and the frozen reservation score the
 // total (core/resolved.py masked_totals / touched_scores).
-__device__ __forceinline__ int pair_key_con(const Cfg& c, const PodIn& p, const NodeIn& n,
-                                            const ConIn& k, int q, int j, bool pre, int salt,
-                                            int N, long long TB, long long xadd) {
-  if (!k.has_rsv) return pair_key(c, p, n, q, j, pre, salt, N, TB, xadd);
-  if (!pre || !nf_fit_rsv(c, p, n, k, q, j)) return KOORD_NEGK;
+template <typename KT>
+__device__ __forceinline__ KT pair_key_con(const Cfg& c, const PodIn& p, const NodeIn& n,
+                                           const ConIn& k, int q, int j, bool pre, int salt, int N,
+                                           long long TB, long long xadd) {
+  if (!k.has_rsv) return pair_key<KT>(c, p, n, q, j, pre, salt, N, TB, xadd);
+  if (!pre || !nf_fit_rsv(c, p, n, k, q, j)) return KeyLane<KT>::neg;
   const long long total =
       pair_total(c, p, n, q, j) + k.rscores[(size_t)k.xs[q] * N + j] * k.w_rsv + xadd;
   long long rot = (j + salt) % N;
-  return (int)(total * TB + (TB - 1 - rot));
+  return (KT)(total * TB + (TB - 1 - rot));
 }

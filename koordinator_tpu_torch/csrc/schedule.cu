@@ -21,6 +21,19 @@
 // instantiation; CON = true adds the constraint branches, so the plain
 // path's code stays as it was and the constrained one compiles on its own.
 //
+// The cold key build and the round loop are templates over the key lane
+// too (KeyLane in pair.cuh): int32 keys for the matrix_packed engine, and
+// int64 keys for the JAX package's `matrix` engine (run_matrix,
+// core/resolved.py:839), which the resolved engine takes when the packed
+// key's bound does not fit int32 (fits_i32, :331-335).  The int64 lane holds
+// the same composite key, score * TB + (TB-1 - rot), with the sentinel
+// NEG = -(1 << 40); a max over it picks what run_matrix's composite-key
+// argmax over the [P, N] masked totals picks (the score, then the rotated
+// index, lowest index first under the "index" tie-break, whose salts are
+// 0), so the rounds, commits and round count are run_matrix's.  The keys
+// are decoded with floor division: an extra score may make a total
+// negative.  The warm kernels stay int32 only.
+//
 // 1. build_keys: the cold init.  One thread per (pod, 16-row node block)
 //    evaluates the shared pair function (pair.cuh) down its block and
 //    writes the packed keys M [N_pad, P] int32 (score * TB + rotated tie
@@ -91,14 +104,14 @@ constexpr long long kMinLL = (long long)(-0x7fffffffffffffffLL - 1);
 // the packed key of pod q on node j: the extra mask joins ``pre`` and the
 // extra score the total, in the cold build, the refresh and the rounds'
 // rescoring alike
-template <bool CON>
-__device__ __forceinline__ int key_of(const Cfg& c, const PodIn& p, const NodeIn& n,
-                                      const ConIn& k, const XIn& x, int P, int q, int j, bool pre,
-                                      int salt, int N, long long TB) {
-  if (!pre || !x_feas(x, q, j, P)) return KOORD_NEGK;
+template <bool CON, typename KT>
+__device__ __forceinline__ KT key_of(const Cfg& c, const PodIn& p, const NodeIn& n,
+                                     const ConIn& k, const XIn& x, int P, int q, int j, bool pre,
+                                     int salt, int N, long long TB) {
+  if (!pre || !x_feas(x, q, j, P)) return KeyLane<KT>::neg;
   const long long xadd = x_score(x, q, j, P);
-  if constexpr (CON) return pair_key_con(c, p, n, k, q, j, true, salt, N, TB, xadd);
-  return pair_key(c, p, n, q, j, true, salt, N, TB, xadd);
+  if constexpr (CON) return pair_key_con<KT>(c, p, n, k, q, j, true, salt, N, TB, xadd);
+  return pair_key<KT>(c, p, n, q, j, true, salt, N, TB, xadd);
 }
 
 template <bool CON>
@@ -107,22 +120,22 @@ __device__ __forceinline__ bool pod_pass(const uint8_t* pod_ok, const ConIn& k, 
   return pod_ok[q];
 }
 
-template <bool CON>
+template <bool CON, typename KT>
 __global__ void build_keys(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
                            const uint8_t* pod_ok, const int* salt, int P, int N, int BS,
-                           long long TB, int* M, int* Mb, uint8_t* la_feas_T) {
+                           long long TB, KT* M, KT* Mb, uint8_t* la_feas_T) {
   int q = blockIdx.x * blockDim.x + threadIdx.x;
   int b = blockIdx.y;
   if (q >= P) return;
   const bool ok = pod_pass<CON>(pod_ok, k, q);
-  int best = KOORD_NEGK;
+  KT best = KeyLane<KT>::neg;
   for (int i = 0; i < BS; ++i) {
     int j = b * BS + i;
-    int key = KOORD_NEGK;
+    KT key = KeyLane<KT>::neg;
     if (j < N) {
       bool laf = la_fit(c, p, n, q, j);
       la_feas_T[(size_t)j * P + q] = laf;
-      key = key_of<CON>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
+      key = key_of<CON, KT>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
     }
     M[(size_t)j * P + q] = key;
     best = max(best, key);
@@ -203,16 +216,16 @@ __device__ bool quota_admit(const ConIn& k, int q, const long long* exc) {
 // ------------------------------------------------------------ rounds
 
 // one block of up to 1,024 threads: at most 64 registers a thread
-template <bool CON>
+template <bool CON, typename KT>
 __global__ void __launch_bounds__(1024)
     rounds_kernel(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
                   const uint8_t* pod_ok,
-                  const int* salt, int P, int N, int BS, long long TB, int K, int* M, int* Mb,
+                  const int* salt, int P, int N, int BS, long long TB, int K, KT* M, KT* Mb,
                   const uint8_t* la_feas_T, int* node_first, int* hosts, long long* scores,
                   int* precommit, int* rounds_out) {
   extern __shared__ unsigned char smem[];
-  int* s_vmax = (int*)smem;
-  int* s_pick = s_vmax + P;
+  KT* s_vmax = (KT*)smem;  // first: the int64 lane's alignment
+  int* s_pick = (int*)(s_vmax + P);
   int* s_rank = s_pick + P;
   int* s_cols = s_rank + P;
   int* s_pslot = s_cols + K;
@@ -222,7 +235,8 @@ __global__ void __launch_bounds__(1024)
   uint8_t* s_slotok = s_place + P;
   // CON: each pod's mask (pod_ok & gang prefilter), then its quota chain
   uint8_t* s_ok = s_slotok + K;
-  int* s_chain = (int*)(smem + ((((size_t)P * (3 * sizeof(int) + 4) + (size_t)K * (2 * sizeof(int) + 1)) + 15) & ~(size_t)15));
+  int* s_chain = (int*)(smem + ((((size_t)P * (sizeof(KT) + 2 * sizeof(int) + 4) +
+                                   (size_t)K * (2 * sizeof(int) + 1)) + 15) & ~(size_t)15));
   __shared__ int s_first_blocked, s_cut;
   __shared__ int s_warp[32];
   __shared__ long long s_mr[2 * KOORD_MAXR];
@@ -289,13 +303,14 @@ __global__ void __launch_bounds__(1024)
     }
     for (int q = t; q < P; q += T) {
       uint8_t f = 0;
-      int vmax = KOORD_NEGK, pick = 0;
+      KT vmax = KeyLane<KT>::neg;
+      int pick = 0;
       if (!s_comm[q]) {
         f = kPending;
         for (int b = 0; b < NB; ++b) vmax = max(vmax, Mb[(size_t)b * P + q]);
-        if (vmax > KOORD_NEGK_THRESH) {
+        if (vmax > KeyLane<KT>::thresh) {
           f |= kPlaced;
-          long long rot = TB - 1 - ((long long)vmax % TB);
+          long long rot = TB - 1 - key_floor_mod(vmax, TB);
           pick = (int)((rot - salt[q] + N) % N);
         }
       }
@@ -436,7 +451,7 @@ __global__ void __launch_bounds__(1024)
         s_comm[q] = 1;
         if (s_place[q]) {
           hosts[q] = s_pick[q];
-          scores[q] = (long long)s_vmax[q] / TB;
+          scores[q] = ((long long)s_vmax[q] - key_floor_mod(s_vmax[q], TB)) / TB;
           int slot = s_rank[q] - 1;
           s_cols[slot] = s_pick[q];
           s_pslot[slot] = q;
@@ -517,14 +532,14 @@ __global__ void __launch_bounds__(1024)
         if constexpr (CON) ok = s_ok[q];
         else ok = pod_ok[q];
         bool pre = la_feas_T[(size_t)j * P + q] && valid[j] && ok;
-        M[(size_t)j * P + q] = key_of<CON>(c, p, n, k, x, P, q, j, pre, salt[q], N, TB);
+        M[(size_t)j * P + q] = key_of<CON, KT>(c, p, n, k, x, P, q, j, pre, salt[q], N, TB);
       }
     }
     __syncthreads();
     for (int k2 = 0; k2 < K; ++k2) {
       const int b = min(s_cols[k2], N - 1) / BS;
       for (int q = t; q < P; q += T) {
-        int m = KOORD_NEGK;
+        KT m = KeyLane<KT>::neg;
         for (int i = 0; i < BS; ++i) m = max(m, M[(size_t)(b * BS + i) * P + q]);
         Mb[(size_t)b * P + q] = m;
       }
@@ -575,7 +590,7 @@ __global__ void refresh_rows(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uin
     const bool laf = la_fit(c, p, n, q, j);
     la_feas_T[(size_t)j * P + q] = laf;
     M[(size_t)j * P + q] =
-        key_of<CON>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
+        key_of<CON, int>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
   }
 }
 
@@ -590,16 +605,21 @@ __global__ void refresh_blocks(const int* M, int* Mb, const int* dirty, int D, i
   }
 }
 
-size_t rounds_smem(int P, int K) { return (size_t)P * (3 * sizeof(int) + 3) + (size_t)K * (2 * sizeof(int) + 1); }
+// the round loop's dynamic shared memory for key lanes of `kb` bytes
+size_t rounds_smem(int P, int K, int kb) {
+  return (size_t)P * (kb + 2 * sizeof(int) + 3) + (size_t)K * (2 * sizeof(int) + 1);
+}
 
 // the constrained instantiation adds each pod's mask byte and, with quota,
 // its chain of `ad` group rows (16-byte aligned)
-size_t rounds_smem_con(int P, int K, int ad, int has_quota) {
-  const size_t base = ((size_t)P * (3 * sizeof(int) + 4) + (size_t)K * (2 * sizeof(int) + 1) + 15) &
-                      ~(size_t)15;
+size_t rounds_smem_con(int P, int K, int kb, int ad, int has_quota) {
+  const size_t base =
+      ((size_t)P * (kb + 2 * sizeof(int) + 4) + (size_t)K * (2 * sizeof(int) + 1) + 15) &
+      ~(size_t)15;
   return base + (has_quota ? (size_t)P * ad * sizeof(int) : 0);
 }
 
+template <typename KT>
 int launch_keys(bool con, const void* const* pods, const void* const* nodes, const long long* cfg,
                 const void* la_w, const ConIn& k, const XIn& x, const void* valid,
                 const void* pod_ok, const void* salt, int P, int N, int BS, long long TB,
@@ -608,14 +628,15 @@ int launch_keys(bool con, const void* const* pods, const void* const* nodes, con
   if (e != cudaSuccess) return (int)e;
   const int threads = 128;
   dim3 grid((P + threads - 1) / threads, (N + BS - 1) / BS);
-  auto kernel = con ? build_keys<true> : build_keys<false>;
+  auto kernel = con ? build_keys<true, KT> : build_keys<false, KT>;
   kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
-      (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, (int*)M, (int*)Mb,
+      (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, (KT*)M, (KT*)Mb,
       (uint8_t*)la_feas_T);
   return (int)cudaGetLastError();
 }
 
+template <typename KT>
 int launch_rounds(bool con, const void* const* pods, const void* const* nodes,
                   const long long* cfg, const void* la_w, const ConIn& k, const XIn& x,
                   const void* valid, const void* pod_ok, const void* salt, int P, int N, int BS,
@@ -623,14 +644,16 @@ int launch_rounds(bool con, const void* const* pods, const void* const* nodes,
                   void* scores, void* precommit, void* rounds, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = con ? rounds_smem_con(P, K, k.ad, k.has_quota) : rounds_smem(P, K);
-  auto kernel = con ? rounds_kernel<true> : rounds_kernel<false>;
+  const int kb = (int)sizeof(KT);
+  const size_t smem =
+      con ? rounds_smem_con(P, K, kb, k.ad, k.has_quota) : rounds_smem(P, K, kb);
+  auto kernel = con ? rounds_kernel<true, KT> : rounds_kernel<false, KT>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int threads = P >= 1024 ? 1024 : ((P + 31) / 32) * 32;
   kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
       koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
-      (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, K, (int*)M, (int*)Mb,
+      (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, K, (KT*)M, (KT*)Mb,
       (const uint8_t*)la_feas_T, (int*)node_first, (int*)hosts, (long long*)scores,
       (int*)precommit, (int*)rounds);
   return (int)cudaGetLastError();
@@ -680,7 +703,7 @@ extern "C" int koord_sched_keys(const void* const* pods, const void* const* node
                                 const void* pod_ok, const void* salt, const void* xfeas,
                                 const void* xsc, int P, int N, int BS, long long TB, void* M,
                                 void* Mb, void* la_feas_T, int device, void* stream) {
-  return launch_keys(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
+  return launch_keys<int>(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
                      salt, P, N, BS, TB, M, Mb, la_feas_T, device, stream);
 }
 
@@ -690,11 +713,13 @@ extern "C" int koord_sched_keys_con(const void* const* pods, const void* const* 
                                     const void* xsc, int P, int N, int BS, long long TB,
                                     const void* const* con, const long long* con_ints, void* M,
                                     void* Mb, void* la_feas_T, int device, void* stream) {
-  return launch_keys(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
+  return launch_keys<int>(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
                      valid, pod_ok, salt, P, N, BS, TB, M, Mb, la_feas_T, device, stream);
 }
 
-extern "C" long long koord_sched_rounds_smem(int P, int K) { return (long long)rounds_smem(P, K); }
+extern "C" long long koord_sched_rounds_smem(int P, int K) {
+  return (long long)rounds_smem(P, K, (int)sizeof(int));
+}
 
 extern "C" int koord_sched_rounds(const void* const* pods, const void* const* nodes,
                                   const long long* cfg, const void* la_w, const void* valid,
@@ -703,7 +728,7 @@ extern "C" int koord_sched_rounds(const void* const* pods, const void* const* no
                                   void* M, void* Mb, const void* la_feas_T, void* node_first,
                                   void* hosts, void* scores, void* rounds, int device,
                                   void* stream) {
-  return launch_rounds(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
+  return launch_rounds<int>(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
                        salt, P, N, BS, TB, K, M, Mb, la_feas_T, node_first, hosts, scores,
                        nullptr, rounds, device, stream);
 }
@@ -716,7 +741,7 @@ extern "C" int koord_sched_rounds_con(const void* const* pods, const void* const
                                       void* Mb, const void* la_feas_T, void* node_first,
                                       void* hosts, void* scores, void* precommit, void* rounds,
                                       int device, void* stream) {
-  return launch_rounds(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
+  return launch_rounds<int>(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
                        valid, pod_ok, salt, P, N, BS, TB, K, M, Mb, la_feas_T, node_first, hosts,
                        scores, precommit, rounds, device, stream);
 }
@@ -741,4 +766,54 @@ extern "C" int koord_sched_refresh_con(const void* const* pods, const void* cons
   return launch_refresh(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
                         valid, pod_ok, salt, P, N, BS, TB, dirty, D, M, Mb, la_feas_T, device,
                         stream);
+}
+
+// The int64-key matrix engine: the same launches over int64 key lanes
+// (the cold key build and the round loop, plain and constrained).
+
+extern "C" int koord_sched_keys64(const void* const* pods, const void* const* nodes,
+                                  const long long* cfg, const void* la_w, const void* valid,
+                                  const void* pod_ok, const void* salt, const void* xfeas,
+                                  const void* xsc, int P, int N, int BS, long long TB, void* M,
+                                  void* Mb, void* la_feas_T, int device, void* stream) {
+  return launch_keys<long long>(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid,
+                                pod_ok, salt, P, N, BS, TB, M, Mb, la_feas_T, device, stream);
+}
+
+extern "C" int koord_sched_keys64_con(const void* const* pods, const void* const* nodes,
+                                      const long long* cfg, const void* la_w, const void* valid,
+                                      const void* pod_ok, const void* salt, const void* xfeas,
+                                      const void* xsc, int P, int N, int BS, long long TB,
+                                      const void* const* con, const long long* con_ints, void* M,
+                                      void* Mb, void* la_feas_T, int device, void* stream) {
+  return launch_keys<long long>(true, pods, nodes, cfg, la_w, koord_con(con, con_ints),
+                                x_in(xfeas, xsc), valid, pod_ok, salt, P, N, BS, TB, M, Mb,
+                                la_feas_T, device, stream);
+}
+
+extern "C" int koord_sched_rounds64(const void* const* pods, const void* const* nodes,
+                                    const long long* cfg, const void* la_w, const void* valid,
+                                    const void* pod_ok, const void* salt, const void* xfeas,
+                                    const void* xsc, int P, int N, int BS, long long TB, int K,
+                                    void* M, void* Mb, const void* la_feas_T, void* node_first,
+                                    void* hosts, void* scores, void* rounds, int device,
+                                    void* stream) {
+  return launch_rounds<long long>(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc),
+                                  valid, pod_ok, salt, P, N, BS, TB, K, M, Mb, la_feas_T,
+                                  node_first, hosts, scores, nullptr, rounds, device, stream);
+}
+
+extern "C" int koord_sched_rounds64_con(const void* const* pods, const void* const* nodes,
+                                        const long long* cfg, const void* la_w,
+                                        const void* valid, const void* pod_ok, const void* salt,
+                                        const void* xfeas, const void* xsc, int P, int N, int BS,
+                                        long long TB, int K, const void* const* con,
+                                        const long long* con_ints, void* M, void* Mb,
+                                        const void* la_feas_T, void* node_first, void* hosts,
+                                        void* scores, void* precommit, void* rounds, int device,
+                                        void* stream) {
+  return launch_rounds<long long>(true, pods, nodes, cfg, la_w, koord_con(con, con_ints),
+                                  x_in(xfeas, xsc), valid, pod_ok, salt, P, N, BS, TB, K, M, Mb,
+                                  la_feas_T, node_first, hosts, scores, precommit, rounds, device,
+                                  stream);
 }

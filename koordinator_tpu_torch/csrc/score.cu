@@ -3,8 +3,10 @@
 //
 // Replaces: the JAX package's `score` kernel, service/engine.py:134
 // score_fn -> core/cycle.py:195 score_batch (LoadAware least-requested +
-// NodeFit LeastAllocated, weighted; LoadAware thresholds && NodeFit fit &&
-// the live-column mask), under the default profile's plugin weights, plus
+// NodeFit under the configured strategy — LeastAllocated, MostAllocated or
+// RequestedToCapacityRatio, pair.cuh nf_score —, weighted; LoadAware
+// thresholds && NodeFit fit && the live-column mask), under the default
+// profile's plugin weights, plus
 // the batch's pre-weighted extra scores (deviceshare, amplified CPU; [P, N]
 // int64, null when absent) as the JAX score_fn adds them.
 //

@@ -27,8 +27,6 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from koordinator_tpu_torch.slices import STRATEGIES, later
-
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -36,6 +34,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 MAXR = 8  # KOORD_MAXR in csrc/pair.cuh
+MAX_SHAPE = 101  # KOORD_MAX_SHAPE in csrc/pair.cuh
+# the NodeFit strategy ids of csrc/pair.cuh
+STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -168,6 +169,18 @@ SCHED_REFRESH_CON = Kernel(
     _SCHED_HEAD + [_I, _I, _I, _L, _P, _P, _P, _I, _P, _P, _P, _I, _P],
 )
 SCHED_ROUNDS_CON = Kernel("schedule", "koord_sched_rounds_con", SCHEDULE_ROUNDS_CON.argtypes)
+# the int64-key matrix engine: the cold key build and the round loop over
+# int64 key lanes, plain and constrained (the same arguments)
+SCHEDULE_KEYS64 = Kernel("schedule", "koord_sched_keys64", SCHEDULE_KEYS.argtypes)
+SCHEDULE_ROUNDS64 = Kernel("schedule", "koord_sched_rounds64", SCHEDULE_ROUNDS.argtypes)
+SCHEDULE_KEYS64_CON = Kernel("schedule", "koord_sched_keys64_con", SCHEDULE_KEYS_CON.argtypes)
+SCHEDULE_ROUNDS64_CON = Kernel("schedule", "koord_sched_rounds64_con",
+                               SCHEDULE_ROUNDS_CON.argtypes)
+# the greedy scan (csrc/scan.cu), plain and constrained: the pair inputs,
+# P, N, TB, [the constraint table and block,] the scratch, hosts, scores
+SCAN = Kernel("scan", "koord_scan", _SCHED_HEAD + [_I, _I, _L, _P, _P, _P, _I, _P])
+SCAN_CON = Kernel("scan", "koord_scan_con", _SCHED_HEAD + [_I, _I, _L, _P, _P, _P, _P, _P, _I, _P])
+SCAN_SCRATCH_WORDS = 2 * 1024 + 2  # kScratchWords in csrc/scan.cu
 # the device residency (csrc/dstate.cu)
 DSTATE_SCATTER = Kernel("dstate", "koord_dstate_scatter", [_I, _P, _P, _P, _P, _I, _I, _P])
 DSTATE_GATE = Kernel(
@@ -198,24 +211,27 @@ KERNELS = {
     "sched_refresh_con": SCHED_REFRESH_CON, "sched_rounds_con": SCHED_ROUNDS_CON,
     "quota": QUOTA, "quota_limit": QUOTA_LIMIT, "rsv_rscore": RSV_RSCORE,
     "rsv_score": RSV_SCORE, "placement": PLACEMENT, "dev_feasible": DEV_FEASIBLE,
-    "ds_score": DS_SCORE, "dstate_extend": DSTATE_EXTEND,
+    "ds_score": DS_SCORE, "dstate_extend": DSTATE_EXTEND, "scan": SCAN, "scan_con": SCAN_CON,
+    "schedule_keys64": SCHEDULE_KEYS64, "schedule_rounds64": SCHEDULE_ROUNDS64,
+    "schedule_keys64_con": SCHEDULE_KEYS64_CON, "schedule_rounds64_con": SCHEDULE_ROUNDS64_CON,
 }
 
 # the largest dynamic shared memory one block may take on Hopper
 MAX_SMEM = 232_448
 
 
-def rounds_smem(P: int, K: int) -> int:
-    """Dynamic shared memory of the round-loop kernel (mirrors
-    ``rounds_smem`` in csrc/schedule.cu)."""
-    return P * (3 * 4 + 3) + K * (2 * 4 + 1)
+def rounds_smem(P: int, K: int, key_bytes: int = 4) -> int:
+    """Dynamic shared memory of the round-loop kernel over key lanes of
+    ``key_bytes`` (mirrors ``rounds_smem`` in csrc/schedule.cu)."""
+    return P * (key_bytes + 2 * 4 + 3) + K * (2 * 4 + 1)
 
 
-def rounds_smem_con(P: int, K: int, ancestor_depth: int, has_quota: bool) -> int:
+def rounds_smem_con(P: int, K: int, ancestor_depth: int, has_quota: bool,
+                    key_bytes: int = 4) -> int:
     """Dynamic shared memory of the constrained instantiation (mirrors
     ``rounds_smem_con`` in csrc/schedule.cu): a mask byte per pod, and with
     quota each pod's chain of group rows."""
-    base = (P * (3 * 4 + 4) + K * (2 * 4 + 1) + 15) & ~15
+    base = (P * (key_bytes + 2 * 4 + 4) + K * (2 * 4 + 1) + 15) & ~15
     return base + (P * ancestor_depth * 4 if has_quota else 0)
 
 
@@ -231,18 +247,44 @@ def device_index(device: torch.device) -> int:
 def cfg_array(R: int, Rf: int, Rs: int, nf_static) -> ctypes.Array:
     """The kernels' host configuration block, laid out as ``koord_cfg`` in
     csrc/pair.cuh reads it: (R, Rf, Rs), then the NodeFit resource weights,
-    ``always_check`` and ``scalar_bypass``, each padded to ``MAXR``.  It
-    depends only on static config, so it is built once per configuration
-    and never read back from the card.  The blocks are read-only."""
+    ``always_check`` and ``scalar_bypass``, each padded to ``MAXR``; then
+    the strategy id, the number of RequestedToCapacityRatio shape points
+    and their utilizations and (0..100-scaled) scores, each padded to
+    ``MAX_SHAPE``.  It depends only on static config, so it is built once
+    per configuration and never read back from the card.  The blocks are
+    read-only.  Raises ``ValueError`` on an unknown strategy or a shape the
+    reference would not build (RequestedToCapacityRatio needs 1 to 101
+    points with strictly increasing utilizations in 0..100)."""
 
-    def pad(vals):
+    def pad(vals, width=MAXR):
         vals = [int(v) for v in vals]
-        return vals + [0] * (MAXR - len(vals))
+        return vals + [0] * (width - len(vals))
 
-    return (ctypes.c_longlong * (3 + 3 * MAXR))(
+    strategy = STRATEGY_IDS.get(nf_static.strategy)
+    if strategy is None:
+        raise ValueError(f"unknown NodeFit scoring strategy {nf_static.strategy!r}")
+    shape = tuple(nf_static.shape) if nf_static.strategy == "RequestedToCapacityRatio" else ()
+    if nf_static.strategy == "RequestedToCapacityRatio":
+        us = [int(u) for u, _ in shape]
+        if not 1 <= len(shape) <= MAX_SHAPE or us != sorted(set(us)) or not (
+                0 <= us[0] and us[-1] <= 100):
+            raise ValueError(f"RequestedToCapacityRatio shape {shape}: 1 to {MAX_SHAPE} points "
+                             "with strictly increasing utilizations in 0..100")
+    return (ctypes.c_longlong * (3 + 3 * MAXR + 2 + 2 * MAX_SHAPE))(
         R, Rf, Rs, *pad(nf_static.weights), *pad(nf_static.always_check),
-        *pad(nf_static.scalar_bypass),
+        *pad(nf_static.scalar_bypass), strategy, len(shape),
+        *pad([u for u, _ in shape], MAX_SHAPE), *pad([s for _, s in shape], MAX_SHAPE),
     )
+
+
+def require_least_allocated(nf_static, what: str) -> None:
+    """The packed-key kernels' precondition: the resolved engine is exact
+    only under LeastAllocated, whose scores fall as a node fills (the JAX
+    package's monotonicity precondition, core/resolved.py:286-292); other
+    strategies take the scan."""
+    if nf_static.strategy != "LeastAllocated":
+        raise ValueError(f"{what} requires the LeastAllocated strategy (monotonicity "
+                         f"precondition), got {nf_static.strategy}; it takes the scan")
 
 
 class PairArgs(NamedTuple):
@@ -274,16 +316,10 @@ def pair_args(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
               valid: torch.Tensor) -> PairArgs:
     """Validate the inputs of the pair function (``csrc/pair.cuh``) on one
     CUDA device and lay them out for a launch, reading nothing back from
-    the card.  Raises on what the kernels do not take: another strategy
-    than LeastAllocated, axes wider than ``MAXR``, wrong dtypes or shapes.
+    the card.  Raises on what the kernels do not take: axes wider than
+    ``MAXR``, wrong dtypes or shapes, a bad NodeFit configuration.
     The LoadAware weights must sum to > 0, as the reference requires
     (the Engine checks it once, on the host)."""
-    if nf_static.strategy != "LeastAllocated":
-        raise later(
-            f"the {nf_static.strategy} strategy on CUDA (the kernels cover LeastAllocated; "
-            "the plain versions serve CPU tensors)",
-            STRATEGIES,
-        )
     dev = valid.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")

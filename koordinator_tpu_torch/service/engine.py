@@ -15,7 +15,11 @@ taints and tolerations, required anti-affinity both ways (the
 NUMA topology policies (``dev_feasible``, ``ds_score``, the host's exact
 walk where a policy or a cpuset needs it, and the amplified-CPU score),
 with the device and cpuset grants and the demotions of the allocation
-replay.  It returns what the JAX engine returns — ``(totals, feasible,
+replay.  All three NodeFit scoring strategies are served: LeastAllocated
+through the resolved engine (warm-started), MostAllocated and
+RequestedToCapacityRatio through the greedy scan (``scan`` kernel), cold
+every cycle as in the JAX package, its begin-input cache still applying.
+It returns what the JAX engine returns — ``(totals, feasible,
 snapshot)`` and ``(hosts, scores, snapshot, allocations)`` as numpy — bit
 for bit.
 
@@ -27,9 +31,8 @@ Devices: the engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, where the plain PyTorch versions run).  With no card and
 no device asked for, construction raises.  A failed transfer or launch on
 the card raises; nothing falls back to the host arrays.  What the port
-does not carry yet raises ``NotImplementedError`` naming its slice: gang,
-quota or reservation constraints and device scores under a strategy other
-than LeastAllocated, and ``score_breakdown``/``explain``.
+does not carry yet raises ``NotImplementedError`` naming its slice:
+``score_breakdown``/``explain``.
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ from koordinator_tpu_torch.core.resolved import (
 from koordinator_tpu_torch.service import transformers as tf
 from koordinator_tpu_torch.service.descheduler import tolerates
 from koordinator_tpu_torch.service.state import ClusterState, cpu_allocs_from, next_bucket
-from koordinator_tpu_torch.slices import EXPLAIN, STRATEGIES, later
+from koordinator_tpu_torch.slices import EXPLAIN, later
 from koordinator_tpu_torch.snapshot import loadaware as la_snap
 from koordinator_tpu_torch.snapshot import nodefit as nf_snap
 from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
@@ -918,9 +921,6 @@ class Engine:
             self._sched_inputs_key = in_key
             self._sched_inputs_val = (la_pods, nf_pods, excl_rows, cin, order, x_scores, extra,
                                       admitted)
-        if cin.constrained and self._nf_static.strategy != "LeastAllocated":
-            raise later(f"gang, quota or reservation constraints under "
-                        f"{self._nf_static.strategy}", STRATEGIES)
         la_nodes, nf_nodes, valid = self._node_inputs(snap, now)
         if excl_rows is not None:
             valid = valid.clone()  # never write the resident table
@@ -975,9 +975,9 @@ class Engine:
             hosts, scores = _submission_order(hosts_q, scores_q, xs, p_bucket)
             precommit = _submission_order(pre_q, scores_q, xs, p_bucket)[0]
         else:
-            # cold: the full build; on the CPU a strategy other than
-            # LeastAllocated takes the scan and leaves no carry, as in the
-            # JAX package
+            # cold: the full build; a strategy other than LeastAllocated
+            # takes the scan (0 rounds) and leaves no carry, as in the JAX
+            # package
             hosts, scores, precommit, rounds, warm = schedule_fn(
                 la_pods, la_nodes, self._weights, nf_pods, nf_nodes, self._nf_static, valid, P,
                 order, COMMIT_CAP, BLOCK_SIZE,

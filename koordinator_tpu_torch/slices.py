@@ -5,7 +5,6 @@ the port serves raises ``NotImplementedError`` through ``later``, never a
 silently different answer.
 """
 
-STRATEGIES = "the strategies slice"
 EXPLAIN = "the explain slice"
 
 

@@ -172,29 +172,47 @@ def _plain_state(side=None):
     ],
 )
 def test_out_of_slice_pods_raise(field, value):
-    """Gang, quota and reservation pods are served under LeastAllocated;
-    under MostAllocated (the scan route) a batch the stores constrain
-    raises naming the strategies slice.  Placement and device pods are
-    served: SCORE and SCHEDULE (with ``assume``) equal the JAX engine's,
-    allocation records and grants included."""
+    """Gang, quota and reservation pods are served under every strategy:
+    under MostAllocated (the scan route) a batch the stores constrain gives
+    the JAX engine's SCORE and SCHEDULE (with ``assume``), allocation
+    records and the stores after it included.  Placement and device pods
+    are served: SCORE and SCHEDULE (with ``assume``) equal the JAX
+    engine's, allocation records and grants included."""
+    from koordinator_tpu.api import quota as jq
+    from koordinator_tpu.core.config import NodeFitArgs as JArgs, ScoringStrategyType as JT
+    from koordinator_tpu.service import constraints as jc
     from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
 
     pod = tm.Pod(name="p", requests={jm.CPU: 1000})
     setattr(pod, field, value)
     if field in ("gang", "quota", "reservations"):
-        st = ClusterState(nf_args=NodeFitArgs(strategy=ScoringStrategyType.MOST_ALLOCATED),
-                          extra_scalars=SCALARS)
-        for n in tfx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
-            st.upsert_node(n)
-        st.gangs.upsert(tc.GangInfo(name="g1", min_member=1, total_children=1))
-        st.quota.upsert(tq.QuotaGroup(name="team-a", min={jm.CPU: 100}, max={jm.CPU: 9000}))
-        st.quota.set_total({jm.CPU: 64000, jm.MEMORY: 256 << 30})
-        st.reservations.upsert(tc.ReservationInfo(name="r1", node="node-1",
-                                                  allocatable={jm.CPU: 2000}))
-        eng = Engine(st, device="cpu")
-        eng.score([pod], now=NOW)  # SCORE ignores the constraint fields
-        with pytest.raises(NotImplementedError, match="strategies slice"):
-            eng.schedule([pod], now=NOW)
+        j = JState(nf_args=JArgs(strategy=JT.MOST_ALLOCATED), extra_scalars=SCALARS,
+                   device_state=False)
+        t = ClusterState(nf_args=NodeFitArgs(strategy=ScoringStrategyType.MOST_ALLOCATED),
+                         extra_scalars=SCALARS)
+        for st, fx, c, q in ((j, jfx, jc, jq), (t, tfx, tc, tq)):
+            for n in fx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
+                st.upsert_node(n)
+            st.gangs.upsert(c.GangInfo(name="g1", min_member=1, total_children=1))
+            st.quota.upsert(q.QuotaGroup(name="team-a", min={jm.CPU: 100}, max={jm.CPU: 9000}))
+            st.quota.set_total({jm.CPU: 64000, jm.MEMORY: 256 << 30})
+            st.reservations.upsert(c.ReservationInfo(name="r1", node="node-1",
+                                                     allocatable={jm.CPU: 2000}))
+        jpod = jm.Pod(name="p", requests={jm.CPU: 1000})
+        setattr(jpod, field, value)
+        je, te = JEngine(j), Engine(t, device="cpu")
+        for k in range(2):
+            assert_same(te.score([pod], now=NOW + k)[0], je.score([jpod], now=NOW + k)[0])
+            th, ts, _, ta = te.schedule([pod], now=NOW + k, assume=k == 1)
+            jh, js, _, ja = je.schedule([jpod], now=NOW + k, assume=k == 1)
+            assert_same(th, jh)
+            assert_same(ts, js)
+            assert ta == ja and th[0] >= 0
+        assert te.last_rounds == 0 and te.last_ub_rounds == 0
+        assert t._pod_node == j._pod_node
+        assert t.quota.used_arrays(t.quota.snapshot())[0].tolist() == \
+            j.quota.used_arrays(j.quota.snapshot())[0].tolist()
+        assert t.reservations.get("r1").allocated == j.reservations.get("r1").allocated
         return
     jst, tst = _plain_state("jax"), _plain_state("torch")
     je, te = JEngine(jst), Engine(tst, device="cpu")
@@ -212,28 +230,37 @@ def test_out_of_slice_pods_raise(field, value):
 
 
 def test_out_of_slice_store_and_modes_raise():
-    """What the port still refuses, naming the slice: device scores under
-    MostAllocated (the scan has no extra-score branch: the strategies
-    slice), and ``score_breakdown``/``explain`` (the explain slice).  The
-    store ops this slice brought are served: taints, topologies, device
-    inventories, anti-affinity holders and device grants, and a cpuset
-    pod, with ``assume`` too."""
+    """What the port still refuses, naming the slice: ``score_breakdown``/
+    ``explain`` (the explain slice).  Device scores under MostAllocated are
+    served (the scan's extra-score branch): SCORE and SCHEDULE equal the
+    JAX engine's.  The store ops of the placement-and-devices slice are
+    served: taints, topologies, device inventories, anti-affinity holders
+    and device grants, and a cpuset pod, with ``assume`` too."""
+    from koordinator_tpu.core.config import NodeFitArgs as JArgs, ScoringStrategyType as JT
     from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
     from torch_parity import pkg
 
-    t_pkg = pkg("torch")
+    t_pkg, j_pkg = pkg("torch"), pkg("jax")
     st = _plain_state()
     assert st.residency.enabled  # device_state=True is the default
     gpu = tm.Pod(name="g", requests={jm.CPU: 1000, "koordinator.sh/gpu-core": 50})
+    jgpu = jm.Pod(name="g", requests={jm.CPU: 1000, "koordinator.sh/gpu-core": 50})
     most = ClusterState(nf_args=NodeFitArgs(strategy=ScoringStrategyType.MOST_ALLOCATED),
                         extra_scalars=SCALARS)
-    for n in tfx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
-        most.upsert_node(n)
-    most.set_devices("node-0", [t_pkg.GPUDevice(minor=0)])
-    eng_most = Engine(most, device="cpu")
-    eng_most.score([gpu], now=NOW)  # SCORE adds the device scores on any strategy
-    with pytest.raises(NotImplementedError, match="strategies slice"):
-        eng_most.schedule([gpu], now=NOW)
+    jmost = JState(nf_args=JArgs(strategy=JT.MOST_ALLOCATED), extra_scalars=SCALARS,
+                   device_state=False)
+    for s_, fx, k in ((most, tfx, t_pkg), (jmost, jfx, j_pkg)):
+        for n in fx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
+            s_.upsert_node(n)
+        s_.set_devices("node-0", [k.GPUDevice(minor=0)])
+    eng_most, jeng_most = Engine(most, device="cpu"), JEngine(jmost)
+    # SCORE and SCHEDULE add the device scores on any strategy
+    assert_same(eng_most.score([gpu], now=NOW)[0], jeng_most.score([jgpu], now=NOW)[0])
+    th, ts, _, ta = eng_most.schedule([gpu], now=NOW, assume=True)
+    jh, js, _, ja = jeng_most.schedule([jgpu], now=NOW, assume=True)
+    assert_same(th, jh)
+    assert_same(ts, js)
+    assert ta == ja and th[0] >= 0 and most._dev_alloc == jmost._dev_alloc
     eng = Engine(st, device="cpu")
     for call in (eng.score_breakdown, eng.explain):
         with pytest.raises(NotImplementedError, match="explain slice"):

@@ -230,15 +230,26 @@ def test_quota_refresh_matches_jax():
 
 
 def test_constrained_batch_under_most_allocated_raises():
+    """A constrained batch under MostAllocated takes the scan with its gang,
+    quota and reservation branches and equals the JAX engine: hosts,
+    scores, allocation records, and the stores after ``assume``."""
+    from koordinator_tpu.core.config import NodeFitArgs as JArgs, ScoringStrategyType as JT
     from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
 
-    st = ClusterState(nf_args=NodeFitArgs(strategy=ScoringStrategyType.MOST_ALLOCATED),
-                      extra_scalars=SCALARS)
-    for n in tfx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
-        st.upsert_node(n)
-    st.gangs.upsert(tc.GangInfo(name="g", min_member=1, total_children=1))
-    eng = Engine(st, device="cpu")
-    plain = tm.Pod(name="p", requests={jm.CPU: 1000})
-    eng.schedule([plain], now=NOW)  # plain pods still take the scan
-    with pytest.raises(NotImplementedError, match="strategies slice"):
-        eng.schedule([tm.Pod(name="q", requests={jm.CPU: 1000}, gang="g")], now=NOW)
+    j = JState(nf_args=JArgs(strategy=JT.MOST_ALLOCATED), extra_scalars=SCALARS,
+               device_state=False)
+    t = ClusterState(nf_args=NodeFitArgs(strategy=ScoringStrategyType.MOST_ALLOCATED),
+                     extra_scalars=SCALARS)
+    for st, fx, c in ((j, jfx, jc), (t, tfx, tc)):
+        for n in fx.random_cluster(3, num_nodes=8, num_pods=0)[1]:
+            st.upsert_node(n)
+        st.gangs.upsert(c.GangInfo(name="g", min_member=1, total_children=1))
+    je, te = JEngine(j), Engine(t, device="cpu")
+    for k, (name, gang) in enumerate((("p", None), ("q", "g"))):
+        outs = [e.schedule([m.Pod(name=name, requests={jm.CPU: 1000}, gang=gang)], now=NOW + k,
+                           assume=True) for e, m in ((je, jm), (te, tm))]
+        assert_same(outs[1][0], outs[0][0], f"hosts {name}")
+        assert_same(outs[1][1], outs[0][1], f"scores {name}")
+        assert outs[1][3] == outs[0][3] and outs[1][0][0] >= 0
+    assert t._pod_node == j._pod_node
+    assert t.gangs.get("g").once_satisfied == j.gangs.get("g").once_satisfied

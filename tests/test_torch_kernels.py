@@ -81,24 +81,57 @@ def test_cfg_block_layout():
                            scalar_bypass=(False, True), weights=(3, 5))
     block = cuda.cfg_array(2, 5, 2, static)
     cfg = list(block)
-    M = cuda.MAXR
-    assert len(cfg) == 3 + 3 * M
+    M, S = cuda.MAXR, cuda.MAX_SHAPE
+    assert len(cfg) == 3 + 3 * M + 2 + 2 * S
     assert cfg[:3] == [2, 5, 2]
     assert cfg[3:3 + M] == [3, 5] + [0] * (M - 2)
     assert cfg[3 + M:3 + 2 * M] == [1, 1, 1, 0, 0] + [0] * (M - 5)
-    assert cfg[3 + 2 * M:] == [0, 1] + [0] * (M - 2)
+    assert cfg[3 + 2 * M:3 + 3 * M] == [0, 1] + [0] * (M - 2)
+    # LeastAllocated: strategy 0, no shape points
+    assert cfg[3 + 3 * M:] == [0, 0] + [0] * (2 * S)
     # built once per configuration: the launches read no weights back
     assert cuda.cfg_array(2, 5, 2, static) is block
+    most = NodeFitStatic(**dict(static.__dict__, strategy="MostAllocated", shape=((0, 0),)))
+    assert list(cuda.cfg_array(2, 5, 2, most))[3 + 3 * M:] == [1, 0] + [0] * (2 * S)
+    shape = ((0, 20), (40, 100), (70, 30), (100, 60))
+    rtc = NodeFitStatic(**dict(static.__dict__, strategy="RequestedToCapacityRatio", shape=shape))
+    tail = list(cuda.cfg_array(2, 5, 2, rtc))[3 + 3 * M:]
+    assert tail[:2] == [2, 4]
+    assert tail[2:2 + S] == [0, 40, 70, 100] + [0] * (S - 4)
+    assert tail[2 + S:] == [20, 100, 30, 60] + [0] * (S - 4)
+    for bad in ((), ((0, 0), (0, 10)), ((50, 0), (20, 10)), ((0, 0), (101, 10))):
+        with pytest.raises(ValueError, match="shape"):
+            cuda.cfg_array(2, 5, 2, NodeFitStatic(**dict(rtc.__dict__, shape=bad)))
 
 
 def test_kernels_refuse_before_launch():
+    """``pair_args`` takes every strategy (and only CUDA tensors); the
+    packed-key wrappers (key build, round loop, refresh, warm rounds) raise
+    ``ValueError`` off LeastAllocated, on any device, before any launch."""
     x = _inputs(torch.device("cpu"), 40, 10)
     args = (x["la_pods"], x["la_nodes"], x["weights"], x["nf_pods"], x["nf_nodes"])
     most = NodeFitStatic(**dict(x["static"].__dict__, strategy="MostAllocated"))
-    with pytest.raises(NotImplementedError, match="LeastAllocated"):
-        cuda.pair_args(*args, most, x["valid"])
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda.pair_args(*args, x["static"], x["valid"])
+    rtc = NodeFitStatic(**dict(x["static"].__dict__, strategy="RequestedToCapacityRatio",
+                               shape=((0, 0), (100, 100))))
+    for static in (x["static"], most, rtc):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda.pair_args(*args, static, x["valid"])
+    carry, q_la, rest, N = _queue_inputs()
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    for static in (most, rtc):
+        off = list(rest)
+        off[4] = static
+        with pytest.raises(ValueError, match="LeastAllocated"):
+            resolved.schedule_keys(q_la, *off, 16)
+        with pytest.raises(ValueError, match="LeastAllocated"):
+            resolved.schedule_keys(q_la, *off, 16, wide=True)
+        with pytest.raises(ValueError, match="LeastAllocated"):
+            resolved.schedule_rounds(*carry, q_la, *off, 16, 16)
+        with pytest.raises(ValueError, match="LeastAllocated"):
+            resolved.schedule_refresh(carry, np.arange(16, dtype=np.int32), q_la, *off, 16)
+        with pytest.raises(ValueError, match="LeastAllocated"):
+            resolved.schedule_rounds_warm(carry, q_la, *off, 16, 16)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
 def test_checks_run_on_cpu_tensors():
@@ -371,3 +404,73 @@ def test_placement_phase_runs_on_cpu():
     launches, records = chip_smoke.drive_placement_path(torch.device("cpu"), 600, 300, SCALARS)
     assert [r["extends"] for r in records][3] == 2 and all(r["placed"] for r in records)
     assert not any(launches.values())
+
+
+STRAT = ("score", "scan", "scan_con", "schedule_keys64", "schedule_rounds64",
+         "schedule_keys64_con", "schedule_rounds64_con")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_nodes,num_pods", [(300, 50), (1000, 200)])
+def test_strategy_kernels_equal_plain(card, num_nodes, num_pods):
+    """``score`` under MostAllocated and RTC (both shapes), the ``scan``
+    kernel (plain and constrained, both tie-breaks, with and without
+    extras, check_parent_depth 0 and 2) and the int64-key matrix engine
+    (plain and constrained, its round count the int32 engine's) against
+    their plain versions, exactly."""
+    before = {k: cuda.KERNELS[k].launches for k in STRAT}
+    chip_smoke.check_strategies_small(_inputs(card, num_nodes, num_pods))
+    assert all(cuda.KERNELS[k].launches > before[k] for k in STRAT)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_ragged_and_partial(card):
+    """The scan on a node axis that is not a multiple of its block width,
+    a pod axis that is not a power of two and a shuffled queue order."""
+    x = chip_smoke.ragged(_inputs(card, 300, 50), 301 - 34, 45)
+    for _, static in chip_smoke.strategy_statics(x["static"]):
+        for con in (False, True):
+            chip_smoke.check_scan_kernels(x, static, con, "salted", True, timed=False)
+
+
+def test_strategy_checks_run_on_cpu_tensors():
+    """``chip_smoke``'s strategy checks on CPU tensors, where every wrapper
+    takes its plain version: the comparison logic (the int64-key round
+    loop's plain version against the plain matrix engine), and no
+    launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    chip_smoke.check_strategies_small(_inputs(torch.device("cpu"), 300, 50))
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_scan_wrapper_refuses_before_launch():
+    """The scan's wrapper checks its inputs before any launch: a tie-break
+    it does not know, extra scores of another dtype or shape, and CPU
+    tensors handed to the launch itself."""
+    from koordinator_tpu_torch.core import cycle
+
+    x = _inputs(torch.device("cpu"), 40, 10)
+    P, N = x["la_pods"].est.shape[0], x["valid"].shape[0]
+    args = (x["la_pods"], x["la_nodes"], x["weights"], x["nf_pods"], x["nf_nodes"], x["static"],
+            x["valid"], x["p_real"], x["order"])
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    with pytest.raises(ValueError, match="tie_break"):
+        cycle.scan_fn(*args, tie_break="random")
+    with pytest.raises(ValueError, match="extra_scores"):
+        cycle.scan_fn(*args, extra_scores=torch.zeros((P, N), dtype=torch.int32))
+    _, q_la, q_nf, salts, pod_ok = resolved.kernel_queue(
+        x["la_pods"], x["nf_pods"], x["valid"], x["p_real"], x["order"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cycle.scan_launch(q_la, x["la_nodes"], x["weights"], q_nf, x["nf_nodes"], x["static"],
+                          x["valid"], pod_ok, salts)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_strategy_phase_runs_on_cpu():
+    """``chip_smoke``'s strategies phase at a small fleet on the CPU, every
+    engine on the plain versions: its twins, the stores after ``assume``,
+    the reserve pods and demotions hold (the launch plan is the card's
+    alone), and nothing launches."""
+    launches, records = chip_smoke.drive_strategy_path(torch.device("cpu"), 600, 300, SCALARS)
+    assert len(records) == len(chip_smoke.MOST_CYCLES) + len(chip_smoke.RTC_CYCLES)
+    assert all(r["placed"] for r in records) and not any(launches.values())

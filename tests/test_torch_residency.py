@@ -282,3 +282,55 @@ def test_scatter_with_duplicate_padded_indices_matches_jax():
         assert np.array_equal(np_of(g), np.asarray(w), equal_nan=g.dtype.is_floating_point)
     for h, k in zip(host, kept):  # the resident buffers are copies
         assert np.array_equal(h, k, equal_nan=h.dtype.kind == "f")
+
+
+def test_vocab_growth_counters_match_jax_but_the_device_table():
+    """On vocab growth the port's residency counters equal the JAX
+    residency's wherever the two do the same thing — the rows and policy
+    tables: a label-set vocabulary past its bucket widens the policy table
+    warm (``dstate_extend``) and scatters the dirty rows in both.  The
+    device table is the one deliberate departure: the JAX residency's
+    extend refuses tables holding [N] arrays (``_dv_full``, ``_dv_vfs``)
+    and re-uploads it whole, the port widens it warm.  A 16-GPU node in a
+    table bucketed for fewer GPUs gives exactly: the port extends +1,
+    full_uploads +0, scatters +1 (one padded 16-row bucket); JAX
+    full_uploads +1 (the whole table), extends +0.  The served totals stay
+    equal throughout."""
+    from torch_parity import device_cluster, engine_of, pkg, policy_batch
+
+    counters = ("h2d_bytes_total", "full_uploads", "scatters", "extends")
+    sides = {}
+    for which in ("jax", "torch"):
+        k = pkg(which)
+        st = device_cluster(k, device_state=True)
+        sides[which] = (k, st, engine_of(k, st), policy_batch(k))
+
+    def step(now):
+        totals = {w: np_of(e.score(b, now=now)[0]) for w, (k, st, e, b) in sides.items()}
+        assert_same(totals["torch"], totals["jax"], f"totals at {now}")
+        return {w: {c: getattr(st.residency, c) for c in counters}
+                for w, (k, st, e, b) in sides.items()}
+
+    c0 = step(NOW)
+    assert c0["torch"] == c0["jax"]
+    for k, st, e, b in sides.values():
+        for i in range(st._Gb - len(st._sig_vocab) + 1):
+            st.assign_pod(f"ep-{1 + i % 10}", k.AssignedPod(pod=k.Pod(
+                name=f"grow-{i}", requests={"cpu": 100}, labels={"team": f"grow-{i}"}),
+                assign_time=NOW))
+    c1 = step(NOW + 1)
+    assert c1["torch"] == c1["jax"]
+    assert c1["torch"]["extends"] == c0["torch"]["extends"] + 1
+    assert c1["torch"]["full_uploads"] == c0["torch"]["full_uploads"]
+    for k, st, e, b in sides.values():
+        st.set_devices("ep-3", [k.GPUDevice(minor=m, numa_node=m // 8) for m in range(16)])
+    c2 = step(NOW + 2)
+    tst, jst = sides["torch"][1], sides["jax"][1]
+    row = sum(getattr(tst, a)[0].nbytes for a in sm.DeviceResidency._DEVICE)
+    table = sum(getattr(jst, a).nbytes for a in jstate_mod.DeviceResidency._DEVICE)
+    d = {w: {c: c2[w][c] - c1[w][c] for c in counters} for w in c2}
+    assert d["torch"] == {"h2d_bytes_total": 16 * 4 + 16 * row, "full_uploads": 0, "scatters": 1,
+                          "extends": 1}
+    assert d["jax"] == {"h2d_bytes_total": table, "full_uploads": 1, "scatters": 0,
+                        "extends": 0}
+    assert tst.residency.verify() > 0

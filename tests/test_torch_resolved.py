@@ -121,22 +121,33 @@ def test_schedule_fn_on_cpu_matches_jax_engine_kernel(P, N, seed, cap):
 
 
 def test_resolved_refuses_constraints():
-    """The scan's constraint branches and its extra-score branch (the
-    strategies slice) are not ported: under MostAllocated the resolved
-    engine raises instead of answering.  Under LeastAllocated the extra
-    channel is served: a random mask and extra scores in [0, 200] (with
-    their bound) give the JAX engine's hosts, scores and round count, also
-    with gang, quota and reservation inputs."""
+    """The scan's constraint branches and its extra-score branch are
+    served: under MostAllocated the resolved engine takes the scan with
+    gang, quota and reservation inputs and extra scores, and equals the
+    JAX engine's hosts and scores (0 rounds, the post-commit hosts as
+    ``precommit``).  Under LeastAllocated the extra channel is served: a
+    random mask and extra scores in [0, 200] (with their bound) give the
+    JAX engine's hosts, scores and round count, also with gang, quota and
+    reservation inputs."""
     import __graft_entry__ as ge
     from torch_parity import constraints_to_torch
 
     gang, quota, rsv = ge._example_constraints(8, 16, Rf=5, seed=2)
     g, q, r = constraints_to_torch(gang, quota, rsv)
-    most = to_torch(batch(8, 16, 0, "MostAllocated"))
-    for kw in ({"gang": g}, {"quota": q}, {"reservation": r},
-               {"extra_scores": torch.zeros(8, 16, dtype=torch.int64)}):
-        with pytest.raises(NotImplementedError, match="strategies slice"):
-            tres.schedule_batch_resolved(*most, **kw)
+    mb = batch(8, 16, 0, "MostAllocated")
+    most, jmost = to_torch(mb), to_jax(mb)
+    xs0 = np.random.default_rng(4).integers(-50, 101, (8, 16)).astype(np.int64)
+    for jkw, tkw in (({"gang": gang}, {"gang": g}), ({"quota": quota}, {"quota": q}),
+                     ({"reservation": rsv}, {"reservation": r}),
+                     ({"extra_scores": xs0}, {"extra_scores": torch.from_numpy(xs0)})):
+        jh, js, jr, jp = jres.schedule_batch_resolved(*jmost, return_rounds=True,
+                                                      return_precommit=True, **jkw)
+        th, ts, tr, tp = tres.schedule_batch_resolved(*most, return_rounds=True,
+                                                      return_precommit=True, **tkw)
+        assert_same(th, jh, f"hosts {sorted(tkw)}")
+        assert_same(ts, js, f"scores {sorted(tkw)}")
+        assert_same(tp, jp, f"precommit {sorted(tkw)}")
+        assert tr == int(jr) == 0
     b = batch(8, 16, 0)
     j, t = to_jax(b), to_torch(b)
     rng = np.random.default_rng(5)

@@ -23,22 +23,27 @@ CPU = torch.device("cpu")
 STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
 
 
-def nodefit_args(strategy: str = "LeastAllocated") -> NodeFitArgs:
+NON_MONOTONE = [(0, 2), (40, 10), (70, 3), (100, 6)]
+BIN_PACKING = [(0, 0), (100, 10)]  # the RequestedToCapacityRatio default
+
+
+def nodefit_args(strategy: str = "LeastAllocated", shape=None) -> NodeFitArgs:
     args = NodeFitArgs(strategy=ScoringStrategyType(strategy))
     if strategy == "RequestedToCapacityRatio":
-        # a non-monotone shape exercises the truncating interpolation on
-        # decreasing segments
-        args.shape = [(0, 2), (40, 10), (70, 3), (100, 6)]
+        # by default a non-monotone shape, which exercises the truncating
+        # interpolation on decreasing segments
+        args.shape = list(NON_MONOTONE if shape is None else shape)
     return args
 
 
-def batch(P: int, N: int, seed: int, strategy: str = "LeastAllocated"):
+def batch(P: int, N: int, seed: int, strategy: str = "LeastAllocated", shape=None):
     """(la_pods, la_nodes, weights, nf_pods, nf_nodes, nf_static) as numpy,
     from ``random_cluster`` through the JAX package's builders; the
-    NodeFit static is the JAX package's."""
+    NodeFit static is the JAX package's (``shape``: the RTC shape in
+    config units, the non-monotone one when None)."""
     pods, nodes = random_cluster(seed, num_nodes=N, num_pods=P, pods_per_node=4,
                                  with_aggregated=True)
-    la_args, nf_args = LoadAwareArgs(), nodefit_args(strategy)
+    la_args, nf_args = LoadAwareArgs(), nodefit_args(strategy, shape)
     nf_pa, nf_na, nf_st = nf_snap.build_all(pods, nodes, nf_args)
     return (
         la_snap.build_pod_arrays(pods, la_args),
@@ -113,6 +118,7 @@ def pkg(which: str):
 
     if which == "jax":
         import koordinator_tpu.api.model as m
+        import koordinator_tpu.core.config as cfg
         import koordinator_tpu.core.deviceshare as ds
         import koordinator_tpu.core.numa as nm
         import koordinator_tpu.service.constraints as c
@@ -120,6 +126,7 @@ def pkg(which: str):
         import koordinator_tpu.service.state as s
     else:
         import koordinator_tpu_torch.api.model as m
+        import koordinator_tpu_torch.core.config as cfg
         import koordinator_tpu_torch.core.deviceshare as ds
         import koordinator_tpu_torch.core.numa as nm
         import koordinator_tpu_torch.service.constraints as c
@@ -130,6 +137,7 @@ def pkg(which: str):
         GPUDevice=ds.GPUDevice, RDMADevice=ds.RDMADevice, CPUTopology=nm.CPUTopology,
         NodeTopologyInfo=s.NodeTopologyInfo, ClusterState=s.ClusterState, Engine=e.Engine,
         GangInfo=c.GangInfo, ReservationInfo=c.ReservationInfo, engine_mod=e, state_mod=s,
+        NodeFitArgs=cfg.NodeFitArgs, ScoringStrategyType=cfg.ScoringStrategyType,
     )
 
 
@@ -146,13 +154,21 @@ def host(x):
 GB = 1 << 30
 
 
-def device_cluster(k, initial_capacity=16, device_state=True):
+def device_cluster(k, initial_capacity=16, device_state=True, strategy=None, shape=None):
     """The JAX package's device cluster (tests/test_state_incremental.py
     ``_device_cluster``): 12 nodes with pool/zone labels, every 4th tainted
     dedicated=ml:NoSchedule, every 3rd with 4 GPUs and one RDMA NIC, every
     5th with a 2-NUMA topology (ep-0 single-numa-node), and 6 assigned pods
-    with team labels, the odd ones holding anti-affinity."""
-    st = k.ClusterState(initial_capacity=initial_capacity, device_state=device_state)
+    with team labels, the odd ones holding anti-affinity.  ``strategy``
+    (and an RTC ``shape`` in config units) sets the NodeFit scoring
+    strategy, LeastAllocated when None."""
+    kw = {}
+    if strategy is not None:
+        args = k.NodeFitArgs(strategy=k.ScoringStrategyType(strategy))
+        if shape is not None:
+            args.shape = list(shape)
+        kw["nf_args"] = args
+    st = k.ClusterState(initial_capacity=initial_capacity, device_state=device_state, **kw)
     for i in range(12):
         name = f"ep-{i}"
         taints = ([{"key": "dedicated", "value": "ml", "effect": "NoSchedule"}]
