@@ -46,7 +46,19 @@ Phases (any failure exits non-zero and prints no result line):
   10. the strategies path: MostAllocated over the constraint phase's store
      and batch (``MOST_CYCLES``, then ``Engine.quota_refresh``) and
      RequestedToCapacityRatio over the placement phase's (``RTC_CYCLES``),
-     every SCHEDULE a cold scan.
+     every SCHEDULE a cold scan;
+  11. the explain slice's kernels (``la_score``, ``nf_score`` under the
+     three strategies, ``loadaware_score_and_filter``) against their plain
+     versions at 64 x 512 and at the full shape (phase 3 and 9's places);
+     the LoadAware library call ``loadaware_score_and_filter`` at full
+     width from the snapshot builders;
+  12. the sidecar path: the port's ``SidecarServer`` on the card and a
+     twin on the CPU, fed the same raw KTPU frames over sockets (HELLO;
+     APPLY of the fleet and the constraint set; SCORE with ``breakdown``;
+     SCHEDULE, warm after 100 metric updates, and with ``assume``;
+     SCHEDULE and EXPLAIN of 8 probe pods; QUOTA_REFRESH, PING, ECHO; a
+     refused verb), every reply byte-identical, each verb's wall time on
+     the client's clock.
   Every result of phases 5 to 8 and 10 must equal the plain path's (the
   same engine on the CPU, fed a twin store) and, in phases 6 to 8, a
   warm-disabled engine's on the card; every kernel of each path must have
@@ -1193,29 +1205,41 @@ def con_store(scalars, num_nodes: int, device_state: bool = True, nf_args=None):
     400,000, memory 2,000Gi}; 50 gangs, min_member 2, 21 children,
     create_time i; 200 reservations on random nodes, {cpu 4000, memory
     16Gi}, ordered 1-999 on odd i."""
-    from koordinator_tpu_torch.api.quota import QuotaGroup
-    from koordinator_tpu_torch.service.constraints import GangInfo, ReservationInfo
     from koordinator_tpu_torch.service.state import ClusterState
     from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster
 
     st = ClusterState(extra_scalars=scalars, device_state=device_state, nf_args=nf_args)
     for n in random_cluster(SEED, num_nodes=num_nodes, num_pods=0)[1]:
         st.upsert_node(n)
-    st.quota.set_total({"cpu": num_nodes * 8000, "memory": num_nodes * (32 << 30)})
-    for i in range(100):
-        st.quota.upsert(QuotaGroup(name=f"bq{i}", min={"cpu": 50_000, "memory": 200 << 30},
-                                   max={"cpu": 400_000, "memory": 2000 << 30}))
-    for i in range(50):
-        st.gangs.upsert(GangInfo(name=f"bg{i}", min_member=2, total_children=21,
-                                 create_time=float(i)))
-    rng = np.random.default_rng(SEED + 5)
-    for i in range(200):
-        st.reservations.upsert(ReservationInfo(
-            name=f"br{i}", node=f"node-{int(rng.integers(0, num_nodes))}",
-            allocatable={"cpu": 4000, "memory": 16 << 30},
-            order=int(rng.integers(1, 1000)) if i % 2 else 0))
+    total, groups, gangs, reservations = con_objects(num_nodes)
+    st.quota.set_total(total)
+    for g in groups:
+        st.quota.upsert(g)
+    for g in gangs:
+        st.gangs.upsert(g)
+    for r in reservations:
+        st.reservations.upsert(r)
     st.publish(NOW)
     return st
+
+
+def con_objects(num_nodes: int) -> tuple:
+    """``con_store``'s constraint set: (quota total, quota groups, gangs,
+    reservations)."""
+    from koordinator_tpu_torch.api.quota import QuotaGroup
+    from koordinator_tpu_torch.service.constraints import GangInfo, ReservationInfo
+
+    total = {"cpu": num_nodes * 8000, "memory": num_nodes * (32 << 30)}
+    groups = [QuotaGroup(name=f"bq{i}", min={"cpu": 50_000, "memory": 200 << 30},
+                         max={"cpu": 400_000, "memory": 2000 << 30}) for i in range(100)]
+    gangs = [GangInfo(name=f"bg{i}", min_member=2, total_children=21, create_time=float(i))
+             for i in range(50)]
+    rng = np.random.default_rng(SEED + 5)
+    reservations = [ReservationInfo(
+        name=f"br{i}", node=f"node-{int(rng.integers(0, num_nodes))}",
+        allocatable={"cpu": 4000, "memory": 16 << 30},
+        order=int(rng.integers(1, 1000)) if i % 2 else 0) for i in range(200)]
+    return total, groups, gangs, reservations
 
 
 def con_batch(num_pods: int, tag: str, seed: int):
@@ -2423,6 +2447,323 @@ def check_strategies_full(full, records) -> list:
     return new
 
 
+# ------------------------------------------------------- the explain slice
+
+BREAKDOWN_SOURCE = "koordinator_tpu_torch/csrc/breakdown.cu"
+
+
+def check_breakdown_kernels(inp, timed: bool):
+    """``la_score``, ``nf_score`` (LeastAllocated, MostAllocated, RTC at the
+    default and a non-monotone shape) and ``loadaware_score_and_filter``
+    against their plain versions on the inputs' device, exactly (raises
+    ``Mismatch``); returns their records when ``timed``."""
+    from koordinator_tpu_torch.core import loadaware as la
+    from koordinator_tpu_torch.core import nodefit as nf
+
+    la_pods, la_nodes, w = inp["la_pods"], inp["la_nodes"], inp["weights"]
+    nf_pods, nf_nodes = inp["nf_pods"], inp["nf_nodes"]
+    P, N = la_pods.est.shape[0], la_nodes.alloc.shape[0]
+    R, Rs = la_pods.est.shape[1], nf_pods.req_score.shape[1]
+
+    def la_kernel():
+        return la.loadaware_score(la_pods, la_nodes, w)
+
+    def la_plain():
+        return la.loadaware_score_plain(la_pods, la_nodes, w)
+
+    def fused_kernel():
+        return la.loadaware_score_and_filter(la_pods, la_nodes, w)
+
+    def fused_plain():
+        return la_plain(), la.loadaware_filter(la_pods, la_nodes)
+
+    err = {"la_score": require_equal(f"la_score {P}x{N}", (la_kernel(),), (la_plain(),)),
+           "loadaware_score_and_filter": require_equal(
+               f"loadaware_score_and_filter {P}x{N}", fused_kernel(), fused_plain())}
+    want = fused_plain()
+    if not want[0].any() or bool(want[1].all()) or not want[1].any():
+        fail("la_score/loadaware_score_and_filter: the inputs do not exercise score and filter")
+    statics = [("least", inp["static"])] + strategy_statics(inp["static"])
+    nf_ms = {}
+    for name, static in statics:
+        def nf_kernel(static=static):
+            return nf.nodefit_score(nf_pods, nf_nodes, static)
+
+        def nf_plain(static=static):
+            return nf.nodefit_score_plain(nf_pods, nf_nodes, static)
+
+        got, ref = nf_kernel(), nf_plain()
+        err[f"nf_score {name}"] = require_equal(f"nf_score {name} {P}x{N}", (got,), (ref,))
+        if len(set(ref.flatten().tolist()[:8192])) < 2:
+            fail(f"nf_score {name}: the scores do not vary")
+        if timed:
+            nf_ms[name] = (cuda_ms(nf_kernel), cuda_ms(nf_plain))
+    print(f"  {P} pods x {N} nodes: la_score, nf_score (LeastAllocated, MostAllocated, RTC "
+          "default and non-monotone) and loadaware_score_and_filter equal plain")
+    if not timed:
+        return None
+    la_in = nbytes(la_pods.est, la_pods.is_prod_score, w, la_nodes.alloc, la_nodes.base_nonprod,
+                   la_nodes.base_prod, la_nodes.score_valid)
+    filt_in = nbytes(la_pods.is_prod_class, la_pods.is_daemonset, la_nodes.filter_usage,
+                     la_nodes.filter_active, la_nodes.thresholds, la_nodes.prod_usage,
+                     la_nodes.prod_filter_active, la_nodes.prod_thresholds,
+                     la_nodes.has_prod_thresholds)
+    nf_in = nbytes(nf_pods.req_score, nf_nodes.alloc_score, nf_nodes.req_score)
+    recs = []
+    b, by = bound_ms(la_in + P * N * 8, P * N * (9 * R + 2))
+    recs.append(dict(name="la_score", source=BREAKDOWN_SOURCE,
+                     replaces="koordinator_tpu/core/loadaware.py:77 (engine.py:1173)",
+                     ms=cuda_ms(la_kernel), plain_ms=cuda_ms(la_plain), bound_ms=b, bound_by=by,
+                     max_abs_err=err["la_score"]))
+    b, by = bound_ms(nf_in + P * N * 8, P * N * (10 * Rs + 2))
+    recs.append(dict(name="nf_score", source=BREAKDOWN_SOURCE,
+                     replaces="koordinator_tpu/core/nodefit.py:84 (engine.py:1169)",
+                     ms=nf_ms["least"][0], plain_ms=nf_ms["least"][1], bound_ms=b, bound_by=by,
+                     max_abs_err=max(v for k, v in err.items() if k.startswith("nf_score")),
+                     strategies_ms={k: {"ms": v[0], "plain_ms": v[1]} for k, v in nf_ms.items()
+                                    if k != "least"}))
+    b, by = bound_ms(la_in + filt_in + P * N * 9, P * N * (9 * R + 2 + 7 * R + 3))
+    recs.append(dict(name="loadaware_score_and_filter", source=BREAKDOWN_SOURCE,
+                     replaces="koordinator_tpu/core/loadaware.py:133", ms=cuda_ms(fused_kernel),
+                     plain_ms=cuda_ms(fused_plain), bound_ms=b, bound_by=by,
+                     max_abs_err=err["loadaware_score_and_filter"]))
+    return recs
+
+
+def drive_library_path(device, num_nodes: int, num_pods: int):
+    """The LoadAware plugin's library entry point as its users call it:
+    the snapshot builders over ``random_cluster``, then
+    ``core.loadaware_score_and_filter`` on the card, held against the same
+    call on the CPU.  Returns (launches per kernel during the call, wall
+    ms)."""
+    from koordinator_tpu_torch import convert, cuda
+    from koordinator_tpu_torch.core import loadaware_score_and_filter
+    from koordinator_tpu_torch.core.config import LoadAwareArgs
+    from koordinator_tpu_torch.snapshot import loadaware as la_snap
+    from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster
+
+    args = LoadAwareArgs()
+    pods, nodes = random_cluster(SEED, num_nodes=num_nodes, num_pods=num_pods)
+    arrays = (la_snap.build_pod_arrays(pods, args), la_snap.build_node_arrays(nodes, args, NOW),
+              la_snap.build_weights(args))
+
+    def call(dev):
+        pa, na, w = arrays
+        return loadaware_score_and_filter(convert.la_pods(pa, dev), convert.la_nodes(na, dev),
+                                          convert.weights(w, dev))
+
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    scores, feasible = call(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    ref = call(torch.device("cpu"))
+    require_equal("loadaware_score_and_filter (library call)", (scores, feasible), ref)
+    if tuple(scores.shape) != (num_pods, num_nodes) or not scores.any() or not feasible.any():
+        fail(f"loadaware_score_and_filter returned {tuple(scores.shape)}")
+    print(f"  loadaware_score_and_filter over {num_pods} pods x {num_nodes} nodes from the "
+          f"snapshot builders: {wall:.1f} ms wall (upload included), equal to the CPU; "
+          f"launches {launches['loadaware_score_and_filter']}")
+    return launches, wall
+
+
+SIDECAR_PATH_KERNELS = ("score", "la_score", "nf_score", "schedule_keys_con",
+                        "schedule_rounds_con", "quota_limit", "rsv_rscore", "rsv_score", "quota",
+                        "dstate_gate")
+SIDECAR_PROBES = 8
+
+
+def sidecar_frames(num_nodes: int, num_pods: int) -> list:
+    """The sidecar phase's frames, (label, frame bytes): HELLO; APPLY of
+    ``random_cluster``'s fleet (node specs, metrics, assigned pods) in
+    frames of about 1,000 ops, then ``con_store``'s gangs, quota groups and
+    reservations; SCORE of the batch with ``breakdown``; SCHEDULE; APPLY of
+    100 metric updates and SCHEDULE again (the warm start); SCHEDULE with
+    ``assume``; SCHEDULE and EXPLAIN of the probe pods; QUOTA_REFRESH, PING, ECHO of a
+    [1,024, 16,384] int16 reply; a verb of a later slice (METRICS)."""
+    from koordinator_tpu_torch.service import protocol as proto
+    from koordinator_tpu_torch.service.client import Client
+    from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster, random_pod
+
+    M = proto.MsgType
+    out = []
+    req = iter(range(1, 1 << 20))
+
+    def frame(label, t, fields, arrays=None):
+        out.append((label, proto.encode(t, next(req), fields, arrays)))
+
+    frame("HELLO", M.HELLO, {})
+    _, fleet = random_cluster(SEED, num_nodes=num_nodes, num_pods=0)
+    ops = []
+    for n in fleet:
+        ops.append(Client.op_upsert(proto.spec_only(n)))
+        if n.metric is not None:
+            ops.append(Client.op_metric(n.name, n.metric))
+        ops += [Client.op_assign(n.name, ap) for ap in n.assigned_pods]
+    for i in range(0, len(ops), 1000):
+        frame("APPLY fleet", M.APPLY, {"ops": ops[i:i + 1000]})
+    total, groups, gangs, reservations = con_objects(num_nodes)
+    frame("APPLY constraints", M.APPLY, {"ops": (
+        [Client.op_quota_total(total)] + [Client.op_quota(g) for g in groups]
+        + [Client.op_gang(g) for g in gangs] + [Client.op_reservation(r) for r in reservations])})
+    batch = [proto.pod_to_wire(p) for p in con_batch(num_pods, "side", SEED + 21)]
+    frame("SCORE breakdown", M.SCORE, {"pods": batch, "now": NOW, "names_version": -1,
+                                       "breakdown": True})
+    frame("SCHEDULE", M.SCHEDULE, {"pods": batch, "now": NOW + 1, "names_version": 1})
+    rng = np.random.default_rng(SEED + 22)
+    updates = []
+    for j in rng.choice(num_nodes, 100, replace=False):
+        n = fleet[int(j)]
+        if n.metric is not None and n.metric.node_usage:
+            m = type(n.metric)(node_usage={k: v * 3 // 4 for k, v in n.metric.node_usage.items()},
+                               update_time=NOW + 1, report_interval=60.0)
+            updates.append(Client.op_metric(n.name, m))
+    frame("APPLY 100 metrics", M.APPLY, {"ops": updates})
+    # the warm start over the wire: the same batch after the metric updates
+    frame("SCHEDULE warm", M.SCHEDULE, {"pods": batch, "now": NOW + 2, "names_version": 1})
+    frame("SCHEDULE assume", M.SCHEDULE, {"pods": batch, "now": NOW + 3, "names_version": 1,
+                                          "assume": True})
+    probes = []
+    for i in range(SIDECAR_PROBES):
+        p = random_pod(np.random.default_rng([SEED, 23, i]), f"probe-{i}", "pending")
+        if i % 2:
+            p.quota = f"bq{i}"
+        if i % 4 == 1:
+            p.reservations = [reservations[i].name]
+        probes.append(proto.pod_to_wire(p))
+    frame("SCHEDULE probes", M.SCHEDULE, {"pods": probes, "now": NOW + 4, "names_version": -1})
+    frame("EXPLAIN", M.EXPLAIN, {"pods": probes, "now": NOW + 4})
+    frame("QUOTA_REFRESH", M.QUOTA_REFRESH, {
+        "groups": [proto.quota_group_to_wire(g) for g in groups],
+        "resources": ["cpu", "memory"], "total": total})
+    frame("PING", M.PING, {})
+    frame("ECHO", M.ECHO, {"resp_like": [{"name": "scores", "shape": [1024, 16384],
+                                          "dtype": "<i2"}]})
+    frame("METRICS (refused)", M.METRICS, {})
+    return out
+
+
+class Wire:
+    """One raw connection to a sidecar: frame bytes in, reply bytes out."""
+
+    def __init__(self, addr):
+        import socket
+
+        self.sock = socket.create_connection(addr, timeout=600)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+    def call(self, frame: bytes) -> bytes:
+        from koordinator_tpu_torch.service import protocol as proto
+
+        proto.write_frame(self.sock, frame)
+        t, r, payload = proto.read_frame(self.sock)
+        return proto._HDR.pack(proto.MAGIC, proto.VERSION, t, r, len(payload)) + bytes(payload)
+
+    def close(self):
+        self.sock.close()
+
+
+def decoded(reply: bytes):
+    from koordinator_tpu_torch.service import protocol as proto
+
+    t, r = proto._HDR.unpack_from(reply, 0)[2:4]
+    return proto.decode((t, r, memoryview(reply)[proto._HDR.size:]))
+
+
+def drive_sidecar_path(device, num_nodes: int, num_pods: int, scalars):
+    """The sidecar over a socket at full width: the port's ``SidecarServer``
+    on the card and a twin on the CPU, each on port 0, sent the same raw
+    frames (``sidecar_frames``) one at a time.  Replies must be
+    byte-identical; ERROR frames carry a traceback, so those compare by
+    code and message.  The breakdown SCORE must launch ``la_score`` and
+    ``nf_score`` once each; EXPLAIN's chosen nodes and totals must equal
+    the probe SCHEDULE's reply.  Returns (launches per kernel during the
+    phase, per-verb records with the card's wall ms on the client's
+    clock)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.service import protocol as proto
+    from koordinator_tpu_torch.service.server import SidecarServer
+
+    M = proto.MsgType
+    t0 = time.perf_counter()
+    frames = sidecar_frames(num_nodes, num_pods)
+    print(f"  {len(frames)} frames ({sum(len(f) for _, f in frames) / 1e6:.1f} MB) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    card = SidecarServer(initial_capacity=16, extra_scalars=scalars, device=device)
+    twin = SidecarServer(initial_capacity=16, extra_scalars=scalars, device="cpu")
+    records, replies = [], {}
+    try:
+        cw, tw = Wire(card.address), Wire(twin.address)
+        for k in cuda.KERNELS.values():
+            k.launches = 0
+        for label, frame in frames:
+            before = {name: k.launches for name, k in cuda.KERNELS.items()}
+            t0 = time.perf_counter()
+            got = cw.call(frame)
+            wall = (time.perf_counter() - t0) * 1e3
+            delta = {name: k.launches - before[name] for name, k in cuda.KERNELS.items()
+                     if k.launches != before[name]}
+            t0 = time.perf_counter()
+            want = tw.call(frame)
+            twin_wall = (time.perf_counter() - t0) * 1e3
+            gt, _, gf, ga = decoded(got)
+            wt, _, wf, _ = decoded(want)
+            if gt == M.ERROR or wt == M.ERROR:
+                if (gt, gf.get("code"), gf.get("error")) != (wt, wf.get("code"), wf.get("error")):
+                    fail(f"sidecar {label}: card {gf}, CPU twin {wf}")
+                if not label.endswith("(refused)"):
+                    fail(f"sidecar {label}: ERROR {gf.get('error')}")
+            elif got != want:
+                fail(f"sidecar {label}: the card's reply differs from the CPU twin's")
+            replies[label] = (gt, gf, ga)
+            records.append(dict(verb=label, ms=wall, twin_ms=twin_wall, bytes=len(got),
+                                launches=delta))
+        cw.close()
+        tw.close()
+    finally:
+        card.close()
+        twin.close()
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    rec = next(r for r in records if r["verb"] == "SCORE breakdown")
+    if device.type == "cuda" and (rec["launches"].get("la_score") != 1
+                                  or rec["launches"].get("nf_score") != 1):
+        fail(f"the breakdown SCORE launched {rec['launches']}")
+    _, sf, sa = replies["SCORE breakdown"]
+    if sf["breakdown_plugins"] != ["loadaware", "nodefit"] or sa["scores"].shape != (
+            num_pods, num_nodes) or not sa["breakdown_nodefit"].any():
+        fail(f"the breakdown SCORE's reply: {sf.get('breakdown_plugins')}, "
+             f"{sa['scores'].shape}")
+    warm = next(r for r in records if r["verb"] == "SCHEDULE warm")["launches"]
+    cold = warm.get("schedule_keys_con") or not (warm.get("sched_refresh_con")
+                                                 or warm.get("sched_rounds_con"))
+    if device.type == "cuda" and cold:
+        fail(f"the SCHEDULE after the metric updates was not a warm start: {warm}")
+    _, pf, pa = replies["SCHEDULE probes"]
+    _, ef, _ = replies["EXPLAIN"]
+    names = pf["names"]
+    want_nodes = [names[h] if h >= 0 else None for h in pa["hosts"].tolist()]
+    got_nodes = [e["node"] for e in ef["explain"]]
+    if got_nodes != want_nodes or [e["total"] for e in ef["explain"]] != pa["scores"].tolist():
+        fail(f"EXPLAIN {got_nodes} does not equal the SCHEDULE reply {want_nodes}")
+    placed = {lab: int((replies[lab][2]["hosts"] >= 0).sum())
+              for lab in ("SCHEDULE", "SCHEDULE assume", "SCHEDULE warm", "SCHEDULE probes")}
+    if not all(placed.values()):
+        fail(f"a sidecar SCHEDULE placed nothing: {placed}")
+    applies = [r for r in records if r["verb"].startswith("APPLY fleet")]
+    print(f"  APPLY fleet: {len(applies)} frames, {sum(r['ms'] for r in applies):.0f} ms on the "
+          f"card's sidecar ({sum(r['twin_ms'] for r in applies):.0f} ms the twin's)")
+    for r in records:
+        if not r["verb"].startswith("APPLY fleet"):
+            print(f"  {r['verb']}: {r['ms']:.1f} ms wall on the card's sidecar (twin "
+                  f"{r['twin_ms']:.1f} ms), {r['bytes']} reply bytes, launches {r['launches']}",
+                  flush=True)
+    print(f"  placed: {placed}; EXPLAIN of {len(got_nodes)} probes equals their SCHEDULE")
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA card", file=sys.stderr)
@@ -2470,6 +2811,11 @@ def main() -> int:
         check_extra_kernels(small, con, timed=False)
     check_extra_kernels(small, True, timed=False, commit_cap=1)
     check_strategies_small(small)
+    # the explain slice's kernels at 64 pods x 512 columns, and at a node
+    # axis that is not a multiple of the block width (267) by 45 pods
+    check_breakdown_kernels(build_inputs(*random_cluster(SEED, num_nodes=500, num_pods=64), dev,
+                                         scalars), timed=False)
+    check_breakdown_kernels(ragged(small, 267, 45), timed=False)
     pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
     full = build_inputs(pods, nodes, dev, scalars)
     records = check_kernels(full, 16, timed=True)
@@ -2497,6 +2843,7 @@ def main() -> int:
     # the strategies: score under MostAllocated and RTC, the scan (plain and
     # constrained, both tie-breaks, with extras), the int64-key engine
     records += check_strategies_full(full, records)
+    records += check_breakdown_kernels(full, timed=True)
     print(f"matrix route: {NUM_NODES} nodes x {NUM_PODS} pods, int64 keys", flush=True)
     matrix_launches = drive_matrix_path(full, con=False)
     con_matrix = drive_matrix_path(full, con=True)
@@ -2519,6 +2866,12 @@ def main() -> int:
           f"quota and reservations; RequestedToCapacityRatio over selectors, taints, "
           f"anti-affinity and GPU/RDMA/cpuset pods; the scan kernel", flush=True)
     strat_launches, strat_cycles = drive_strategy_path(dev, NUM_NODES, NUM_PODS, scalars)
+    print(f"library path: loadaware_score_and_filter over {NUM_NODES} nodes x {NUM_PODS} pods",
+          flush=True)
+    lib_launches, lib_ms = drive_library_path(dev, NUM_NODES, NUM_PODS)
+    print(f"sidecar path: {NUM_NODES} nodes x {NUM_PODS} pods over the KTPU wire, the card's "
+          "sidecar against a CPU twin", flush=True)
+    side_launches, side_verbs = drive_sidecar_path(dev, NUM_NODES, NUM_PODS, scalars)
     for path, launched, kernels in (
         ("cold", cold_launches, ("score", "schedule_keys", "schedule_rounds")),
         ("warm", warm_launches, WARM_PATH_KERNELS),
@@ -2527,13 +2880,16 @@ def main() -> int:
         ("strategies", strat_launches, STRATEGY_PATH_KERNELS),
         ("matrix", matrix_launches, ("schedule_keys64", "schedule_rounds64",
                                      "schedule_keys64_con", "schedule_rounds64_con")),
+        ("library", lib_launches, ("loadaware_score_and_filter",)),
+        ("sidecar", side_launches, SIDECAR_PATH_KERNELS),
     ):
         idle = [k for k in kernels if launched[k] == 0]
         if idle:
             fail(f"the {path} path never launched {idle}")
     print(f"  launches on the cold path {cold_launches}; on the warm path {warm_launches}; on "
           f"the constraint path {con_launches}; on the placement path {place_launches}; on the "
-          f"strategies path {strat_launches}; on the matrix route {matrix_launches}")
+          f"strategies path {strat_launches}; on the matrix route {matrix_launches}; on the "
+          f"library path {lib_launches}; on the sidecar path {side_launches}")
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "ub_rounds",
@@ -2544,7 +2900,8 @@ def main() -> int:
         name = rec["name"]
         by_path = {"cold": cold_launches[name], "warm": warm_launches[name],
                    "constraints": con_launches[name], "placement": place_launches[name],
-                   "strategies": strat_launches[name], "matrix": matrix_launches[name]}
+                   "strategies": strat_launches[name], "matrix": matrix_launches[name],
+                   "library": lib_launches[name], "sidecar": side_launches[name]}
         # only dstate_scatter (index_copy_) and dstate_extend (F.pad) have a
         # PyTorch call computing the same function; the others have none
         rec = dict(rec, route="cuda", launches=sum(by_path.values()), launches_by_path=by_path)
@@ -2553,7 +2910,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "transfers": transfers, "card": card,
                       "main_path_ms": main_ms, "main_path_kernel_ms": main_kernel_ms,
                       "warm_cycles": warm_cycles, "constraint_cycles": con_cycles,
-                      "placement_cycles": place_cycles, "strategy_cycles": strat_cycles}))
+                      "placement_cycles": place_cycles, "strategy_cycles": strat_cycles,
+                      "library_call_ms": lib_ms, "sidecar_verbs": side_verbs}))
     print(f"device: {kind} | {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

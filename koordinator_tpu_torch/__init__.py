@@ -24,23 +24,49 @@ kernel in a plain-pod and a constrained instantiation, all taking the
 placement-and-devices mask and scores); the residency's
 ``dstate_scatter``, ``dstate_extend`` and ``dstate_gate``; ``quota`` and
 ``quota_limit``; ``rsv_rscore`` and ``rsv_score``; ``placement``,
-``dev_feasible`` and ``ds_score``.  Each kernel's wrapper runs its plain
+``dev_feasible`` and ``ds_score``; the per-plugin scores ``la_score`` and
+``nf_score`` of SCORE's breakdown, and the LoadAware library entry point
+``loadaware_score_and_filter``.  Each kernel's wrapper runs its plain
 PyTorch version for CPU tensors and launches the kernel, or raises, for
 CUDA tensors.
 
+Its entry point is the sidecar the Go shim dials over the KTPU wire
+(``service.server.SidecarServer``, ``python -m
+koordinator_tpu_torch.cmd.sidecar``): HELLO, APPLY, SCORE (with the
+per-plugin breakdown), SCHEDULE, EXPLAIN, QUOTA_REFRESH, PING and ECHO,
+each reply byte-identical to the JAX sidecar's; ``service.client.Client``
+speaks it from Python.
+
 Layout (the JAX package's, with the same relative module names):
   api/       object model, quota groups (copies)
-  core/      config, deviceshare, topologymanager (copies); numa (host side
+  core/      config, configio, deviceshare, topologymanager (copies); numa (host side
              copied, the amplified score in torch); loadaware, nodefit,
              cycle, resolved, gang, quota, reservation, placement (torch)
-  golden/    nodefit_ref (copy), used by the NodeFit snapshot builder
+  golden/    the scalar oracles nodefit_ref, loadaware_ref, reservation_ref,
+             quota_ref (copies); host_fallback's SCHEDULE pipeline with the
+             EXPLAIN decomposition (copy of fallback_schedule_full)
   ops/       Go-exact rounding helpers (torch)
   snapshot/  numpy builders of the dense inputs (copies)
-  service/   transformers, constraints, descheduler's ``tolerates``
-             (copies); state (with the device residency), engine
-  utils/     synthetic cluster fixtures (copy)
+  service/   transformers, constraints, descheduler's ``tolerates``, the
+             wire protocol, client, admission webhooks and wire-op switch
+             (copies); state (with the device residency), engine, server
+  cmd/       the sidecar binary
+  utils/     synthetic cluster fixtures, feature gates (copies)
   csrc/      the CUDA kernels; ``cuda.py`` builds and binds them
   convert.py numpy arrays -> tensors on a device
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """The sidecar's entry points, imported on first use."""
+    if name == "SidecarServer":
+        from koordinator_tpu_torch.service.server import SidecarServer
+
+        return SidecarServer
+    if name == "Client":
+        from koordinator_tpu_torch.service.client import Client
+
+        return Client
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

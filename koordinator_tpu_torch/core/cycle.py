@@ -41,14 +41,14 @@ from koordinator_tpu_torch.core.loadaware import (
     LoadAwareNodeArrays,
     LoadAwarePodArrays,
     loadaware_filter,
-    loadaware_score,
+    loadaware_score_plain,
 )
 from koordinator_tpu_torch.core.nodefit import (
     NodeFitNodeArrays,
     NodeFitPodArrays,
     NodeFitStatic,
     nodefit_filter,
-    nodefit_score,
+    nodefit_score_plain,
 )
 from koordinator_tpu_torch.core.quota import QuotaPodArrays
 from koordinator_tpu_torch.core.reservation import (
@@ -188,8 +188,8 @@ def score_batch(
     NodeFit strategy comes from ``nf_static.strategy``.  A reservation adds
     its restore to the filter and its scores to the total; ``numa`` adds
     its scores (under the numa plugin weight) and ANDs its mask."""
-    la_s = loadaware_score(la_pods, la_nodes, la_weights)
-    nf_s = nodefit_score(nf_pods, nf_nodes, nf_static)
+    la_s = loadaware_score_plain(la_pods, la_nodes, la_weights)
+    nf_s = nodefit_score_plain(nf_pods, nf_nodes, nf_static)
     total = la_s * plugin_weights.loadaware + nf_s * plugin_weights.nodefit
     extra = None
     if reservation is not None:
@@ -323,8 +323,8 @@ def schedule_batch(
     for i in xs.tolist():
         la_p1, nf_p1 = _rows(la_pods, i), _rows(nf_pods, i)
         la_n, nf_n = state.la_nodes, state.nf_nodes
-        total = (loadaware_score(la_p1, la_n, la_weights)[0] * plugin_weights.loadaware
-                 + nodefit_score(nf_p1, nf_n, nf_static)[0] * plugin_weights.nodefit)
+        total = (loadaware_score_plain(la_p1, la_n, la_weights)[0] * plugin_weights.loadaware
+                 + nodefit_score_plain(nf_p1, nf_n, nf_static)[0] * plugin_weights.nodefit)
         extra_free = None
         if reservation is not None:
             # the restore against the LIVE remaining reservation capacity

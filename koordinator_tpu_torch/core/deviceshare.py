@@ -42,7 +42,7 @@ from koordinator_tpu_torch.core.nodefit import (
     NodeFitNodeArrays,
     NodeFitPodArrays,
     NodeFitStatic,
-    nodefit_score,
+    nodefit_score_plain,
 )
 
 GPU_CORE = "koordinator.sh/gpu-core"
@@ -356,5 +356,5 @@ def deviceshare_score(
         weights=(1, 1),
         strategy="MostAllocated" if strategy == BINPACK else "LeastAllocated",
     )
-    scores = nodefit_score(pods, nodes, static).numpy()
+    scores = nodefit_score_plain(pods, nodes, static).numpy()
     return np.where(has[:, None], scores, 0)

@@ -5,6 +5,9 @@ The reference scores one (pod, node) pair per call inside the framework's
 Here the plain PyTorch version produces the full [P, N] score matrix and the
 [P, N] feasibility mask at once; the CUDA kernels of ``core.cycle`` and
 ``core.resolved`` evaluate the same arithmetic per pair (``csrc/pair.cuh``).
+The wrappers ``loadaware_score`` (the ``la_score`` kernel) and
+``loadaware_score_and_filter`` launch ``csrc/breakdown.cu`` for CUDA tensors
+and run the plain versions for CPU tensors.
 
   score(p, n) = sum_r w_r * lrs(est_p[r] + base_n[r], alloc_n[r])  /  sum_r w_r
   lrs(u, c)   = 0 if c == 0 or u > c else (c - u) * 100 / c        (load_aware.go:388-397)
@@ -24,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from koordinator_tpu_torch import cuda
 from koordinator_tpu_torch.ops.rounding import floor_div_fixup
 
 MAX_NODE_SCORE = 100  # k8s framework.MaxNodeScore
@@ -66,10 +70,11 @@ def _least_requested(used: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
     return torch.where(guard, torch.zeros_like(score), score)
 
 
-def loadaware_score(
+def loadaware_score_plain(
     pods: LoadAwarePodArrays, nodes: LoadAwareNodeArrays, weights: torch.Tensor
 ) -> torch.Tensor:
-    """Full [P, N] raw int64 score matrix (pre-NormalizeScore), load_aware.go:269-335.
+    """Full [P, N] raw int64 score matrix (pre-NormalizeScore), load_aware.go:269-335:
+    the plain version of the ``la_score`` kernel.
 
     weights: [R] int64, the ResourceWeights vector over the resource axis.
     """
@@ -108,3 +113,41 @@ def loadaware_filter(pods: LoadAwarePodArrays, nodes: LoadAwareNodeArrays) -> to
     use_prod_branch = pods.is_prod_class[:, None] & nodes.has_prod_thresholds[None, :]
     reject = torch.where(use_prod_branch, prod_reject[None, :], normal_reject[None, :])
     return pods.is_daemonset[:, None] | ~reject
+
+
+def loadaware_score(
+    pods: LoadAwarePodArrays, nodes: LoadAwareNodeArrays, weights: torch.Tensor
+) -> torch.Tensor:
+    """The ``la_score`` kernel: the raw [P, N] int64 LoadAware score, no
+    plugin weight folded in (``Engine.score_breakdown``).  CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/breakdown.cu`` or raise."""
+    if pods.est.device.type == "cpu":
+        return loadaware_score_plain(pods, nodes, weights)
+    args = cuda.loadaware_args(pods, nodes, weights)
+    P, N = pods.est.shape[0], nodes.alloc.shape[0]
+    dev = pods.est.device
+    out = torch.empty((P, N), dtype=torch.int64, device=dev)
+    if P and N:
+        cuda.LA_SCORE.launch(args.pods, args.nodes, args.cfg, args.la_w, P, N, out.data_ptr(),
+                             cuda.device_index(dev), cuda.stream(dev))
+    return out
+
+
+def loadaware_score_and_filter(
+    pods: LoadAwarePodArrays, nodes: LoadAwareNodeArrays, weights: torch.Tensor
+):
+    """The LoadAware plugin's library entry point, (scores [P, N] int64,
+    feasible [P, N] bool) in one dispatch: the ``loadaware_score_and_filter``
+    kernel for CUDA tensors (or raise), the plain versions for CPU tensors."""
+    if pods.est.device.type == "cpu":
+        return loadaware_score_plain(pods, nodes, weights), loadaware_filter(pods, nodes)
+    args = cuda.loadaware_args(pods, nodes, weights)
+    P, N = pods.est.shape[0], nodes.alloc.shape[0]
+    dev = pods.est.device
+    scores = torch.empty((P, N), dtype=torch.int64, device=dev)
+    feasible = torch.empty((P, N), dtype=torch.bool, device=dev)
+    if P and N:
+        cuda.LA_SCORE_FILTER.launch(args.pods, args.nodes, args.cfg, args.la_w, P, N,
+                                    scores.data_ptr(), feasible.data_ptr(),
+                                    cuda.device_index(dev), cuda.stream(dev))
+    return scores, feasible

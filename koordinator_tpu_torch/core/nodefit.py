@@ -20,6 +20,10 @@ configured resource weights — LeastAllocated, MostAllocated,
 RequestedToCapacityRatio.  A scalar resource the pod does not request is
 bypassed (drops out of the weight sum), as is any resource with zero
 allocatable, so the weight sum varies per (pod, node) pair.
+
+``nodefit_score`` is the ``nf_score`` kernel's wrapper: CUDA tensors launch
+``csrc/breakdown.cu`` (every strategy), CPU tensors take the plain version
+``nodefit_score_plain``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from koordinator_tpu_torch import cuda
 from koordinator_tpu_torch.ops.rounding import floor_div_fixup
 
 MAX_NODE_SCORE = 100
@@ -66,8 +71,25 @@ class NodeFitStatic:
 
 
 def nodefit_score(pods: NodeFitPodArrays, nodes: NodeFitNodeArrays, static: NodeFitStatic):
+    """The ``nf_score`` kernel: the raw [P, N] int64 NodeFit score under the
+    configured strategy, no plugin weight folded in
+    (``Engine.score_breakdown``).  CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/breakdown.cu`` or raise."""
+    if pods.req.device.type == "cpu":
+        return nodefit_score_plain(pods, nodes, static)
+    args = cuda.nodefit_args(pods, nodes, static)
+    P, N = pods.req.shape[0], nodes.alloc.shape[0]
+    dev = pods.req.device
+    out = torch.empty((P, N), dtype=torch.int64, device=dev)
+    if P and N:
+        cuda.NF_SCORE.launch(args.pods, args.nodes, args.cfg, P, N, out.data_ptr(),
+                             cuda.device_index(dev), cuda.stream(dev))
+    return out
+
+
+def nodefit_score_plain(pods: NodeFitPodArrays, nodes: NodeFitNodeArrays, static: NodeFitStatic):
     """Dispatch on the configured ScoringStrategy (fit.go
-    nodeResourceStrategyTypeMap)."""
+    nodeResourceStrategyTypeMap): the plain version of ``nf_score``."""
     if static.strategy == "MostAllocated":
         return most_allocated_score(pods, nodes, static)
     if static.strategy == "RequestedToCapacityRatio":

@@ -45,7 +45,7 @@ from koordinator_tpu_torch.core.nodefit import (
     NodeFitNodeArrays,
     NodeFitPodArrays,
     NodeFitStatic,
-    nodefit_score,
+    nodefit_score_plain,
 )
 
 FULL_PCPUS = "FullPCPUs"
@@ -89,8 +89,8 @@ def amplified_cpu_score(
     req_score = nodes.req_score.clone()
     req_score[:, cpu_dim] = torch.where(ratio > 1.0, adj, col)
     adjusted = nodes._replace(req_score=req_score)
-    plain = nodefit_score(pods, nodes, static)
-    amped = nodefit_score(pods, adjusted, static)
+    plain = nodefit_score_plain(pods, nodes, static)
+    amped = nodefit_score_plain(pods, adjusted, static)
     # pods with zero CPU request score against the unamplified view
     wants_cpu = pods.req_score[:, cpu_dim] > 0
     return torch.where(wants_cpu[:, None], amped, plain)

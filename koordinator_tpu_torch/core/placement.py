@@ -31,7 +31,7 @@ from koordinator_tpu_torch.core.nodefit import (
     NodeFitNodeArrays,
     NodeFitPodArrays,
     NodeFitStatic,
-    nodefit_score,
+    nodefit_score_plain,
 )
 
 
@@ -207,7 +207,7 @@ DS_STATIC = NodeFitStatic(always_check=(False, False), scalar_bypass=(True, True
 
 
 def ds_score_plain(req, alloc2, used2) -> torch.Tensor:
-    """[M, N] int64 ``nodefit_score`` under ``DS_STATIC``."""
+    """[M, N] int64 ``nodefit_score_plain`` under ``DS_STATIC``."""
     M, N = req.shape[0], alloc2.shape[0]
     pods = NodeFitPodArrays(req=req, req_score=req,
                             has_any_request=torch.ones(M, dtype=torch.bool, device=req.device))
@@ -217,7 +217,7 @@ def ds_score_plain(req, alloc2, used2) -> torch.Tensor:
         allowed_pods=torch.full((N,), 1 << 30, dtype=torch.int64, device=req.device),
         alloc_score=alloc2, req_score=used2,
     )
-    return nodefit_score(pods, nodes, DS_STATIC)
+    return nodefit_score_plain(pods, nodes, DS_STATIC)
 
 
 def ds_score(req, alloc2, used2) -> torch.Tensor:

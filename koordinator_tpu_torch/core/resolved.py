@@ -98,14 +98,14 @@ from koordinator_tpu_torch.core.loadaware import (
     LoadAwareNodeArrays,
     LoadAwarePodArrays,
     loadaware_filter,
-    loadaware_score,
+    loadaware_score_plain,
 )
 from koordinator_tpu_torch.core.nodefit import (
     NodeFitNodeArrays,
     NodeFitPodArrays,
     NodeFitStatic,
     nodefit_filter,
-    nodefit_score,
+    nodefit_score_plain,
 )
 from koordinator_tpu_torch.core.reservation import (
     ReservationArrays,
@@ -229,8 +229,8 @@ def _touched_scores(q_la, la, la_w, q_nf, nf, nf_static, plugin_weights, la_feas
     adds the reservation restore and score, ``q_xsc_T`` [N, P] the extra
     scores."""
     la_cols, nf_cols = _rows(la, colsc), _rows(nf, colsc)
-    tot = loadaware_score(q_la, la_cols, la_w) * plugin_weights.loadaware
-    tot = tot + nodefit_score(q_nf, nf_cols, nf_static) * plugin_weights.nodefit
+    tot = loadaware_score_plain(q_la, la_cols, la_w) * plugin_weights.loadaware
+    tot = tot + nodefit_score_plain(q_nf, nf_cols, nf_static) * plugin_weights.nodefit
     extra = None
     if rsv is not None:
         extra, rs = _rsv_cols(*rsv, colsc)

@@ -203,6 +203,13 @@ QUOTA_LIMIT = Kernel("quota", "koord_quota", QUOTA.argtypes)
 RSV_RSCORE = Kernel("reservation", "koord_rsv_rscore", [_P] * 4 + [_I] * 3 + [_P, _I, _P])
 RSV_SCORE = Kernel("reservation", "koord_rsv_score", [_P] * 6 + [_I] * 4 + [_P, _I, _P])
 RSV_MAX = 4096  # KOORD_RSV_MAX in csrc/reservation.cu: reservations a score launch takes
+# the per-plugin scores of SCORE's breakdown and the LoadAware library
+# entry point (csrc/breakdown.cu): the pod and node pointer tables, the
+# configuration block, [the LoadAware weights,] P, N, the outputs
+LA_SCORE = Kernel("breakdown", "koord_la_score", [_P, _P, _P, _P, _I, _I, _P, _I, _P])
+NF_SCORE = Kernel("breakdown", "koord_nf_score", [_P, _P, _P, _I, _I, _P, _I, _P])
+LA_SCORE_FILTER = Kernel("breakdown", "koord_la_score_filter",
+                         [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
 KERNELS = {
     "score": SCORE, "schedule_keys": SCHEDULE_KEYS, "schedule_rounds": SCHEDULE_ROUNDS,
     "sched_refresh": SCHED_REFRESH, "sched_rounds": SCHED_ROUNDS,
@@ -214,6 +221,7 @@ KERNELS = {
     "ds_score": DS_SCORE, "dstate_extend": DSTATE_EXTEND, "scan": SCAN, "scan_con": SCAN_CON,
     "schedule_keys64": SCHEDULE_KEYS64, "schedule_rounds64": SCHEDULE_ROUNDS64,
     "schedule_keys64_con": SCHEDULE_KEYS64_CON, "schedule_rounds64_con": SCHEDULE_ROUNDS64_CON,
+    "la_score": LA_SCORE, "nf_score": NF_SCORE, "loadaware_score_and_filter": LA_SCORE_FILTER,
 }
 
 # the largest dynamic shared memory one block may take on Hopper
@@ -252,7 +260,8 @@ def cfg_array(R: int, Rf: int, Rs: int, nf_static) -> ctypes.Array:
     and their utilizations and (0..100-scaled) scores, each padded to
     ``MAX_SHAPE``.  It depends only on static config, so it is built once
     per configuration and never read back from the card.  The blocks are
-    read-only.  Raises ``ValueError`` on an unknown strategy or a shape the
+    read-only.  ``nf_static`` None (a LoadAware-only kernel) leaves the
+    NodeFit half zero.  Raises ``ValueError`` on an unknown strategy or a shape the
     reference would not build (RequestedToCapacityRatio needs 1 to 101
     points with strictly increasing utilizations in 0..100)."""
 
@@ -260,6 +269,8 @@ def cfg_array(R: int, Rf: int, Rs: int, nf_static) -> ctypes.Array:
         vals = [int(v) for v in vals]
         return vals + [0] * (width - len(vals))
 
+    if nf_static is None:  # a LoadAware-only kernel: the NodeFit half is zeros
+        return (ctypes.c_longlong * (3 + 3 * MAXR + 2 + 2 * MAX_SHAPE))(R, Rf, Rs)
     strategy = STRATEGY_IDS.get(nf_static.strategy)
     if strategy is None:
         raise ValueError(f"unknown NodeFit scoring strategy {nf_static.strategy!r}")
@@ -300,7 +311,9 @@ class PairArgs(NamedTuple):
 
 
 def _ptr_table(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    """A pointer table for a launch; a ``None`` entry (a half the kernel
+    does not read) is a null pointer."""
+    return (ctypes.c_void_p * len(tensors))(*(0 if t is None else t.data_ptr() for t in tensors))
 
 
 def _checked(t: torch.Tensor, dtype: torch.dtype, shape: tuple, device, what: str):
@@ -312,31 +325,30 @@ def _checked(t: torch.Tensor, dtype: torch.dtype, shape: tuple, device, what: st
     return t.contiguous()
 
 
-def pair_args(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
-              valid: torch.Tensor) -> PairArgs:
-    """Validate the inputs of the pair function (``csrc/pair.cuh``) on one
-    CUDA device and lay them out for a launch, reading nothing back from
-    the card.  Raises on what the kernels do not take: axes wider than
-    ``MAXR``, wrong dtypes or shapes, a bad NodeFit configuration.
-    The LoadAware weights must sum to > 0, as the reference requires
-    (the Engine checks it once, on the host)."""
-    dev = valid.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
-    P, R = la_pods.est.shape
-    N = valid.shape[0]
-    Rf, Rs = nf_pods.req.shape[1], nf_pods.req_score.shape[1]
-    if max(R, Rf, Rs) > MAXR:
-        raise ValueError(f"resource axes ({R}, {Rf}, {Rs}) exceed {MAXR}")
+# The pointer tables in csrc/pair.cuh's order (KOORD_NUM_POD_PTRS = 4 + 3,
+# KOORD_NUM_NODE_PTRS = 11 + 6): the LoadAware half, then the NodeFit half.
+_LA_POD_PTRS, _LA_NODE_PTRS = 4, 11
+_NF_POD_PTRS, _NF_NODE_PTRS = 3, 6
+
+
+def _cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {t.device}")
+    return t.device
+
+
+def _la_tables(la_pods, la_nodes, P: int, N: int, dev):
+    """The LoadAware halves of the pod and node pointer tables, checked
+    against P pods and N node columns on ``dev``."""
+    R = la_pods.est.shape[1]
+    if R > MAXR:
+        raise ValueError(f"resource axis {R} exceeds {MAXR}")
     i64, b = torch.int64, torch.bool
     pods = (
         _checked(la_pods.est, i64, (P, R), dev, "est"),
         _checked(la_pods.is_prod_score, b, (P,), dev, "is_prod_score"),
         _checked(la_pods.is_prod_class, b, (P,), dev, "is_prod_class"),
         _checked(la_pods.is_daemonset, b, (P,), dev, "is_daemonset"),
-        _checked(nf_pods.req, i64, (P, Rf), dev, "req"),
-        _checked(nf_pods.req_score, i64, (P, Rs), dev, "req_score"),
-        _checked(nf_pods.has_any_request, b, (P,), dev, "has_any_request"),
     )
     nodes = (
         _checked(la_nodes.alloc, i64, (N, R), dev, "la alloc"),
@@ -350,6 +362,23 @@ def pair_args(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
         _checked(la_nodes.prod_filter_active, b, (N,), dev, "prod_filter_active"),
         _checked(la_nodes.prod_thresholds, i64, (N, R), dev, "prod_thresholds"),
         _checked(la_nodes.has_prod_thresholds, b, (N,), dev, "has_prod_thresholds"),
+    )
+    return pods, nodes
+
+
+def _nf_tables(nf_pods, nf_nodes, P: int, N: int, dev):
+    """The NodeFit halves of the pod and node pointer tables, checked
+    against P pods and N node columns on ``dev``."""
+    Rf, Rs = nf_pods.req.shape[1], nf_pods.req_score.shape[1]
+    if max(Rf, Rs) > MAXR:
+        raise ValueError(f"resource axes ({Rf}, {Rs}) exceed {MAXR}")
+    i64, b = torch.int64, torch.bool
+    pods = (
+        _checked(nf_pods.req, i64, (P, Rf), dev, "req"),
+        _checked(nf_pods.req_score, i64, (P, Rs), dev, "req_score"),
+        _checked(nf_pods.has_any_request, b, (P,), dev, "has_any_request"),
+    )
+    nodes = (
         _checked(nf_nodes.alloc, i64, (N, Rf), dev, "nf alloc"),
         _checked(nf_nodes.requested, i64, (N, Rf), dev, "requested"),
         _checked(nf_nodes.num_pods, i64, (N,), dev, "num_pods"),
@@ -357,16 +386,67 @@ def pair_args(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
         _checked(nf_nodes.alloc_score, i64, (N, Rs), dev, "alloc_score"),
         _checked(nf_nodes.req_score, i64, (N, Rs), dev, "node req_score"),
     )
-    valid = _checked(valid, b, (N,), dev, "valid")
-    la_w = _checked(la_weights, i64, (R,), dev, "LoadAware weights")
+    return pods, nodes
 
-    cfg = cfg_array(R, Rf, Rs, nf_static)
+
+def _pair_args(pods, nodes, cfg, la_w=None, valid=None) -> PairArgs:
     pod_tab, node_tab = _ptr_table(pods), _ptr_table(nodes)
     return PairArgs(
         pods=ctypes.addressof(pod_tab),
         nodes=ctypes.addressof(node_tab),
         cfg=ctypes.addressof(cfg),
-        la_w=la_w.data_ptr(),
-        valid=valid.data_ptr(),
+        la_w=0 if la_w is None else la_w.data_ptr(),
+        valid=0 if valid is None else valid.data_ptr(),
         keep=(pods, nodes, la_w, valid, pod_tab, node_tab, cfg),
     )
+
+
+def pair_args(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
+              valid: torch.Tensor) -> PairArgs:
+    """Validate the inputs of the pair function (``csrc/pair.cuh``) on one
+    CUDA device and lay them out for a launch, reading nothing back from
+    the card.  Raises on what the kernels do not take: axes wider than
+    ``MAXR``, wrong dtypes or shapes, a bad NodeFit configuration.
+    The LoadAware weights must sum to > 0, as the reference requires
+    (the Engine checks it once, on the host)."""
+    dev = _cuda_device(valid)
+    P, R = la_pods.est.shape
+    N = valid.shape[0]
+    la_p, la_n = _la_tables(la_pods, la_nodes, P, N, dev)
+    nf_p, nf_n = _nf_tables(nf_pods, nf_nodes, P, N, dev)
+    cfg = cfg_array(R, nf_pods.req.shape[1], nf_pods.req_score.shape[1], nf_static)
+    return _pair_args(la_p + nf_p, la_n + nf_n, cfg,
+                      la_w=_checked(la_weights, torch.int64, (R,), dev, "LoadAware weights"),
+                      valid=_checked(valid, torch.bool, (N,), dev, "valid"))
+
+
+_GRID_Y_MAX = 65_535  # the pod axis rides the grid's y dimension
+
+
+def loadaware_args(la_pods, la_nodes, la_weights) -> PairArgs:
+    """Validate the LoadAware inputs on one CUDA device and lay them out
+    for the ``breakdown.cu`` kernels (``la_score``,
+    ``loadaware_score_and_filter``); the NodeFit entries of the pointer
+    tables are null.  The weights must sum to > 0, as the reference
+    requires (the caller's contract; the kernel divides by their sum)."""
+    dev = _cuda_device(la_pods.est)
+    P, R = la_pods.est.shape
+    if P > _GRID_Y_MAX:
+        raise ValueError(f"LoadAware: {P} pods exceed the launch's {_GRID_Y_MAX}")
+    pods, nodes = _la_tables(la_pods, la_nodes, P, la_nodes.alloc.shape[0], dev)
+    return _pair_args(pods + (None,) * _NF_POD_PTRS, nodes + (None,) * _NF_NODE_PTRS,
+                      cfg_array(R, 0, 0, None),
+                      la_w=_checked(la_weights, torch.int64, (R,), dev, "LoadAware weights"))
+
+
+def nodefit_args(nf_pods, nf_nodes, nf_static) -> PairArgs:
+    """Validate the NodeFit inputs on one CUDA device and lay them out for
+    the ``nf_score`` kernel (every strategy; the LoadAware entries of the
+    pointer tables are null).  Raises on a bad NodeFit configuration."""
+    dev = _cuda_device(nf_pods.req)
+    P = nf_pods.req.shape[0]
+    if P > _GRID_Y_MAX:
+        raise ValueError(f"NodeFit: {P} pods exceed the launch's {_GRID_Y_MAX}")
+    pods, nodes = _nf_tables(nf_pods, nf_nodes, P, nf_nodes.alloc.shape[0], dev)
+    cfg = cfg_array(0, nf_pods.req.shape[1], nf_pods.req_score.shape[1], nf_static)
+    return _pair_args((None,) * _LA_POD_PTRS + pods, (None,) * _LA_NODE_PTRS + nodes, cfg)

@@ -31,8 +31,12 @@ Devices: the engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, where the plain PyTorch versions run).  With no card and
 no device asked for, construction raises.  A failed transfer or launch on
 the card raises; nothing falls back to the host arrays.  What the port
-does not carry yet raises ``NotImplementedError`` naming its slice:
-``score_breakdown``/``explain``.
+does not carry yet raises ``NotImplementedError`` naming its slice.
+
+The debug paths are served too: ``score_breakdown`` (the per-plugin raw
+scores, the ``la_score`` and ``nf_score`` kernels over the snapshot's node
+arrays) and ``explain`` (the per-pod schedule decomposition of the host
+pipeline, ``golden.host_fallback``, over the live store).
 """
 
 from __future__ import annotations
@@ -70,7 +74,13 @@ from koordinator_tpu_torch.core.deviceshare import (
     parse_gpu_request,
 )
 from koordinator_tpu_torch.core.gang import GangPodArrays, queue_sort_perm
-from koordinator_tpu_torch.core.nodefit import NodeFitNodeArrays, NodeFitPodArrays, nodefit_score
+from koordinator_tpu_torch.core.loadaware import loadaware_score
+from koordinator_tpu_torch.core.nodefit import (
+    NodeFitNodeArrays,
+    NodeFitPodArrays,
+    nodefit_score,
+    nodefit_score_plain,
+)
 from koordinator_tpu_torch.core.numa import FULL_PCPUS, amplified_cpu_score, take_cpus
 from koordinator_tpu_torch.core.resolved import (
     _submission_order,
@@ -84,7 +94,6 @@ from koordinator_tpu_torch.core.resolved import (
 from koordinator_tpu_torch.service import transformers as tf
 from koordinator_tpu_torch.service.descheduler import tolerates
 from koordinator_tpu_torch.service.state import ClusterState, cpu_allocs_from, next_bucket
-from koordinator_tpu_torch.slices import EXPLAIN, later
 from koordinator_tpu_torch.snapshot import loadaware as la_snap
 from koordinator_tpu_torch.snapshot import nodefit as nf_snap
 from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
@@ -713,13 +722,43 @@ class Engine:
         return totals[:P].cpu().numpy(), feasible[:P].cpu().numpy(), snap
 
     def score_breakdown(self, pods: List[Pod], now: Optional[float] = None):
-        """The per-plugin query API: not ported yet (its ``la_score`` and
-        ``nf_score`` kernels come with the explain slice)."""
-        raise later("score_breakdown (the la_score and nf_score kernels)", EXPLAIN)
+        """The per-plugin query API (frameworkext/services): ``({plugin:
+        [P, cap] int64}, snapshot)``.  'loadaware' and 'nodefit' are RAW
+        (un-weighted) plugin scores from the ``la_score`` and ``nf_score``
+        kernels; 'extra', present only when NUMA/deviceshare inputs exist,
+        is the pre-weighted channel exactly as the total adds it.  A debug
+        path, as in the JAX package: it runs no transformer, recomputes the
+        batch from the snapshot's node arrays and reads no resident table."""
+        check_pods_axis(self.state, pods)
+        now = time.time() if now is None else now
+        snap = self.state.publish(now)
+        p_bucket = next_bucket(max(len(pods), 1), self._pod_bucket_min)
+        la_pods, nf_pods = self._pod_arrays(pods, p_bucket)
+        P = len(pods)
+        la = loadaware_score(la_pods, convert.la_nodes(snap.la_nodes, self.device), self._weights)
+        nf = nodefit_score(nf_pods, convert.nf_nodes(snap.nf_nodes, self.device), self._nf_static)
+        out = {"loadaware": la[:P].cpu().numpy(), "nodefit": nf[:P].cpu().numpy()}
+        x_scores, _, _ = self._numa_device_inputs(pods, p_bucket, snap.valid.shape[0])
+        if x_scores is not None:
+            out["extra"] = x_scores[:P].cpu().numpy()
+        return out, snap
 
-    def explain(self, pods: List[Pod], now: Optional[float] = None):
-        """The EXPLAIN verb: not ported yet."""
-        raise later("explain (the per-pod schedule decomposition)", EXPLAIN)
+    def explain(self, pods: List[Pod], now: Optional[float] = None) -> List[dict]:
+        """The EXPLAIN verb's computation: per pod, the chosen node and total
+        (equal to a SCHEDULE reply over the same state), the raw per-plugin
+        components at selection time, the per-stage verdicts and a reason
+        code for every infeasible node.  Runs the host pipeline
+        (``golden.host_fallback.fallback_schedule_full``) over the live
+        store, read-only, with this engine's transformer chain."""
+        from koordinator_tpu_torch.golden.host_fallback import fallback_schedule_full
+
+        for stage in (tf.BEFORE_PRE_FILTER, tf.BEFORE_FILTER, tf.BEFORE_SCORE):
+            pods = self.transformers.run(stage, pods, self.state)
+        now = time.time() if now is None else now
+        sink: List[dict] = []
+        fallback_schedule_full(self.state, pods, now, assume=False, explain=sink,
+                               run_transformers=False)
+        return sink
 
     # --------------------------------------------------- constraint inputs
 
@@ -1037,11 +1076,13 @@ class Engine:
         precommit = out[2 * P:3 * P].astype(np.int32)
         self.last_rounds, self.last_ub_rounds = int(out[3 * P]), int(out[3 * P + 1])
         rscore = None if d.rscore_dev is None else d.rscore_dev.cpu().numpy()
-        allocations = self._allocation_records(pods, hosts, precommit, cin, rscore, snap, d.now,
-                                               d.assume, d.admitted)
+        self.last_demotions = {"anti_affinity": 0, "devices": 0}
+        allocations = _allocation_records(self.state, pods, hosts, precommit, cin, rscore,
+                                          snap.names, d.now, d.assume, d.admitted,
+                                          self.last_demotions)
         scores = np.where(hosts >= 0, scores, 0)
         if d.assume and cin.gang_names:
-            self._mark_satisfied_gangs(pods, hosts, cin)
+            _mark_satisfied_gangs(self.state, pods, hosts, cin)
         if d.n_reserve:
             # bind the reservations whose reserve pods landed; a failed
             # reserve pod marks its reservation unschedulable
@@ -1060,150 +1101,6 @@ class Engine:
             allocations = allocations[d.n_reserve:]
         return hosts, scores, snap, allocations
 
-    def _allocation_records(self, pods, hosts, precommit, cin: _Constraints, rscore, snap, now,
-                            assume, admitted=None):
-        """Per-pod PreBind records (the JAX engine's ``_allocation_records``),
-        in queue order; ``hosts`` is demoted in place.
-
-        Phase A, a dry run against copies of the device state: the
-        reservation nomination (nominator.go:134-190) against live
-        remainders over the PRE-commit placements, so that gang-revoked
-        pods still deplete what later pods saw; in-batch required
-        anti-affinity both ways against the pods placed earlier in the
-        queue; GPU/RDMA/cpuset grants within the Filter-time admitted NUMA
-        set.  A pod whose feasibility an earlier pod consumed is demoted to
-        unplaced.  Phase B: a demoted member of a strict, not once-satisfied
-        gang takes its whole gang group down.  Phase C: the survivors'
-        records and, with ``assume``, their store effects."""
-        st = self.state
-        P = len(pods)
-        axis = st.axis
-        needs_dev = any(parse_gpu_request(p.requests) is not None
-                        or int(p.requests.get(RDMA, 0)) > 0 or p.wants_cpuset() for p in pods)
-        dev_state = ({"gpus": copy.deepcopy(st._gpus), "rdma": copy.deepcopy(st._rdma),
-                      "cpus": copy.deepcopy(st._cpus_taken)}
-                     if needs_dev else {"gpus": {}, "rdma": {}, "cpus": {}})
-        remains = None
-        if cin.rsv_np is not None:
-            rsv_arr, matched = cin.rsv_np
-            remains = np.asarray(rsv_arr.allocatable) - np.asarray(rsv_arr.allocated)
-            rsv_nodes, rsv_order = np.asarray(rsv_arr.node), np.asarray(rsv_arr.order)
-        gang_pods, gangs = cin.gang_np
-        gang_rows = np.asarray(gang_pods.gang)
-        gang_group = np.asarray(gangs.group)
-
-        plan: Dict[int, dict] = {}
-        demoted: List[int] = []
-        self.last_demotions = {"anti_affinity": 0, "devices": 0}
-        aa_active = any(p.anti_affinity for p in pods[:P])
-        batch_by_node: Dict[str, List] = {}
-        for idx in cin.order:
-            if idx >= P or precommit[idx] < 0:
-                continue
-            pod, host = pods[idx], int(precommit[idx])
-            node_name = snap.names[host]
-            entry: dict = {"node": node_name, "nom": None, "consume": None}
-            if aa_active and hosts[idx] >= 0:
-                for q in batch_by_node.get(node_name, ()):
-                    if (pod.anti_affinity and all(q.labels.get(k) == v
-                                                  for k, v in pod.anti_affinity.items())) or (
-                            q.anti_affinity and all(pod.labels.get(k) == v
-                                                    for k, v in q.anti_affinity.items())):
-                        hosts[idx] = -1
-                        demoted.append(idx)
-                        self.last_demotions["anti_affinity"] += 1
-                        break
-            if remains is not None:
-                cand = np.flatnonzero(matched[idx] & (rsv_nodes == host))
-                if cand.size:
-                    ordered = cand[rsv_order[cand] > 0]
-                    if ordered.size:
-                        nom = int(ordered[np.lexsort((ordered, rsv_order[ordered]))[0]])
-                    else:
-                        nom = int(cand[np.argmax(rscore[idx, cand])])
-                    pod_req = np.array([pod.requests.get(r, 0) for r in axis], dtype=np.int64)
-                    consume = np.maximum(np.minimum(pod_req, remains[nom]), 0)
-                    remains[nom] -= consume
-                    entry["nom"], entry["consume"] = nom, consume
-            greq = parse_gpu_request(pod.requests)
-            rdma_req = int(pod.requests.get(RDMA, 0))
-            wants_cs = pod.wants_cpuset()
-            if (greq is not None or rdma_req > 0 or wants_cs) and hosts[idx] >= 0:
-                grants = _grant(st, dev_state, pod, node_name, greq, rdma_req, wants_cs,
-                                (admitted or {}).get((idx, node_name)))
-                if grants is None:
-                    # the batch-start feasibility was consumed by an earlier
-                    # pod: Reserve fails, the pod waits for the next cycle
-                    hosts[idx] = -1
-                    demoted.append(idx)
-                    self.last_demotions["devices"] += 1
-                else:
-                    entry["grants"] = grants
-            if aa_active and hosts[idx] >= 0:
-                batch_by_node.setdefault(node_name, []).append(pod)
-            plan[idx] = entry
-
-        # phase B: the gang-group rollback a demotion triggers
-        # (coscheduling Unreserve, core/core.go:356-360)
-        gang_nonstrict = (np.asarray(gangs.non_strict) if gangs.non_strict is not None
-                          else np.zeros(gang_group.shape[0], dtype=bool))
-        gang_once = np.asarray(gangs.once_satisfied)
-        bad_groups = {gang_group[gang_rows[i]] for i in demoted
-                      if gang_rows[i] > 0 and not gang_nonstrict[gang_rows[i]]
-                      and not gang_once[gang_rows[i]]}
-        if bad_groups:
-            for i in range(P):
-                if gang_rows[i] > 0 and gang_group[gang_rows[i]] in bad_groups:
-                    hosts[i] = -1
-
-        # phase C: the survivors' records and store effects
-        allocations: List[Optional[dict]] = [None] * P
-        for idx in cin.order:
-            if idx >= P or hosts[idx] < 0 or idx not in plan:
-                continue
-            pod, entry = pods[idx], plan[idx]
-            node_name = entry["node"]
-            rec = {"node": node_name, "reservation": None, "consumed": {}}
-            if entry["nom"] is not None:
-                rec["reservation"] = cin.rsv_names[entry["nom"]]
-                rec["consumed"] = {r: int(v) for r, v in zip(axis, entry["consume"]) if v}
-                if assume:
-                    st.reservations.note_consume(pod.key, rec["reservation"], rec["consumed"])
-            grants = entry.get("grants")
-            if grants is not None:
-                if grants[0] or grants[1]:
-                    rec["devices"] = {"gpu": grants[0], "rdma": grants[1]}
-                if grants[2]:
-                    rec["cpuset"] = grants[2]
-            if assume:
-                # assign first: a moved pod releases its stale device record
-                # before the new grant is noted
-                st.assign_pod(node_name, AssignedPod(pod=pod, assign_time=now))
-                if grants is not None:
-                    st.note_device_alloc(pod.key, node_name, grants[0], grants[1], grants[2],
-                                         cpu_excl=pod.cpu_exclusive_policy or "")
-            allocations[idx] = rec
-        return allocations
-
-    def _mark_satisfied_gangs(self, pods, hosts, cin: _Constraints) -> None:
-        """setResourceSatisfied for every gang of a group that passed the
-        batch Permit (its pods survived commit_gangs)."""
-        gang_pods, gangs = cin.gang_np
-        G = 1 + len(cin.gang_names)
-        placed = np.zeros(G, dtype=np.int64)
-        rows = np.asarray(gang_pods.gang)[: len(pods)]
-        for i in range(len(pods)):
-            if hosts[i] >= 0 and rows[i] > 0:
-                placed[rows[i]] += 1
-        sat = (placed + np.asarray(gangs.bound_count) >= np.asarray(gangs.min_member)) | \
-            np.asarray(gangs.once_satisfied)
-        grp = np.asarray(gangs.group)
-        ok: Dict[int, bool] = {}
-        for gi in range(1, G):
-            ok[grp[gi]] = ok.get(grp[gi], True) and bool(sat[gi])
-        names = [cin.gang_names[gi - 1] for gi in range(1, G) if ok[grp[gi]]]
-        self.state.gangs.mark_satisfied(names)
-
     def quota_refresh(self, groups, resources: List[str], cluster_total: Dict[str, int]):
         """Whole-tree runtime refresh (RefreshRuntime) on the ``quota``
         kernel: (QuotaSnapshot, runtime [Q, R] numpy)."""
@@ -1212,6 +1109,155 @@ class Engine:
         runtime = quota_mod.quota_fn(self._tensors(quota_mod.QuotaArrays(*qs.arrays())),
                                      qs.level_tuple(), convert.tensor(total, self.device))
         return qs, runtime.cpu().numpy()
+
+
+# ------------------------------------------------------- PreBind replay
+
+
+def _allocation_records(state, pods, hosts, precommit, cin: _Constraints, rscore, names, now,
+                        assume, admitted, demotions: Dict[str, int]) -> List[Optional[dict]]:
+    """Per-pod PreBind records (the JAX engine's ``_allocation_records``)
+    over ``state`` and its column ``names``, in queue order; ``hosts`` is
+    demoted in place and each demotion counted in ``demotions``.
+
+    Phase A, a dry run against copies of the device state: the
+    reservation nomination (nominator.go:134-190) against live
+    remainders over the PRE-commit placements, so that gang-revoked
+    pods still deplete what later pods saw; in-batch required
+    anti-affinity both ways against the pods placed earlier in the
+    queue; GPU/RDMA/cpuset grants within the Filter-time admitted NUMA
+    set.  A pod whose feasibility an earlier pod consumed is demoted to
+    unplaced.  Phase B: a demoted member of a strict, not once-satisfied
+    gang takes its whole gang group down.  Phase C: the survivors'
+    records and, with ``assume``, their store effects."""
+    st = state
+    P = len(pods)
+    axis = st.axis
+    needs_dev = any(parse_gpu_request(p.requests) is not None
+                    or int(p.requests.get(RDMA, 0)) > 0 or p.wants_cpuset() for p in pods)
+    dev_state = ({"gpus": copy.deepcopy(st._gpus), "rdma": copy.deepcopy(st._rdma),
+                  "cpus": copy.deepcopy(st._cpus_taken)}
+                 if needs_dev else {"gpus": {}, "rdma": {}, "cpus": {}})
+    remains = None
+    if cin.rsv_np is not None:
+        rsv_arr, matched = cin.rsv_np
+        remains = np.asarray(rsv_arr.allocatable) - np.asarray(rsv_arr.allocated)
+        rsv_nodes, rsv_order = np.asarray(rsv_arr.node), np.asarray(rsv_arr.order)
+    gang_pods, gangs = cin.gang_np
+    gang_rows = np.asarray(gang_pods.gang)
+    gang_group = np.asarray(gangs.group)
+
+    plan: Dict[int, dict] = {}
+    demoted: List[int] = []
+    aa_active = any(p.anti_affinity for p in pods[:P])
+    batch_by_node: Dict[str, List] = {}
+    for idx in cin.order:
+        if idx >= P or precommit[idx] < 0:
+            continue
+        pod, host = pods[idx], int(precommit[idx])
+        node_name = names[host]
+        entry: dict = {"node": node_name, "nom": None, "consume": None}
+        if aa_active and hosts[idx] >= 0:
+            for q in batch_by_node.get(node_name, ()):
+                if (pod.anti_affinity and all(q.labels.get(k) == v
+                                              for k, v in pod.anti_affinity.items())) or (
+                        q.anti_affinity and all(pod.labels.get(k) == v
+                                                for k, v in q.anti_affinity.items())):
+                    hosts[idx] = -1
+                    demoted.append(idx)
+                    demotions["anti_affinity"] += 1
+                    break
+        if remains is not None:
+            cand = np.flatnonzero(matched[idx] & (rsv_nodes == host))
+            if cand.size:
+                ordered = cand[rsv_order[cand] > 0]
+                if ordered.size:
+                    nom = int(ordered[np.lexsort((ordered, rsv_order[ordered]))[0]])
+                else:
+                    nom = int(cand[np.argmax(rscore[idx, cand])])
+                pod_req = np.array([pod.requests.get(r, 0) for r in axis], dtype=np.int64)
+                consume = np.maximum(np.minimum(pod_req, remains[nom]), 0)
+                remains[nom] -= consume
+                entry["nom"], entry["consume"] = nom, consume
+        greq = parse_gpu_request(pod.requests)
+        rdma_req = int(pod.requests.get(RDMA, 0))
+        wants_cs = pod.wants_cpuset()
+        if (greq is not None or rdma_req > 0 or wants_cs) and hosts[idx] >= 0:
+            grants = _grant(st, dev_state, pod, node_name, greq, rdma_req, wants_cs,
+                            (admitted or {}).get((idx, node_name)))
+            if grants is None:
+                # the batch-start feasibility was consumed by an earlier
+                # pod: Reserve fails, the pod waits for the next cycle
+                hosts[idx] = -1
+                demoted.append(idx)
+                demotions["devices"] += 1
+            else:
+                entry["grants"] = grants
+        if aa_active and hosts[idx] >= 0:
+            batch_by_node.setdefault(node_name, []).append(pod)
+        plan[idx] = entry
+
+    # phase B: the gang-group rollback a demotion triggers
+    # (coscheduling Unreserve, core/core.go:356-360)
+    gang_nonstrict = (np.asarray(gangs.non_strict) if gangs.non_strict is not None
+                      else np.zeros(gang_group.shape[0], dtype=bool))
+    gang_once = np.asarray(gangs.once_satisfied)
+    bad_groups = {gang_group[gang_rows[i]] for i in demoted
+                  if gang_rows[i] > 0 and not gang_nonstrict[gang_rows[i]]
+                  and not gang_once[gang_rows[i]]}
+    if bad_groups:
+        for i in range(P):
+            if gang_rows[i] > 0 and gang_group[gang_rows[i]] in bad_groups:
+                hosts[i] = -1
+
+    # phase C: the survivors' records and store effects
+    allocations: List[Optional[dict]] = [None] * P
+    for idx in cin.order:
+        if idx >= P or hosts[idx] < 0 or idx not in plan:
+            continue
+        pod, entry = pods[idx], plan[idx]
+        node_name = entry["node"]
+        rec = {"node": node_name, "reservation": None, "consumed": {}}
+        if entry["nom"] is not None:
+            rec["reservation"] = cin.rsv_names[entry["nom"]]
+            rec["consumed"] = {r: int(v) for r, v in zip(axis, entry["consume"]) if v}
+            if assume:
+                st.reservations.note_consume(pod.key, rec["reservation"], rec["consumed"])
+        grants = entry.get("grants")
+        if grants is not None:
+            if grants[0] or grants[1]:
+                rec["devices"] = {"gpu": grants[0], "rdma": grants[1]}
+            if grants[2]:
+                rec["cpuset"] = grants[2]
+        if assume:
+            # assign first: a moved pod releases its stale device record
+            # before the new grant is noted
+            st.assign_pod(node_name, AssignedPod(pod=pod, assign_time=now))
+            if grants is not None:
+                st.note_device_alloc(pod.key, node_name, grants[0], grants[1], grants[2],
+                                     cpu_excl=pod.cpu_exclusive_policy or "")
+        allocations[idx] = rec
+    return allocations
+
+def _mark_satisfied_gangs(state, pods, hosts, cin: _Constraints) -> None:
+    """setResourceSatisfied for every gang of a group that passed the
+    batch Permit (its pods survived commit_gangs)."""
+    gang_pods, gangs = cin.gang_np
+    G = 1 + len(cin.gang_names)
+    placed = np.zeros(G, dtype=np.int64)
+    rows = np.asarray(gang_pods.gang)[: len(pods)]
+    for i in range(len(pods)):
+        if hosts[i] >= 0 and rows[i] > 0:
+            placed[rows[i]] += 1
+    sat = (placed + np.asarray(gangs.bound_count) >= np.asarray(gangs.min_member)) | \
+        np.asarray(gangs.once_satisfied)
+    grp = np.asarray(gangs.group)
+    ok: Dict[int, bool] = {}
+    for gi in range(1, G):
+        ok[grp[gi]] = ok.get(grp[gi], True) and bool(sat[gi])
+    names = [cin.gang_names[gi - 1] for gi in range(1, G) if ok[grp[gi]]]
+    state.gangs.mark_satisfied(names)
+
 
 
 # ------------------------------------------------ host-side device helpers
@@ -1302,7 +1348,7 @@ def _amplified_delta(nf_static, nf_pods, rows, allocated, ratios, cpu_dim) -> np
     pods, nodes = t(NodeFitPodArrays(*nf_pods)), t(rows)
     amped = amplified_cpu_score(pods, nodes, nf_static, cpu_dim, torch.from_numpy(allocated),
                                 torch.from_numpy(ratios))
-    return (amped - nodefit_score(pods, nodes, nf_static)).numpy()
+    return (amped - nodefit_score_plain(pods, nodes, nf_static)).numpy()
 
 
 def _apply_amplified_scores(state, nf_static, pods, scores: np.ndarray, amped) -> None:
@@ -1324,6 +1370,38 @@ def _apply_amplified_scores(state, nf_static, pods, scores: np.ndarray, amped) -
 # The JAX package's pre-tensorization host loops, kept as the oracles the
 # tests hold the engine's placement and device inputs against.  Nothing on
 # the serving path calls them.
+
+
+def _host_constraints(gang_in, rsv_in, rsv_names) -> _Constraints:
+    """The host half of ``_Constraints`` from numpy ``GangInputs`` and
+    ``ReservationInputs``: the queue order (QueueSort Less, the JAX
+    engine's lexsort) and the arrays the replay reads."""
+    g = gang_in.pods
+    order = np.lexsort((np.arange(len(np.asarray(g.gang))), np.asarray(g.gang),
+                        np.asarray(g.timestamp), -np.asarray(g.sub_priority),
+                        -np.asarray(g.priority)))
+    rsv_np = None if rsv_in is None else (rsv_in.rsv, np.asarray(rsv_in.matched))
+    return _Constraints(order=order, gang_np=(gang_in.pods, gang_in.gangs), gang_names=[],
+                        gang=gang_in, quota=None, rsv_np=rsv_np, rsv_names=list(rsv_names),
+                        rsv=None, rsv_midx=None, rsv_rank=None)
+
+
+def allocation_records_host(state, pods, hosts, precommit, gang_in, rsv_in, rsv_names, names,
+                            now, assume, admitted=None):
+    """The PreBind replay over an arbitrary store and name table (the JAX
+    package's free function of the same name), shared with the host
+    pipeline, so its records equal the engine's by construction.
+    ``gang_in``/``rsv_in`` hold numpy arrays."""
+    rscore = None if rsv_in is None else np.asarray(rsv_in.rscore)
+    return _allocation_records(state, pods, hosts, precommit,
+                               _host_constraints(gang_in, rsv_in, rsv_names), rscore, names,
+                               now, assume, admitted, {"anti_affinity": 0, "devices": 0})
+
+
+def mark_satisfied_gangs_host(state, pods, hosts, gang_in, gang_names) -> None:
+    """The gang satisfaction of a committed batch over an arbitrary store."""
+    cin = _host_constraints(gang_in, None, [])._replace(gang_names=list(gang_names))
+    _mark_satisfied_gangs(state, pods, hosts, cin)
 
 
 def placement_mask_host(state, pods, p_bucket: int, cap: int):

@@ -1280,6 +1280,17 @@ class ClusterState:
         return self._cap
 
     @property
+    def num_live(self) -> int:
+        return len(self._imap)
+
+    @property
+    def dirty_count(self) -> int:
+        """Distinct node rows mutated since the last published snapshot:
+        the APPLY reply's ``dirty`` field.  Only ``publish`` clears the
+        dirty set here, so its size is the JAX store's ``_dirty_pub``."""
+        return len(self._dirty)
+
+    @property
     def policy_epoch(self) -> int:
         """Bumps whenever a node's taints, labels, or assigned-pod
         anti-affinity/label-signature row actually changes."""

@@ -230,12 +230,13 @@ def test_out_of_slice_pods_raise(field, value):
 
 
 def test_out_of_slice_store_and_modes_raise():
-    """What the port still refuses, naming the slice: ``score_breakdown``/
-    ``explain`` (the explain slice).  Device scores under MostAllocated are
-    served (the scan's extra-score branch): SCORE and SCHEDULE equal the
-    JAX engine's.  The store ops of the placement-and-devices slice are
-    served: taints, topologies, device inventories, anti-affinity holders
-    and device grants, and a cpuset pod, with ``assume`` too."""
+    """The store and modes of the earlier slices' refusals are all served
+    now.  ``score_breakdown``/``explain`` (the explain slice) equal the JAX
+    engine's.  Device scores under MostAllocated are served (the scan's
+    extra-score branch): SCORE and SCHEDULE equal the JAX engine's.  The
+    store ops of the placement-and-devices slice are served: taints,
+    topologies, device inventories, anti-affinity holders and device
+    grants, and a cpuset pod, with ``assume`` too."""
     from koordinator_tpu.core.config import NodeFitArgs as JArgs, ScoringStrategyType as JT
     from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
     from torch_parity import pkg
@@ -262,9 +263,12 @@ def test_out_of_slice_store_and_modes_raise():
     assert_same(ts, js)
     assert ta == ja and th[0] >= 0 and most._dev_alloc == jmost._dev_alloc
     eng = Engine(st, device="cpu")
-    for call in (eng.score_breakdown, eng.explain):
-        with pytest.raises(NotImplementedError, match="explain slice"):
-            call([gpu], now=NOW)
+    t_parts, j_parts = eng_most.score_breakdown([gpu], now=NOW)[0], jeng_most.score_breakdown(
+        [jgpu], now=NOW)[0]
+    assert sorted(t_parts) == sorted(j_parts) == ["extra", "loadaware", "nodefit"]
+    for k in j_parts:
+        assert_same(t_parts[k], j_parts[k])
+    assert eng_most.explain([gpu], now=NOW) == jeng_most.explain([jgpu], now=NOW)
     st.upsert_node(tm.Node(name="t", allocatable={jm.CPU: 64000, jm.MEMORY: 64 << 30},
                            taints=[{"key": "k", "effect": "NoSchedule"}]))
     st.set_topology("node-0", t_pkg.NodeTopologyInfo(topo=t_pkg.CPUTopology(

@@ -474,3 +474,62 @@ def test_strategy_phase_runs_on_cpu():
     launches, records = chip_smoke.drive_strategy_path(torch.device("cpu"), 600, 300, SCALARS)
     assert len(records) == len(chip_smoke.MOST_CYCLES) + len(chip_smoke.RTC_CYCLES)
     assert all(r["placed"] for r in records) and not any(launches.values())
+
+
+BREAKDOWN = ("la_score", "nf_score", "loadaware_score_and_filter")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_nodes,num_pods", [(500, 64), (1000, 200)])
+def test_breakdown_kernels_equal_plain(card, num_nodes, num_pods):
+    """``la_score``, ``nf_score`` (LeastAllocated, MostAllocated, RTC at both
+    shapes) and ``loadaware_score_and_filter`` against their plain
+    versions, exactly."""
+    before = {k: cuda.KERNELS[k].launches for k in BREAKDOWN}
+    chip_smoke.check_breakdown_kernels(_inputs(card, num_nodes, num_pods), timed=False)
+    assert all(cuda.KERNELS[k].launches > before[k] for k in BREAKDOWN)
+
+
+@pytest.mark.cuda
+def test_breakdown_kernels_ragged(card):
+    """A node axis that is not a multiple of the block width and a pod axis
+    that is not a power of two."""
+    chip_smoke.check_breakdown_kernels(chip_smoke.ragged(_inputs(card, 300, 50), 300 - 33, 45),
+                                       timed=False)
+
+
+def test_breakdown_checks_run_on_cpu_tensors():
+    """The explain slice's checks on CPU tensors, where every wrapper takes
+    its plain version: the comparison logic itself, and no launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    chip_smoke.check_breakdown_kernels(_inputs(torch.device("cpu"), 500, 64), timed=False)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_breakdown_wrappers_refuse_before_launch():
+    """The argument builders take CUDA tensors only and check axes, dtypes
+    and shapes before any launch."""
+    x = _inputs(torch.device("cpu"), 40, 10)
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.loadaware_args(x["la_pods"], x["la_nodes"], x["weights"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.nodefit_args(x["nf_pods"], x["nf_nodes"], x["static"])
+    meta = torch.device("meta")
+    la_pods = type(x["la_pods"])(*(a.to(meta) for a in x["la_pods"]))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.loadaware_args(la_pods, x["la_nodes"], x["weights"])
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_library_and_sidecar_phases_run_on_cpu():
+    """``chip_smoke``'s library call and sidecar phase at a small fleet on
+    the CPU (the "card's" sidecar on the CPU too): every reply of the two
+    sidecars byte-identical, EXPLAIN equal to the probe SCHEDULE, and
+    nothing launches (the launch plan is the card's alone)."""
+    launches, wall = chip_smoke.drive_library_path(torch.device("cpu"), 300, 40)
+    assert not any(launches.values())
+    launches, verbs = chip_smoke.drive_sidecar_path(torch.device("cpu"), 300, 64, SCALARS)
+    assert not any(launches.values())
+    assert [v["verb"] for v in verbs][-1] == "METRICS (refused)"
+    assert next(v for v in verbs if v["verb"] == "ECHO")["bytes"] > 1024 * 16384 * 2

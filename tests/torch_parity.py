@@ -118,19 +118,27 @@ def pkg(which: str):
 
     if which == "jax":
         import koordinator_tpu.api.model as m
+        import koordinator_tpu.api.quota as q
         import koordinator_tpu.core.config as cfg
         import koordinator_tpu.core.deviceshare as ds
         import koordinator_tpu.core.numa as nm
+        import koordinator_tpu.service.client as cl
         import koordinator_tpu.service.constraints as c
         import koordinator_tpu.service.engine as e
+        import koordinator_tpu.service.protocol as pr
+        import koordinator_tpu.service.server as sv
         import koordinator_tpu.service.state as s
     else:
         import koordinator_tpu_torch.api.model as m
+        import koordinator_tpu_torch.api.quota as q
         import koordinator_tpu_torch.core.config as cfg
         import koordinator_tpu_torch.core.deviceshare as ds
         import koordinator_tpu_torch.core.numa as nm
+        import koordinator_tpu_torch.service.client as cl
         import koordinator_tpu_torch.service.constraints as c
         import koordinator_tpu_torch.service.engine as e
+        import koordinator_tpu_torch.service.protocol as pr
+        import koordinator_tpu_torch.service.server as sv
         import koordinator_tpu_torch.service.state as s
     return types.SimpleNamespace(
         which=which, Node=m.Node, Pod=m.Pod, AssignedPod=m.AssignedPod, NodeMetric=m.NodeMetric,
@@ -138,7 +146,16 @@ def pkg(which: str):
         NodeTopologyInfo=s.NodeTopologyInfo, ClusterState=s.ClusterState, Engine=e.Engine,
         GangInfo=c.GangInfo, ReservationInfo=c.ReservationInfo, engine_mod=e, state_mod=s,
         NodeFitArgs=cfg.NodeFitArgs, ScoringStrategyType=cfg.ScoringStrategyType,
+        QuotaGroup=q.QuotaGroup, Client=cl.Client, proto=pr, SidecarServer=sv.SidecarServer,
     )
+
+
+def sidecar(k, **kw):
+    """A sidecar of one package: the JAX package's, or the port's on the
+    CPU."""
+    if k.which == "torch":
+        kw.setdefault("device", "cpu")
+    return k.SidecarServer(**kw)
 
 
 def engine_of(k, st):
@@ -205,4 +222,63 @@ def policy_batch(k):
               labels={"team": "t0"}, anti_affinity={"team": "t1"},
               tolerations=[{"key": "dedicated", "operator": "Exists", "effect": "NoSchedule"}]),
         k.Pod(name="b-plain", requests={"cpu": 1000, "memory": GB}),
+    ]
+
+
+EXPLAIN_NOW = 5_000_000.0
+
+
+def explain_feed(k, cli):
+    """tests/test_explain.py's ``_feed`` with package ``k``'s types: dense,
+    gang, reservation, quota and device/selector stores, and one assumed
+    cycle, sent through ``cli``."""
+    nodes = [k.Node(name=f"e-n{i}", allocatable={"cpu": 16000, "memory": 64 * GB, "pods": 64},
+                    labels={"zone": f"z{i % 2}"}) for i in range(8)]
+    cli.apply(upserts=[k.proto.spec_only(n) for n in nodes])
+    cli.apply(metrics={n.name: k.NodeMetric(
+        node_usage={"cpu": 300 + 797 * min(i, 6), "memory": (1 + 3 * min(i, 6)) * GB},
+        update_time=EXPLAIN_NOW, report_interval=60.0) for i, n in enumerate(nodes)})
+    C = k.Client
+    cli.apply_ops([
+        C.op_quota_total({"cpu": 200000, "memory": 800 * GB}),
+        C.op_quota(k.QuotaGroup(name="eq-root", parent="koordinator-root-quota", is_parent=True,
+                                min={"cpu": 30000, "memory": 100 * GB},
+                                max={"cpu": 100000, "memory": 400 * GB})),
+        C.op_quota(k.QuotaGroup(name="eq", parent="eq-root", min={"cpu": 8000, "memory": 32 * GB},
+                                max={"cpu": 9000, "memory": 400 * GB})),
+        C.op_gang(k.GangInfo(name="eg", min_member=2, total_children=2)),
+        C.op_gang(k.GangInfo(name="eg-big", min_member=5, total_children=5)),
+        C.op_gang(k.GangInfo(name="eg-few", min_member=4, total_children=2)),
+        C.op_reservation(k.ReservationInfo(name="er-bound", node="e-n1",
+                                           allocatable={"cpu": 4000, "memory": 8 * GB})),
+        C.op_devices("e-n1", [k.GPUDevice(minor=m, numa_node=m // 2) for m in range(4)],
+                     rdma=[k.RDMADevice(minor=0, vfs_free=2)]),
+        C.op_devices("e-n2", [k.GPUDevice(minor=0)]),
+        C.op_topology("e-n3", k.NodeTopologyInfo(topo=k.CPUTopology(
+            sockets=1, nodes_per_socket=2, cores_per_node=4, cpus_per_core=2))),
+    ])
+    gpu = "koordinator.sh/gpu-core"
+    cli.schedule_full([
+        k.Pod(name="g-0", requests={"cpu": 1000, "memory": 2 * GB}, gang="eg"),
+        k.Pod(name="g-1", requests={"cpu": 1000, "memory": 2 * GB}, gang="eg"),
+        k.Pod(name="q-0", requests={"cpu": 2000, "memory": 4 * GB}, quota="eq"),
+        k.Pod(name="d-warm", requests={"cpu": 500, "memory": GB, gpu: 100}),
+    ], now=EXPLAIN_NOW + 1, assume=True)
+
+
+def explain_probe_pods(k):
+    """tests/test_explain.py's ``_probe_pods`` with package ``k``'s types."""
+    gpu, rdma = "koordinator.sh/gpu-core", "koordinator.sh/rdma"
+    return [
+        k.Pod(name="pr-tie", requests={"cpu": 1200, "memory": 3 * GB}),
+        k.Pod(name="pr-q", requests={"cpu": 4000, "memory": GB}, quota="eq"),
+        k.Pod(name="pr-q2", requests={"cpu": 4000, "memory": GB}, quota="eq"),
+        k.Pod(name="pr-gpu", requests={"cpu": 500, "memory": GB, gpu: 100}),
+        k.Pod(name="pr-rdma", requests={"cpu": 500, "memory": GB, rdma: 1}),
+        k.Pod(name="pr-rsv", requests={"cpu": 1500, "memory": 2 * GB}, reservations=["er-bound"]),
+        k.Pod(name="pr-gg0", requests={"cpu": 400, "memory": GB}, gang="eg-big"),
+        k.Pod(name="pr-gg1", requests={"cpu": 400, "memory": GB}, gang="eg-big"),
+        k.Pod(name="pr-few", requests={"cpu": 400, "memory": GB}, gang="eg-few"),
+        k.Pod(name="pr-sel", requests={"cpu": 300, "memory": GB}, node_selector={"zone": "z1"}),
+        k.Pod(name="pr-huge", requests={"cpu": 64000, "memory": GB}),
     ]
