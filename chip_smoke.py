@@ -58,7 +58,19 @@ Phases (any failure exits non-zero and prints no result line):
      SCHEDULE, warm after 100 metric updates, and with ``assume``;
      SCHEDULE and EXPLAIN of 8 probe pods; QUOTA_REFRESH, PING, ECHO; a
      refused verb), every reply byte-identical, each verb's wall time on
-     the client's clock.
+     the client's clock;
+  13. the descheduler: ``deschedule_round`` against its plain version at 300
+     nodes x 50 candidates (bucket 64; deviation, debounce, caps, the
+     ``number_of_nodes`` gate) and at bench/bench_sim.py's 10,000 x 20,000
+     (bucket 32,768), ``pod_band_rank`` at P = 64 and 32,768 (ties on every
+     key, with and without usage), integers exactly and percentiles bit for
+     bit; then the descheduler path, appended to the sidecar phase: one
+     ReplicaSet-owned pod a node, three dry-run DESCHEDULE ticks (the
+     debounce), one with ``verify``, one executing with a total cap of 32,
+     every reply byte-identical to the CPU twin's, each tick's launches
+     counted from 0 and its split (``_pool_arrays``, kernel, arbitrate,
+     probe, execute); and the round again at the fleet's own shape, on the
+     pool's inputs after the last tick.
   Every result of phases 5 to 8 and 10 must equal the plain path's (the
   same engine on the CPU, fed a twin store) and, in phases 6 to 8, a
   warm-disabled engine's on the card; every kernel of each path must have
@@ -2530,6 +2542,240 @@ def check_breakdown_kernels(inp, timed: bool):
     return recs
 
 
+DESCHED_SOURCE = "koordinator_tpu_torch/csrc/deschedule.cu"
+BAND_SOURCE = "koordinator_tpu_torch/csrc/bandrank.cu"
+
+
+def require_same_util(what: str, got, want) -> int:
+    """float64 percentiles equal bit for bit, NaN where the plain version
+    has NaN (the card's NaN payload may differ); returns 0."""
+    g, w = got.cpu(), want.cpu()
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    if g.shape != w.shape or not torch.equal(gn, wn) or not torch.equal(
+            g[~gn].view(torch.int64), w[~wn].view(torch.int64)):
+        fail(f"{what}: util {g.tolist()} differs from the plain version's {w.tolist()}")
+    return 0
+
+
+def desched_arrays(dev, N: int, n_cand: int, bucket: int, seed: int, heat: float = 1.2,
+                   unsched: float = 0.1, valid: float = 0.9):
+    """A pool's round inputs on ``dev``: N nodes with random allocatable and
+    usage up to ``heat`` of it, ``n_cand`` candidates on random nodes padded
+    to ``bucket`` (padding rows: node 0, usage 0, not removable), R = 2."""
+    from koordinator_tpu_torch.core.lownodeload import LNLNodeArrays, LNLPodArrays, as_tensors
+
+    rng = np.random.default_rng(seed)
+    alloc = rng.integers(1000, 16000, size=(N, 2)).astype(np.int64)
+    usage = (alloc * rng.uniform(0.0, heat, size=(N, 2))).astype(np.int64)
+    nodes = LNLNodeArrays(usage=usage, alloc=alloc, unschedulable=rng.random(N) < unsched,
+                          valid=rng.random(N) < valid)
+    node = np.zeros(bucket, dtype=np.int32)
+    pusage = np.zeros((bucket, 2), dtype=np.int64)
+    rm = np.zeros(bucket, dtype=bool)
+    node[:n_cand] = rng.integers(0, N, size=n_cand)
+    pusage[:n_cand] = rng.integers(0, 4000, size=(n_cand, 2))
+    rm[:n_cand] = rng.random(n_cand) < 0.8
+    return as_tensors(nodes, dev), as_tensors(LNLPodArrays(node=node, usage=pusage, removable=rm),
+                                              dev)
+
+
+def round_outputs(rnd) -> tuple:
+    return (*rnd.state, rnd.evicted, rnd.rank, rnd.under, rnd.over, rnd.source)
+
+
+def desched_round_bytes(state, nodes, pods) -> int:
+    """The round's compulsory bytes: every input read once, every output
+    written once."""
+    N, R = nodes.usage.shape
+    Pc = pods.node.shape[0]
+    ins = nbytes(*state, *nodes, *pods) + 3 * R * 8  # and the percents and weights
+    return ins + nbytes(*state) + Pc * (1 + 8) + 3 * N + 3 * R * 8
+
+
+def device_split(fn, groups, reps: int = 10) -> dict:
+    """Device milliseconds a call of ``fn`` by kernel group, from
+    ``torch.profiler`` over ``reps`` calls: each kernel's self device time
+    goes to the first group whose key its name contains, else "other"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            group = next((g for key, g in groups if key in e.key), "other")
+            out[group] = out.get(group, 0.0) + us / 1e3 / reps
+    return out
+
+
+# kernel-name keys of the descheduler's kernels, grouped for device_split
+DESCHED_GROUPS = (("radix_scatter", "radix scatter"), ("radix_hist", "radix histogram"),
+                  ("util_kernel", "percentile select"), ("tile_", "scans"),
+                  ("lex_gather", "key gathers"))
+
+
+def check_desched_round(what: str, state, nodes, pods, low, high, weights, rounds: int = 1,
+                        timed: bool = False, **kw):
+    """``deschedule_round`` against its plain version on the same device,
+    over ``rounds`` rounds carrying the detector state: integer and bool
+    outputs exactly, the percentiles bit for bit.  Returns (the last round's
+    plain outputs, its record when ``timed``)."""
+    from koordinator_tpu_torch.core import deschedule as ds
+    from koordinator_tpu_torch.core.lownodeload import AnomalyState
+
+    def kernel():
+        return ds.deschedule_round(state, nodes, pods, low, high, weights, **kw)
+
+    def plain():
+        return ds.deschedule_round_plain(state, nodes, pods, low, high, weights, **kw)
+
+    for _ in range(rounds):
+        got, want = kernel(), plain()
+        err = require_equal(f"deschedule_round {what}", round_outputs(got), round_outputs(want))
+        require_same_util(f"deschedule_round {what}", got.util_pct, want.util_pct)
+        host = ds.to_host(got)
+        if not all(np.array_equal(a, b.cpu().numpy()) for a, b in zip(round_outputs(host),
+                                                                        round_outputs(want))):
+            fail(f"deschedule_round {what}: to_host differs from the device outputs")
+        state = AnomalyState(*want.state)
+    if not timed:
+        return want, None
+    N, R = nodes.usage.shape
+    Pc = pods.node.shape[0]
+    # integer operations: the usage scores (a node, twice a candidate), the
+    # thresholds and walk, and 6 a key element a radix pass (8 passes of the
+    # node order, 2 x (8 + ceil(log2 N / 8)) of the candidate orders)
+    passes_pc = 2 * (8 + (max(N - 1, 1).bit_length() + 7) // 8)
+    ops = N * (12 * R + 6 * 8 + 20 * R) + Pc * (24 * R + 6 * passes_pc + 8 * R)
+    b, by = bound_ms(desched_round_bytes(state, nodes, pods), ops)
+    return want, dict(name="deschedule_round", source=DESCHED_SOURCE,
+                      replaces="koordinator_tpu/core/deschedule.py:144", ms=cuda_ms(kernel),
+                      plain_ms=cuda_ms(plain), bound_ms=b, bound_by=by, max_abs_err=err,
+                      shape=f"{N} nodes x {Pc} candidates",
+                      device_split_ms=device_split(kernel, DESCHED_GROUPS))
+
+
+def check_desched_kernels(dev, timed: bool):
+    """The round at the small ragged shape (300 nodes, 50 candidates in a
+    bucket of 64) across deviation on/off, debounce on/off over three
+    rounds, unlimited and positive caps, and a ``number_of_nodes`` gate that
+    stops the round; with ``timed``, at bench/bench_sim.py's shape (10,000
+    nodes x 20,000 candidates in a bucket of 32,768, caps 8 and 4,096),
+    without and with deviation mode.  Returns the timed record."""
+    w = torch.tensor([1, 2], dtype=torch.int64, device=dev)
+    low = torch.tensor([30.0, 40.0], dtype=torch.float64, device=dev)
+    high = torch.tensor([60.0, 80.0], dtype=torch.float64, device=dev)
+    from koordinator_tpu_torch.core.lownodeload import new_anomaly_state
+
+    if not timed:
+        nodes, pods = desched_arrays(dev, 300, 50, 64, SEED)
+        st = new_anomaly_state(300, dev)
+        evictions = 0
+        for dev_mode in (False, True):
+            for cons in (1, 2):
+                for caps in ((-1, -1), (2, 5)):
+                    want, _ = check_desched_round(
+                        f"300x64 dev={dev_mode} cons={cons} caps={caps}", st, nodes, pods, low,
+                        high, w, rounds=3, use_deviation=dev_mode, consecutive_abnormalities=cons,
+                        consecutive_normalities=1, per_node_cap=caps[0], total_cap=caps[1])
+                    evictions += int(want.evicted.sum())
+        gated, _ = check_desched_round("300x64 number_of_nodes=299", st, nodes, pods, low, high,
+                                       w, consecutive_abnormalities=1, number_of_nodes=299)
+        if not evictions or gated.evicted.any() or not gated.source.any():
+            fail(f"deschedule_round small: {evictions} evictions, the gate left "
+                 f"{int(gated.evicted.sum())}")
+        print(f"  deschedule_round at 300 nodes x 50 candidates (bucket 64): 8 variants over 3 "
+              f"rounds equal plain ({evictions} evictions), the number_of_nodes gate stops "
+              "the round")
+        return None
+    nodes, pods = desched_arrays(dev, NUM_NODES, 20_000, 32_768, SEED, heat=1.1, unsched=0.05,
+                                 valid=1.0)
+    want, rec = check_desched_round(
+        "bench_sim 10000x32768", new_anomaly_state(NUM_NODES, dev), nodes, pods, low, high,
+        torch.tensor([1, 1], dtype=torch.int64, device=dev), timed=True,
+        consecutive_abnormalities=1, per_node_cap=8, total_cap=4096)
+    print(f"  deschedule_round at {NUM_NODES} nodes x 20,000 candidates (bucket 32,768, caps 8 "
+          f"and 4,096): equal plain, {int(want.evicted.sum())} evictions, {rec['ms']:.3f} ms "
+          f"(plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms); device ms by "
+          "kernel group " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                      sorted(rec["device_split_ms"].items())), flush=True)
+    # deviation mode at the same shape: the thresholds' mean is one thread a
+    # resource folding the 10,000 node percents in node order (the "other"
+    # group of the split), thresholds at the mean -10 / +10
+    off = torch.tensor([10.0, 10.0], dtype=torch.float64, device=dev)
+    dwant, drec = check_desched_round(
+        "bench_sim 10000x32768 deviation", new_anomaly_state(NUM_NODES, dev), nodes, pods, off,
+        off, torch.tensor([1, 1], dtype=torch.int64, device=dev), timed=True,
+        use_deviation=True, consecutive_abnormalities=1, per_node_cap=8, total_cap=4096)
+    if not dwant.evicted.any():
+        fail("deschedule_round bench_sim deviation: no evictions")
+    rec.update(ms_deviation=drec["ms"], plain_ms_deviation=drec["plain_ms"],
+               device_split_ms_deviation=drec["device_split_ms"])
+    print(f"  deschedule_round in deviation mode at the same shape (mean -10/+10): equal plain, "
+          f"{int(dwant.evicted.sum())} evictions, {drec['ms']:.3f} ms (plain "
+          f"{drec['plain_ms']:.3f} ms); device ms by kernel group "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(drec["device_split_ms"].items())),
+          flush=True)
+    return rec
+
+
+def band_arrays(dev, P: int, seed: int, usage: bool):
+    """PodSorter keys of P pods with ties on every key: few distinct values
+    a column, create times among 0.0, -0.0, 1.5, -2.0 and NaN."""
+    from koordinator_tpu_torch.core.deschedule import BandKeys
+
+    rng = np.random.default_rng(seed)
+
+    def col(vals, dtype):
+        return torch.as_tensor(np.asarray(rng.choice(vals, size=P)), dtype=dtype).to(dev)
+
+    return BandKeys(
+        col([1, 2, 3, 4, 5], torch.int8), col([0, 1000, 9000, 9500, -5], torch.int64),
+        col([1, 2, 3], torch.int8), col([1, 2, 3, 4, 5], torch.int8),
+        col([-5, 0, 3, 1 << 40], torch.int64), col([-(1 << 62), -1, 0, 2], torch.int64),
+        col([0.0, -0.0, 1.5, -2.0, float("nan")], torch.float64),
+        col([-3, 0, 7, 1 << 50], torch.int64) if usage else None,
+    )
+
+
+def check_band_kernels(dev, timed: bool):
+    """``pod_band_rank`` against its plain version at P = 64 and 32,768,
+    with and without the usage key, ties on every key; returns the record
+    at 32,768 without usage when ``timed``."""
+    from koordinator_tpu_torch.core import deschedule as ds
+
+    rec = None
+    for P in (64, 32_768) if timed else (64,):
+        for usage in (False, True):
+            keys = band_arrays(dev, P, SEED + P, usage)
+            err = require_equal(f"pod_band_rank P={P} usage={usage}",
+                                (ds.pod_band_rank(keys),), (ds.pod_band_rank_plain(keys),))
+            if timed and P > 64 and not usage:
+                ops = P * 6 * (8 * 5 + 3)  # 43 passes, 6 operations an element a pass
+                b, by = bound_ms(nbytes(*keys[:7]) + 8 * P, ops)
+                rec = dict(name="pod_band_rank", source=BAND_SOURCE,
+                           replaces="koordinator_tpu/core/deschedule.py:223",
+                           ms=cuda_ms(lambda: ds.pod_band_rank(keys)),
+                           plain_ms=cuda_ms(lambda: ds.pod_band_rank_plain(keys)), bound_ms=b,
+                           bound_by=by, max_abs_err=err, shape=f"{P} pods",
+                           device_split_ms=device_split(lambda: ds.pod_band_rank(keys),
+                                                        DESCHED_GROUPS))
+    print(f"  pod_band_rank at P = {'64 and 32,768' if timed else '64'}, with and without "
+          "usage, ties on every key: equal plain"
+          + (f", {rec['ms']:.3f} ms at 32,768 (plain {rec['plain_ms']:.3f} ms); device ms by "
+             "kernel group " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         sorted(rec["device_split_ms"].items()))
+             if rec else ""), flush=True)
+    return rec
+
+
 def drive_library_path(device, num_nodes: int, num_pods: int):
     """The LoadAware plugin's library entry point as its users call it:
     the snapshot builders over ``random_cluster``, then
@@ -2646,6 +2892,63 @@ def sidecar_frames(num_nodes: int, num_pods: int) -> list:
     return out
 
 
+# the descheduler's configuration on the wire, as an operator sets it:
+# one pool over the fleet (LowNodeLoad thresholds in percent, the anomaly
+# debounce at 2), the defaultevictor/arbitrator knobs, the controllerfinder
+# feed of the ReplicaSets the owned pods belong to
+DESCHED_POOL = {"name": "fleet", "low": {"cpu": 30, "memory": 30},
+                "high": {"cpu": 80, "memory": 80}, "abnormalities": 2}
+DESCHED_EVICTOR = {"max_per_node": 2, "max_per_workload": 2}
+DESCHED_TOTAL = 32
+DESCHED_DRY_TICKS = 3
+
+
+def desched_frames(names, workloads: int, seed: int) -> list:
+    """The descheduler's frames, (label, frame bytes), for a store that holds
+    the nodes ``names``: APPLY of one ReplicaSet-owned pod a node (the
+    ``workloads`` ReplicaSets round-robin over the nodes, each pod asking
+    200-2,000 mCPU and 256 MiB-4 GiB: the evictable population; the
+    fixture's own pods have no owner, and the defaultevictor keeps bare
+    pods), in frames of 1,000 ops; then DESCHEDULE ticks with
+    ``DESCHED_POOL``, ``DESCHED_EVICTOR`` and the workloads feed: three dry
+    runs (the debounce turns over-utilised nodes into sources on the
+    third), one dry run with ``verify``, and one executing tick with
+    ``limits.total`` = ``DESCHED_TOTAL``."""
+    from koordinator_tpu_torch.api.model import AssignedPod, Pod
+    from koordinator_tpu_torch.service import protocol as proto
+    from koordinator_tpu_torch.service.client import Client
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    M = proto.MsgType
+    rng = np.random.default_rng(seed)
+    out = []
+    req = iter(range(1 << 20, 1 << 21))
+
+    def frame(label, t, fields):
+        out.append((label, proto.encode(t, next(req), fields)))
+
+    ops = []
+    for i, name in enumerate(names):
+        w = i % workloads
+        pod = Pod(name=f"wl{w}-{i}", namespace="apps", owner_uid=f"wl-{w}",
+                  owner_kind="ReplicaSet",
+                  requests={"cpu": int(rng.integers(200, 2001)),
+                            "memory": int(rng.integers(256, 4097)) << 20})
+        ops.append(Client.op_assign(name, AssignedPod(pod=pod, assign_time=NOW)))
+    for i in range(0, len(ops), 1000):
+        frame("APPLY owned pods", M.APPLY, {"ops": ops[i:i + 1000]})
+    replicas = [len(range(w, len(names), workloads)) for w in range(workloads)]
+    config = {"pools": [DESCHED_POOL], "evictor": DESCHED_EVICTOR,
+              "workloads": {f"wl-{w}": r for w, r in enumerate(replicas)}}
+    for t in range(DESCHED_DRY_TICKS):
+        frame(f"DESCHEDULE dry {t + 1}", M.DESCHEDULE, dict(config, now=NOW + 10 * (t + 1)))
+    frame("DESCHEDULE verify", M.DESCHEDULE, {"now": NOW + 40, "verify": True})
+    frame("DESCHEDULE execute", M.DESCHEDULE, {"now": NOW + 50, "verify": False,
+                                               "execute": True,
+                                               "limits": {"total": DESCHED_TOTAL}})
+    return out
+
+
 class Wire:
     """One raw connection to a sidecar: frame bytes in, reply bytes out."""
 
@@ -2680,12 +2983,14 @@ def drive_sidecar_path(device, num_nodes: int, num_pods: int, scalars):
     byte-identical; ERROR frames carry a traceback, so those compare by
     code and message.  The breakdown SCORE must launch ``la_score`` and
     ``nf_score`` once each; EXPLAIN's chosen nodes and totals must equal
-    the probe SCHEDULE's reply.  Returns (launches per kernel during the
-    phase, per-verb records with the card's wall ms on the client's
-    clock)."""
+    the probe SCHEDULE's reply.  Then the descheduler path over the same
+    sidecars (``drive_desched_path``).  Returns (launches per kernel during
+    the phase's frames, per-verb records with the card's wall ms on the
+    client's clock, the descheduler path's result)."""
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.service import protocol as proto
     from koordinator_tpu_torch.service.server import SidecarServer
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
 
     M = proto.MsgType
     t0 = time.perf_counter()
@@ -2695,6 +3000,7 @@ def drive_sidecar_path(device, num_nodes: int, num_pods: int, scalars):
     card = SidecarServer(initial_capacity=16, extra_scalars=scalars, device=device)
     twin = SidecarServer(initial_capacity=16, extra_scalars=scalars, device="cpu")
     records, replies = [], {}
+    _, fleet = random_cluster(SEED, num_nodes=num_nodes, num_pods=0)
     try:
         cw, tw = Wire(card.address), Wire(twin.address)
         for k in cuda.KERNELS.values():
@@ -2721,12 +3027,13 @@ def drive_sidecar_path(device, num_nodes: int, num_pods: int, scalars):
             replies[label] = (gt, gf, ga)
             records.append(dict(verb=label, ms=wall, twin_ms=twin_wall, bytes=len(got),
                                 launches=delta))
+        launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+        desched = drive_desched_path(device, card, twin, cw, tw, [n.name for n in fleet])
         cw.close()
         tw.close()
     finally:
         card.close()
         twin.close()
-    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
     rec = next(r for r in records if r["verb"] == "SCORE breakdown")
     if device.type == "cuda" and (rec["launches"].get("la_score") != 1
                                   or rec["launches"].get("nf_score") != 1):
@@ -2761,7 +3068,87 @@ def drive_sidecar_path(device, num_nodes: int, num_pods: int, scalars):
                   f"{r['twin_ms']:.1f} ms), {r['bytes']} reply bytes, launches {r['launches']}",
                   flush=True)
     print(f"  placed: {placed}; EXPLAIN of {len(got_nodes)} probes equals their SCHEDULE")
-    return launches, records
+    return launches, records, desched
+
+
+DESCHED_PATH_KERNELS = ("deschedule_round", "pod_band_rank")
+
+
+def drive_desched_path(device, card, twin, cw, tw, names):
+    """The descheduler over the wire, after the sidecar phase's frames: the
+    same ``desched_frames`` to the card's sidecar and the CPU twin, replies
+    byte-identical, each tick's launches counted from 0 (one
+    ``deschedule_round`` for the pool, one ``pod_band_rank`` per
+    arbitration of a non-empty job list), its wall time on the client's
+    clock and its split.  The last dry run, the verify tick and the
+    executing tick must plan, and the executing tick must move pods.
+    Returns (launches during the path, per-tick records, the pool's round
+    inputs at the fleet's shape after the last tick)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core.lownodeload import as_tensors
+    from koordinator_tpu_torch.service import protocol as proto
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    M = proto.MsgType
+    frames = desched_frames(names, max(len(names) // 100, 2), SEED + 31)
+    print(f"  descheduler path: {len(names)} nodes, one owned pod a node in "
+          f"{max(len(names) // 100, 2)} ReplicaSets", flush=True)
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    records = []
+    for label, frame in frames:
+        before = {name: k.launches for name, k in cuda.KERNELS.items()}
+        t0 = time.perf_counter()
+        got = cw.call(frame)
+        wall = (time.perf_counter() - t0) * 1e3
+        delta = {name: k.launches - before[name] for name, k in cuda.KERNELS.items()
+                 if k.launches != before[name]}
+        t0 = time.perf_counter()
+        want = tw.call(frame)
+        twin_wall = (time.perf_counter() - t0) * 1e3
+        gt, _, gf, _ = decoded(got)
+        if gt == M.ERROR or decoded(want)[0] == M.ERROR:
+            fail(f"descheduler {label}: ERROR {gf.get('error')} / {decoded(want)[2].get('error')}")
+        if got != want:
+            fail(f"descheduler {label}: the card's reply differs from the CPU twin's")
+        if gt != M.DESCHEDULE:
+            continue
+        d, dt = card._descheduler, twin._descheduler
+        if device.type == "cuda" and (delta.get("deschedule_round") != 1 or delta.get(
+                "pod_band_rank", 0) != d.last_arbitrations):
+            fail(f"descheduler {label}: launches {delta}, {d.last_arbitrations} arbitrations")
+        records.append(dict(verb=label, ms=wall, twin_ms=twin_wall, bytes=len(got),
+                            launches=delta, plan=len(gf["plan"]), executed=gf["executed"],
+                            split_ms={k: v * 1e3 for k, v in d.last_split.items()},
+                            twin_split_ms={k: v * 1e3 for k, v in dt.last_split.items()}))
+        r = records[-1]
+        print(f"  {label}: {wall:.1f} ms wall on the card's sidecar (twin {twin_wall:.1f} ms), "
+              f"plan {r['plan']}, executed {r['executed']}; split "
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["split_ms"].items())
+              + " ms (twin " + ", ".join(f"{k} {v:.1f}" for k, v in r["twin_split_ms"].items())
+              + f" ms); launches {delta}", flush=True)
+    planned = {r["verb"]: r["plan"] for r in records}
+    if not (planned[f"DESCHEDULE dry {DESCHED_DRY_TICKS}"] and planned["DESCHEDULE verify"]
+            and planned["DESCHEDULE execute"]) or not records[-1]["executed"]:
+        fail(f"the descheduler planned {planned} and executed {records[-1]['executed']}")
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    d = card._descheduler
+    pool = d.pools[0]
+    nodes, pods, pool_names, _ = d._pool_arrays(pool, NOW + 60)
+    state = d._detector_state(pool, pool_names)
+    fleet_round = dict(state=as_tensors(state, device), nodes=as_tensors(nodes, device),
+                       pods=as_tensors(pods, device),
+                       low=torch.tensor([float(pool.low_pct.get(r, 100.0)) for r in d.resources],
+                                        dtype=torch.float64, device=device),
+                       high=torch.tensor([float(pool.high_pct.get(r, 100.0))
+                                          for r in d.resources], dtype=torch.float64,
+                                         device=device),
+                       weights=torch.ones(len(d.resources), dtype=torch.int64, device=device),
+                       kw=dict(use_deviation=pool.use_deviation,
+                               consecutive_abnormalities=pool.consecutive_abnormalities,
+                               consecutive_normalities=pool.consecutive_normalities,
+                               number_of_nodes=pool.number_of_nodes))
+    return launches, records, fleet_round
 
 
 def main() -> int:
@@ -2816,6 +3203,9 @@ def main() -> int:
     check_breakdown_kernels(build_inputs(*random_cluster(SEED, num_nodes=500, num_pods=64), dev,
                                          scalars), timed=False)
     check_breakdown_kernels(ragged(small, 267, 45), timed=False)
+    # the descheduler's kernels at the small shapes
+    check_desched_kernels(dev, timed=False)
+    check_band_kernels(dev, timed=False)
     pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
     full = build_inputs(pods, nodes, dev, scalars)
     records = check_kernels(full, 16, timed=True)
@@ -2844,6 +3234,8 @@ def main() -> int:
     # constrained, both tie-breaks, with extras), the int64-key engine
     records += check_strategies_full(full, records)
     records += check_breakdown_kernels(full, timed=True)
+    desched_bench = check_desched_kernels(dev, timed=True)
+    records.append(check_band_kernels(dev, timed=True))
     print(f"matrix route: {NUM_NODES} nodes x {NUM_PODS} pods, int64 keys", flush=True)
     matrix_launches = drive_matrix_path(full, con=False)
     con_matrix = drive_matrix_path(full, con=True)
@@ -2870,8 +3262,24 @@ def main() -> int:
           flush=True)
     lib_launches, lib_ms = drive_library_path(dev, NUM_NODES, NUM_PODS)
     print(f"sidecar path: {NUM_NODES} nodes x {NUM_PODS} pods over the KTPU wire, the card's "
-          "sidecar against a CPU twin", flush=True)
-    side_launches, side_verbs = drive_sidecar_path(dev, NUM_NODES, NUM_PODS, scalars)
+          "sidecar against a CPU twin; then the descheduler path over the same fleet",
+          flush=True)
+    side_launches, side_verbs, (desched_launches, desched_ticks, fleet_round) = \
+        drive_sidecar_path(dev, NUM_NODES, NUM_PODS, scalars)
+    # the round at the fleet's own shape, on the pool's inputs after the
+    # last tick; bench_sim's shape beside it
+    want, rec = check_desched_round(
+        "fleet", fleet_round["state"], fleet_round["nodes"], fleet_round["pods"],
+        fleet_round["low"], fleet_round["high"], fleet_round["weights"], timed=True,
+        **fleet_round["kw"])
+    records.append(dict(rec, ms_bench_sim=desched_bench["ms"],
+                        plain_ms_bench_sim=desched_bench["plain_ms"],
+                        bound_ms_bench_sim=desched_bench["bound_ms"],
+                        ms_bench_sim_deviation=desched_bench["ms_deviation"],
+                        plain_ms_bench_sim_deviation=desched_bench["plain_ms_deviation"]))
+    print(f"  deschedule_round at the fleet's shape ({rec['shape']}): equal plain, "
+          f"{int(want.evicted.sum())} evictions, {rec['ms']:.3f} ms (plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms)", flush=True)
     for path, launched, kernels in (
         ("cold", cold_launches, ("score", "schedule_keys", "schedule_rounds")),
         ("warm", warm_launches, WARM_PATH_KERNELS),
@@ -2882,6 +3290,7 @@ def main() -> int:
                                      "schedule_keys64_con", "schedule_rounds64_con")),
         ("library", lib_launches, ("loadaware_score_and_filter",)),
         ("sidecar", side_launches, SIDECAR_PATH_KERNELS),
+        ("descheduler", desched_launches, DESCHED_PATH_KERNELS),
     ):
         idle = [k for k in kernels if launched[k] == 0]
         if idle:
@@ -2889,19 +3298,23 @@ def main() -> int:
     print(f"  launches on the cold path {cold_launches}; on the warm path {warm_launches}; on "
           f"the constraint path {con_launches}; on the placement path {place_launches}; on the "
           f"strategies path {strat_launches}; on the matrix route {matrix_launches}; on the "
-          f"library path {lib_launches}; on the sidecar path {side_launches}")
+          f"library path {lib_launches}; on the sidecar path {side_launches}; on the "
+          f"descheduler path {desched_launches}")
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "ub_rounds",
             "dirty_rows", "groups", "ms_extras", "ms_gm16", "plain_ms_gm16", "bound_ms_gm16",
-            "strategies_ms", "variants", "placed")
+            "strategies_ms", "variants", "placed", "shape", "ms_bench_sim",
+            "plain_ms_bench_sim", "bound_ms_bench_sim", "ms_bench_sim_deviation",
+            "plain_ms_bench_sim_deviation", "device_split_ms")
     kernels = []
     for rec in records:
         name = rec["name"]
         by_path = {"cold": cold_launches[name], "warm": warm_launches[name],
                    "constraints": con_launches[name], "placement": place_launches[name],
                    "strategies": strat_launches[name], "matrix": matrix_launches[name],
-                   "library": lib_launches[name], "sidecar": side_launches[name]}
+                   "library": lib_launches[name], "sidecar": side_launches[name],
+                   "descheduler": desched_launches[name]}
         # only dstate_scatter (index_copy_) and dstate_extend (F.pad) have a
         # PyTorch call computing the same function; the others have none
         rec = dict(rec, route="cuda", launches=sum(by_path.values()), launches_by_path=by_path)
@@ -2911,7 +3324,8 @@ def main() -> int:
                       "main_path_ms": main_ms, "main_path_kernel_ms": main_kernel_ms,
                       "warm_cycles": warm_cycles, "constraint_cycles": con_cycles,
                       "placement_cycles": place_cycles, "strategy_cycles": strat_cycles,
-                      "library_call_ms": lib_ms, "sidecar_verbs": side_verbs}))
+                      "library_call_ms": lib_ms, "sidecar_verbs": side_verbs,
+                      "descheduler_ticks": desched_ticks}))
     print(f"device: {kind} | {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -26,31 +26,36 @@ placement-and-devices mask and scores); the residency's
 ``quota_limit``; ``rsv_rscore`` and ``rsv_score``; ``placement``,
 ``dev_feasible`` and ``ds_score``; the per-plugin scores ``la_score`` and
 ``nf_score`` of SCORE's breakdown, and the LoadAware library entry point
-``loadaware_score_and_filter``.  Each kernel's wrapper runs its plain
+``loadaware_score_and_filter``; the descheduler's ``deschedule_round`` (one
+LowNodeLoad round of a node pool) and ``pod_band_rank`` (the arbitrator's
+QoS/priority-band order).  Each kernel's wrapper runs its plain
 PyTorch version for CPU tensors and launches the kernel, or raises, for
 CUDA tensors.
 
 Its entry point is the sidecar the Go shim dials over the KTPU wire
 (``service.server.SidecarServer``, ``python -m
 koordinator_tpu_torch.cmd.sidecar``): HELLO, APPLY, SCORE (with the
-per-plugin breakdown), SCHEDULE, EXPLAIN, QUOTA_REFRESH, PING and ECHO,
-each reply byte-identical to the JAX sidecar's; ``service.client.Client``
-speaks it from Python.
+per-plugin breakdown), SCHEDULE, EXPLAIN, QUOTA_REFRESH, PING, ECHO and
+the descheduler's DESCHEDULE, each reply byte-identical to the JAX
+sidecar's; ``service.client.Client`` speaks it from Python, and ``python
+-m koordinator_tpu_torch.cmd.descheduler`` ticks it.
 
 Layout (the JAX package's, with the same relative module names):
   api/       object model, quota groups (copies)
-  core/      config, configio, deviceshare, topologymanager (copies); numa (host side
-             copied, the amplified score in torch); loadaware, nodefit,
-             cycle, resolved, gang, quota, reservation, placement (torch)
+  core/      config, configio, deviceshare, topologymanager, evictor (copies);
+             numa (host side copied, the amplified score in torch);
+             loadaware, nodefit, cycle, resolved, gang, quota, reservation,
+             placement, lownodeload, deschedule (torch)
   golden/    the scalar oracles nodefit_ref, loadaware_ref, reservation_ref,
-             quota_ref (copies); host_fallback's SCHEDULE pipeline with the
-             EXPLAIN decomposition (copy of fallback_schedule_full)
+             quota_ref, lownodeload_ref, evictor_ref (copies);
+             host_fallback's SCHEDULE pipeline with the EXPLAIN
+             decomposition (copy of fallback_schedule_full)
   ops/       Go-exact rounding helpers (torch)
   snapshot/  numpy builders of the dense inputs (copies)
-  service/   transformers, constraints, descheduler's ``tolerates``, the
-             wire protocol, client, admission webhooks and wire-op switch
-             (copies); state (with the device residency), engine, server
-  cmd/       the sidecar binary
+  service/   transformers, constraints, deschedplugins, the wire protocol,
+             client, admission webhooks and wire-op switch (copies); state
+             (with the device residency), engine, descheduler, server
+  cmd/       the sidecar and descheduler binaries
   utils/     synthetic cluster fixtures, feature gates (copies)
   csrc/      the CUDA kernels; ``cuda.py`` builds and binds them
   convert.py numpy arrays -> tensors on a device

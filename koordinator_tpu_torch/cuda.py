@@ -210,6 +210,12 @@ LA_SCORE = Kernel("breakdown", "koord_la_score", [_P, _P, _P, _P, _I, _I, _P, _I
 NF_SCORE = Kernel("breakdown", "koord_nf_score", [_P, _P, _P, _I, _I, _P, _I, _P])
 LA_SCORE_FILTER = Kernel("breakdown", "koord_la_score_filter",
                          [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
+# the descheduler (csrc/deschedule.cu, csrc/bandrank.cu): one LowNodeLoad
+# round (the input, output and parameter tables, the scratch), and the
+# arbitrator's band order (the key columns and their element sizes, modes
+# and widths, K, P, the permutation, the scratch)
+DESCHEDULE_ROUND = Kernel("deschedule", "koord_deschedule_round", [_P, _P, _P, _P, _I, _P])
+POD_BAND_RANK = Kernel("bandrank", "koord_band_rank", [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
 KERNELS = {
     "score": SCORE, "schedule_keys": SCHEDULE_KEYS, "schedule_rounds": SCHEDULE_ROUNDS,
     "sched_refresh": SCHED_REFRESH, "sched_rounds": SCHED_ROUNDS,
@@ -222,7 +228,17 @@ KERNELS = {
     "schedule_keys64": SCHEDULE_KEYS64, "schedule_rounds64": SCHEDULE_ROUNDS64,
     "schedule_keys64_con": SCHEDULE_KEYS64_CON, "schedule_rounds64_con": SCHEDULE_ROUNDS64_CON,
     "la_score": LA_SCORE, "nf_score": NF_SCORE, "loadaware_score_and_filter": LA_SCORE_FILTER,
+    "deschedule_round": DESCHEDULE_ROUND, "pod_band_rank": POD_BAND_RANK,
 }
+
+
+def scratch_bytes(stem: str, symbol: str, *dims: int) -> int:
+    """The scratch a ``csrc`` entry point needs for the given sizes, from
+    the library's own size function (host code; nothing is launched)."""
+    fn = getattr(_library(stem), symbol)
+    fn.argtypes = [ctypes.c_longlong] * len(dims)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*dims))
 
 # the largest dynamic shared memory one block may take on Hopper
 MAX_SMEM = 232_448

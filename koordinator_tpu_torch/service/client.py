@@ -4,8 +4,8 @@ cmd/koord-scheduler/main.go:46-54 pattern, calling out at the
 RunScorePlugins cut point framework_extender.go:237).
 
 It speaks the verbs the port's sidecar serves: HELLO (on connect), APPLY,
-SCORE (with ``breakdown``), SCHEDULE, EXPLAIN, QUOTA_REFRESH, PING and
-ECHO.  Caches the live-column -> node-name mapping by ``names_version`` so
+SCORE (with ``breakdown``), SCHEDULE, EXPLAIN, QUOTA_REFRESH, PING, ECHO
+and DESCHEDULE.  Caches the live-column -> node-name mapping by ``names_version`` so
 steady-state score calls move only numeric buffers.
 """
 
@@ -295,3 +295,42 @@ class Client:
             name: {r: int(runtime[i, j]) for j, r in enumerate(resources)}
             for i, name in enumerate(fields["groups"])
         }
+
+    def deschedule(
+        self,
+        now: float,
+        pools: Optional[Sequence[dict]] = None,
+        limits: Optional[dict] = None,
+        execute: bool = False,
+        evictor: Optional[dict] = None,
+        workloads: Optional[dict] = None,
+        plugins: Optional[Sequence[str]] = None,
+        profiles: Optional[Sequence[dict]] = None,
+    ):
+        """One descheduling tick -> (migration plan, executed count).  Pool
+        dicts: {name, node_prefix, low, high, deviation, abnormalities,
+        normalities, number_of_nodes, weights}.  ``evictor`` reconfigures
+        the safety layer ({system_critical, local_storage, failed_bare,
+        ignore_pvc, priority_threshold, label_selector, max_per_node,
+        max_per_namespace, max_per_workload, max_unavailable,
+        skip_replicas_check, limiter_duration, limiter_max_migrating});
+        ``workloads`` feeds owner_uid -> expectedReplicas; ``plugins`` names
+        the enabled plugins (or {name, args}); ``profiles`` are
+        DeschedulerProfiles [{name, deschedule: [...], balance: [...]}]
+        replacing the flat plugin list."""
+        fields = {"now": now, "execute": execute}
+        for key, val in (("pools", pools), ("limits", limits), ("evictor", evictor),
+                         ("workloads", workloads), ("plugins", plugins),
+                         ("profiles", profiles)):
+            if val is not None:
+                fields[key] = list(val) if key in ("pools", "plugins", "profiles") else val
+        f = self.deschedule_full(**fields)
+        return f["plan"], f["executed"]
+
+    def deschedule_full(self, **fields):
+        """One DESCHEDULE tick returning the whole reply: plan, executed,
+        ``migrated`` (completed moves {pod, from, to}) and ``util`` (the
+        node-utilisation percentiles per pool).  ``fields`` are the knobs
+        ``deschedule`` assembles, and ``use_kernel`` and ``verify``."""
+        f, _ = self._call(proto.MsgType.DESCHEDULE, dict(fields))
+        return f

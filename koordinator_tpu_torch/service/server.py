@@ -3,7 +3,9 @@
 The port of the JAX package's ``SidecarServer`` (service/server.py) for the
 verbs the Go shim's product path sends: HELLO, APPLY, SCORE (with the
 per-plugin ``breakdown``), SCHEDULE, EXPLAIN, QUOTA_REFRESH, PING and ECHO,
-over the same KTPU frames (``service/protocol.py``).  Every reply header is
+and the descheduler's DESCHEDULE (``service/descheduler.py``; the binary
+``cmd/descheduler.py`` sends its ticks), over the same KTPU frames
+(``service/protocol.py``).  Every reply header is
 built field for field and in the JAX handlers' key order, so a reply is
 byte-identical to the JAX sidecar's for the same frames.
 
@@ -17,8 +19,8 @@ deferral changes when a reply is written, never its bytes).
 What the port does not serve yet is refused with a ``BAD_REQUEST`` ERROR
 frame whose message names its slice (``slices.later``), never answered
 without the work: the other verbs, SCHEDULE's ``preempt`` while the
-ElasticQuotaPreemption gate is on, SCORE's ``debug_scores``, the
-descheduler's ``anomaly`` op, and frames with a tenant or QoS trailer.
+ElasticQuotaPreemption gate is on, SCORE's ``debug_scores``, and frames
+with a tenant or QoS trailer.
 """
 
 from __future__ import annotations
@@ -54,7 +56,6 @@ REFUSED_VERBS: Dict[int, tuple] = {
     M.TRACE: ("the TRACE verb", slices.OBSERVABILITY),
     M.DEBUG: ("the DEBUG verb", slices.OBSERVABILITY),
     M.DIGEST: ("the DIGEST verb", slices.OBSERVABILITY),
-    M.DESCHEDULE: ("the DESCHEDULE verb", slices.DESCHEDULER),
     M.REVOKE: ("the REVOKE verb", slices.PREEMPTION),
     M.RECONCILE: ("the RECONCILE verb", slices.MANAGER),
     M.HOOK: ("the HOOK verb", slices.RUNTIME),
@@ -98,6 +99,8 @@ class SidecarServer:
                                   initial_capacity=initial_capacity,
                                   device_state=device_state)
         self.engine: Optional[Engine] = None
+        # the persistent descheduler (its detector state lives across ticks)
+        self._descheduler = None
         # per-plugin scores are bounded by MaxNodeScore, so the weighted
         # total's bound is static config
         bound = 100 * sum(PluginWeights())
@@ -259,6 +262,152 @@ class SidecarServer:
         self._server.server_close()
         return not self._worker.is_alive()
 
+    # -------------------------------------------------------- descheduler
+
+    @staticmethod
+    def _build_plugins(entries, allowed=None, point: str = ""):
+        """Plugin entries (a bare name, or {"name", "args"}: the
+        DeschedulerProfile pluginConfig shape) -> plugin callables; an
+        unknown name, or one outside ``allowed``, raises before anything
+        changes."""
+        from koordinator_tpu_torch.service.descheduler import PLUGIN_FACTORIES
+
+        out = []
+        for entry in entries:
+            if isinstance(entry, str):
+                name, args = entry, None
+            else:
+                name, args = entry.get("name"), entry.get("args")
+            if name not in PLUGIN_FACTORIES:
+                raise KeyError(f"unknown descheduler plugins: ['{name}']")
+            if allowed is not None and name not in allowed:
+                raise ValueError(f"plugin {name!r} is not a {point} plugin")
+            out.append(PLUGIN_FACTORIES[name](args))
+        return tuple(out)
+
+    @classmethod
+    def _build_profiles(cls, entries):
+        """DeschedulerProfiles: [{name, deschedule: [entry], balance:
+        [entry]}]; each plugin is checked against its extension point."""
+        from koordinator_tpu_torch.service.descheduler import (
+            BALANCE_PLUGIN_NAMES,
+            DESCHEDULE_PLUGIN_NAMES,
+            DeschedulerProfile,
+        )
+
+        return [DeschedulerProfile(
+            name=p.get("name", "default"),
+            deschedule=cls._build_plugins(p.get("deschedule", []), DESCHEDULE_PLUGIN_NAMES,
+                                          "deschedule"),
+            balance=cls._build_plugins(p.get("balance", []), BALANCE_PLUGIN_NAMES, "balance"),
+        ) for p in entries]
+
+    def _descheduler_for(self, fields):
+        """The server's persistent Descheduler; the frame's pool, limit,
+        evictor, plugin, profile and workload fields reconfigure it in
+        place, after every plugin and profile entry has been built (a bad
+        entry rejects the whole message)."""
+        from koordinator_tpu_torch.core.evictor import EvictorArgs, ObjectLimiter
+        from koordinator_tpu_torch.service.descheduler import (
+            Descheduler,
+            EvictionLimits,
+            PoolConfig,
+        )
+
+        built_plugins = self._build_plugins(fields["plugins"]) if "plugins" in fields else None
+        built_profiles = (self._build_profiles(fields["profiles"]) if "profiles" in fields
+                          else None)
+        if self._descheduler is None:
+            self._descheduler = Descheduler(self.state, self.engine)
+        d = self._descheduler
+        if "use_kernel" in fields:
+            d.use_kernel = bool(fields["use_kernel"])
+        if "verify" in fields:
+            d.verify = bool(fields["verify"])
+        if "pools" in fields:
+            d.pools = [
+                PoolConfig(
+                    name=p.get("name", "default"),
+                    selector=((lambda n, pre=p["node_prefix"]: n.startswith(pre))
+                              if p.get("node_prefix") else None),
+                    low_pct={k: float(v) for k, v in p.get("low", {}).items()},
+                    high_pct={k: float(v) for k, v in p.get("high", {}).items()},
+                    use_deviation=p.get("deviation", False),
+                    consecutive_abnormalities=p.get("abnormalities", 5),
+                    consecutive_normalities=p.get("normalities", 3),
+                    number_of_nodes=p.get("number_of_nodes", 0),
+                    weights={k: int(v) for k, v in p.get("weights", {}).items()},
+                )
+                for p in fields["pools"]
+            ]
+        if "limits" in fields:
+            lim = fields["limits"]
+            d.limits = EvictionLimits(per_node=lim.get("per_node"),
+                                      per_namespace=lim.get("per_namespace"),
+                                      total=lim.get("total"))
+        if "evictor" in fields:
+            ev = fields["evictor"] or {}
+            arb = d.arbitrator
+            arb.args = EvictorArgs(
+                evict_system_critical_pods=ev.get("system_critical", False),
+                evict_local_storage_pods=ev.get("local_storage", False),
+                evict_failed_bare_pods=ev.get("failed_bare", False),
+                ignore_pvc_pods=ev.get("ignore_pvc", False),
+                priority_threshold=ev.get("priority_threshold"),
+                label_selector=ev.get("label_selector"),
+                max_migrating_per_node=ev.get("max_per_node"),
+                max_migrating_per_namespace=ev.get("max_per_namespace"),
+                max_migrating_per_workload=ev.get("max_per_workload"),
+                max_unavailable_per_workload=ev.get("max_unavailable"),
+                skip_check_expected_replicas=ev.get("skip_replicas_check", False),
+                object_limiter_duration=ev.get("limiter_duration", 0.0),
+                object_limiter_max_migrating=ev.get("limiter_max_migrating"),
+            )
+            # a new filter config rebuilds the rate limiter; the active
+            # jobs outlive it
+            arb.limiter = ObjectLimiter(arb.args.object_limiter_duration,
+                                        arb.args.object_limiter_max_migrating,
+                                        arb.args.max_migrating_per_workload)
+        if built_plugins is not None:
+            d.plugins = built_plugins
+        if built_profiles is not None:
+            d.profiles = built_profiles
+        if "workloads" in fields:
+            # the controllerfinder feed, owner_uid -> expectedReplicas: an
+            # authoritative snapshot that replaces the last one
+            d.arbitrator.workloads = {k: int(v) for k, v in fields["workloads"].items()}
+        return d
+
+    def start_descheduler(self, interval: float, fields: Optional[dict] = None):
+        """The timed loop (wait.Until(deschedulerOnce, interval)): a thread
+        enqueues DESCHEDULE ticks (executing unless ``fields`` say
+        otherwise) into the worker's queue; each reply's fields append to
+        ``descheduler_history``."""
+        self.descheduler_history: list = []
+        fields = dict(fields or {})
+
+        def loop():
+            while not self._closed.is_set():
+                done = threading.Event()
+                box: dict = {}
+                f = dict(fields)
+                f.setdefault("execute", True)
+                f["now"] = time.time()
+                frame = proto.encode(M.DESCHEDULE, 0, f)
+                self._work.put(((M.DESCHEDULE, 0, memoryview(frame)[proto._HDR.size:]), box,
+                                done))
+                while not done.wait(1.0):
+                    if self._closed.is_set() and not box.get("claimed"):
+                        return
+                if "reply" in box:
+                    _, _, rf, _ = proto.decode((0, 0, memoryview(box["reply"])[proto._HDR.size:]))
+                    self.descheduler_history.append(rf)
+                self._closed.wait(interval)
+
+        t = threading.Thread(target=loop, daemon=True, name="ktpu-desched-tick")
+        t.start()
+        return t
+
     # ----------------------------------------------------------- messages
 
     def _apply_ops_reply(self, ops) -> dict:
@@ -400,6 +549,22 @@ class SidecarServer:
             qs, runtime = self.engine.quota_refresh(groups, fields["resources"], fields["total"])
             return proto.encode(M.QUOTA_REFRESH, req_id, {"groups": [g.name for g in qs.groups]},
                                 {"runtime": runtime[1:]})  # row 0 = virtual root
+
+        if msg_type == M.DESCHEDULE:
+            if not self.gates.enabled("LowNodeLoad"):
+                return proto.encode(M.DESCHEDULE, req_id, {"plan": [], "executed": 0})
+            d = self._descheduler_for(fields)
+            execute = bool(fields.get("execute", False))
+            plan = d.tick(fields.get("now", 0.0), dry_run=not execute)
+            executed = d.execute(plan, fields.get("now", 0.0)) if execute else 0
+            reply = {"plan": plan, "executed": executed}
+            if execute:
+                # the completed moves (pod, from, to)
+                reply["migrated"] = list(d.last_migrations)
+            if d.last_util:
+                # the node-utilisation percentiles per pool
+                reply["util"] = d.last_util
+            return proto.encode(M.DESCHEDULE, req_id, reply)
 
         refused = REFUSED_VERBS.get(msg_type)
         if refused is not None:

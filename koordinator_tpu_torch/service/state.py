@@ -646,6 +646,10 @@ class ClusterState:
         self.gangs = GangStore()
         self.quota = QuotaStore(quota_resources)
         self.reservations = ReservationStore()
+        # the descheduler's anomaly-detector counters (the ``anomaly`` wire
+        # op, a controller effect): pool -> {names, anomaly, ab, norm} as
+        # plain lists; a fresh Descheduler seeds its debounce streaks here
+        self.desched_anomaly: Dict[str, dict] = {}
         # the NodeFit filter axis is fixed at config time (the Go shim
         # declares the scalar resources it schedules on)
         self.axis: List[str] = nf_snap.fixed_axis(extra_scalars, self.nf_args)
@@ -1347,6 +1351,16 @@ class ClusterState:
         ut = self._la_update_time
         with np.errstate(invalid="ignore"):
             return np.flatnonzero((now0 - ut < exp) != (now1 - ut < exp)).astype(np.int32)
+
+    def set_desched_anomaly(self, pool: str, names, anomaly, ab, norm) -> None:
+        """Adopt one pool's descheduler anomaly-detector counters (the
+        ``anomaly`` wire op) as plain lists."""
+        self.desched_anomaly[str(pool)] = {
+            "names": [str(n) for n in names],
+            "anomaly": [bool(x) for x in anomaly],
+            "ab": [int(x) for x in ab],
+            "norm": [int(x) for x in norm],
+        }
 
     def publish(self, now: float) -> Snapshot:
         """Refresh dirty rows (O(dirty)), re-apply time gates (O(N)

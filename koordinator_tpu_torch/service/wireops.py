@@ -3,11 +3,10 @@
 One ordered delta batch from the wire: each op goes through the admission
 webhooks (``service.webhook.admit_op``), which may reject it or rewrite it
 in place, and then applies to the store in the order the informer sent it.
-
-The ``anomaly`` op (the descheduler's anomaly-detector counters) is
-refused: the whole batch raises ``NotImplementedError`` naming the
-descheduler slice before any of its ops applies, so it is never skipped in
-silence and never half-applied.
+Two callers: the server's APPLY, and the descheduler's controller effects
+(reservation create/drop/retire, the source unassign, the rollback
+re-assign, the ``anomaly`` counters), which are post-admission forms and
+apply with ``admit=False``.
 """
 
 from __future__ import annotations
@@ -15,27 +14,24 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from koordinator_tpu_torch.service import protocol as proto
-from koordinator_tpu_torch.slices import DESCHEDULER, later
 
 
-def apply_wire_ops(state, ops: Sequence[dict]) -> List[dict]:
+def apply_wire_ops(state, ops: Sequence[dict], admit: bool = True) -> List[dict]:
     """Apply one ordered delta batch to ``state``; returns the admission
     ``rejects`` list.  The op list preserves informer event order exactly
     — category batching would mis-apply compound sequences (pod moved
-    A->B, node removed+recreated) whose meaning depends on that order."""
+    A->B, node removed+recreated) whose meaning depends on that order.
+    ``admit=True`` runs the admission webhooks per op (APPLY)."""
     from koordinator_tpu_torch.api.model import AssignedPod
     from koordinator_tpu_torch.service.webhook import admit_op
 
-    if any(op.get("op") == "anomaly" for op in ops):
-        raise later("the anomaly op (the descheduler's anomaly-detector counters)",
-                    DESCHEDULER)
     rejects: List[dict] = []
     for op_index, op in enumerate(ops):
         k = op["op"]
         # admission webhooks (per-object semantics): a rejected op is
         # skipped with its reason in the reply; mutating webhooks may
         # rewrite the op dict in place
-        reason = admit_op(op, state)
+        reason = admit_op(op, state) if admit else None
         if reason is not None:
             rejects.append(
                 {
@@ -91,6 +87,10 @@ def apply_wire_ops(state, ops: Sequence[dict]) -> List[dict]:
             # consumption records (rsv_remove keeps the consumer map's
             # entries pointing at the dead name)
             state.reservations.retire(op["name"])
+        elif k == "anomaly":
+            # one pool's cross-tick anomaly-detector counters
+            state.set_desched_anomaly(op["pool"], op["names"], op["anomaly"], op["ab"],
+                                      op["norm"])
         else:
             raise ValueError(f"unknown delta op {k!r}")
     return rejects

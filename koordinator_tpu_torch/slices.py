@@ -17,8 +17,6 @@ TENANCY = "the tenancy-and-admission slice"
 OBSERVABILITY = "the observability slice"
 # SCHEDULE's preempt and the REVOKE verb
 PREEMPTION = "the preemption slice"
-# the DESCHEDULE verb and the anomaly op
-DESCHEDULER = "the descheduler slice"
 # the RECONCILE verb
 MANAGER = "the manager slice"
 # the HOOK verb

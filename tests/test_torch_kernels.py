@@ -529,7 +529,65 @@ def test_library_and_sidecar_phases_run_on_cpu():
     nothing launches (the launch plan is the card's alone)."""
     launches, wall = chip_smoke.drive_library_path(torch.device("cpu"), 300, 40)
     assert not any(launches.values())
-    launches, verbs = chip_smoke.drive_sidecar_path(torch.device("cpu"), 300, 64, SCALARS)
-    assert not any(launches.values())
+    launches, verbs, (desched, ticks, fleet) = chip_smoke.drive_sidecar_path(
+        torch.device("cpu"), 300, 64, SCALARS)
+    assert not any(launches.values()) and not any(desched.values())
     assert [v["verb"] for v in verbs][-1] == "METRICS (refused)"
     assert next(v for v in verbs if v["verb"] == "ECHO")["bytes"] > 1024 * 16384 * 2
+    assert ticks[-1]["verb"] == "DESCHEDULE execute" and ticks[-1]["executed"]
+    assert fleet["nodes"].usage.shape == (300, 2)
+
+
+@pytest.mark.cuda
+def test_desched_kernels_equal_plain(card):
+    """``deschedule_round`` at 300 nodes x 50 candidates (bucket 64) across
+    deviation, debounce, caps and the number_of_nodes gate, and
+    ``pod_band_rank`` at P = 64 with ties on every key."""
+    before = {k: cuda.KERNELS[k].launches for k in ("deschedule_round", "pod_band_rank")}
+    chip_smoke.check_desched_kernels(card, timed=False)
+    chip_smoke.check_band_kernels(card, timed=False)
+    assert all(cuda.KERNELS[k].launches > v for k, v in before.items())
+
+
+@pytest.mark.cuda
+def test_desched_round_one_copy_to_host(card):
+    """The round's outputs share one buffer: ``to_host`` brings them over
+    in one copy, equal to the plain version's."""
+    from koordinator_tpu_torch.core import deschedule as ds
+    from koordinator_tpu_torch.core.lownodeload import new_anomaly_state
+
+    nodes, pods = chip_smoke.desched_arrays(card, 200, 40, 64, 5)
+    args = (new_anomaly_state(200, card), nodes, pods, torch.tensor([30.0, 40.0], device=card),
+            torch.tensor([60.0, 80.0], device=card), torch.tensor([1, 1], device=card))
+    got = ds.to_host(ds.deschedule_round(*args, consecutive_abnormalities=1))
+    want = ds.deschedule_round_plain(*args, consecutive_abnormalities=1)
+    for a, b in zip(chip_smoke.round_outputs(got), chip_smoke.round_outputs(want)):
+        assert np.array_equal(a, b.cpu().numpy())
+
+
+def test_desched_checks_run_on_cpu_tensors():
+    """The descheduler's checks on CPU tensors, where both wrappers take
+    their plain versions: the comparison logic itself, and no launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    chip_smoke.check_desched_kernels(torch.device("cpu"), timed=False)
+    chip_smoke.check_band_kernels(torch.device("cpu"), timed=False)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_desched_wrappers_refuse_before_launch():
+    """Wrong dtypes and shapes raise before any launch."""
+    from koordinator_tpu_torch.core import deschedule as ds
+    from koordinator_tpu_torch.core.lownodeload import new_anomaly_state
+
+    nodes, pods = chip_smoke.desched_arrays(torch.device("cpu"), 20, 10, 16, 1)
+    low, high = torch.tensor([30.0, 40.0]), torch.tensor([60.0, 80.0])
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    with pytest.raises(ValueError, match="pod usage"):
+        ds.deschedule_round(new_anomaly_state(20), nodes, pods._replace(usage=pods.usage[:, :1]),
+                            low, high, torch.tensor([1, 1]))
+    with pytest.raises(ValueError, match="anomaly"):
+        ds.deschedule_round(new_anomaly_state(19), nodes, pods, low, high, torch.tensor([1, 1]))
+    keys = chip_smoke.band_arrays(torch.device("cpu"), 8, 1, usage=False)
+    with pytest.raises(ValueError, match="create_time"):
+        ds.pod_band_rank(keys._replace(create_time=keys.create_time.float()))
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before

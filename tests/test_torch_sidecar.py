@@ -199,7 +199,7 @@ def _refusal(srv, frame: bytes):
 
 @pytest.mark.parametrize("verb,slice_name", [
     (M.METRICS, "observability"), (M.HEALTH, "observability"), (M.DIGEST, "observability"),
-    (M.DESCHEDULE, "descheduler"), (M.REVOKE, "preemption"), (M.RECONCILE, "manager"),
+    (M.TRACE, "observability"), (M.REVOKE, "preemption"), (M.RECONCILE, "manager"),
     (M.HOOK, "runtime-hooks"), (M.SUBSCRIBE, "durability"), (M.PROMOTE, "durability"),
 ])
 def test_other_verbs_are_refused_naming_their_slice(verb, slice_name):
@@ -230,10 +230,13 @@ def test_preempt_trailers_anomaly_and_debug_scores_are_refused():
         assert "the QoS trailer" in _refusal(srv, tp.with_qos(ping, "batch"))
         upsert = {"op": "upsert", "node": {"name": "n0", "alloc": {"cpu": 1000}}}
         anomaly = {"op": "anomaly", "pool": "p", "names": [], "anomaly": [], "ab": [], "norm": []}
-        msg = _refusal(srv, tp.encode(M.APPLY, 3, {"ops": [upsert, anomaly]}))
-        assert "the descheduler slice" in msg
-        # refused as a whole: the upsert before it did not apply
-        assert srv.state.num_live == 0
+        # the descheduler's anomaly op now applies, as on the JAX sidecar
+        w = Wire(srv.address)
+        assert decode(w.call(tp.encode(M.APPLY, 3, {"ops": [upsert, anomaly]})))[0] == M.APPLY
+        w.close()
+        assert srv.state.num_live == 1
+        assert srv.state.desched_anomaly == {"p": {"names": [], "anomaly": [], "ab": [],
+                                                   "norm": []}}
         msg = _refusal(srv, tp.encode(M.SCORE, 4, {"pods": pods, "debug_scores": 3}))
         assert "the observability slice" in msg
         # a trace trailer is echoed, as the JAX sidecar does
