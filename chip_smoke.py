@@ -71,6 +71,19 @@ Phases (any failure exits non-zero and prints no result line):
      counted from 0 and its split (``_pool_arrays``, kernel, arbitrate,
      probe, execute); and the round again at the fleet's own shape, on the
      pool's inputs after the last tick.
+  14. the koordlet and the sharded sidecar: ``shard_score_map`` against its
+     plain version and the unsharded ``score`` kernel at 64 x 512 (S = 1, 2,
+     4) and at the full shape (S = 4), under the three strategies, with and
+     without extra scores; ``aggregate_node_metrics`` against its plain
+     version bit for bit at 64 x 64 (empty series, NaN, ±0.0, tied times,
+     counts 20 and 10) and at the fleet's windows; then the path: a
+     ``MetricSeriesStore`` of 256 ticks for the fleet's nodes and assigned
+     pods, ``NodeMetricProducer.produce`` on the card equal to a CPU twin's,
+     the NodeMetrics as APPLY to a card sidecar with ``shards=4``, a CPU twin
+     and an unsharded card sidecar, SCORE and SCHEDULE cold, warm after a
+     second report tick and with ``assume`` (replies byte-identical), and
+     the mesh (``shard_map=True`` over the card four times) equal to slice
+     mode, each stage's wall time printed.
   Every result of phases 5 to 8 and 10 must equal the plain path's (the
   same engine on the CPU, fed a twin store) and, in phases 6 to 8, a
   warm-disabled engine's on the card; every kernel of each path must have
@@ -3151,6 +3164,450 @@ def drive_desched_path(device, card, twin, cw, tw, names):
     return launches, records, fleet_round
 
 
+SHARD_SOURCE = "koordinator_tpu_torch/csrc/shard.cu"
+METRICSAGG_SOURCE = "koordinator_tpu_torch/csrc/metricsagg.cu"
+KOORDLET_SHARDS = 4
+
+
+def mesh_blocks(fn, inp, static, extra, S: int):
+    """One ``[P, N]`` evaluation as S mesh blocks on the inputs' device
+    through ``fn`` (``shard_score_map`` or its plain version), into buffers
+    filled with a sentinel first, so a column no block wrote shows."""
+    from koordinator_tpu_torch.service.sharding import shard_bounds
+
+    P, N = inp["la_pods"].est.shape[0], inp["valid"].shape[0]
+    dev = inp["valid"].device
+    totals = torch.full((P, N), -(1 << 40), dtype=torch.int64, device=dev)
+    feasible = torch.ones((P, N), dtype=torch.bool, device=dev)
+    for lo, hi in shard_bounds(N, S):
+        fn(inp["la_pods"], inp["la_nodes"], inp["weights"], inp["nf_pods"], inp["nf_nodes"],
+           static, inp["valid"], extra, lo, hi, totals, feasible)
+    return totals, feasible
+
+
+def check_shard_kernels(inp, shard_counts, timed: bool):
+    """``shard_score_map`` against its plain version on the same device,
+    the S blocks merged, under LeastAllocated, MostAllocated and both RTC
+    shapes, with and without extra scores, at each shard count; the merged
+    output also against the unsharded ``score`` kernel.  Returns the record
+    at the last shard count when ``timed`` (LeastAllocated, no extras; the
+    other variants' times beside it)."""
+    from koordinator_tpu_torch.core.cycle import score_fn
+    from koordinator_tpu_torch.service import sharding as sh
+
+    P, N = inp["la_pods"].est.shape[0], inp["valid"].shape[0]
+    _, extra = scan_extras(inp, SEED + 41)
+    statics = [("least", inp["static"])] + strategy_statics(inp["static"])
+    err, variants = 0, {}
+    for name, static in statics:
+        for x in (None, extra):
+            want = score_fn(inp["la_pods"], inp["la_nodes"], inp["weights"], inp["nf_pods"],
+                            inp["nf_nodes"], static, inp["valid"], x)
+            for S in shard_counts:
+                what = f"shard_score_map {name} S={S} extras={x is not None} {P}x{N}"
+                got = mesh_blocks(sh.shard_score_map, inp, static, x, S)
+                err = max(err, require_equal(what, got,
+                                             mesh_blocks(sh.shard_score_map_plain, inp, static,
+                                                         x, S)))
+                require_equal(what + " against the unsharded score kernel", got, want)
+            if timed:
+                S = shard_counts[-1]
+                variants[f"{name}{'+extras' if x is not None else ''}"] = cuda_ms(
+                    lambda: mesh_blocks(sh.shard_score_map, inp, static, x, S))
+    print(f"  shard_score_map at {P} x {N}, S in {list(shard_counts)}, four strategy shapes, "
+          "with and without extras: equal plain and the unsharded score kernel", flush=True)
+    if not timed:
+        return None
+    S = shard_counts[-1]
+    static = inp["static"]
+    la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+    ops = pair_ops(la_pods.est.shape[1], nf_pods.req.shape[1], nf_pods.req_score.shape[1])
+    b, by = bound_ms(nbytes(*la_pods, *nf_pods, *inp["la_nodes"], *inp["nf_nodes"], inp["valid"])
+                     + P * N * 9, P * N * ops)
+    return dict(
+        name="shard_score_map", source=SHARD_SOURCE,
+        replaces="koordinator_tpu/service/sharding.py:480",
+        ms=cuda_ms(lambda: mesh_blocks(sh.shard_score_map, inp, static, None, S)),
+        plain_ms=cuda_ms(lambda: mesh_blocks(sh.shard_score_map_plain, inp, static, None, S)),
+        score_ms=cuda_ms(lambda: score_fn(la_pods, inp["la_nodes"], inp["weights"], nf_pods,
+                                          inp["nf_nodes"], static, inp["valid"])),
+        bound_ms=b, bound_by=by, max_abs_err=err, shape=f"{P} pods x {N} columns, {S} blocks",
+        variants=variants,
+    )
+
+
+def agg_series(dev, S: int, T: int, seed: int):
+    """(values, valid, times) of S series of T samples on ``dev``: integer
+    and fractional samples, and edge rows up front — NaN and ±0.0 samples,
+    an all -0.0 row, an empty row, counts 20 and 10 (the float32 index of
+    p95 and p90), tied and NaN times."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 1 << 40, (S, T)).astype(np.float64)
+    v[S // 2:] = rng.random((S - S // 2, T)) * 1e4
+    valid = rng.random((S, T)) < 0.7
+    t = rng.integers(0, 40, (S, T)).astype(np.float64)
+    v[0, :6] = [0.0, -0.0, np.nan, -np.nan, 1.0, -0.0]
+    v[1], valid[1] = -0.0, True
+    valid[2] = False
+    for row, cnt in ((3, 20), (4, 10), (5, 1)):
+        valid[row] = False
+        valid[row, rng.choice(T, min(cnt, T), replace=False)] = True
+    t[6] = np.nan
+    t[7] = 5.0
+    return tuple(torch.from_numpy(a).to(dev) for a in (v, valid, t))
+
+
+def agg_bound(S: int, T: int) -> tuple:
+    """The aggregation's bound: each sample read once (value, time, valid:
+    17 bytes), the [6, S] output written once; the bitonic sort's
+    compare-exchanges at about 6 operations each."""
+    Tp = 1 << max(T - 1, 0).bit_length()
+    stages = Tp.bit_length() * (Tp.bit_length() - 1) // 2
+    return bound_ms(S * T * 17 + 6 * S * 8, S * (stages * Tp // 2 * 6 + 4 * T))
+
+
+def check_metricsagg_kernels(dev, windows=(), timed: bool = False):
+    """``aggregate_node_metrics`` against its plain version on the same
+    device, bit for bit: 64 series x 64 samples with the edge rows of
+    ``agg_series``, and each (label, values, valid, times) window of
+    ``windows``.  Returns the record at the largest window when
+    ``timed``."""
+    from koordinator_tpu_torch.core import metricsagg as ma
+
+    args = agg_series(dev, 64, 64, SEED + 51)
+    require_same("aggregate_node_metrics 64x64", (ma.aggregate_node_metrics(*args),),
+                 (ma.aggregate_node_metrics_plain(*args),))
+    for label, *w in windows:
+        require_same(f"aggregate_node_metrics {label} {tuple(w[0].shape)}",
+                     (ma.aggregate_node_metrics(*w),), (ma.aggregate_node_metrics_plain(*w),))
+    print("  aggregate_node_metrics at 64 x 64 (empty series, NaN, ±0.0, tied times, counts 20 "
+          "and 10)" + "".join(f", {lab} {tuple(w[0].shape)}" for lab, *w in windows)
+          + ": equal plain, bit for bit", flush=True)
+    if not timed or not windows:
+        return None
+    label, *w = max(windows, key=lambda x: x[1].shape[0])
+    S, T = w[0].shape
+    b, by = agg_bound(S, T)
+    return dict(
+        name="aggregate_node_metrics", source=METRICSAGG_SOURCE,
+        replaces="koordinator_tpu/core/metricsagg.py:54",
+        ms=cuda_ms(lambda: ma.aggregate_node_metrics(*w)),
+        plain_ms=cuda_ms(lambda: ma.aggregate_node_metrics_plain(*w)),
+        bound_ms=b, bound_by=by, max_abs_err=0, shape=f"{label}: {S} series x {T} samples",
+        variants={lab: cuda_ms(lambda x=x: ma.aggregate_node_metrics(*x))
+                  for lab, *x in windows},
+    )
+
+
+KOORDLET_TICKS = 256
+KOORDLET_CADENCE = 10.0
+KOORDLET_SECOND_TICK = 10  # one koordlet in this many reports between the two SCHEDULEs
+
+
+def koordlet_fleet(num_nodes: int):
+    """``random_cluster``'s fleet (about 3.3 assigned pods a node) with
+    every node's custom aggregated-usage thresholds on its 300-s p95
+    window (cpu 70%, memory 85%), so the produced windows decide
+    feasibility."""
+    from koordinator_tpu_torch.api.model import AggregationType
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    _, nodes = random_cluster(SEED, num_nodes=num_nodes, num_pods=0, pods_per_node=12)
+    for n in nodes:
+        n.has_custom_annotation = True
+        n.custom_agg_usage_thresholds = {"cpu": 70, "memory": 85}
+        n.custom_agg_type = AggregationType.P95
+        n.custom_agg_duration = 300.0
+    return nodes
+
+
+def fleet_series(prod, nodes, seed: int):
+    """The fleet's series and a collection tick: (node keys, pods by node,
+    ``tick(store, now)``).  A tick samples each node's cpu and memory (a
+    per-node base level, noise, and on a third of the nodes a spike every
+    seventh tick) and each assigned pod's, as integers."""
+    rng = np.random.default_rng(seed)
+    keys, caps, pods_by_node = [], [], {}
+    for n in nodes:
+        for r in ("cpu", "memory"):
+            keys.append(prod.node_key(n.name, r))
+            caps.append(n.allocatable[r])
+        pods_by_node[n.name] = [ap.pod.key for ap in n.assigned_pods]
+    node_keys = len(keys)
+    for n in nodes:
+        for ap in n.assigned_pods:
+            for r in ("cpu", "memory"):
+                keys.append(prod.pod_key(n.name, ap.pod.key, r))
+                caps.append(max(ap.pod.requests.get(r, 0), 1000 if r == "cpu" else 1 << 28))
+    caps = np.asarray(caps, dtype=np.float64)
+    base = rng.uniform(0.1, 0.6, caps.size)
+    spiky = np.flatnonzero(np.repeat(rng.random(len(nodes)) < 1 / 3, 2))
+    count = [0]
+
+    def tick(store, now: float) -> None:
+        frac = base + rng.normal(0.0, 0.05, caps.size)
+        if count[0] % 7 == 0:
+            frac[spiky] += 0.35
+        count[0] += 1
+        store.append(now, dict(zip(keys, np.floor(np.clip(frac, 0.0, 1.2) * caps).tolist())))
+
+    return keys[:node_keys], pods_by_node, tick
+
+
+def koordlet_frames(nodes, metrics, second, num_pods: int) -> list:
+    """The path's frames, (label, frame bytes): HELLO; APPLY of the node
+    specs and assigned pods in frames of about 1,000 ops; APPLY of the
+    produced NodeMetrics; SCORE of the batch; SCHEDULE; APPLY of the second
+    report tick's NodeMetrics; SCHEDULE again (the warm start); SCHEDULE
+    with ``assume``."""
+    from koordinator_tpu_torch.service import protocol as proto
+    from koordinator_tpu_torch.service.client import Client
+    from koordinator_tpu_torch.utils.fixtures import NOW, random_pod
+
+    M = proto.MsgType
+    out = []
+    req = iter(range(1 << 21, 1 << 22))
+
+    def frame(label, t, fields):
+        out.append((label, proto.encode(t, next(req), fields)))
+
+    def apply(label, ops):
+        for i in range(0, len(ops), 1000):
+            frame(label, M.APPLY, {"ops": ops[i:i + 1000]})
+
+    frame("HELLO", M.HELLO, {})
+    ops = []
+    for n in nodes:
+        ops.append(Client.op_upsert(proto.spec_only(n)))
+        ops += [Client.op_assign(n.name, ap) for ap in n.assigned_pods]
+    apply("APPLY fleet", ops)
+    apply("APPLY NodeMetrics", [Client.op_metric(name, m) for name, m in metrics.items()])
+    rng = np.random.default_rng(SEED + 61)
+    batch = [proto.pod_to_wire(random_pod(rng, f"kl-pending-{i}", "pending"))
+             for i in range(num_pods)]
+    frame("SCORE", M.SCORE, {"pods": batch, "now": NOW + 1, "names_version": -1})
+    frame("SCHEDULE", M.SCHEDULE, {"pods": batch, "now": NOW + 2, "names_version": 1})
+    apply("APPLY second tick", [Client.op_metric(name, m) for name, m in second.items()])
+    frame("SCHEDULE warm", M.SCHEDULE, {"pods": batch, "now": NOW + 62, "names_version": 1})
+    frame("SCHEDULE assume", M.SCHEDULE, {"pods": batch, "now": NOW + 63, "names_version": 1,
+                                          "assume": True})
+    return out
+
+
+KOORDLET_PATH_KERNELS = ("aggregate_node_metrics", "shard_score_map", "score", "schedule_keys",
+                         "schedule_rounds", "sched_refresh", "sched_rounds", "dstate_scatter")
+
+
+def same_metrics(a: dict, b: dict) -> bool:
+    def view(m):
+        return (m.node_usage, m.update_time, m.report_interval, m.pods_usage,
+                {d: {k.value: v for k, v in x.items()} for d, x in m.aggregated.items()})
+
+    return a.keys() == b.keys() and all(view(a[n]) == view(b[n]) for n in a)
+
+
+def drive_koordlet_path(device, num_nodes: int, num_pods: int, scalars):
+    """The koordlet's reports into a sharded sidecar at full width: a
+    ``MetricSeriesStore`` fed ``KOORDLET_TICKS`` collection ticks for the
+    fleet's nodes and assigned pods; ``NodeMetricProducer.produce`` on the
+    card and on a CPU twin (equal NodeMetrics); the metrics as APPLY to
+    the card's sidecar with ``shards=4``, a CPU twin with ``shards=4`` and
+    an unsharded card sidecar, then SCORE and three SCHEDULEs (every reply
+    of the sharded two byte-identical, and past HELLO equal to the
+    unsharded one's); then the mesh in process: ``ShardedEngine(shard_map=
+    True, devices=[card] * 4)`` against slice mode on a twin store.  The
+    counts are 0 at the start and read at the end.  Returns (launches, the
+    stage records, the fleet windows for the kernel checks)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import AggregationType
+    from koordinator_tpu_torch.service import protocol as proto
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.service.koordlet import MetricSeriesStore, NodeMetricProducer
+    from koordinator_tpu_torch.service.server import SidecarServer
+    from koordinator_tpu_torch.service.sharding import ShardedEngine
+    from koordinator_tpu_torch.service.state import ClusterState
+    from koordinator_tpu_torch.service.wireops import apply_wire_ops
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    M = proto.MsgType
+    stages = {}
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    nodes = koordlet_fleet(num_nodes)
+    store = MetricSeriesStore(window=KOORDLET_TICKS)
+    prod = NodeMetricProducer(store, device=device)
+    twin_prod = NodeMetricProducer(store, device="cpu")
+    node_keys, pods_by_node, tick = fleet_series(prod, nodes, SEED + 62)
+    for t in range(KOORDLET_TICKS):
+        tick(store, NOW - KOORDLET_CADENCE * (KOORDLET_TICKS - 1 - t))
+    stages["fill_ms"] = (time.perf_counter() - t0) * 1e3
+    n_series = len(store._imap)
+    print(f"  store: {n_series} series ({len(node_keys)} node, {n_series - len(node_keys)} pod) x "
+          f"{KOORDLET_TICKS} ticks filled in {stages['fill_ms'] / 1e3:.1f} s", flush=True)
+    # one report tick's stages, as produce runs them: each window built on
+    # the host, then the kernel (upload, launch and the one read-back)
+    # one report tick's stages as produce runs them, timed apart (their
+    # launches are not the path's): each window built on the host, then the
+    # kernel with its upload and its one read-back
+    pod_keys = [prod.pod_key(n, pk, r) for n, pks in pods_by_node.items() for pk in pks
+                for r in prod.resources]
+    windows = []
+    with uncounted():
+        for label, dur, keys in (
+                [(f"node window {int(d)} s", d, node_keys)
+                 for d in [prod.report_interval] + prod.aggregate_durations]
+                + [(f"pod window {int(prod.report_interval)} s", prod.report_interval,
+                    pod_keys)]):
+            t0 = time.perf_counter()
+            w = store.window(NOW, dur, keys)
+            build = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            prod._aggregate(*w)
+            stages[label] = dict(build_ms=build, kernel_ms=(time.perf_counter() - t0) * 1e3)
+            windows.append((label, *(torch.from_numpy(a).to(device) for a in w)))
+    names = [n.name for n in nodes]
+    t0 = time.perf_counter()
+    metrics = prod.produce(NOW, names, pods_by_node)
+    stages["produce_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with uncounted():
+        want = twin_prod.produce(NOW, names, pods_by_node)
+    stages["produce_twin_ms"] = (time.perf_counter() - t0) * 1e3
+    if not same_metrics(metrics, want):
+        fail("the card's NodeMetrics differ from the CPU twin's")
+    hot = sum(m.aggregated[300.0][AggregationType.P95]["cpu"] > 0.7 * n.allocatable["cpu"]
+              for n in nodes for m in (metrics[n.name],))
+    print(f"  produce: {len(metrics)} NodeMetrics in {stages['produce_ms']:.0f} ms on the card "
+          f"({stages['produce_twin_ms']:.0f} ms the CPU twin's), equal; window build + kernel "
+          + ", ".join(f"{k} {v['build_ms']:.0f} + {v['kernel_ms']:.0f} ms"
+                      for k, v in stages.items() if isinstance(v, dict))
+          + f"; the 300-s p95 cpu over 70% on {hot} nodes", flush=True)
+    # the second report tick: six more collection ticks, and a tenth of the
+    # koordlets report before the next SCHEDULE
+    for t in range(1, 7):
+        tick(store, NOW + KOORDLET_CADENCE * t)
+    reporting = names[::KOORDLET_SECOND_TICK]
+    second = prod.produce(NOW + 60, reporting, {n: pods_by_node[n] for n in reporting})
+    with uncounted():
+        if not same_metrics(second, twin_prod.produce(NOW + 60, reporting,
+                                                      {n: pods_by_node[n] for n in reporting})):
+            fail("the card's second-tick NodeMetrics differ from the CPU twin's")
+    frames = koordlet_frames(nodes, metrics, second, num_pods)
+    card = SidecarServer(initial_capacity=16, extra_scalars=scalars, device=device,
+                         shards=KOORDLET_SHARDS)
+    twin = SidecarServer(initial_capacity=16, extra_scalars=scalars, device="cpu",
+                         shards=KOORDLET_SHARDS)
+    solo = SidecarServer(initial_capacity=16, extra_scalars=scalars, device=device)
+    records, replies = [], {}
+    try:
+        wires = [Wire(s.address) for s in (card, twin, solo)]
+        for label, frame in frames:
+            before = {name: k.launches for name, k in cuda.KERNELS.items()}
+            t0 = time.perf_counter()
+            got = wires[0].call(frame)
+            wall = (time.perf_counter() - t0) * 1e3
+            delta = {name: k.launches - before[name] for name, k in cuda.KERNELS.items()
+                     if k.launches != before[name]}
+            t0 = time.perf_counter()
+            want = wires[1].call(frame)
+            twin_wall = (time.perf_counter() - t0) * 1e3
+            with uncounted():
+                t0 = time.perf_counter()
+                alone = wires[2].call(frame)
+                solo_wall = (time.perf_counter() - t0) * 1e3
+            gt, _, gf, ga = decoded(got)
+            if gt == M.ERROR or decoded(want)[0] == M.ERROR or decoded(alone)[0] == M.ERROR:
+                fail(f"koordlet path {label}: ERROR {gf.get('error')}")
+            if got != want:
+                fail(f"koordlet path {label}: the sharded card sidecar's reply differs from the "
+                     "CPU twin's")
+            if label == "HELLO":
+                if gf.get("shards") != KOORDLET_SHARDS or "shards" in decoded(alone)[2]:
+                    fail(f"HELLO advertises shards {gf.get('shards')}")
+            elif got != alone:
+                fail(f"koordlet path {label}: the sharded sidecar's reply differs from the "
+                     "unsharded card sidecar's")
+            replies[label] = (gt, gf, ga)
+            records.append(dict(verb=label, ms=wall, twin_ms=twin_wall, solo_ms=solo_wall,
+                                bytes=len(got), launches=delta))
+        for w in wires:
+            w.close()
+        se = card._serving_engine()
+        if not isinstance(se, ShardedEngine) or se.num_shards != KOORDLET_SHARDS:
+            fail("the sharded sidecar did not serve through a ShardedEngine")
+    finally:
+        for s in (card, twin, solo):
+            s.close()
+    warm = next(r for r in records if r["verb"] == "SCHEDULE warm")["launches"]
+    if device.type == "cuda" and (warm.get("schedule_keys") or not warm.get("sched_rounds")):
+        fail(f"the SCHEDULE after the second report tick was not a warm start: {warm}")
+    placed = {lab: int((replies[lab][2]["hosts"] >= 0).sum())
+              for lab in ("SCHEDULE", "SCHEDULE warm", "SCHEDULE assume")}
+    _, sf, sa = replies["SCORE"]
+    feasible = np.unpackbits(sa["feasible"], axis=1)[:, : sf["num_live"]]
+    if not all(placed.values()) or feasible.all() or not feasible.any():
+        fail(f"the sharded sidecar placed {placed}, {int(feasible.sum())} feasible pairs")
+    applies = [r for r in records if r["verb"].startswith("APPLY")]
+    print(f"  APPLY: {len(applies)} frames, {sum(r['ms'] for r in applies):.0f} ms on the card's "
+          f"sharded sidecar ({sum(r['twin_ms'] for r in applies):.0f} ms the twin's, "
+          f"{sum(r['solo_ms'] for r in applies):.0f} ms the unsharded one's)")
+    for r in records:
+        if not r["verb"].startswith("APPLY"):
+            print(f"  {r['verb']}: {r['ms']:.1f} ms wall on the card's sharded sidecar (twin "
+                  f"{r['twin_ms']:.1f} ms, unsharded {r['solo_ms']:.1f} ms), {r['bytes']} reply "
+                  f"bytes, launches {r['launches']}", flush=True)
+    print(f"  placed: {placed}; {int(feasible.sum())} of {feasible.size} pairs feasible; every "
+          "reply equals the CPU twin's and the unsharded sidecar's", flush=True)
+
+    # the mesh, in process: two stores fed the same frames' ops
+    from koordinator_tpu_torch.utils.fixtures import random_pod
+
+    ops = [op for label, f in frames if label.startswith("APPLY")
+           for op in decoded(f)[2]["ops"]]
+    rng = np.random.default_rng(SEED + 61)
+    batch = [random_pod(rng, f"kl-pending-{i}", "pending") for i in range(num_pods)]
+    sides = []
+    for mesh in (True, False):
+        st = ClusterState(extra_scalars=scalars)
+        apply_wire_ops(st, ops)
+        eng = Engine(st, device=device)
+        sides.append(ShardedEngine(st, KOORDLET_SHARDS, engine=eng, shard_map=mesh,
+                                   devices=[device] * KOORDLET_SHARDS if mesh else None))
+    mesh_se, slice_se = sides
+    before = cuda.SHARD_SCORE_MAP.launches
+    t0 = time.perf_counter()
+    got = mesh_se.score(batch, now=NOW + 64)
+    stages["mesh_score_ms"] = (time.perf_counter() - t0) * 1e3
+    if device.type == "cuda" and cuda.SHARD_SCORE_MAP.launches - before != KOORDLET_SHARDS:
+        fail(f"the mesh SCORE launched shard_score_map "
+             f"{cuda.SHARD_SCORE_MAP.launches - before} times")
+    with uncounted():
+        t0 = time.perf_counter()
+        want = slice_se.score(batch, now=NOW + 64)
+        stages["slice_score_ms"] = (time.perf_counter() - t0) * 1e3
+    require_equal("mesh SCORE against slice mode", got[:2], want[:2])
+    for i, assume in enumerate((False, True)):
+        t0 = time.perf_counter()
+        h, s, snap, al = mesh_se.schedule(batch, now=NOW + 65 + i, assume=assume)
+        stages[f"mesh_schedule{'_assume' if assume else ''}_ms"] = (time.perf_counter() - t0) * 1e3
+        with uncounted():
+            rh, rs, rsnap, ral = slice_se.schedule(batch, now=NOW + 65 + i, assume=assume)
+        require_equal(f"mesh SCHEDULE assume={assume} against slice mode", (h, s), (rh, rs))
+        if al != ral or list(snap.names) != list(rsnap.names):
+            fail(f"mesh SCHEDULE assume={assume}: allocation records differ from slice mode")
+    if store_view(mesh_se.state) != store_view(slice_se.state):
+        fail("the mesh's store after assume differs from slice mode's")
+    launches = {name: k.launches for name, k in cuda.KERNELS.items()}
+    print(f"  mesh (shard_map, {KOORDLET_SHARDS} x {device}): SCORE {stages['mesh_score_ms']:.0f} "
+          f"ms (slice mode {stages['slice_score_ms']:.0f} ms), SCHEDULE "
+          f"{stages['mesh_schedule_ms']:.0f} ms, with assume "
+          f"{stages['mesh_schedule_assume_ms']:.0f} ms; equal to slice mode; launches on the "
+          f"path {launches}", flush=True)
+    return launches, dict(stages=stages, verbs=records, placed=placed), windows
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA card", file=sys.stderr)
@@ -3200,12 +3657,16 @@ def main() -> int:
     check_strategies_small(small)
     # the explain slice's kernels at 64 pods x 512 columns, and at a node
     # axis that is not a multiple of the block width (267) by 45 pods
-    check_breakdown_kernels(build_inputs(*random_cluster(SEED, num_nodes=500, num_pods=64), dev,
-                                         scalars), timed=False)
+    small512 = build_inputs(*random_cluster(SEED, num_nodes=500, num_pods=64), dev, scalars)
+    check_breakdown_kernels(small512, timed=False)
     check_breakdown_kernels(ragged(small, 267, 45), timed=False)
     # the descheduler's kernels at the small shapes
     check_desched_kernels(dev, timed=False)
     check_band_kernels(dev, timed=False)
+    # the koordlet slice's kernels at the small shapes
+    check_shard_kernels(small512, (1, 2, KOORDLET_SHARDS), timed=False)
+    check_metricsagg_kernels(dev)
+    del small512
     pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
     full = build_inputs(pods, nodes, dev, scalars)
     records = check_kernels(full, 16, timed=True)
@@ -3234,6 +3695,7 @@ def main() -> int:
     # constrained, both tie-breaks, with extras), the int64-key engine
     records += check_strategies_full(full, records)
     records += check_breakdown_kernels(full, timed=True)
+    records.append(check_shard_kernels(full, (KOORDLET_SHARDS,), timed=True))
     desched_bench = check_desched_kernels(dev, timed=True)
     records.append(check_band_kernels(dev, timed=True))
     print(f"matrix route: {NUM_NODES} nodes x {NUM_PODS} pods, int64 keys", flush=True)
@@ -3280,6 +3742,14 @@ def main() -> int:
     print(f"  deschedule_round at the fleet's shape ({rec['shape']}): equal plain, "
           f"{int(want.evicted.sum())} evictions, {rec['ms']:.3f} ms (plain "
           f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms)", flush=True)
+    print(f"koordlet path: {NUM_NODES} nodes' koordlets report into a sidecar with shards="
+          f"{KOORDLET_SHARDS}; the mesh in process", flush=True)
+    kl_launches, kl_records, kl_windows = drive_koordlet_path(dev, NUM_NODES, NUM_PODS, scalars)
+    rec = check_metricsagg_kernels(dev, kl_windows, timed=True)
+    del kl_windows
+    records.append(rec)
+    print(f"  aggregate_node_metrics at the fleet's shape ({rec['shape']}): {rec['ms']:.3f} ms "
+          f"(plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms)", flush=True)
     for path, launched, kernels in (
         ("cold", cold_launches, ("score", "schedule_keys", "schedule_rounds")),
         ("warm", warm_launches, WARM_PATH_KERNELS),
@@ -3291,6 +3761,7 @@ def main() -> int:
         ("library", lib_launches, ("loadaware_score_and_filter",)),
         ("sidecar", side_launches, SIDECAR_PATH_KERNELS),
         ("descheduler", desched_launches, DESCHED_PATH_KERNELS),
+        ("koordlet", kl_launches, KOORDLET_PATH_KERNELS),
     ):
         idle = [k for k in kernels if launched[k] == 0]
         if idle:
@@ -3299,14 +3770,14 @@ def main() -> int:
           f"the constraint path {con_launches}; on the placement path {place_launches}; on the "
           f"strategies path {strat_launches}; on the matrix route {matrix_launches}; on the "
           f"library path {lib_launches}; on the sidecar path {side_launches}; on the "
-          f"descheduler path {desched_launches}")
+          f"descheduler path {desched_launches}; on the koordlet path {kl_launches}")
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "ub_rounds",
             "dirty_rows", "groups", "ms_extras", "ms_gm16", "plain_ms_gm16", "bound_ms_gm16",
             "strategies_ms", "variants", "placed", "shape", "ms_bench_sim",
             "plain_ms_bench_sim", "bound_ms_bench_sim", "ms_bench_sim_deviation",
-            "plain_ms_bench_sim_deviation", "device_split_ms")
+            "plain_ms_bench_sim_deviation", "device_split_ms", "score_ms")
     kernels = []
     for rec in records:
         name = rec["name"]
@@ -3314,7 +3785,7 @@ def main() -> int:
                    "constraints": con_launches[name], "placement": place_launches[name],
                    "strategies": strat_launches[name], "matrix": matrix_launches[name],
                    "library": lib_launches[name], "sidecar": side_launches[name],
-                   "descheduler": desched_launches[name]}
+                   "descheduler": desched_launches[name], "koordlet": kl_launches[name]}
         # only dstate_scatter (index_copy_) and dstate_extend (F.pad) have a
         # PyTorch call computing the same function; the others have none
         rec = dict(rec, route="cuda", launches=sum(by_path.values()), launches_by_path=by_path)
@@ -3325,7 +3796,7 @@ def main() -> int:
                       "warm_cycles": warm_cycles, "constraint_cycles": con_cycles,
                       "placement_cycles": place_cycles, "strategy_cycles": strat_cycles,
                       "library_call_ms": lib_ms, "sidecar_verbs": side_verbs,
-                      "descheduler_ticks": desched_ticks}))
+                      "descheduler_ticks": desched_ticks, "koordlet_path": kl_records}))
     print(f"device: {kind} | {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -28,7 +28,10 @@ placement-and-devices mask and scores); the residency's
 ``nf_score`` of SCORE's breakdown, and the LoadAware library entry point
 ``loadaware_score_and_filter``; the descheduler's ``deschedule_round`` (one
 LowNodeLoad round of a node pool) and ``pod_band_rank`` (the arbitrator's
-QoS/priority-band order).  Each kernel's wrapper runs its plain
+QoS/priority-band order); the sharded engine's ``shard_score_map`` (SCORE
+over one mesh device's node block) and the koordlet's
+``aggregate_node_metrics`` (a NodeMetric's mean, percentiles and last
+value per series).  Each kernel's wrapper runs its plain
 PyTorch version for CPU tensors and launches the kernel, or raises, for
 CUDA tensors.
 
@@ -37,15 +40,18 @@ Its entry point is the sidecar the Go shim dials over the KTPU wire
 koordinator_tpu_torch.cmd.sidecar``): HELLO, APPLY, SCORE (with the
 per-plugin breakdown), SCHEDULE, EXPLAIN, QUOTA_REFRESH, PING, ECHO and
 the descheduler's DESCHEDULE, each reply byte-identical to the JAX
-sidecar's; ``service.client.Client`` speaks it from Python, and ``python
--m koordinator_tpu_torch.cmd.descheduler`` ticks it.
+sidecar's, through the node-axis ``service.sharding.ShardedEngine`` with
+``--shards N``; ``service.client.Client`` speaks it from Python, and
+``python -m koordinator_tpu_torch.cmd.descheduler`` ticks it.  The
+koordlet's metric pipeline (``service.koordlet``: the series store, the
+NodeMetric producer, the peak predictor) feeds it NodeMetrics.
 
 Layout (the JAX package's, with the same relative module names):
   api/       object model, quota groups (copies)
   core/      config, configio, deviceshare, topologymanager, evictor (copies);
              numa (host side copied, the amplified score in torch);
              loadaware, nodefit, cycle, resolved, gang, quota, reservation,
-             placement, lownodeload, deschedule (torch)
+             placement, lownodeload, deschedule, metricsagg, histogram (torch)
   golden/    the scalar oracles nodefit_ref, loadaware_ref, reservation_ref,
              quota_ref, lownodeload_ref, evictor_ref (copies);
              host_fallback's SCHEDULE pipeline with the EXPLAIN
@@ -54,7 +60,8 @@ Layout (the JAX package's, with the same relative module names):
   snapshot/  numpy builders of the dense inputs (copies)
   service/   transformers, constraints, deschedplugins, the wire protocol,
              client, admission webhooks and wire-op switch (copies); state
-             (with the device residency), engine, descheduler, server
+             (with the device residency), engine, descheduler, sharding,
+             koordlet, server
   cmd/       the sidecar and descheduler binaries
   utils/     synthetic cluster fixtures, feature gates (copies)
   csrc/      the CUDA kernels; ``cuda.py`` builds and binds them

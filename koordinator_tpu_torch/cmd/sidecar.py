@@ -32,6 +32,14 @@ def main(argv=None) -> int:
                          "(pluginConfig args, validated before serving)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the engine runs on: cuda (default) or cpu")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="serve SCORE/SCHEDULE through the node-axis ShardedEngine with "
+                         "this many contiguous capacity-axis blocks (power of two; 1 = the "
+                         "plain engine); equal to the unsharded engine by construction, "
+                         "advertised as 'shards' in HELLO")
+    ap.add_argument("--shard-map", action="store_true",
+                    help="with --shards N: one shard_score_map launch per card of an "
+                         "N-card mesh instead of per-shard slice launches (needs >= N cards)")
     args = ap.parse_args(argv)
 
     from koordinator_tpu_torch.service.server import SidecarServer
@@ -61,7 +69,7 @@ def main(argv=None) -> int:
     srv = SidecarServer(
         host=args.host, port=args.port, la_args=la_args, nf_args=nf_args,
         extra_scalars=extra, initial_capacity=args.capacity, sched_cfg=cfg, gates=gates,
-        device=args.device,
+        device=args.device, shards=args.shards, shard_map=args.shard_map,
     )
     print(f"koord-tpu-sidecar listening on {srv.address[0]}:{srv.address[1]}", flush=True)
 

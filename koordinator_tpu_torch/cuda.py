@@ -216,6 +216,13 @@ LA_SCORE_FILTER = Kernel("breakdown", "koord_la_score_filter",
 # and widths, K, P, the permutation, the scratch)
 DESCHEDULE_ROUND = Kernel("deschedule", "koord_deschedule_round", [_P, _P, _P, _P, _I, _P])
 POD_BAND_RANK = Kernel("bandrank", "koord_band_rank", [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
+# the koordlet's NodeMetric aggregation (csrc/metricsagg.cu): values,
+# valid, times, S, T, the four percentiles (float32), the [6, S] output
+AGGREGATE_NODE_METRICS = Kernel("metricsagg", "koord_aggregate_node_metrics",
+                                [_P, _P, _P, _I, _I, _P, _P, _I, _P])
+# SCORE over one mesh device's node block (csrc/shard.cu): the pair tables,
+# the extra scores, P, N, the block's first column and width, the outputs
+SHARD_SCORE_MAP = Kernel("shard", "koord_shard_score", [_P] * 6 + [_I] * 4 + [_P, _P, _I, _P])
 KERNELS = {
     "score": SCORE, "schedule_keys": SCHEDULE_KEYS, "schedule_rounds": SCHEDULE_ROUNDS,
     "sched_refresh": SCHED_REFRESH, "sched_rounds": SCHED_ROUNDS,
@@ -229,6 +236,7 @@ KERNELS = {
     "schedule_keys64_con": SCHEDULE_KEYS64_CON, "schedule_rounds64_con": SCHEDULE_ROUNDS64_CON,
     "la_score": LA_SCORE, "nf_score": NF_SCORE, "loadaware_score_and_filter": LA_SCORE_FILTER,
     "deschedule_round": DESCHEDULE_ROUND, "pod_band_rank": POD_BAND_RANK,
+    "aggregate_node_metrics": AGGREGATE_NODE_METRICS, "shard_score_map": SHARD_SCORE_MAP,
 }
 
 

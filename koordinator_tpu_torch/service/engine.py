@@ -456,12 +456,18 @@ class Engine:
         return pl.PlacementSigs(*pl.csr(sel), torch.from_numpy(sel_cnt), *pl.csr(tol),
                                 *pl.csr(hold), *pl.csr(aa))
 
-    def _compute_mask_rows(self, sig_list: list) -> None:
+    def _compute_mask_rows(self, sig_list: list, out=None, cols=None) -> None:
         """Evaluate the ``placement`` kernel for the signatures missing from
-        the epoch cache."""
-        mask = pl.placement(self._placement_sigs(sig_list), *self._policy_node_rows())
+        the epoch cache.  ``out``/``cols``: the sharded engine
+        (``service.sharding``) evaluates one node shard, ``cols=(lo, hi)``,
+        into its own cache ``out``."""
+        rows = self._policy_node_rows()
+        if cols is not None:
+            rows = tuple(r[cols[0]:cols[1]] for r in rows)
+        mask = pl.placement(self._placement_sigs(sig_list), *rows)
+        dst = self._sel_rows if out is None else out
         for m, s in enumerate(sig_list):
-            self._sel_rows[s] = mask[m]
+            dst[s] = mask[m]
 
     # ---------------------------------------------- resident node-side rows
 
@@ -553,13 +559,17 @@ class Engine:
             self._amplified_scores_cached(pods, scores, amped)
         return scores, feas, admitted
 
-    def _compute_device_rows(self, sig_list, sig_rep, cap: int) -> None:
+    def _compute_device_rows(self, sig_list, sig_rep, cap: int, out=None, cols=None) -> None:
         """Feasibility rows for the signatures missing from the epoch cache:
         one ``dev_feasible`` launch over every node for the cpuset-free
         signatures, then on the card the candidate mask and the exact-walk
         overrides (fingerprint-grouped, memoized), before the row is
-        cached."""
+        cached.  ``out``/``cols``: one node shard's rows, ``cols=(lo, hi)``,
+        into the sharded engine's cache ``out`` (the exact walks' memo is
+        shard-agnostic: it keys on device fingerprints)."""
         st = self.state
+        lo, hi = (0, cap) if cols is None else cols
+        dst = self._dev_rows if out is None else out
         dense_sigs = [s for s in sig_list if s[2] is None]  # no cpuset
         drows: Dict[tuple, torch.Tensor] = {}
         if dense_sigs:
@@ -588,7 +598,7 @@ class Engine:
                     rdma_need[m] = 1 if rdma_req > 0 else 0
                 else:
                     rdma_need[m] = rdma_req
-            core, mem, full, vfs, _, _ = self._device_node_rows()
+            core, mem, full, vfs = (t[lo:hi] for t in self._device_node_rows()[:4])
             sigs = pl.DeviceSigs(*(convert.tensor(a, self.device) for a in (
                 has_gpu, is_multi, count, core_req, ratio_req, rdma_need, sig_valid)))
             dense = pl.dev_feasible(core, mem, full, vfs, sigs)
@@ -596,8 +606,9 @@ class Engine:
                 drows[sg] = dense[m]
         if len(self._dev_exact_memo) > 200_000:
             self._dev_exact_memo.clear()  # long-churn backstop
-        in_gpus, in_topo, in_rdma = st._dv_in_gpus[:cap], st._dv_in_topo[:cap], st._dv_in_rdma[:cap]
-        exact, fp_col = st._dv_exact[:cap], st._dv_fp[:cap]
+        in_gpus, in_topo, in_rdma = (st._dv_in_gpus[lo:hi], st._dv_in_topo[lo:hi],
+                                     st._dv_in_rdma[lo:hi])
+        exact, fp_col = st._dv_exact[lo:hi], st._dv_fp[lo:hi]
         for sig in sig_list:
             greq, rdma_req, cs_cpu, _bp, _ep = sig
             wants_cs = cs_cpu is not None
@@ -609,7 +620,7 @@ class Engine:
                 cand = in_topo
             sig_masks: dict = {}
             if wants_cs:
-                row = torch.zeros(cap, dtype=torch.bool, device=self.device)
+                row = torch.zeros(hi - lo, dtype=torch.bool, device=self.device)
                 exact_cols = np.flatnonzero(cand)
             else:
                 row = drows[sig] & convert.tensor(cand, self.device)
@@ -619,7 +630,7 @@ class Engine:
                 ok_by = np.zeros(uniq.size, dtype=bool)
                 mask_by: list = [None] * uniq.size
                 for u in range(uniq.size):
-                    col = int(exact_cols[int(np.argmax(inv == u))])
+                    col = lo + int(exact_cols[int(np.argmax(inv == u))])
                     mkey = (int(uniq[u]), sig)
                     hit = self._dev_exact_memo.get(mkey)
                     if hit is None:
@@ -632,24 +643,27 @@ class Engine:
                 for k in range(exact_cols.size):
                     mn = mask_by[inv[k]]
                     if ok_by[inv[k]] and mn is not None:
-                        sig_masks[st._imap._names[int(exact_cols[k])]] = mn
-            self._dev_rows[sig] = (row, sig_masks)
+                        sig_masks[st._imap._names[lo + int(exact_cols[k])]] = mn
+            dst[sig] = (row, sig_masks)
 
-    def _compute_device_score_rows(self, greqs, cap: int) -> None:
+    def _compute_device_score_rows(self, greqs, cap: int, out=None, cols=None) -> None:
         """deviceshare binpack score rows per distinct GPU request from the
         ``ds_score`` kernel over the device aggregates, times the numa
-        weight, zero on nodes without GPUs."""
+        weight, zero on nodes without GPUs.  ``out``/``cols``: one node
+        shard's rows into the sharded engine's cache."""
+        lo, hi = (0, cap) if cols is None else cols
+        dst = self._ds_rows if out is None else out
         w = PluginWeights()
         Mb = next_bucket(len(greqs), 8)
         req = np.zeros((Mb, 2), dtype=np.int64)
         for m, (c, r) in enumerate(greqs):
             req[m] = (c, r)
         _, _, _, _, alloc2, used2 = self._device_node_rows()
-        ds = pl.ds_score(convert.tensor(req, self.device), alloc2, used2)
-        off = convert.tensor(~self.state._dv_in_gpus[:cap], self.device)
+        ds = pl.ds_score(convert.tensor(req, self.device), alloc2[lo:hi], used2[lo:hi])
+        off = convert.tensor(~self.state._dv_in_gpus[lo:hi], self.device)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         for m, g in enumerate(greqs):
-            self._ds_rows[g] = torch.where(off, zero, ds[m] * w.numa)
+            dst[g] = torch.where(off, zero, ds[m] * w.numa)
 
     def _device_view(self, name: str, sig: tuple):
         """The node-local inputs the exact walk reads (live objects,
@@ -914,11 +928,17 @@ class Engine:
         now: Optional[float] = None,
         assume: bool = False,
         exclude: Optional[List[str]] = None,
+        _inputs_provider=None,
     ) -> _DeferredSchedule:
         """Launch a SCHEDULE and return without waiting for the device; the
         result's ``finish()`` is the one sync and host copy.  Store
         mutations during the flight are safe (the snapshot is a copy), but
-        they land before the finish-side replay reads the stores."""
+        they land before the finish-side replay reads the stores.
+
+        ``_inputs_provider``: a sharded engine (``service.sharding``)
+        substitutes the placement-and-devices inputs, assembled from its
+        per-shard caches, and its layout in the warm carry's key, versions
+        and dirty rows; the rest of the cycle is this engine's own."""
         pods = self._prepare(pods)
         now = time.time() if now is None else now
         st = self.state
@@ -934,10 +954,11 @@ class Engine:
         cap = snap.valid.shape[0]
         excl = tuple(sorted(set(exclude or ())))
         pods_fp = self._pods_fingerprint(pods)
+        inputs = self if _inputs_provider is None else _inputs_provider
         # begin-input cache: the pod-side assembly is a pure function of
         # the key, so a hit is bit-identical by construction
         in_key = (pods_fp, p_bucket, P, cap, st.content_key, st.warm_fence, excl,
-                  self.sched_warm_token())
+                  inputs.sched_warm_token())
         if in_key == self._sched_inputs_key:
             (la_pods, nf_pods, excl_rows, cin, order, x_scores, extra,
              admitted) = self._sched_inputs_val
@@ -949,8 +970,8 @@ class Engine:
             # the placement-and-devices inputs, composed on the card: the
             # device mask AND the placement mask; the values are fresh
             # tensors no later cycle writes
-            x_scores, extra, admitted = self._numa_device_inputs(pods, p_bucket, cap)
-            sel_mask = self._node_selector_mask(pods, p_bucket, cap)
+            x_scores, extra, admitted = inputs._numa_device_inputs(pods, p_bucket, cap)
+            sel_mask = inputs._node_selector_mask(pods, p_bucket, cap)
             if sel_mask is not None:
                 extra = sel_mask if extra is None else extra & sel_mask
             cin = self._constraint_inputs(pods, p_bucket, np.asarray(nf_np.req), cap)
@@ -972,14 +993,14 @@ class Engine:
         # never the init keys, so a quota change keeps the carry warm.
         carry_key = (pods_fp, p_bucket, P, cap, st.warm_fence, st.sched_store_token,
                      st.gangs.version, st.reservations.version, st._imap.mutations, excl,
-                     self.sched_warm_token())
+                     inputs.sched_warm_token())
         carry = self._sched_carry
         warm_ok = self._sched_warm_ok(cap)
         use_warm = warm_ok and carry is not None and carry["key"] == carry_key
         if use_warm:
             # rows whose stamps moved past the carry's watermarks, plus rows
             # whose metric-expiry gate flips between the two clocks
-            dirty = self.sched_dirty_rows(carry["vers"])
+            dirty = inputs.sched_dirty_rows(carry["vers"])
             flips = st.sched_gate_flips(carry["now"], now)
             if flips.size:
                 dirty = np.union1d(dirty, flips).astype(np.int32)
@@ -1029,7 +1050,7 @@ class Engine:
         self._sched_carry = None
         if warm_ok and warm is not None:
             self._sched_carry = {"key": carry_key, "warm": warm,
-                                 "vers": self.sched_versions(), "now": float(now)}
+                                 "vers": inputs.sched_versions(), "now": float(now)}
         rounds = rounds.view(-1).to(torch.int64)
         if rounds.numel() == 1:
             rounds = torch.cat([rounds, torch.zeros_like(rounds)])
@@ -1052,6 +1073,7 @@ class Engine:
         now: Optional[float] = None,
         assume: bool = False,
         exclude: Optional[List[str]] = None,
+        _inputs_provider=None,
     ):
         """The greedy batch assignment in queue order, conflict-resolved,
         with every constraint the stores hold.
@@ -1066,7 +1088,8 @@ class Engine:
         allocations, gang satisfaction) and schedules the pending
         reservations' reserve pods ahead of the batch, binding those that
         land (``last_reservations_placed``)."""
-        return self.schedule_begin(pods, now=now, assume=assume, exclude=exclude).finish()
+        return self.schedule_begin(pods, now=now, assume=assume, exclude=exclude,
+                                   _inputs_provider=_inputs_provider).finish()
 
     def _finish_schedule(self, d: _DeferredSchedule):
         out = d.out_dev.cpu().numpy()  # the one sync

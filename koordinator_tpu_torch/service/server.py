@@ -85,6 +85,8 @@ class SidecarServer:
         gates: Optional[FeatureGates] = None,
         device_state: bool = True,
         device=None,
+        shards: int = 1,
+        shard_map: bool = False,
     ):
         self.gates = gates or FeatureGates()
         # coscheduling/elasticquota args ride HELLO to the shim
@@ -95,6 +97,22 @@ class SidecarServer:
                 "no CUDA device: the sidecar runs on the card unless the caller "
                 "asks for the CPU (device='cpu')"
             )
+        # node-axis sharded serving (--shards N): SCORE and SCHEDULE go
+        # through a ShardedEngine wrapped around the engine, equal to it by
+        # construction.  Power-of-two counts only: capacity buckets are
+        # powers of two and the shard count must divide them.
+        self._shards_n = max(1, int(shards))
+        if self._shards_n & (self._shards_n - 1):
+            raise ValueError(f"shards must be a power of two (capacity buckets are), got {shards}")
+        self._shard_map = bool(shard_map)
+        if self._shard_map and self._shards_n > 1:
+            # a misconfigured mesh must not boot and advertise shards in
+            # HELLO: its mesh is the cards, or the CPU's one device
+            have = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            if have < self._shards_n:
+                raise ValueError(f"shard_map mode needs >= {self._shards_n} devices, have {have}")
+        # the ShardedEngine around the engine, made at the first dispatch
+        self._sharded = None
         self.state = ClusterState(la_args, nf_args, extra_scalars=extra_scalars,
                                   initial_capacity=initial_capacity,
                                   device_state=device_state)
@@ -240,6 +258,20 @@ class SidecarServer:
                 else proto.ErrCode.INTERNAL)
         return proto.encode_error(req_id, f"{type(e).__name__}: {e}", code=code,
                                   trace="".join(traceback.format_exception(e)))
+
+    def _serving_engine(self):
+        """The engine SCORE and SCHEDULE run through: the plain Engine, or
+        (``shards`` > 1) the ShardedEngine wrapped around it, kept with its
+        warm per-shard caches (one engine a server until tenants arrive).
+        Worker thread only, as every engine consumer."""
+        if self._shards_n <= 1:
+            return self.engine
+        if self._sharded is None:
+            from koordinator_tpu_torch.service.sharding import ShardedEngine
+
+            self._sharded = ShardedEngine(self.state, self._shards_n, engine=self.engine,
+                                          shard_map=self._shard_map)
+        return self._sharded
 
     # ----------------------------------------------------------- lifecycle
 
@@ -472,7 +504,7 @@ class SidecarServer:
             return proto.encode_parts(M.ECHO, req_id, {}, out)
 
         if msg_type == M.HELLO:
-            return proto.encode(M.HELLO, req_id, {
+            hello = {
                 "axis": self.state.axis,
                 "resources": self.state.la_args.resources,
                 "score_resources": self.state.rs,
@@ -480,7 +512,12 @@ class SidecarServer:
                 "names_version": self._names_version,
                 "coscheduling": dataclasses.asdict(self.sched_cfg.coscheduling),
                 "elasticquota": dataclasses.asdict(self.sched_cfg.elasticquota),
-            })
+            }
+            if self._shards_n > 1:
+                # sharded serving's advertisement, absent for one shard (the
+                # Go golden transcript's bytes are unchanged)
+                hello["shards"] = self._shards_n
+            return proto.encode(M.HELLO, req_id, hello)
 
         if msg_type == M.APPLY:
             return proto.encode(M.APPLY, req_id, self._apply_ops_reply(fields.get("ops", [])))
@@ -489,8 +526,8 @@ class SidecarServer:
             pods = [proto.pod_from_wire(d) for d in fields.get("pods", [])]
             if fields.get("preempt", False) and self.gates.enabled("ElasticQuotaPreemption"):
                 raise slices.later("SCHEDULE's preempt (the preemption plan)", slices.PREEMPTION)
-            deferred = self.engine.schedule_begin(pods, now=fields.get("now"),
-                                                  assume=fields.get("assume", False))
+            deferred = self._serving_engine().schedule_begin(pods, now=fields.get("now"),
+                                                             assume=fields.get("assume", False))
             # the columns are the begin-time snapshot's
             nv0 = self._names_version
             hosts, scores, snap, allocations = deferred.finish()
@@ -501,7 +538,7 @@ class SidecarServer:
                 raise slices.later("SCORE's debug_scores", slices.OBSERVABILITY)
             pods = [proto.pod_from_wire(d) for d in fields.get("pods", [])]
             now = fields.get("now")
-            totals, feasible, snap = self.engine.score(pods, now=now)
+            totals, feasible, snap = self._serving_engine().score(pods, now=now)
             live_idx = np.flatnonzero(snap.valid)
             reply_fields = {
                 "generation": snap.generation,

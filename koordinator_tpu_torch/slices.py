@@ -21,6 +21,10 @@ PREEMPTION = "the preemption slice"
 MANAGER = "the manager slice"
 # the HOOK verb
 RUNTIME = "the runtime-hooks slice"
+# the koordlet agent around the metric pipeline: metricsadvisor, the
+# daemon, koordlet_metrics and cmd/koordlet (they need qosmanager,
+# runtimehooks and the observability registry)
+KOORDLET = "the koordlet-agent slice"
 
 
 def later(what: str, slice_name: str) -> NotImplementedError:

@@ -304,8 +304,10 @@ def test_entry_points_default_to_cuda():
 def test_port_runs_with_jax_unavailable():
     """The port imports nothing of JAX or the JAX package: a SCORE, a cold
     and a warm SCHEDULE cycle over the resident tables, a constrained cycle
-    with ``assume=True`` and a placement-and-devices cycle, run in a process
-    where importing jax fails."""
+    with ``assume=True``, a placement-and-devices cycle, and the koordlet
+    slice (a NodeMetric report, sharded SCORE in slice and mesh mode, a
+    sharded SCHEDULE, a predictor checkpoint) run in a process where
+    importing jax fails."""
     code = textwrap.dedent(
         """
         import sys
@@ -360,6 +362,27 @@ def test_port_runs_with_jax_unavailable():
         assert snap.names[h4[0]] == nodes[1].name and al4[0]["devices"]["gpu"]
         assert snap.names[h4[1]] == nodes[1].name and al4[1]["cpuset"] and h4[2] == -1
         assert st.residency.verify() == 19 + 4 + 6
+        # the koordlet's reports into a sharded engine: a store, produce,
+        # slice mode and the mesh over four CPU "devices"
+        from koordinator_tpu_torch.service.koordlet import (MetricSeriesStore,
+                                                            NodeMetricProducer, PeakPredictor)
+        from koordinator_tpu_torch.service.sharding import ShardedEngine
+        store = MetricSeriesStore(window=32)
+        prod = NodeMetricProducer(store, device="cpu")
+        for t in range(32):
+            store.append(NOW - 10.0 * t, {prod.node_key(n.name, r): 1000.0 + 7 * t
+                                          for n in nodes for r in ("cpu", "memory")})
+        assert prod.report(st, NOW) == len(nodes)
+        mesh = ShardedEngine(st, 4, engine=eng, shard_map=True, devices=["cpu"] * 4)
+        t5, f5, _ = mesh.score(pods, now=NOW + 4)
+        t6, f6, _ = ShardedEngine(st, 4, engine=eng).score(pods, now=NOW + 4)
+        assert (t5 == t6).all() and (f5 == f6).all()
+        assert (t5 == eng.score(pods, now=NOW + 4)[0]).all()
+        h5, _, _, _ = mesh.schedule(pods, now=NOW + 5)
+        assert (h5 == eng.schedule(pods, now=NOW + 5)[0]).all() and (h5 >= 0).any()
+        pred = PeakPredictor(store, device="cpu")
+        pred.train(NOW, {"e": (100.0, 1e9)})
+        assert PeakPredictor.restore(pred.checkpoint(), store, device="cpu").predict(["e"])
         assert not any(m == "jax" or m.startswith(("jax.", "koordinator_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

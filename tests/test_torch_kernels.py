@@ -591,3 +591,117 @@ def test_desched_wrappers_refuse_before_launch():
     with pytest.raises(ValueError, match="create_time"):
         ds.pod_band_rank(keys._replace(create_time=keys.create_time.float()))
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+KOORDLET = ("shard_score_map", "aggregate_node_metrics")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_nodes,num_pods", [(500, 64), (300, 45)])
+def test_koordlet_kernels_equal_plain(card, num_nodes, num_pods):
+    """``shard_score_map`` at S = 1, 2 and 4 under the three strategies,
+    with and without extras, against its plain version and the unsharded
+    ``score`` kernel; ``aggregate_node_metrics`` at 64 x 64 with the edge
+    rows and at 300 series x 33 samples, bit for bit."""
+    from koordinator_tpu_torch.core import metricsagg as ma
+
+    before = {k: cuda.KERNELS[k].launches for k in KOORDLET}
+    chip_smoke.check_shard_kernels(_inputs(card, num_nodes, num_pods), (1, 2, 4), timed=False)
+    chip_smoke.check_metricsagg_kernels(card, [("ragged", *chip_smoke.agg_series(card, 300, 33,
+                                                                                  5))])
+    assert all(cuda.KERNELS[k].launches > before[k] for k in KOORDLET)
+    # the mean's NaN is the canonical one, the percentiles keep their payloads
+    v, valid, t = chip_smoke.agg_series(card, 8, 16, 6)
+    out = ma.aggregate_node_metrics(v, valid, t).cpu()
+    assert out[0, 0].isnan() and out.view(torch.int64)[0, 0] == 0x7FF8000000000000
+
+
+@pytest.mark.cuda
+def test_koordlet_path_on_the_card(card):
+    """``chip_smoke``'s koordlet path at 600 nodes on the card: every
+    kernel of the path launches, the NodeMetrics equal the CPU twin's, the
+    replies the twin's and the unsharded sidecar's, the mesh slice mode."""
+    launches, rec, _ = chip_smoke.drive_koordlet_path(card, 600, 64, SCALARS)
+    assert all(launches[k] for k in chip_smoke.KOORDLET_PATH_KERNELS), launches
+    assert launches["shard_score_map"] == chip_smoke.KOORDLET_SHARDS
+
+
+def test_koordlet_checks_run_on_cpu_tensors():
+    """The koordlet slice's checks on CPU tensors, where both wrappers take
+    their plain versions: the comparison logic itself, and no launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    chip_smoke.check_shard_kernels(_inputs(torch.device("cpu"), 300, 40), (1, 2, 4), timed=False)
+    chip_smoke.check_metricsagg_kernels(torch.device("cpu"), [
+        ("ragged", *chip_smoke.agg_series(torch.device("cpu"), 300, 33, 5))])
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_koordlet_path_runs_on_cpu():
+    """``chip_smoke``'s koordlet path at a small fleet on the CPU (the
+    "card's" sidecar and producer on the CPU too): the NodeMetrics equal the
+    twin's, every reply of the three sidecars agrees, the mesh equals slice
+    mode, and nothing launches."""
+    launches, rec, windows = chip_smoke.drive_koordlet_path(torch.device("cpu"), 300, 64,
+                                                            SCALARS)
+    assert not any(launches.values())
+    assert [r["verb"] for r in rec["verbs"]][-1] == "SCHEDULE assume"
+    assert all(rec["placed"].values())
+    assert [w[0] for w in windows][-1] == "pod window 60 s"
+    assert windows[0][1].shape == (600, chip_smoke.KOORDLET_TICKS)
+
+
+def test_koordlet_wrappers_refuse_before_launch():
+    """Bad block bounds, buffers and sample axes raise before any launch."""
+    from koordinator_tpu_torch.core import metricsagg as ma
+    from koordinator_tpu_torch.service import sharding as sh
+
+    x = _inputs(torch.device("cpu"), 40, 10)
+    P, N = x["la_pods"].est.shape[0], x["valid"].shape[0]
+    args = (x["la_pods"], x["la_nodes"], x["weights"], x["nf_pods"], x["nf_nodes"], x["static"],
+            x["valid"], None)
+    t = torch.zeros((P, N), dtype=torch.int64)
+    f = torch.zeros((P, N), dtype=torch.bool)
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    with pytest.raises(ValueError, match="outside"):
+        sh.shard_score_map(*args, 0, N + 1, t, f)
+    with pytest.raises(ValueError, match="totals"):
+        sh.shard_score_map(*args, 0, N, t[:, : N // 2], f)
+    with pytest.raises(ValueError, match="feasible"):
+        sh.shard_score_map(*args, 0, N, t, f.t().contiguous().t())
+    meta = torch.device("meta")
+    v, valid, times = (a.to(meta) for a in chip_smoke.agg_series(torch.device("cpu"), 8, 8, 1))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ma.aggregate_node_metrics(v, valid, times)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+@pytest.mark.cuda
+def test_mesh_across_cards(card):
+    """The mesh over ``cuda:0 .. cuda:3`` (the default devices), each block
+    on a card of its own: the pod rows replicated, the block's node rows
+    and extra scores copied over, four ``shard_score_map`` launches, each
+    block copied back once; equal to slice mode and to the engine."""
+    from koordinator_tpu_torch.api.model import Pod
+    from koordinator_tpu_torch.core.deviceshare import GPUDevice
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.service.sharding import ShardedEngine
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    pods, nodes = random_cluster(9, num_nodes=600, num_pods=60)
+    pods.append(Pod(name="gpu", requests={"cpu": 1000, "koordinator.sh/gpu-core": 100}))
+    st = sm.ClusterState(extra_scalars=SCALARS)
+    for n in nodes:
+        st.upsert_node(n)
+    for n in nodes[::50]:
+        st.set_devices(n.name, [GPUDevice(minor=m) for m in range(2)])
+    eng = Engine(st, device=card)
+    mesh = ShardedEngine(st, 4, engine=eng, shard_map=True)
+    assert [d.index for d in mesh.devices] == [0, 1, 2, 3]
+    before = cuda.SHARD_SCORE_MAP.launches
+    got = mesh.score(pods, now=NOW)
+    assert cuda.SHARD_SCORE_MAP.launches - before == 4
+    for want in (ShardedEngine(st, 4, engine=eng).score(pods, now=NOW), eng.score(pods, now=NOW)):
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert got[1].any() and not got[1].all()
