@@ -7,8 +7,11 @@ Phases (any failure exits non-zero and prints no result line):
   2. build every CUDA kernel of ``koordinator_tpu_torch/csrc`` with nvcc;
   3. each kernel against its plain PyTorch version on the card, on the same
      inputs, requiring exact equality (integer outputs, tolerance 0): first
-     at a small shape across commit caps, then at the main path's full
-     shape (1,024 pods x 16,384 node columns), with each one's time;
+     at a small shape across commit caps, then the round loop's edge cases
+     over a grid of many blocks (``ROUND_CASES`` and ``hot_node`` at 2,000
+     nodes), then at the main path's full shape (1,024 pods x 16,384 node
+     columns), with each one's time, and the round loop under its four
+     knob settings and at the one-pod probe (``check_round_loop``);
   4. the warm-start and residency kernels the same way (``sched_refresh``
      at 16, 128 and 1,024 dirty rows, padded indices included, also held
      against a cold key build; ``sched_rounds``, asserting the carry is
@@ -91,11 +94,23 @@ Phases (any failure exits non-zero and prints no result line):
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX package.
+
+    python3 chip_smoke.py --rounds [--root DIR]
+
+runs only the round loop's study (``check_round_loop`` with the phase
+split and a round's synchronisation from the study build
+``csrc/roundstudy.cu``, the extension's edge cases and its timing) and
+prints one ``round_study`` JSON line, importing the port from ``DIR``
+when given (another checkout with the study build unpacked beside, to
+compare two versions in one run).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -155,6 +170,21 @@ def cuda_ms(fn, reps: int = 5, setup=None) -> float:
         if i:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def run_ms(fn, launches: int = 100) -> float:
+    """Device time of one call of ``fn`` over a run of ``launches``
+    back-to-back calls: CUDA events around the run, divided by the count,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 class LaunchTimer:
@@ -1590,13 +1620,63 @@ def check_extend_kernel(dev, N: int, timed: bool):
     if not timed:
         return None
     bb, by = bound_ms(nbytes(a, b) + nbytes(*got), 0)
+
+    def pad():
+        return F.pad(a, (0, 256), value=False), F.pad(b, (0, 8), value=-1)
+
+    # each timed two ways: events around one call (the host's share
+    # included), and the device time of a run of 100 back-to-back calls
     return dict(name="dstate_extend", source="koordinator_tpu_torch/csrc/dstate.cu",
                 replaces="koordinator_tpu/service/state.py:208", max_abs_err=err,
                 ms=cuda_ms(lambda: sm.dstate_extend(*args)),
+                ms_run=run_ms(lambda: sm.dstate_extend(*args)),
                 plain_ms=cuda_ms(lambda: sm.dstate_extend_plain(*args)),
-                library_ms=cuda_ms(lambda: (F.pad(a, (0, 256), value=False),
-                                            F.pad(b, (0, 8), value=-1))),
+                library_ms=cuda_ms(pad), library_ms_run=run_ms(pad),
                 bound_ms=bb, bound_by=by)
+
+
+def extend_cases(dev, rows: int = 1000):
+    """(what, buffers, widths, fills) of ``dstate_extend``'s edge cases:
+    32 buffers in one launch (bool, int32 and int64 tables of varied
+    widths, some 16-byte rows, some ragged); row widths that are not
+    multiples of 16 bytes (int64 3 -> 5, bool 5 -> 21); zero rows."""
+    rng = np.random.default_rng(SEED + 26)
+
+    def table(dtype, r: int, c: int):
+        if r == 0:
+            return torch.zeros((0, c), dtype=dtype, device=dev)
+        if dtype is torch.bool:
+            return torch.from_numpy(rng.random((r, c)) < 0.3).to(dev)
+        return torch.from_numpy(rng.integers(-5, 100, (r, c))).to(dtype).to(dev)
+
+    kinds = (torch.bool, torch.int32, torch.int64)
+    many = [(kinds[i % 3], 4 * (i % 5) + i % 3 + 1, 4 * (i % 5) + i % 3 + 1 + 7 * (i % 4))
+            for i in range(32)]
+    fills = {torch.bool: True, torch.int32: -1, torch.int64: 0}
+    cases = [("32 buffers", [table(d, rows, c) for d, c, _ in many], [w for *_, w in many],
+              [fills[d] for d, *_ in many])]
+    cases.append(("int64 3 -> 5, bool 5 -> 21",
+                  [table(torch.int64, rows, 3), table(torch.bool, rows, 5)], [5, 21], [-1, False]))
+    cases.append(("zero rows", [table(torch.bool, 0, 256), table(torch.int32, 0, 8)], [512, 16],
+                  [False, -1]))
+    return cases
+
+
+def check_extend_cases(dev) -> None:
+    """``dstate_extend`` on ``extend_cases`` against its plain version and
+    ``F.pad``, bit for bit, the sources unchanged."""
+    import torch.nn.functional as F
+
+    from koordinator_tpu_torch.service import state as sm
+
+    for what, bufs, widths, fills in extend_cases(dev):
+        keep = [b.clone() for b in bufs]
+        got = sm.dstate_extend(bufs, widths, fills)
+        require_same(f"dstate_extend {what}", got, sm.dstate_extend_plain(bufs, widths, fills))
+        require_same(f"dstate_extend {what} against F.pad", got, [
+            F.pad(b, (0, w - b.shape[1]), value=f) for b, w, f in zip(bufs, widths, fills)])
+        require_same(f"dstate_extend {what}: the sources", bufs, keep)
+    print("  dstate_extend: 32 buffers, ragged row widths and zero rows equal plain and F.pad")
 
 
 def extras_for(inp, seed: int):
@@ -3608,10 +3688,309 @@ def drive_koordlet_path(device, num_nodes: int, num_pods: int, scalars):
 
 
 
+# the round loop's semantically neutral knobs: (block_size, commit_cap)
+ROUND_KNOBS = ((16, 16), (16, 64), (64, 16), (64, 64))
+
+
+def probe_inputs(inp, P: int = 16):
+    """The descheduler's one-pod probe: one real pod in the engine's
+    smallest pod bucket (16), over the inputs' node columns."""
+    cut = lambda nt: type(nt)(*(a[:P] for a in nt))  # noqa: E731
+    dev = inp["valid"].device
+    return dict(inp, la_pods=cut(inp["la_pods"]), nf_pods=cut(inp["nf_pods"]),
+                order=torch.arange(P, device=dev), p_real=1)
+
+
+def round_case(inp, BS: int, K: int, what: str, con: bool = False, wide: bool = False,
+               extras: bool = False, timed: bool = False, reps: int = 5,
+               study: bool = False) -> dict:
+    """One launch of the round loop (``schedule_rounds``) on the inputs'
+    cold keys against its plain version on the same keys: the outputs
+    (hosts, scores, [precommit,] rounds) and the updated M and Mb, exactly;
+    under ``con`` (the checks' gangs, quota tree and reservations) the
+    quota and reservation inputs untouched.  ``wide`` takes the int64 key
+    lane, ``extras`` the extra channel.  Returns the outputs, the rounds,
+    the rounds on the quota upper bound, the grid, and with ``timed`` the
+    time (events around the call, the median of ``reps``), the kernel's
+    device time (``torch.profiler``, the mean of ``reps`` launches); with
+    ``study`` one more launch of the study build, equal to the plain
+    version too, and its phase split (``round_split``)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import resolved as rs
+
+    xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(
+        inp["la_pods"], inp["nf_pods"], inp["valid"], inp["p_real"], inp["order"])
+    node = (q_la, inp["la_nodes"], inp["weights"], q_nf, inp["nf_nodes"], inp["static"],
+            inp["valid"], pod_ok, salts)
+    c = con_for(inp, con_inputs_for(inp, SEED + 11), xs) if con else None
+    xin = rs.extra_inputs(*extras_for(inp, SEED + 23), xs) if extras else None
+    tail = () if c is None else (c, 0, 8)
+    M0, Mb0, feas_T = rs.schedule_keys(*node, BS, c, xin, wide)
+    state0 = [] if c is None else [t.clone() for t in (c.quota.used, c.quota.npu,
+                                                        c.rsv.allocated)]
+    M, Mb = M0.clone(), Mb0.clone()
+    got = rs.schedule_rounds(M, Mb, feas_T, *node, K, BS, *tail, xin=xin)
+    Mp, Mbp = M0.clone(), Mb0.clone()
+    want = rs._plain_rounds(Mp, Mbp, feas_T, *node, K, BS, *tail, xin=xin)
+    require_equal(what, (*got, M, Mb), (*want, Mp, Mbp))
+    if c is not None:
+        for a, b in zip((c.quota.used, c.quota.npu, c.rsv.allocated), state0):
+            if not torch.equal(a, b):
+                fail(f"{what}: the round loop wrote its quota or reservation inputs")
+    counts = want[-1].view(-1)
+    P, N = M0.shape[1], inp["valid"].shape[0]
+    dev = inp["valid"].device
+    out = dict(outputs=got, rounds=int(counts[0]), ub_rounds=int(counts[1]) if c else 0,
+               grid=cuda.rounds_grid(P, N, BS, min(K, P), cuda.sm_count(dev))
+               if dev.type == "cuda" else None)
+    if timed:
+        work = {}
+
+        def reset():
+            work["M"], work["Mb"] = M0.clone(), Mb0.clone()
+
+        def call():
+            return rs.schedule_rounds(work["M"], work["Mb"], feas_T, *node, K, BS, *tail,
+                                      xin=xin)
+
+        out["ms"] = cuda_ms(call, reps=reps, setup=reset)
+        out["device_ms"] = device_split(lambda: (reset(), call()), (("rounds_kernel", "rounds"),),
+                                        reps=reps).get("rounds")
+    if study:
+        kernel = (cuda.SCHEDULE_ROUNDS64 if wide else cuda.SCHEDULE_ROUNDS) if c is None else (
+            cuda.SCHEDULE_ROUNDS64_CON if wide else cuda.SCHEDULE_ROUNDS_CON)
+        Ms, Mbs = M0.clone(), Mb0.clone()
+        got_s = rs._launch_rounds(study_build(kernel.symbol, tuple(kernel.argtypes)), Ms, Mbs,
+                                  feas_T, *node, K, BS, *tail, xin=xin)
+        require_equal(f"{what} (study build)", (*got_s, Ms, Mbs), (*want, Mp, Mbp))
+        out["split_cycles"] = round_split(dev)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def study_build(symbol: str, argtypes: tuple):
+    """An entry point of the round loop's study build (csrc/roundstudy.cu:
+    the round loop with its phase split compiled in, the split's read-out,
+    a round's synchronisation alone), which no path of the port loads."""
+    from koordinator_tpu_torch import cuda
+
+    return cuda.Kernel("roundstudy", symbol, list(argtypes))
+
+
+def round_split(dev) -> list:
+    """The phase split of the study build's last round launch: [3, 8] SM
+    cycles summed over the rounds, of block 0, the middle block and the
+    last (csrc/schedule.cu, ``KOORD_ROUND_STUDY``)."""
+    from koordinator_tpu_torch import cuda
+
+    words = torch.zeros(24, dtype=torch.int64, device=dev)
+    study_build("koord_round_split", (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)).launch(
+        words.data_ptr(), cuda.device_index(dev), cuda.stream(dev))
+    return words.view(3, 8).cpu().tolist()
+
+
+def split_us(cycles, device_ms: float, rounds: int) -> list:
+    """The split as microseconds a round: each phase's share of block 0's
+    summed cycles (block 0's phases cover its whole loop) times the
+    uninstrumented kernel's device time a round."""
+    us_round = device_ms * 1e3 / rounds
+    total = sum(cycles[0])
+    return [[v / total * us_round for v in row] for row in cycles]
+
+
+def hot_node(inp):
+    """The inputs with their first live node made a thousand times larger,
+    empty and open to every pod: every pod picks it, so the round loop
+    commits one pod a round there and each round's rescoring reads the row
+    that the serial middle rewrote on another SM just before (the stale-L1
+    case)."""
+    j = int(torch.nonzero(inp["valid"])[0])
+    la, nf = inp["la_nodes"], inp["nf_nodes"]
+    P = inp["la_pods"].est.shape[0]
+
+    def row(t, v):
+        t = t.clone()
+        t[j] = v
+        return t
+
+    big = lambda t: t.max(dim=0).values * 1000  # noqa: E731
+    la2 = la._replace(alloc=row(la.alloc, big(la.alloc)), base_nonprod=row(la.base_nonprod, 0),
+                      base_prod=row(la.base_prod, 0), score_valid=row(la.score_valid, True),
+                      filter_active=row(la.filter_active, False),
+                      prod_filter_active=row(la.prod_filter_active, False))
+    nf2 = nf._replace(alloc=row(nf.alloc, big(nf.alloc)), requested=row(nf.requested, 0),
+                      num_pods=row(nf.num_pods, 0), allowed_pods=row(nf.allowed_pods, P),
+                      alloc_score=row(nf.alloc_score, big(nf.alloc_score)),
+                      req_score=row(nf.req_score, 0))
+    return dict(inp, la_nodes=la2, nf_nodes=nf2), j
+
+
+# the round loop's cases beyond the paths' shapes, on inputs whose grid has
+# many blocks (2,000 nodes cut to 1,995 columns, not a multiple of the block
+# size): (pods, commit_cap, round_case keywords)
+ROUND_CASES = {
+    "pods not a multiple of the pod split": (1000, 16, {}),
+    "one pod": (1, 16, {}),
+    "commit_cap above the pods": (300, 1000, {}),
+    "int64 keys": (1000, 16, dict(wide=True)),
+    "int64 keys, constrained, extras": (1000, 16, dict(wide=True, con=True, extras=True)),
+    "constrained": (1000, 16, dict(con=True)),
+    "extra channel": (1000, 16, dict(extras=True)),
+}
+
+
+def check_round_case(base, case: str) -> dict:
+    """One of ``ROUND_CASES`` on ``base`` (2,000 nodes, 1,000 pods) cut to
+    1,995 columns and the case's pods, against the plain version; fails
+    unless the grid has the case's edge (a last block owning fewer pods,
+    one block for one pod) and a constrained case took the quota upper
+    bound."""
+    P, cap, kw = ROUND_CASES[case]
+    rec = round_case(ragged(base, 1995, P), 16, cap, case, **kw)
+    G = rec["grid"]
+    if G is not None:
+        if P == 1 and G != 1:
+            fail(f"{case}: {G} blocks for one pod")
+        if case == "pods not a multiple of the pod split" and not (G > 1 and P % -(-P // G)):
+            fail(f"{case}: {G} blocks split {P} pods evenly")
+    if kw.get("con") and rec["ub_rounds"] == 0:
+        fail(f"{case}: no round took the quota upper bound")
+    return rec
+
+
+def check_round_hot_node(base) -> dict:
+    """``hot_node`` on ``base`` cut to 1,995 columns and 300 pods: more
+    than 100 pods on the one node, one a round."""
+    x, j = hot_node(ragged(base, 1995, 300))
+    rec = round_case(x, 16, 16, "one node every round")
+    on_j = int((rec["outputs"][0] == j).sum())
+    if not (on_j > 100 and rec["rounds"] >= on_j):
+        fail(f"one node every round: {on_j} pods on it in {rec['rounds']} rounds")
+    return rec
+
+
+def check_round_loop(full, timed: bool = True, study: bool = False) -> dict:
+    """The round loop under the four settings of its neutral knobs at the
+    full shape: each launch equal to the plain version (hosts, scores,
+    rounds and the updated M and Mb), the four placements equal, and each
+    setting's time and rounds; then the plain and constrained
+    instantiations at the one-pod probe.  With ``study`` (timed), each
+    setting's phase split from the study build and a round's
+    synchronisation alone."""
+    P, N = full["la_pods"].est.shape[0], full["valid"].shape[0]
+    ref, knobs = None, []
+    for BS, K in ROUND_KNOBS:
+        rec = round_case(full, BS, K, f"schedule_rounds {P}x{N} BS={BS} K={K}", timed=timed,
+                         study=study)
+        got = rec.pop("outputs")
+        if ref is None:
+            ref = got[:2]
+        require_equal(f"schedule_rounds BS={BS} K={K} against BS=16 K=16", got[:2], ref)
+        ms = rec.get("ms")
+        knobs.append(dict(rec, block_size=BS, commit_cap=K,
+                          us_per_round=None if ms is None else ms * 1e3 / rec["rounds"]))
+        if study:
+            knobs[-1]["split_us"] = split_us(rec["split_cycles"], rec["device_ms"],
+                                             rec["rounds"])
+        print(f"  round loop {P}x{N} BS={BS} K={K}: equal plain and the other settings, "
+              f"{rec['rounds']} rounds" + ("" if ms is None else
+                                           f", {ms:.3f} ms (kernel {rec['device_ms']:.3f})") +
+              f", grid {rec['grid']}" + ("" if not study else
+                                         f", split (us a round) {knobs[-1]['split_us']}"),
+              flush=True)
+    probe = probe_inputs(full)
+    plain = round_case(probe, 16, 16, f"schedule_rounds probe 16x{N}", timed=timed, reps=21)
+    con = round_case(probe, 16, 16, f"schedule_rounds_con probe 16x{N}", con=True, timed=timed,
+                     reps=21)
+    print(f"  one-pod probe 16x{N}: plain {plain['rounds']} rounds, constrained {con['rounds']}, "
+          f"equal plain" + ("" if not timed else
+                            f"; calls {plain['ms']:.4f} and {con['ms']:.4f} ms, kernels "
+                            f"{plain['device_ms']:.4f} and {con['device_ms']:.4f} ms"), flush=True)
+    out = dict(shape=[P, N], knobs=knobs,
+               probe=dict(shape=[16, N], rounds=plain["rounds"], ms=plain.get("ms"),
+                          device_ms=plain.get("device_ms"), grid=plain["grid"],
+                          con_rounds=con["rounds"], con_ms=con.get("ms"),
+                          con_device_ms=con.get("device_ms")))
+    if study:
+        dev = full["valid"].device
+        out["sync_us"] = {G: sync_us(dev, G) for G in (1, 8, 32, 64, 128, 132)}
+        print(f"  a round's synchronisation (us by blocks): {out['sync_us']}", flush=True)
+    return out
+
+
+def sync_us(dev, G: int, iters: int = 4096) -> float:
+    """Microseconds of one round's synchronisation (every block arrives,
+    block 0 waits for them and releases, the others wait for the release)
+    across G blocks of the round loop's size, from the study build:
+    ``iters`` of them in one launch, over a run of 5."""
+    from koordinator_tpu_torch import cuda
+
+    kernel = study_build("koord_round_sync", (ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_int, ctypes.c_void_p))
+    words = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def run():
+        words.zero_()
+        kernel.launch(G, iters, words.data_ptr(), cuda.device_index(dev), cuda.stream(dev))
+
+    return run_ms(run, launches=5) * 1e3 / iters
+
+
+def extend_alloc_us(dev, rows: int, reps: int = 2000) -> dict:
+    """Host microseconds of the two ways to allocate ``dstate_extend``'s
+    outputs (the bool table to 512 columns and the int32 one to 16): a
+    ``torch.empty`` each, or one allocation carved into strided views."""
+    widths, dtypes = (512, 16), (torch.bool, torch.int32)
+    offsets, total = (0, rows * 512), rows * (512 + 64)
+
+    def each():
+        return [torch.empty((rows, nc), dtype=d, device=dev) for nc, d in zip(widths, dtypes)]
+
+    def carved():
+        flat = torch.empty(total, dtype=torch.uint8, device=dev)
+        return [flat.view(d).as_strided((rows, nc), (nc, 1), o // flat.view(d).element_size())
+                for nc, d, o in zip(widths, dtypes, offsets)]
+
+    out = {}
+    for name, fn in (("each", each), ("carved", carved), ("each_again", each)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def round_study(dev) -> int:
+    """``--rounds``: the round loop's knobs with their phase split, the
+    probe, a round's synchronisation and ``dstate_extend``, timed (the port
+    imported from ``--root`` when given: a checkout with the study build,
+    of this commit or a later one); one JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    cuda.build()
+    pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
+    full = build_inputs(pods, nodes, dev, (BATCH_CPU, BATCH_MEMORY))
+    study = check_round_loop(full, study=True)
+    check_extend_cases(dev)
+    study["dstate_extend"] = check_extend_kernel(dev, full["valid"].shape[0], timed=True)
+    study["extend_alloc_us"] = extend_alloc_us(dev, full["valid"].shape[0])
+    print(json.dumps({"round_study": study, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
+    if "--root" in sys.argv:
+        # time another checkout's port (a parent commit unpacked beside)
+        sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--root") + 1]))
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA card", file=sys.stderr)
         return 1
+    if "--rounds" in sys.argv:
+        return round_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -3651,6 +4030,7 @@ def main() -> int:
     for gm in (8, 16):
         check_device_kernels(dev, 16, 500, gm, timed=False)
     check_extend_kernel(dev, 300, timed=False)
+    check_extend_cases(dev)
     for con in (False, True):
         check_extra_kernels(small, con, timed=False)
     check_extra_kernels(small, True, timed=False, commit_cap=1)
@@ -3667,9 +4047,21 @@ def main() -> int:
     check_shard_kernels(small512, (1, 2, KOORDLET_SHARDS), timed=False)
     check_metricsagg_kernels(dev)
     del small512
+    # the round loop's edge cases over a grid of many blocks
+    many = build_inputs(*random_cluster(SEED, num_nodes=2000, num_pods=1000), dev, scalars)
+    for case in ROUND_CASES:
+        rec = check_round_case(many, case)
+        print(f"  round loop, {case}: equal plain, {rec['rounds']} rounds, grid {rec['grid']}")
+    rec = check_round_hot_node(many)
+    print(f"  round loop, one node every round: equal plain, {rec['rounds']} rounds, grid "
+          f"{rec['grid']}", flush=True)
+    del many
     pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
     full = build_inputs(pods, nodes, dev, scalars)
     records = check_kernels(full, 16, timed=True)
+    print("round loop: the four knob settings, the one-pod probe, a round's synchronisation",
+          flush=True)
+    round_loop = check_round_loop(full)
     warm_records, transfers = check_warm_kernels(full, (16, 128, 1024), timed=True)
     records += warm_records
     records += check_con_kernels(full, 0, timed=True)
@@ -3777,7 +4169,8 @@ def main() -> int:
             "dirty_rows", "groups", "ms_extras", "ms_gm16", "plain_ms_gm16", "bound_ms_gm16",
             "strategies_ms", "variants", "placed", "shape", "ms_bench_sim",
             "plain_ms_bench_sim", "bound_ms_bench_sim", "ms_bench_sim_deviation",
-            "plain_ms_bench_sim_deviation", "device_split_ms", "score_ms")
+            "plain_ms_bench_sim_deviation", "device_split_ms", "score_ms", "ms_run",
+            "library_ms_run")
     kernels = []
     for rec in records:
         name = rec["name"]
@@ -3796,7 +4189,8 @@ def main() -> int:
                       "warm_cycles": warm_cycles, "constraint_cycles": con_cycles,
                       "placement_cycles": place_cycles, "strategy_cycles": strat_cycles,
                       "library_call_ms": lib_ms, "sidecar_verbs": side_verbs,
-                      "descheduler_ticks": desched_ticks, "koordlet_path": kl_records}))
+                      "descheduler_ticks": desched_ticks, "koordlet_path": kl_records,
+                      "round_loop": round_loop}))
     print(f"device: {kind} | {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -961,8 +961,9 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
 def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
                    valid, pod_ok, salts, commit_cap: int, block_size: int, con=None,
                    check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
-    """One launch of the round-loop kernel on CUDA tensors, counted on
-    ``kernel``; ``M``/``Mb`` are updated in place."""
+    """One cooperative launch of the round-loop kernel on CUDA tensors,
+    counted on ``kernel``; ``M``/``Mb`` are updated in place.  The grid
+    spreads the pods over up to one block a SM (``cuda.rounds_grid``)."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     K = min(commit_cap, max(P, 1))
@@ -990,14 +991,15 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     xf, xsc, xkeep = _xin_args(xin, P, N, dev)
     hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
     scores = torch.zeros(P, dtype=torch.int64, device=dev)
-    node_first = torch.empty(N, dtype=torch.int32, device=dev)
+    scratch = torch.empty(cuda.rounds_scratch_words(P, K, N), dtype=torch.int64, device=dev)
+    G = cuda.rounds_grid(P, N, block_size, K, cuda.sm_count(dev)) if P and N else 1
     head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-            salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N), K)
+            salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N), K, G)
     if con is None:
         rounds = torch.zeros(1, dtype=torch.int32, device=dev)
         if P and N:
             kernel.launch(
-                *head, M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(), node_first.data_ptr(),
+                *head, M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(), scratch.data_ptr(),
                 hosts.data_ptr(), scores.data_ptr(), rounds.data_ptr(), cuda.device_index(dev),
                 cuda.stream(dev),
             )
@@ -1010,10 +1012,22 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     if P and N:
         kernel.launch(
             *head, ptrs, ints, M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(),
-            node_first.data_ptr(), hosts.data_ptr(), scores.data_ptr(), precommit.data_ptr(),
+            scratch.data_ptr(), hosts.data_ptr(), scores.data_ptr(), precommit.data_ptr(),
             rounds.data_ptr(), cuda.device_index(dev), cuda.stream(dev),
         )
     return hosts, scores, precommit, rounds
+
+
+def _check_keys(M, Mb, la_feas_T, P: int, N: int, block_size: int, dev) -> None:
+    """The round loop's key inputs, on any device before any launch: M
+    [N_pad, P] and Mb [N_pad / block_size, P] of one key lane (int32 or
+    int64), la_feas_T [N, P] bool."""
+    if M.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"M: expected int32 or int64 keys, got {M.dtype}")
+    NB = -(-N // block_size)
+    cuda._checked(M, M.dtype, (NB * block_size, P), dev, "M")
+    cuda._checked(Mb, M.dtype, (NB, P), dev, "Mb")
+    cuda._checked(la_feas_T, torch.bool, (N, P), dev, "la_feas_T")
 
 
 def _plain_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
@@ -1050,6 +1064,7 @@ def schedule_rounds(M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_s
     (``schedule_keys(wide=True)``) take the matrix engine's int64-key
     round loop (``schedule_rounds64``).  LeastAllocated only."""
     cuda.require_least_allocated(nf_static, "the schedule round loop")
+    _check_keys(M, Mb, la_feas_T, q_la.est.shape[0], valid.shape[0], block_size, valid.device)
     args = (M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
             salts, commit_cap, block_size, con, check_parent_depth, ancestor_depth, xin)
     if valid.device.type == "cpu":

@@ -16,11 +16,23 @@
 //    resident table's vocabulary axis, [N, c] -> a fresh [N, c'] buffer
 //    whose old columns are the resident bytes and whose new columns hold
 //    the fill the host growth wrote (False, 0 or -1).  One launch widens
-//    every buffer of a table, grid.y = the buffer, walking a descriptor
-//    table of (source, destination, widths, element size, fill); the old
-//    buffers are only read, so a launch still reading them is safe.  Bound
-//    on an H100: bytes (the old table read once, the new one written
-//    once).
+//    every buffer of a table, grid.y = the buffer; the old buffers are
+//    only read, so a launch still reading them is safe.  Bound on an
+//    H100: bytes (the old table read once, the new one written once), a
+//    few microseconds at the residency's 16,384 rows; so in practice the
+//    host's share of a call and the launch.  The design walks rows, not
+//    flat elements: a group of lanes (a power of two up to 32, as wide as
+//    the row) owns a row and copies its old bytes and writes the fill in
+//    16-byte vectors wherever both row widths in bytes and both pointers
+//    are multiples of 16 (the residency's tables are: the bool table 256
+//    -> 512 B a row, the int32 one 32 -> 64 B), else element by element;
+//    no per-element division.  The host passes one packed int64
+//    descriptor ([n, 6]: source, destination, old and new columns,
+//    element size, fill), checks the device without setting it, and the
+//    wrapper (service/state.py dstate_extend) validates in one pass and
+//    allocates each output with one torch.empty (cheaper on the H100's
+//    host than carving one allocation into views).  What is left is host
+//    time: PERF.md gives the call and a run of 100 calls beside F.pad's.
 //
 // 3. gate replaces `dstate_gate` (state.py:222 gate_fn), the device twin
 //    of snapshot.loadaware.gate_node_rows: raw resident rows + now -> the
@@ -31,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #define KOORD_DSTATE_MAX_ARRAYS 32
 
@@ -56,38 +69,51 @@ __global__ void scatter_rows(ScatterDesc s, const unsigned char* packed, int D) 
   }
 }
 
+// KOORD_EXTEND_FIELDS int64 words a buffer in the packed host descriptor
+#define KOORD_EXTEND_FIELDS 6
+
+struct ExtendBuf {
+  const unsigned char* src;
+  unsigned char* dst;
+  long long oc, nc;  // old and new columns
+  long long fill;
+  uint4 pat;         // the fill repeated over 16 bytes
+  int elem;          // element bytes: 1, 4 or 8
+  int vec;           // 16-byte vectors (rows and pointers 16-byte aligned)
+  int lanes_log;     // log2 of the lanes that share a row
+};
+
 struct ExtendDesc {
-  const unsigned char* src[KOORD_DSTATE_MAX_ARRAYS];
-  unsigned char* dst[KOORD_DSTATE_MAX_ARRAYS];
-  long long old_cols[KOORD_DSTATE_MAX_ARRAYS];
-  long long new_cols[KOORD_DSTATE_MAX_ARRAYS];
-  int elem[KOORD_DSTATE_MAX_ARRAYS];
-  long long fill[KOORD_DSTATE_MAX_ARRAYS];
+  ExtendBuf b[KOORD_DSTATE_MAX_ARRAYS];
 };
 
 template <typename T>
-__device__ void widen(const T* src, T* dst, long long oc, long long nc, long long rows, T fill) {
-  const long long total = rows * nc;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / nc, c = i - r * nc;
-    dst[i] = c < oc ? src[r * oc + c] : fill;
-  }
+__device__ __forceinline__ void widen_row(const T* src, T* dst, long long oc, long long nc,
+                                          T fill, int sub, int lanes) {
+  for (long long c = sub; c < nc; c += lanes) dst[c] = c < oc ? src[c] : fill;
 }
 
-__global__ void extend(ExtendDesc d, long long rows) {
-  const int a = blockIdx.y;
-  const long long oc = d.old_cols[a], nc = d.new_cols[a];
-  switch (d.elem[a]) {
-    case 1:
-      widen<uint8_t>(d.src[a], d.dst[a], oc, nc, rows, (uint8_t)d.fill[a]);
-      break;
-    case 4:
-      widen<int>((const int*)d.src[a], (int*)d.dst[a], oc, nc, rows, (int)d.fill[a]);
-      break;
-    default:
-      widen<long long>((const long long*)d.src[a], (long long*)d.dst[a], oc, nc, rows,
-                       d.fill[a]);
+__global__ void extend(ExtendDesc d, int rows) {
+  const ExtendBuf& b = d.b[blockIdx.y];
+  const int lanes = 1 << b.lanes_log, sub = threadIdx.x & (lanes - 1);
+  const int per_block = blockDim.x >> b.lanes_log;
+  const long long ob = b.oc * b.elem, nb = b.nc * b.elem;
+  for (int r = blockIdx.x * per_block + (threadIdx.x >> b.lanes_log); r < rows;
+       r += gridDim.x * per_block) {
+    const unsigned char* src = b.src + r * ob;
+    unsigned char* dst = b.dst + r * nb;
+    if (b.vec) {
+      const int ov = (int)(ob >> 4), nv = (int)(nb >> 4);
+      for (int v = sub; v < nv; v += lanes)
+        ((uint4*)dst)[v] = v < ov ? __ldg((const uint4*)src + v) : b.pat;
+    } else if (b.elem == 1) {
+      widen_row<uint8_t>(src, dst, b.oc, b.nc, (uint8_t)b.fill, sub, lanes);
+    } else if (b.elem == 4) {
+      widen_row<int>((const int*)src, (int*)dst, b.oc, b.nc, (int)b.fill, sub, lanes);
+    } else {
+      widen_row<long long>((const long long*)src, (long long*)dst, b.oc, b.nc, b.fill, sub,
+                           lanes);
+    }
   }
 }
 
@@ -140,28 +166,42 @@ extern "C" int koord_dstate_scatter(int n, const void* const* dst, const long lo
   return (int)cudaGetLastError();
 }
 
-extern "C" int koord_dstate_extend(int n, const void* const* src, void* const* dst,
-                                   const long long* old_cols, const long long* new_cols,
-                                   const int* elem, const long long* fill, int rows, int device,
+// desc: n packed rows of KOORD_EXTEND_FIELDS int64 words (source,
+// destination, old columns, new columns, element size, fill)
+extern "C" int koord_dstate_extend(int n, const long long* desc, int rows, int device,
                                    void* stream) {
-  if (n < 1 || n > KOORD_DSTATE_MAX_ARRAYS) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  if (n < 1 || n > KOORD_DSTATE_MAX_ARRAYS || rows < 0) return (int)cudaErrorInvalidValue;
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
   if (e != cudaSuccess) return (int)e;
-  ExtendDesc d;
-  long long widest = 0;
-  for (int a = 0; a < n; ++a) {
-    if (elem[a] != 1 && elem[a] != 4 && elem[a] != 8) return (int)cudaErrorInvalidValue;
-    d.src[a] = (const unsigned char*)src[a];
-    d.dst[a] = (unsigned char*)dst[a];
-    d.old_cols[a] = old_cols[a];
-    d.new_cols[a] = new_cols[a];
-    d.elem[a] = elem[a];
-    d.fill[a] = fill[a];
-    if (new_cols[a] > widest) widest = new_cols[a];
-  }
+  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
   const int threads = 256;
-  long long blocks = ((long long)rows * widest + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
+  ExtendDesc d;
+  long long blocks = 1;
+  for (int a = 0; a < n; ++a) {
+    const long long* f = desc + (size_t)a * KOORD_EXTEND_FIELDS;
+    ExtendBuf& b = d.b[a];
+    b.src = (const unsigned char*)f[0];
+    b.dst = (unsigned char*)f[1];
+    b.oc = f[2];
+    b.nc = f[3];
+    b.elem = (int)f[4];
+    b.fill = f[5];
+    if ((b.elem != 1 && b.elem != 4 && b.elem != 8) || b.oc < 0 || b.nc < b.oc)
+      return (int)cudaErrorInvalidValue;
+    const long long ob = b.oc * b.elem, nb = b.nc * b.elem;
+    b.vec = ob % 16 == 0 && nb % 16 == 0 && (f[0] | f[1]) % 16 == 0;
+    unsigned char bytes[16];
+    for (int i = 0; i < 16; ++i) bytes[i] = (unsigned char)(b.fill >> (8 * (i % b.elem)));
+    memcpy(&b.pat, bytes, 16);
+    const long long units = b.vec ? nb / 16 : b.nc;  // per row
+    b.lanes_log = 0;
+    while (b.lanes_log < 5 && (1LL << b.lanes_log) < units) ++b.lanes_log;
+    const long long per_block = threads >> b.lanes_log;
+    const long long need = (rows + per_block - 1) / per_block;
+    if (need > blocks) blocks = need;
+  }
+  if (rows == 0) return 0;
   if (blocks > 4096) blocks = 4096;
   extend<<<dim3((unsigned)blocks, n), threads, 0, (cudaStream_t)stream>>>(d, rows);
   return (int)cudaGetLastError();

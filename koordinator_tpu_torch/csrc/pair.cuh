@@ -369,24 +369,39 @@ __device__ __forceinline__ bool gang_pass(const ConIn& k, int q) {
   return g == 0 || (k.g_init[g] && (k.g_once[g] || k.g_members[g] >= k.g_min[g]));
 }
 
+// The reservations' allocations are state the SCHEDULE round loop commits
+// into: it rewrites them on one SM and rescores against them on the
+// others, so its instantiation (L2 = true) reads them through L2
+// (ld.global.cg), never from a stale line of the reading SM's L1; every
+// other kernel reads them as plain loads.
+template <bool L2>
+__device__ __forceinline__ long long ld_state(const long long* p) {
+  if constexpr (L2) return __ldcg(p);
+  return *p;
+}
+
 // nodefit_filter with the reservation restore (core/nodefit.py:94,
 // core/reservation.py:50): the free capacity of node j gains, for each of
 // pod q's matched reservations bound to j, its unallocated remainder.
+// `row` (when >= 0) is where node j's row sits in `n`, if not at j.
+template <bool L2 = false>
 __device__ __forceinline__ bool nf_fit_rsv(const Cfg& c, const PodIn& p, const NodeIn& n,
-                                           const ConIn& k, int q, int j) {
-  if (!(n.num_pods[j] + 1 <= n.allowed[j])) return false;
+                                           const ConIn& k, int q, int j, int row = -1) {
+  const int jn = row < 0 ? j : row;
+  if (!(n.num_pods[jn] + 1 <= n.allowed[jn])) return false;
   if (!p.has_any[q]) return true;
   const int* mi = k.midx + (size_t)q * k.Mm;
   bool hit = false;
   for (int m = 0; m < k.Mm && mi[m] >= 0; ++m) hit |= k.r_node[mi[m]] == j;
   for (int r = 0; r < c.Rf; ++r) {
     long long req = p.req[(size_t)q * c.Rf + r];
-    long long free_ = n.nf_alloc[(size_t)j * c.Rf + r] - n.requested[(size_t)j * c.Rf + r];
+    long long free_ = n.nf_alloc[(size_t)jn * c.Rf + r] - n.requested[(size_t)jn * c.Rf + r];
     if (hit)
       for (int m = 0; m < k.Mm && mi[m] >= 0; ++m) {
         const int v = mi[m];
         if (k.r_node[v] == j)
-          free_ += k.r_alloc[(size_t)v * c.Rf + r] - k.r_allocated[(size_t)v * c.Rf + r];
+          free_ += k.r_alloc[(size_t)v * c.Rf + r] -
+                   ld_state<L2>(&k.r_allocated[(size_t)v * c.Rf + r]);
       }
     if ((c.always[r] || req > 0) && req > free_) return false;
   }
@@ -435,26 +450,30 @@ __device__ __forceinline__ long long key_floor_mod(long long key, long long TB) 
 // pack_keys (core/resolved.py:698): score * TB + (TB-1 - rotated index),
 // or the sentinel when infeasible.  ``pre`` carries every mask the caller
 // already evaluated (loadaware filter, live column, real pod, the extra
-// mask); ``xadd`` is the pair's extra score.
+// mask); ``xadd`` is the pair's extra score.  ``row`` (when >= 0) is where
+// node j's row sits in ``n``: the round loop's rescoring passes rows it
+// staged in shared memory.
 template <typename KT>
 __device__ __forceinline__ KT pair_key(const Cfg& c, const PodIn& p, const NodeIn& n, int q, int j,
-                                       bool pre, int salt, int N, long long TB, long long xadd) {
-  if (!pre || !nf_fit(c, p, n, q, j)) return KeyLane<KT>::neg;
+                                       bool pre, int salt, int N, long long TB, long long xadd,
+                                       int row = -1) {
+  const int jn = row < 0 ? j : row;
+  if (!pre || !nf_fit(c, p, n, q, jn)) return KeyLane<KT>::neg;
   long long rot = (j + salt) % N;
-  return (KT)((pair_total(c, p, n, q, j) + xadd) * TB + (TB - 1 - rot));
+  return (KT)((pair_total(c, p, n, q, jn) + xadd) * TB + (TB - 1 - rot));
 }
 
 // pair_key under the constraints: the gang prefilter is in ``pre``; the
 // reservation restore enters the fit and the frozen reservation score the
 // total (core/resolved.py masked_totals / touched_scores).
-template <typename KT>
+template <typename KT, bool L2 = false>
 __device__ __forceinline__ KT pair_key_con(const Cfg& c, const PodIn& p, const NodeIn& n,
                                            const ConIn& k, int q, int j, bool pre, int salt, int N,
-                                           long long TB, long long xadd) {
-  if (!k.has_rsv) return pair_key<KT>(c, p, n, q, j, pre, salt, N, TB, xadd);
-  if (!pre || !nf_fit_rsv(c, p, n, k, q, j)) return KeyLane<KT>::neg;
-  const long long total =
-      pair_total(c, p, n, q, j) + k.rscores[(size_t)k.xs[q] * N + j] * k.w_rsv + xadd;
+                                           long long TB, long long xadd, int row = -1) {
+  if (!k.has_rsv) return pair_key<KT>(c, p, n, q, j, pre, salt, N, TB, xadd, row);
+  if (!pre || !nf_fit_rsv<L2>(c, p, n, k, q, j, row)) return KeyLane<KT>::neg;
+  const long long total = pair_total(c, p, n, q, row < 0 ? j : row) +
+                          k.rscores[(size_t)k.xs[q] * N + j] * k.w_rsv + xadd;
   long long rot = (j + salt) % N;
   return (KT)(total * TB + (TB - 1 - rot));
 }

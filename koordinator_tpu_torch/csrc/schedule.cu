@@ -44,30 +44,48 @@
 //    (5 bytes written per pair, ~84 MB at 16,384 x 1,024); each thread
 //    writes coalesced rows and computes its block maximum in registers.
 //
-// 2. rounds: the whole round loop in ONE thread block, as the TPU runs it
-//    inside one lax.while_loop (resolved.py:835) — no host sync per round
-//    and no grid-wide sync.  Each round: per-pod max over Mb and decode of
-//    the pick from the key's low bits; first-picker scatter-min into
-//    node_first; prefix cut by a block min and a block scan capped at K
-//    commits; the <= K node-row updates of commit_core; rescoring of the K
-//    touched rows with the same pair function; re-reduction of their
-//    blocks; exit on a block-wide vote.  Under CON, before the cut:
-//    quota_certainty — the admission verdict under the committed quota
-//    aggregates (lower bound); the candidates' totals; the `safe` check
-//    (every group keeps headroom for one more maximal request after every
-//    candidate consumed, so the bounds agree); only when not safe, the
-//    exclusive prefix of earlier candidates' consumption at each pod's own
-//    admission groups, from per-group entry lists built once per launch
-//    (one warp per group, a shuffle scan per dimension), and the verdict
-//    under it (upper bound).  The cut takes the certain admits and
-//    rejects; each committed slot adds its request up its group chain and
-//    nominates a matched reservation on its node (smallest positive rank,
-//    else the first largest scoreReservation) and consumes from it; the
-//    rescoring sees the restored remainders.  After the loop, commit_gangs
-//    over [P] and [G] in the same block: `precommit` keeps the hosts before
-//    it.  Bound on an H100: latency.  The operations and bytes per round
-//    are small (the Mb column max reads 4 MB at 1,024 pods), but the rounds
-//    are sequential and one block uses one SM's bandwidth.
+// 2. rounds: the whole round loop in ONE cooperative launch, as the TPU runs
+//    it inside one lax.while_loop (resolved.py:835): no host sync per round.
+//    Each round: per-pod max over Mb and decode of the pick from the key's
+//    low bits; first-picker scatter-min into node_first; prefix cut by a
+//    block min and a block scan capped at K commits; the <= K node-row
+//    updates of commit_core; rescoring of the K touched rows with the same
+//    pair function; re-reduction of their blocks; exit when every pod is
+//    committed.  Under CON, before the cut: quota_certainty — the admission
+//    verdict under the committed quota aggregates (lower bound); the
+//    candidates' totals; the `safe` check (every group keeps headroom for
+//    one more maximal request after every candidate consumed, so the bounds
+//    agree); only when not safe, the exclusive prefix of earlier
+//    candidates' consumption at each pod's own admission groups, from
+//    per-group entry lists built once per launch (one warp per group, a
+//    shuffle scan per dimension), and the verdict under it (upper bound).
+//    The cut takes the certain admits and rejects; each committed slot adds
+//    its request up its group chain and nominates a matched reservation on
+//    its node (smallest positive rank, else the first largest
+//    scoreReservation) and consumes from it; the rescoring sees the
+//    restored remainders.  After the loop, commit_gangs over [P] and [G]
+//    in block 0: `precommit` keeps the hosts before it.
+//    What bounds it on an H100: the rounds are sequential (173 at 1,024 x
+//    16,384), so latency; a round's work is small (Mb's 4 MB swept, 16 x
+//    1,024 pairs rescored, 1 MB re-reduced).  In one block of 1,024
+//    threads, as it ran before, a round took 84.5 us on one SM while 131
+//    idled, and the split measured then (PERF.md) put a third in the three
+//    wide phases and the rest in the serial middle.  The design: one block
+//    an SM at most (cuda.rounds_grid derives G from P, the block count NB
+//    and K, so a one-pod probe takes a few), each block owning a range of
+//    pods; the wide phases run on every block over its own pods' columns
+//    (so M and Mb need no cross-block traffic), the serial middle on block
+//    0, which publishes the round's touched rows as records after their
+//    update, one per distinct row (padding slots share one record of row
+//    N-1, so K no longer costs rescoring); one arrival count and one
+//    release word a round instead of grid-wide barriers; cross-block state
+//    read through L2 (ld.global.cg), because a plain load may hit a stale
+//    line of the reading SM's L1; the records staged in shared memory for
+//    the rescoring; the serial middle's contended minima reduced in each
+//    warp first and its cut found from one scan.  What is left a round
+//    (PERF.md): the serial middle, two hops between SMs, one pair
+//    evaluation's int64 divisions and the sweep, each a few microseconds.
+//    rounds_kernel below gives the phases and the protocol.
 //
 // 3. refresh_rows + refresh_blocks: the warm carry's delta refresh.  For
 //    each dirty node row j (a power-of-two index padded by repeating a
@@ -90,6 +108,8 @@
 // is at all times the pure function of its node's current state.
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 #include "pair.cuh"
 
 namespace {
@@ -103,15 +123,16 @@ constexpr long long kMinLL = (long long)(-0x7fffffffffffffffLL - 1);
 
 // the packed key of pod q on node j: the extra mask joins ``pre`` and the
 // extra score the total, in the cold build, the refresh and the rounds'
-// rescoring alike
-template <bool CON, typename KT>
+// rescoring alike (which passes node j's row staged at ``row`` of ``n``
+// and reads the reservation allocations through L2)
+template <bool CON, typename KT, bool L2 = false>
 __device__ __forceinline__ KT key_of(const Cfg& c, const PodIn& p, const NodeIn& n,
                                      const ConIn& k, const XIn& x, int P, int q, int j, bool pre,
-                                     int salt, int N, long long TB) {
+                                     int salt, int N, long long TB, int row = -1) {
   if (!pre || !x_feas(x, q, j, P)) return KeyLane<KT>::neg;
   const long long xadd = x_score(x, q, j, P);
-  if constexpr (CON) return pair_key_con<KT>(c, p, n, k, q, j, true, salt, N, TB, xadd);
-  return pair_key<KT>(c, p, n, q, j, true, salt, N, TB, xadd);
+  if constexpr (CON) return pair_key_con<KT, L2>(c, p, n, k, q, j, true, salt, N, TB, xadd, row);
+  return pair_key<KT>(c, p, n, q, j, true, salt, N, TB, xadd, row);
 }
 
 template <bool CON>
@@ -160,13 +181,14 @@ __device__ void block_scan(const uint8_t* flag, int* rank, int P, int* warp_sums
   }
   if (lane == 31 || t == T - 1) warp_sums[warp] = incl;
   __syncthreads();
-  if (t == 0) {
-    int run = 0;
-    for (int w = 0; w < nwarps; ++w) {
-      int s = warp_sums[w];
-      warp_sums[w] = run;
-      run += s;
+  if (warp == 0) {  // the warp sums' exclusive scan, in one warp
+    const int v = lane < nwarps ? warp_sums[lane] : 0;
+    int run = v;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, run, d);
+      if (lane >= d) run += o;
     }
+    if (lane < nwarps) warp_sums[lane] = run - v;
   }
   __syncthreads();
   int run = warp_sums[warp] + incl - local;
@@ -174,6 +196,12 @@ __device__ void block_scan(const uint8_t* flag, int* rank, int P, int* warp_sums
     run += flag[q];
     rank[q] = run;
   }
+}
+
+template <typename V>
+__device__ __forceinline__ V warp_max(V v) {
+  for (int d = 16; d > 0; d >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, d));
+  return v;
 }
 
 // ---------------------------------------------------------------- quota
@@ -190,7 +218,8 @@ __device__ __forceinline__ long long eff_req(const ConIn& k, int q, int r) {
 // _admit_batched (resolved.py:184) for one pod: used + request <= limit on
 // the present dimensions at its group and, with check_parent_depth, its
 // ancestors; a non-preemptible pod also npu + request <= min at its group.
-// `exc` (or null) adds the exclusive prefix at admission depth a.
+// `exc` (or null) adds the exclusive prefix at admission depth a.  The
+// aggregates take atomic adds, so they are read from L2.
 __device__ bool quota_admit(const ConIn& k, int q, const long long* exc) {
   const int R2 = 2 * k.Rq;
   int grp = k.q_row[q];
@@ -202,10 +231,10 @@ __device__ bool quota_admit(const ConIn& k, int q, const long long* exc) {
     for (int r = 0; r < k.Rq; ++r) {
       if (!k.q_present[(size_t)q * k.Rq + r]) continue;
       const long long req = k.q_req[(size_t)q * k.Rq + r];
-      const long long u = k.q_used[(size_t)grp * k.Rq + r] + (exc ? exc[a * R2 + r] : 0);
+      const long long u = __ldcg(&k.q_used[(size_t)grp * k.Rq + r]) + (exc ? exc[a * R2 + r] : 0);
       if (!(u + req <= k.q_limit[(size_t)grp * k.Rq + r])) return false;
       if (a == 0 && k.q_np[q]) {
-        const long long v = k.q_npu[(size_t)grp * k.Rq + r] + (exc ? exc[k.Rq + r] : 0);
+        const long long v = __ldcg(&k.q_npu[(size_t)grp * k.Rq + r]) + (exc ? exc[k.Rq + r] : 0);
         if (!(v + req <= k.q_min[(size_t)grp * k.Rq + r])) return false;
       }
     }
@@ -215,359 +244,679 @@ __device__ bool quota_admit(const ConIn& k, int q, const long long* exc) {
 
 // ------------------------------------------------------------ rounds
 
-// one block of up to 1,024 threads: at most 64 registers a thread
+constexpr int kRoundThreads = 1024;
+constexpr int kStage = 16;      // touched rows staged in shared memory at a time
+// a staged chunk: the assume-path and capacity fields of kStage node rows
+// (7 of width <= KOORD_MAXR, num_pods and allowed as int64), score_valid,
+// the columns
+constexpr size_t kStageBytes = kStage * (8 * (7 * KOORD_MAXR + 2) + 1 + 1 + 4);
+// A round record, kRecWords int64 words, one per distinct touched node
+// row: the column, its live flag, score_valid, num_pods, allowed, then
+// la_alloc, base_nonprod, base_prod [R], nf_alloc, requested [Rf],
+// alloc_score, nreq_score [Rs] (rec_fields of them).
+constexpr int kRecWords = 64;
+
+__device__ __forceinline__ int rec_fields(const Cfg& c) {
+  return 5 + 3 * c.R + 2 * c.Rf + 2 * c.Rs;
+}
+
+// the dynamic shared memory of the round loop's per-round temporaries (the
+// serial middle's pod and slot arrays), which every block's sweep overlays
+// with its [1,024] partial maxima and its rescoring with a staged chunk,
+// for key lanes of `kb` bytes
+__host__ __device__ inline size_t round_temp_bytes(int P, int K, int kb) {
+  const size_t mid = (size_t)P * (kb + 2 * sizeof(int) + 2) + (size_t)K * 2 * sizeof(int);
+  const size_t red = (size_t)kRoundThreads * kb;
+  const size_t m = mid > red ? mid : red;
+  return m > kStageBytes ? m : kStageBytes;
+}
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned int* p, unsigned int v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" : : "l"(p), "r"(v) : "memory");
+}
+
+// A round's synchronisation over co-resident blocks, on two words zeroed
+// before the launch.  Every block arrives after its sweep (thread 0: a
+// fence, then one atomicAdd on `arrived`); block 0 waits until all G
+// arrivals of the round are in (`arrived` reaches G * round), runs the
+// serial middle and releases the round (a fence, then `released` :=
+// round); the other blocks wait only for the release.  The fences order
+// each block's writes before its arrival or release and its later reads
+// after the wait, as a grid barrier's do, at one barrier's cost a round
+// instead of two: the other blocks have nothing to do in the serial middle.
+// (An arrival flag a block, polled by as many threads of block 0, cost
+// more: 3.6 us against 2.8 a round at 128 blocks on the H100.)
+// A wait of more than ~10 s of SM cycles is a fault, not a slow round: the
+// kernel traps, and the launch's caller sees an error instead of a hang.
+constexpr long long kWaitTimeout = 20000000000LL;
+
+__device__ __forceinline__ void arrive(unsigned int* arrived) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrived, 1u);
+  }
+}
+
+__device__ __forceinline__ void wait_for(const unsigned int* word, unsigned int target) {
+  if (threadIdx.x == 0) {
+    const long long start = clock64();
+    while (ld_acquire(word) < target)
+      if (clock64() - start > kWaitTimeout) __trap();
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void release(unsigned int* released, unsigned int round) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(released, round);
+  }
+}
+
+// The pick sweep of one block: each pod of [lo, hi) gets its maximum over
+// the NB block maxima, published to vmax through L2.  The block's pods,
+// padded to a power of two w, are the fastest axis (coalesced rows of Mb);
+// the threads that share a pod split the rows, fold within their warp by
+// shuffles and across warps in `red` ([blockDim.x] keys).
+template <typename KT>
+__device__ void sweep(const KT* Mb, int P, int NB, int lo, int hi, KT* vmax, KT* red) {
+  const int cnt = hi - lo, T = blockDim.x, t = threadIdx.x;
+  if (cnt <= 0) return;
+  if (cnt >= T) {  // a thread a pod, every row
+    for (int i = t; i < cnt; i += T) {
+      KT m = KeyLane<KT>::neg;
+      for (int b = 0; b < NB; ++b) m = max(m, Mb[(size_t)b * P + lo + i]);
+      __stcg(&vmax[lo + i], m);
+    }
+    return;
+  }
+  int w = 1;
+  while (w < cnt) w <<= 1;
+  const int i = t & (w - 1), ng = T / w;
+  KT m = KeyLane<KT>::neg;
+  if (i < cnt) {
+#pragma unroll 8
+    for (int b = t / w; b < NB; b += ng) m = max(m, Mb[(size_t)b * P + lo + i]);
+  }
+  for (int d = 16; d >= w; d >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, d));
+  if (w >= 32) {
+    red[t] = m;
+  } else if ((t & 31) < w) {
+    red[(t >> 5) * w + i] = m;
+  }
+  __syncthreads();
+  // a warp a pod, a lane a group (at most 32 of them)
+  const int groups = w >= 32 ? ng : T >> 5, lane = t & 31;
+  for (int ii = t >> 5; ii < cnt; ii += T >> 5) {
+    const KT v = warp_max(lane < groups ? red[lane * w + ii] : KeyLane<KT>::neg);
+    if (lane == 0) __stcg(&vmax[lo + ii], v);
+  }
+}
+
+// The round loop over G co-resident blocks of 1,024 threads (one
+// cooperative launch).  Block g owns pods [g * ppb, (g+1) * ppb): their
+// columns of M and Mb are written and read by it alone.  A round is
+//   A. every block: the pick sweep of its pending pods -> vmax; arrive;
+//   B. block 0, once all have arrived: the serial middle, the
+//      single-block code of before (the decode, quota_certainty, the
+//      node_first scatter-min, the first blocked pod, the prefix scan
+//      capped at K, the commit of hosts and scores, the <= K node-row
+//      updates, the quota consumption and the reservation nomination),
+//      ending with the round's records (each touched row after its
+//      update, and row N-1 once for the padding slots that clamp to it)
+//      and the new commit frontier published through L2; release;
+//   C. every block, once released: the records staged in shared memory
+//      (kStage at a time, read through L2), its pods rescored on them and
+//      the touched blocks of Mb re-reduced, then straight into the next
+//      round's sweep, which reads only its own columns.
+// The committed pods are always a prefix of the queue, [0, frontier), so
+// the frontier alone tells a block which of its pods are pending, and
+// frontier == P is the exit vote, read by every block after the release.
+// Cross-block state (vmax, the records, their count, the frontier, the
+// reservation allocations) is read through L2: a plain load could hit a
+// line of this SM's L1 from before block 0 rewrote it.  The node rows are
+// written and read by block 0 alone.
+//
+// scratch (int64 words, cuda.rounds_scratch_words): vmax [P] keys | the
+// round records [K, kRecWords] | int32: the arrival count, the released
+// round (both zeroed by launch_rounds), the frontier, the record count,
+// node_first [N] (each written before it is read).
+#ifdef KOORD_ROUND_STUDY
+// The study build (csrc/roundstudy.cu) adds the phase split: SM cycles
+// summed over the rounds (clock64, thread 0) of block 0, the middle block
+// and the last, in each the phases: the sweep; the wait (for the arrivals
+// in block 0, else for the release); block 0's serial middle as its
+// decode, its cut and commit, its row updates and release; the rescoring
+// as staging, pair evaluations and re-reduction.  koord_round_split reads
+// it.
+constexpr int kSplitPhases = 8;
+constexpr int kSplitWords = 3 * kSplitPhases;
+__device__ long long g_round_split[kSplitWords];
+#endif
 template <bool CON, typename KT>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kRoundThreads)
     rounds_kernel(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
-                  const uint8_t* pod_ok,
-                  const int* salt, int P, int N, int BS, long long TB, int K, KT* M, KT* Mb,
-                  const uint8_t* la_feas_T, int* node_first, int* hosts, long long* scores,
-                  int* precommit, int* rounds_out) {
-  extern __shared__ unsigned char smem[];
+                  const uint8_t* pod_ok, const int* salt, int P, int N, int BS, long long TB,
+                  int K, KT* M, KT* Mb, const uint8_t* la_feas_T, long long* scratch, int* hosts,
+                  long long* scores, int* precommit, int* rounds_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t tb = round_temp_bytes(P, K, (int)sizeof(KT));
+  // block 0's temporaries of one round (the serial middle) ...
   KT* s_vmax = (KT*)smem;  // first: the int64 lane's alignment
   int* s_pick = (int*)(s_vmax + P);
   int* s_rank = s_pick + P;
   int* s_cols = s_rank + P;
   int* s_pslot = s_cols + K;
-  uint8_t* s_comm = (uint8_t*)(s_pslot + K);
-  uint8_t* s_flag = s_comm + P;
+  uint8_t* s_flag = (uint8_t*)(s_pslot + K);
   uint8_t* s_place = s_flag + P;
-  uint8_t* s_slotok = s_place + P;
-  // CON: each pod's mask (pod_ok & gang prefilter), then its quota chain
-  uint8_t* s_ok = s_slotok + K;
-  int* s_chain = (int*)(smem + ((((size_t)P * (sizeof(KT) + 2 * sizeof(int) + 4) +
-                                   (size_t)K * (2 * sizeof(int) + 1)) + 15) & ~(size_t)15));
-  __shared__ int s_first_blocked, s_cut;
+  KT* s_red = (KT*)smem;  // ... which the sweep's partials overlay
+  // block 0's state across rounds: the committed flags; CON with quota:
+  // each pod's chain of group rows
+  uint8_t* s_comm = smem + tb;
+  int* s_chain = (int*)(smem + ((tb + (size_t)P + 15) & ~(size_t)15));
+  __shared__ int s_first_blocked, s_cut, s_last;
   __shared__ int s_warp[32];
   __shared__ long long s_mr[2 * KOORD_MAXR];
 
-  const int T = blockDim.x, t = threadIdx.x;
+  const int T = blockDim.x, t = threadIdx.x, g = blockIdx.x, G = gridDim.x;
   const int lane = t & 31, warp = t >> 5, nwarps = (T + 31) >> 5;
   const int NB = (N + BS - 1) / BS;
+  const int ppb = (P + G - 1) / G;
+  const int lo = min(P, g * ppb), hi = min(P, lo + ppb), own = hi - lo;
+  KT* g_vmax = (KT*)scratch;
+  long long* g_rec = scratch + P;
+  unsigned int* arrived = (unsigned int*)(g_rec + (size_t)K * kRecWords);
+  unsigned int* released = arrived + 1;
+  int* g_front = (int*)(released + 1);
+  int* g_nrec = g_front + 1;
+  int* node_first = g_nrec + 1;
   const int R2 = 2 * k.Rq;
   long long* tp = k.scratch;
   long long* exc = tp + (size_t)k.Q * R2;
   long long* g_count = exc + (size_t)P * (k.cpd + 1) * R2;
   int* ent_off = (int*)(g_count + 2 * (size_t)k.G);
   int* ent = ent_off + k.Q + 1;
-  for (int q = t; q < P; q += T) {
-    s_comm[q] = 0;
-    hosts[q] = -1;
-    scores[q] = 0;
-    if constexpr (CON) s_ok[q] = pod_pass<CON>(pod_ok, k, q);
-  }
-  for (int j = t; j < N; j += T) node_first[j] = P;
-  if constexpr (CON) {
-    if (k.has_quota) {
-      // each pod's consumption chain, then per-group entry lists in queue
-      // order: thread per group, two passes over the chains
-      for (int q = t; q < P; q += T) {
-        int g = k.q_row[q];
-        for (int d = 0; d < k.ad; ++d) {
-          s_chain[q * k.ad + d] = g;
-          g = k.q_parent[g];
+  for (int j = g * T + t; j < N; j += G * T) node_first[j] = P;
+  if (g == 0) {
+    for (int q = t; q < P; q += T) {
+      s_comm[q] = 0;
+      hosts[q] = -1;
+      scores[q] = 0;
+    }
+    if constexpr (CON) {
+      if (k.has_quota) {
+        // each pod's consumption chain, then per-group entry lists in queue
+        // order: thread per group, two passes over the chains
+        for (int q = t; q < P; q += T) {
+          int gq = k.q_row[q];
+          for (int d = 0; d < k.ad; ++d) {
+            s_chain[q * k.ad + d] = gq;
+            gq = k.q_parent[gq];
+          }
         }
-      }
-      __syncthreads();
-      for (int g = 1 + t; g < k.Q; g += T) {
-        int cnt = 0;
-        for (int e = 0; e < P * k.ad; ++e) cnt += s_chain[e] == g;
-        ent_off[g + 1] = cnt;
-      }
-      __syncthreads();
-      if (t == 0) {
-        ent_off[0] = ent_off[1] = 0;
-        for (int g = 1; g < k.Q; ++g) ent_off[g + 1] += ent_off[g];
-      }
-      __syncthreads();
-      for (int g = 1 + t; g < k.Q; g += T) {
-        int pos = ent_off[g];
-        for (int e = 0; e < P * k.ad; ++e)
-          if (s_chain[e] == g) ent[pos++] = (e / k.ad) * 32 + e % k.ad;
+        __syncthreads();
+        for (int gr = 1 + t; gr < k.Q; gr += T) {
+          int cnt = 0;
+          for (int e = 0; e < P * k.ad; ++e) cnt += s_chain[e] == gr;
+          ent_off[gr + 1] = cnt;
+        }
+        __syncthreads();
+        if (t == 0) {
+          ent_off[0] = ent_off[1] = 0;
+          for (int gr = 1; gr < k.Q; ++gr) ent_off[gr + 1] += ent_off[gr];
+        }
+        __syncthreads();
+        for (int gr = 1 + t; gr < k.Q; gr += T) {
+          int pos = ent_off[gr];
+          for (int e = 0; e < P * k.ad; ++e)
+            if (s_chain[e] == gr) ent[pos++] = (e / k.ad) * 32 + e % k.ad;
+        }
       }
     }
   }
   __syncthreads();
 
-  int rounds = 0, ub_rounds = 0;
+#ifdef KOORD_ROUND_STUDY
+  // the split's blocks: 0 (the serial middle), the middle one, the last
+  __shared__ long long s_split[kSplitPhases];
+  const int split_at = g == 0 ? 0 : g == G - 1 ? 2 : g == G / 2 ? 1 : -1;
+  const bool timer = t == 0 && split_at >= 0;
+  long long tick = clock64();
+  if (timer)
+    for (int i = 0; i < kSplitPhases; ++i) s_split[i] = 0;
+#define KOORD_SPLIT(i)                   \
+  if (timer) {                           \
+    const long long now = clock64();     \
+    s_split[i] += now - tick;            \
+    tick = now;                          \
+  }
+#else
+#define KOORD_SPLIT(i)
+#endif
+
+  int rounds = 0, ub_rounds = 0, frontier = 0;
   while (true) {
-    // pick: per-pod max over the block maxima, decoded from the low bits
-    if (t == 0) {
-      s_first_blocked = P;
-      s_cut = P;
-    }
-    for (int k2 = t; k2 < K; k2 += T) {
-      s_cols[k2] = N;
-      s_pslot[k2] = 0;
-      s_slotok[k2] = 0;
-    }
-    for (int q = t; q < P; q += T) {
-      uint8_t f = 0;
-      KT vmax = KeyLane<KT>::neg;
-      int pick = 0;
-      if (!s_comm[q]) {
-        f = kPending;
-        for (int b = 0; b < NB; ++b) vmax = max(vmax, Mb[(size_t)b * P + q]);
-        if (vmax > KeyLane<KT>::thresh) {
-          f |= kPlaced;
-          long long rot = TB - 1 - key_floor_mod(vmax, TB);
-          pick = (int)((rot - salt[q] + N) % N);
+    // A. the pick sweep of this block's pending pods
+    sweep<KT>(Mb, P, NB, max(lo, frontier), hi, g_vmax, s_red);
+    KOORD_SPLIT(0);
+    arrive(arrived);
+    if (g == 0) {
+      wait_for(arrived, (unsigned int)G * (rounds + 1));
+      KOORD_SPLIT(1);
+      // B. the serial middle: decode each pending pod's pick from the low
+      // bits of its maximum
+      if (t == 0) {
+        s_first_blocked = P;
+        s_cut = P;
+        s_last = 0;
+      }
+      for (int q = t; q < P; q += T) {
+        uint8_t f = 0;
+        KT vmax = KeyLane<KT>::neg;
+        int pick = 0;
+        if (!s_comm[q]) {
+          f = kPending;
+          vmax = __ldcg(&g_vmax[q]);
+          if (vmax > KeyLane<KT>::thresh) {
+            f |= kPlaced;
+            long long rot = TB - 1 - key_floor_mod(vmax, TB);
+            pick = (int)((rot - salt[q] + N) % N);
+          }
+        }
+        if constexpr (CON) f |= kAdmit;  // certain unless the quota says otherwise
+        s_flag[q] = f;
+        s_vmax[q] = vmax;
+        s_pick[q] = pick;
+      }
+      KOORD_SPLIT(2);
+      if constexpr (CON) {
+        if (k.has_quota) {
+          // quota_certainty: the lower-bound verdict, the candidates'
+          // totals and the largest pending requests
+          if (t < 2 * KOORD_MAXR) s_mr[t] = kMinLL;
+          for (int i = t; i < k.Q * R2; i += T) tp[i] = 0;
+          __syncthreads();
+          for (int r = 0; r < k.Rq; ++r) {
+            long long mr = kMinLL, mn = kMinLL;
+            for (int q = t; q < P; q += T) {
+              const bool pending = s_flag[q] & kPending;
+              const long long e = eff_req(k, q, r);
+              mr = max(mr, pending ? e : 0LL);
+              mn = max(mn, pending && k.q_np[q] ? e : 0LL);
+            }
+            mr = warp_max(mr);
+            mn = warp_max(mn);
+            if (lane == 0) {
+              atomicMax(&s_mr[r], mr);
+              atomicMax(&s_mr[KOORD_MAXR + r], mn);
+            }
+          }
+          for (int q = t; q < P; q += T) {
+            const uint8_t f = s_flag[q];
+            const bool pending = f & kPending;
+            const bool npm = k.q_np[q];
+            if (!pending) continue;
+            const bool lo_ok = quota_admit(k, q, nullptr);
+            uint8_t fq = f & ~kAdmit;
+            if (!lo_ok) fq |= kReject;
+            if (lo_ok && (f & kPlaced)) {
+              fq |= kCand;
+              int grp = k.q_row[q];
+              for (int d = 0; d < k.ad; ++d, grp = k.q_parent[grp]) {
+                if (grp == 0) continue;
+                for (int r = 0; r < k.Rq; ++r) {
+                  const long long e = eff_req(k, q, r);
+                  atomicAdd((unsigned long long*)&tp[(size_t)grp * R2 + r],
+                            (unsigned long long)e);
+                  if (npm)
+                    atomicAdd((unsigned long long*)&tp[(size_t)grp * R2 + k.Rq + r],
+                              (unsigned long long)e);
+                }
+              }
+            }
+            if (lo_ok) fq |= 32;  // admitted under the lower bound, before the upper
+            s_flag[q] = fq;
+          }
+          __syncthreads();
+          int ok = 1;
+          for (int i = k.Rq * 2 + t; i < k.Q * R2 && ok; i += T) {
+            const int grp = i / R2, r = i % R2;
+            if (r < k.Rq) {
+              ok = __ldcg(&k.q_used[(size_t)grp * k.Rq + r]) + __ldcg(&tp[i]) + s_mr[r] <=
+                   k.q_limit[(size_t)grp * k.Rq + r];
+            } else {
+              const int rr = r - k.Rq;
+              ok = __ldcg(&k.q_npu[(size_t)grp * k.Rq + rr]) + __ldcg(&tp[i]) +
+                       s_mr[KOORD_MAXR + rr] <=
+                   k.q_min[(size_t)grp * k.Rq + rr];
+            }
+          }
+          const bool safe = __syncthreads_and(ok);
+          if (!safe) {
+            // the exclusive prefix of earlier candidates' consumption at
+            // each pod's admission groups: one warp per group and
+            // dimension, a shuffle scan down the group's entries in queue
+            // order
+            ++ub_rounds;
+            for (size_t i = t; i < (size_t)P * (k.cpd + 1) * R2; i += T) exc[i] = 0;
+            __syncthreads();
+            for (int job = warp; job < (k.Q - 1) * R2; job += nwarps) {
+              const int grp = 1 + job / R2, r = job % R2, rr = r % k.Rq;
+              const int elo = ent_off[grp], ehi = ent_off[grp + 1];
+              long long run = 0;
+              for (int base = elo; base < ehi; base += 32) {
+                const int e = base + lane;
+                int q = 0, d = k.cpd + 1;
+                long long v = 0;
+                if (e < ehi) {
+                  q = ent[e] >> 5;
+                  d = ent[e] & 31;
+                  if ((s_flag[q] & kCand) && (r < k.Rq || k.q_np[q])) v = eff_req(k, q, rr);
+                }
+                long long incl = v;
+                for (int sh = 1; sh < 32; sh <<= 1) {
+                  const long long o = __shfl_up_sync(0xffffffffu, incl, sh);
+                  if (lane >= sh) incl += o;
+                }
+                if (e < ehi && d <= k.cpd)
+                  exc[((size_t)q * (k.cpd + 1) + d) * R2 + r] = run + incl - v;
+                run += __shfl_sync(0xffffffffu, incl, 31);
+              }
+            }
+            __syncthreads();
+          }
+          for (int q = t; q < P; q += T) {
+            uint8_t f = s_flag[q];
+            if (!(f & kPending)) continue;
+            const bool lo_ok = f & 32;
+            const bool hi_ok =
+                safe ? lo_ok : quota_admit(k, q, exc + (size_t)q * (k.cpd + 1) * R2);
+            f &= ~(kAdmit | 32);
+            if (hi_ok) f |= kAdmit;
+            s_flag[q] = f;
+          }
         }
       }
-      if constexpr (CON) f |= kAdmit;  // certain unless the quota says otherwise
-      s_flag[q] = f;
-      s_vmax[q] = vmax;
-      s_pick[q] = pick;
-    }
-    if constexpr (CON) {
-      if (k.has_quota) {
-        // quota_certainty: the lower-bound verdict, the candidates'
-        // totals and the largest pending requests
-        if (t < 2 * KOORD_MAXR) s_mr[t] = kMinLL;
-        for (int i = t; i < k.Q * R2; i += T) tp[i] = 0;
-        __syncthreads();
-        for (int q = t; q < P; q += T) {
-          const uint8_t f = s_flag[q];
-          const bool pending = f & kPending;
-          const bool npm = k.q_np[q];
-          for (int r = 0; r < k.Rq; ++r) {
-            const long long e = eff_req(k, q, r);
-            atomicMax(&s_mr[r], pending ? e : 0LL);
-            atomicMax(&s_mr[KOORD_MAXR + r], pending && npm ? e : 0LL);
+      __syncthreads();
+      // first picker of each node among the blockers (commit_core's
+      // node_first scatter-min; a certain quota reject blocks nothing), and
+      // the pods that may place: pending, placed (and admitted).  Below the
+      // first blocked pod these are the places, so their ranks are the
+      // places' ranks and the cut needs no second scan.
+      for (int q = t; q < P; q += T) {
+        const uint8_t f = s_flag[q];
+        const bool pp = (f & (kPending | kPlaced)) == (kPending | kPlaced);
+        if (pp && !(f & kReject)) atomicMin(&node_first[s_pick[q]], q);
+        bool place = pp;
+        if constexpr (CON) place &= (f & kAdmit) != 0;
+        s_place[q] = place;
+      }
+      __syncthreads();
+      block_scan(s_place, s_rank, P, s_warp);
+      __syncthreads();
+      int blocked_at = P, over_at = P;
+      for (int q = t; q < P; q += T) {
+        const uint8_t f = s_flag[q];
+        if (s_place[q] && s_rank[q] > K) over_at = min(over_at, q);
+        if ((f & (kPending | kPlaced)) != (kPending | kPlaced) || (f & kReject)) continue;
+        bool blocked = __ldcg(&node_first[s_pick[q]]) != q;
+        if constexpr (CON) blocked |= !(f & kAdmit);
+        if (blocked) blocked_at = min(blocked_at, q);
+      }
+      blocked_at = __reduce_min_sync(0xffffffffu, blocked_at);
+      over_at = __reduce_min_sync(0xffffffffu, over_at);
+      if (lane == 0 && blocked_at < P) atomicMin(&s_first_blocked, blocked_at);
+      if (lane == 0 && over_at < P) atomicMin(&s_cut, over_at);
+      __syncthreads();
+      // commit the prefix; release node_first for the next round
+      const int cut = min(s_first_blocked, s_cut);
+      for (int q = t; q < P; q += T) {
+        uint8_t f = s_flag[q];
+        if ((f & kPending) && q < cut) {
+          s_comm[q] = 1;
+          if (s_place[q]) {
+            hosts[q] = s_pick[q];
+            scores[q] = ((long long)s_vmax[q] - key_floor_mod(s_vmax[q], TB)) / TB;
+            int slot = s_rank[q] - 1;
+            s_cols[slot] = s_pick[q];
+            s_pslot[slot] = q;
+            if (s_pick[q] == N - 1) s_last = 1;
           }
-          if (!pending) continue;
-          const bool lo = quota_admit(k, q, nullptr);
-          uint8_t g = f & ~kAdmit;
-          if (!lo) g |= kReject;
-          if (lo && (f & kPlaced)) {
-            g |= kCand;
+        }
+        if ((f & (kPending | kPlaced)) == (kPending | kPlaced)) node_first[s_pick[q]] = P;
+      }
+      if (t == 0) __stcg(g_front, cut);
+      __syncthreads();
+      KOORD_SPLIT(3);
+      // the assume path: committed placements sit on distinct nodes.  The
+      // round's records: the committed slots' rows after their update
+      // and, when padding slots remain and no committed slot holds column
+      // N-1, the unchanged row N-1 they clamp to (rescoring it once
+      // rewrites what rescoring it for each padding slot would); one thread
+      // a (record, field), so the rows' read-modify-writes overlap
+      const int placed = cut > 0 ? s_rank[cut - 1] : 0;
+      const int nrec = placed + (placed < K && !s_last ? 1 : 0);
+      const int F = rec_fields(c);
+      for (int i = t; i < nrec * F; i += T) {
+        const int r = i / F, f = i - r * F;
+        const bool ok = r < placed;
+        const int j = ok ? s_cols[r] : N - 1, q = ok ? s_pslot[r] : 0;
+        long long* rec = g_rec + (size_t)r * kRecWords;
+        long long v;
+        if (f == 0) {
+          v = j;
+        } else if (f == 1) {
+          v = valid[j];
+        } else if (f == 2) {
+          v = n.score_valid[j];
+        } else if (f == 3) {
+          v = __ldcg(&n.num_pods[j]) + ok;
+          if (ok) n.num_pods[j] = v;
+        } else if (f == 4) {
+          v = n.allowed[j];
+        } else if (f < 5 + c.R) {
+          v = n.la_alloc[(size_t)j * c.R + f - 5];
+        } else if (f < 5 + 2 * c.R) {
+          const int o = j * c.R + f - 5 - c.R;
+          v = __ldcg(&n.base_nonprod[o]);
+          if (ok) n.base_nonprod[o] = v += p.est[(size_t)q * c.R + f - 5 - c.R];
+        } else if (f < 5 + 3 * c.R) {
+          const int rr = f - 5 - 2 * c.R, o = j * c.R + rr;
+          v = __ldcg(&n.base_prod[o]);
+          if (ok && p.prod_class[q]) n.base_prod[o] = v += p.est[(size_t)q * c.R + rr];
+        } else if (f < 5 + 3 * c.R + c.Rf) {
+          v = n.nf_alloc[(size_t)j * c.Rf + f - 5 - 3 * c.R];
+        } else if (f < 5 + 3 * c.R + 2 * c.Rf) {
+          const int rr = f - 5 - 3 * c.R - c.Rf, o = j * c.Rf + rr;
+          v = __ldcg(&n.requested[o]);
+          if (ok) n.requested[o] = v += p.req[(size_t)q * c.Rf + rr];
+        } else if (f < F - c.Rs) {
+          v = n.alloc_score[(size_t)j * c.Rs + f - 5 - 3 * c.R - 2 * c.Rf];
+        } else {
+          const int rr = f - (F - c.Rs), o = j * c.Rs + rr;
+          v = __ldcg(&n.nreq_score[o]);
+          if (ok) n.nreq_score[o] = v += p.req_score[(size_t)q * c.Rs + rr];
+        }
+        __stcg(&rec[f], v);
+      }
+      if (t == 0) __stcg(g_nrec, nrec);
+      for (int k2 = t; k2 < placed; k2 += T) {
+        const int j = s_cols[k2], q = s_pslot[k2];
+        if constexpr (CON) {
+          if (k.has_quota) {
+            // the pod's request up its group chain (root excluded)
             int grp = k.q_row[q];
             for (int d = 0; d < k.ad; ++d, grp = k.q_parent[grp]) {
               if (grp == 0) continue;
               for (int r = 0; r < k.Rq; ++r) {
                 const long long e = eff_req(k, q, r);
-                atomicAdd((unsigned long long*)&tp[(size_t)grp * R2 + r], (unsigned long long)e);
-                if (npm)
-                  atomicAdd((unsigned long long*)&tp[(size_t)grp * R2 + k.Rq + r],
+                atomicAdd((unsigned long long*)&k.q_used[(size_t)grp * k.Rq + r],
+                          (unsigned long long)e);
+                if (k.q_np[q])
+                  atomicAdd((unsigned long long*)&k.q_npu[(size_t)grp * k.Rq + r],
                             (unsigned long long)e);
               }
             }
           }
-          if (lo) g |= 32;  // admitted under the lower bound, before the upper
-          s_flag[q] = g;
-        }
-        __syncthreads();
-        int ok = 1;
-        for (int i = k.Rq * 2 + t; i < k.Q * R2 && ok; i += T) {
-          const int grp = i / R2, r = i % R2;
-          if (r < k.Rq) {
-            ok = k.q_used[(size_t)grp * k.Rq + r] + tp[i] + s_mr[r] <=
-                 k.q_limit[(size_t)grp * k.Rq + r];
-          } else {
-            const int rr = r - k.Rq;
-            ok = k.q_npu[(size_t)grp * k.Rq + rr] + tp[i] + s_mr[KOORD_MAXR + rr] <=
-                 k.q_min[(size_t)grp * k.Rq + rr];
-          }
-        }
-        const bool safe = __syncthreads_and(ok);
-        if (!safe) {
-          // the exclusive prefix of earlier candidates' consumption at each
-          // pod's admission groups: one warp per group and dimension, a
-          // shuffle scan down the group's entries in queue order
-          ++ub_rounds;
-          for (size_t i = t; i < (size_t)P * (k.cpd + 1) * R2; i += T) exc[i] = 0;
-          __syncthreads();
-          for (int job = warp; job < (k.Q - 1) * R2; job += nwarps) {
-            const int grp = 1 + job / R2, r = job % R2, rr = r % k.Rq;
-            const int lo = ent_off[grp], hi = ent_off[grp + 1];
-            long long run = 0;
-            for (int base = lo; base < hi; base += 32) {
-              const int e = base + lane;
-              int q = 0, d = k.cpd + 1;
-              long long v = 0;
-              if (e < hi) {
-                q = ent[e] >> 5;
-                d = ent[e] & 31;
-                if ((s_flag[q] & kCand) && (r < k.Rq || k.q_np[q])) v = eff_req(k, q, rr);
+          if (k.has_rsv) {
+            // nominate among the pod's matched reservations on node j: the
+            // smallest positive rank, else the first largest rscore;
+            // nominated rows are distinct because committed nodes are
+            const int* mi = k.midx + (size_t)q * k.Mm;
+            const long long* rs = k.rscore + (size_t)k.xs[q] * k.Rv;
+            int nom = -1, best_v = -1;
+            long long min_rank = (long long)k.Rv + 1, best = -1;
+            for (int m = 0; m < k.Mm && mi[m] >= 0; ++m) {
+              const int v = mi[m];
+              if (k.r_node[v] != j) continue;
+              const long long rk = k.r_rank[v];
+              if (rk > 0 && rk < min_rank) {
+                min_rank = rk;
+                nom = v;
               }
-              long long incl = v;
-              for (int s = 1; s < 32; s <<= 1) {
-                const long long o = __shfl_up_sync(0xffffffffu, incl, s);
-                if (lane >= s) incl += o;
+              if (rs[v] > best) {
+                best = rs[v];
+                best_v = v;
               }
-              if (e < hi && d <= k.cpd)
-                exc[((size_t)q * (k.cpd + 1) + d) * R2 + r] = run + incl - v;
-              run += __shfl_sync(0xffffffffu, incl, 31);
             }
-          }
-          __syncthreads();
-        }
-        for (int q = t; q < P; q += T) {
-          uint8_t f = s_flag[q];
-          if (!(f & kPending)) continue;
-          const bool lo = f & 32;
-          const bool hi = safe ? lo : quota_admit(k, q, exc + (size_t)q * (k.cpd + 1) * R2);
-          f &= ~(kAdmit | 32);
-          if (hi) f |= kAdmit;
-          s_flag[q] = f;
-        }
-      }
-    }
-    __syncthreads();
-    // first picker of each node among the blockers (commit_core's
-    // node_first scatter-min); a certain quota reject blocks nothing
-    for (int q = t; q < P; q += T) {
-      const uint8_t f = s_flag[q];
-      if ((f & (kPending | kPlaced)) == (kPending | kPlaced) && !(f & kReject))
-        atomicMin(&node_first[s_pick[q]], q);
-    }
-    __syncthreads();
-    for (int q = t; q < P; q += T) {
-      const uint8_t f = s_flag[q];
-      if ((f & (kPending | kPlaced)) != (kPending | kPlaced) || (f & kReject)) continue;
-      bool blocked = node_first[s_pick[q]] != q;
-      if constexpr (CON) blocked |= !(f & kAdmit);
-      if (blocked) atomicMin(&s_first_blocked, q);
-    }
-    __syncthreads();
-    const int fb = s_first_blocked;
-    for (int q = t; q < P; q += T) {
-      const uint8_t f = s_flag[q];
-      bool place = (f & (kPending | kPlaced)) == (kPending | kPlaced) && q < fb;
-      if constexpr (CON) place &= (f & kAdmit) != 0;
-      s_place[q] = place;
-    }
-    __syncthreads();
-    block_scan(s_place, s_rank, P, s_warp);
-    __syncthreads();
-    for (int q = t; q < P; q += T)
-      if (s_place[q] && s_rank[q] > K) atomicMin(&s_cut, q);
-    __syncthreads();
-    // commit the prefix; release node_first for the next round
-    const int cut = min(fb, s_cut);
-    for (int q = t; q < P; q += T) {
-      uint8_t f = s_flag[q];
-      if ((f & kPending) && q < cut) {
-        s_comm[q] = 1;
-        if (s_place[q]) {
-          hosts[q] = s_pick[q];
-          scores[q] = ((long long)s_vmax[q] - key_floor_mod(s_vmax[q], TB)) / TB;
-          int slot = s_rank[q] - 1;
-          s_cols[slot] = s_pick[q];
-          s_pslot[slot] = q;
-          s_slotok[slot] = 1;
-        }
-      }
-      if ((f & (kPending | kPlaced)) == (kPending | kPlaced)) node_first[s_pick[q]] = P;
-    }
-    __syncthreads();
-    // the assume path: committed placements sit on distinct nodes
-    for (int k2 = t; k2 < K; k2 += T) {
-      if (!s_slotok[k2]) continue;
-      const int j = s_cols[k2], q = s_pslot[k2];
-      for (int r = 0; r < c.R; ++r) {
-        long long e = p.est[(size_t)q * c.R + r];
-        n.base_nonprod[(size_t)j * c.R + r] += e;
-        if (p.prod_class[q]) n.base_prod[(size_t)j * c.R + r] += e;
-      }
-      for (int r = 0; r < c.Rf; ++r)
-        n.requested[(size_t)j * c.Rf + r] += p.req[(size_t)q * c.Rf + r];
-      for (int r = 0; r < c.Rs; ++r)
-        n.nreq_score[(size_t)j * c.Rs + r] += p.req_score[(size_t)q * c.Rs + r];
-      n.num_pods[j] += 1;
-      if constexpr (CON) {
-        if (k.has_quota) {
-          // the pod's request up its group chain (root excluded)
-          int grp = k.q_row[q];
-          for (int d = 0; d < k.ad; ++d, grp = k.q_parent[grp]) {
-            if (grp == 0) continue;
-            for (int r = 0; r < k.Rq; ++r) {
-              const long long e = eff_req(k, q, r);
-              atomicAdd((unsigned long long*)&k.q_used[(size_t)grp * k.Rq + r],
-                        (unsigned long long)e);
-              if (k.q_np[q])
-                atomicAdd((unsigned long long*)&k.q_npu[(size_t)grp * k.Rq + r],
-                          (unsigned long long)e);
-            }
+            if (nom < 0) nom = best_v;
+            if (nom >= 0)
+              for (int r = 0; r < c.Rf; ++r) {
+                long long* a = &k.r_allocated[(size_t)nom * c.Rf + r];
+                const long long remain = k.r_alloc[(size_t)nom * c.Rf + r] - *a;
+                *a += max(min(p.req[(size_t)q * c.Rf + r], remain), 0LL);
+              }
           }
         }
-        if (k.has_rsv) {
-          // nominate among the pod's matched reservations on node j: the
-          // smallest positive rank, else the first largest rscore; nominated
-          // rows are distinct because committed nodes are
-          const int* mi = k.midx + (size_t)q * k.Mm;
-          const long long* rs = k.rscore + (size_t)k.xs[q] * k.Rv;
-          int nom = -1, best_v = -1;
-          long long min_rank = (long long)k.Rv + 1, best = -1;
-          for (int m = 0; m < k.Mm && mi[m] >= 0; ++m) {
-            const int v = mi[m];
-            if (k.r_node[v] != j) continue;
-            const long long rk = k.r_rank[v];
-            if (rk > 0 && rk < min_rank) {
-              min_rank = rk;
-              nom = v;
-            }
-            if (rs[v] > best) {
-              best = rs[v];
-              best_v = v;
-            }
-          }
-          if (nom < 0) nom = best_v;
-          if (nom >= 0)
-            for (int r = 0; r < c.Rf; ++r) {
-              long long* a = &k.r_allocated[(size_t)nom * c.Rf + r];
-              const long long remain = k.r_alloc[(size_t)nom * c.Rf + r] - *a;
-              *a += max(min(p.req[(size_t)q * c.Rf + r], remain), 0LL);
-            }
+      }
+      release(released, rounds + 1);
+      KOORD_SPLIT(4);
+    } else {
+      wait_for(released, rounds + 1);
+      KOORD_SPLIT(1);
+    }
+    frontier = __ldcg(g_front);
+    // C. rescore this block's pods on the round's records (the touched
+    // rows after their update), kStage records at a time staged in shared
+    // memory, then re-reduce their blocks of Mb; records on one block of Mb
+    // write the same maximum, a later chunk's after an earlier one's
+    const int nrec = __ldcg(g_nrec);
+    const int F = rec_fields(c);
+    for (int base = 0; own > 0; base += kStage) {
+      // the chunk's records are staged before the count is known (its
+      // load and theirs in flight together); those past it go unread
+      const int ns = min(kStage, K - base);
+      long long* st_la = (long long*)smem;
+      long long* st_bnp = st_la + kStage * c.R;
+      long long* st_bp = st_bnp + kStage * c.R;
+      long long* st_nfa = st_bp + kStage * c.R;
+      long long* st_req = st_nfa + kStage * c.Rf;
+      long long* st_as = st_req + kStage * c.Rf;
+      long long* st_nrs = st_as + kStage * c.Rs;
+      long long* st_np = st_nrs + kStage * c.Rs;
+      long long* st_allow = st_np + kStage;
+      uint8_t* st_sv = (uint8_t*)(st_allow + kStage);
+      uint8_t* st_valid = st_sv + kStage;
+      int* st_j = (int*)(st_valid + kStage);
+      const long long* rec0 = g_rec + (size_t)base * kRecWords;
+      for (int i = t; i < ns * F; i += T) {
+        const int r = i / F, f = i - r * F;
+        const long long v = __ldcg(&rec0[(size_t)r * kRecWords + f]);
+        if (f == 0) {
+          st_j[r] = (int)v;
+        } else if (f == 1) {
+          st_valid[r] = (uint8_t)v;
+        } else if (f == 2) {
+          st_sv[r] = (uint8_t)v;
+        } else if (f == 3) {
+          st_np[r] = v;
+        } else if (f == 4) {
+          st_allow[r] = v;
+        } else if (f < 5 + c.R) {
+          st_la[r * c.R + f - 5] = v;
+        } else if (f < 5 + 2 * c.R) {
+          st_bnp[r * c.R + f - 5 - c.R] = v;
+        } else if (f < 5 + 3 * c.R) {
+          st_bp[r * c.R + f - 5 - 2 * c.R] = v;
+        } else if (f < 5 + 3 * c.R + c.Rf) {
+          st_nfa[r * c.Rf + f - 5 - 3 * c.R] = v;
+        } else if (f < 5 + 3 * c.R + 2 * c.Rf) {
+          st_req[r * c.Rf + f - 5 - 3 * c.R - c.Rf] = v;
+        } else if (f < F - c.Rs) {
+          st_as[r * c.Rs + f - 5 - 3 * c.R - 2 * c.Rf] = v;
+        } else {
+          st_nrs[r * c.Rs + f - (F - c.Rs)] = v;
         }
       }
-    }
-    __syncthreads();
-    // rescore the touched rows against the updated state (padding slots
-    // clamp to N-1), then re-reduce their blocks
-    for (int k2 = 0; k2 < K; ++k2) {
-      const int j = min(s_cols[k2], N - 1);
-      for (int q = t; q < P; q += T) {
-        bool ok;
-        if constexpr (CON) ok = s_ok[q];
-        else ok = pod_ok[q];
-        bool pre = la_feas_T[(size_t)j * P + q] && valid[j] && ok;
-        M[(size_t)j * P + q] = key_of<CON, KT>(c, p, n, k, x, P, q, j, pre, salt[q], N, TB);
+      __syncthreads();
+      KOORD_SPLIT(5);
+      const int nk = min(kStage, nrec - base);
+      NodeIn nst = n;
+      nst.la_alloc = st_la;
+      nst.base_nonprod = st_bnp;
+      nst.base_prod = st_bp;
+      nst.score_valid = st_sv;
+      nst.nf_alloc = st_nfa;
+      nst.requested = st_req;
+      nst.num_pods = st_np;
+      nst.allowed = st_allow;
+      nst.alloc_score = st_as;
+      nst.nreq_score = st_nrs;
+      for (int i = t; i < nk * own; i += T) {
+        const int r = i / own, q = lo + (i - r * own), j = st_j[r];
+        const bool pre = la_feas_T[(size_t)j * P + q] && st_valid[r] && pod_pass<CON>(pod_ok, k, q);
+        M[(size_t)j * P + q] =
+            key_of<CON, KT, true>(c, p, nst, k, x, P, q, j, pre, salt[q], N, TB, r);
       }
-    }
-    __syncthreads();
-    for (int k2 = 0; k2 < K; ++k2) {
-      const int b = min(s_cols[k2], N - 1) / BS;
-      for (int q = t; q < P; q += T) {
-        KT m = KeyLane<KT>::neg;
-        for (int i = 0; i < BS; ++i) m = max(m, M[(size_t)(b * BS + i) * P + q]);
-        Mb[(size_t)b * P + q] = m;
+      __syncthreads();
+      KOORD_SPLIT(6);
+      for (int i = t; i < nk * own; i += T) {
+        const int r = i / own, q = lo + (i - r * own), b = st_j[r] / BS;
+        KT mx = KeyLane<KT>::neg;
+        for (int rr = 0; rr < BS; ++rr) mx = max(mx, M[(size_t)(b * BS + rr) * P + q]);
+        Mb[(size_t)b * P + q] = mx;
       }
+      __syncthreads();
+      if (base + kStage >= nrec) break;
     }
+    KOORD_SPLIT(7);
     ++rounds;
-    int open = 0;
-    for (int q = t; q < P; q += T) open |= !s_comm[q];
-    if (!__syncthreads_or(open)) break;
+    if (frontier >= P) break;
   }
+#undef KOORD_SPLIT
+#ifdef KOORD_ROUND_STUDY
+  if (timer)
+    for (int i = 0; i < kSplitPhases; ++i) g_round_split[split_at * kSplitPhases + i] = s_split[i];
+#endif
+  if (g != 0) return;
   if constexpr (CON) {
     // commit_gangs: a gang group whose gangs did not all reach minMember
     // (placed + bound children, or once satisfied) loses every placement,
     // unless the gang is non-strict
     long long* placed = g_count;
     long long* unsat = g_count + k.G;
-    for (int g = t; g < 2 * k.G; g += T) g_count[g] = 0;
+    for (int gr = t; gr < 2 * k.G; gr += T) g_count[gr] = 0;
     for (int q = t; q < P; q += T) precommit[q] = hosts[q];
     __syncthreads();
     for (int q = t; q < P; q += T)
       if (hosts[q] >= 0) atomicAdd((unsigned long long*)&placed[k.gang_row[q]], 1ULL);
     __syncthreads();
-    for (int g = t; g < k.G; g += T)
-      if (!(placed[g] + k.g_bound[g] >= k.g_min[g] || k.g_once[g]))
-        atomicAdd((unsigned long long*)&unsat[k.g_group[g]], 1ULL);
+    for (int gr = t; gr < k.G; gr += T)
+      if (!(placed[gr] + k.g_bound[gr] >= k.g_min[gr] || k.g_once[gr]))
+        atomicAdd((unsigned long long*)&unsat[k.g_group[gr]], 1ULL);
     __syncthreads();
     for (int q = t; q < P; q += T) {
-      const int g = k.gang_row[q];
-      if (g != 0 && unsat[k.g_group[g]] != 0 && !k.g_nonstrict[g]) {
+      const int gq = k.gang_row[q];
+      if (gq != 0 && unsat[k.g_group[gq]] != 0 && !k.g_nonstrict[gq]) {
         hosts[q] = -1;
         scores[q] = 0;
       }
@@ -576,6 +925,22 @@ __global__ void __launch_bounds__(1024)
   }
   if (t == 0) rounds_out[0] = rounds;
 }
+
+#ifdef KOORD_ROUND_STUDY
+// the study build's round synchronisation alone, `iters` times: its cost.
+// `sync` holds the two zeroed words.
+__global__ void __launch_bounds__(kRoundThreads) sync_loop(unsigned int* sync, int iters) {
+  for (int r = 1; r <= iters; ++r) {
+    arrive(sync);
+    if (blockIdx.x == 0) {
+      wait_for(sync, gridDim.x * r);
+      release(sync + 1, r);
+    } else {
+      wait_for(sync + 1, r);
+    }
+  }
+}
+#endif
 
 // grid (pods / 128, min(D, 65535)); blockIdx.y strides over the dirty rows
 template <bool CON>
@@ -605,17 +970,14 @@ __global__ void refresh_blocks(const int* M, int* Mb, const int* dirty, int D, i
   }
 }
 
-// the round loop's dynamic shared memory for key lanes of `kb` bytes
-size_t rounds_smem(int P, int K, int kb) {
-  return (size_t)P * (kb + 2 * sizeof(int) + 3) + (size_t)K * (2 * sizeof(int) + 1);
-}
+// the round loop's dynamic shared memory for key lanes of `kb` bytes: the
+// temporaries, then the committed flags
+size_t rounds_smem(int P, int K, int kb) { return round_temp_bytes(P, K, kb) + (size_t)P; }
 
-// the constrained instantiation adds each pod's mask byte and, with quota,
-// its chain of `ad` group rows (16-byte aligned)
+// the constrained instantiation adds, with quota, each pod's chain of `ad`
+// group rows (16-byte aligned)
 size_t rounds_smem_con(int P, int K, int kb, int ad, int has_quota) {
-  const size_t base =
-      ((size_t)P * (kb + 2 * sizeof(int) + 4) + (size_t)K * (2 * sizeof(int) + 1) + 15) &
-      ~(size_t)15;
+  const size_t base = (round_temp_bytes(P, K, kb) + (size_t)P + 15) & ~(size_t)15;
   return base + (has_quota ? (size_t)P * ad * sizeof(int) : 0);
 }
 
@@ -636,26 +998,80 @@ int launch_keys(bool con, const void* const* pods, const void* const* nodes, con
   return (int)cudaGetLastError();
 }
 
+constexpr int kMaxDevices = 64;
+
+// What a round launch asks of the card once per device, then keeps: its
+// SM count (-1: no cooperative launch), and each instantiation's largest
+// dynamic shared memory set so far (it only grows, so a launch never sees
+// a limit below its own).
+cudaError_t prepare_rounds(const void* kernel, int inst, int device, size_t smem, int* sms) {
+  static std::mutex mu;
+  static int dev_sms[kMaxDevices] = {};
+  static size_t dev_smem[kMaxDevices][4] = {};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev_sms[device] == 0) {
+    int coop = 0, n = 0;
+    cudaError_t e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    dev_sms[device] = coop ? n : -1;
+  }
+  if (dev_sms[device] < 0) return cudaErrorNotSupported;
+  *sms = dev_sms[device];
+  if (dev_smem[device][inst] < smem) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    dev_smem[device][inst] = smem;
+  }
+  return cudaSuccess;
+}
+
+// One cooperative launch of G blocks (cuda.rounds_grid), which must all be
+// co-resident: one a SM at most, as the barrier wants few arrivals (the
+// launch itself refuses a grid that cannot be co-resident).  The round's
+// two synchronisation words are zeroed on the stream first.
 template <typename KT>
 int launch_rounds(bool con, const void* const* pods, const void* const* nodes,
-                  const long long* cfg, const void* la_w, const ConIn& k, const XIn& x,
+                  const long long* cfg, const void* la_w, ConIn k, const XIn& x,
                   const void* valid, const void* pod_ok, const void* salt, int P, int N, int BS,
-                  long long TB, int K, void* M, void* Mb, const void* la_feas_T, void* node_first, void* hosts,
-                  void* scores, void* precommit, void* rounds, int device, void* stream) {
+                  long long TB, int K, int G, void* M, void* Mb, const void* la_feas_T,
+                  void* scratch, void* hosts, void* scores, void* precommit, void* rounds,
+                  int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int kb = (int)sizeof(KT);
   const size_t smem =
       con ? rounds_smem_con(P, K, kb, k.ad, k.has_quota) : rounds_smem(P, K, kb);
-  auto kernel = con ? rounds_kernel<true, KT> : rounds_kernel<false, KT>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  void* kernel = con ? (void*)rounds_kernel<true, KT> : (void*)rounds_kernel<false, KT>;
+  int sms = 0;
+  e = prepare_rounds(kernel, (con ? 1 : 0) + (kb == 8 ? 2 : 0), device, smem, &sms);
   if (e != cudaSuccess) return (int)e;
-  const int threads = P >= 1024 ? 1024 : ((P + 31) / 32) * 32;
-  kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
-      (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, K, (KT*)M, (KT*)Mb,
-      (const uint8_t*)la_feas_T, (int*)node_first, (int*)hosts, (long long*)scores,
-      (int*)precommit, (int*)rounds);
+  if (G < 1 || G > P || G > sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  e = cudaMemsetAsync((long long*)scratch + P + (size_t)K * kRecWords, 0,
+                      2 * sizeof(unsigned int), (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  Cfg c = koord_cfg(cfg, la_w);
+  PodIn p = koord_pods(pods);
+  NodeIn n = koord_nodes(nodes);
+  XIn xx = x;
+  const uint8_t* v = (const uint8_t*)valid;
+  const uint8_t* ok = (const uint8_t*)pod_ok;
+  const int* s = (const int*)salt;
+  KT* m = (KT*)M;
+  KT* mb = (KT*)Mb;
+  const uint8_t* lf = (const uint8_t*)la_feas_T;
+  long long* sc = (long long*)scratch;
+  int* h = (int*)hosts;
+  long long* o = (long long*)scores;
+  int* pre = (int*)precommit;
+  int* r = (int*)rounds;
+  void* args[] = {&c, &p, &n, &k, &xx, &v, &ok, &s, &P, &N, &BS, &TB, &K, &m, &mb, &lf, &sc,
+                  &h, &o, &pre, &r};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(G), dim3(kRoundThreads), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -721,29 +1137,32 @@ extern "C" long long koord_sched_rounds_smem(int P, int K) {
   return (long long)rounds_smem(P, K, (int)sizeof(int));
 }
 
+// The round loops take, after K, the grid G (cuda.rounds_grid) and, in
+// place of a node_first buffer, a scratch of
+// cuda.rounds_scratch_words(P, K, N) int64 words.
 extern "C" int koord_sched_rounds(const void* const* pods, const void* const* nodes,
                                   const long long* cfg, const void* la_w, const void* valid,
                                   const void* pod_ok, const void* salt, const void* xfeas,
                                   const void* xsc, int P, int N, int BS, long long TB, int K,
-                                  void* M, void* Mb, const void* la_feas_T, void* node_first,
+                                  int G, void* M, void* Mb, const void* la_feas_T, void* scratch,
                                   void* hosts, void* scores, void* rounds, int device,
                                   void* stream) {
-  return launch_rounds<int>(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
-                       salt, P, N, BS, TB, K, M, Mb, la_feas_T, node_first, hosts, scores,
-                       nullptr, rounds, device, stream);
+  return launch_rounds<int>(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid,
+                            pod_ok, salt, P, N, BS, TB, K, G, M, Mb, la_feas_T, scratch, hosts,
+                            scores, nullptr, rounds, device, stream);
 }
 
 extern "C" int koord_sched_rounds_con(const void* const* pods, const void* const* nodes,
                                       const long long* cfg, const void* la_w, const void* valid,
                                       const void* pod_ok, const void* salt, const void* xfeas,
                                       const void* xsc, int P, int N, int BS, long long TB, int K,
-                                      const void* const* con, const long long* con_ints, void* M,
-                                      void* Mb, const void* la_feas_T, void* node_first,
+                                      int G, const void* const* con, const long long* con_ints,
+                                      void* M, void* Mb, const void* la_feas_T, void* scratch,
                                       void* hosts, void* scores, void* precommit, void* rounds,
                                       int device, void* stream) {
-  return launch_rounds<int>(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
-                       valid, pod_ok, salt, P, N, BS, TB, K, M, Mb, la_feas_T, node_first, hosts,
-                       scores, precommit, rounds, device, stream);
+  return launch_rounds<int>(true, pods, nodes, cfg, la_w, koord_con(con, con_ints),
+                            x_in(xfeas, xsc), valid, pod_ok, salt, P, N, BS, TB, K, G, M, Mb,
+                            la_feas_T, scratch, hosts, scores, precommit, rounds, device, stream);
 }
 
 extern "C" int koord_sched_refresh(const void* const* pods, const void* const* nodes,
@@ -795,25 +1214,55 @@ extern "C" int koord_sched_rounds64(const void* const* pods, const void* const* 
                                     const long long* cfg, const void* la_w, const void* valid,
                                     const void* pod_ok, const void* salt, const void* xfeas,
                                     const void* xsc, int P, int N, int BS, long long TB, int K,
-                                    void* M, void* Mb, const void* la_feas_T, void* node_first,
-                                    void* hosts, void* scores, void* rounds, int device,
-                                    void* stream) {
+                                    int G, void* M, void* Mb, const void* la_feas_T,
+                                    void* scratch, void* hosts, void* scores, void* rounds,
+                                    int device, void* stream) {
   return launch_rounds<long long>(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc),
-                                  valid, pod_ok, salt, P, N, BS, TB, K, M, Mb, la_feas_T,
-                                  node_first, hosts, scores, nullptr, rounds, device, stream);
+                                  valid, pod_ok, salt, P, N, BS, TB, K, G, M, Mb, la_feas_T,
+                                  scratch, hosts, scores, nullptr, rounds, device, stream);
 }
 
 extern "C" int koord_sched_rounds64_con(const void* const* pods, const void* const* nodes,
                                         const long long* cfg, const void* la_w,
                                         const void* valid, const void* pod_ok, const void* salt,
                                         const void* xfeas, const void* xsc, int P, int N, int BS,
-                                        long long TB, int K, const void* const* con,
+                                        long long TB, int K, int G, const void* const* con,
                                         const long long* con_ints, void* M, void* Mb,
-                                        const void* la_feas_T, void* node_first, void* hosts,
+                                        const void* la_feas_T, void* scratch, void* hosts,
                                         void* scores, void* precommit, void* rounds, int device,
                                         void* stream) {
   return launch_rounds<long long>(true, pods, nodes, cfg, la_w, koord_con(con, con_ints),
-                                  x_in(xfeas, xsc), valid, pod_ok, salt, P, N, BS, TB, K, M, Mb,
-                                  la_feas_T, node_first, hosts, scores, precommit, rounds, device,
-                                  stream);
+                                  x_in(xfeas, xsc), valid, pod_ok, salt, P, N, BS, TB, K, G, M,
+                                  Mb, la_feas_T, scratch, hosts, scores, precommit, rounds,
+                                  device, stream);
 }
+
+#ifdef KOORD_ROUND_STUDY
+// The study build's entry points.  `iters` round synchronisations across G
+// co-resident blocks of the round loop's size; `sync` two zeroed int32
+// words.
+extern "C" int koord_round_sync(int G, int iters, void* sync, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  unsigned int* b = (unsigned int*)sync;
+  void* args[] = {&b, &iters};
+  e = cudaLaunchCooperativeKernel((void*)sync_loop, dim3(G), dim3(kRoundThreads), args, 0,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The phase split of the last round launch on this device ([3, 8] int64
+// SM cycles, rounds_kernel) into `out`, then zeroed for the next.
+extern "C" int koord_round_split(void* out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemcpyFromSymbolAsync(out, g_round_split, sizeof(g_round_split), 0,
+                                cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  void* addr = nullptr;
+  e = cudaGetSymbolAddress(&addr, g_round_split);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemsetAsync(addr, 0, sizeof(g_round_split), (cudaStream_t)stream);
+}
+#endif

@@ -38,6 +38,11 @@ MAX_SHAPE = 101  # KOORD_MAX_SHAPE in csrc/pair.cuh
 # the NodeFit strategy ids of csrc/pair.cuh
 STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 
+# study builds: a source that includes another with a study's measurement
+# compiled in (csrc/roundstudy.cu: schedule.cu's round loop with its phase
+# split), built only when a study binds one of its entry points
+STUDY = {"roundstudy": "schedule.cu"}
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -53,20 +58,30 @@ def _nvcc() -> str:
     return found
 
 
+def sources(stem: str) -> list:
+    """The files a library is built from: the shared headers, its source
+    and, for a study build, the source it includes."""
+    own = [CSRC / f"{stem}.cu"] + ([CSRC / STUDY[stem]] if stem in STUDY else [])
+    return sorted(CSRC.glob("*.cuh")) + own
+
+
 def _lib_path(stem: str) -> Path:
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"]:
+    for src in sources(stem):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:12]}.so"
 
 
-def build() -> Dict[str, Path]:
-    """Compile every ``csrc/*.cu`` not yet built, in parallel; return
-    stem -> library path.  The compiler's ``-Xptxas -v`` report lands in
+def build(stems=None) -> Dict[str, Path]:
+    """Compile the libraries of ``stems`` (by default every ``csrc/*.cu``
+    but the study builds) not yet built, in parallel; return stem ->
+    library path.  The compiler's ``-Xptxas -v`` report lands in
     ``<library>.log``.  Raises when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {src.stem: _lib_path(src.stem) for src in sorted(CSRC.glob("*.cu"))}
+    if stems is None:
+        stems = [src.stem for src in sorted(CSRC.glob("*.cu")) if src.stem not in STUDY]
+    out = {stem: _lib_path(stem) for stem in stems}
     todo = {stem: path for stem, path in out.items() if not path.exists()}
     if not todo:
         return out
@@ -95,7 +110,7 @@ def _library(stem: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(stem)
         if lib is None:
-            lib = ctypes.CDLL(str(build()[stem]))
+            lib = ctypes.CDLL(str(build([stem] if stem in STUDY else None)[stem]))
             lib.koord_strerror.argtypes = [ctypes.c_int]
             lib.koord_strerror.restype = ctypes.c_char_p
             _LIBS[stem] = lib
@@ -143,9 +158,11 @@ _SCHED_HEAD = [_P] * 9
 SCHEDULE_KEYS = Kernel(
     "schedule", "koord_sched_keys", _SCHED_HEAD + [_I, _I, _I, _L, _P, _P, _P, _I, _P],
 )
+# the round loop: ... TB, K, the grid G (``rounds_grid``), M, Mb, la_feas_T,
+# the scratch (``rounds_scratch_words``), hosts, scores, rounds
 SCHEDULE_ROUNDS = Kernel(
     "schedule", "koord_sched_rounds",
-    _SCHED_HEAD + [_I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    _SCHED_HEAD + [_I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 )
 # the warm carry: the delta refresh, and the round loop launched on copies
 # of the carry (the same entry point as the cold rounds, counted apart)
@@ -162,7 +179,7 @@ SCHEDULE_KEYS_CON = Kernel(
 )
 SCHEDULE_ROUNDS_CON = Kernel(
     "schedule", "koord_sched_rounds_con",
-    _SCHED_HEAD + [_I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    _SCHED_HEAD + [_I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 )
 SCHED_REFRESH_CON = Kernel(
     "schedule", "koord_sched_refresh_con",
@@ -187,7 +204,8 @@ DSTATE_GATE = Kernel(
     "dstate", "koord_dstate_gate",
     [_I, _P, _P, _P, _P, _P, _D, _I, _I, _D, _I, _P, _P, _P, _P, _I, _P],
 )
-DSTATE_EXTEND = Kernel("dstate", "koord_dstate_extend", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P])
+# the buffer count, the packed descriptor ([n, 6] int64), the rows
+DSTATE_EXTEND = Kernel("dstate", "koord_dstate_extend", [_I, _P, _I, _I, _P])
 DSTATE_MAX_ARRAYS = 32  # KOORD_DSTATE_MAX_ARRAYS in csrc/dstate.cu
 # the placement-policy mask (csrc/placement.cu): nine signature lists, the
 # four policy tables, their widths, M, N, the output
@@ -252,19 +270,58 @@ def scratch_bytes(stem: str, symbol: str, *dims: int) -> int:
 MAX_SMEM = 232_448
 
 
+ROUND_THREADS = 1024  # kRoundThreads in csrc/schedule.cu: the round loop's block
+# kStageBytes: a chunk of 16 touched node rows staged for the rescoring
+ROUND_STAGE_BYTES = 16 * (8 * (7 * MAXR + 2) + 1 + 1 + 4)
+ROUND_RECORD_WORDS = 64  # kRecWords: a round record (a touched node row)
+# the Mb words one block of the round loop sweeps a round at least, before
+# another block is worth its arrival
+ROUND_SWEEP_WORDS = 4096
+
+
+def _round_temps(P: int, K: int, key_bytes: int) -> int:
+    """The round loop's per-round temporaries (block 0's pod and slot
+    arrays, overlaid by each block's [ROUND_THREADS] sweep partials and its
+    staged rows)."""
+    return max(P * (key_bytes + 2 * 4 + 2) + K * 2 * 4, ROUND_THREADS * key_bytes,
+               ROUND_STAGE_BYTES)
+
+
 def rounds_smem(P: int, K: int, key_bytes: int = 4) -> int:
     """Dynamic shared memory of the round-loop kernel over key lanes of
-    ``key_bytes`` (mirrors ``rounds_smem`` in csrc/schedule.cu)."""
-    return P * (key_bytes + 2 * 4 + 3) + K * (2 * 4 + 1)
+    ``key_bytes`` (mirrors ``rounds_smem`` in csrc/schedule.cu): the
+    temporaries, then a committed flag per pod."""
+    return _round_temps(P, K, key_bytes) + P
 
 
 def rounds_smem_con(P: int, K: int, ancestor_depth: int, has_quota: bool,
                     key_bytes: int = 4) -> int:
     """Dynamic shared memory of the constrained instantiation (mirrors
-    ``rounds_smem_con`` in csrc/schedule.cu): a mask byte per pod, and with
-    quota each pod's chain of group rows."""
-    base = (P * (key_bytes + 2 * 4 + 4) + K * (2 * 4 + 1) + 15) & ~15
+    ``rounds_smem_con`` in csrc/schedule.cu): with quota each pod's chain
+    of group rows."""
+    base = (_round_temps(P, K, key_bytes) + P + 15) & ~15
     return base + (P * ancestor_depth * 4 if has_quota else 0)
+
+
+def rounds_grid(P: int, N: int, block_size: int, K: int, sms: int) -> int:
+    """Blocks of the round loop's cooperative launch: enough that each
+    sweeps about ``ROUND_SWEEP_WORDS`` words of Mb a round and that the
+    rescoring's K x P pairs give each thread at most one, but never more
+    than one a SM or one a pod; then trimmed so that the last block owns
+    pods too (block g owns pods [g * ppb, (g+1) * ppb), ppb = ceil(P/G))."""
+    NB = -(-N // block_size)
+    want = max(-(-P * NB // ROUND_SWEEP_WORDS), -(-K * P // ROUND_THREADS), 1)
+    G = max(1, min(want, sms, P))
+    return -(-P // -(-P // G))
+
+
+def rounds_scratch_words(P: int, K: int, N: int) -> int:
+    """int64 words of the round loop's scratch (mirrors the layout in
+    csrc/schedule.cu): the pods' maxima, K round records (a touched node
+    row each), then int32 words for the arrival count, the released round,
+    the frontier, the record count and node_first.  The kernel's launch
+    zeroes the first two int32 words and writes the rest before reading."""
+    return P + K * ROUND_RECORD_WORDS + (4 + N + 1) // 2
 
 
 def stream(device: torch.device) -> int:
@@ -273,6 +330,16 @@ def stream(device: torch.device) -> int:
 
 def device_index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors."""
+    return _sm_count(device_index(device))
 
 
 @functools.lru_cache(maxsize=64)

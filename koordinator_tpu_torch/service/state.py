@@ -294,22 +294,41 @@ def dstate_gate(raw, now: float, exp, fexp: bool) -> LoadAwareNodeArrays:
     )
 
 
+_EXTEND_DTYPES = (torch.bool, torch.int32, torch.int64)
+
+
 def _extend_inputs(bufs, new_cols, fills):
-    """Validate one vocab-axis widening before any launch: every buffer a
-    contiguous [N, c] table of one device and row count, widening to
-    ``new_cols`` >= c; ``fills`` fit the dtypes (bool, int32, int64)."""
-    if not (len(bufs) == len(new_cols) == len(fills)) or not bufs:
-        raise ValueError(f"{len(bufs)} buffers, {len(new_cols)} widths, {len(fills)} fills")
-    rows, dev = bufs[0].shape[0], bufs[0].device
-    for i, (b, nc, fl) in enumerate(zip(bufs, new_cols, fills)):
-        if (b.dim() != 2 or b.shape[0] != rows or b.device != dev or not b.is_contiguous()
-                or b.dtype not in (torch.bool, torch.int32, torch.int64)
-                or int(nc) < b.shape[1]):
-            raise ValueError(f"buffer {i}: {b.dtype} {tuple(b.shape)} on {b.device} cannot "
-                             f"widen to {nc} columns")
-        if b.dtype == torch.bool and fl not in (0, 1, False, True):
-            raise ValueError(f"buffer {i}: fill {fl!r} for a bool table")
-    return rows, dev
+    """Validate one vocab-axis widening before any launch, in one pass:
+    one to ``cuda.DSTATE_MAX_ARRAYS`` buffers, each a contiguous [N, c]
+    table of one device and row count, widening to ``new_cols`` >= c;
+    ``fills`` fit the dtypes (bool, int32, int64).  Returns (rows, device,
+    new widths as ints)."""
+    n = len(bufs)
+    if not (n == len(new_cols) == len(fills)) or not n:
+        raise ValueError(f"{n} buffers, {len(new_cols)} widths, {len(fills)} fills")
+    if n > cuda.DSTATE_MAX_ARRAYS:
+        raise ValueError(f"{n} buffers exceed {cuda.DSTATE_MAX_ARRAYS}")
+    rows, dev, di = bufs[0].shape[0], bufs[0].device, bufs[0].get_device()
+    widths = [int(nc) for nc in new_cols]
+    for i, b in enumerate(bufs):
+        shape = b.shape
+        if (len(shape) != 2 or shape[0] != rows or widths[i] < shape[1]
+                or b.dtype not in _EXTEND_DTYPES or not b.is_contiguous()
+                or b.get_device() != di):
+            raise ValueError(f"buffer {i}: {b.dtype} {tuple(shape)} on {b.device} cannot "
+                             f"widen to {widths[i]} columns")
+        if b.dtype is torch.bool and fills[i] not in (0, 1, False, True):
+            raise ValueError(f"buffer {i}: fill {fills[i]!r} for a bool table")
+    return rows, dev, widths
+
+
+def extend_desc(src_ptrs, dst_ptrs, old_cols, widths, elem_sizes, fills) -> ctypes.Array:
+    """The packed host descriptor of csrc/dstate.cu's extend: one row of six
+    int64 words a buffer (source, destination, old columns, new columns,
+    element size, fill)."""
+    words = [int(v) for row in zip(src_ptrs, dst_ptrs, old_cols, widths, elem_sizes, fills)
+             for v in row]
+    return (ctypes.c_longlong * len(words))(*words)
 
 
 def dstate_extend_plain(bufs, new_cols, fills) -> tuple:
@@ -328,25 +347,21 @@ def dstate_extend(bufs, new_cols, fills) -> tuple:
     ``dstate_extend`` (state.py:208).  Returns fresh [N, c'] buffers whose
     old columns hold the resident bytes and whose new columns hold the
     fill the host growth wrote; the old buffers are never written.  On
-    CUDA one launch of ``csrc/dstate.cu`` widens every buffer, walking a
-    descriptor table of (source, destination, widths, element size,
-    fill)."""
-    rows, dev = _extend_inputs(bufs, new_cols, fills)
+    CUDA one launch of ``csrc/dstate.cu`` widens every buffer from one
+    packed descriptor (``extend_desc``).  Each output is one ``torch.empty``,
+    a buffer of its own for the residency's later scatters: measured no
+    dearer on the host than one allocation carved into views (PERF.md §6,
+    ``chip_smoke.py --rounds``)."""
+    rows, dev, widths = _extend_inputs(bufs, new_cols, fills)
     if dev.type == "cpu":
         return dstate_extend_plain(bufs, new_cols, fills)
-    n = len(bufs)
-    if n > cuda.DSTATE_MAX_ARRAYS:
-        raise ValueError(f"{n} buffers exceed {cuda.DSTATE_MAX_ARRAYS}")
-    out = tuple(torch.empty((rows, int(nc)), dtype=b.dtype, device=dev)
-                for b, nc in zip(bufs, new_cols))
+    out = tuple(torch.empty((rows, nc), dtype=b.dtype, device=dev)
+                for b, nc in zip(bufs, widths))
     if rows:
         cuda.DSTATE_EXTEND.launch(
-            n, (ctypes.c_void_p * n)(*(b.data_ptr() for b in bufs)),
-            (ctypes.c_void_p * n)(*(o.data_ptr() for o in out)),
-            (ctypes.c_longlong * n)(*(b.shape[1] for b in bufs)),
-            (ctypes.c_longlong * n)(*(int(nc) for nc in new_cols)),
-            (ctypes.c_int * n)(*(b.element_size() for b in bufs)),
-            (ctypes.c_longlong * n)(*(int(fl) for fl in fills)),
+            len(bufs), extend_desc([b.data_ptr() for b in bufs], [o.data_ptr() for o in out],
+                                   [b.shape[1] for b in bufs], widths,
+                                   [b.element_size() for b in bufs], fills),
             rows, cuda.device_index(dev), cuda.stream(dev),
         )
     return out

@@ -65,6 +65,7 @@ WARM = ("sched_refresh", "sched_rounds", "dstate_scatter", "dstate_gate")
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_nodes,num_pods,dirty,cap", [
     (300, 50, (16, 128), 16), (300, 50, (16,), 100), (1000, 200, (16, 128, 1024), 16),
+    (2000, 1000, (16, 128), 16),  # the warm rounds over a grid of many blocks
 ])
 def test_warm_kernels_equal_plain(card, num_nodes, num_pods, dirty, cap):
     """``sched_refresh`` (also against a cold key build), ``sched_rounds``
@@ -74,6 +75,168 @@ def test_warm_kernels_equal_plain(card, num_nodes, num_pods, dirty, cap):
     chip_smoke.check_warm_kernels(_inputs(card, num_nodes, num_pods), dirty, timed=False,
                                   commit_cap=cap)
     assert all(cuda.KERNELS[k].launches > before[k] for k in WARM)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(chip_smoke.ROUND_CASES))
+def test_round_loop_cases(card, case):
+    """The cooperative round loop against its plain version (hosts,
+    scores, rounds and the updated M and Mb, exactly) where its grid's
+    reckoning has edges: a last block owning fewer pods, a single pod and
+    block, K = P, both key lanes, the quota upper bound, the extra
+    channel."""
+    kw = chip_smoke.ROUND_CASES[case][2]
+    name = {True: "schedule_rounds64", False: "schedule_rounds"}[kw.get("wide", False)]
+    name += "_con" if kw.get("con") else ""
+    before = cuda.KERNELS[name].launches
+    rec = chip_smoke.check_round_case(_inputs(card, 2000, 1000), case)
+    assert cuda.KERNELS[name].launches == before + 1 and rec["grid"] >= 1
+
+
+@pytest.mark.cuda
+def test_round_loop_one_node_every_round(card):
+    """Every pod prefers one node, so each round commits one pod on it and
+    every block rescores the row the serial middle rewrote on another SM
+    just before: a stale L1 line would show as a wrong key."""
+    rec = chip_smoke.check_round_hot_node(_inputs(card, 2000, 300))
+    assert rec["grid"] > 1
+
+
+@pytest.mark.cuda
+def test_extend_cases_equal_plain(card):
+    """``dstate_extend`` with 32 buffers, ragged row widths and zero rows
+    against its plain version and ``F.pad``, the sources unchanged."""
+    before = cuda.KERNELS["dstate_extend"].launches
+    chip_smoke.check_extend_cases(card)
+    assert cuda.KERNELS["dstate_extend"].launches == before + 2  # zero rows launch nothing
+
+
+def test_round_grid_reckoning():
+    """The round loop's grid: one block a SM at most, never more blocks
+    than pods, every block owning pods, more blocks for more sweeping or
+    rescoring; the one-pod probe takes few blocks."""
+    assert cuda.rounds_grid(1024, 16384, 16, 16, 132) == 128
+    assert cuda.rounds_grid(1024, 16384, 64, 64, 132) == 64
+    assert cuda.rounds_grid(16, 16384, 16, 16, 132) == 4
+    assert cuda.rounds_grid(1, 16384, 16, 1, 132) == 1
+    assert cuda.rounds_grid(64, 512, 16, 16, 132) == 1
+    rng = np.random.default_rng(5)
+    for _ in range(500):
+        P, N = int(rng.integers(1, 20000)), int(rng.integers(1, 200000))
+        BS, K = int(rng.choice([1, 16, 64])), int(rng.integers(1, 200))
+        sms = int(rng.integers(1, 140))
+        G = cuda.rounds_grid(P, N, BS, min(K, P), sms)
+        ppb = -(-P // G)
+        assert 1 <= G <= min(sms, P) and (G - 1) * ppb < P <= G * ppb
+        assert G == cuda.rounds_grid(P, N, BS, min(K, P), sms)
+
+
+def test_round_scratch_and_shared_memory():
+    """The round loop's scratch holds the pods' maxima, the round records
+    and the int32 words; its shared memory admits the
+    largest P the single-block kernel admitted (the temporaries overlay the
+    sweep's partials and the staged rows), in both key lanes, plain and
+    constrained."""
+    words = 1024 + 16 * 64 + (4 + 16384 + 1) // 2
+    assert cuda.rounds_scratch_words(1024, 16, 16384) == words
+    assert cuda.rounds_scratch_words(1, 1, 1) == 1 + 64 + 3
+
+    def largest(fn):
+        lo, hi = 1, 1 << 16
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if fn(mid) <= cuda.MAX_SMEM else (lo, mid - 1)
+        return lo
+
+    for kb in (4, 8):
+        old = largest(lambda P: P * (kb + 2 * 4 + 3) + 16 * 9)
+        assert largest(lambda P: cuda.rounds_smem(P, 16, kb)) >= old
+        old_con = largest(lambda P: ((P * (kb + 2 * 4 + 4) + 16 * 9 + 15) & ~15) + P * 8 * 4)
+        assert largest(lambda P: cuda.rounds_smem_con(P, 16, 8, True, kb)) >= old_con
+        # small P: the sweep's [1,024] partials or a staged chunk set the floor
+        assert cuda.rounds_smem(16, 16, kb) == max(cuda.ROUND_THREADS * kb,
+                                                   cuda.ROUND_STAGE_BYTES) + 16
+    assert cuda.rounds_smem_con(16, 16, 8, False) % 16 == 0
+
+
+@pytest.mark.cuda
+def test_round_study_build_equals_plain(card):
+    """The study build (csrc/roundstudy.cu) launches the same round loop:
+    equal to the plain version, with block 0's phase split read back and
+    zeroed for the next launch."""
+    x = _inputs(card, 300, 50)
+    rec = chip_smoke.round_case(x, 16, 16, "study build", study=True)
+    assert sum(rec["split_cycles"][0]) > 0
+    assert chip_smoke.round_split(card) == [[0] * 8] * 3
+
+
+def _fake_nvcc(tmp_path, monkeypatch):
+    """A stand-in for nvcc that writes an empty library, and a build
+    directory under ``tmp_path``."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n: > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(cuda, "_nvcc", lambda: str(fake))
+
+
+def test_build_leaves_out_the_study_builds(tmp_path, monkeypatch):
+    """``cuda.build()`` compiles every library the paths launch and no
+    study build; a study build is compiled when named, and its library's
+    name follows the source it includes."""
+    _fake_nvcc(tmp_path, monkeypatch)
+    libs = cuda.build()
+    assert set(libs) == {src.stem for src in cuda.CSRC.glob("*.cu")} - set(cuda.STUDY)
+    assert "schedule" in libs and all(path.exists() for path in libs.values())
+    assert not any(path.name.startswith("libroundstudy") for path in cuda.BUILD_DIR.iterdir())
+    study = cuda.build(["roundstudy"])
+    assert list(study) == ["roundstudy"] and study["roundstudy"].exists()
+    assert cuda.CSRC / "schedule.cu" in cuda.sources("roundstudy")
+    assert cuda.CSRC / "schedule.cu" not in cuda.sources("score")
+    # an edit of the included source renames the study build, not another
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in cuda.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(cuda, "CSRC", csrc)
+    before = {stem: cuda._lib_path(stem) for stem in ("roundstudy", "schedule", "score")}
+    with open(csrc / "schedule.cu", "a") as f:
+        f.write("// edited\n")
+    after = {stem: cuda._lib_path(stem) for stem in before}
+    assert after["roundstudy"] != before["roundstudy"]
+    assert after["schedule"] != before["schedule"] and after["score"] == before["score"]
+
+
+def test_round_cases_run_on_cpu_tensors():
+    """``chip_smoke``'s round-loop cases on CPU tensors, where the wrapper
+    takes its plain version: the comparison logic (M and Mb included), the
+    one-node feed, the four knob settings and the probe, and no launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    x = _inputs(torch.device("cpu"), 300, 50)
+    for P, cap, kw in chip_smoke.ROUND_CASES.values():
+        chip_smoke.round_case(chip_smoke.ragged(x, 299, min(P, 50)), 16, min(cap, 100), "", **kw)
+    hot, j = chip_smoke.hot_node(chip_smoke.ragged(x, 299, 50))
+    rec = chip_smoke.round_case(hot, 16, 16, "one node every round")
+    assert int((rec["outputs"][0] == j).sum()) >= 40 and rec["grid"] is None
+    chip_smoke.check_round_loop(x, timed=False)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_extend_descriptor():
+    """``dstate_extend``'s packed host descriptor: six int64 words a
+    buffer in csrc/dstate.cu's order (source, destination, old and new
+    columns, element size, fill), bool fills as 0 and 1."""
+    desc = sm.extend_desc([4096, 8192], [65536, 65792], [3, 5], [5, 21], [8, 1], [-1, True])
+    assert list(desc) == [4096, 65536, 3, 5, 8, -1, 8192, 65792, 5, 21, 1, 1]
+    assert list(sm.extend_desc([1], [2], [0], [0], [4], [False])) == [1, 2, 0, 0, 4, 0]
+    one = sm.extend_desc(*[[7] * 32] * 6)
+    assert len(one) == 6 * 32 and set(one) == {7}
+
+
+def test_extend_cases_run_on_cpu_tensors():
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    chip_smoke.check_extend_cases(torch.device("cpu"))
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
 def test_cfg_block_layout():
@@ -131,6 +294,18 @@ def test_kernels_refuse_before_launch():
             resolved.schedule_refresh(carry, np.arange(16, dtype=np.int32), q_la, *off, 16)
         with pytest.raises(ValueError, match="LeastAllocated"):
             resolved.schedule_rounds_warm(carry, q_la, *off, 16, 16)
+    # the round loop's keys: one lane, the padded node axis, a bool filter
+    M, Mb, feas = carry
+    for broken, match in (
+        ((M.to(torch.int16), Mb, feas), "M: expected int32 or int64"),
+        ((M, Mb.to(torch.int64), feas), "Mb"),
+        ((M[:-16], Mb, feas), "M"),
+        ((M, Mb[:-1], feas), "Mb"),
+        ((M, Mb, feas.to(torch.uint8)), "la_feas_T"),
+        ((M.to(torch.int64), Mb.to(torch.int64), feas[:, :-1]), "la_feas_T"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            resolved.schedule_rounds(*broken, q_la, *rest, 16, 16)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
@@ -205,6 +380,20 @@ def test_residency_wrappers_refuse_before_launch():
         with pytest.raises(ValueError, match=f"gate input {k}"):
             sm.dstate_gate(broken, 0.0, 180, True)
     sm.dstate_gate(raw, 0.0, 180, True)  # the well-formed rows pass
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    t = torch.zeros((4, 8), dtype=torch.int32)
+    for bufs, widths, fills, match in (
+        ([t] * 33, [16] * 33, [0] * 33, "33 buffers exceed 32"),
+        ([t, torch.zeros((5, 8), dtype=torch.int32)], [16, 16], [0, 0], "buffer 1"),
+        ([t], [7], [0], "buffer 0"),
+        ([torch.zeros((8, 4), dtype=torch.int32).t()], [16], [0], "buffer 0"),
+        ([torch.zeros((4, 8), dtype=torch.bool)], [16], [2], "fill 2"),
+        ([], [], [], "0 buffers"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            sm.dstate_extend(bufs, widths, fills)
+    assert len(sm.dstate_extend([t] * 32, [16] * 32, [-1] * 32)) == 32
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
 def test_warm_checks_run_on_cpu_tensors():
