@@ -41,8 +41,10 @@ Phases (any failure exits non-zero and prints no result line):
      state compared after ``assume``;
   9. the strategies' kernels: ``score`` under MostAllocated and
      RequestedToCapacityRatio (the default and a non-monotone shape), the
-     ``scan`` kernel (plain and constrained, both tie-breaks, with and
-     without extras) and the int64-key matrix engine (plain and
+     scan (the int64 key build and the step kernel; plain and constrained,
+     both tie-breaks, with and without extras; its invariant cases, among
+     them more pods and more block maxima than the step kernel's threads)
+     and the int64-key matrix engine (plain and
      constrained) against their plain versions, at the small and the full
      shape; then the matrix route, ``schedule_fn(impl="matrix")`` at full
      width against the int32 route;
@@ -103,6 +105,17 @@ split and a round's synchronisation from the study build
 prints one ``round_study`` JSON line, importing the port from ``DIR``
 when given (another checkout with the study build unpacked beside, to
 compare two versions in one run).
+
+    python3 chip_smoke.py --scan [--root DIR]
+
+runs only the scan's study (``scan_study``) and prints one ``scan_study``
+JSON line;
+
+    python3 chip_smoke.py --spread [--root DIR]
+
+prints one ``spread`` JSON line, one sample of the key builds, the int64
+constrained round loop and the RequestedToCapacityRatio cycles
+(``spread_study``): run it on two checkouts alternately in one call.
 """
 
 from __future__ import annotations
@@ -185,6 +198,34 @@ def run_ms(fn, launches: int = 100) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / launches
+
+
+class GcTimer:
+    """Host milliseconds spent in Python's cyclic garbage collector while
+    installed (``gc.callbacks``), by generation; ``take`` returns the sums
+    since the last take."""
+
+    def __enter__(self):
+        import gc
+
+        self._gc, self._start, self._ms = gc, None, {}
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._start = time.perf_counter()
+        elif self._start is not None:
+            gen = info.get("generation")
+            self._ms[gen] = self._ms.get(gen, 0.0) + (time.perf_counter() - self._start) * 1e3
+            self._start = None
+
+    def __exit__(self, *exc):
+        self._gc.callbacks.remove(self._cb)
+
+    def take(self) -> dict:
+        out, self._ms = self._ms, {}
+        return out
 
 
 class LaunchTimer:
@@ -2147,14 +2188,21 @@ def scan_extras(inp, seed: int):
             convert.tensor(rng.integers(-100, 201, (P, N)).astype(np.int64), dev))
 
 
-def check_scan_kernels(inp, static, con: bool, tie: str, extras: bool, timed: bool,
-                       cpd: int = 0):
-    """The ``scan`` kernel (``scan_con`` with gang, quota and reservation
-    inputs) through ``scan_fn`` against the plain ``schedule_batch`` on the
-    same submission-order inputs (raises ``Mismatch``); the node, quota
-    and reservation inputs must be left untouched.  Returns the kernel
-    record when ``timed``."""
+def scan_case(inp, static, con: bool, tie: str, extras, cpd: int = 0,
+              block_size: int = 16) -> dict:
+    """One scan check's calls on ``inp``: ``kernel`` (``scan_fn``),
+    ``plain`` (the plain ``schedule_batch``) and ``steps`` (``scan_fn``'s
+    plain route on the same tensors: ``build_keys_plain`` on the int64 lane,
+    then ``scan_steps_plain``) on the same submission-order inputs, and
+    ``layers``: the two launches on their own (the key build's fresh M and
+    Mb against ``build_keys_plain``'s, then the step kernel on them against
+    ``scan_steps_plain`` on the plain keys: hosts, scores and the updated M
+    and Mb); the input tensors a run must leave untouched, and what the
+    bound counts.  ``extras``: False, True (``scan_extras``) or a (mask,
+    scores) pair."""
     from koordinator_tpu_torch.core import reservation as tr
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.core import cycle
     from koordinator_tpu_torch.core.cycle import (
         PluginWeights,
         ReservationInputs,
@@ -2165,10 +2213,9 @@ def check_scan_kernels(inp, static, con: bool, tie: str, extras: bool, timed: bo
     la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
     la_nodes, nf_nodes, valid, w = inp["la_nodes"], inp["nf_nodes"], inp["valid"], inp["weights"]
     P, N = la_pods.est.shape[0], valid.shape[0]
-    R, Rf, Rs = la_pods.est.shape[1], nf_pods.req.shape[1], nf_pods.req_score.shape[1]
     AD = 8
     p_real, order = inp["p_real"], inp["order"]
-    con_args, kw = None, {}
+    con_args, kw, quota, rsv = None, {}, None, None
     if con:
         gangs, quota, rsv, matched, midx, rank = con_inputs_for(inp, SEED + 41)
         req = nf_pods.req
@@ -2176,51 +2223,270 @@ def check_scan_kernels(inp, static, con: bool, tie: str, extras: bool, timed: bo
                               scores=tr.rsv_score(req, matched, N, rsv, rank))
         con_args = dict(gang=gangs, quota=quota, reservation=r, rsv_midx=midx, rsv_rank=rank)
         kw = dict(gang=gangs, quota=quota, reservation=r)
-    xf = xsc = None
-    if extras:
-        xf, xsc = scan_extras(inp, SEED + 42)
+    xf, xsc = extras if isinstance(extras, tuple) else (
+        scan_extras(inp, SEED + 42) if extras else (None, None))
     base = (torch.arange(P, device=valid.device) < p_real)[:, None] & valid[None, :]
     if xf is not None:
         base = base & xf
-    state0 = [t.clone() for t in (*la_nodes, *nf_nodes)]
-    if con:
-        state0 += [quota.used.clone(), quota.npu.clone(), rsv.allocated.clone()]
 
     def kernel():
         return scan_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid, p_real, order,
-                       con_args, cpd, AD, xf, xsc, tie)
+                       con_args, cpd, AD, xf, xsc, tie, block_size)
 
     def plain():
         return schedule_batch(la_pods, la_nodes, w, nf_pods, nf_nodes, static, PluginWeights(),
                               base, order, check_parent_depth=cpd, ancestor_depth=AD,
                               tie_break=tie, extra_scores=xsc, **kw)
 
-    got, want = kernel(), plain()
-    tag = f"scan{'_con' if con else ''} {static.strategy} {tie}{' extras' if extras else ''}"
-    err = require_equal(f"{tag} {P}x{N}", got, want)
-    after = [*la_nodes, *nf_nodes] + ([quota.used, quota.npu, rsv.allocated] if con else [])
-    if not all(torch.equal(a, b) for a, b in zip(after, state0)):
-        fail(f"{tag}: the kernel wrote its inputs")
-    placed = int((want[0] >= 0).sum())
-    if placed == 0 or (con and placed == p_real):
-        fail(f"{tag}: {placed} of {p_real} placed: the check exercises too little")
-    print(f"  {P} pods x {N} nodes, {tag}{f' cpd={cpd}' if con else ''}: kernel equals plain, "
-          f"{placed} placed")
-    if not timed:
-        return None
-    ops = pair_ops(R, Rf, Rs) + (6 * Rf * 2 + 4 if con else 0)
+    def queue():
+        xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(la_pods, nf_pods, valid, p_real, order,
+                                                        tie)
+        c = None if con_args is None else rs.con_inputs(xs, **con_args)
+        xin = rs.extra_inputs(xf, xsc, xs)
+        return xs, q_la, q_nf, salts, pod_ok, c, xin
+
+    def plain_keys(q_la, q_nf, salts, pod_ok, c, xin):
+        q_extra, q_xsc = rs._q_extras(xin, pod_ok[:, None] & valid[None, :])
+        if c is not None:
+            q_extra = q_extra & rs.gang_pass(c)[:, None]
+        return rs.build_keys_plain(q_la, la_nodes, w, q_nf, nf_nodes, static, PluginWeights(),
+                                   q_extra, salts, block_size, rs._queue_rsv(c) if c else None,
+                                   q_xsc, torch.int64)[:2]
+
+    def steps():
+        xs, q_la, q_nf, salts, pod_ok, c, xin = queue()
+        M, Mb = plain_keys(q_la, q_nf, salts, pod_ok, c, xin)
+        h, sc = cycle.scan_steps_plain(M, Mb, q_la, la_nodes, w, q_nf, nf_nodes, static, valid,
+                                       pod_ok, salts, block_size, c, cpd, AD, xin)
+        return rs._submission_order(h, sc, xs, P)
+
+    def layers(what: str):
+        xs, q_la, q_nf, salts, pod_ok, c, xin = queue()
+        M, Mb, feas = rs.schedule_keys(q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok,
+                                       salts, block_size, c, xin, wide=True, la_feas=False)
+        Mp, Mbp = plain_keys(q_la, q_nf, salts, pod_ok, c, xin)
+        require_equal(f"{what}: the key build's M, Mb", (M, Mb), (Mp, Mbp))
+        if feas is not None:
+            fail(f"{what}: the scan's key build wrote the LoadAware filter")
+        got = cycle.scan_steps(M, Mb, q_la, la_nodes, w, q_nf, nf_nodes, static, valid, pod_ok,
+                               salts, block_size, c, cpd, AD, xin)
+        want = cycle.scan_steps_plain(Mp, Mbp, q_la, la_nodes, w, q_nf, nf_nodes, static, valid,
+                                      pod_ok, salts, block_size, c, cpd, AD, xin)
+        return require_equal(f"{what}: the step kernel's hosts, scores, M, Mb", (*got, M, Mb),
+                             (*want, Mp, Mbp))
+
+    def rescored(hosts) -> int:
+        """The (placed pod, later pod) pairs whose key the steps rescore:
+        for each pod placed (``hosts`` in submission order), the pods after
+        it in queue order that pass the pod mask (and the gang prefilter)."""
+        xs, _, _, _, pod_ok, c, _ = queue()
+        ok = (pod_ok & rs.gang_pass(c) if c is not None else pod_ok).long()
+        after = ok.flip(0).cumsum(0).flip(0) - ok
+        return int(after[hosts[xs] >= 0].sum())
+
+    inputs = [*la_nodes, *nf_nodes] + ([quota.used, quota.npu, rsv.allocated] if con else [])
     in_b = nbytes(*la_pods, *nf_pods, *la_nodes, *nf_nodes, valid)
-    if extras:
+    if xf is not None:
         in_b += nbytes(xf, xsc)
     if con:
         in_b += nbytes(con_args["reservation"].scores, *rsv, midx, *quota.pods, *quota[1:])
-    b, by = bound_ms(in_b + P * (4 + 8), P * N * ops)
+    return dict(kernel=kernel, plain=plain, steps=steps, layers=layers, rescored=rescored,
+                inputs=inputs, in_bytes=in_b, tag=f"scan{'_con' if con else ''} {static.strategy} {tie}"
+                                   f"{' extras' if xf is not None else ''}")
+
+
+def check_scan_kernels(inp, static, con: bool, tie: str, extras, timed: bool, cpd: int = 0,
+                       block_size: int = 16, both: bool = True, what: str = ""):
+    """The scan (the int64 key build and the step kernel, ``scan_con`` with
+    gang, quota and reservation inputs) through ``scan_fn`` against the
+    plain ``schedule_batch`` and, with ``both``, against ``scan_fn``'s
+    plain route (``build_keys_plain`` + ``scan_steps_plain``) and layer by
+    layer (``scan_case``'s ``layers``), on the same submission-order inputs
+    (raises ``Mismatch``); the node, quota and reservation inputs must be
+    left untouched.  Returns the kernel record when ``timed``: events
+    around ``scan_fn``, the key build's and the step kernel's device times
+    (``torch.profiler``), the bound of each."""
+    la_pods, nf_pods, valid = inp["la_pods"], inp["nf_pods"], inp["valid"]
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    R, Rf, Rs = la_pods.est.shape[1], nf_pods.req.shape[1], nf_pods.req_score.shape[1]
+    p_real = inp["p_real"]
+    case = scan_case(inp, static, con, tie, extras, cpd, block_size)
+    kernel, plain, tag = case["kernel"], case["plain"], case["tag"] + what
+    state0 = [t.clone() for t in case["inputs"]]
+    got, want = kernel(), plain()
+    err = require_equal(f"{tag} {P}x{N}", got, want)
+    steps_ms = None
+    if both:
+        t0 = time.perf_counter()
+        steps = case["steps"]()
+        if valid.device.type == "cuda":
+            torch.cuda.synchronize()
+        steps_ms = (time.perf_counter() - t0) * 1e3  # the plain route, one run
+        require_equal(f"{tag} {P}x{N}: the plain route", got, steps)
+        case["layers"](f"{tag} {P}x{N}")
+    if not all(torch.equal(a, b) for a, b in zip(case["inputs"], state0)):
+        fail(f"{tag}: the kernel wrote its inputs")
+    placed = int((want[0] >= 0).sum())
+    if not what and (placed == 0 or (con and placed == p_real)):
+        fail(f"{tag}: {placed} of {p_real} placed: the check exercises too little")
+    print(f"  {P} pods x {N} nodes, {tag}{f' cpd={cpd}' if con else ''}"
+          f"{f' BS={block_size}' if block_size != 16 else ''}: kernel equals plain"
+          f"{' (both routes, both layers)' if both else ''}, {placed} placed")
+    if not timed:
+        return placed
+    ops = pair_ops(R, Rf, Rs) + (6 * Rf * 2 + 4 if con else 0)
+    NB = -(-N // block_size)
+    # the key build: its inputs once, M and Mb written once; the steps: a
+    # sweep of NB block maxima a pod and, a placement, the placed row's key
+    # and block maximum read and written for each pod after it in queue
+    # order (this run's pairs)
+    pairs = case["rescored"](want[0])
+    kb, kby = bound_ms(case["in_bytes"] + (NB * block_size + NB) * P * 8, P * N * (ops + 4))
+    sb, sby = bound_ms(P * NB * 8 + pairs * 32 + P * (4 + 8), pairs * (ops + 4))
+    dev_ms = device_split(kernel, (("build_keys", "keys"), ("scan_steps", "steps")), reps=5)
     return dict(
         name="scan_con" if con else "scan", source="koordinator_tpu_torch/csrc/scan.cu",
         replaces="koordinator_tpu/core/cycle.py:248", ms=cuda_ms(kernel),
-        plain_ms=cuda_ms(plain, reps=1), bound_ms=b, bound_by=by, max_abs_err=err,
-        library_ms=None, strategy=static.strategy, placed=placed,
+        plain_ms=cuda_ms(plain, reps=1), steps_plain_ms=steps_ms,
+        bound_ms=kb + sb, bound_by=kby if kb >= sb else sby, keys_bound_ms=kb,
+        steps_bound_ms=sb, keys_device_ms=dev_ms.get("keys"), steps_device_ms=dev_ms.get("steps"),
+        max_abs_err=err, library_ms=None, strategy=static.strategy, placed=placed,
+        rescored_pairs=pairs,
     )
+
+
+def scan_edges(inp) -> list:
+    """The step kernel's invariant cases on ``inp``: (name, inputs, strategy
+    name, constrained, extras, block size).  Many pods on one node of an
+    empty fleet (its row rescored again and again); the constraint inputs
+    (a quota that rejects midway, reservations used up on the touched node,
+    gangs rolled back); every extra score at -EXTRA_SCORE_BOUND, the most
+    negative total the engine admits; every pod infeasible; one pod;
+    padding pods; a node axis the block size does not divide; more pods
+    than the step kernel's threads (1,030: a thread rescores several) and
+    more block maxima than threads (1,100 nodes in blocks of 1: the sweep
+    loops instead of loading a step ahead), each from its own cluster."""
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.service.engine import EXTRA_SCORE_BOUND
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    P, N = inp["la_pods"].est.shape[0], inp["valid"].shape[0]
+    dev = inp["valid"].device
+    scalars = (BATCH_CPU, BATCH_MEMORY)
+    many = build_inputs(*random_cluster(SEED + 3, num_nodes=100, num_pods=1030), dev, scalars)
+    wide = build_inputs(*random_cluster(SEED + 4, num_nodes=1100, num_pods=64), dev, scalars)
+    ones = torch.ones((P, N), dtype=torch.bool, device=dev)
+    low = torch.full((P, N), -EXTRA_SCORE_BOUND, dtype=torch.int64, device=dev)
+    return [
+        ("empty fleet", empty_fleet(inp), "most", False, False, 16),
+        ("constraints", inp, "rtc-nonmono", True, True, 16),
+        ("the most negative total", inp, "most", False, (ones, low), 16),
+        ("every pod infeasible", inp, "rtc", False, (~ones, low), 16),
+        ("one pod", ragged(inp, N, 1), "most", False, False, 16),
+        ("padding pods", dict(inp, p_real=P - 9), "rtc", True, True, 16),
+        ("blocks of 7", ragged(inp, N - 3, P), "most", False, True, 7),
+        ("blocks of 64", inp, "rtc-nonmono", True, False, 64),
+        ("more pods than threads", ragged(many, 100, 1030), "most", True, True, 16),
+        ("more blocks than threads", ragged(wide, 1100, 64), "rtc", True, True, 1),
+    ]
+
+
+def check_scan_edges(inp) -> None:
+    """``scan_edges`` through ``check_scan_kernels`` (both plain routes,
+    both layers, under both tie-breaks), each case's own property held."""
+    statics = dict(strategy_statics(inp["static"]))
+    for name, x, strat, con, extras, bs in scan_edges(inp):
+        for tie in ("salted", "index"):
+            placed = check_scan_kernels(x, statics[strat], con, tie, extras, False,
+                                        block_size=bs, what=f" ({name})")
+            if (name == "every pod infeasible") != (placed == 0):
+                fail(f"scan ({name}, {tie}): {placed} placed")
+
+
+def check_key_builds(inp, timed: bool) -> dict:
+    """The key build (``schedule_keys``) under MostAllocated and both RTC
+    shapes, plain and constrained, on both key lanes, against
+    ``build_keys_plain`` (M, Mb, la_feas_T) exactly.  Returns {name: {ms,
+    plain_ms}} when ``timed``."""
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+
+    la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+    P, N = la_pods.est.shape[0], inp["valid"].shape[0]
+    xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(la_pods, nf_pods, inp["valid"], inp["p_real"],
+                                                    inp["order"])
+    q_extra0 = pod_ok[:, None] & inp["valid"][None, :]
+    out = {}
+    for name, static in strategy_statics(inp["static"]):
+        for con in (False, True):
+            c = con_for(inp, con_inputs_for(inp, SEED + 11), xs) if con else None
+            q_extra = q_extra0 & rs.gang_pass(c)[:, None] if con else q_extra0
+            for kdt, wide in ((torch.int32, False), (torch.int64, True)):
+                args = (q_la, inp["la_nodes"], inp["weights"], q_nf, inp["nf_nodes"], static,
+                        inp["valid"], pod_ok, salts, 16, c, None, wide)
+
+                def kernel():
+                    return rs.schedule_keys(*args)
+
+                def plain():
+                    return rs.build_keys_plain(q_la, inp["la_nodes"], inp["weights"], q_nf,
+                                               inp["nf_nodes"], static, PluginWeights(), q_extra,
+                                               salts, 16, rs._queue_rsv(c) if con else None,
+                                               None, kdt)
+
+                tag = f"schedule_keys{'64' if wide else ''}{'_con' if con else ''} {name}"
+                require_equal(f"{tag} {P}x{N}", kernel(), plain())
+                if timed:
+                    out[tag] = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
+    print(f"  {P} pods x {N} nodes: the key build under MostAllocated and RTC (both shapes), "
+          "plain and constrained, int32 and int64 keys, equals plain")
+    return out
+
+
+def check_div_helper(dev) -> int:
+    """pair.cuh's exact division (``div_cap`` with ``koord_rcp``, and the
+    32-bit ``div_small``) against `/` on the card, from the scan's study
+    build: divisors 1, 2, 2**k - 1, 2**k, 2**k + 1 up to 2**62 and random
+    ones; for each, numerators 0, 1, d - 1, d, d + 1, 2d - 1, 2d, 3d, random
+    multiples and their neighbours, 2**31 - 1, 2**32 - 1, 2**32, 2**63 - 1,
+    random ones, and negatives (which keep `/`), each quotient also against
+    Python's exact truncated division.  Returns the pairs checked."""
+    from koordinator_tpu_torch import cuda
+
+    rng = np.random.default_rng(SEED + 71)
+    top = (1 << 63) - 1
+    divs = {1, 2, 3, top}
+    for k in range(1, 63):
+        divs |= {(1 << k) - 1, 1 << k, (1 << k) + 1}
+    divs |= {int(v) for v in rng.integers(1, top, 64, dtype=np.int64)}
+    divs |= {int(v) for v in rng.integers(1, 1 << 20, 64)}
+    ns, ds = [], []
+    for d in sorted(divs):
+        cand = {0, 1, d - 1, d, d + 1, 2 * d - 1, 2 * d, 3 * d, (1 << 31) - 1, (1 << 32) - 1,
+                1 << 32, top, top - 1, -1, -d, -(1 << 62)}
+        for m in rng.integers(1, max(2, top // d), 4, dtype=np.int64):
+            cand |= {int(m) * d - 1, int(m) * d, int(m) * d + 1}
+        cand |= {int(v) for v in rng.integers(-(1 << 62), top, 6, dtype=np.int64)}
+        for n in cand:
+            if -(1 << 63) <= n <= top:
+                ns.append(n)
+                ds.append(d)
+    n = torch.tensor(ns, dtype=torch.int64, device=dev)
+    d = torch.tensor(ds, dtype=torch.int64, device=dev)
+    out = torch.empty((len(ns), 3), dtype=torch.int64, device=dev)
+    study_build("koord_div_check", (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_int,
+                                                            ctypes.c_void_p),
+                "scanstudy").launch(n.data_ptr(), d.data_ptr(), out.data_ptr(), len(ns),
+                                    cuda.device_index(dev), cuda.stream(dev))
+    got = out.cpu().tolist()
+    for (fast, slash, small), a, b in zip(got, ns, ds):
+        exact = abs(a) // b * (1 if a >= 0 else -1)
+        if not fast == slash == small == exact:
+            fail(f"division {a} / {b}: div_cap {fast}, div_small {small}, `/` {slash}, "
+                 f"exact {exact}")
+    print(f"  pair.cuh's division helpers equal `/` on {len(ns)} operand pairs "
+          f"({len(divs)} divisors)", flush=True)
+    return len(ns)
 
 
 def check_matrix_kernels(inp, con: bool, extras: bool, timed: bool, commit_cap: int = 16):
@@ -2369,11 +2635,14 @@ MOST_CYCLES = (("cold, with a SCORE", 0.0, None, False),
 RTC_CYCLES = (("cold, with a SCORE", 0.0, None, False),
               ("unchanged", 1.0, None, False),
               ("assume", 2.0, None, True))
-STRATEGY_PATH_KERNELS = ("score", "scan", "scan_con", "quota", "quota_limit", "rsv_rscore",
-                         "rsv_score", "placement", "dev_feasible", "ds_score", "dstate_gate")
+STRATEGY_PATH_KERNELS = ("score", "schedule_keys64", "schedule_keys64_con", "scan", "scan_con",
+                         "quota", "quota_limit", "rsv_rscore", "rsv_score", "placement",
+                         "dev_feasible", "ds_score", "dstate_gate")
+# the kernels a SCHEDULE under MostAllocated or RTC never launches: the
+# packed keys and every round loop
 PACKED = ("schedule_keys", "schedule_rounds", "sched_refresh", "sched_rounds",
           "schedule_keys_con", "schedule_rounds_con", "sched_refresh_con", "sched_rounds_con",
-          "schedule_keys64", "schedule_rounds64", "schedule_keys64_con", "schedule_rounds64_con")
+          "schedule_rounds64", "schedule_rounds64_con")
 
 
 def drive_strategy_path(device, num_nodes: int, num_pods: int, scalars):
@@ -2384,9 +2653,9 @@ def drive_strategy_path(device, num_nodes: int, num_pods: int, scalars):
     phase's store and batch — SCORE, then ``RTC_CYCLES``.  Each result is
     held against the CPU engine on a twin store (allocation records and
     grants included); after ``assume`` the stores against each other.
-    Every SCHEDULE must take the scan kernel once and no packed-key
-    kernel.  Returns (launches per kernel during this phase, per-cycle
-    records)."""
+    Every SCHEDULE must launch the int64 key build once and the step
+    kernel once, and no packed-key kernel or round loop.  Returns (launches
+    per kernel during this phase, per-cycle records)."""
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import CPU, MEMORY, NodeMetric
     from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
@@ -2411,7 +2680,7 @@ def drive_strategy_path(device, num_nodes: int, num_pods: int, scalars):
     for k in cuda.KERNELS.values():
         k.launches = 0
     records = []
-    with LaunchTimer() as timer:
+    with LaunchTimer() as timer, GcTimer() as gc_timer:
         for strategy, pair, cycles, make_batch, view in runs:
             eng, ref = Engine(pair[0], device=device), Engine(pair[1], device="cpu")
             batch = {e: make_batch("strat", SEED + 52) for e in (eng, ref)}
@@ -2446,8 +2715,10 @@ def drive_strategy_path(device, num_nodes: int, num_pods: int, scalars):
                     require_equal(f"{strategy} SCORE vs the CPU engine", (totals, feasible),
                                   (rt, rf))
                     t1 = time.perf_counter()
+                gc_timer.take()
                 hosts, scores, snap, allocs = eng.schedule(batch[eng], now=now, assume=assume)
                 wall = (time.perf_counter() - t1) * 1e3
+                gc_ms = gc_timer.take()
                 k_ms = timer.take() if on_card else {}
                 launched = {k: v.launches - before[k] for k, v in cuda.KERNELS.items()}
                 demotions = dict(eng.last_demotions)
@@ -2467,8 +2738,10 @@ def drive_strategy_path(device, num_nodes: int, num_pods: int, scalars):
                 if name == "unchanged" and eng.sched_begin_hits != begin0 + 1:
                     fail(f"{what}: the begin-input cache missed")
                 scans = launched["scan"] + launched["scan_con"]
-                if on_card and (scans != 1 or any(launched[k] for k in PACKED)):
-                    fail(f"{what}: launches {launched}: planned one scan, no packed-key kernel")
+                keys = launched["schedule_keys64"] + launched["schedule_keys64_con"]
+                if on_card and (scans != 1 or keys != 1 or any(launched[k] for k in PACKED)):
+                    fail(f"{what}: launches {launched}: planned one int64 key build and one "
+                         "step kernel, no packed-key kernel or round loop")
                 if assume:
                     if view(pair[0]) != view(pair[1]):
                         fail(f"{what}: the stores differ after assume")
@@ -2483,14 +2756,16 @@ def drive_strategy_path(device, num_nodes: int, num_pods: int, scalars):
                 on_rsv = sum(1 for a in allocs if a and a.get("reservation"))
                 busy = sum(k_ms.values())
                 rec = dict(strategy=strategy, cycle=name, publish_ms=publish, wall_ms=wall,
-                           score_wall_ms=score_wall, cpu_wall_ms=cpu_wall, kernel_ms=k_ms,
+                           gc_ms=gc_ms, score_wall_ms=score_wall, cpu_wall_ms=cpu_wall,
+                           kernel_ms=k_ms,
                            launches={k: v for k, v in launched.items() if v}, placed=placed,
                            grants=grants, with_reservation=on_rsv, demotions=demotions,
                            begin_hits=eng.sched_begin_hits)
                 records.append(rec)
                 print(f"  {strategy} cycle {c} ({name}): {placed}/{len(hosts)} placed ({on_rsv} "
                       f"on a reservation, {grants} with devices or cpusets, demoted "
-                      f"{demotions}); publish {publish:.1f} ms, schedule {wall:.1f} ms wall"
+                      f"{demotions}); publish {publish:.1f} ms, schedule {wall:.1f} ms wall "
+                      f"(garbage collector {sum(gc_ms.values()):.1f} ms: {gc_ms})"
                       + (f", score {score_wall:.1f} ms wall" if score_wall else "")
                       + f", kernels {busy:.2f} ms: "
                       + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(k_ms.items()))
@@ -2507,11 +2782,13 @@ def drive_strategy_path(device, num_nodes: int, num_pods: int, scalars):
 
 def check_strategies_small(small) -> None:
     """The strategies' kernel checks at the small shape: ``score`` under
-    MostAllocated and both RTC shapes; the scan, plain and constrained
-    (check_parent_depth 0 and 2), under both tie-breaks, with and without
-    extras, under each strategy; the int64-key engine, plain and
-    constrained, with and without extras, across commit caps."""
+    MostAllocated and both RTC shapes; the key build under them; the scan,
+    plain and constrained (check_parent_depth 0 and 2), under both
+    tie-breaks, with and without extras, under each strategy; the int64-key
+    engine, plain and constrained, with and without extras, across commit
+    caps."""
     check_strategy_score(small, timed=False)
+    check_key_builds(small, timed=False)
     for name, static in strategy_statics(small["static"]):
         for tie in ("salted", "index"):
             for extras in (False, True):
@@ -2533,22 +2810,34 @@ def check_strategies_full(full, records) -> list:
     (plain and constrained, the constrained one with extras too).  Returns
     the new kernel records."""
     score_ms = check_strategy_score(full, timed=True)
+    keys_ms = check_key_builds(full, timed=True)
     for rec in records:
         if rec["name"] == "score":
             rec["strategies_ms"] = {k: {"ms": v[0], "plain_ms": v[1]} for k, v in score_ms.items()}
+        if rec["name"] in ("schedule_keys", "schedule_keys_con"):
+            rec["strategies_ms"] = {k: v for k, v in keys_ms.items()
+                                    if k.startswith(rec["name"] + " ")}
     out = {}
     for name, static in strategy_statics(full["static"]):
         for con in (False, True):
             rec = check_scan_kernels(full, static, con, "salted", True, timed=True)
-            check_scan_kernels(full, static, con, "index", False, timed=False)
+            check_scan_kernels(full, static, con, "index", False, timed=False, both=False)
             if rec["name"] not in out:
                 out[rec["name"]] = dict(rec, variants={})
-            out[rec["name"]]["variants"][name] = {k: rec[k] for k in ("ms", "plain_ms",
-                                                                      "bound_ms", "placed")}
+            out[rec["name"]]["variants"][name] = {
+                k: rec[k] for k in ("ms", "plain_ms", "steps_plain_ms", "bound_ms",
+                                    "keys_device_ms", "steps_device_ms", "placed")}
+    # more block maxima (2,048) than the step kernel's threads
+    check_scan_kernels(full, strategy_statics(full["static"])[0][1], True, "salted", True,
+                       timed=False, block_size=8, what=" (more blocks than threads)")
     new = list(out.values())
     new += check_matrix_kernels(full, False, False, timed=True)
     new += check_matrix_kernels(full, True, False, timed=True)
     check_matrix_kernels(full, True, True, timed=False)
+    for rec in new:
+        if rec["name"] in ("schedule_keys64", "schedule_keys64_con"):
+            rec["strategies_ms"] = {k: v for k, v in keys_ms.items()
+                                    if k.startswith(rec["name"] + " ")}
     return new
 
 
@@ -3768,13 +4057,14 @@ def round_case(inp, BS: int, K: int, what: str, con: bool = False, wide: bool = 
 
 
 @functools.lru_cache(maxsize=None)
-def study_build(symbol: str, argtypes: tuple):
-    """An entry point of the round loop's study build (csrc/roundstudy.cu:
-    the round loop with its phase split compiled in, the split's read-out,
-    a round's synchronisation alone), which no path of the port loads."""
+def study_build(symbol: str, argtypes: tuple, stem: str = "roundstudy"):
+    """An entry point of a study build, which no path of the port loads:
+    the round loop's (csrc/roundstudy.cu: the round loop with its phase
+    split compiled in, the split's read-out, a round's synchronisation
+    alone) or the scan's (csrc/scanstudy.cu)."""
     from koordinator_tpu_torch import cuda
 
-    return cuda.Kernel("roundstudy", symbol, list(argtypes))
+    return cuda.Kernel(stem, symbol, list(argtypes))
 
 
 def round_split(dev) -> list:
@@ -3982,6 +4272,276 @@ def round_study(dev) -> int:
     return 0
 
 
+# ------------------------------------------------------- the scan's study
+
+SCAN_SPLIT_PHASES = ("sweep", "decision", "commit", "rescoring")
+SCAN_BLOCK_SIZES = (8, 16, 32, 64)
+
+
+def sass_census(lib, key: str) -> dict:
+    """A static count of the SASS of the functions of ``lib`` whose name
+    holds ``key`` (``cuobjdump -sass``): per function its instructions, the
+    subroutines it calls with their lengths (the pair function's only
+    callee is the 64-bit division, which the listing leaves unnamed), and
+    its largest loop (the widest backward branch) with the calls inside it;
+    ``call_share`` is the loop's instructions inside the subroutines, each
+    call counted at its subroutine's length, over all of them.  A static
+    count: a subroutine's branches are not weighed."""
+    import re
+
+    from koordinator_tpu_torch import cuda
+
+    tool = os.path.join(os.path.dirname(cuda._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+    label = re.compile(r"^\s*([.$\w]+):\s*$")
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {"ins": [], "labels": {}})
+            continue
+        if cur is None:
+            continue
+        lm = label.match(line)
+        if lm:
+            cur["labels"][lm.group(1)] = None
+            cur.setdefault("pending", []).append(lm.group(1))
+            continue
+        m = ins.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in cur.pop("pending", []):
+                cur["labels"][name] = addr
+            cur["ins"].append((addr, m.group(2)))
+
+    def target(f, op):
+        m = re.search(r"`\(([^)]*)\)", op) or re.search(r"(0x[0-9a-f]+)\s*$", op)
+        if not m:
+            return None
+        t = m.group(1)
+        return int(t, 16) if t.startswith("0x") else f["labels"].get(t)
+
+    out = {}
+    for name, f in funcs.items():
+        if key not in name:
+            continue
+        body = f["ins"]
+        calls = [(a, target(f, op), op) for a, op in body if "CALL" in op]
+        subs = {}
+        for _, t, op in calls:
+            if t is None or t in subs:
+                continue
+            end = next((a for a, o in body if a >= t and o.split()[0].startswith("RET")), None)
+            end = end if end is not None else t
+            subs[t] = dict(name=op.split("(")[-1].rstrip(")` "), end=end,
+                           length=sum(1 for a, _ in body if t <= a <= end))
+        in_sub = lambda a: any(t <= a <= v["end"] for t, v in subs.items())  # noqa: E731
+        loops = [(target(f, op), a) for a, op in body
+                 if "BRA" in op and not in_sub(a) and target(f, op) is not None
+                 and target(f, op) < a]
+        lo, hi = max(loops, key=lambda r: r[1] - r[0]) if loops else (0, -1)
+        n_loop = sum(1 for a, _ in body if lo <= a <= hi)
+        loop_calls = [t for a, t, _ in calls if lo <= a <= hi]
+        sub_ins = sum(subs[t]["length"] for t in loop_calls if t in subs)
+        out[name] = dict(
+            instructions=len(body),
+            subroutines=[dict(name=v["name"], length=v["length"], at=hex(t))
+                         for t, v in subs.items()],
+            calls=len(calls), loop_instructions=n_loop, loop_calls=len(loop_calls),
+            call_share=sub_ins / ((n_loop + sub_ins) or 1))
+    return out
+
+
+def empty_fleet(inp):
+    """The inputs with every node empty (no usage, no requests, no pods):
+    under MostAllocated every pod prefers the node its own request fills
+    most, until it fills."""
+    la, nf = inp["la_nodes"], inp["nf_nodes"]
+    z = torch.zeros_like
+    la2 = la._replace(base_nonprod=z(la.base_nonprod), base_prod=z(la.base_prod))
+    nf2 = nf._replace(requested=z(nf.requested), num_pods=z(nf.num_pods),
+                      req_score=z(nf.req_score))
+    return dict(inp, la_nodes=la2, nf_nodes=nf2)
+
+
+def scan_study(dev) -> int:
+    """``--scan``: the scan and the key builds at the full shape, timed (the
+    port imported from ``--root`` when given: a checkout of this commit or
+    a later one), each scan against the plain
+    ``schedule_batch`` first: under each strategy, plain and constrained,
+    and MostAllocated on an empty fleet; with the package's scan study
+    build, each scan's phase split and the division check; the scan under
+    each block size (``SCAN_BLOCK_SIZES``, all equal); the key builds under
+    each strategy and the probe's; the SASS census of the key build.  One
+    JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    for stem in ("schedule", "scan"):
+        log = libs[stem].with_suffix(".log")
+        fn = ""
+        for line in log.read_text().splitlines() if log.exists() else ():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line
+            elif any(w in line for w in ("registers", "spill")) and any(
+                    key in fn for key in ("build_keys", "scan")):
+                print(f"  ptxas {fn[:70]}: {line.strip()}")
+    pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
+    full = build_inputs(pods, nodes, dev, (BATCH_CPU, BATCH_MEMORY))
+    P, N = full["la_pods"].est.shape[0], full["valid"].shape[0]
+    groups = (("build_keys", "keys"), ("scan", "steps"))
+    out = dict(shape=[P, N], scans=[], keys=[], block_sizes=[])
+    out["div_pairs"] = check_div_helper(dev)
+    statics = strategy_statics(full["static"])
+    cases = [(name, static, con, "salted", True, full) for name, static in statics
+             for con in (False, True)]
+    cases.append(("most, empty fleet", statics[0][1], False, "index", False, empty_fleet(full)))
+    for name, static, con, tie, extras, inp in cases:
+        case = scan_case(inp, static, con, tie, extras)
+        want = case["plain"]()
+        require_equal(f"{case['tag']} ({name})", case["kernel"](), want)
+        rec = dict(case=name, con=con, ms=cuda_ms(case["kernel"]),
+                   device_ms=device_split(case["kernel"], groups, reps=5),
+                   placed=int((want[0] >= 0).sum()))
+        saved = cuda.SCAN, cuda.SCAN_CON
+        cuda.SCAN, cuda.SCAN_CON = (study_build(k.symbol, tuple(k.argtypes), "scanstudy")
+                                    for k in saved)
+        try:
+            require_equal(f"{case['tag']} ({name}, study build)", case["kernel"](), want)
+        finally:
+            cuda.SCAN, cuda.SCAN_CON = saved
+        words = torch.zeros(len(SCAN_SPLIT_PHASES), dtype=torch.int64, device=dev)
+        study_build("koord_scan_split", (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p),
+                    "scanstudy").launch(words.data_ptr(), cuda.device_index(dev),
+                                        cuda.stream(dev))
+        rec["split_cycles"] = words.cpu().tolist()
+        rec["split_us"] = split_us([rec["split_cycles"]], rec["device_ms"].get("steps", 0.0),
+                                   P)[0]
+        out["scans"].append(rec)
+        print(f"  {case['tag']} ({name}): equal plain, {rec['placed']} placed, {rec['ms']:.3f} "
+              f"ms, device {rec['device_ms']}, split (us a pod: "
+              f"{', '.join(SCAN_SPLIT_PHASES)}) {rec['split_us']}", flush=True)
+    ref = {}
+    for bs in SCAN_BLOCK_SIZES:
+        for con in (False, True):
+            case = scan_case(full, statics[0][1], con, "salted", True, block_size=bs)
+            got = case["kernel"]()
+            if con not in ref:
+                ref[con] = case["plain"]()
+            require_equal(f"{case['tag']} BS={bs}", got, ref[con])
+            rec = dict(block_size=bs, con=con, ms=cuda_ms(case["kernel"]),
+                       device_ms=device_split(case["kernel"], groups, reps=5))
+            out["block_sizes"].append(rec)
+            print(f"  {case['tag']} BS={bs}: equal plain, {rec['ms']:.3f} ms, device "
+                  f"{rec['device_ms']}", flush=True)
+    xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(
+        full["la_pods"], full["nf_pods"], full["valid"], full["p_real"], full["order"])
+    probe = probe_inputs(full)
+    pxs, p_la, p_nf, p_salts, p_ok = rs.kernel_queue(
+        probe["la_pods"], probe["nf_pods"], probe["valid"], probe["p_real"], probe["order"])
+    for name, static in [("least", full["static"])] + statics:
+        for con in (False, True):
+            for wide in (False, True):
+                c = con_for(full, con_inputs_for(full, SEED + 11), xs) if con else None
+                args = (q_la, full["la_nodes"], full["weights"], q_nf, full["nf_nodes"], static,
+                        full["valid"], pod_ok, salts, 16, c, None, wide)
+                ms = cuda_ms(lambda: rs.schedule_keys(*args))
+                out["keys"].append(dict(strategy=name, con=con, wide=wide, ms=ms))
+                print(f"  key build {name}{' con' if con else ''}{' int64' if wide else ''}: "
+                      f"{ms}", flush=True)
+        if name == "least":
+            c = con_for(probe, con_inputs_for(probe, SEED + 11), pxs)
+            pargs = (p_la, probe["la_nodes"], probe["weights"], p_nf, probe["nf_nodes"], static,
+                     probe["valid"], p_ok, p_salts, 16, c, None)
+            out["probe_keys_ms"] = cuda_ms(lambda: rs.schedule_keys(*pargs), reps=21)
+            print(f"  the probe's constrained key build (16 x {N}): {out['probe_keys_ms']:.4f} "
+                  "ms", flush=True)
+    try:
+        out["sass"] = sass_census(libs["schedule"], "build_keys")
+        for fn, rec in out["sass"].items():
+            print(f"  sass {fn[:80]}: {rec['instructions']} instructions, loop "
+                  f"{rec['loop_instructions']} with {rec['loop_calls']} calls (share "
+                  f"{rec['call_share']:.2f}); subroutines {rec['subroutines']}", flush=True)
+    except (OSError, subprocess.CalledProcessError, ValueError) as e:
+        out["sass"] = f"not measured: {e}"
+        print(f"  sass census: {out['sass']}", flush=True)
+    print(json.dumps({"scan_study": out, "card": card_line()}))
+    return 0
+
+
+def spread_study(dev, reps: int = 21) -> int:
+    """``--spread``: one sample of the numbers the scan's redesign must not
+    move, for runs of two checkouts alternated in one call (``--root``
+    imports the port from the other; every call here takes the same
+    arguments in both): the key build at the full shape and at the one-pod
+    probe, plain and constrained, on the int32 lane (events, the median of
+    ``reps``); the int64 constrained round loop at the full shape (the
+    median of 5, and its kernel's device time); and the strategies phase's
+    RequestedToCapacityRatio cycles on a fresh store (SCORE and SCHEDULE,
+    unchanged, ``assume``), each SCHEDULE's host wall after
+    ``gc.collect(); gc.freeze()``, with the collector's ms during it.  One
+    JSON line."""
+    import gc
+
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    cuda.build()
+    scalars = (BATCH_CPU, BATCH_MEMORY)
+    full = build_inputs(*random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS), dev,
+                        scalars)
+    out = dict(keys={})
+    for shape, inp in (("full", full), ("probe", probe_inputs(full))):
+        xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(
+            inp["la_pods"], inp["nf_pods"], inp["valid"], inp["p_real"], inp["order"])
+        for con in (False, True):
+            c = con_for(inp, con_inputs_for(inp, SEED + 11), xs) if con else None
+            args = (q_la, inp["la_nodes"], inp["weights"], q_nf, inp["nf_nodes"], inp["static"],
+                    inp["valid"], pod_ok, salts, 16, c, None)
+            out["keys"][f"{shape}{' con' if con else ''}"] = cuda_ms(
+                lambda: rs.schedule_keys(*args), reps=reps)
+    rec = round_case(full, 16, 16, "schedule_rounds64_con", con=True, wide=True, timed=True)
+    out["rounds64_con"] = dict(ms=rec["ms"], device_ms=rec["device_ms"], rounds=rec["rounds"])
+    print(f"  key builds {out['keys']} ms; the int64 constrained round loop {rec['ms']:.3f} ms "
+          f"(kernel {rec['device_ms']:.3f}, {rec['rounds']} rounds)", flush=True)
+    del full
+    rtc = NodeFitArgs(strategy=ScoringStrategyType.REQUESTED_TO_CAPACITY_RATIO)
+    st = placement_store(scalars, NUM_NODES, nf_args=rtc)
+    eng = Engine(st, device=dev)
+    batch = placement_batch(NUM_NODES, NUM_PODS, "strat", SEED + 52)
+    out["rtc_cycles"] = []
+    with GcTimer() as gc_timer:
+        for c, (name, dt, _, assume) in enumerate(RTC_CYCLES):
+            st.publish(NOW + dt)
+            if c == 0:
+                eng.score(batch, now=NOW + dt)
+            gc.collect()
+            gc.freeze()
+            gc_timer.take()
+            t0 = time.perf_counter()
+            hosts, _, _, _ = eng.schedule(batch, now=NOW + dt, assume=assume)
+            wall = (time.perf_counter() - t0) * 1e3
+            gc_ms = sum(gc_timer.take().values())
+            gc.unfreeze()
+            out["rtc_cycles"].append(dict(cycle=name, wall_ms=wall, gc_ms=gc_ms,
+                                          placed=int((hosts >= 0).sum())))
+            print(f"  RequestedToCapacityRatio cycle {c} ({name}): {wall:.1f} ms wall, garbage "
+                  f"collector {gc_ms:.1f} ms", flush=True)
+    print(json.dumps({"spread": out, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
     if "--root" in sys.argv:
         # time another checkout's port (a parent commit unpacked beside)
@@ -3991,6 +4551,10 @@ def main() -> int:
         return 1
     if "--rounds" in sys.argv:
         return round_study(torch.device("cuda:0"))
+    if "--scan" in sys.argv:
+        return scan_study(torch.device("cuda:0"))
+    if "--spread" in sys.argv:
+        return spread_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -4002,7 +4566,10 @@ def main() -> int:
     scalars = (BATCH_CPU, BATCH_MEMORY)
 
     t0 = time.perf_counter()
-    libs = cuda.build()
+    # every library the paths load, and the scan's study build (the division
+    # check), one nvcc each, all started together
+    libs = cuda.build([src.stem for src in sorted(cuda.CSRC.glob("*.cu"))
+                       if src.stem != "roundstudy"])
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for path in libs.values():
         log = path.with_suffix(".log")
@@ -4035,9 +4602,16 @@ def main() -> int:
         check_extra_kernels(small, con, timed=False)
     check_extra_kernels(small, True, timed=False, commit_cap=1)
     check_strategies_small(small)
+    check_div_helper(dev)
     # the explain slice's kernels at 64 pods x 512 columns, and at a node
     # axis that is not a multiple of the block width (267) by 45 pods
     small512 = build_inputs(*random_cluster(SEED, num_nodes=500, num_pods=64), dev, scalars)
+    # the scan at 64 x 512: each strategy, then the step kernel's invariant
+    # cases
+    for name, static in strategy_statics(small512["static"]):
+        for con in (False, True):
+            check_scan_kernels(small512, static, con, "salted", True, timed=False)
+    check_scan_edges(small512)
     check_breakdown_kernels(small512, timed=False)
     check_breakdown_kernels(ragged(small, 267, 45), timed=False)
     # the descheduler's kernels at the small shapes
@@ -4167,7 +4741,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rounds", "ub_rounds",
             "dirty_rows", "groups", "ms_extras", "ms_gm16", "plain_ms_gm16", "bound_ms_gm16",
-            "strategies_ms", "variants", "placed", "shape", "ms_bench_sim",
+            "strategies_ms", "variants", "placed", "shape", "steps_plain_ms", "keys_bound_ms",
+            "steps_bound_ms", "keys_device_ms", "steps_device_ms", "ms_bench_sim",
             "plain_ms_bench_sim", "bound_ms_bench_sim", "ms_bench_sim_deviation",
             "plain_ms_bench_sim_deviation", "device_split_ms", "score_ms", "ms_run",
             "library_ms_run")

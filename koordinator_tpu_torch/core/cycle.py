@@ -393,6 +393,7 @@ def scan_fn(
     extra_feasible: Optional[torch.Tensor] = None,
     extra_scores: Optional[torch.Tensor] = None,
     tie_break: str = "salted",
+    block_size: int = 16,
 ):
     """The ``scan`` kernel: ``schedule_batch`` over the live node columns x
     the first ``p_real`` pod rows in queue order ``order``, under the
@@ -402,55 +403,83 @@ def scan_fn(
     ``extra_feasible``/``extra_scores`` ([P, N] submission order) the
     batch's placement-and-devices mask and pre-weighted scores.  Returns
     (hosts [P] int32 after the gang commit, scores [P] int64) in submission
-    order.  CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/scan.cu`` (the constrained instantiation with ``con_args``) or
-    raise.  The node, quota and reservation inputs are never written."""
+    order, equal to ``schedule_batch``'s.
+
+    It runs as a key build plus one step a pod (``scan_launch``): the
+    int64 keys of every pair against the batch-start state, then the pods
+    in queue order over their ``block_size``-row block maxima, the
+    committed node's row rescored after each placement.  CPU tensors take
+    the plain versions of both (``build_keys_plain``, ``scan_steps_plain``),
+    CUDA tensors launch the kernels or raise.  The node, quota and
+    reservation inputs are never written.  A key must stay above the int64
+    lane's sentinel (``core.resolved.NEG``): totals above -2**39 / TB, far
+    beyond the engine's extra scores (at most ``EXTRA_SCORE_BOUND`` in
+    magnitude)."""
     from koordinator_tpu_torch.core import resolved as rs
 
     P, N = la_pods.est.shape[0], valid.shape[0]
-    dev = valid.device
     if tie_break not in ("salted", "index"):
         raise ValueError(f"unknown tie_break {tie_break!r} (salted | index)")
     if extra_scores is not None and (extra_scores.dtype != torch.int64
                                      or tuple(extra_scores.shape) != (P, N)):
         raise ValueError(f"extra_scores: expected int64 {(P, N)}, got {extra_scores.dtype} "
                          f"{tuple(extra_scores.shape)}")
-    if dev.type == "cpu":
-        base = (torch.arange(P, device=dev) < p_real)[:, None] & valid[None, :]
-        if extra_feasible is not None:
-            base = base & extra_feasible
-        kw = {}
-        if con_args is not None:
-            kw = dict(gang=con_args.get("gang"), quota=con_args.get("quota"),
-                      reservation=con_args.get("reservation"))
-        return schedule_batch(
-            la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, PluginWeights(), base,
-            order, check_parent_depth=check_parent_depth, ancestor_depth=ancestor_depth,
-            tie_break=tie_break, extra_scores=extra_scores, **kw,
-        )
     xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(la_pods, nf_pods, valid, p_real, order,
                                                     tie_break)
     con = None if con_args is None else rs.con_inputs(xs, **con_args)
     xin = rs.extra_inputs(extra_feasible, extra_scores, xs)
-    hosts_q, scores_q = scan_launch(q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, valid,
-                                    pod_ok, salts, con, check_parent_depth, ancestor_depth, xin)
+    args = (q_la, la_nodes, la_weights, q_nf, nf_nodes, nf_static, valid, pod_ok, salts, con,
+            check_parent_depth, ancestor_depth, xin, block_size)
+    hosts_q, scores_q = scan_launch(*args)
     return rs._submission_order(hosts_q, scores_q, xs, P)
 
 
 def scan_launch(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts, con=None,
-                check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
-    """One launch of the ``scan`` kernel on CUDA tensors, pods in queue
-    order (``core.resolved.kernel_queue``), counted on ``cuda.SCAN`` or,
-    with a ``ConInputs``, ``cuda.SCAN_CON``.  The kernel commits into
-    private copies of the node rows, quota aggregates and reservation
-    allocations.  Returns (hosts [P] int32 after the gang commit, scores
-    [P] int64) in queue order."""
+                check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None,
+                block_size: int = 16):
+    """The scan, pods in queue order (``core.resolved.kernel_queue``): the
+    key build on the int64 lane without the LoadAware filter
+    (``schedule_keys``, counted on ``cuda.SCHEDULE_KEYS64`` or, with a
+    ``ConInputs``, ``_CON``), then the step kernel on its fresh keys
+    (``scan_steps``, ``cuda.SCAN`` or ``cuda.SCAN_CON``).  Each takes its
+    plain version on CPU tensors and launches its kernel on CUDA tensors;
+    any other device is refused before a launch.  Returns (hosts [P] int32
+    after the gang commit, scores [P] int64) in queue order."""
+    from koordinator_tpu_torch.core import resolved as rs
+
+    M, Mb, _ = rs.schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
+                                salts, block_size, con, xin, wide=True, la_feas=False)
+    return scan_steps(M, Mb, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
+                      salts, block_size, con, check_parent_depth, ancestor_depth, xin)
+
+
+def scan_steps(M, Mb, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts,
+               block_size: int, con=None, check_parent_depth: int = 0, ancestor_depth: int = 8,
+               xin=None):
+    """The step kernel (``csrc/scan.cu``): the pods in queue order over the
+    key build's int64 keys ``M`` [N_pad, P] and block maxima ``Mb`` [NB, P]
+    (``schedule_keys(wide=True)``), each taking its block maxima's maximum
+    and, on a placement, rescoring the node's row for the pods after it.
+    ``M`` and ``Mb`` are consumed (updated in place); the node, quota and
+    reservation inputs are not touched (the kernel commits into private
+    copies).  CPU tensors take ``scan_steps_plain``; CUDA tensors launch
+    ``cuda.SCAN`` (``cuda.SCAN_CON`` with a ``ConInputs``) or raise.
+    Returns (hosts [P] int32 after the gang commit, scores [P] int64) in
+    queue order."""
     from koordinator_tpu_torch.core import resolved as rs
 
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
-    if dev.type != "cuda":
-        raise ValueError(f"the scan kernel takes CUDA tensors, got {dev}")
+    NB = -(-N // block_size)
+    M = cuda._checked(M, torch.int64, (NB * block_size, P), dev, "M")
+    Mb = cuda._checked(Mb, torch.int64, (NB, P), dev, "Mb")
+    if dev.type == "cpu":
+        if con is not None:
+            rs._con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, check_parent_depth,
+                                ancestor_depth, 1)
+        return scan_steps_plain(M, Mb, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
+                                pod_ok, salts, block_size, con, check_parent_depth,
+                                ancestor_depth, xin)
     la_mut = la_nodes._replace(base_nonprod=la_nodes.base_nonprod.clone(),
                                base_prod=la_nodes.base_prod.clone())
     nf_mut = nf_nodes._replace(requested=nf_nodes.requested.clone(),
@@ -460,21 +489,102 @@ def scan_launch(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, 
     pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
     salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
     xf, xsc, xkeep = rs._xin_args(xin, P, N, dev)
-    scratch = torch.zeros(cuda.SCAN_SCRATCH_WORDS, dtype=torch.int64, device=dev)
-    hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    scores = torch.zeros(P, dtype=torch.int64, device=dev)
+    if con is not None:
+        ptrs, ints, keep = rs._con_launch_args(con, P, N, q_nf.req.shape[1], dev, True,
+                                               check_parent_depth, ancestor_depth,
+                                               PluginWeights().reservation,
+                                               words=2 * con.gangs.min_member.shape[0])
+    if not (P and N):
+        return (torch.full((P,), -1, dtype=torch.int32, device=dev),
+                torch.zeros(P, dtype=torch.int64, device=dev))
+    hosts = torch.empty(P, dtype=torch.int32, device=dev)  # the kernel writes both in full
+    scores = torch.empty(P, dtype=torch.int64, device=dev)
+    # the block maxima pod-major too: a step's sweep reads one pod's row
+    MbT = Mb.t().contiguous()
     head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-            salts.data_ptr(), xf, xsc, P, N, tie_base(N))
-    tail = (scratch.data_ptr(), hosts.data_ptr(), scores.data_ptr(), cuda.device_index(dev),
-            cuda.stream(dev))
+            salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N))
+    tail = (M.data_ptr(), Mb.data_ptr(), MbT.data_ptr(), hosts.data_ptr(), scores.data_ptr(),
+            cuda.device_index(dev), cuda.stream(dev))
     if con is None:
-        if P and N:
-            cuda.SCAN.launch(*head, *tail)
-        return hosts, scores
-    ptrs, ints, keep = rs._con_launch_args(con, P, N, q_nf.req.shape[1], dev, True,
-                                           check_parent_depth, ancestor_depth,
-                                           PluginWeights().reservation,
-                                           words=2 * con.gangs.min_member.shape[0])
-    if P and N:
+        cuda.SCAN.launch(*head, *tail)
+    else:
         cuda.SCAN_CON.launch(*head, ptrs, ints, *tail)
+    return hosts, scores
+
+
+def scan_steps_plain(M, Mb, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
+                     salts, block_size: int, con=None, check_parent_depth: int = 0,
+                     ancestor_depth: int = 8, xin=None):
+    """The step kernel's plain version, on the same keys: for each pod q in
+    queue order, the maximum of its block maxima; when feasible and admitted
+    by the live quota, the placement on the decoded node j (the assume-path
+    update, the quota consumption, a matched reservation on j nominated and
+    consumed), then row j's keys for the pods after q rebuilt against j's
+    new state (``core.resolved._touched_keys``, the restore at the live
+    reservation remainders) and their block maxima re-reduced.  A key
+    built at the batch start stays exact on every untouched row, because a
+    pod's key on node j reads node j's live row and nothing else that a
+    placement changes.  ``M``/``Mb`` are updated in place.  After the pods,
+    ``commit_gangs``.  Returns (hosts [P] int32, scores [P] int64) in queue
+    order."""
+    from koordinator_tpu_torch.core import resolved as rs
+
+    P, N = q_la.est.shape[0], valid.shape[0]
+    dev = valid.device
+    i64 = torch.int64
+    TB = tie_base(N)
+    q_extra, q_xsc = rs._q_extras(xin, pod_ok[:, None] & valid[None, :])
+    quota = rsv = None
+    if con is not None:
+        q_extra = q_extra & rs.gang_pass(con)[:, None]
+        quota, rsv = con.quota, con.rsv
+    la_feas_T = loadaware_filter(q_la, la_nodes).T
+    q_extra_T, q_xsc_T = q_extra.T, None if q_xsc is None else q_xsc.T
+    zero = torch.zeros((1, 1), dtype=i64, device=dev)
+    state = CycleState(la_nodes=la_nodes, nf_nodes=nf_nodes,
+                       quota_used=zero if quota is None else quota.used,
+                       quota_npu=zero if quota is None else quota.npu,
+                       rsv_allocated=zero if rsv is None else rsv.allocated)
+    q_rscore = q_scores = None
+    if rsv is not None:
+        q_rscore, q_scores = con.rsv_rscore[con.xs], con.rsv_scores[con.xs]
+    hosts = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    scores = torch.zeros(P, dtype=i64, device=dev)
+    for q in range(P):
+        win = int(Mb[:, q].max())
+        if win == rs.NEG:
+            continue
+        low = win % TB
+        j = (TB - 1 - low - int(salts[q]) + N) % N
+        if quota is not None and not _quota_admit(quota, state.quota_used, state.quota_npu, q,
+                                                  check_parent_depth):
+            continue
+        hosts[q], scores[q] = j, (win - low) // TB
+        state = _assign_updates(state, q_la, q_nf, q, j)
+        if quota is not None:
+            used, npu = _quota_consume(quota, state.quota_used, state.quota_npu, q,
+                                       ancestor_depth)
+            state = state._replace(quota_used=used, quota_npu=npu)
+        rsv_terms = None
+        if rsv is not None:
+            nom, has = nominate_on_node(con.rsv_matched[q], q_rscore[q], rsv, j)
+            if bool(has):
+                nom = int(nom)
+                remain = rsv.allocatable[nom] - state.rsv_allocated[nom]
+                consume = torch.clamp(torch.minimum(q_nf.req[q], remain), min=0)
+                state = state._replace(rsv_allocated=state.rsv_allocated.index_add(
+                    0, torch.tensor([nom], device=dev), consume[None]))
+            # rs.rsv_view's terms, the queue-order scores gathered once
+            rsv_terms = (rsv.node, rsv.allocatable - state.rsv_allocated, con.rsv_midx, q_scores)
+        if q + 1 < P:
+            key = rs._touched_keys(q_la, state.la_nodes, la_w, q_nf, state.nf_nodes, nf_static,
+                                   PluginWeights(), la_feas_T, q_extra_T, salts.to(i64),
+                                   torch.tensor([j], device=dev), TB, rsv_terms, q_xsc_T, i64)
+            M[j, q + 1:] = key[0, q + 1:]
+            b = j // block_size
+            Mb[b, q + 1:] = M[b * block_size:(b + 1) * block_size, q + 1:].amax(dim=0)
+    if con is not None:
+        pods = GangPodArrays(gang=con.gang_row, priority=None, sub_priority=None, timestamp=None)
+        hosts, _ = commit_gangs(hosts, pods, con.gangs)
+        scores = torch.where(hosts >= 0, scores, torch.zeros_like(scores))
     return hosts, scores

@@ -908,19 +908,20 @@ def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool,
 
 def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts,
                   block_size: int, con: Optional[ConInputs] = None,
-                  xin: Optional[ExtraInputs] = None, wide: bool = False):
+                  xin: Optional[ExtraInputs] = None, wide: bool = False,
+                  la_feas: bool = True):
     """First launch of the ``schedule`` kernel: the cold key build for pods
-    in queue order under the default plugin weights, the extra mask
-    factorized as ``pod_ok[q] & valid[n]``; ``con`` adds the gang
-    prefilter and the reservation restore and scores (the constrained
-    instantiation), ``xin`` the placement-and-devices mask and scores;
-    ``wide`` builds the matrix engine's int64 keys (``schedule_keys64``)
-    instead of the packed int32 ones.  LeastAllocated only (``ValueError``
-    otherwise).  Returns (M, Mb, la_feas_T)."""
+    in queue order under the default plugin weights and any NodeFit
+    strategy, the extra mask factorized as ``pod_ok[q] & valid[n]``;
+    ``con`` adds the gang prefilter and the reservation restore and scores
+    (the constrained instantiation), ``xin`` the placement-and-devices mask
+    and scores; ``wide`` builds the int64 keys (``schedule_keys64``: the
+    matrix engine's, and the scan's) instead of the packed int32 ones;
+    ``la_feas=False`` leaves out the LoadAware filter, which only the round
+    loop reads.  Returns (M, Mb, la_feas_T or None)."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     kdt = torch.int64 if wide else torch.int32
-    cuda.require_least_allocated(nf_static, "the schedule key build")
     if con is not None:  # the constraint inputs are checked on every device
         con_args = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, 0, 1,
                                     PluginWeights().reservation)
@@ -932,21 +933,22 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
             q_extra = q_extra & gang_pass(con)[:, None]
             rsv = _queue_rsv(con)
         q_extra, q_xsc = _q_extras(xin, q_extra)
-        return build_keys_plain(
+        M, Mb, la_feas_T = build_keys_plain(
             q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, PluginWeights(), q_extra, salts,
             block_size, rsv, q_xsc, kdt,
         )
+        return M, Mb, la_feas_T if la_feas else None
     args = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
     NB = -(-N // block_size)
     pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
     salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
     M = torch.empty((NB * block_size, P), dtype=kdt, device=dev)
     Mb = torch.empty((NB, P), dtype=kdt, device=dev)
-    la_feas_T = torch.empty((N, P), dtype=torch.bool, device=dev)
+    la_feas_T = torch.empty((N, P), dtype=torch.bool, device=dev) if la_feas else None
     head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
             salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N))
-    tail = (M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(), cuda.device_index(dev),
-            cuda.stream(dev))
+    tail = (M.data_ptr(), Mb.data_ptr(), 0 if la_feas_T is None else la_feas_T.data_ptr(),
+            cuda.device_index(dev), cuda.stream(dev))
     if con is None:
         if P and N:
             (cuda.SCHEDULE_KEYS64 if wide else cuda.SCHEDULE_KEYS).launch(*head, *tail)
@@ -1199,8 +1201,9 @@ def schedule_fn(
     cycle's warm start (the rounds run on copies of it).
 
     The routes are the JAX package's: a strategy other than LeastAllocated
-    takes the ``scan`` kernel (``core.cycle.scan_fn``: its hosts after the
-    gang commit are also its ``precommit``, its rounds 0); LeastAllocated
+    takes the scan (``core.cycle.scan_fn``, the int64 key build and the
+    step kernel: its hosts after the gang commit are also its
+    ``precommit``, its rounds 0); LeastAllocated
     whose packed key bound does not fit int32, or ``impl="matrix"``, takes
     the int64-key kernels; neither leaves a warm carry (``warm`` None).
     An unknown ``impl`` raises ``ValueError``."""
@@ -1211,6 +1214,7 @@ def schedule_fn(
         hosts, scores = scan_fn(
             la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, valid, p_real, order,
             con_args, check_parent_depth, ancestor_depth, extra_feasible, extra_scores,
+            block_size=block_size,
         )
         return hosts, scores, hosts, torch.zeros(2, dtype=torch.int32, device=dev), None
     wide = impl == "matrix" or not fits_i32(key_bound(PluginWeights(), extra_score_bound), N)

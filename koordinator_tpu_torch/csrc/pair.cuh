@@ -18,8 +18,19 @@
 // whose numerator is negative: there the reference truncates toward zero
 // as Go does, and so does C++ `/`.  The packed keys are decoded with floor
 // division (key_floor_mod), since extra scores may make a total negative.
+//
+// The score functions are templates over RCP.  RCP = false divides with
+// `/`: the H100 has no 64-bit integer divide instruction, so each is a
+// subroutine of tens of instructions.  RCP = true (the key build and the
+// scan's rescoring, which stage node rows beside their reciprocals) divides
+// by a node's capacity with div_cap and the weight sums and the RTC
+// interpolation in 32 bits where their operands are proven to fit
+// (div_small, broken_linear); every other operand keeps `/`.  Both give
+// the same quotient for every input, so a key rescored by one equals a key
+// built by the other.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 
 #define KOORD_MAXR 8
@@ -81,6 +92,10 @@ struct NodeIn {
   const long long* allowed;          // [N]
   const long long* alloc_score;      // [N, Rs]
   long long* nreq_score;             // [N, Rs]
+  // koord_rcp of la_alloc and alloc_score, read by the RCP instantiations
+  // alone (staged rows; null in the tables the host passes)
+  const unsigned long long* la_rcp;  // [N, R]
+  const unsigned long long* as_rcp;  // [N, Rs]
 };
 
 #define KOORD_NUM_POD_PTRS 7
@@ -139,73 +154,124 @@ inline NodeIn koord_nodes(const void* const* p) {
   o.allowed = (const long long*)p[14];
   o.alloc_score = (const long long*)p[15];
   o.nreq_score = (long long*)p[16];
+  o.la_rcp = nullptr;
+  o.as_rcp = nullptr;
   return o;
+}
+
+// Division by an invariant integer (after Granlund and Montgomery): the
+// reciprocal of a divisor d >= 1 is m = floor((2**64 - 1) / d), computed
+// once per staged node row; 0 stands for d <= 0, which no caller divides by.
+__host__ __device__ __forceinline__ unsigned long long koord_rcp(long long d) {
+  return d > 0 ? ~0ULL / (unsigned long long)d : 0ULL;
+}
+
+// n / d for d >= 1 with m = koord_rcp(d).  For 0 <= n < 2**63 the high
+// word of n * m is the quotient q or q - 1: m * d > 2**64 - 1 - d, so
+// n / d - n * m / 2**64 < n * (d + 1) / (d * 2**64) <= 2 n / 2**64 < 1; one
+// correction step on the remainder makes it exact.  A negative n (a product
+// that wrapped) keeps `/`.
+template <bool RCP>
+__device__ __forceinline__ long long div_cap(long long n, long long d, unsigned long long m) {
+  if constexpr (RCP) {
+    if (n >= 0) {
+      const unsigned long long u = (unsigned long long)n, v = (unsigned long long)d;
+      unsigned long long q = __umul64hi(u, m);
+      if (u - q * v >= v) ++q;
+      return (long long)q;
+    }
+  }
+  return n / d;
+}
+
+// n / d for d >= 1: in 32 bits when both are in [0, 2**32) (the weight sums
+// and what they divide), else `/`
+template <bool RCP>
+__device__ __forceinline__ long long div_small(long long n, long long d) {
+  if constexpr (RCP) {
+    if ((((unsigned long long)n | (unsigned long long)d) >> 32) == 0)
+      return (long long)((unsigned)n / (unsigned)d);
+  }
+  return n / d;
 }
 
 // loadaware_score (core/loadaware.py:77): weighted least-requested over
 // the R resources, 0 on nodes without a live NodeMetric.  The weights sum
 // to > 0 (the caller's contract, as in the reference).
+template <bool RCP = false>
 __device__ __forceinline__ long long la_score(const Cfg& c, const PodIn& p, const NodeIn& n,
                                               int q, int j) {
   if (!n.score_valid[j]) return 0;
   const long long* base = p.prod_score[q] ? n.base_prod : n.base_nonprod;
   long long acc = 0, wsum = 0;
   for (int r = 0; r < c.R; ++r) {
-    long long cap = n.la_alloc[(size_t)j * c.R + r];
-    long long used = p.est[(size_t)q * c.R + r] + base[(size_t)j * c.R + r];
-    long long s = (cap == 0 || used > cap) ? 0 : (cap - used) * 100 / cap;
+    const size_t o = (size_t)j * c.R + r;
+    long long cap = n.la_alloc[o];
+    long long used = p.est[(size_t)q * c.R + r] + base[o];
+    long long s = (cap == 0 || used > cap)
+                      ? 0
+                      : div_cap<RCP>((cap - used) * 100, cap, RCP ? n.la_rcp[o] : 0);
     long long w = c.la_w[r];
     acc += s * w;
     wsum += w;
   }
-  return acc / wsum;
+  return div_small<RCP>(acc, wsum);
 }
 
 // least_allocated_score (core/nodefit.py:163): weighted mean over the
 // included resources of the scoring axis; 0 when none is included.
+template <bool RCP = false>
 __device__ __forceinline__ long long nf_least(const Cfg& c, const PodIn& p, const NodeIn& n,
                                               int q, int j) {
   long long acc = 0, wsum = 0;
   for (int r = 0; r < c.Rs; ++r) {
-    long long cap = n.alloc_score[(size_t)j * c.Rs + r];
+    const size_t o = (size_t)j * c.Rs + r;
+    long long cap = n.alloc_score[o];
     long long preq = p.req_score[(size_t)q * c.Rs + r];
     if (cap == 0 || (c.bypass[r] && preq == 0)) continue;
-    long long req = preq + n.nreq_score[(size_t)j * c.Rs + r];
-    long long s = req > cap ? 0 : (cap - req) * 100 / cap;
+    long long req = preq + n.nreq_score[o];
+    long long s = req > cap ? 0 : div_cap<RCP>((cap - req) * 100, cap, RCP ? n.as_rcp[o] : 0);
     acc += s * c.nf_w[r];
     wsum += c.nf_w[r];
   }
-  return wsum == 0 ? 0 : acc / wsum;
+  return wsum == 0 ? 0 : div_small<RCP>(acc, wsum);
 }
 
 // most_allocated_score (core/nodefit.py:181): req * 100 / cap per included
 // resource, an overcommitted resource clamped to its capacity (it scores
 // 100, not 0), weighted mean as above.
+template <bool RCP = false>
 __device__ __forceinline__ long long nf_most(const Cfg& c, const PodIn& p, const NodeIn& n,
                                              int q, int j) {
   long long acc = 0, wsum = 0;
   for (int r = 0; r < c.Rs; ++r) {
-    long long cap = n.alloc_score[(size_t)j * c.Rs + r];
+    const size_t o = (size_t)j * c.Rs + r;
+    long long cap = n.alloc_score[o];
     long long preq = p.req_score[(size_t)q * c.Rs + r];
     if (cap == 0 || (c.bypass[r] && preq == 0)) continue;
-    long long req = preq + n.nreq_score[(size_t)j * c.Rs + r];
+    long long req = preq + n.nreq_score[o];
     if (req > cap) req = cap;
-    acc += req * 100 / cap * c.nf_w[r];
+    acc += div_cap<RCP>(req * 100, cap, RCP ? n.as_rcp[o] : 0) * c.nf_w[r];
     wsum += c.nf_w[r];
   }
-  return wsum == 0 ? 0 : acc / wsum;
+  return wsum == 0 ? 0 : div_small<RCP>(acc, wsum);
 }
 
 // _broken_linear (core/nodefit.py:199): the shape's score at utilization
 // u, interpolated on the first segment whose end is >= u.  On a decreasing
 // segment the numerator is negative and `/` truncates toward zero, as Go's
-// integer division does.
+// integer division does.  The denominator is in [1, 100] (utilizations
+// strictly increase in 0..100, cuda.cfg_array); under RCP a numerator that
+// fits int32 divides in 32 bits, which truncates toward zero the same way.
+template <bool RCP = false>
 __device__ __forceinline__ long long broken_linear(const Cfg& c, long long u) {
   if (u <= c.shp_u[0]) return c.shp_s[0];
   for (int i = 1; i < c.npts; ++i) {
     if (u <= c.shp_u[i]) {
       const long long u0 = c.shp_u[i - 1], s0 = c.shp_s[i - 1];
-      return s0 + (c.shp_s[i] - s0) * (u - u0) / (c.shp_u[i] - u0);
+      const long long num = (c.shp_s[i] - s0) * (u - u0), den = c.shp_u[i] - u0;
+      if (RCP && num >= INT_MIN && num <= INT_MAX) return s0 + (int)num / (int)den;
+      return s0 + num / den;
     }
   }
   return c.shp_s[c.npts - 1];
@@ -215,30 +281,34 @@ __device__ __forceinline__ long long broken_linear(const Cfg& c, long long u) {
 // utilization "100 minus the free percent" (100 when overcommitted); a
 // resource enters the weight sum only where its raw score is > 0; the mean
 // rounds half up.
+template <bool RCP = false>
 __device__ __forceinline__ long long nf_rtc(const Cfg& c, const PodIn& p, const NodeIn& n, int q,
                                             int j) {
   long long acc = 0, wsum = 0;
   for (int r = 0; r < c.Rs; ++r) {
-    long long cap = n.alloc_score[(size_t)j * c.Rs + r];
+    const size_t o = (size_t)j * c.Rs + r;
+    long long cap = n.alloc_score[o];
     long long preq = p.req_score[(size_t)q * c.Rs + r];
     if (cap == 0 || (c.bypass[r] && preq == 0)) continue;
-    long long req = preq + n.nreq_score[(size_t)j * c.Rs + r];
-    long long util = req > cap ? 100 : 100 - (cap - req) * 100 / cap;
-    long long s = broken_linear(c, util);
+    long long req = preq + n.nreq_score[o];
+    long long util =
+        req > cap ? 100 : 100 - div_cap<RCP>((cap - req) * 100, cap, RCP ? n.as_rcp[o] : 0);
+    long long s = broken_linear<RCP>(c, util);
     if (s > 0) {
       acc += s * c.nf_w[r];
       wsum += c.nf_w[r];
     }
   }
-  return wsum == 0 ? 0 : (2 * acc + wsum) / (2 * wsum);
+  return wsum == 0 ? 0 : div_small<RCP>(2 * acc + wsum, 2 * wsum);
 }
 
 // nodefit_score (core/nodefit.py:71): the configured strategy
+template <bool RCP = false>
 __device__ __forceinline__ long long nf_score(const Cfg& c, const PodIn& p, const NodeIn& n,
                                               int q, int j) {
-  if (c.strategy == KOORD_MOST_ALLOCATED) return nf_most(c, p, n, q, j);
-  if (c.strategy == KOORD_REQUESTED_TO_CAPACITY_RATIO) return nf_rtc(c, p, n, q, j);
-  return nf_least(c, p, n, q, j);
+  if (c.strategy == KOORD_MOST_ALLOCATED) return nf_most<RCP>(c, p, n, q, j);
+  if (c.strategy == KOORD_REQUESTED_TO_CAPACITY_RATIO) return nf_rtc<RCP>(c, p, n, q, j);
+  return nf_least<RCP>(c, p, n, q, j);
 }
 
 // nodefit_filter (core/nodefit.py:94).
@@ -276,9 +346,10 @@ __device__ __forceinline__ bool la_fit(const Cfg& c, const PodIn& p, const NodeI
   return !(n.filter_active[j] && la_reject(n.filter_usage, n.la_alloc, n.thresholds, c.R, j));
 }
 
+template <bool RCP = false>
 __device__ __forceinline__ long long pair_total(const Cfg& c, const PodIn& p, const NodeIn& n,
                                                 int q, int j) {
-  return la_score(c, p, n, q, j) + nf_score(c, p, n, q, j);
+  return la_score<RCP>(c, p, n, q, j) + nf_score<RCP>(c, p, n, q, j);
 }
 
 // ------------------------------------------------------------ constraints
@@ -447,33 +518,71 @@ __device__ __forceinline__ long long key_floor_mod(long long key, long long TB) 
   return m < 0 ? m + TB : m;
 }
 
+// the rotated index (j + salt) % N of column j in [0, N); under RCP a salt
+// in [0, N) (every caller's: tie_salt, or 0) takes one conditional
+// subtraction instead of the 32-bit remainder
+template <bool RCP>
+__device__ __forceinline__ long long rot_of(int j, int salt, int N) {
+  if constexpr (RCP) {
+    if ((unsigned)salt < (unsigned)N) {
+      const int r = j + salt;
+      return r >= N ? r - N : r;
+    }
+  }
+  return (j + salt) % N;
+}
+
 // pack_keys (core/resolved.py:698): score * TB + (TB-1 - rotated index),
 // or the sentinel when infeasible.  ``pre`` carries every mask the caller
 // already evaluated (loadaware filter, live column, real pod, the extra
 // mask); ``xadd`` is the pair's extra score.  ``row`` (when >= 0) is where
 // node j's row sits in ``n``: the round loop's rescoring passes rows it
 // staged in shared memory.
-template <typename KT>
+template <typename KT, bool RCP = false>
 __device__ __forceinline__ KT pair_key(const Cfg& c, const PodIn& p, const NodeIn& n, int q, int j,
                                        bool pre, int salt, int N, long long TB, long long xadd,
                                        int row = -1) {
   const int jn = row < 0 ? j : row;
   if (!pre || !nf_fit(c, p, n, q, jn)) return KeyLane<KT>::neg;
-  long long rot = (j + salt) % N;
-  return (KT)((pair_total(c, p, n, q, jn) + xadd) * TB + (TB - 1 - rot));
+  const long long rot = rot_of<RCP>(j, salt, N);
+  return (KT)((pair_total<RCP>(c, p, n, q, jn) + xadd) * TB + (TB - 1 - rot));
 }
 
 // pair_key under the constraints: the gang prefilter is in ``pre``; the
 // reservation restore enters the fit and the frozen reservation score the
 // total (core/resolved.py masked_totals / touched_scores).
-template <typename KT, bool L2 = false>
+template <typename KT, bool L2 = false, bool RCP = false>
 __device__ __forceinline__ KT pair_key_con(const Cfg& c, const PodIn& p, const NodeIn& n,
                                            const ConIn& k, int q, int j, bool pre, int salt, int N,
                                            long long TB, long long xadd, int row = -1) {
-  if (!k.has_rsv) return pair_key<KT>(c, p, n, q, j, pre, salt, N, TB, xadd, row);
+  if (!k.has_rsv) return pair_key<KT, RCP>(c, p, n, q, j, pre, salt, N, TB, xadd, row);
   if (!pre || !nf_fit_rsv<L2>(c, p, n, k, q, j, row)) return KeyLane<KT>::neg;
-  const long long total = pair_total(c, p, n, q, row < 0 ? j : row) +
+  const long long total = pair_total<RCP>(c, p, n, q, row < 0 ? j : row) +
                           k.rscores[(size_t)k.xs[q] * N + j] * k.w_rsv + xadd;
-  long long rot = (j + salt) % N;
+  const long long rot = rot_of<RCP>(j, salt, N);
   return (KT)(total * TB + (TB - 1 - rot));
+}
+
+// the key of pod q on node j: the extra mask joins ``pre`` and the extra
+// score the total, in the cold build, the refresh, the rounds' rescoring
+// and the scan's alike (a rescoring passes node j's row staged at ``row``
+// of ``n``; the round loop's reads the reservation allocations through
+// L2); RCP divides by the staged reciprocals
+template <bool CON, typename KT, bool L2 = false, bool RCP = false>
+__device__ __forceinline__ KT key_of(const Cfg& c, const PodIn& p, const NodeIn& n,
+                                     const ConIn& k, const XIn& x, int P, int q, int j, bool pre,
+                                     int salt, int N, long long TB, int row = -1) {
+  if (!pre || !x_feas(x, q, j, P)) return KeyLane<KT>::neg;
+  const long long xadd = x_score(x, q, j, P);
+  if constexpr (CON)
+    return pair_key_con<KT, L2, RCP>(c, p, n, k, q, j, true, salt, N, TB, xadd, row);
+  return pair_key<KT, RCP>(c, p, n, q, j, true, salt, N, TB, xadd, row);
+}
+
+// the pod mask of the SCHEDULE kernels: a real pod row and, under CON,
+// the gang prefilter
+template <bool CON>
+__device__ __forceinline__ bool pod_pass(const uint8_t* pod_ok, const ConIn& k, int q) {
+  if constexpr (CON) return pod_ok[q] && gang_pass(k, q);
+  return pod_ok[q];
 }

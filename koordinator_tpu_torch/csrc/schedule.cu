@@ -34,15 +34,23 @@
 // are decoded with floor division: an extra score may make a total
 // negative.  The warm kernels stay int32 only.
 //
-// 1. build_keys: the cold init.  One thread per (pod, 16-row node block)
-//    evaluates the shared pair function (pair.cuh) down its block and
-//    writes the packed keys M [N_pad, P] int32 (score * TB + rotated tie
-//    bits, the sentinel in pad rows), the block maxima Mb [N_pad/BS, P]
-//    and the LoadAware filter la_feas_T [N, P].  Under CON the gang
-//    prefilter joins the pod mask and the pair function adds the
-//    reservation restore and score (pair_key_con).  Bound on an H100: bytes
-//    (5 bytes written per pair, ~84 MB at 16,384 x 1,024); each thread
-//    writes coalesced rows and computes its block maximum in registers.
+// 1. build_keys: the cold init, under any NodeFit strategy (the scan's
+//    route builds its int64 keys with it too, csrc/scan.cu).  One thread per
+//    (pod, BS-row node block) evaluates the shared pair function (pair.cuh)
+//    down its block and writes the packed keys M [N_pad, P] (score * TB +
+//    rotated tie bits, the sentinel in pad rows), the block maxima Mb
+//    [N_pad/BS, P] and, for the round loop, the LoadAware filter la_feas_T
+//    [N, P].  Under CON the gang prefilter joins the pod mask and the pair
+//    function adds the reservation restore and score (pair_key_con).  Bound
+//    on an H100: bytes (5 bytes written per pair, ~84 MB at 16,384 x 1,024);
+//    it runs at ~20x that, held by the pair function's 64-bit arithmetic.
+//    Its divisions by each node's capacity and by the weight sums were a
+//    subroutine each (the card has no 64-bit divide), about half the row
+//    loop's instructions: a block stages its BS node rows in shared memory
+//    beside their capacities' exact reciprocals, and the pair function
+//    divides by multiplication (pair.cuh, RCP), the weight sums in 32 bits;
+//    each thread writes coalesced rows and computes its block maximum in
+//    registers.
 //
 // 2. rounds: the whole round loop in ONE cooperative launch, as the TPU runs
 //    it inside one lax.while_loop (resolved.py:835): no host sync per round.
@@ -121,42 +129,73 @@ constexpr uint8_t kReject = 8;   // quota: certainly rejected
 constexpr uint8_t kCand = 16;    // quota: a candidate of the upper bound
 constexpr long long kMinLL = (long long)(-0x7fffffffffffffffLL - 1);
 
-// the packed key of pod q on node j: the extra mask joins ``pre`` and the
-// extra score the total, in the cold build, the refresh and the rounds'
-// rescoring alike (which passes node j's row staged at ``row`` of ``n``
-// and reads the reservation allocations through L2)
-template <bool CON, typename KT, bool L2 = false>
-__device__ __forceinline__ KT key_of(const Cfg& c, const PodIn& p, const NodeIn& n,
-                                     const ConIn& k, const XIn& x, int P, int q, int j, bool pre,
-                                     int salt, int N, long long TB, int row = -1) {
-  if (!pre || !x_feas(x, q, j, P)) return KeyLane<KT>::neg;
-  const long long xadd = x_score(x, q, j, P);
-  if constexpr (CON) return pair_key_con<KT, L2>(c, p, n, k, q, j, true, salt, N, TB, xadd, row);
-  return pair_key<KT>(c, p, n, q, j, true, salt, N, TB, xadd, row);
+// A block's node rows staged in shared memory for the key build, beside
+// their capacities' reciprocals (koord_rcp): the pair function reads them
+// through a NodeIn whose row r is node j0 + r.  Every block computes its
+// rows' reciprocals once for its 128 pods.
+__host__ __device__ inline size_t stage_bytes(int rows, int R, int Rf, int Rs) {
+  return (size_t)rows * (8 * (4 * R + 2 * Rf + 3 * Rs + 2) + 1);
 }
 
-template <bool CON>
-__device__ __forceinline__ bool pod_pass(const uint8_t* pod_ok, const ConIn& k, int q) {
-  if constexpr (CON) return pod_ok[q] && gang_pass(k, q);
-  return pod_ok[q];
+__device__ NodeIn stage_rows(const Cfg& c, const NodeIn& n, int j0, int rows,
+                             unsigned char* smem) {
+  const int R = c.R, Rf = c.Rf, Rs = c.Rs, T = blockDim.x, t = threadIdx.x;
+  long long* w = (long long*)smem;
+  NodeIn s = n;
+  auto take = [&](const long long* src, int width) {
+    long long* dst = w;
+    for (int i = t; i < rows * width; i += T) dst[i] = src[(size_t)j0 * width + i];
+    w += (size_t)rows * width;
+    return dst;
+  };
+  auto recip = [&](const long long* src, int width) {
+    unsigned long long* dst = (unsigned long long*)w;
+    for (int i = t; i < rows * width; i += T) dst[i] = koord_rcp(src[(size_t)j0 * width + i]);
+    w += (size_t)rows * width;
+    return (const unsigned long long*)dst;
+  };
+  s.la_alloc = take(n.la_alloc, R);
+  s.base_nonprod = take(n.base_nonprod, R);
+  s.base_prod = take(n.base_prod, R);
+  s.nf_alloc = take(n.nf_alloc, Rf);
+  s.requested = take(n.requested, Rf);
+  s.alloc_score = take(n.alloc_score, Rs);
+  s.nreq_score = take(n.nreq_score, Rs);
+  s.num_pods = take(n.num_pods, 1);
+  s.allowed = take(n.allowed, 1);
+  s.la_rcp = recip(n.la_alloc, R);
+  s.as_rcp = recip(n.alloc_score, Rs);
+  uint8_t* sv = (uint8_t*)w;
+  for (int i = t; i < rows; i += T) sv[i] = n.score_valid[j0 + i];
+  s.score_valid = sv;
+  __syncthreads();
+  return s;
 }
 
+// One thread per (pod, BS-row node block): blockIdx.y is the node block,
+// staged once (stage_rows), blockIdx.x a range of 128 pods.  The LoadAware
+// filter reads the node's global row (its fields are not staged); it is
+// written to la_feas_T when the caller wants it (the round loop does, the
+// scan does not: null).
 template <bool CON, typename KT>
 __global__ void build_keys(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
                            const uint8_t* pod_ok, const int* salt, int P, int N, int BS,
                            long long TB, KT* M, KT* Mb, uint8_t* la_feas_T) {
-  int q = blockIdx.x * blockDim.x + threadIdx.x;
-  int b = blockIdx.y;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.y, j0 = b * BS, rows = min(BS, N - j0);
+  const NodeIn ns = stage_rows(c, n, j0, rows, smem);
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= P) return;
   const bool ok = pod_pass<CON>(pod_ok, k, q);
   KT best = KeyLane<KT>::neg;
   for (int i = 0; i < BS; ++i) {
-    int j = b * BS + i;
+    const int j = j0 + i;
     KT key = KeyLane<KT>::neg;
-    if (j < N) {
-      bool laf = la_fit(c, p, n, q, j);
-      la_feas_T[(size_t)j * P + q] = laf;
-      key = key_of<CON, KT>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
+    if (i < rows) {
+      const bool laf = la_fit(c, p, n, q, j);
+      if (la_feas_T) la_feas_T[(size_t)j * P + q] = laf;
+      key = key_of<CON, KT, false, true>(c, p, ns, k, x, P, q, j, laf && valid[j] && ok, salt[q],
+                                         N, TB, i);
     }
     M[(size_t)j * P + q] = key;
     best = max(best, key);
@@ -991,8 +1030,15 @@ int launch_keys(bool con, const void* const* pods, const void* const* nodes, con
   const int threads = 128;
   dim3 grid((P + threads - 1) / threads, (N + BS - 1) / BS);
   auto kernel = con ? build_keys<true, KT> : build_keys<false, KT>;
-  kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
+  const Cfg c = koord_cfg(cfg, la_w);
+  const size_t smem = stage_bytes(BS, c.R, c.Rf, c.Rs);
+  if (smem > 48 * 1024) {  // a block size past the default limit
+    e = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      c, koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
       (const uint8_t*)pod_ok, (const int*)salt, P, N, BS, TB, (KT*)M, (KT*)Mb,
       (uint8_t*)la_feas_T);
   return (int)cudaGetLastError();
@@ -1113,6 +1159,7 @@ extern "C" const char* koord_strerror(int code) {
 
 // Every entry point takes, after the salts, the batch's extras (XIn):
 // xfeas [N, P] bool and xsc [N, P] int64 in queue order, null when absent.
+// The key builds' la_feas_T may be null (the scan's build reads none).
 
 extern "C" int koord_sched_keys(const void* const* pods, const void* const* nodes,
                                 const long long* cfg, const void* la_w, const void* valid,

@@ -40,8 +40,9 @@ STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRat
 
 # study builds: a source that includes another with a study's measurement
 # compiled in (csrc/roundstudy.cu: schedule.cu's round loop with its phase
-# split), built only when a study binds one of its entry points
-STUDY = {"roundstudy": "schedule.cu"}
+# split; csrc/scanstudy.cu: the scan's), built only when a study binds one
+# of its entry points
+STUDY = {"roundstudy": "schedule.cu", "scanstudy": "scan.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -193,11 +194,13 @@ SCHEDULE_ROUNDS64 = Kernel("schedule", "koord_sched_rounds64", SCHEDULE_ROUNDS.a
 SCHEDULE_KEYS64_CON = Kernel("schedule", "koord_sched_keys64_con", SCHEDULE_KEYS_CON.argtypes)
 SCHEDULE_ROUNDS64_CON = Kernel("schedule", "koord_sched_rounds64_con",
                                SCHEDULE_ROUNDS_CON.argtypes)
-# the greedy scan (csrc/scan.cu), plain and constrained: the pair inputs,
-# P, N, TB, [the constraint table and block,] the scratch, hosts, scores
-SCAN = Kernel("scan", "koord_scan", _SCHED_HEAD + [_I, _I, _L, _P, _P, _P, _I, _P])
-SCAN_CON = Kernel("scan", "koord_scan_con", _SCHED_HEAD + [_I, _I, _L, _P, _P, _P, _P, _P, _I, _P])
-SCAN_SCRATCH_WORDS = 2 * 1024 + 2  # kScratchWords in csrc/scan.cu
+# the greedy scan's step kernel (csrc/scan.cu), after the int64 key build,
+# plain and constrained: the pair inputs, P, N, BS, TB, [the constraint
+# table and block,] M, Mb and its transpose (updated in place), hosts, scores
+SCAN = Kernel("scan", "koord_scan_steps",
+              _SCHED_HEAD + [_I, _I, _I, _L, _P, _P, _P, _P, _P, _I, _P])
+SCAN_CON = Kernel("scan", "koord_scan_steps_con",
+                  _SCHED_HEAD + [_I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 # the device residency (csrc/dstate.cu)
 DSTATE_SCATTER = Kernel("dstate", "koord_dstate_scatter", [_I, _P, _P, _P, _P, _I, _I, _P])
 DSTATE_GATE = Kernel(
@@ -380,10 +383,11 @@ def cfg_array(R: int, Rf: int, Rs: int, nf_static) -> ctypes.Array:
 
 
 def require_least_allocated(nf_static, what: str) -> None:
-    """The packed-key kernels' precondition: the resolved engine is exact
-    only under LeastAllocated, whose scores fall as a node fills (the JAX
-    package's monotonicity precondition, core/resolved.py:286-292); other
-    strategies take the scan."""
+    """The round loops' precondition (the cold and warm rounds and the warm
+    refresh; the key build takes every strategy): the resolved engine is
+    exact only under LeastAllocated, whose scores fall as a node fills (the
+    JAX package's monotonicity precondition, core/resolved.py:286-292);
+    other strategies take the scan."""
     if nf_static.strategy != "LeastAllocated":
         raise ValueError(f"{what} requires the LeastAllocated strategy (monotonicity "
                          f"precondition), got {nf_static.strategy}; it takes the scan")

@@ -268,9 +268,11 @@ def test_cfg_block_layout():
 
 
 def test_kernels_refuse_before_launch():
-    """``pair_args`` takes every strategy (and only CUDA tensors); the
-    packed-key wrappers (key build, round loop, refresh, warm rounds) raise
-    ``ValueError`` off LeastAllocated, on any device, before any launch."""
+    """``pair_args`` takes every strategy (and only CUDA tensors); the key
+    build takes every strategy too (the scan builds its keys with it), and
+    on CPU tensors equals ``build_keys_plain``; the round-loop wrappers
+    (round loop, refresh, warm rounds) raise ``ValueError`` off
+    LeastAllocated, on any device, before any launch."""
     x = _inputs(torch.device("cpu"), 40, 10)
     args = (x["la_pods"], x["la_nodes"], x["weights"], x["nf_pods"], x["nf_nodes"])
     most = NodeFitStatic(**dict(x["static"].__dict__, strategy="MostAllocated"))
@@ -284,10 +286,13 @@ def test_kernels_refuse_before_launch():
     for static in (most, rtc):
         off = list(rest)
         off[4] = static
-        with pytest.raises(ValueError, match="LeastAllocated"):
-            resolved.schedule_keys(q_la, *off, 16)
-        with pytest.raises(ValueError, match="LeastAllocated"):
-            resolved.schedule_keys(q_la, *off, 16, wide=True)
+        q_extra = off[6][:, None] & off[5][None, :]
+        for kdt, wide in ((torch.int32, False), (torch.int64, True)):
+            want = resolved.build_keys_plain(q_la, off[0], off[1], off[2], off[3], static,
+                                             resolved.PluginWeights(), q_extra, off[7], 16,
+                                             key_dtype=kdt)
+            for a, b in zip(resolved.schedule_keys(q_la, *off, 16, wide=wide), want):
+                assert torch.equal(a, b)
         with pytest.raises(ValueError, match="LeastAllocated"):
             resolved.schedule_rounds(*carry, q_la, *off, 16, 16)
         with pytest.raises(ValueError, match="LeastAllocated"):
@@ -596,17 +601,19 @@ def test_placement_phase_runs_on_cpu():
 
 
 STRAT = ("score", "scan", "scan_con", "schedule_keys64", "schedule_rounds64",
-         "schedule_keys64_con", "schedule_rounds64_con")
+         "schedule_keys64_con", "schedule_rounds64_con", "schedule_keys", "schedule_keys_con")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_nodes,num_pods", [(300, 50), (1000, 200)])
 def test_strategy_kernels_equal_plain(card, num_nodes, num_pods):
-    """``score`` under MostAllocated and RTC (both shapes), the ``scan``
-    kernel (plain and constrained, both tie-breaks, with and without
-    extras, check_parent_depth 0 and 2) and the int64-key matrix engine
-    (plain and constrained, its round count the int32 engine's) against
-    their plain versions, exactly."""
+    """``score`` under MostAllocated and RTC (both shapes), the key build
+    under them, the scan (the int64 key build and the step kernel, plain
+    and constrained, both tie-breaks, with and without extras,
+    check_parent_depth 0 and 2; against both plain routes and layer by
+    layer) and the int64-key matrix engine (plain and constrained, its
+    round count the int32 engine's) against their plain versions,
+    exactly."""
     before = {k: cuda.KERNELS[k].launches for k in STRAT}
     chip_smoke.check_strategies_small(_inputs(card, num_nodes, num_pods))
     assert all(cuda.KERNELS[k].launches > before[k] for k in STRAT)
@@ -622,6 +629,48 @@ def test_scan_kernel_ragged_and_partial(card):
             chip_smoke.check_scan_kernels(x, static, con, "salted", True, timed=False)
 
 
+@pytest.mark.cuda
+def test_scan_edges_equal_plain(card):
+    """The step kernel's invariant cases at 64 x 512 (an empty fleet, the
+    constraint inputs, the most negative total, every pod infeasible, one
+    pod, padding pods, block sizes 7 and 64), and on clusters of their own
+    1,030 pods (more than the step kernel's threads) and 1,100 block
+    maxima in blocks of 1 (more than its threads): the scan equals both plain
+    routes, and layer by layer the key build's M, Mb and the step kernel's
+    hosts, scores and updated M, Mb equal theirs."""
+    keys = ("scan", "scan_con", "schedule_keys64", "schedule_keys64_con")
+    before = {k: cuda.KERNELS[k].launches for k in keys}
+    chip_smoke.check_scan_edges(_inputs(card, 500, 64))
+    assert all(cuda.KERNELS[k].launches > before[k] for k in keys)
+
+
+@pytest.mark.cuda
+def test_key_builds_equal_plain(card):
+    """The key build under MostAllocated and RTC (both shapes), plain and
+    constrained, int32 and int64 keys, against ``build_keys_plain``."""
+    before = cuda.KERNELS["schedule_keys64_con"].launches
+    chip_smoke.check_key_builds(_inputs(card, 1000, 200), timed=False)
+    assert cuda.KERNELS["schedule_keys64_con"].launches > before
+
+
+@pytest.mark.cuda
+def test_division_helper_equals_slash(card):
+    """pair.cuh's exact division by a capacity's reciprocal and its 32-bit
+    division, against `/` and exact integer division, on edge operands."""
+    assert chip_smoke.check_div_helper(card) > 1000
+
+
+def test_scan_edges_run_on_cpu_tensors():
+    """``chip_smoke``'s scan invariant cases on CPU tensors, where the
+    wrappers take their plain versions: the cases build, each property
+    holds (every pod infeasible places none, the rest place some), and
+    nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    chip_smoke.check_scan_edges(_inputs(torch.device("cpu"), 200, 40))
+    chip_smoke.check_key_builds(_inputs(torch.device("cpu"), 60, 20), timed=False)
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
 def test_strategy_checks_run_on_cpu_tensors():
     """``chip_smoke``'s strategy checks on CPU tensors, where every wrapper
     takes its plain version: the comparison logic (the int64-key round
@@ -634,8 +683,9 @@ def test_strategy_checks_run_on_cpu_tensors():
 
 def test_scan_wrapper_refuses_before_launch():
     """The scan's wrapper checks its inputs before any launch: a tie-break
-    it does not know, extra scores of another dtype or shape, and CPU
-    tensors handed to the launch itself."""
+    it does not know, extra scores of another dtype or shape, and tensors
+    on a device that is neither the CPU nor a card, handed to the launch
+    or to the step kernel itself."""
     from koordinator_tpu_torch.core import cycle
 
     x = _inputs(torch.device("cpu"), 40, 10)
@@ -649,9 +699,15 @@ def test_scan_wrapper_refuses_before_launch():
         cycle.scan_fn(*args, extra_scores=torch.zeros((P, N), dtype=torch.int32))
     _, q_la, q_nf, salts, pod_ok = resolved.kernel_queue(
         x["la_pods"], x["nf_pods"], x["valid"], x["p_real"], x["order"])
+    meta = torch.device("meta")
+    valid = x["valid"].to(meta)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cycle.scan_launch(q_la, x["la_nodes"], x["weights"], q_nf, x["nf_nodes"], x["static"],
-                          x["valid"], pod_ok, salts)
+                          valid, pod_ok, salts)
+    M = torch.empty((-(-N // 16) * 16, P), dtype=torch.int64, device=meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cycle.scan_steps(M, M[::16], q_la, x["la_nodes"], x["weights"], q_nf, x["nf_nodes"],
+                         x["static"], valid, pod_ok, salts, 16)
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 

@@ -7,7 +7,14 @@ inputs, bit for bit (``np.array_equal``).
   and a non-monotone shape) with no constraint, a gang, tight hierarchical
   quota at ``check_parent_depth`` 0 and 2, a reservation-heavy set, a mask
   with negative extra scores, and all of them together, under both
-  tie-breaks, with a partial queue order;
+  tie-breaks, with a partial queue order; ``scan_fn`` (the key build and
+  the step kernel's plain version, ``scan_steps_plain``) against the same
+  JAX results, and on cases aimed at the step kernel's invariant (an empty
+  fleet under MostAllocated, a quota that rejects midway, reservations used
+  up on the touched node, a gang rollback, the most negative total, every
+  pod infeasible, one pod, padding pods, node blocks that do not divide
+  N); the key build under MostAllocated and RTC against JAX
+  ``score_batch`` packed as ``score * TB + (TB-1 - rot)``;
 * ``impl="matrix"`` against JAX ``impl="matrix"`` and the scan, with the
   full constraint set; ``"auto"`` routing under inflated plugin weights;
   ``schedule_fn``'s int64-key route on CPU tensors; the unknown-``impl``
@@ -20,6 +27,8 @@ inputs, bit for bit (``np.array_equal``).
 Every case is P <= 64, N <= 300 on the CPU, where the wrappers take their
 plain versions; the kernels themselves are held against these on the card
 (``chip_smoke.py``, ``tests/test_torch_kernels.py``)."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -130,14 +139,37 @@ def case_inputs(case: str, b, seed: int):
     return jkw, tkw
 
 
+@functools.lru_cache(maxsize=None)
+def jax_scan(strategy: str, shape, case: str, tie: str):
+    """(batch, JAX kwargs, port kwargs, JAX hosts, JAX scores) of one scan
+    case, the JAX scan run once for the file's scan tests."""
+    seed = CASES.index(case) + 3
+    b = batch(P, N, seed, strategy, None if shape is None else list(shape))
+    jkw, tkw = case_inputs(case, b, seed)
+    jh, js = jcycle.schedule_batch(*to_jax(b), tie_break=tie, **jkw)
+    return b, jkw, tkw, np.asarray(jh), np.asarray(js)
+
+
+def scan_fn_of(b, tkw: dict, tie: str, block_size: int = 16, p_real: int = P):
+    """The port's ``scan_fn`` on CPU tensors (the key build and
+    ``scan_steps_plain``) over every node column, the case's queue order,
+    constraints, mask and extra scores."""
+    con = {k: tkw[k] for k in ("gang", "quota", "reservation") if k in tkw} or None
+    n = b[1].alloc.shape[0]
+    return tcycle.scan_fn(*to_torch(b), torch.ones(n, dtype=torch.bool), p_real,
+                          tkw.get("order"), con, tkw.get("check_parent_depth", 0), 8,
+                          tkw.get("extra_feasible"), tkw.get("extra_scores"), tie, block_size)
+
+
+def _shape(shape):
+    return None if shape is None else tuple(map(tuple, shape))
+
+
 @pytest.mark.parametrize("tie", ["salted", "index"])
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("strategy,shape", STRATS, ids=STRAT_IDS)
 def test_scan_matches_jax(strategy, shape, case, tie):
-    seed = CASES.index(case) + 3
-    b = batch(P, N, seed, strategy, shape)
-    jkw, tkw = case_inputs(case, b, seed)
-    jh, js = jcycle.schedule_batch(*to_jax(b), tie_break=tie, **jkw)
+    b, jkw, tkw, jh, js = jax_scan(strategy, _shape(shape), case, tie)
     th, ts = tcycle.schedule_batch(*to_torch(b), tie_break=tie, **tkw)
     assert_same(th, jh, f"hosts {case}")
     assert_same(ts, js, f"scores {case}")
@@ -145,6 +177,174 @@ def test_scan_matches_jax(strategy, shape, case, tie):
     assert placed.any() and not placed[np.setdiff1d(np.arange(P), jkw["order"])].any()
     if case == "neg-extras":
         assert (np.asarray(js)[placed] != 0).any()
+
+
+@pytest.mark.parametrize("tie", ["salted", "index"])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("strategy,shape", STRATS, ids=STRAT_IDS)
+def test_scan_fn_matches_jax(strategy, shape, case, tie):
+    """``scan_fn`` on the CPU, the key build then one step a pod over the
+    block maxima (``scan_steps_plain``), equals JAX ``schedule_batch``."""
+    b, jkw, tkw, jh, js = jax_scan(strategy, _shape(shape), case, tie)
+    th, ts = scan_fn_of(b, tkw, tie)
+    assert_same(th, jh, f"hosts {case}")
+    assert_same(ts, js, f"scores {case}")
+
+
+def _zero_fleet(b):
+    """The batch with every node empty: no usage, requests or pods."""
+    la, la_n, w, nf, nf_n, st = b
+    z = np.zeros_like
+    return (la, la_n._replace(base_nonprod=z(la_n.base_nonprod), base_prod=z(la_n.base_prod)),
+            w, nf, nf_n._replace(requested=z(nf_n.requested), num_pods=z(nf_n.num_pods),
+                                 req_score=z(nf_n.req_score)), st)
+
+
+def _used_up_reservations(b):
+    """8 reservations, one on each of nodes 0, 15, ..., 105, each with room
+    for about one pod, every pod matching all of them: the first pod on a
+    reservation node uses its reservation up and the node's restore falls
+    for every later pod."""
+    from koordinator_tpu.core.cycle import ReservationInputs as JRI
+
+    req = b[3].req
+    Rv, Rf = 8, req.shape[1]
+    alloc = np.tile(np.median(req, axis=0).astype(np.int64), (Rv, 1))
+    rsv = ReservationArrays(node=(np.arange(Rv) * (N // Rv)).astype(np.int32), allocatable=alloc,
+                            allocated=np.zeros((Rv, Rf), dtype=np.int64),
+                            order=np.zeros(Rv, dtype=np.int64))
+    matched = np.ones((P, Rv), dtype=bool)
+    return JRI(rsv=rsv, matched=matched, rscore=np.asarray(score_reservation(req, rsv)),
+               scores=np.asarray(reservation_score(req, matched, N, rsv)))
+
+
+def _rollback_gang(seed: int):
+    """Gang 1 of 6 members (min_member 6), one of them infeasible on every
+    node: the other five place, and commit_gangs takes them back."""
+    from koordinator_tpu.core.cycle import GangInputs
+    from koordinator_tpu.core.gang import GangArrays, GangPodArrays
+
+    gang = np.zeros(P, dtype=np.int32)
+    gang[3:9] = 1
+    return GangInputs(
+        pods=GangPodArrays(gang=gang, priority=np.zeros(P, dtype=np.int64),
+                           sub_priority=np.zeros(P, dtype=np.int64),
+                           timestamp=np.zeros(P, dtype=np.float64)),
+        gangs=GangArrays(min_member=np.array([0, 6], dtype=np.int64),
+                         member_count=np.array([P - 6, 6], dtype=np.int64),
+                         has_init=np.ones(2, dtype=bool), once_satisfied=np.zeros(2, dtype=bool)))
+
+
+# the step kernel's invariant cases: (strategy, shape, what the case sets)
+EDGES = {
+    "most-empty-fleet": ("MostAllocated", None, {}),
+    "quota-midway": ("MostAllocated", None, {"quota": True}),
+    "reservations-used-up": ("RequestedToCapacityRatio", BIN_PACKING, {"reservation": True}),
+    "gang-rollback": ("MostAllocated", None, {"gang": True}),
+    "most-negative-total": ("MostAllocated", None, {"extra": -200}),
+    "all-infeasible": ("RequestedToCapacityRatio", NON_MONOTONE, {"infeasible": True}),
+    "one-pod": ("MostAllocated", None, {"pods": 1}),
+    "padding-pods": ("RequestedToCapacityRatio", NON_MONOTONE, {"p_real": P - 7}),
+    "blocks-of-7": ("MostAllocated", None, {"block_size": 7}),
+    "blocks-of-64": ("RequestedToCapacityRatio", BIN_PACKING, {"block_size": 64}),
+}
+
+
+@pytest.mark.parametrize("tie", ["salted", "index"])
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_scan_fn_invariant_cases(edge, tie):
+    """``scan_fn`` on the CPU equals JAX ``schedule_batch`` where the step
+    kernel's invariant is tested: many pods on one node of an empty fleet
+    (its row rescored again and again), a quota that rejects midway (no
+    state change), reservations used up on the touched node (its restore
+    falls), a gang rolled back after the steps, the most negative total
+    the engine admits (every extra score at -EXTRA_SCORE_BOUND), every pod
+    infeasible, one pod, padding pods (``p_real`` < P), node blocks that do
+    not divide the node axis."""
+    strategy, shape, kw = EDGES[edge]
+    pods = kw.get("pods", P)
+    seed = 40 + list(EDGES).index(edge)
+    b = batch(pods, N, seed, strategy, shape)
+    if edge == "most-empty-fleet":
+        b = _zero_fleet(b)
+    jkw = {}
+    if kw.get("quota"):
+        jkw["quota"] = tight_quota(P, seed)
+    if kw.get("reservation"):
+        jkw["reservation"] = _used_up_reservations(b)
+    if kw.get("gang"):
+        jkw["gang"] = _rollback_gang(seed)
+        mask = np.ones((P, N), dtype=bool)
+        mask[5] = False
+        jkw["extra_feasible"] = mask
+    if "extra" in kw:
+        jkw["extra_scores"] = np.full((P, N), kw["extra"], dtype=np.int64)
+    if kw.get("infeasible"):
+        jkw["extra_feasible"] = np.zeros((P, N), dtype=bool)
+    p_real = kw.get("p_real", pods)
+    if p_real < pods:
+        jkw["extra_feasible"] = np.repeat((np.arange(pods) < p_real)[:, None], N, axis=1)
+    g, q, r = constraints_to_torch(jkw.get("gang"), jkw.get("quota"), jkw.get("reservation"))
+    tkw = {k: torch.from_numpy(v) for k, v in jkw.items() if isinstance(v, np.ndarray)}
+    tkw.update({k: v for k, v in (("gang", g), ("quota", q), ("reservation", r)) if v is not None})
+    jh, js = (np.asarray(a) for a in jcycle.schedule_batch(*to_jax(b), tie_break=tie, **jkw))
+    if p_real < pods:
+        tkw.pop("extra_feasible")
+    th, ts = scan_fn_of(b, tkw, tie, kw.get("block_size", 16), p_real)
+    assert_same(th, jh, f"hosts {edge}")
+    assert_same(ts, js, f"scores {edge}")
+    placed = jh >= 0
+    if edge == "most-empty-fleet":
+        assert np.bincount(jh[placed]).max() > 3
+    elif edge == "quota-midway":
+        free, _ = jcycle.schedule_batch(*to_jax(b), tie_break=tie)
+        assert placed.sum() < (np.asarray(free) >= 0).sum() and placed[-P // 3:].any()
+    elif edge == "reservations-used-up":
+        assert np.isin(jh, jkw["reservation"].rsv.node).sum() >= 2
+    elif edge == "gang-rollback":
+        assert not placed[3:9].any() and placed.any()
+    elif edge == "most-negative-total":
+        assert (js[placed] < 0).any()
+    elif edge == "all-infeasible":
+        assert not placed.any() and not js.any()
+    elif edge == "padding-pods":
+        assert placed.any() and not placed[p_real:].any()
+    else:
+        assert placed.any()
+
+
+@pytest.mark.parametrize("con", [False, True], ids=["plain", "reservations"])
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("strategy,shape", STRATS, ids=STRAT_IDS)
+def test_key_build_matches_jax_score_batch(strategy, shape, wide, con):
+    """The key build's plain route (``schedule_keys`` on CPU tensors) under
+    MostAllocated and RTC: M's rows are JAX ``score_batch``'s totals and
+    feasibility packed as ``score * TB + (TB-1 - rot)`` (the composite key
+    of JAX's ``pack_keys``/``run_matrix``, salted), the sentinel where
+    infeasible and in the pad rows; Mb their block maxima."""
+    seed = 60 + STRATS.index((strategy, shape))
+    b = batch(P, N, seed, strategy, shape)
+    jkw, tkw = case_inputs("reservations" if con else "plain", b, seed)
+    rsv = jkw.get("reservation")
+    jt, jf = jcycle.score_batch(*to_jax(b), PluginWeights(), rsv)
+    tb = tres.tie_base(N)
+    salts = np.asarray(tcycle.tie_salt(torch.arange(P), N)).astype(np.int64)
+    rot = (np.arange(N)[None, :] + salts[:, None]) % N
+    neg = tres.NEG if wide else tres.NEGK
+    want = np.where(np.asarray(jf), np.asarray(jt) * tb + (tb - 1 - rot), neg)
+    xs, q_la, q_nf, tsalts, pod_ok = tres.kernel_queue(*(to_torch(b)[i] for i in (0, 3)),
+                                                       torch.ones(N, dtype=torch.bool), P, None)
+    t = to_torch(b)
+    c = tres.con_inputs(xs, reservation=tkw["reservation"]) if con else None
+    BS = 16
+    M, Mb, feas = tres.schedule_keys(q_la, t[1], t[2], q_nf, t[4], t[5],
+                                     torch.ones(N, dtype=torch.bool), pod_ok, tsalts, BS, c,
+                                     wide=wide)
+    assert M.dtype == (torch.int64 if wide else torch.int32)
+    assert_same(M[:N].T, want, "keys")
+    assert (M[N:] == neg).all()
+    assert_same(Mb, M.view(-1, BS, P).amax(dim=1), "block maxima")
+    assert len({int(v) for v in np.asarray(jt)[np.asarray(jf)]}) > 3
 
 
 @pytest.mark.parametrize("tie", ["salted", "index"])
