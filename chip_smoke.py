@@ -16,7 +16,9 @@ Phases (any failure exits non-zero and prints no result line):
      at 16, 128 and 1,024 dirty rows, padded indices included, also held
      against a cold key build; ``sched_rounds``, asserting the carry is
      bit-identical after the launch; ``dstate_scatter`` with duplicate
-     padded indices, beside the equivalent ``index_copy_`` calls;
+     padded indices, beside the equivalent ``index_copy_`` calls, and on
+     ``scatter_cases``: rows of 1 to 56 bytes, one row, scatters back to
+     back;
      ``dstate_gate`` at NaN and boundary update times), and the
      whole-table upload (``dstate_rows``, a transfer);
   5. the cold path at 10,000 nodes x 1,000 pods (``random_cluster``) on
@@ -81,7 +83,10 @@ Phases (any failure exits non-zero and prints no result line):
      4) and at the full shape (S = 4), under the three strategies, with and
      without extra scores; ``aggregate_node_metrics`` against its plain
      version bit for bit at 64 x 64 (empty series, NaN, ±0.0, tied times,
-     counts 20 and 10) and at the fleet's windows; then the path: a
+     counts 20 and 10), on ``agg_cases`` (T from 1 to 2,048 across both
+     kernels, the compaction's boundaries, the full sort's valid 1e300,
+     +inf and NaN, store windows wrapping the ring) and at the fleet's
+     windows, each window timed; then the path: a
      ``MetricSeriesStore`` of 256 ticks for the fleet's nodes and assigned
      pods, ``NodeMetricProducer.produce`` on the card equal to a CPU twin's,
      the NodeMetrics as APPLY to a card sidecar with ``shards=4``, a CPU twin
@@ -116,6 +121,13 @@ JSON line;
 prints one ``spread`` JSON line, one sample of the key builds, the int64
 constrained round loop and the RequestedToCapacityRatio cycles
 (``spread_study``): run it on two checkouts alternately in one call.
+
+    python3 chip_smoke.py --agg [--root DIR]
+
+prints one ``agg_study`` JSON line (``agg_study``): ``aggregate_node_metrics``
+at every window of a report tick with its stages, and ``dstate_scatter``'s
+call, run and stages beside ``index_copy_``; one sample a run, for two
+checkouts alternated in one call.
 """
 
 from __future__ import annotations
@@ -641,14 +653,26 @@ def check_warm_kernels(inp, dirty_sizes, timed: bool, commit_cap: int = 16):
         ms=cuda_ms(kernel_rounds), plain_ms=cuda_ms(plain_rounds, reps=3),
         bound_ms=b, bound_by=by, max_abs_err=err["sched_rounds"], library_ms=None,
     ))
-    b, by = bound_ms(idx_s.nbytes + 2 * np.unique(idx_s).size * row_b, 0)
+    # the bound: the larger of the device's bytes (the packed rows read, the
+    # rows written) and the packed bytes over the host link
+    hbm, _ = bound_ms(idx_s.nbytes + 2 * np.unique(idx_s).size * row_b, 0)
+    link = (idx_s.nbytes + idx_s.size * row_b) / PCIE_BYTES_PER_S * 1e3
+    stage, resident = sm.ScatterStage(), clone(bufs0)
+    stage.bind(resident)
+
+    def residency_scatter():
+        # the residency's entry: the rows host[idx] gathered into its staging
+        stage.scatter(resident, stage.gather(host, idx_s))
+
     recs.append(dict(
         name="dstate_scatter", source="koordinator_tpu_torch/csrc/dstate.cu",
         replaces="koordinator_tpu/service/state.py:200", dirty_rows=int(idx_s.size),
-        ms=cuda_ms(kernel_scatter, setup=reset_bufs),
+        ms=cuda_ms(kernel_scatter), ms_run=run_ms(kernel_scatter),
+        residency_ms=cuda_ms(residency_scatter),
         plain_ms=cuda_ms(plain_scatter, setup=reset_bufs),
-        library_ms=cuda_ms(library_scatter, setup=reset_bufs),
-        bound_ms=b, bound_by=by, max_abs_err=err["dstate_scatter"],
+        library_ms=cuda_ms(library_scatter), library_ms_run=run_ms(library_scatter),
+        bound_ms=max(hbm, link), bound_by="bytes", bound_over="PCIe" if link >= hbm else "HBM",
+        max_abs_err=err["dstate_scatter"],
     ))
     b, by = bound_ms(rows * (1 + 8 + 1 + 1 + 1) + 4 * rows, rows * 8)
     recs.append(dict(
@@ -1718,6 +1742,58 @@ def check_extend_cases(dev) -> None:
             F.pad(b, (0, w - b.shape[1]), value=f) for b, w, f in zip(bufs, widths, fills)])
         require_same(f"dstate_extend {what}: the sources", bufs, keep)
     print("  dstate_extend: 32 buffers, ragged row widths and zero rows equal plain and F.pad")
+
+
+def scatter_cases(rows: int = 300) -> list:
+    """``dstate_scatter``'s cases, (what, host arrays, batches): each batch
+    an (index, rows) pair as the residency pads it (the index repeats a
+    real row, and so do the rows), applied in order with no synchronise
+    between.  The arrays have rows of 1 and 8 bytes and widths that are no
+    multiple of 16 (5, 12, 56 bytes) beside one that is; the cases are one
+    row (D = 1), duplicate padded indices, and three scatters back to back
+    on disjoint rows (the staging reused before the card has read it)."""
+    rng = np.random.default_rng(SEED + 91)
+    host = [rng.random(rows) < 0.5, rng.integers(-1 << 60, 1 << 60, rows),
+            rng.integers(0, 1 << 30, (rows, 3)).astype(np.int32), rng.random((rows, 5)) < 0.5,
+            rng.uniform(-1e6, 1e6, (rows, 2)), rng.integers(0, 9, (rows, 7))]
+    order = rng.permutation(rows).astype(np.int32)
+
+    def batch(real, pad: bool = True):
+        idx = padded(real) if pad else real
+        src = rng.choice(rows, real.size, replace=False).astype(np.int32)
+        src = padded(src) if pad else src
+        return idx, tuple(np.ascontiguousarray(h[src]) for h in host)
+
+    return [
+        ("one row", host, [batch(order[:1], pad=False)]),
+        ("duplicate padded indices", host, [batch(order[:5])]),
+        ("back to back", host, [batch(order[:13]), batch(order[13:40]), batch(order[40:41],
+                                                                              pad=False)]),
+    ]
+
+
+def check_scatter_cases(dev) -> None:
+    """``dstate_scatter`` on ``scatter_cases``, each batch issued right after
+    the last with no synchronise, against its plain version and
+    ``index_copy_`` applied in the same order, bit for bit."""
+    from koordinator_tpu_torch.service import state as sm
+
+    for what, host, batches in scatter_cases():
+        bufs = sm.dstate_rows(host, dev)
+        plain = tuple(b.clone() for b in bufs)
+        library = tuple(b.clone() for b in bufs)
+        for idx, vals in batches:
+            sm.dstate_scatter(bufs, idx, vals)
+        for idx, vals in batches:
+            i = torch.from_numpy(idx).to(dev)
+            v = [torch.from_numpy(x).to(dev) for x in vals]
+            sm.dstate_scatter_plain(plain, i, v)
+            for b, x in zip(library, v):
+                b.index_copy_(0, i.long(), x)
+        require_same(f"dstate_scatter {what}", bufs, plain)
+        require_same(f"dstate_scatter {what} against index_copy_", bufs, library)
+    print("  dstate_scatter: rows of 1 to 56 bytes, one row, duplicate padded indices, three "
+          "scatters back to back: equal plain and index_copy_", flush=True)
 
 
 def extras_for(inp, seed: int):
@@ -3626,13 +3702,15 @@ def agg_series(dev, S: int, T: int, seed: int):
     return tuple(torch.from_numpy(a).to(dev) for a in (v, valid, t))
 
 
-def agg_bound(S: int, T: int) -> tuple:
-    """The aggregation's bound: each sample read once (value, time, valid:
-    17 bytes), the [6, S] output written once; the bitonic sort's
-    compare-exchanges at about 6 operations each."""
-    Tp = 1 << max(T - 1, 0).bit_length()
-    stages = Tp.bit_length() * (Tp.bit_length() - 1) // 2
-    return bound_ms(S * T * 17 + 6 * S * 8, S * (stages * Tp // 2 * 6 + 4 * T))
+def agg_bound(valid) -> tuple:
+    """The aggregation's bound, what these inputs need whatever implements
+    them: every valid byte read once, the value and time of each valid
+    sample (16 bytes), the [6, S] output written once (48 bytes a series).
+    An invalid sample is 0.0 in the mean and 1e300 in the order, and needs
+    no load; the order statistics need no operation a byte does not
+    outweigh, so no sort is counted."""
+    S, T = valid.shape
+    return bound_ms(S * T + 16 * int(valid.sum()) + 48 * S, 0)
 
 
 def check_metricsagg_kernels(dev, windows=(), timed: bool = False):
@@ -3656,16 +3734,90 @@ def check_metricsagg_kernels(dev, windows=(), timed: bool = False):
         return None
     label, *w = max(windows, key=lambda x: x[1].shape[0])
     S, T = w[0].shape
-    b, by = agg_bound(S, T)
+    b, by = agg_bound(w[1])
+    groups = (("agg_", "kernel"),)
     return dict(
         name="aggregate_node_metrics", source=METRICSAGG_SOURCE,
         replaces="koordinator_tpu/core/metricsagg.py:54",
         ms=cuda_ms(lambda: ma.aggregate_node_metrics(*w)),
+        device_ms=device_split(lambda: ma.aggregate_node_metrics(*w), groups).get("kernel"),
         plain_ms=cuda_ms(lambda: ma.aggregate_node_metrics_plain(*w)),
         bound_ms=b, bound_by=by, max_abs_err=0, shape=f"{label}: {S} series x {T} samples",
-        variants={lab: cuda_ms(lambda x=x: ma.aggregate_node_metrics(*x))
+        variants={lab: dict(ms=cuda_ms(lambda x=x: ma.aggregate_node_metrics(*x)),
+                            device_ms=device_split(lambda x=x: ma.aggregate_node_metrics(*x),
+                                                   groups).get("kernel"),
+                            bound_ms=agg_bound(x[1])[0])
                   for lab, *x in windows},
     )
+
+
+AGG_WIDTHS = (1, 33, 256, 257, 2048)  # the warp kernel's and the block kernel's
+AGG_COUNTS = (0, 1, 32, 33, 256)  # valid samples: the compaction's boundaries
+
+
+def agg_cases(dev) -> list:
+    """``aggregate_node_metrics``'s edge cases, (what, values, valid,
+    times): at each T of ``AGG_WIDTHS``, 64 series with the counts of
+    ``AGG_COUNTS`` (as far as T allows), a contiguous arc of 7, a valid
+    1e300, +inf and NaN among six (the full sort), valid times of -inf
+    (the last taken from an invalid sample) and of -1e300 (tied with the
+    invalid samples' time, the first index wins), integer samples with ties and
+    fractional ones, invalid samples holding NaN, 1e308 and -0.0; and the
+    windows of a ``MetricSeriesStore`` whose valid arc wraps its ring (60
+    s and 1,800 s over 256 columns after 262 ticks)."""
+    from koordinator_tpu_torch.service.koordlet import MetricSeriesStore
+
+    rng = np.random.default_rng(SEED + 81)
+    out = []
+    for T in AGG_WIDTHS:
+        S = 64
+        v = rng.integers(-50, 50, (S, T)).astype(np.float64)
+        v[S // 2:] = rng.uniform(-5e3, 5e3, (S - S // 2, T))
+        t = rng.integers(0, 40, (S, T)).astype(np.float64)
+        valid = rng.random((S, T)) < 0.5
+        rows = iter(range(S))
+        for c in AGG_COUNTS:
+            r = next(rows)
+            valid[r] = False
+            valid[r, rng.choice(T, min(c, T), replace=False)] = True
+        r = next(rows)
+        valid[r] = False
+        valid[r, (rng.integers(T) + np.arange(min(7, T))) % T] = True
+        for big in (1e300, np.inf, np.nan):
+            r = next(rows)
+            pick = rng.choice(T, min(6, T), replace=False)
+            valid[r] = False
+            valid[r, pick] = True
+            v[r, pick[-1]] = big
+        r = next(rows)
+        t[r, valid[r]] = -np.inf
+        r = next(rows)
+        t[r, valid[r]] = -1e300  # ties the invalid samples' time: the first index wins
+        v[~valid] = rng.choice([np.nan, 1e308, -0.0], int((~valid).sum()))
+        out.append((f"T={T}", v, valid, t))
+    store = MetricSeriesStore(window=KOORDLET_TICKS)
+    keys = [f"node/n{i}/cpu" for i in range(40)]
+    for k in range(KOORDLET_TICKS + 6):
+        store.append(1e6 + KOORDLET_CADENCE * k,
+                     dict(zip(keys, rng.integers(0, 4000, len(keys)).tolist())))
+    now = 1e6 + KOORDLET_CADENCE * (KOORDLET_TICKS + 5)
+    for dur in (60.0, 1800.0):
+        out.append((f"store window {int(dur)} s, the arc wrapping the ring",
+                    *store.window(now, dur, keys)))
+    return [(what, *(torch.from_numpy(a).to(dev) for a in arrays)) for what, *arrays in out]
+
+
+def check_agg_cases(dev) -> None:
+    """``aggregate_node_metrics`` on ``agg_cases`` against its plain version,
+    bit for bit."""
+    from koordinator_tpu_torch.core import metricsagg as ma
+
+    for what, *w in agg_cases(dev):
+        require_same(f"aggregate_node_metrics {what}",
+                     (ma.aggregate_node_metrics(*w),), (ma.aggregate_node_metrics_plain(*w),))
+    print(f"  aggregate_node_metrics at T in {list(AGG_WIDTHS)} (counts {list(AGG_COUNTS)}, an "
+          "arc, a valid 1e300, +inf and NaN, times of -inf) and store windows wrapping the "
+          "ring: equal plain, bit for bit", flush=True)
 
 
 KOORDLET_TICKS = 256
@@ -3775,6 +3927,35 @@ def same_metrics(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(view(a[n]) == view(b[n]) for n in a)
 
 
+def fleet_store(device, num_nodes: int):
+    """The koordlet path's store: ``koordlet_fleet``'s nodes, a
+    ``MetricSeriesStore`` of ``KOORDLET_TICKS`` columns filled with as many
+    collection ticks ``KOORDLET_CADENCE`` s apart, ending at ``NOW``, and a
+    producer on ``device``.  Returns (nodes, store, producer, node keys,
+    pods by node, the collection tick)."""
+    from koordinator_tpu_torch.service.koordlet import MetricSeriesStore, NodeMetricProducer
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    nodes = koordlet_fleet(num_nodes)
+    store = MetricSeriesStore(window=KOORDLET_TICKS)
+    prod = NodeMetricProducer(store, device=device)
+    node_keys, pods_by_node, tick = fleet_series(prod, nodes, SEED + 62)
+    for t in range(KOORDLET_TICKS):
+        tick(store, NOW - KOORDLET_CADENCE * (KOORDLET_TICKS - 1 - t))
+    return nodes, store, prod, node_keys, pods_by_node, tick
+
+
+def report_windows(prod, node_keys, pods_by_node) -> list:
+    """The windows one report tick aggregates, (label, duration, series
+    keys): the node series over the report interval and each aggregate
+    duration, then the pod series over the report interval."""
+    pod_keys = [prod.pod_key(n, pk, r) for n, pks in pods_by_node.items() for pk in pks
+                for r in prod.resources]
+    return ([(f"node window {int(d)} s", d, node_keys)
+             for d in [prod.report_interval] + prod.aggregate_durations]
+            + [(f"pod window {int(prod.report_interval)} s", prod.report_interval, pod_keys)])
+
+
 def drive_koordlet_path(device, num_nodes: int, num_pods: int, scalars):
     """The koordlet's reports into a sharded sidecar at full width: a
     ``MetricSeriesStore`` fed ``KOORDLET_TICKS`` collection ticks for the
@@ -3791,7 +3972,7 @@ def drive_koordlet_path(device, num_nodes: int, num_pods: int, scalars):
     from koordinator_tpu_torch.api.model import AggregationType
     from koordinator_tpu_torch.service import protocol as proto
     from koordinator_tpu_torch.service.engine import Engine
-    from koordinator_tpu_torch.service.koordlet import MetricSeriesStore, NodeMetricProducer
+    from koordinator_tpu_torch.service.koordlet import NodeMetricProducer
     from koordinator_tpu_torch.service.server import SidecarServer
     from koordinator_tpu_torch.service.sharding import ShardedEngine
     from koordinator_tpu_torch.service.state import ClusterState
@@ -3803,31 +3984,18 @@ def drive_koordlet_path(device, num_nodes: int, num_pods: int, scalars):
     for k in cuda.KERNELS.values():
         k.launches = 0
     t0 = time.perf_counter()
-    nodes = koordlet_fleet(num_nodes)
-    store = MetricSeriesStore(window=KOORDLET_TICKS)
-    prod = NodeMetricProducer(store, device=device)
+    nodes, store, prod, node_keys, pods_by_node, tick = fleet_store(device, num_nodes)
     twin_prod = NodeMetricProducer(store, device="cpu")
-    node_keys, pods_by_node, tick = fleet_series(prod, nodes, SEED + 62)
-    for t in range(KOORDLET_TICKS):
-        tick(store, NOW - KOORDLET_CADENCE * (KOORDLET_TICKS - 1 - t))
     stages["fill_ms"] = (time.perf_counter() - t0) * 1e3
     n_series = len(store._imap)
     print(f"  store: {n_series} series ({len(node_keys)} node, {n_series - len(node_keys)} pod) x "
           f"{KOORDLET_TICKS} ticks filled in {stages['fill_ms'] / 1e3:.1f} s", flush=True)
-    # one report tick's stages, as produce runs them: each window built on
-    # the host, then the kernel (upload, launch and the one read-back)
     # one report tick's stages as produce runs them, timed apart (their
     # launches are not the path's): each window built on the host, then the
     # kernel with its upload and its one read-back
-    pod_keys = [prod.pod_key(n, pk, r) for n, pks in pods_by_node.items() for pk in pks
-                for r in prod.resources]
     windows = []
     with uncounted():
-        for label, dur, keys in (
-                [(f"node window {int(d)} s", d, node_keys)
-                 for d in [prod.report_interval] + prod.aggregate_durations]
-                + [(f"pod window {int(prod.report_interval)} s", prod.report_interval,
-                    pod_keys)]):
+        for label, dur, keys in report_windows(prod, node_keys, pods_by_node):
             t0 = time.perf_counter()
             w = store.window(NOW, dur, keys)
             build = (time.perf_counter() - t0) * 1e3
@@ -4542,6 +4710,201 @@ def spread_study(dev, reps: int = 21) -> int:
     return 0
 
 
+# ------------------------------------------------------- the --agg study
+
+SCATTER_DIRTY = 100  # dirty rows of a warm residency sync: an index of 128
+
+
+def ptxas_report(path, name: str) -> list:
+    """The ``-Xptxas -v`` lines of the entry points of a built library whose
+    name contains ``name``: registers, shared memory, spills."""
+    log = path.with_suffix(".log")
+    out, keep = [], False
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if "Compiling entry function" in line:
+            keep = name in line
+        if keep and any(w in line for w in ("entry function", "registers", "spill", "smem")):
+            out.append(line.strip())
+    return out
+
+
+def window_stages(ma, dev, w, reps: int = 5):
+    """One window's report-tick stages after its host build, as
+    ``NodeMetricProducer._aggregate`` runs them: the upload of the three
+    [S, T] arrays (host clock to a synchronise), the call (CUDA events
+    around one, the median of ``reps``; around a run of 20, a call), the
+    kernel's own device time (``torch.profiler``) and the [6, S] read-back
+    (host clock).  Returns (the device tensors, the stages)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = tuple(torch.as_tensor(a, device=dev) for a in w)
+    torch.cuda.synchronize()
+    upload = (time.perf_counter() - t0) * 1e3
+
+    def call():
+        return ma.aggregate_node_metrics(*x)
+
+    ms, run = cuda_ms(call, reps=reps), run_ms(call, launches=20)
+    device = device_split(call, (("agg_", "kernel"),), reps=reps).get("kernel")
+    out = call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out.cpu().numpy()
+    return x, dict(upload_ms=upload, ms=ms, ms_run=run, device_ms=device,
+                   readback_ms=(time.perf_counter() - t0) * 1e3)
+
+
+def scatter_table(dev, num_nodes: int):
+    """A rows table at the fleet's width (``random_cluster``'s nodes in a
+    ``ClusterState``) and ``SCATTER_DIRTY`` of its rows padded as the
+    residency pads them: (store, host arrays, index)."""
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.service import state as sm
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    _, nodes = random_cluster(SEED, num_nodes=num_nodes, num_pods=0)
+    st = sm.ClusterState(extra_scalars=(BATCH_CPU, BATCH_MEMORY))
+    for n in nodes:
+        st.upsert_node(n)
+    host = [getattr(st, a) for a in sm.DeviceResidency._ROWS]
+    rng = np.random.default_rng(SEED + 71)
+    real = rng.choice(host[0].shape[0], SCATTER_DIRTY, replace=False).astype(np.int32)
+    return st, host, padded(real)
+
+
+def _stage_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn`` between two synchronises."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def scatter_split_staged(sm, bufs, host, idx, reps: int = 21) -> dict:
+    """One scatter of the residency's entry (``ScatterStage``) split by
+    stage, host medians with a synchronise between stages: the dirty rows
+    gathered straight into the staging (the index check and the wait for
+    the last copy included), the copy and the launch (one call into the
+    library) with the event recorded behind them, and the descriptor's
+    build (once per set of resident buffers); the device times of the
+    copy and of the kernel (``torch.profiler``)."""
+    stage = sm.ScatterStage()
+    stage.bind(bufs)
+    st = {}
+
+    def gather():
+        st["D"] = stage.gather(host, idx)
+
+    def launch():
+        stage.scatter(bufs, st["D"])
+
+    out = {}
+    for name, fn in (("gather", gather), ("copy_launch", launch),
+                     ("descriptor", lambda: stage.bind(bufs))):
+        fn()
+        out[name] = _stage_ms(fn, reps)
+    dev_ms = device_split(launch, (("scatter_rows", "kernel"), ("emcpy", "copy")), reps=reps)
+    out["kernel_ms"], out["copy_ms"] = dev_ms.get("kernel"), dev_ms.get("copy")
+    return out
+
+
+def scatter_study(dev, reps: int = 21) -> dict:
+    """``dstate_scatter`` at the fleet's width, 19 arrays and an index of 128
+    (100 dirty rows): the call (events around one, the median of ``reps``)
+    and a run of 100 back-to-back calls, beside ``index_copy_``'s; the call
+    split by stage; and a warm residency sync of as many dirty rows (host
+    clock to a synchronise, the stamps bumped by hand).  Each scatter is
+    first held equal to the plain version."""
+    from koordinator_tpu_torch.service import state as sm
+
+    st, host, idx = scatter_table(dev, NUM_NODES)
+    bufs0 = sm.dstate_rows(host, dev)
+    vals = tuple(np.ascontiguousarray(h[idx]) for h in host)
+    got = sm.dstate_scatter(tuple(b.clone() for b in bufs0), idx, vals)
+    require_same(f"dstate_scatter D={idx.size}", got, sm.dstate_scatter_plain(
+        tuple(b.clone() for b in bufs0), torch.from_numpy(idx).to(dev),
+        [torch.from_numpy(v).to(dev) for v in vals]))
+    bufs = tuple(b.clone() for b in bufs0)
+
+    def call():
+        return sm.dstate_scatter(bufs, idx, vals)
+
+    def library():
+        i = torch.from_numpy(idx).to(dev).long()
+        return tuple(b.index_copy_(0, i, torch.from_numpy(v).to(dev)) for b, v in zip(bufs, vals))
+
+    out = dict(D=int(idx.size), arrays=len(bufs), row_bytes=sum(
+        b[0].numel() * b.element_size() for b in bufs))
+    out["ms"], out["ms_run"] = cuda_ms(call, reps=reps), run_ms(call)
+    out["library_ms"], out["library_ms_run"] = cuda_ms(library, reps=reps), run_ms(library)
+    out["split"] = scatter_split_staged(sm, bufs, host, idx, reps)
+    res = st.residency
+    res._bind(dev)
+    res._sync("rows")
+    ver, real = st._row_ver, idx[:SCATTER_DIRTY]
+
+    def sync():
+        ver[real] = ver.max() + 1
+        res._sync("rows")
+
+    out["sync_ms"] = _stage_ms(sync, reps)
+    if res.last_dirty_rows != SCATTER_DIRTY:
+        fail(f"the residency synced {res.last_dirty_rows} rows, not {SCATTER_DIRTY}")
+    res.verify()
+    return out
+
+
+def agg_study(dev, reps: int = 5) -> int:
+    """``--agg``: ``aggregate_node_metrics`` at every window one report tick
+    of the koordlet path aggregates (the four node windows, the pod
+    window), each equal to its plain version bit for bit, with S, T, the
+    median valid samples a series, the host build and the upload, kernel
+    and read-back (``window_stages``); the ``-Xptxas -v`` lines of the
+    aggregation's kernels; and ``scatter_study``.  The port is imported
+    from ``--root`` when given (a checkout of this commit or a later one):
+    run two checkouts alternately in one call.  One ``agg_study`` JSON
+    line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import metricsagg as ma
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    out = dict(ptxas=ptxas_report(libs["metricsagg"], "agg"), windows=[])
+    for line in out["ptxas"]:
+        print(f"  ptxas metricsagg: {line}")
+    t0 = time.perf_counter()
+    _, store, prod, node_keys, pods_by_node, _ = fleet_store(dev, NUM_NODES)
+    out["fill_s"] = time.perf_counter() - t0
+    for label, dur, keys in report_windows(prod, node_keys, pods_by_node):
+        t0 = time.perf_counter()
+        w = store.window(NOW, dur, keys)
+        build = (time.perf_counter() - t0) * 1e3
+        x, rec = window_stages(ma, dev, w, reps)
+        require_same(f"aggregate_node_metrics {label}", (ma.aggregate_node_metrics(*x),),
+                     (ma.aggregate_node_metrics_plain(*x),))
+        S, T = w[0].shape
+        b, by = agg_bound(x[1])
+        rec = dict(window=label, S=S, T=T, valid_median=float(np.median(w[1].sum(axis=1))),
+                   build_ms=build, **rec, bound_ms=b, bound_by=by)
+        out["windows"].append(rec)
+        print(f"  {label}: {S} x {T}, median {rec['valid_median']:g} valid; build "
+              f"{build:.1f} ms, upload {rec['upload_ms']:.1f}, call {rec['ms']:.4f} (run "
+              f"{rec['ms_run']:.4f}, device {rec['device_ms']}; bound {b:.4f}), read-back "
+              f"{rec['readback_ms']:.2f}; equal plain", flush=True)
+        del x, w
+    out["scatter"] = scatter_study(dev)
+    sc = out["scatter"]
+    print(f"  dstate_scatter D={sc['D']}: call {sc['ms']:.4f} ms, run {sc['ms_run']:.4f}; "
+          f"index_copy_ call {sc['library_ms']:.4f}, run {sc['library_ms_run']:.4f}; split "
+          f"{sc['split']}; residency sync {sc['sync_ms']:.4f} ms", flush=True)
+    print(json.dumps({"agg_study": out, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
     if "--root" in sys.argv:
         # time another checkout's port (a parent commit unpacked beside)
@@ -4555,6 +4918,8 @@ def main() -> int:
         return scan_study(torch.device("cuda:0"))
     if "--spread" in sys.argv:
         return spread_study(torch.device("cuda:0"))
+    if "--agg" in sys.argv:
+        return agg_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -4598,6 +4963,7 @@ def main() -> int:
         check_device_kernels(dev, 16, 500, gm, timed=False)
     check_extend_kernel(dev, 300, timed=False)
     check_extend_cases(dev)
+    check_scatter_cases(dev)
     for con in (False, True):
         check_extra_kernels(small, con, timed=False)
     check_extra_kernels(small, True, timed=False, commit_cap=1)
@@ -4620,6 +4986,7 @@ def main() -> int:
     # the koordlet slice's kernels at the small shapes
     check_shard_kernels(small512, (1, 2, KOORDLET_SHARDS), timed=False)
     check_metricsagg_kernels(dev)
+    check_agg_cases(dev)
     del small512
     # the round loop's edge cases over a grid of many blocks
     many = build_inputs(*random_cluster(SEED, num_nodes=2000, num_pods=1000), dev, scalars)
@@ -4715,7 +5082,8 @@ def main() -> int:
     del kl_windows
     records.append(rec)
     print(f"  aggregate_node_metrics at the fleet's shape ({rec['shape']}): {rec['ms']:.3f} ms "
-          f"(plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms)", flush=True)
+          f"a call, {rec['device_ms']} ms of kernel (plain {rec['plain_ms']:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms); the windows {rec['variants']}", flush=True)
     for path, launched, kernels in (
         ("cold", cold_launches, ("score", "schedule_keys", "schedule_rounds")),
         ("warm", warm_launches, WARM_PATH_KERNELS),
@@ -4745,7 +5113,7 @@ def main() -> int:
             "steps_bound_ms", "keys_device_ms", "steps_device_ms", "ms_bench_sim",
             "plain_ms_bench_sim", "bound_ms_bench_sim", "ms_bench_sim_deviation",
             "plain_ms_bench_sim_deviation", "device_split_ms", "score_ms", "ms_run",
-            "library_ms_run")
+            "library_ms_run", "residency_ms", "bound_over", "device_ms")
     kernels = []
     for rec in records:
         name = rec["name"]

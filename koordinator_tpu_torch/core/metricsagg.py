@@ -12,7 +12,9 @@ nearest rank: the float32 product and the -1 are the reference's).
 
 ``aggregate_node_metrics`` is the kernel's wrapper: CPU tensors take the
 plain version (``aggregate_node_metrics_plain``), CUDA tensors launch
-``csrc/metricsagg.cu`` or raise.  The plain version sums in the kernel's
+``csrc/metricsagg.cu`` or raise: the kernel takes a warp a series up to
+256 samples (every window of the port's store), a block a series above.
+The plain version sums in the kernel's
 order (a strided halving tree over the samples padded to a power of two),
 so the two are bit-identical (a NaN mean is the canonical quiet NaN in
 both); against XLA's sum the mean is bit-equal on
@@ -123,8 +125,7 @@ def aggregate_node_metrics(values: torch.Tensor, valid: torch.Tensor,
     """The full NodeMetric AggregatedUsage vector per series: [6, S] float64
     (avg, p50, p90, p95, p99, last).  ``values``/``times`` [S, T] float64,
     ``valid`` [S, T] bool, all on one device.  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/metricsagg.cu`` (T <= 2,048) or
-    raise."""
+    version; CUDA tensors launch ``csrc/metricsagg.cu`` (T <= 2,048) or raise."""
     S, T = values.shape
     for name, t, dtype in (("values", values, torch.float64), ("valid", valid, torch.bool),
                            ("times", times, torch.float64)):

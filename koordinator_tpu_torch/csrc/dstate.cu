@@ -3,14 +3,23 @@
 //
 // 1. scatter_rows replaces the JAX package's `dstate_scatter`
 //    (koordinator_tpu/service/state.py:200 scatter_fn): for every resident
-//    buffer a, buf_a[idx[k]] = vals_a[k].  The wrapper packs the index and
-//    every array's rows into ONE device buffer (one host->device copy);
-//    one launch walks a descriptor table of (buffer, row bytes, offset of
-//    its rows in the packed buffer), grid.y = the array.  Duplicate
-//    indices (the power-of-two padding repeats a real row) carry identical
-//    bytes, so any writer is right.  Bound on an H100: bytes (D rows of
-//    19 arrays, ~0.2 KB a row), in practice the launch latency; a
-//    byte-wise copy keeps every row width and alignment right.
+//    buffer a, buf_a[idx[k]] = vals_a[k].  The host packs the index and
+//    every array's rows into one staging buffer (service/state.py
+//    ScatterStage: pinned, grown by doubling and reused, the dirty rows
+//    gathered straight into it); koord_dstate_scatter copies it to the
+//    device with one cudaMemcpyAsync and launches once over a descriptor
+//    built once per set of resident buffers ([n, 2] int64: destination,
+//    row bytes; each array's rows start at the next 16-byte boundary of
+//    the packed bytes, scatter_layout).  Duplicate indices (the power-of-
+//    two padding repeats a real row) carry identical bytes, so any writer
+//    is right.  Bound on an H100: the packed bytes over PCIe (D rows of
+//    19 arrays, ~0.25 KB a row: ~32 KB, ~0.5 us at 64 GB/s), the device
+//    bytes far less; in practice the host's share of a call.  The kernel
+//    walks rows, not bytes: a group of lanes (a power of two up to 32, as
+//    wide as the row) owns a row of one array and copies it in the widest
+//    unit (16, 8, 4, 2 or 1 bytes) that divides the row and both
+//    pointers; no per-byte division (the first design divided a 64-bit
+//    index by the row width for every byte).
 //
 // 2. extend replaces `dstate_extend` (state.py:208 extend_fn): widen a
 //    resident table's vocabulary axis, [N, c] -> a fresh [N, c'] buffer
@@ -49,23 +58,44 @@
 
 namespace {
 
-struct ScatterDesc {
-  unsigned char* dst[KOORD_DSTATE_MAX_ARRAYS];
-  long long row_bytes[KOORD_DSTATE_MAX_ARRAYS];
-  long long src_off[KOORD_DSTATE_MAX_ARRAYS];
+// KOORD_SCATTER_FIELDS int64 words a buffer in the host descriptor
+#define KOORD_SCATTER_FIELDS 2
+
+struct ScatterArr {
+  unsigned char* dst;
+  long long rb;   // row bytes
+  long long off;  // the rows' offset in the packed bytes
+  int unit_log;   // log2 of the copy unit: 4 (16 bytes) down to 0
+  int lanes_log;  // log2 of the lanes that share a row
 };
 
-__global__ void scatter_rows(ScatterDesc s, const unsigned char* packed, int D) {
-  const int a = blockIdx.y;
+struct ScatterDesc {
+  ScatterArr a[KOORD_DSTATE_MAX_ARRAYS];
+};
+
+template <typename U>
+__device__ __forceinline__ void copy_row(const unsigned char* src, unsigned char* dst,
+                                         long long units, int sub, int lanes) {
+  for (long long u = sub; u < units; u += lanes) ((U*)dst)[u] = ((const U*)src)[u];
+}
+
+__global__ void scatter_rows(ScatterDesc d, const unsigned char* packed, int D) {
+  const ScatterArr& a = d.a[blockIdx.y];
+  const int lanes = 1 << a.lanes_log, sub = threadIdx.x & (lanes - 1);
+  const int per_block = blockDim.x >> a.lanes_log;
   const int* idx = (const int*)packed;
-  const long long rb = s.row_bytes[a];
-  const long long total = (long long)D * rb;
-  const unsigned char* src = packed + s.src_off[a];
-  unsigned char* dst = s.dst[a];
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long k = i / rb;
-    dst[(long long)idx[k] * rb + (i - k * rb)] = src[i];
+  const long long units = a.rb >> a.unit_log;
+  for (int k = blockIdx.x * per_block + (threadIdx.x >> a.lanes_log); k < D;
+       k += gridDim.x * per_block) {
+    const unsigned char* src = packed + a.off + (long long)k * a.rb;
+    unsigned char* dst = a.dst + (long long)idx[k] * a.rb;
+    switch (a.unit_log) {
+      case 4: copy_row<uint4>(src, dst, units, sub, lanes); break;
+      case 3: copy_row<unsigned long long>(src, dst, units, sub, lanes); break;
+      case 2: copy_row<unsigned>(src, dst, units, sub, lanes); break;
+      case 1: copy_row<unsigned short>(src, dst, units, sub, lanes); break;
+      default: copy_row<unsigned char>(src, dst, units, sub, lanes);
+    }
   }
 }
 
@@ -143,26 +173,44 @@ extern "C" const char* koord_strerror(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-extern "C" int koord_dstate_scatter(int n, const void* const* dst, const long long* row_bytes,
-                                    const void* packed, const long long* src_off, int D,
-                                    int device, void* stream) {
-  if (n < 1 || n > KOORD_DSTATE_MAX_ARRAYS) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  ScatterDesc s;
-  long long widest = 0;
-  for (int a = 0; a < n; ++a) {
-    s.dst[a] = (unsigned char*)dst[a];
-    s.row_bytes[a] = row_bytes[a];
-    s.src_off[a] = src_off[a];
-    if (row_bytes[a] > widest) widest = row_bytes[a];
-  }
+// desc: n rows of KOORD_SCATTER_FIELDS int64 words (destination, row
+// bytes); host: the packed staging bytes (pinned), laid out as D int32
+// indices, then each array's D rows from the next 16-byte boundary on;
+// dev: a device buffer of `capacity` bytes that takes them.
+extern "C" int koord_dstate_scatter(int n, const long long* desc, const void* host, void* dev,
+                                    long long capacity, int D, int device, void* stream) {
+  if (n < 1 || n > KOORD_DSTATE_MAX_ARRAYS || D < 1) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  long long blocks = ((long long)D * widest + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
+  ScatterDesc s;
+  long long end = 4LL * D, blocks = 1;
+  for (int i = 0; i < n; ++i) {
+    ScatterArr& a = s.a[i];
+    a.dst = (unsigned char*)desc[(size_t)i * KOORD_SCATTER_FIELDS];
+    a.rb = desc[(size_t)i * KOORD_SCATTER_FIELDS + 1];
+    if (a.rb < 1) return (int)cudaErrorInvalidValue;
+    end = (end + 15) & ~15LL;
+    a.off = end;
+    end += (long long)D * a.rb;
+    const long long align = a.rb | (long long)a.dst | ((long long)dev + a.off);
+    a.unit_log = 4;
+    while (a.unit_log > 0 && (align & ((1LL << a.unit_log) - 1))) --a.unit_log;
+    const long long units = a.rb >> a.unit_log;
+    a.lanes_log = 0;
+    while (a.lanes_log < 5 && (1LL << a.lanes_log) < units) ++a.lanes_log;
+    const long long per_block = threads >> a.lanes_log;
+    const long long need = (D + per_block - 1) / per_block;
+    if (need > blocks) blocks = need;
+  }
+  if (end > capacity) return (int)cudaErrorInvalidValue;
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return (int)e;
+  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
+  e = cudaMemcpyAsync(dev, host, (size_t)end, cudaMemcpyHostToDevice, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   if (blocks > 1024) blocks = 1024;
   scatter_rows<<<dim3((unsigned)blocks, n), threads, 0, (cudaStream_t)stream>>>(
-      s, (const unsigned char*)packed, D);
+      s, (const unsigned char*)dev, D);
   return (int)cudaGetLastError();
 }
 

@@ -202,7 +202,9 @@ SCAN = Kernel("scan", "koord_scan_steps",
 SCAN_CON = Kernel("scan", "koord_scan_steps_con",
                   _SCHED_HEAD + [_I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 # the device residency (csrc/dstate.cu)
-DSTATE_SCATTER = Kernel("dstate", "koord_dstate_scatter", [_I, _P, _P, _P, _P, _I, _I, _P])
+# the buffer count, the descriptor ([n, 2] int64: destination, row bytes),
+# the pinned staging, the device buffer and its capacity in bytes, D
+DSTATE_SCATTER = Kernel("dstate", "koord_dstate_scatter", [_I, _P, _P, _P, _L, _I, _I, _P])
 DSTATE_GATE = Kernel(
     "dstate", "koord_dstate_gate",
     [_I, _P, _P, _P, _P, _P, _D, _I, _I, _D, _I, _P, _P, _P, _P, _I, _P],

@@ -29,8 +29,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import heapq
 import itertools
+import math
 from typing import Dict, List, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
@@ -162,29 +164,172 @@ def dstate_rows(arrays, device: torch.device) -> tuple:
     return tuple(out)
 
 
-def _scatter_inputs(bufs, idx, vals):
-    """Validate one delta batch against the resident buffers before any
-    launch; return (idx, vals) as CPU tensors."""
-    idx = np.asarray(idx)
-    if idx.dtype != np.int32 or idx.ndim != 1 or idx.size == 0:
-        raise ValueError(f"idx: expected a non-empty 1-D int32 array, got {idx.dtype} {idx.shape}")
-    if len(vals) != len(bufs):
-        raise ValueError(f"{len(vals)} value arrays for {len(bufs)} buffers")
-    rows, dev = bufs[0].shape[0], bufs[0].device
-    if int(idx.min()) < 0 or int(idx.max()) >= rows:
-        raise ValueError(f"idx outside [0, {rows})")
-    out = []
-    for i, (b, v) in enumerate(zip(bufs, vals)):
-        v = _host_tensor(v)
-        want = (idx.size,) + tuple(b.shape[1:])
-        if (b.device != dev or b.shape[0] != rows or not b.is_contiguous()
-                or v.dtype != b.dtype or tuple(v.shape) != want):
-            raise ValueError(
-                f"array {i}: buffer {b.dtype} {tuple(b.shape)} on {b.device}, "
-                f"values {v.dtype} {tuple(v.shape)} (want {want})"
-            )
-        out.append(v)
-    return torch.from_numpy(idx), out
+def scatter_layout(row_bytes, D: int) -> tuple:
+    """The packed bytes of one scatter of ``D`` rows (csrc/dstate.cu's
+    ``koord_dstate_scatter``): the D int32 indices, then each array's D
+    rows from the next 16-byte boundary on.  Returns (each array's offset,
+    the total bytes)."""
+    offsets, end = [], 4 * D
+    for rb in row_bytes:
+        end = (end + 15) & ~15
+        offsets.append(end)
+        end += D * rb
+    return offsets, end
+
+
+@functools.lru_cache(maxsize=None)
+def _np_dtype(dtype: torch.dtype):
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+class ScatterStage:
+    """``dstate_scatter``'s staging for one set of resident buffers: the
+    descriptor of the buffers (``bind``, rebuilt only when they change),
+    and a packed host buffer (pinned for a card) and device buffer, both
+    grown by doubling and reused call after call.  ``gather`` takes the
+    rows of the host arrays straight into the staging, ``pack`` given
+    rows; ``scatter`` applies them: on the CPU the plain version from the
+    staging's views, on a card one host->device copy and one launch of
+    ``csrc/dstate.cu``.  The staging is rewritten only after the event
+    recorded behind the last copy and launch has completed."""
+
+    def __init__(self):
+        self.binds = 0  # descriptors built
+        self.desc = None  # ctypes int64 [n, 2]: destination, row bytes
+        self.ptrs: tuple = ()
+        self.rows = 0
+        self.row_bytes: tuple = ()
+        self.row_total = 0  # bytes of one row over every array
+        self.device: Optional[torch.device] = None
+        self._key = None
+        self._layout: tuple = ()  # (numpy dtype, row shape) of each buffer
+        self._host: Optional[torch.Tensor] = None
+        self._dev: Optional[torch.Tensor] = None
+        self._views: Dict[int, tuple] = {}  # D -> (index view, row views)
+        self._event = None
+        self._pending = False
+        self._stream = None
+
+    def bind(self, bufs) -> None:
+        """Validate the resident buffers and build their descriptor: one
+        device, one row count, contiguous, at most ``cuda.DSTATE_MAX_ARRAYS``
+        on a card."""
+        if not bufs:
+            raise ValueError("no buffers to scatter into")
+        rows, dev = bufs[0].shape[0], bufs[0].device
+        if dev.type != "cpu" and len(bufs) > cuda.DSTATE_MAX_ARRAYS:
+            raise ValueError(f"{len(bufs)} buffers exceed {cuda.DSTATE_MAX_ARRAYS}")
+        for i, b in enumerate(bufs):
+            if b.device != dev or b.shape[0] != rows or not b.is_contiguous():
+                raise ValueError(f"buffer {i}: {b.dtype} {tuple(b.shape)} on {b.device} "
+                                 f"(want {rows} contiguous rows on {dev})")
+        layout = tuple((_np_dtype(b.dtype), tuple(b.shape[1:])) for b in bufs)
+        row_bytes = tuple(b.element_size() * math.prod(b.shape[1:]) for b in bufs)
+        if dev != self.device:
+            # the staging is pinned only for a card, the device buffer, the
+            # event and the stream belong to one device: a new device starts
+            # them anew, once the last copy out of the old ones is done
+            if self._pending:
+                self._event.synchronize()
+            self._host = self._dev = self._event = self._stream = None
+            self._pending = False
+        if layout != self._layout or dev != self.device:
+            self._views = {}
+        self.ptrs = tuple(b.data_ptr() for b in bufs)
+        self.desc = (ctypes.c_longlong * (2 * len(bufs)))(
+            *(v for p, rb in zip(self.ptrs, row_bytes) for v in (p, rb)))
+        self.rows, self.device, self._layout = rows, dev, layout
+        self.row_bytes, self.row_total = row_bytes, sum(row_bytes)
+        self._key = self._key_of(bufs)
+        self.binds += 1
+
+    @staticmethod
+    def _key_of(bufs) -> tuple:
+        return (bufs[0].device,) + tuple((b.data_ptr(), b.dtype, b.shape) for b in bufs)
+
+    def bound_to(self, bufs) -> bool:
+        return self._key == self._key_of(bufs)
+
+    def _index(self, idx) -> int:
+        idx = np.asarray(idx)
+        if idx.dtype != np.int32 or idx.ndim != 1 or idx.size == 0:
+            raise ValueError(f"idx: expected a non-empty 1-D int32 array, got {idx.dtype} "
+                             f"{idx.shape}")
+        if int(idx.min()) < 0 or int(idx.max()) >= self.rows:
+            raise ValueError(f"idx outside [0, {self.rows})")
+        return int(idx.size)
+
+    def _staging(self, D: int) -> tuple:
+        """(index view, row views) of the staging for ``D`` rows, after the
+        last copy out of it has completed."""
+        if self._pending:
+            self._event.synchronize()
+            self._pending = False
+        views = self._views.get(D)
+        if views is None:
+            offsets, total = scatter_layout(self.row_bytes, D)
+            if self._host is None or self._host.numel() < total:
+                cap = max(4096, 1 << (total - 1).bit_length())
+                self._host = torch.empty(cap, dtype=torch.uint8,
+                                         pin_memory=self.device.type == "cuda")
+                self._views = {}
+            raw = self._host.numpy()
+            views = (raw[: 4 * D].view(np.int32),
+                     [raw[o: o + D * rb].view(dt).reshape((D,) + shape)
+                      for o, rb, (dt, shape) in zip(offsets, self.row_bytes, self._layout)],
+                     total)
+            self._views[D] = views
+        return views
+
+    def gather(self, host, idx) -> int:
+        """The rows ``host[a][idx]`` of every host array (the buffers' own
+        dtypes and row shapes) into the staging; returns D."""
+        D = self._index(idx)
+        iv, rows, _ = self._staging(D)
+        iv[:] = idx
+        for h, out in zip(host, rows):
+            np.take(h, idx, axis=0, out=out, mode="clip")
+        return D
+
+    def pack(self, idx, vals) -> int:
+        """Given rows ``vals`` (one host array per buffer, [D, ...]) into the
+        staging, validated against the buffers in one pass; returns D."""
+        D = self._index(idx)
+        if len(vals) != len(self._layout):
+            raise ValueError(f"{len(vals)} value arrays for {len(self._layout)} buffers")
+        for i, (v, (dt, shape)) in enumerate(zip(vals, self._layout)):
+            if v.dtype != dt or v.shape != (D,) + shape:
+                raise ValueError(f"array {i}: values {v.dtype} {v.shape} for a buffer of "
+                                 f"{dt} rows {shape} (want {(D,) + shape})")
+        iv, rows, _ = self._staging(D)
+        iv[:] = idx
+        for v, out in zip(vals, rows):
+            out[...] = v
+        return D
+
+    def scatter(self, bufs, D: int) -> tuple:
+        """Apply the staged rows to ``bufs`` (the buffers bound), in place."""
+        iv, rows, total = self._views[D]
+        dev = self.device
+        if dev.type == "cpu":
+            return dstate_scatter_plain(bufs, torch.from_numpy(iv),
+                                        [torch.from_numpy(r) for r in rows])
+        if self._dev is None or self._dev.numel() < total:
+            self._dev = torch.empty(self._host.numel(), dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        if self._event is None:
+            self._event = torch.cuda.Event()
+        elif stream != self._stream:
+            # the device buffer is reused in stream order: a new stream waits
+            # for the last launch that read it
+            stream.wait_event(self._event)
+        self._stream = stream
+        cuda.DSTATE_SCATTER.launch(len(bufs), self.desc, self._host.data_ptr(),
+                                   self._dev.data_ptr(), self._dev.numel(), D,
+                                   cuda.device_index(dev), stream.cuda_stream)
+        self._event.record(stream)
+        self._pending = True
+        return tuple(bufs)
 
 
 def dstate_scatter_plain(bufs, idx: torch.Tensor, vals) -> tuple:
@@ -196,35 +341,23 @@ def dstate_scatter_plain(bufs, idx: torch.Tensor, vals) -> tuple:
     return tuple(bufs)
 
 
+# the staging of calls that name their buffers each time (tests, studies);
+# the residency keeps one a table
+_STAGE = ScatterStage()
+
+
 def dstate_scatter(bufs, idx, vals) -> tuple:
     """Apply one delta batch to the resident buffers, in place: the JAX
     package's ``dstate_scatter`` (state.py:200).  ``idx`` [D] int32 (host)
     is padded to a power-of-two bucket by repeating a real row; ``vals``
-    are the host rows ``host[idx]``, one array per buffer.  On CUDA the
-    index and every row travel in ONE pinned host->device copy and ONE
-    launch of ``csrc/dstate.cu`` walks a descriptor table of (buffer, row
-    bytes)."""
-    idx_t, vals_t = _scatter_inputs(bufs, idx, vals)
-    dev = bufs[0].device
-    if dev.type == "cpu":
-        return dstate_scatter_plain(bufs, idx_t, vals_t)
-    if len(bufs) > cuda.DSTATE_MAX_ARRAYS:
-        raise ValueError(f"{len(bufs)} buffers exceed {cuda.DSTATE_MAX_ARRAYS}")
-    parts = [idx_t.numpy().view(np.uint8)] + [v.numpy().reshape(-1).view(np.uint8) for v in vals_t]
-    offsets = np.cumsum([0] + [p.size for p in parts])
-    pinned = torch.empty(int(offsets[-1]), dtype=torch.uint8, pin_memory=True)
-    np.concatenate(parts, out=pinned.numpy())
-    packed = torch.empty(pinned.shape, dtype=torch.uint8, device=dev)
-    packed.copy_(pinned, non_blocking=True)
-    n = len(bufs)
-    dst = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bufs))
-    row_bytes = (ctypes.c_longlong * n)(*(b[0].numel() * b.element_size() for b in bufs))
-    src_off = (ctypes.c_longlong * n)(*(int(o) for o in offsets[1:-1]))
-    cuda.DSTATE_SCATTER.launch(
-        n, dst, row_bytes, packed.data_ptr(), src_off, int(idx_t.shape[0]),
-        cuda.device_index(dev), cuda.stream(dev),
-    )
-    return tuple(bufs)
+    are the host rows ``host[idx]``, one array per buffer.  They are packed
+    into a ``ScatterStage`` (rebound when ``bufs`` change); on CUDA the
+    index and every row travel in ONE host->device copy and ONE launch of
+    ``csrc/dstate.cu`` applies them.  The residency gathers its rows
+    straight into a stage of its own (``DeviceResidency._sync``)."""
+    if not bufs or not _STAGE.bound_to(bufs):
+        _STAGE.bind(bufs)
+    return _STAGE.scatter(bufs, _STAGE.pack(idx, vals))
 
 
 def _gate_inputs(raw):
@@ -378,7 +511,7 @@ class _ResidentTable:
     the engine's warm-carry watermark: a SCORE syncs the residency without
     touching the carry)."""
 
-    __slots__ = ("attrs", "ver_attr", "bufs", "watermark", "shape_key", "audit_cursor")
+    __slots__ = ("attrs", "ver_attr", "bufs", "watermark", "shape_key", "audit_cursor", "stage")
 
     def __init__(self, attrs: tuple, ver_attr: str):
         self.attrs = attrs
@@ -387,6 +520,14 @@ class _ResidentTable:
         self.watermark = 0
         self.shape_key: Optional[tuple] = None
         self.audit_cursor = 0  # rotating sampled-audit window start
+        # the scatter's staging, bound to ``bufs`` whenever they are replaced
+        self.stage = ScatterStage()
+
+    def adopt(self, bufs: tuple) -> None:
+        """New resident buffers (a full upload or a widening): the scatter's
+        descriptor is rebuilt for them."""
+        self.bufs = bufs
+        self.stage.bind(bufs)
 
 
 def _norm_device(device) -> torch.device:
@@ -409,7 +550,8 @@ class DeviceResidency:
     The tables live on one explicit device, bound by the first read; a
     read asking for another device raises.  A cold table adopts wholesale
     (``dstate_rows``); a warm one ships only the rows whose stamp moved
-    past its watermark in one ``dstate_scatter``; past
+    past its watermark in one ``dstate_scatter``, gathered straight into
+    the table's ``ScatterStage``; past
     ``scatter_max_frac`` of the capacity it re-uploads wholesale.  A
     vocabulary-axis growth recorded by the store (``note_vocab_growth``)
     widens the resident buffers on the device (``dstate_extend``) instead
@@ -528,7 +670,7 @@ class DeviceResidency:
         bufs = list(t.bufs)
         for k, b in zip(grow, wide):
             bufs[k] = b
-        t.bufs = tuple(bufs)
+        t.adopt(tuple(bufs))
         t.shape_key = shape_key
         self.extends += 1
         return True
@@ -541,7 +683,7 @@ class DeviceResidency:
         if t.bufs is None or t.shape_key != shape_key:
             if not self._vocab_extend(t, host, shape_key):
                 # cold (first touch, capacity growth, invalidation)
-                t.bufs = dstate_rows(host, self.device)
+                t.adopt(dstate_rows(host, self.device))
                 t.shape_key = shape_key
                 t.watermark = int(ver.max(initial=0))
                 self.full_uploads += 1
@@ -562,11 +704,12 @@ class DeviceResidency:
         db = next_bucket(int(dirty.size), 16)
         idx = np.full(db, dirty[0], dtype=np.int32)
         idx[: dirty.size] = dirty
-        vals = tuple(np.ascontiguousarray(h[idx]) for h in host)
-        t.bufs = dstate_scatter(t.bufs, idx, vals)
+        # the rows host[idx] straight into the staging: one copy and one
+        # launch of dstate_scatter's kernel on a card
+        t.stage.scatter(t.bufs, t.stage.gather(host, idx))
         t.watermark = int(ver.max(initial=0))
         self.scatters += 1
-        self.h2d_bytes_total += idx.nbytes + sum(v.nbytes for v in vals)
+        self.h2d_bytes_total += idx.nbytes + db * t.stage.row_total
         if name == "rows":
             self._gate_key = None
         return t.bufs

@@ -950,3 +950,44 @@ def test_mesh_across_cards(card):
     for want in (ShardedEngine(st, 4, engine=eng).score(pods, now=NOW), eng.score(pods, now=NOW)):
         assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     assert got[1].any() and not got[1].all()
+
+
+@pytest.mark.cuda
+def test_agg_cases_equal_plain(card):
+    """``aggregate_node_metrics`` on ``chip_smoke.agg_cases``: T = 1, 33 and
+    256 on the warp kernel (the compaction's boundaries, the full sort's
+    valid 1e300, +inf and NaN), 257 and 2,048 on the block kernel, and
+    store windows whose valid arc wraps the ring, bit for bit."""
+    before = cuda.AGGREGATE_NODE_METRICS.launches
+    chip_smoke.check_agg_cases(card)
+    assert cuda.AGGREGATE_NODE_METRICS.launches == before + len(chip_smoke.agg_cases(card))
+
+
+@pytest.mark.cuda
+def test_scatter_cases_equal_plain(card):
+    """``dstate_scatter`` on ``chip_smoke.scatter_cases``: rows of 1 to 56
+    bytes, one row, duplicate padded indices, and three scatters issued
+    back to back with no synchronise (the staging reused), against the
+    plain version and ``index_copy_``."""
+    before = cuda.DSTATE_SCATTER.launches
+    chip_smoke.check_scatter_cases(card)
+    assert cuda.DSTATE_SCATTER.launches == before + sum(
+        len(b) for _, _, b in chip_smoke.scatter_cases())
+
+
+def test_agg_and_scatter_cases_run_on_cpu_tensors():
+    """The two kernels' edge-case checks on CPU tensors, where both
+    wrappers take their plain versions: the comparison logic, and no
+    launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    chip_smoke.check_agg_cases(torch.device("cpu"))
+    chip_smoke.check_scatter_cases(torch.device("cpu"))
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_agg_bound_counts_what_the_inputs_need():
+    """Two series of three samples, three valid: 6 valid bytes, 16 bytes a
+    valid sample, 48 bytes a series of output; no operations."""
+    valid = torch.tensor([[True, False, True], [False, True, False]])
+    ms, by = chip_smoke.agg_bound(valid)
+    assert by == "bytes" and ms == (6 + 3 * 16 + 2 * 48) / chip_smoke.HBM_BYTES_PER_S * 1e3

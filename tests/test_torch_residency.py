@@ -9,7 +9,10 @@ and the served (gated) node inputs equal the JAX package's.  Also: zero
 host->device bytes in steady state, the wholesale re-upload past 25% dirty
 rows, the audit that catches a corrupted row and rebuilds cold, the
 refusals of the policy and device tables, the gate at NaN and boundary
-times, the scatter with duplicate padded indices, and one device per store.
+times, the scatter with duplicate padded indices, one device per store,
+and the scatter's staging: its packed layout, its descriptor, rebuilt
+only when a table's buffers are replaced, and its buffers, started anew
+on another device.
 """
 
 import jax.numpy as jnp
@@ -334,3 +337,138 @@ def test_vocab_growth_counters_match_jax_but_the_device_table():
     assert d["jax"] == {"h2d_bytes_total": table, "full_uploads": 1, "scatters": 0,
                         "extends": 0}
     assert tst.residency.verify() > 0
+
+
+def test_scatter_staging_packs_as_concatenated_rows():
+    """``ScatterStage.gather`` (the residency's entry) and ``pack`` (given
+    rows) lay out the index and every array's rows ``host[idx]`` at
+    ``scatter_layout``'s offsets: at D = 16 the sections need no padding
+    and the staging equals ``np.concatenate`` of the index and the rows'
+    bytes; at D = 1 each section does, at its 16-byte boundary."""
+    st = _store(n=40)
+    host = [getattr(st, a) for a in sm.DeviceResidency._ROWS]
+    bufs = sm.dstate_rows(host, CPU_DEV)
+    stage = sm.ScatterStage()
+    stage.bind(bufs)
+    rb = [h[0].nbytes for h in host]
+    assert stage.row_bytes == tuple(rb) and stage.row_total == sum(rb)
+    rng = np.random.default_rng(5)
+    for D in (16, 1):
+        idx = rng.choice(host[0].shape[0], D, replace=False).astype(np.int32)
+        offsets, total = sm.scatter_layout(rb, D)
+        want = [idx.view(np.uint8)] + [np.ascontiguousarray(h[idx]).reshape(-1).view(np.uint8)
+                                      for h in host]
+        for fill in (lambda: stage.gather(host, idx),
+                     lambda: stage.pack(idx, [np.ascontiguousarray(h[idx]) for h in host])):
+            assert fill() == D
+            got = stage._host.numpy()[:total]
+            if D % 16 == 0:
+                assert offsets == list(np.cumsum([p.size for p in want])[:-1])
+                assert np.array_equal(got, np.concatenate(want))
+            for off, part in zip([0] + offsets, want):
+                assert np.array_equal(got[off: off + part.size], part)
+            assert all(o % 16 == 0 for o in offsets)
+    # applied, the staged rows are the host rows
+    fresh = sm.dstate_rows([np.zeros_like(h) for h in host], CPU_DEV)
+    stage.bind(fresh)
+    idx = np.arange(16, dtype=np.int32)
+    stage.scatter(fresh, stage.gather(host, idx))
+    for b, h in zip(fresh, host):
+        assert np.array_equal(b[:16].numpy(), h[:16], equal_nan=h.dtype.kind == "f")
+
+
+def test_scatter_descriptor_rebuilt_only_with_new_buffers():
+    """A table's scatter descriptor names its resident buffers: built on the
+    cold upload, kept across scatters, rebuilt after a widening of the
+    vocabulary axis (``dstate_extend``) and after a full upload (capacity
+    growth), each time with the new buffers' pointers and row bytes."""
+    from torch_parity import device_cluster, engine_of, pkg, policy_batch
+
+    k = pkg("torch")
+    st = device_cluster(k, device_state=True)
+    eng, batch = engine_of(k, st), policy_batch(k)
+    res = st.residency
+
+    def named(table):
+        t = res._tables[table]
+        return t.stage.ptrs == tuple(b.data_ptr() for b in t.bufs) and t.stage.row_bytes == tuple(
+            b[0].numel() * b.element_size() for b in t.bufs)
+
+    eng.score(batch, now=NOW)
+    binds = {n: t.stage.binds for n, t in res._tables.items()}
+    assert binds == {"rows": 1, "policy": 1, "device": 1} and all(map(named, binds))
+    st.update_metric("ep-1", k.NodeMetric(node_usage={"cpu": 500}, update_time=NOW))
+    scatters = res.scatters
+    eng.score(batch, now=NOW + 1)
+    assert res.scatters == scatters + 1 and res._tables["rows"].stage.binds == 1
+    extends = res.extends
+    for i in range(st._Gb - len(st._sig_vocab) + 1):
+        st.assign_pod(f"ep-{1 + i % 10}", k.AssignedPod(pod=k.Pod(
+            name=f"grow-{i}", requests={"cpu": 100}, labels={"team": f"grow-{i}"}),
+            assign_time=NOW))
+    eng.score(batch, now=NOW + 2)
+    assert res.extends == extends + 1
+    assert res._tables["policy"].stage.binds == 2 and named("policy")
+    uploads = res.full_uploads
+    for i in range(st.capacity + 1):
+        st.upsert_node(k.Node(name=f"more-{i}", allocatable={"cpu": 8000, "memory": 16 << 30}))
+    eng.score(batch, now=NOW + 3)
+    assert res.full_uploads > uploads
+    assert res._tables["rows"].stage.binds == 2 and named("rows")
+    assert res.verify() > 0
+
+
+def _bufs_on(host, dev: str):
+    """The host arrays as resident buffers on ``dev`` (the CPU, or ``meta``:
+    the shapes and dtypes of another device with no data)."""
+    bufs = sm.dstate_rows(host, CPU_DEV)
+    return bufs if dev == "cpu" else tuple(torch.empty_like(b, device=dev) for b in bufs)
+
+
+class _Event:
+    """An event whose ``synchronize`` is counted (a copy still in flight)."""
+
+    def __init__(self):
+        self.waits = 0
+
+    def synchronize(self):
+        self.waits += 1
+
+
+@pytest.mark.parametrize("first,then,layout,kept", [
+    ("cpu", "meta", "same", False), ("meta", "cpu", "same", False),
+    ("meta", "meta", "wider", True), ("cpu", "cpu", "same", True),
+    ("cpu", "cpu", "wider", True)])
+def test_scatter_stage_rebound_to_another_device_starts_anew(first, then, layout, kept):
+    """A stage rebound to buffers on another device drops its staging, its
+    device buffer, its event and its stream (each belongs to one device, the
+    staging is pinned only for a card), after waiting for the last copy out
+    of them; rebound on the same device it keeps them for reuse.  Either way
+    the next ``gather`` stages the new buffers' rows."""
+    st = _store(n=40)
+    host = [getattr(st, a) for a in sm.DeviceResidency._ROWS]
+    stage = sm.ScatterStage()
+    stage.bind(_bufs_on(host, first))
+    idx = np.arange(16, dtype=np.int32)
+    stage.gather(host, idx)
+    staging, dev_buf, event, stream = stage._host, torch.empty(8, dtype=torch.uint8), _Event(), "s"
+    stage._dev, stage._event, stage._stream, stage._pending = dev_buf, event, stream, True
+    if layout == "wider":
+        n = host[0].shape[0]
+        host = host + [np.arange(n * 3, dtype=np.float64).reshape(n, 3)]
+    bufs = _bufs_on(host, then)
+    stage.bind(bufs)
+    assert stage.device == torch.device(then) and stage.ptrs == tuple(b.data_ptr() for b in bufs)
+    if kept:
+        assert (stage._host, stage._dev, stage._event, stage._stream) == (
+            staging, dev_buf, event, stream)
+        assert event.waits == 0 and stage._pending
+        stage._pending = False  # no copy in flight here
+    else:
+        assert (stage._host, stage._dev, stage._event, stage._stream) == (None,) * 4
+        assert event.waits == 1 and not stage._pending
+    D = stage.gather(host, idx)
+    _, rows, _ = stage._views[D]
+    assert stage._host is not None and not stage._host.is_pinned()
+    for h, r in zip(host, rows):
+        assert np.array_equal(r, h[idx], equal_nan=h.dtype.kind == "f")
