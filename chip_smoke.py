@@ -2252,6 +2252,142 @@ def check_strategy_score(inp, timed: bool):
     return out if timed else None
 
 
+def synthetic_inputs(dev, seed: int, P: int, N: int, R: int, Rf: int, Rs: int,
+                     bypass=None) -> dict:
+    """The pair function's inputs at any widths, made with numpy from
+    ``seed``: random rows with zeros, overcommitted nodes, both LoadAware
+    branches and the filters' edges; ``bypass`` the NodeFit scalar bypass
+    (default none)."""
+    from koordinator_tpu_torch.core.loadaware import LoadAwareNodeArrays, LoadAwarePodArrays
+    from koordinator_tpu_torch.core.nodefit import (NodeFitNodeArrays, NodeFitPodArrays,
+                                                     NodeFitStatic)
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    def ints(lo, hi, shape, zeros=0.1):
+        a = rng.integers(lo, hi, size=shape).astype(np.int64)
+        return np.where(rng.random(shape) < zeros, 0, a)
+
+    def bools(p, shape):
+        return rng.random(shape) < p
+
+    la_alloc = ints(1000, 16000, (N, R))
+    la_nodes = LoadAwareNodeArrays(
+        t(la_alloc), t(ints(0, 18000, (N, R))), t(ints(0, 18000, (N, R))), t(bools(0.9, N)),
+        t(ints(0, 16000, (N, R))), t(bools(0.8, N)), t(ints(0, 100, (N, R), 0.3)),
+        t(ints(0, 16000, (N, R))), t(bools(0.7, N)), t(ints(0, 100, (N, R), 0.3)),
+        t(bools(0.5, N)))
+    la_pods = LoadAwarePodArrays(t(ints(0, 4000, (P, R))), t(bools(0.3, P)), t(bools(0.4, P)),
+                                 t(bools(0.1, P)))
+    req = ints(0, 4000, (P, Rf), 0.3)
+    nf_pods = NodeFitPodArrays(t(req), t(ints(0, 4000, (P, Rs), 0.3)),
+                               t(req.any(axis=1) | bools(0.1, P)))
+    nf_nodes = NodeFitNodeArrays(t(ints(1000, 64000, (N, Rf))), t(ints(0, 60000, (N, Rf))),
+                                 t(ints(0, 110, N, 0.0)), t(np.full(N, 110, np.int64)),
+                                 t(ints(1000, 64000, (N, Rs))), t(ints(0, 70000, (N, Rs))))
+    static = NodeFitStatic(always_check=tuple(bool(b) for b in bools(0.5, Rf)),
+                           scalar_bypass=tuple(bypass or (False,) * Rs),
+                           weights=tuple(int(w) for w in rng.integers(1, 4, Rs)))
+    return dict(la_pods=la_pods, nf_pods=nf_pods, la_nodes=la_nodes, nf_nodes=nf_nodes,
+                valid=t(bools(0.95, N)), weights=t(rng.integers(1, 4, R).astype(np.int64)),
+                static=static)
+
+
+# capacities whose quotients (cap - used) * 100 / cap the boundary case
+# sweeps: small, odd, just below 2**55 (the largest the score kernel's
+# float estimate takes), near 2**62 / 100, and the largest whose products
+# stay below 2**63 (the reference's domain: quantities times 100 fit int64)
+BOUNDARY_CAPS = (1, 3, 7, 99, 100, 101, 12_345, 10**9 + 7, 2**55 - 1000, 2**55 - 1,
+                 2**62 // 100 - 1, 2**62 // 100, 2**62 // 100 + 1, (2**63 - 1) // 100 - 4)
+
+
+def boundary_inputs(dev, seed: int) -> dict:
+    """Nodes whose quotients fall on each side of every integer step: for
+    each capacity of ``BOUNDARY_CAPS`` and k in 0..100, a node whose base
+    (and NodeFit requested score) puts the pods' free capacity (cap - used,
+    est = q for pod q) at floor(k * cap / 100) - 4 .. + 3, so used == cap
+    and used > cap come up too; the second half of the nodes puts the
+    requested score itself there (MostAllocated's quotient, a request never
+    below 0); a few nodes of capacity 0."""
+    base = synthetic_inputs(dev, seed, 8, 2 * 101 * len(BOUNDARY_CAPS) + 4, 2, 3, 2)
+    caps, free = [], []
+    for cap in BOUNDARY_CAPS:
+        for k in range(101):
+            caps.append(cap)
+            free.append(k * cap // 100 + 3)
+    caps = np.array(caps * 2 + [0] * 4, dtype=np.int64)
+    free = np.array(free * 2 + [0] * 4, dtype=np.int64)
+    half = np.arange(caps.shape[0]) < caps.shape[0] // 2
+    rot = lambda a: np.roll(a, 37)  # noqa: E731 — the second resource's steps elsewhere
+    dev_t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    la_alloc = np.stack([caps, rot(caps)], axis=1)
+    la_base = np.stack([caps - free, rot(caps - free)], axis=1)
+    nreq = np.maximum(np.where(half[:, None], la_base, np.stack([free - 7, rot(free - 7)],
+                                                                 axis=1)), 0)
+    q = np.arange(8, dtype=np.int64)[:, None].repeat(2, axis=1)
+    la_nodes = base["la_nodes"]._replace(alloc=dev_t(la_alloc), base_nonprod=dev_t(la_base),
+                                         base_prod=dev_t(la_base + 1))
+    nf_nodes = base["nf_nodes"]._replace(alloc_score=dev_t(la_alloc), req_score=dev_t(nreq))
+    return dict(base, la_nodes=la_nodes, nf_nodes=nf_nodes,
+                la_pods=base["la_pods"]._replace(est=dev_t(q)),
+                nf_pods=base["nf_pods"]._replace(req_score=dev_t(q)))
+
+
+def score_cases(dev, small=None) -> list:
+    """(name, inputs) of the score kernel's edge cases: a node axis that
+    is not a multiple of the block width by a pod axis that is not one of
+    the strip (267 x 45, from ``small`` when given); one pod; every pair
+    infeasible; the quotient boundaries; a zero request on a bypassed
+    resource; widths that take the generic instantiation."""
+    out = []
+    if small is not None:
+        out.append(("267x45", ragged(small, 267, 45)))
+    out.append(("one pod", synthetic_inputs(dev, SEED, 1, 300, 2, 5, 2)))
+    full = synthetic_inputs(dev, SEED + 1, 40, 200, 2, 3, 2)
+    nf = full["nf_nodes"]
+    out.append(("all infeasible", dict(full, nf_nodes=nf._replace(allowed_pods=nf.num_pods))))
+    out.append(("boundaries", boundary_inputs(dev, SEED + 2)))
+    out.append(("bypass", synthetic_inputs(dev, SEED + 3, 50, 300, 2, 3, 2,
+                                           bypass=(False, True))))
+    out.append(("generic 3x4x3", synthetic_inputs(dev, SEED + 4, 70, 333, 3, 4, 3,
+                                                  bypass=(False, True, True))))
+    out.append(("generic 1x1x1", synthetic_inputs(dev, SEED + 5, 33, 129, 1, 1, 1)))
+    return out
+
+
+def check_score_cases(dev, small=None) -> int:
+    """The score kernel on ``score_cases`` under LeastAllocated,
+    MostAllocated and both RTC shapes (one with a decreasing segment),
+    without and with extra scores, against the plain ``score_batch``
+    (raises ``Mismatch``); returns the cases checked."""
+    from koordinator_tpu_torch.core.cycle import PluginWeights, score_batch, score_fn
+
+    n = 0
+    for name, inp in score_cases(dev, small):
+        la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+        la_nodes, nf_nodes, valid, w = (inp["la_nodes"], inp["nf_nodes"], inp["valid"],
+                                        inp["weights"])
+        P, N = la_pods.est.shape[0], valid.shape[0]
+        xsc = torch.as_tensor(np.random.default_rng(SEED + n).integers(
+            -100, 201, (P, N)).astype(np.int64)).to(dev)
+        for sname, static in [("least", inp["static"])] + strategy_statics(inp["static"]):
+            t, f = score_batch(la_pods, la_nodes, w, nf_pods, nf_nodes, static, PluginWeights())
+            f = f & valid[None, :]
+            if name == "all infeasible" and f.any():
+                fail("score case all infeasible: a pair is feasible")
+            for extras in (None, xsc):
+                got = score_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid, extras)
+                require_equal(f"score case {name} {sname} extras={extras is not None}", got,
+                              (t if extras is None else t + extras, f))
+                n += 1
+    print(f"  score: {n} edge cases (ragged, one pod, all infeasible, quotient boundaries, "
+          "bypass, generic widths) x strategies x extras equal plain", flush=True)
+    return n
+
+
 def scan_extras(inp, seed: int):
     """A placement-and-devices mask (about 90% open) and extra scores in
     [-100, 200] (negative like an amplified-CPU delta) at [P, N]."""
@@ -3050,6 +3186,25 @@ def desched_round_bytes(state, nodes, pods) -> int:
     return ins + nbytes(*state) + Pc * (1 + 8) + 3 * N + 3 * R * 8
 
 
+def desched_passes(nodes, pods, weights) -> tuple:
+    """The radix passes the round's orders need on these inputs (host
+    reckoning, as csrc/deschedule.cu sorts): the node order over its keys'
+    spread, each candidate order over the candidate scores' spread plus the
+    node rank's bits (the unmasked score's spread stands for the walk
+    order's too); (node passes, the two candidate orders' passes)."""
+    from koordinator_tpu_torch.core.lownodeload import usage_score
+
+    def bits(x) -> int:
+        return (int(x.max()) - int(x.min())).bit_length() if x.numel() else 0
+
+    N = nodes.usage.shape[0]
+    node = pods.node.long().clamp(0, N - 1)
+    ns = usage_score(nodes.usage, nodes.alloc, weights)
+    ps = usage_score(pods.usage, nodes.alloc[node], weights)
+    rank_bits = (N - 1).bit_length()
+    return -(-bits(ns) // 8), 2 * -(-(bits(ps) + rank_bits) // 8)
+
+
 def device_split(fn, groups, reps: int = 10) -> dict:
     """Device milliseconds a call of ``fn`` by kernel group, from
     ``torch.profiler`` over ``reps`` calls: each kernel's self device time
@@ -3074,7 +3229,8 @@ def device_split(fn, groups, reps: int = 10) -> dict:
 
 
 # kernel-name keys of the descheduler's kernels, grouped for device_split
-DESCHED_GROUPS = (("radix_scatter", "radix scatter"), ("radix_hist", "radix histogram"),
+DESCHED_GROUPS = (("round_kernel", "the round"), ("radix_scatter", "radix scatter"),
+                  ("radix_hist", "radix histogram"),
                   ("util_kernel", "percentile select"), ("tile_", "scans"),
                   ("lex_gather", "key gathers"))
 
@@ -3108,16 +3264,88 @@ def check_desched_round(what: str, state, nodes, pods, low, high, weights, round
     N, R = nodes.usage.shape
     Pc = pods.node.shape[0]
     # integer operations: the usage scores (a node, twice a candidate), the
-    # thresholds and walk, and 6 a key element a radix pass (8 passes of the
-    # node order, 2 x (8 + ceil(log2 N / 8)) of the candidate orders)
-    passes_pc = 2 * (8 + (max(N - 1, 1).bit_length() + 7) // 8)
-    ops = N * (12 * R + 6 * 8 + 20 * R) + Pc * (24 * R + 6 * passes_pc + 8 * R)
+    # thresholds and walk, and 6 a key element a radix pass, the passes this
+    # data needs: the node order's keys span the node scores' range, the
+    # candidate orders' the candidate scores' range below the node rank
+    passes_n, passes_pc = desched_passes(nodes, pods, weights)
+    ops = N * (12 * R + 6 * passes_n + 20 * R) + Pc * (24 * R + 6 * passes_pc + 8 * R)
     b, by = bound_ms(desched_round_bytes(state, nodes, pods), ops)
     return want, dict(name="deschedule_round", source=DESCHED_SOURCE,
                       replaces="koordinator_tpu/core/deschedule.py:144", ms=cuda_ms(kernel),
                       plain_ms=cuda_ms(plain), bound_ms=b, bound_by=by, max_abs_err=err,
                       shape=f"{N} nodes x {Pc} candidates",
                       device_split_ms=device_split(kernel, DESCHED_GROUPS))
+
+
+def wide_desched_arrays(dev, N: int, n_cand: int, bucket: int, seed: int):
+    """A pool whose usage scores span the whole int64 range: allocatable
+    among -7, 0, 1, 7, 1e9 and 2**62, usage anywhere in [-2**62, 2**62]
+    (0 included), candidates' usage likewise, weights (3, -2) (a weight sum
+    of 1, so the sums themselves are the scores); percents negative,
+    extreme, 0.0 and NaN (allocatable <= 0, invalid nodes)."""
+    from koordinator_tpu_torch.core.lownodeload import LNLNodeArrays, LNLPodArrays, as_tensors
+
+    rng = np.random.default_rng(seed)
+    alloc = rng.choice(np.array([-7, 0, 1, 7, 10**9, 2**62], dtype=np.int64), size=(N, 2))
+    usage = rng.integers(-2**62, 2**62, size=(N, 2), dtype=np.int64)
+    usage[rng.random((N, 2)) < 0.1] = 0
+    nodes = LNLNodeArrays(usage=usage, alloc=alloc, unschedulable=rng.random(N) < 0.1,
+                          valid=rng.random(N) < 0.9)
+    node = np.zeros(bucket, dtype=np.int32)
+    pusage = np.zeros((bucket, 2), dtype=np.int64)
+    rm = np.zeros(bucket, dtype=bool)
+    node[:n_cand] = rng.integers(0, N, size=n_cand)
+    pusage[:n_cand] = rng.integers(-2**62, 2**62, size=(n_cand, 2), dtype=np.int64)
+    rm[:n_cand] = rng.random(n_cand) < 0.8
+    return as_tensors(nodes, dev), as_tensors(LNLPodArrays(node=node, usage=pusage,
+                                                           removable=rm), dev)
+
+
+def desched_cases(dev) -> list:
+    """(name, nodes, pods, low, high, weights, kw) of the round's edge
+    cases: keys whose high digits are all equal over many blocks (2,000
+    nodes x 4,096 candidates), keys spanning the whole 64 bits, one node
+    and one candidate, caps of 0, 1 and unlimited, each without and with
+    deviation mode, over three rounds carrying the detector state."""
+    f64, i64 = torch.float64, torch.int64
+    low = torch.tensor([30.0, 40.0], dtype=f64, device=dev)
+    high = torch.tensor([60.0, 80.0], dtype=f64, device=dev)
+    ones = torch.tensor([1, 1], dtype=i64, device=dev)
+    out = []
+    nodes, pods = desched_arrays(dev, 2000, 3000, 4096, SEED + 1)
+    for caps in ((0, 0), (1, 1), (-1, -1), (2, 300)):
+        out.append((f"2000x4096 caps={caps}", nodes, pods, low, high, ones,
+                    dict(per_node_cap=caps[0], total_cap=caps[1])))
+    nodes, pods = wide_desched_arrays(dev, 500, 900, 1024, SEED + 2)
+    out.append(("64-bit keys", nodes, pods, low, high,
+                torch.tensor([3, -2], dtype=i64, device=dev), {}))
+    one = desched_arrays(dev, 1, 1, 1, SEED + 3, heat=2.0)
+    out.append(("N=1 Pc=1", *one, low, high, ones, {}))
+    nodes, pods = desched_arrays(dev, 1, 40, 64, SEED + 4, heat=2.0)
+    out.append(("N=1 Pc=64", nodes, pods, low, high, ones, dict(per_node_cap=1)))
+    nodes, pods = desched_arrays(dev, 70, 1, 1, SEED + 5, heat=1.5)
+    out.append(("N=70 Pc=1", nodes, pods, low, high, ones, {}))
+    return [(f"{name} dev={d}", n, p, lo, hi, w, dict(kw, use_deviation=d,
+                                                      consecutive_abnormalities=2,
+                                                      consecutive_normalities=1))
+            for name, n, p, lo, hi, w, kw in out for d in (False, True)]
+
+
+def check_desched_cases(dev) -> int:
+    """``deschedule_round`` on ``desched_cases`` against its plain version,
+    three rounds each carrying the detector state (raises ``Mismatch``);
+    returns the rounds checked."""
+    from koordinator_tpu_torch.core.lownodeload import new_anomaly_state
+
+    n = 0
+    for name, nodes, pods, low, high, w, kw in desched_cases(dev):
+        st = new_anomaly_state(nodes.usage.shape[0], dev)
+        check_desched_round(name, st, nodes, pods, low, high, w, rounds=3, **kw)
+        n += 3
+    print(f"  deschedule_round: {n} rounds of its edge cases (equal high digits over many "
+          "blocks, 64-bit keys, N = 1, Pc = 1, caps 0, 1 and unlimited, deviation off and on) "
+          "equal plain", flush=True)
+    return n
 
 
 def check_desched_kernels(dev, timed: bool):
@@ -4905,6 +5133,388 @@ def agg_study(dev, reps: int = 5) -> int:
     return 0
 
 
+# ---------------------------------------------- the --score and --desched studies
+
+SCORE_STUDY_STRATEGIES = ("least", "most", "rtc")
+
+
+def score_statics(static) -> list:
+    """(name, NodeFitStatic) of LeastAllocated, MostAllocated and the
+    default RequestedToCapacityRatio shape over ``static``."""
+    return [("least", static)] + [(n, st) for n, st in strategy_statics(static)
+                                  if n in SCORE_STUDY_STRATEGIES]
+
+
+def score_floor_ms(dev, P: int, N: int, reps: int) -> float:
+    """The store floor of the score kernel (``koord_score_floor`` of the
+    study build ``csrc/scorestudy.cu``): its two [P, N] outputs written
+    once and nothing read; CUDA events around one launch, the median."""
+    from koordinator_tpu_torch import cuda
+
+    k = study_build("koord_score_floor", (ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p),
+                    stem="scorestudy")
+    totals = torch.empty((P, N), dtype=torch.int64, device=dev)
+    feasible = torch.empty((P, N), dtype=torch.bool, device=dev)
+    return cuda_ms(lambda: k.launch(P, N, totals.data_ptr(), feasible.data_ptr(),
+                                    cuda.device_index(dev), cuda.stream(dev)), reps=reps)
+
+
+SCORE_STRIPS = (8, 16, 32, 64)
+SCORE_COLS = (64, 96, 128)
+
+
+def score_sweep(full, reps: int) -> list:
+    """The score kernel (LeastAllocated, no extras) under every strip
+    height of ``SCORE_STRIPS`` and block width of ``SCORE_COLS``, through
+    the study build's ``koord_score_tuned``, each equal to the path's
+    launch first; CUDA events around one launch.  Empty when the study
+    build has no such entry (a checkout before the redesign)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core.cycle import score_fn
+
+    lib = cuda._library("scorestudy")
+    if not hasattr(lib, "koord_score_tuned"):
+        return []
+    k = study_build("koord_score_tuned", tuple(cuda.SCORE.argtypes[:8]) + (
+        ctypes.c_int, ctypes.c_int) + tuple(cuda.SCORE.argtypes[8:]), stem="scorestudy")
+    la_pods, nf_pods = full["la_pods"], full["nf_pods"]
+    la_nodes, nf_nodes = full["la_nodes"], full["nf_nodes"]
+    valid, w = full["valid"], full["weights"]
+    static = full["static"]
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    want = score_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid)
+    args = cuda.pair_args(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid)
+    totals = torch.empty((P, N), dtype=torch.int64, device=valid.device)
+    feasible = torch.empty((P, N), dtype=torch.bool, device=valid.device)
+    out = []
+    for strip in SCORE_STRIPS:
+        for cols in SCORE_COLS:
+            def launch():
+                k.launch(args.pods, args.nodes, args.cfg, args.la_w, args.valid, 0, P, N, strip,
+                         cols, totals.data_ptr(), feasible.data_ptr(),
+                         cuda.device_index(valid.device), cuda.stream(valid.device))
+
+            launch()
+            require_equal(f"score strip {strip} cols {cols}", (totals, feasible), want)
+            out.append(dict(strip=strip, cols=cols, ms=cuda_ms(launch, reps=reps)))
+
+    def path_launch():
+        cuda.SCORE.launch(args.pods, args.nodes, args.cfg, args.la_w, args.valid, 0, P, N,
+                          totals.data_ptr(), feasible.data_ptr(), cuda.device_index(valid.device),
+                          cuda.stream(valid.device))
+
+    out.append(dict(strip="path", cols="path", ms=cuda_ms(path_launch, reps=reps)))
+    print("  score by strip x block width, ms: " + ", ".join(
+        f"{r['strip']}x{r['cols']} {r['ms']:.4f}" for r in out), flush=True)
+    return out
+
+
+def score_host_split(full, reps: int = 201) -> dict:
+    """Host milliseconds of the score wrapper's stages, each alone (the
+    median of ``reps``, host clock, synchronised before each): the pair
+    tables' validation and layout, the two output allocations, the stream
+    and device lookups, the launch itself (ctypes call and enqueue), and
+    the whole call."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core.cycle import score_fn
+
+    la_pods, nf_pods = full["la_pods"], full["nf_pods"]
+    la_nodes, nf_nodes = full["la_nodes"], full["nf_nodes"]
+    valid, w = full["valid"], full["weights"]
+    static, dev = full["static"], valid.device
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    args = cuda.pair_args(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid)
+    totals = torch.empty((P, N), dtype=torch.int64, device=dev)
+    feasible = torch.empty((P, N), dtype=torch.bool, device=dev)
+
+    def launch():
+        cuda.SCORE.launch(args.pods, args.nodes, args.cfg, args.la_w, args.valid, 0, P, N,
+                          totals.data_ptr(), feasible.data_ptr(), cuda.device_index(dev),
+                          cuda.stream(dev))
+
+    def outputs():
+        torch.empty((P, N), dtype=torch.int64, device=dev)
+        torch.empty((P, N), dtype=torch.bool, device=dev)
+
+    stages = dict(
+        pair_args=lambda: cuda.pair_args(la_pods, la_nodes, w, nf_pods, nf_nodes, static,
+                                         valid),
+        outputs=outputs, stream=lambda: (cuda.device_index(dev), cuda.stream(dev)),
+        launch=launch, call=lambda: score_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static,
+                                             valid))
+    out = {}
+    for name, fn in stages.items():
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    torch.cuda.synchronize()
+    return out
+
+
+def score_study(dev, reps: int = 21) -> int:
+    """``--score``: the ``score`` kernel at 1,024 x 16,384 under
+    LeastAllocated, MostAllocated and RequestedToCapacityRatio, without and
+    with extra scores, each equal to the plain ``score_batch`` first: CUDA
+    events around one call (the median of ``reps``), the kernel's device
+    time (``torch.profiler``) and the wrapper's host time (host clock
+    around the call, which only enqueues, after a synchronise); the store
+    floor and the strip sweep from the study build; the ``-Xptxas -v``
+    lines and the SASS census of the score library.  The port is imported
+    from ``--root`` when given (a checkout of this commit or a later one):
+    run two checkouts alternately in one call.  One ``score_study`` JSON
+    line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core.cycle import PluginWeights, score_batch, score_fn
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    out = dict(ptxas=ptxas_report(libs["score"], "score"), cases=[])
+    for line in out["ptxas"]:
+        print(f"  ptxas score: {line}")
+    pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
+    full = build_inputs(pods, nodes, dev, (BATCH_CPU, BATCH_MEMORY))
+    la_pods, nf_pods = full["la_pods"], full["nf_pods"]
+    la_nodes, nf_nodes = full["la_nodes"], full["nf_nodes"]
+    valid, w = full["valid"], full["weights"]
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    out["shape"] = dict(P=P, N=N, R=la_pods.est.shape[1], Rf=nf_pods.req.shape[1],
+                        Rs=nf_pods.req_score.shape[1])
+    xsc = extras_for(full, SEED + 5)[1]
+    for name, static in score_statics(full["static"]):
+        for extras in (None, xsc):
+            def kernel():
+                return score_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid, extras)
+
+            t, f = score_batch(la_pods, la_nodes, w, nf_pods, nf_nodes, static, PluginWeights())
+            want = (t if extras is None else t + extras, f & valid[None, :])
+            require_equal(f"score {name} extras={extras is not None}", kernel(), want)
+            del t, f, want
+            host = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kernel()
+                host.append((time.perf_counter() - t0) * 1e3)
+            rec = dict(strategy=name, extras=extras is not None, ms=cuda_ms(kernel, reps=reps),
+                       device_ms=device_split(kernel, (("score", "kernel"),), reps=reps)
+                       .get("kernel"), host_ms=statistics.median(host))
+            out["cases"].append(rec)
+            print(f"  score {name}{' with extras' if extras is not None else ''}: equal plain; "
+                  f"call {rec['ms']:.4f} ms, kernel {rec['device_ms']} ms, wrapper host "
+                  f"{rec['host_ms']:.4f} ms", flush=True)
+    out["host_split_ms"] = score_host_split(full)
+    print("  the wrapper's host time by stage, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out["host_split_ms"].items()), flush=True)
+    if "scorestudy" in cuda.STUDY:
+        out["floor_ms"] = score_floor_ms(dev, P, N, reps)
+        print(f"  store floor (the two outputs written, nothing read): {out['floor_ms']:.4f} ms")
+        out["sweep"] = score_sweep(full, reps)
+    out["bound_ms"] = bound_ms(nbytes(*la_pods, *nf_pods, *la_nodes, *nf_nodes, valid)
+                               + P * N * 9, 0)[0]
+    out["sass"] = sass_census(libs["score"], "score")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "score.sass"), "w") as f:
+        f.write(subprocess.run([os.path.join(os.path.dirname(cuda._nvcc()), "cuobjdump"),
+                                "-sass", str(libs["score"])], capture_output=True, text=True,
+                               check=True).stdout)
+    for fn, c in out["sass"].items():
+        print(f"  sass {fn}: {c['instructions']} instructions, {c['calls']} calls, widest loop "
+              f"{c['loop_instructions']} with {c['loop_calls']} calls")
+    print(json.dumps({"score_study": out, "card": card_line()}))
+    return 0
+
+
+# kernel-name keys of the round's kernels for its study, the thresholds'
+# serial mean apart
+DESCHED_STUDY_GROUPS = (("thresholds_kernel", "thresholds"),) + DESCHED_GROUPS
+
+
+def desched_split(kernel, want, cuda, device_ms: float) -> dict:
+    """The round's split from the study build ``csrc/deschedstudy.cu`` (the
+    port's launch pointed at it for one call, equal to the plain version's
+    ``want``): block 0's time between consecutive grid barriers, as shares
+    of its SM cycles times its span on the global timer (``step_us``: the
+    node phase, the node order's phases, classify, the candidates, the two
+    orders' phases, the walk's sums up to the last barrier), and when the
+    first side block and the thresholds' block ended, in µs of the global
+    timer after block 0 started (null when absent); ``device_ms`` the
+    round's device time beside."""
+    path = cuda.DESCHEDULE_ROUND
+    cuda.DESCHEDULE_ROUND = cuda.Kernel("deschedstudy", "koord_deschedule_round", path.argtypes)
+    try:
+        got = kernel()
+        torch.cuda.synchronize()
+    finally:
+        cuda.DESCHEDULE_ROUND = path
+    require_equal("deschedule_round study build", round_outputs(got), round_outputs(want))
+    buf = (ctypes.c_ulonglong * 144)()
+    fn = cuda._library("deschedstudy").koord_desched_split
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.addressof(buf)) != 0:
+        fail("koord_desched_split failed")
+    k = min(int(buf[60]), 60)
+    clocks, ns = list(buf[:k]), list(buf[64:64 + k])
+    span = max(clocks[-1] - clocks[0], 1)
+    # the last phase ends with the kernel: its share is what the barriers
+    # leave of the device time
+    steps = [(b - a) / span for a, b in zip(clocks, clocks[1:])]
+    side = [None if buf[64 + s] == 0 else (buf[64 + s] - ns[0]) / 1e3 for s in (61, 62)]
+    cycle_us = (ns[-1] - ns[0]) / 1e3 / span
+    sc = list(buf[128:136])
+    out = dict(marks=k, step_us=[x * (ns[-1] - ns[0]) / 1e3 for x in steps],
+               block0_us=(ns[-1] - ns[0]) / 1e3, device_ms=device_ms,
+               percentile_end_us=side[0], thresholds_end_us=side[1],
+               first_scatter_us=[(b - a) * cycle_us for a, b in zip(sc, sc[1:])])
+    print("  the first scatter's steps, µs: " + ", ".join(f"{x:.2f}"
+                                                      for x in out["first_scatter_us"]))
+    print(f"  split: {k} marks, block 0 {out['block0_us']:.1f} µs to its last barrier; steps µs "
+          + ", ".join(f"{x:.1f}" for x in out["step_us"])
+          + f"; percentile block ended at {side[0]} µs, thresholds at {side[1]} µs", flush=True)
+    return out
+
+
+def desched_host_split(st, nodes, pods, low, high, w, kw, reps: int = 201) -> dict:
+    """Host milliseconds of the round wrapper's stages, each alone (the
+    median of ``reps``, host clock, synchronised before each): the
+    inputs' checks and contiguity, the outputs' one buffer and its nine
+    views, the grid, parameters and scratch, the pointer tables, the launch
+    (ctypes call, the control words' memset and the cooperative launch),
+    and the whole call."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import deschedule as ds
+
+    dev = nodes.usage.device
+    N, R = nodes.usage.shape
+    Pc = pods.node.shape[0]
+    ins = [t.contiguous() for t in (*st, *nodes, *pods, low, high, w)]
+    o = ds._packed_outputs(N, Pc, R, dev)
+    outs = [o["anomaly"], o["ab"], o["norm"], o["evicted"], o["rank"], o["under"], o["over"],
+            o["source"], o["util"]]
+    G = cuda.desched_grid(N, Pc, R, kw["use_deviation"], cuda.sm_count(dev))
+    params = (ctypes.c_longlong * 10)(N, Pc, R, int(kw["use_deviation"]), 1, 3, 0,
+                                      kw["per_node_cap"], kw["total_cap"], G)
+    scratch = ds._scratch(cuda.device_index(dev), cuda.stream(dev), N, Pc, R, G)
+    in_tab, out_tab = cuda._ptr_table(ins), cuda._ptr_table(outs)
+
+    def scratch_stage():
+        g = cuda.desched_grid(N, Pc, R, kw["use_deviation"], cuda.sm_count(dev))
+        (ctypes.c_longlong * 10)(N, Pc, R, 0, 1, 3, 0, 8, 4096, g)
+        ds._scratch(cuda.device_index(dev), cuda.stream(dev), N, Pc, R, g)
+
+    stages = dict(
+        inputs=lambda: (ds._check_round(st, nodes, pods, low, high, w),
+                        [t.contiguous() for t in (*st, *nodes, *pods, low, high, w)]),
+        outputs=lambda: ds._packed_outputs(N, Pc, R, dev), scratch=scratch_stage,
+        tables=lambda: (cuda._ptr_table(ins), cuda._ptr_table(outs)),
+        launch=lambda: cuda.DESCHEDULE_ROUND.launch(in_tab, out_tab, params, scratch.data_ptr(),
+                                                    cuda.device_index(dev), cuda.stream(dev)),
+        call=lambda: ds.deschedule_round(st, nodes, pods, low, high, w, **kw))
+    out = {}
+    for name, fn in stages.items():
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    torch.cuda.synchronize()
+    return out
+
+
+DESCHED_GRIDS = (4, 8, 16, 32, 64)
+
+
+def desched_grid_sweep(kernel, want, cuda, reps: int) -> list:
+    """The round under every main-block count of ``DESCHED_GRIDS`` (the
+    port's ``cuda.desched_grid`` replaced for the sweep), each equal to the
+    plain version's ``want``; CUDA events around one call."""
+    grid = cuda.desched_grid
+    out = []
+    try:
+        for G in DESCHED_GRIDS:
+            cuda.desched_grid = lambda *a, G=G: G
+            got = kernel()
+            require_equal(f"deschedule_round G={G}", round_outputs(got), round_outputs(want))
+            require_same_util(f"deschedule_round G={G}", got.util_pct, want.util_pct)
+            out.append(dict(G=G, ms=cuda_ms(kernel, reps=reps)))
+    finally:
+        cuda.desched_grid = grid
+    print("  deschedule_round by main blocks, ms: " + ", ".join(
+        f"G={r['G']} {r['ms']:.4f}" for r in out), flush=True)
+    return out
+
+
+def desched_study(dev, reps: int = 21) -> int:
+    """``--desched``: ``deschedule_round`` at bench/bench_sim.py's shape
+    (10,000 nodes x 20,000 candidates in a bucket of 32,768), without and
+    with deviation mode, each equal to its plain version first: CUDA events
+    around one call (the median of ``reps``), the device time by kernel
+    group (``torch.profiler``) and its sum, and the wrapper's host time
+    (host clock around the call, which only enqueues, after a
+    synchronise; the median).  The port is imported from ``--root`` when
+    given: run two checkouts alternately in one call.  One
+    ``desched_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import deschedule as ds
+    from koordinator_tpu_torch.core.lownodeload import new_anomaly_state
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    out = dict(ptxas=ptxas_report(libs["deschedule"], ""), cases=[])
+    nodes, pods = desched_arrays(dev, NUM_NODES, 20_000, 32_768, SEED, heat=1.1, unsched=0.05,
+                                 valid=1.0)
+    w = torch.tensor([1, 1], dtype=torch.int64, device=dev)
+    for dev_mode in (False, True):
+        if dev_mode:
+            low = high = torch.tensor([10.0, 10.0], dtype=torch.float64, device=dev)
+        else:
+            low = torch.tensor([30.0, 40.0], dtype=torch.float64, device=dev)
+            high = torch.tensor([60.0, 80.0], dtype=torch.float64, device=dev)
+        kw = dict(use_deviation=dev_mode, consecutive_abnormalities=1, per_node_cap=8,
+                  total_cap=4096)
+        st = new_anomaly_state(NUM_NODES, dev)
+        want, _ = check_desched_round(f"study deviation={dev_mode}", st, nodes, pods, low, high,
+                                      w, **kw)
+
+        def kernel():
+            return ds.deschedule_round(st, nodes, pods, low, high, w, **kw)
+
+        host = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kernel()
+            host.append((time.perf_counter() - t0) * 1e3)
+        split = device_split(kernel, DESCHED_STUDY_GROUPS, reps=reps)
+        rec = dict(deviation=dev_mode, evictions=int(want.evicted.sum()),
+                   ms=cuda_ms(kernel, reps=reps), device_split_ms=split,
+                   device_sum_ms=sum(split.values()), host_ms=statistics.median(host))
+        if hasattr(cuda, "desched_grid"):
+            rec["grid"] = cuda.desched_grid(NUM_NODES, pods.node.shape[0], 2, dev_mode,
+                                            cuda.sm_count(dev))
+            rec["sweep"] = desched_grid_sweep(kernel, want, cuda, reps)
+        if "deschedstudy" in cuda.STUDY:
+            rec["split"] = desched_split(kernel, want, cuda, rec["device_sum_ms"])
+            rec["host_split_ms"] = desched_host_split(st, nodes, pods, low, high, w, kw)
+            print("  the wrapper's host time by stage, ms: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in rec["host_split_ms"].items()), flush=True)
+        out["cases"].append(rec)
+        print(f"  deschedule_round deviation={dev_mode}: equal plain, {rec['evictions']} "
+              f"evictions; call {rec['ms']:.4f} ms, device {rec['device_sum_ms']:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+              + f"), wrapper host {rec['host_ms']:.4f} ms", flush=True)
+    print(json.dumps({"desched_study": out, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
     if "--root" in sys.argv:
         # time another checkout's port (a parent commit unpacked beside)
@@ -4920,6 +5530,10 @@ def main() -> int:
         return spread_study(torch.device("cuda:0"))
     if "--agg" in sys.argv:
         return agg_study(torch.device("cuda:0"))
+    if "--score" in sys.argv:
+        return score_study(torch.device("cuda:0"))
+    if "--desched" in sys.argv:
+        return desched_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -4968,6 +5582,7 @@ def main() -> int:
         check_extra_kernels(small, con, timed=False)
     check_extra_kernels(small, True, timed=False, commit_cap=1)
     check_strategies_small(small)
+    check_score_cases(dev, small)
     check_div_helper(dev)
     # the explain slice's kernels at 64 pods x 512 columns, and at a node
     # axis that is not a multiple of the block width (267) by 45 pods
@@ -4982,6 +5597,7 @@ def main() -> int:
     check_breakdown_kernels(ragged(small, 267, 45), timed=False)
     # the descheduler's kernels at the small shapes
     check_desched_kernels(dev, timed=False)
+    check_desched_cases(dev)
     check_band_kernels(dev, timed=False)
     # the koordlet slice's kernels at the small shapes
     check_shard_kernels(small512, (1, 2, KOORDLET_SHARDS), timed=False)

@@ -24,6 +24,7 @@ Shapes: callers pad the candidate axis to a bucket; padding rows are
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from fractions import Fraction
 from typing import NamedTuple, Optional
@@ -173,22 +174,29 @@ def _check_round(state, nodes, pods, low_pct, high_pct, weights):
     return N, Pc, R, dev
 
 
-def _packed_outputs(N: int, Pc: int, R: int, dev) -> tuple:
+def _packed_outputs(N: int, Pc: int, R: int, dev) -> dict:
     """The round's outputs as views of ONE device buffer (so ``to_host``
-    brings them over in one copy): ab, norm, rank, util, then the bools."""
-    layout = [("ab", torch.int64, (N,)), ("norm", torch.int64, (N,)),
-              ("rank", torch.int64, (Pc,)), ("util", torch.float64, (3, R)),
-              ("anomaly", torch.bool, (N,)), ("evicted", torch.bool, (Pc,)),
-              ("under", torch.bool, (N,)), ("over", torch.bool, (N,)),
-              ("source", torch.bool, (N,))]
-    spans, pos = [], 0
-    for _, dtype, shape in layout:
-        size = int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
-        spans.append((pos, size))
-        pos = (pos + size + 7) & ~7
-    flat = torch.empty(pos, dtype=torch.uint8, device=dev)
-    return {name: flat[off:off + size].view(dtype).view(shape)
-            for (name, dtype, shape), (off, size) in zip(layout, spans)}
+    brings them over in one copy): ab, norm, rank, util, then the bools;
+    cut with as few tensor operations as the dtypes allow (each costs
+    host time a call)."""
+    words = 2 * N + Pc + 3 * R + (4 * N + Pc + 7) // 8
+    flat = torch.empty(words, dtype=torch.int64, device=dev)
+    ab, norm, rank, util, rest = flat.split_with_sizes(
+        [N, N, Pc, 3 * R, words - (2 * N + Pc + 3 * R)])
+    anomaly, evicted, under, over, source, _ = rest.view(torch.bool).split_with_sizes(
+        [N, Pc, N, N, N, 8 * rest.shape[0] - (4 * N + Pc)])
+    return dict(ab=ab, norm=norm, rank=rank, util=util.view(torch.float64).view(3, R),
+                anomaly=anomaly, evicted=evicted, under=under, over=over, source=source)
+
+
+@functools.lru_cache(maxsize=8)
+def _scratch(device_index: int, stream: int, N: int, Pc: int, R: int, G: int) -> torch.Tensor:
+    """The round's scratch for one shape on one stream, kept between calls:
+    launches on one stream run in order, and the launch zeroes the control
+    words it reads before writing (csrc/deschedule.cu)."""
+    return torch.empty(cuda.scratch_bytes("deschedule", "koord_desched_scratch_bytes",
+                                          N, Pc, R, G),
+                       dtype=torch.uint8, device=torch.device("cuda", device_index))
 
 
 def deschedule_round(state: AnomalyState, nodes: LNLNodeArrays, pods: LNLPodArrays, low_pct,
@@ -200,9 +208,9 @@ def deschedule_round(state: AnomalyState, nodes: LNLNodeArrays, pods: LNLPodArra
     allocatable, [N] bool unschedulable and valid), pods ([Pc] int32 node in
     0..N-1, [Pc, R] int64 usage, [Pc] bool removable), [R] float64
     low/high percents (missing = 100), [R] int64 weights.  Caps < 0 are
-    unlimited.  On CUDA one call enqueues the kernel family of
-    csrc/deschedule.cu on the current stream; its outputs are views of one
-    buffer."""
+    unlimited.  On CUDA one call enqueues csrc/deschedule.cu's one
+    cooperative launch (``cuda.desched_grid`` main blocks and the side
+    blocks) on the current stream; its outputs are views of one buffer."""
     low_pct = torch.as_tensor(low_pct, dtype=torch.float64, device=nodes.usage.device)
     high_pct = torch.as_tensor(high_pct, dtype=torch.float64, device=nodes.usage.device)
     weights = torch.as_tensor(weights, dtype=torch.int64, device=nodes.usage.device)
@@ -219,15 +227,15 @@ def deschedule_round(state: AnomalyState, nodes: LNLNodeArrays, pods: LNLPodArra
     o = _packed_outputs(N, Pc, R, dev)
     outs = [o["anomaly"], o["ab"], o["norm"], o["evicted"], o["rank"], o["under"], o["over"],
             o["source"], o["util"]]
-    params = (ctypes.c_longlong * 9)(
+    G = cuda.desched_grid(N, Pc, R, kw["use_deviation"], cuda.sm_count(dev))
+    params = (ctypes.c_longlong * 10)(
         N, Pc, R, int(kw["use_deviation"]), kw["consecutive_abnormalities"],
         kw["consecutive_normalities"], kw["number_of_nodes"], kw["per_node_cap"],
-        kw["total_cap"])
-    scratch = torch.empty(cuda.scratch_bytes("deschedule", "koord_desched_scratch_bytes",
-                                             N, Pc, R), dtype=torch.uint8, device=dev)
+        kw["total_cap"], G)
+    index, stream = cuda.device_index(dev), cuda.stream(dev)
+    scratch = _scratch(index, stream, N, Pc, R, G)
     in_tab, out_tab = cuda._ptr_table(ins), cuda._ptr_table(outs)
-    cuda.DESCHEDULE_ROUND.launch(in_tab, out_tab, params, scratch.data_ptr(),
-                                 cuda.device_index(dev), cuda.stream(dev))
+    cuda.DESCHEDULE_ROUND.launch(in_tab, out_tab, params, scratch.data_ptr(), index, stream)
     return DeschedRound(
         state=AnomalyState(o["anomaly"], o["ab"], o["norm"]), evicted=o["evicted"],
         rank=o["rank"], under=o["under"], over=o["over"], source=o["source"],

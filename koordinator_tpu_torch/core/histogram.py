@@ -84,7 +84,9 @@ class HistogramState(NamedTuple):
     reference_ts: torch.Tensor  # [E] float64 seconds
 
 
-def new_state(num_entities: int, options: HistogramOptions, device="cpu") -> HistogramState:
+def new_state(num_entities: int, options: HistogramOptions, device) -> HistogramState:
+    """Empty histograms of ``num_entities`` on ``device`` (required, as
+    every entry point of the port names its device: "cpu" or a card)."""
     return HistogramState(
         weights=torch.zeros((num_entities, options.num_buckets), dtype=torch.float64,
                             device=device),
@@ -148,8 +150,9 @@ def save_checkpoint(state: HistogramState, options: HistogramOptions):
     return stored, w.sum(axis=-1), state.reference_ts.cpu().numpy()
 
 
-def load_checkpoint(stored, total, reference_ts, device="cpu") -> HistogramState:
-    """Batched LoadFromCheckpoint: redistribute total over stored weights."""
+def load_checkpoint(stored, total, reference_ts, device) -> HistogramState:
+    """Batched LoadFromCheckpoint: redistribute total over stored weights,
+    onto ``device`` (required)."""
     stored = np.asarray(stored, dtype=np.float64)
     s = stored.sum(axis=-1, keepdims=True)
     ratio = np.where(s > 0, np.asarray(total)[:, None] / np.where(s == 0, 1, s), 0.0)

@@ -10,31 +10,506 @@
 // the batch's pre-weighted extra scores (deviceshare, amplified CPU; [P, N]
 // int64, null when absent) as the JAX score_fn adds them.
 //
-// What bounds it on an H100: bytes.  The outputs alone are 9 bytes per
-// pair (144 MB at 1,024 x 16,384), against a few dozen integer operations
-// per pair; the node rows it reads are 1/P of that.  The design therefore
-// writes each output once, coalesced (one thread per pair, consecutive
-// threads on consecutive node columns of one pod row), keeps no
-// intermediate in device memory, and reads the pod's row from cache
-// (every thread of a block shares it).
+// The arithmetic is pair.cuh's pair_total, la_fit and nf_fit, term for
+// term: the same int64 results for every input, so every output is the
+// one the plain version computes.  Where and how each term is evaluated
+// differs.
+//
+// What bounds it on an H100: instructions.  The bytes it must write (9 a
+// pair, 151 MB at 1,024 x 16,384) take 0.046 ms at the memory's rate, a
+// kernel that only writes them ~0.065; a pair's arithmetic costs more.
+// One thread a pair calling the pair function cost ~900 lane instructions
+// (each 64-bit `/` a subroutine of tens of instructions, the widths
+// runtime values, the node's rows and both LoadAware reject tests redone
+// for every pod); this design's loop is ~240 a pair.  The design:
+//   - a thread owns one node column and walks a strip of pods; a block
+//     covers `cols` consecutive columns and stages the strip's pod rows
+//     (est, req, req_score, each with 100 times it and its float; the four
+//     flags; each pod's NodeFit masks) in shared memory once;
+//   - everything that depends on the node alone is evaluated once a
+//     thread, into registers: both LoadAware reject tests (a pair only
+//     selects between them by its DaemonSet and prod-class flags),
+//     NodeFit's pod-count gate with the live-column mask and its free
+//     capacity, the capacities with 100 / cap as a float, 100 times each
+//     free (or requested) base capacity and its float;
+//   - a pair does only its pod-dependent work: each quotient 100 n / cap
+//     (n the free or requested capacity, in [0, cap]) from a float
+//     estimate, proven exact unless its fraction lies within 1e-4 of an
+//     integer, when one exact 64-bit correction settles it (quot100: a few
+//     float operations where a 64-bit division by the reciprocal took
+//     eleven multiplies), the weighted sums in 32 bits, whose division by a
+//     weight sum takes a 32-bit reciprocal (NodeFit's from a per-block
+//     table of every included-resource mask's sum; RTC: also the shape at
+//     every utilisation in 0..100), and the fit compares.  A pair outside the
+//     estimate's proven range (a capacity of 2**55 or more, a negative
+//     request or base, large or negative weights) takes general_pair, out
+//     of line: the pair function's own arithmetic with `/`;
+//   - R, Rf and Rs are template parameters for the widths the serving
+//     configurations reach (2, 3, 2 without batch scalars; 2, 5, 2 with
+//     them), so the loops unroll and the rows stay in registers; a generic
+//     instantiation (up to KOORD_MAXR each) takes every other width;
+//     koord_score chooses by the configuration's widths and strategy;
+//   - both outputs are written once, coalesced (consecutive threads on
+//     consecutive columns of one pod row) as streaming stores, and extra
+//     scores read the same way;
+//   - 128 columns a block, 32 pods a strip, 64 registers a thread (the
+//     study's sweep, PERF.md §6).
 #include <cuda_runtime.h>
 
 #include "pair.cuh"
 
 namespace {
 
-__global__ void score_kernel(Cfg c, PodIn p, NodeIn n, const uint8_t* valid,
-                             const long long* xsc, int P, int N, long long* totals,
-                             uint8_t* feasible) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int q = blockIdx.y;
-  if (j >= N || q >= P) return;
-  size_t o = (size_t)q * N + j;
-  totals[o] = pair_total(c, p, n, q, j) + (xsc ? xsc[o] : 0);
-  feasible[o] = valid[j] && la_fit(c, p, n, q, j) && nf_fit(c, p, n, q, j);
+constexpr int kCols = 128;      // node columns a block, a thread each (at most)
+constexpr int kStrip = 32;      // pods a block walks
+constexpr int kMaxStrip = 64;   // the staging's capacity (the study's largest strip)
+constexpr int kMaxMasks = 1 << KOORD_MAXR;
+constexpr long long kFastCap = 1LL << 55;  // the float estimate's capacities and rows
+// blocks of kCols an SM: at most 64 registers a thread (32 warps an SM;
+// 80 registers at 6 blocks and 98 at 5 were no faster on the H100)
+constexpr int kMinBlocks = 8;
+
+// floor(100 n / c) for 0 <= n <= c < 2**56, from df, a float within
+// 3 * 2**-24 * c of n, rc = fl(100 / fl(c)) and n100 = 100 n (exact: it is
+// below 2**63).  The exact product df * rc is within 3e-5 of t = 100 n / c,
+// which lies in [0, 100].  The fused multiply-add rounds df * rc + 2**23
+// toward zero to an integer (the float's unit at 2**23): qe = floor(df *
+// rc), or -1 when df * rc is just below 0 (the sum rounds to 2**23 - 0.5).
+// When the product's fraction (one rounding off) is in [1e-4, 1 - 1e-4],
+// no integer lies between it and t, and qe is the quotient; else qe is one
+// off at most either way, and one exact 64-bit correction each way makes
+// it the quotient.
+__device__ __forceinline__ int quot100(float df, float rc, long long n100, long long c) {
+  const float y = __fmaf_rz(df, rc, 8388608.0f);
+  const float qf = __fsub_rn(y, 8388608.0f);
+  const float fr = __fmaf_rn(df, rc, -qf);
+  const int qe = __float_as_int(y) - 0x4B000000;
+  if (qf >= 0.0f && fabsf(__fsub_rn(fr, 0.5f)) <= 0.4999f) return qe;
+  const long long r = n100 - (long long)qe * c;
+  return qe + (r >= c ? 1 : 0) - (r < 0 ? 1 : 0);
+}
+
+// n / d as C's `/` computes it: with m = floor((2**32 - 1) / d) (0 when d
+// is outside [1, 2**32)) in 32 bits for 0 <= n < 2**31, where the high
+// word of n * m is the quotient or one less (m * d > 2**32 - 1 - d, so
+// n / d - n * m / 2**32 < 2 n / 2**32 < 1), else `/`
+__device__ __forceinline__ long long div_w(long long n, long long d, unsigned m) {
+  if (m != 0 && (unsigned long long)n < (1ULL << 31)) {
+    const unsigned u = (unsigned)n, v = (unsigned)d;
+    unsigned q = __umulhi(u, m);
+    if (u - q * v >= v) ++q;
+    return q;
+  }
+  return n / d;
+}
+
+__host__ __device__ __forceinline__ unsigned rcp32(long long d) {
+  return d >= 1 && d < (1LL << 32) ? (unsigned)(0xFFFFFFFFu / (unsigned long long)d) : 0u;
+}
+
+__host__ __device__ __forceinline__ bool in_fast(long long x) {
+  return (unsigned long long)x < (unsigned long long)kFastCap;
+}
+
+// A value computed once a thread stays in its register: the compiler may
+// not recompute it from what it was computed from inside the pod loop.
+__device__ __forceinline__ void pin(long long& x) { asm volatile("" : "+l"(x)); }
+__device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x)); }
+
+// A width: the template's when it is > 0, else the configuration's (the
+// generic instantiation, arrays sized KOORD_MAXR).
+template <int T>
+struct Width {
+  static constexpr int cap = T > 0 ? T : KOORD_MAXR;
+  __device__ static int of(int rt) { return T > 0 ? T : rt; }
+};
+
+// The strip's pod rows and the block's tables, staged once a block: each
+// request beside 100 times it and its float.
+template <int R, int RF, int RS>
+struct Stage {
+  long long est[kMaxStrip][Width<R>::cap];
+  long long est100[kMaxStrip][Width<R>::cap];
+  float estf[kMaxStrip][Width<R>::cap];
+  long long req[kMaxStrip][Width<RF>::cap];
+  long long rs[kMaxStrip][Width<RS>::cap];
+  long long rs100[kMaxStrip][Width<RS>::cap];
+  float rsf[kMaxStrip][Width<RS>::cap];
+  unsigned char flags[kMaxStrip];  // 1 prod score, 2 prod class, 4 DaemonSet, 8 any request,
+                                   // 16 every est and req_score in [0, 2**55)
+  unsigned char need[kMaxStrip];   // Rf bits: the fit checks the resource (always || req > 0)
+  unsigned char excl[kMaxStrip];   // Rs bits: a bypassed resource the pod does not request
+  long long wsum[kMaxMasks];       // NodeFit weight sum of an included-resource mask (RTC: 2x)
+  unsigned wrcp[kMaxMasks];        // its rcp32
+  int shape[101];                  // RTC: the shape at utilisation 0..100
+  long long la_w[KOORD_MAXR];      // the LoadAware weights
+  bool small_w;                    // every weight >= 0 and each plugin's sum < 2**22
+};
+
+// the NodeFit score from its weighted sum over the resources in `mask`
+template <int STRAT, class S>
+__device__ __forceinline__ long long nf_mean(const S& s, long long acc, unsigned mask) {
+  const long long ws = s.wsum[mask];
+  if (ws == 0) return 0;
+  return div_w(STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO ? 2 * acc + ws / 2 : acc, ws,
+               s.wrcp[mask]);
+}
+
+// n / d for 0 <= n < 2**31 and 1 <= d < 2**32, m = rcp32(d) (div_w's
+// 32-bit path)
+__device__ __forceinline__ unsigned div32(unsigned n, unsigned d, unsigned m) {
+  unsigned q = __umulhi(n, m);
+  return n - q * d >= d ? q + 1 : q;
+}
+
+// A pair outside the float estimate's range: the pair function's
+// arithmetic as it stands, `/` for every quotient, over node j's rows read
+// again (rare: a node or pod with a row out of range).  Out of line, so the
+// fast path's registers do not carry it; the configuration and the node
+// table are the kernel's __grid_constant__ parameters, referenced in
+// place.
+template <int R, int RS, int STRAT, class S>
+__device__ __noinline__ void general_pair(const Cfg& c, const NodeIn& n, const S& s, int i, int j,
+                                          unsigned mask, bool sv, long long* out) {
+  const int nR = Width<R>::of(c.R), nRs = Width<RS>::of(c.Rs);
+  const bool prod = s.flags[i] & 1;
+  long long la = 0;
+  if (sv) {
+    long long acc = 0, wsum = 0;
+    for (int r = 0; r < nR; ++r) {
+      const size_t o = (size_t)j * nR + r;
+      const long long cap = n.la_alloc[o];
+      const long long used = s.est[i][r] + (prod ? n.base_prod[o] : n.base_nonprod[o]);
+      const long long sc = (cap == 0 || used > cap) ? 0 : (cap - used) * 100 / cap;
+      acc += sc * s.la_w[r];
+      wsum += s.la_w[r];
+    }
+    la = acc / wsum;
+  }
+  long long acc = 0;
+  unsigned used_mask = mask;
+  for (int r = 0; r < nRs; ++r) {
+    if (!((mask >> r) & 1)) continue;
+    const size_t o = (size_t)j * nRs + r;
+    const long long cap = n.alloc_score[o];
+    const long long req = s.rs[i][r] + n.nreq_score[o];
+    if (STRAT == KOORD_MOST_ALLOCATED) {
+      acc += (req > cap ? cap : req) * 100 / cap * c.nf_w[r];
+    } else if (STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO) {
+      const long long util = req > cap ? 100 : 100 - (cap - req) * 100 / cap;
+      const long long sc =
+          (unsigned long long)util <= 100 ? s.shape[util] : broken_linear<false>(c, util);
+      if (sc > 0)
+        acc += sc * c.nf_w[r];
+      else
+        used_mask &= ~(1u << r);
+    } else {
+      acc += (req > cap ? 0 : (cap - req) * 100 / cap) * c.nf_w[r];
+    }
+  }
+  out[0] = la;
+  out[1] = nf_mean<STRAT>(s, acc, used_mask);
+}
+
+template <int R, int RF, int RS, int STRAT>
+__global__ void __launch_bounds__(kCols, R > 0 ? kMinBlocks : 1)
+    score_kernel(__grid_constant__ const Cfg c, PodIn p, __grid_constant__ const NodeIn n,
+                 const uint8_t* valid, const long long* xsc, int P, int N, int strip,
+                 long long* totals, uint8_t* feasible) {
+  __shared__ Stage<R, RF, RS> s;
+  const int nR = Width<R>::of(c.R), nRf = Width<RF>::of(c.Rf), nRs = Width<RS>::of(c.Rs);
+  const int q0 = blockIdx.y * strip;
+  const int cnt = min(strip, P - q0);
+  // stage the strip's pods and the tables
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    const int q = q0 + i;
+    bool small = true;
+#pragma unroll
+    for (int r = 0; r < Width<R>::cap; ++r)
+      if (r < nR) {
+        const long long v = p.est[(size_t)q * nR + r];
+        s.est[i][r] = v;
+        s.est100[i][r] = (long long)((unsigned long long)v * 100ULL);
+        s.estf[i][r] = __ll2float_rn(v);
+        small = small && in_fast(v);
+      }
+    unsigned need = 0, excl = 0;
+#pragma unroll
+    for (int r = 0; r < Width<RF>::cap; ++r)
+      if (r < nRf) {
+        const long long v = p.req[(size_t)q * nRf + r];
+        s.req[i][r] = v;
+        need |= (unsigned)(c.always[r] || v > 0) << r;
+      }
+#pragma unroll
+    for (int r = 0; r < Width<RS>::cap; ++r)
+      if (r < nRs) {
+        const long long v = p.req_score[(size_t)q * nRs + r];
+        s.rs[i][r] = v;
+        s.rs100[i][r] = (long long)((unsigned long long)v * 100ULL);
+        s.rsf[i][r] = __ll2float_rn(v);
+        small = small && in_fast(v);
+        excl |= (unsigned)(c.bypass[r] && v == 0) << r;
+      }
+    s.flags[i] = (p.prod_score[q] ? 1 : 0) | (p.prod_class[q] ? 2 : 0) |
+                 (p.daemonset[q] ? 4 : 0) | (p.has_any[q] ? 8 : 0) | (small ? 16 : 0);
+    s.need[i] = (unsigned char)need;
+    s.excl[i] = (unsigned char)excl;
+  }
+  for (int m = threadIdx.x; m < (1 << nRs); m += blockDim.x) {
+    long long w = 0;
+    for (int r = 0; r < nRs; ++r)
+      if ((m >> r) & 1) w += c.nf_w[r];
+    if (STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO) w *= 2;
+    s.wsum[m] = w;
+    s.wrcp[m] = rcp32(w);
+  }
+  if (STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO)
+    for (int u = threadIdx.x; u <= 100; u += blockDim.x)
+      s.shape[u] = (int)broken_linear<false>(c, u);
+  if (threadIdx.x == 0) {
+    bool small_w = true;
+    long long la_sum = 0, nf_sum = 0;
+    for (int r = 0; r < nR; ++r) {
+      s.la_w[r] = c.la_w[r];
+      small_w = small_w && s.la_w[r] >= 0;
+      la_sum += s.la_w[r];
+    }
+    for (int r = 0; r < nRs; ++r) {
+      small_w = small_w && c.nf_w[r] >= 0;
+      nf_sum += c.nf_w[r];
+    }
+    s.small_w = small_w && la_sum >= 1 && la_sum < (1 << 22) && nf_sum < (1 << 22);
+  }
+  __syncthreads();
+
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= N || cnt <= 0) return;
+
+  // The node's rows, once a thread, pinned in registers.  A node takes
+  // the float estimate (`fast`) when every LoadAware capacity is in
+  // [1, 2**55), every NodeFit capacity 0 or there, and every base and
+  // requested score in [0, 2**55), and the block's weights are small; a
+  // pair then takes it when its pod's rows are in [0, 2**55) too: no sum
+  // and no 100-fold product wraps, a free capacity is negative exactly when
+  // its 100-fold is, every free or requested capacity n it divides is in
+  // [0, cap], and every weighted sum is below 2**31.  Every other pair
+  // takes general_pair.  a: 100 (cap - base) for the free quotients (100
+  // times the requested score for MostAllocated's), f: their floats.
+  long long cap[Width<R>::cap], anp[Width<R>::cap], ap[Width<R>::cap];
+  float fnp[Width<R>::cap], fp[Width<R>::cap], rcf[Width<R>::cap];
+  bool fast = s.small_w;
+  unsigned la_wsum = 0;
+#pragma unroll
+  for (int r = 0; r < Width<R>::cap; ++r)
+    if (r < nR) {
+      const size_t o = (size_t)j * nR + r;
+      cap[r] = n.la_alloc[o];
+      const long long bnp = n.base_nonprod[o], bp = n.base_prod[o];
+      la_wsum += (unsigned)s.la_w[r];
+      anp[r] = (long long)((unsigned long long)(cap[r] - bnp) * 100ULL);
+      ap[r] = (long long)((unsigned long long)(cap[r] - bp) * 100ULL);
+      fnp[r] = __ll2float_rn(cap[r] - bnp);
+      fp[r] = __ll2float_rn(cap[r] - bp);
+      rcf[r] = __fdiv_rn(100.0f, __ll2float_rn(cap[r]));
+      fast = fast && cap[r] >= 1 && in_fast(cap[r]) && in_fast(bnp) && in_fast(bp);
+      pin(anp[r]);
+      pin(ap[r]);
+      pin(fnp[r]);
+      pin(fp[r]);
+      pin(rcf[r]);
+    }
+  const unsigned la_wrcp = rcp32(la_wsum);
+  const bool sv = n.score_valid[j];
+  const bool fit_np = !(n.filter_active[j] &&
+                        la_reject(n.filter_usage, n.la_alloc, n.thresholds, nR, j));
+  const bool fit_p = n.has_prod_thr[j]
+                         ? !(n.prod_active[j] &&
+                             la_reject(n.prod_usage, n.la_alloc, n.prod_thresholds, nR, j))
+                         : fit_np;
+  const bool open = valid[j] && n.num_pods[j] + 1 <= n.allowed[j];
+  long long free_[Width<RF>::cap];
+#pragma unroll
+  for (int r = 0; r < Width<RF>::cap; ++r)
+    if (r < nRf) {
+      const size_t o = (size_t)j * nRf + r;
+      free_[r] = n.nf_alloc[o] - n.requested[o];
+    }
+  long long acap[Width<RS>::cap], aa[Width<RS>::cap], ac100[Width<RS>::cap];
+  float af[Width<RS>::cap], arcf[Width<RS>::cap];
+  unsigned inc = 0;  // Rs bits: a resource with a non-zero capacity
+#pragma unroll
+  for (int r = 0; r < Width<RS>::cap; ++r)
+    if (r < nRs) {
+      const size_t o = (size_t)j * nRs + r;
+      acap[r] = n.alloc_score[o];
+      const long long nreq = n.nreq_score[o];
+      inc |= (unsigned)(acap[r] != 0) << r;
+      const long long d = STRAT == KOORD_MOST_ALLOCATED ? nreq : acap[r] - nreq;
+      aa[r] = (long long)((unsigned long long)d * 100ULL);
+      ac100[r] = (long long)((unsigned long long)acap[r] * 100ULL);
+      af[r] = __ll2float_rn(d);
+      arcf[r] = __fdiv_rn(100.0f, __ll2float_rn(acap[r]));
+      fast = fast && in_fast(acap[r]) && in_fast(nreq);
+      pin(aa[r]);
+      pin(ac100[r]);
+      pin(af[r]);
+      pin(arcf[r]);
+    }
+
+  for (int i = 0; i < cnt; ++i) {
+    const unsigned f = s.flags[i];
+    const bool prod = f & 1;
+    const unsigned mask = inc & ~(unsigned)s.excl[i];
+    long long la = 0, nf = 0;
+    if (fast && (f & 16)) {
+      // every term in [0, 2**55): used > cap exactly when 100 (cap - used) < 0
+      if (sv) {
+        unsigned acc = 0;
+#pragma unroll
+        for (int r = 0; r < Width<R>::cap; ++r)
+          if (r < nR) {
+            const long long n100 = (prod ? ap[r] : anp[r]) - s.est100[i][r];
+            if (n100 >= 0)
+              acc += (unsigned)quot100((prod ? fp[r] : fnp[r]) - s.estf[i][r], rcf[r], n100,
+                                       cap[r]) *
+                     (unsigned)s.la_w[r];
+          }
+        la = div32(acc, la_wsum, la_wrcp);
+      }
+      unsigned acc = 0, used_mask = mask;
+#pragma unroll
+      for (int r = 0; r < Width<RS>::cap; ++r)
+        if (r < nRs && ((mask >> r) & 1)) {
+          const unsigned w = (unsigned)c.nf_w[r];
+          if (STRAT == KOORD_MOST_ALLOCATED) {
+            const long long n100 = aa[r] + s.rs100[i][r];  // 100 req
+            const int q = n100 > ac100[r]
+                              ? 100
+                              : quot100(af[r] + s.rsf[i][r], arcf[r], n100, acap[r]);
+            acc += (unsigned)q * w;
+          } else {
+            const long long n100 = aa[r] - s.rs100[i][r];  // 100 (cap - req)
+            const int q = n100 >= 0 ? quot100(af[r] - s.rsf[i][r], arcf[r], n100, acap[r]) : 0;
+            if (STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO) {
+              const int sc = s.shape[n100 >= 0 ? 100 - q : 100];
+              if (sc > 0)
+                acc += (unsigned)sc * w;
+              else
+                used_mask &= ~(1u << r);
+            } else {
+              acc += (unsigned)q * w;
+            }
+          }
+        }
+      const unsigned ws = (unsigned)s.wsum[used_mask];
+      if (ws != 0)
+        nf = div32(STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO ? 2 * acc + ws / 2 : acc, ws,
+                   s.wrcp[used_mask]);
+    } else {
+      long long both[2];
+      general_pair<R, RS, STRAT>(c, n, s, i, j, mask, sv, both);
+      la = both[0];
+      nf = both[1];
+    }
+    // the filters: the live column and pod count, LoadAware, NodeFit
+    bool ok = open && ((f & 4) || ((f & 2) ? fit_p : fit_np));
+    if (ok && (f & 8)) {
+      const unsigned need = s.need[i];
+#pragma unroll
+      for (int r = 0; r < Width<RF>::cap; ++r)
+        if (r < nRf && ((need >> r) & 1) && s.req[i][r] > free_[r]) ok = false;
+    }
+    // written once and read by no one here: streaming stores
+    const size_t o = (size_t)(q0 + i) * N + j;
+    __stcs(&totals[o], la + nf + (xsc ? __ldcs(&xsc[o]) : 0));
+    __stcs(&feasible[o], (uint8_t)ok);
+  }
+}
+
+template <int R, int RF, int RS>
+cudaError_t launch_widths(const Cfg& c, const PodIn& p, const NodeIn& n, const uint8_t* valid,
+                          const long long* xsc, int P, int N, int strip, int cols,
+                          long long* totals, uint8_t* feasible, cudaStream_t st) {
+  dim3 grid((N + cols - 1) / cols, (P + strip - 1) / strip);
+  if (c.strategy == KOORD_MOST_ALLOCATED)
+    score_kernel<R, RF, RS, KOORD_MOST_ALLOCATED>
+        <<<grid, cols, 0, st>>>(c, p, n, valid, xsc, P, N, strip, totals, feasible);
+  else if (c.strategy == KOORD_REQUESTED_TO_CAPACITY_RATIO)
+    score_kernel<R, RF, RS, KOORD_REQUESTED_TO_CAPACITY_RATIO>
+        <<<grid, cols, 0, st>>>(c, p, n, valid, xsc, P, N, strip, totals, feasible);
+  else
+    score_kernel<R, RF, RS, KOORD_LEAST_ALLOCATED>
+        <<<grid, cols, 0, st>>>(c, p, n, valid, xsc, P, N, strip, totals, feasible);
+  return cudaGetLastError();
+}
+
+// The instantiation for the configuration's widths: the serving
+// configurations' own, else the generic one.
+int launch_score(const void* const* pods, const void* const* nodes, const long long* cfg,
+                 const void* la_w, const void* valid, const void* xsc, int P, int N, int strip,
+                 int cols, void* totals, void* feasible, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (strip < 1 || strip > kMaxStrip || cols < 32 || cols > kCols || cols % 32)
+    return (int)cudaErrorInvalidValue;
+  const Cfg c = koord_cfg(cfg, la_w);
+  const PodIn p = koord_pods(pods);
+  const NodeIn n = koord_nodes(nodes);
+  const uint8_t* v = (const uint8_t*)valid;
+  const long long* x = (const long long*)xsc;
+  long long* t = (long long*)totals;
+  uint8_t* f = (uint8_t*)feasible;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (c.R == 2 && c.Rf == 3 && c.Rs == 2)
+    e = launch_widths<2, 3, 2>(c, p, n, v, x, P, N, strip, cols, t, f, st);
+  else if (c.R == 2 && c.Rf == 5 && c.Rs == 2)
+    e = launch_widths<2, 5, 2>(c, p, n, v, x, P, N, strip, cols, t, f, st);
+  else
+    e = launch_widths<0, 0, 0>(c, p, n, v, x, P, N, strip, cols, t, f, st);
+  return (int)e;
 }
 
 }  // namespace
+
+#ifdef KOORD_SCORE_STUDY
+namespace {
+
+// The store floor: every pair's two outputs written once, coalesced (a
+// thread a node column, 32 pods a block row), and nothing read.
+__global__ void score_floor_kernel(int P, int N, long long* totals, uint8_t* feasible) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= N) return;
+  const int q1 = min(P, (int)(blockIdx.y + 1) * 32);
+  for (int q = blockIdx.y * 32; q < q1; ++q) {
+    const size_t o = (size_t)q * N + j;
+    totals[o] = j;
+    feasible[o] = (uint8_t)(q & 1);
+  }
+}
+
+}  // namespace
+
+extern "C" int koord_score_floor(int P, int N, void* totals, void* feasible, int device,
+                                 void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + 127) / 128, (P + 31) / 32);
+  score_floor_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(P, N, (long long*)totals,
+                                                              (uint8_t*)feasible);
+  return (int)cudaGetLastError();
+}
+
+// The score kernel under another strip height and block width, for the
+// study's sweep (the path's launch takes kStrip and kCols).
+extern "C" int koord_score_tuned(const void* const* pods, const void* const* nodes,
+                                 const long long* cfg, const void* la_w, const void* valid,
+                                 const void* xsc, int P, int N, int strip, int cols,
+                                 void* totals, void* feasible, int device, void* stream) {
+  return launch_score(pods, nodes, cfg, la_w, valid, xsc, P, N, strip, cols, totals, feasible,
+                      device, stream);
+}
+#endif
 
 extern "C" const char* koord_strerror(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -44,12 +519,6 @@ extern "C" int koord_score(const void* const* pods, const void* const* nodes,
                            const long long* cfg, const void* la_w, const void* valid,
                            const void* xsc, int P, int N, void* totals, void* feasible,
                            int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const int threads = 256;
-  dim3 grid((N + threads - 1) / threads, P);
-  score_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), (const uint8_t*)valid,
-      (const long long*)xsc, P, N, (long long*)totals, (uint8_t*)feasible);
-  return (int)cudaGetLastError();
+  return launch_score(pods, nodes, cfg, la_w, valid, xsc, P, N, kStrip, kCols, totals, feasible,
+                      device, stream);
 }

@@ -40,9 +40,12 @@ STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRat
 
 # study builds: a source that includes another with a study's measurement
 # compiled in (csrc/roundstudy.cu: schedule.cu's round loop with its phase
-# split; csrc/scanstudy.cu: the scan's), built only when a study binds one
-# of its entry points
-STUDY = {"roundstudy": "schedule.cu", "scanstudy": "scan.cu"}
+# split; csrc/scanstudy.cu: the scan's; csrc/scorestudy.cu: the score
+# kernel's store floor and strip sweep; csrc/deschedstudy.cu: the round's
+# split by grid barrier), built only when a study binds one of its entry
+# points
+STUDY = {"roundstudy": "schedule.cu", "scanstudy": "scan.cu", "scorestudy": "score.cu",
+         "deschedstudy": "deschedule.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -234,7 +237,8 @@ NF_SCORE = Kernel("breakdown", "koord_nf_score", [_P, _P, _P, _I, _I, _P, _I, _P
 LA_SCORE_FILTER = Kernel("breakdown", "koord_la_score_filter",
                          [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
 # the descheduler (csrc/deschedule.cu, csrc/bandrank.cu): one LowNodeLoad
-# round (the input, output and parameter tables, the scratch), and the
+# round (the input, output and parameter tables, the scratch; the
+# parameters end with the main blocks, ``desched_grid``), and the
 # arbitrator's band order (the key columns and their element sizes, modes
 # and widths, K, P, the permutation, the scratch)
 DESCHEDULE_ROUND = Kernel("deschedule", "koord_deschedule_round", [_P, _P, _P, _P, _I, _P])
@@ -329,6 +333,28 @@ def rounds_scratch_words(P: int, K: int, N: int) -> int:
     return P + K * ROUND_RECORD_WORDS + (4 + N + 1) // 2
 
 
+DESCHED_THREADS = 1024  # kThreads in csrc/deschedule.cu: a block of the round's launch
+DESCHED_MAX_GRID = 132  # kMaxG: main blocks at most
+
+
+def desched_side_blocks(R: int, use_deviation: bool) -> int:
+    """The round's side blocks beside its main ones (mirrors
+    ``koord_deschedule_round``): one a percentile's order statistic (two
+    each of p50, p90 and p99 of R resources), and in deviation mode one for
+    the thresholds' mean."""
+    return 6 * R + (1 if use_deviation else 0)
+
+
+def desched_grid(N: int, Pc: int, R: int, use_deviation: bool, sms: int) -> int:
+    """Main blocks of the round's cooperative launch: one a
+    ``DESCHED_THREADS`` positions of the larger axis (nodes or
+    candidates), so a thread takes one node and one candidate where the
+    card has the blocks, at most ``DESCHED_MAX_GRID`` and as many as the
+    card's SMs leave beside the side blocks (a block an SM), at least 1."""
+    want = -(-max(N, Pc) // DESCHED_THREADS)
+    return max(1, min(want, DESCHED_MAX_GRID, sms - desched_side_blocks(R, use_deviation)))
+
+
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -414,7 +440,7 @@ def _ptr_table(tensors) -> ctypes.Array:
 
 
 def _checked(t: torch.Tensor, dtype: torch.dtype, shape: tuple, device, what: str):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+    if t.dtype is not dtype or t.shape != shape or t.device != device:
         raise ValueError(
             f"{what}: expected {dtype} {shape} on {device}, got {t.dtype} "
             f"{tuple(t.shape)} on {t.device}"

@@ -838,6 +838,150 @@ def test_desched_wrappers_refuse_before_launch():
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
+@pytest.mark.cuda
+def test_score_cases_equal_plain(card):
+    """The score kernel on its edge cases (a ragged 267 x 45, one pod,
+    every pair infeasible, the quotient boundaries, a bypassed zero
+    request, the generic instantiation) under the four strategy shapes,
+    without and with extra scores."""
+    before = cuda.KERNELS["score"].launches
+    n = chip_smoke.check_score_cases(card, _inputs(card, 300, 50))
+    assert cuda.KERNELS["score"].launches == before + n
+
+
+@pytest.mark.cuda
+def test_desched_cases_equal_plain(card):
+    """The round on its edge cases over three rounds each: equal high
+    digits over many blocks, keys spanning 64 bits, N = 1, Pc = 1, caps of
+    0, 1 and unlimited, deviation off and on."""
+    before = cuda.KERNELS["deschedule_round"].launches
+    n = chip_smoke.check_desched_cases(card)
+    assert cuda.KERNELS["deschedule_round"].launches == before + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 7, 64])
+def test_desched_round_any_grid(card, monkeypatch, G):
+    """The round's outputs do not depend on its main blocks: a pool of
+    2,000 nodes x 4,096 candidates (deviation on) under G of 1 to 64."""
+    from koordinator_tpu_torch.core import deschedule as ds
+    from koordinator_tpu_torch.core.lownodeload import new_anomaly_state
+
+    nodes, pods = chip_smoke.desched_arrays(card, 2000, 3000, 4096, 11)
+    args = (new_anomaly_state(2000, card), nodes, pods,
+            torch.tensor([10.0, 10.0], dtype=torch.float64, device=card),
+            torch.tensor([10.0, 10.0], dtype=torch.float64, device=card),
+            torch.tensor([1, 2], device=card))
+    kw = dict(use_deviation=True, consecutive_abnormalities=1, per_node_cap=2, total_cap=900)
+    want = ds.deschedule_round_plain(*args, **kw)
+    monkeypatch.setattr(cuda, "desched_grid", lambda *a: G)
+    got = ds.deschedule_round(*args, **kw)
+    chip_smoke.require_equal(f"G={G}", chip_smoke.round_outputs(got),
+                             chip_smoke.round_outputs(want))
+    chip_smoke.require_same_util(f"G={G}", got.util_pct, want.util_pct)
+
+
+def test_score_cases_run_on_cpu_tensors():
+    """The score kernel's edge cases on CPU tensors, where the wrapper
+    takes the plain version: the cases build and compare, and nothing
+    launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    cpu = torch.device("cpu")
+    assert chip_smoke.check_score_cases(cpu, _inputs(cpu, 300, 50)) == 7 * 4 * 2
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_desched_cases_run_on_cpu_tensors():
+    """The round's edge cases on CPU tensors: three rounds of each of the
+    16 (cases x deviation mode), and nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    assert chip_smoke.check_desched_cases(torch.device("cpu")) == 16 * 3
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_score_boundaries_sweep_every_step():
+    """The boundary case puts, for every capacity, the free capacity n =
+    cap - used of a LoadAware quotient n * 100 // cap on both sides of
+    every integer step k in 1..100 (the least n reaching k, and the one
+    before it), and used == cap and used > cap somewhere."""
+    inp = chip_smoke.boundary_inputs(torch.device("cpu"), 3)
+    cap = inp["la_nodes"].alloc[:, 0].tolist()
+    base = inp["la_nodes"].base_nonprod[:, 0].tolist()
+    seen = {}
+    for j, c in enumerate(cap):
+        seen.setdefault(c, set()).update(c - (q + base[j]) for q in range(8))
+    assert sorted(seen) == sorted(set(chip_smoke.BOUNDARY_CAPS) | {0})
+    for c in chip_smoke.BOUNDARY_CAPS:
+        for k in range(1, 101):
+            step = -(-k * c // 100)  # the least n with n * 100 // c >= k
+            assert step * 100 // c >= k > (step - 1) * 100 // c
+            assert {step, step - 1} <= seen[c]
+    n = [c - (q + b) for c, b in zip(cap, base) for q in range(8) if c > 0]
+    assert 0 in n and min(n) < 0 and 0 in cap
+
+
+def test_score_widths_take_an_instantiation():
+    """The widths the serving configurations reach (batch scalars or not)
+    each have a specialised instantiation in csrc/score.cu, chosen by
+    ``koord_score``; any other width takes the generic one."""
+    import re
+
+    src = (cuda.CSRC / "score.cu").read_text()
+    chosen = re.findall(r"c\.R == (\d+) && c\.Rf == (\d+) && c\.Rs == (\d+)\)\s*\n\s*"
+                        r"e = launch_widths<(\d+), (\d+), (\d+)>", src)
+    assert chosen and all(a[:3] == a[3:] for a in chosen)
+    assert "launch_widths<0, 0, 0>" in src
+    widths = set()
+    for scalars in ((), SCALARS):
+        pods, nodes = random_cluster(3, num_nodes=20, num_pods=5)
+        inp = chip_smoke.build_inputs(pods, nodes, torch.device("cpu"), scalars)
+        widths.add((inp["la_pods"].est.shape[1], inp["nf_pods"].req.shape[1],
+                    inp["nf_pods"].req_score.shape[1]))
+    assert widths == {(2, 3, 2), (2, 5, 2)}
+    assert widths <= {tuple(int(x) for x in a[:3]) for a in chosen}
+
+
+def test_desched_grid_reckoning():
+    """The round's launch: a main block a 1,024 positions of the larger
+    axis, at most 132 and what the card's SMs leave beside the side blocks
+    (6R, one more in deviation mode), at least one."""
+    assert cuda.desched_side_blocks(2, False) == 12
+    assert cuda.desched_side_blocks(2, True) == 13
+    assert cuda.desched_grid(10_000, 32_768, 2, False, 132) == 32
+    assert cuda.desched_grid(10_000, 64, 2, True, 132) == 10
+    assert cuda.desched_grid(300, 64, 2, False, 132) == 1
+    assert cuda.desched_grid(1, 1, 1, False, 132) == 1
+    assert cuda.desched_grid(500_000, 500_000, 2, False, 132) == 120
+    assert cuda.desched_grid(500_000, 1, 8, True, 132) == 132 - 49
+    assert cuda.desched_grid(200_000, 1, 8, True, 40) == 1
+    rng = np.random.default_rng(9)
+    for _ in range(300):
+        N, Pc = int(rng.integers(1, 300_000)), int(rng.integers(1, 300_000))
+        R, dev, sms = int(rng.integers(1, 9)), bool(rng.integers(0, 2)), int(rng.integers(60, 140))
+        G = cuda.desched_grid(N, Pc, R, dev, sms)
+        assert 1 <= G <= min(cuda.DESCHED_MAX_GRID, sms - cuda.desched_side_blocks(R, dev))
+        assert G * cuda.DESCHED_THREADS >= max(N, Pc) or G == min(
+            cuda.DESCHED_MAX_GRID, sms - cuda.desched_side_blocks(R, dev))
+
+
+def test_desched_passes_count_the_spread():
+    """The radix passes the bound counts: the node order over its scores'
+    spread, the candidate orders over theirs plus the node rank's bits."""
+    from koordinator_tpu_torch.core.lownodeload import LNLNodeArrays, LNLPodArrays, as_tensors
+
+    nodes = as_tensors(LNLNodeArrays(
+        usage=np.array([[0, 0], [500, 500], [1000, 1000]], dtype=np.int64),
+        alloc=np.full((3, 2), 1000, dtype=np.int64), unschedulable=np.zeros(3, bool),
+        valid=np.ones(3, bool)))
+    pods = as_tensors(LNLPodArrays(node=np.array([0, 1, 2], dtype=np.int32),
+                                   usage=np.array([[0, 0], [10, 10], [300, 300]], np.int64),
+                                   removable=np.ones(3, bool)))
+    w = torch.tensor([1, 1])
+    # node scores 0..1000: 10 bits, 2 passes; candidate scores 0..300: 9
+    # bits + 2 of the rank = 11: 2 passes each
+    assert chip_smoke.desched_passes(nodes, pods, w) == (2, 4)
+
+
 KOORDLET = ("shard_score_map", "aggregate_node_metrics")
 
 

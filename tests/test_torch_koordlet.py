@@ -334,7 +334,7 @@ def test_histogram_functions_equal_jax():
     opt_j = jh.HistogramOptions.linear(1000.0, 10.0, 1e-10)
     opt_t = th.HistogramOptions.linear(1000.0, 10.0, 1e-10)
     rng = np.random.default_rng(9)
-    sj, st = jh.new_state(8, opt_j), th.new_state(8, opt_t)
+    sj, st = jh.new_state(8, opt_j), th.new_state(8, opt_t, device="cpu")
     for step in range(30):
         v = rng.uniform(0, 1200, 8)
         w = (rng.random(8) < 0.8).astype(np.float64)
@@ -348,6 +348,21 @@ def test_histogram_functions_equal_jax():
     c, m = th.peak_prediction(torch.tensor([1000.0]), torch.tensor([2.0 * GB]), 10)
     jc, jmem = jh.peak_prediction(np.array([1000.0]), np.array([2.0 * GB]), 10)
     assert (int(c[0]), int(m[0])) == (int(jc[0]), int(jmem[0]))
+
+
+def test_histogram_state_names_its_device():
+    """``new_state`` and ``load_checkpoint`` take no default device: a
+    call without one is refused, as every entry point of the port wants
+    its device named."""
+    opt = th.HistogramOptions.linear(1000.0, 10.0, 1e-10)
+    with pytest.raises(TypeError):
+        th.new_state(4, opt)
+    st = th.new_state(4, opt, device="cpu")
+    stored, total, ref = th.save_checkpoint(st, opt)
+    with pytest.raises(TypeError):
+        th.load_checkpoint(stored, total, ref)
+    back = th.load_checkpoint(stored, total, ref, device="cpu")
+    assert back.weights.device.type == "cpu" and back.weights.shape == (4, opt.num_buckets)
 
 
 def test_koordlet_defaults_to_cuda():
