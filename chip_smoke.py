@@ -9,9 +9,12 @@ Phases (any failure exits non-zero and prints no result line):
      inputs, requiring exact equality (integer outputs, tolerance 0): first
      at a small shape across commit caps, then the round loop's edge cases
      over a grid of many blocks (``ROUND_CASES`` and ``hot_node`` at 2,000
-     nodes), then at the main path's full shape (1,024 pods x 16,384 node
-     columns), with each one's time, and the round loop under its four
-     knob settings and at the one-pod probe (``check_round_loop``);
+     nodes), the reservation rows' edge cases (``rsv_cases``; one launch
+     writes both rows, ``rsv_rows``), then at the main path's full shape
+     (1,024 pods x 16,384 node columns, and the reservation rows at the
+     descheduler's one-pod shape), with each one's time, and the round
+     loop under its four knob settings and at the one-pod probe
+     (``check_round_loop``);
   4. the warm-start and residency kernels the same way (``sched_refresh``
      at 16, 128 and 1,024 dirty rows, padded indices included, also held
      against a cold key build; ``sched_rounds``, asserting the carry is
@@ -128,6 +131,14 @@ prints one ``agg_study`` JSON line (``agg_study``): ``aggregate_node_metrics``
 at every window of a report tick with its stages, and ``dstate_scatter``'s
 call, run and stages beside ``index_copy_``; one sample a run, for two
 checkouts alternated in one call.
+
+    python3 chip_smoke.py --rsv [--root DIR]
+
+prints one ``rsv_study`` JSON line (``rsv_study``): the reservation rows'
+calls at the check shape and at the descheduler's one-pod shape, the
+reservation stage of a constrained cycle split by step, and the executing
+DESCHEDULE tick's stages; one sample a run, for two checkouts alternated
+in one call.
 """
 
 from __future__ import annotations
@@ -1259,62 +1270,176 @@ def check_quota_kernels(dev, timed: bool):
 
 
 def check_rsv_kernels(inp, timed: bool):
-    """``rsv_rscore`` and ``rsv_score`` against ``score_reservation`` and
-    ``reservation_score`` at the inputs' shape with the checks' 256
-    reservation rows (raises ``Mismatch``)."""
+    """``rsv_rows`` (one launch writing both rows), ``rsv_rscore`` and
+    ``rsv_score`` against ``score_reservation`` and ``reservation_score``
+    at the inputs' shape with the checks' 256 reservation rows, and
+    ``rsv_rows`` at the descheduler's one-pod shape (one real pod in the
+    bucket of 16, ``rsv_shapes``) (raises ``Mismatch``)."""
     from koordinator_tpu_torch.core import reservation as tr
 
-    _, _, rsv, matched, _, rank = con_inputs_for(inp, SEED + 11)
-    req, N = inp["nf_pods"].req, inp["valid"].shape[0]
-    P, Rf = req.shape
-    Rv = rsv.node.shape[0]
-    err = {
-        "rsv_rscore": require_equal(f"rsv_rscore {P}x{Rv}", (tr.rsv_rscore(req, rsv),),
-                                    (tr.score_reservation(req, rsv),)),
-        "rsv_score": require_equal(f"rsv_score {P}x{N}", (tr.rsv_score(req, matched, N, rsv, rank),),
-                                   (tr.reservation_score(req, matched, N, rsv),)),
-    }
-    print(f"  {P} pods x {Rv} reservations x {N} nodes: rsv_rscore and rsv_score equal plain")
+    shapes = {}
+    for name, (req, matched, N, rsv, rank) in rsv_shapes(inp):
+        P, Rv = matched.shape
+        want = (tr.score_reservation(req, rsv), tr.reservation_score(req, matched, N, rsv))
+        err = require_equal(f"rsv_rows {name} {P}x{Rv}x{N}", tr.rsv_rows(req, matched, N, rsv, rank),
+                            want)
+        err = max(err, require_equal(f"rsv_rscore, rsv_score {name} {P}x{Rv}x{N}",
+                                     (tr.rsv_rscore(req, rsv),
+                                      tr.rsv_score(req, matched, N, rsv, rank)), want))
+        shapes[name] = (req, matched, N, rsv, rank, want, err)
+        print(f"  {name}: {P} pods x {Rv} reservations x {N} nodes: rsv_rows, rsv_rscore and "
+              "rsv_score equal plain")
     if not timed:
         return None
+    req, matched, N, rsv, rank, want, err = shapes["check"]
+    P, Rf = req.shape
+    Rv = rsv.node.shape[0]
     rsv_b = nbytes(*rsv, rank)
     m = int(matched.sum())
     b1 = bound_ms(nbytes(req) + rsv_b + P * Rv * 8, P * Rv * Rf * 6)
-    b2 = bound_ms(nbytes(req, matched) + rsv_b + P * N * 8, P * Rv + m * (Rf * 6 + 20))
+    b2 = bound_ms(nbytes(req, matched) + rsv_b + P * Rv * 8 + P * N * 8,
+                  P * Rv * Rf * 6 + m * (Rf * 6 + 20))
+    oreq, omatched, oN, orsv, orank, _, _ = shapes["one-pod"]
+    ob = bound_ms(nbytes(oreq, omatched, *orsv, orank) + oreq.shape[0] * (orsv.node.shape[0]
+                                                                         + oN) * 8, 0)
     return [
         dict(name="rsv_rscore", source="koordinator_tpu_torch/csrc/reservation.cu",
              replaces="koordinator_tpu/core/reservation.py:65",
              ms=cuda_ms(lambda: tr.rsv_rscore(req, rsv)),
              plain_ms=cuda_ms(lambda: tr.score_reservation(req, rsv)), bound_ms=b1[0],
-             bound_by=b1[1], max_abs_err=err["rsv_rscore"], library_ms=None),
+             bound_by=b1[1], max_abs_err=err, library_ms=None),
+        # the cycle's one launch (``rsv_rows``, both rows); the score row
+        # alone beside it
         dict(name="rsv_score", source="koordinator_tpu_torch/csrc/reservation.cu",
              replaces="koordinator_tpu/core/reservation.py:96",
-             ms=cuda_ms(lambda: tr.rsv_score(req, matched, N, rsv, rank)),
-             plain_ms=cuda_ms(lambda: tr.reservation_score(req, matched, N, rsv)),
-             bound_ms=b2[0], bound_by=b2[1], max_abs_err=err["rsv_score"], library_ms=None),
+             ms=cuda_ms(lambda: tr.rsv_rows(req, matched, N, rsv, rank)),
+             plain_ms=cuda_ms(lambda: (tr.score_reservation(req, rsv),
+                                       tr.reservation_score(req, matched, N, rsv))),
+             bound_ms=b2[0], bound_by=b2[1], max_abs_err=err, library_ms=None,
+             score_ms=cuda_ms(lambda: tr.rsv_score(req, matched, N, rsv, rank)),
+             ms_one_pod=cuda_ms(lambda: tr.rsv_rows(oreq, omatched, oN, orsv, orank)),
+             plain_ms_one_pod=cuda_ms(lambda: (tr.score_reservation(oreq, orsv),
+                                               tr.reservation_score(oreq, omatched, oN, orsv))),
+             bound_ms_one_pod=ob[0]),
     ]
+
+
+def rsv_case(dev, seed: int, P: int, Rv: int, N: int, Rf: int = 2, density: float = 0.02,
+             ordered: float = 0.5, nodes: int = 0, uniform: bool = False,
+             zero_dims: bool = False, every: bool = False, no_match: bool = True,
+             wide: bool = False, real: int = 0):
+    """One edge case of the reservation rows, made with numpy from
+    ``seed``: (req, matched, N, rsv, rank) on ``dev``.  ``nodes``: the
+    reservations on that many nodes only (several a node); ``uniform``:
+    one request, allocatable and allocation everywhere (equal rscores);
+    ``zero_dims``: capacity 0 in some dimensions and in every dimension of
+    some reservations (w == 0); ``every``: pod 1 matches every reservation;
+    ``no_match``: pod 0 matches none; ``wide``: values past the quotients'
+    fast range, negatives and overflowing products included; ``real``:
+    only the first ``real`` pods are real (the others request nothing and
+    match nothing, as a bucket's padding)."""
+    from koordinator_tpu_torch import convert
+    from koordinator_tpu_torch.core import reservation as tr
+
+    rng = np.random.default_rng(seed)
+    T = lambda a: convert.tensor(a, dev)  # noqa: E731
+    if wide:
+        req = rng.integers(-1000, 1 << 40, (P, Rf))
+        alloc = rng.integers(-4000, 1 << 58, (Rv, Rf))
+        allocated = rng.integers(-(1 << 20), 1 << 57, (Rv, Rf))
+    else:
+        req = rng.integers(0, 3000, (P, Rf))
+        alloc = rng.integers(1000, 8000, (Rv, Rf))
+        allocated = rng.integers(0, 1000, (Rv, Rf))
+    if uniform:
+        req[:] = req[0]
+        alloc[:] = alloc[0]
+        allocated[:] = allocated[0]
+    if zero_dims:
+        alloc[rng.random((Rv, Rf)) < 0.3] = 0
+        alloc[rng.random(Rv) < 0.2] = 0
+    node = rng.integers(0, nodes if nodes else N, Rv).astype(np.int32)
+    order = np.where(rng.random(Rv) < ordered, rng.integers(1, 20, Rv), 0).astype(np.int64)
+    matched = rng.random((P, Rv)) < density
+    if every and P > 1:
+        matched[1] = True
+    if no_match:
+        matched[0] = False
+    if real:
+        req[real:] = 0
+        matched[real:] = False
+    rsv = tr.ReservationArrays(node=T(node), allocatable=T(alloc.astype(np.int64)),
+                               allocated=T(allocated.astype(np.int64)), order=T(order))
+    return (T(req.astype(np.int64)), T(matched), N, rsv, tr.order_ranks(T(order))[0])
+
+
+def rsv_cases(dev) -> list:
+    """The reservation rows' edge cases, (name, rsv_case arguments)."""
+    from koordinator_tpu_torch import cuda
+
+    return [
+        ("one pod in the bucket of 16", dict(P=16, Rv=256, N=16_384, real=1, no_match=False,
+                                              density=0.01)),
+        ("Rv = 1", dict(P=8, Rv=1, N=300, density=0.6)),
+        ("Rv = 257 over blocks of 256", dict(P=200, Rv=257, N=1000)),
+        ("Rv = RSV_MAX", dict(P=4, Rv=cuda.RSV_MAX, N=5000, density=0.05)),
+        ("an all-zero row", dict(P=4, Rv=64, N=100, ordered=0.0, uniform=True, density=0.3)),
+        ("several on one node, ranked", dict(P=40, Rv=96, N=500, nodes=3, density=0.3)),
+        ("several on one node, unranked", dict(P=40, Rv=96, N=500, nodes=3, density=0.3,
+                                              ordered=0.0)),
+        ("equal rscores", dict(P=40, Rv=96, N=500, nodes=5, uniform=True, density=0.3,
+                               ordered=0.0)),
+        ("cap 0 dimensions and w = 0", dict(P=40, Rv=128, N=500, Rf=5, zero_dims=True,
+                                            density=0.2)),
+        ("a pod matching every reservation", dict(P=3, Rv=300, N=700, every=True)),
+        ("N odd", dict(P=7, Rv=64, N=301, density=0.1)),
+        ("N = 1", dict(P=9, Rv=16, N=1, density=0.3)),
+        ("N > 2**16", dict(P=5, Rv=64, N=70_001, density=0.1)),
+        ("values past the fast range", dict(P=40, Rv=128, N=500, Rf=3, wide=True,
+                                            density=0.2)),
+    ]
+
+
+def check_rsv_cases(dev) -> int:
+    """``rsv_rows``, ``rsv_rscore`` and ``rsv_score`` against both plain
+    versions on every case of ``rsv_cases`` (raises ``Mismatch``); the
+    case count."""
+    from koordinator_tpu_torch.core import reservation as tr
+
+    cases = rsv_cases(dev)
+    for k, (name, kw) in enumerate(cases):
+        req, matched, N, rsv, rank = rsv_case(dev, SEED + 70 + k, **kw)
+        want = (tr.score_reservation(req, rsv), tr.reservation_score(req, matched, N, rsv))
+        require_equal(f"rsv_rows, {name}", tr.rsv_rows(req, matched, N, rsv, rank), want)
+        require_equal(f"rsv_rscore, rsv_score, {name}",
+                      (tr.rsv_rscore(req, rsv), tr.rsv_score(req, matched, N, rsv, rank)), want)
+    print(f"  rsv_rows, rsv_rscore and rsv_score: {len(cases)} edge cases equal plain",
+          flush=True)
+    return len(cases)
 
 
 # the constraint phase's cycles: (name, clock offset from NOW, launches
 # expected of the main engine, expectations)
 CON_CYCLES = (
-    ("cold", 0.0, dict(schedule_keys_con=1, schedule_rounds_con=1, quota_limit=1, rsv_rscore=1,
-                       rsv_score=1, dstate_gate=1), dict(cold=True)),
+    ("cold", 0.0, dict(schedule_keys_con=1, schedule_rounds_con=1, quota_limit=1, rsv_score=1,
+                       dstate_gate=1), dict(cold=True)),
     ("unchanged", 1.0, dict(sched_rounds_con=1, dstate_gate=1), dict(begin_hit=True)),
     ("20 quota maxes lowered, metrics on 100 nodes", 2.0,
      dict(sched_refresh_con=1, sched_rounds_con=1, quota_limit=1, dstate_scatter=1, dstate_gate=1),
      dict(upper_bound=True)),
-    ("a reservation upserted", 3.0, dict(schedule_keys_con=1, schedule_rounds_con=1, rsv_rscore=1,
-                                         rsv_score=1, dstate_gate=1), dict(cold=True)),
+    ("a reservation upserted", 3.0, dict(schedule_keys_con=1, schedule_rounds_con=1, rsv_score=1,
+                                         dstate_gate=1), dict(cold=True)),
     ("assume with 8 pending reservations", 4.0,
-     dict(schedule_keys_con=1, schedule_rounds_con=1, rsv_rscore=1, rsv_score=1, dstate_gate=1),
+     dict(schedule_keys_con=1, schedule_rounds_con=1, rsv_score=1, dstate_gate=1),
      dict(cold=True, assume=True)),
     ("the next batch", 5.0, dict(schedule_keys_con=1, schedule_rounds_con=1, quota_limit=1,
-                                 rsv_rscore=1, rsv_score=1, dstate_scatter=1, dstate_gate=1),
+                                 rsv_score=1, dstate_scatter=1, dstate_gate=1),
      dict(cold=True)),
 )
+# a cycle's reservation rows are one ``rsv_score`` launch (``rsv_rows``):
+# ``rsv_rscore`` is launched on no path
 CON_PATH_KERNELS = ("schedule_keys_con", "schedule_rounds_con", "sched_refresh_con",
-                    "sched_rounds_con", "quota", "quota_limit", "rsv_rscore", "rsv_score",
+                    "sched_rounds_con", "quota", "quota_limit", "rsv_score",
                     "dstate_scatter", "dstate_gate")
 
 
@@ -2848,7 +2973,7 @@ RTC_CYCLES = (("cold, with a SCORE", 0.0, None, False),
               ("unchanged", 1.0, None, False),
               ("assume", 2.0, None, True))
 STRATEGY_PATH_KERNELS = ("score", "schedule_keys64", "schedule_keys64_con", "scan", "scan_con",
-                         "quota", "quota_limit", "rsv_rscore", "rsv_score", "placement",
+                         "quota", "quota_limit", "rsv_score", "placement",
                          "dev_feasible", "ds_score", "dstate_gate")
 # the kernels a SCHEDULE under MostAllocated or RTC never launches: the
 # packed keys and every round loop
@@ -3503,7 +3628,7 @@ def drive_library_path(device, num_nodes: int, num_pods: int):
 
 
 SIDECAR_PATH_KERNELS = ("score", "la_score", "nf_score", "schedule_keys_con",
-                        "schedule_rounds_con", "quota_limit", "rsv_rscore", "rsv_score", "quota",
+                        "schedule_rounds_con", "quota_limit", "rsv_score", "quota",
                         "dstate_gate")
 SIDECAR_PROBES = 8
 
@@ -5515,6 +5640,279 @@ def desched_study(dev, reps: int = 21) -> int:
     return 0
 
 
+# ------------------------------------------------------------ the --rsv study
+
+# kernel-name keys of the reservation kernels for device_split (both
+# instantiations of the one template)
+RSV_GROUPS = (("rsv_kernel", "rsv_kernel"),)
+
+
+def rsv_shapes(full):
+    """The two shapes of the reservation calls: (name, (req, matched, N,
+    rsv, rank)).  ``check``: the check shape, 1,024 pods x 256 reservations
+    x 16,384 columns (``con_inputs_for``); ``one-pod``: the descheduler's
+    one-pod cycle, one real pod in the bucket of 16 matching one
+    reservation (the migration's own, unordered), over the same 256
+    reservation rows (the descheduler store's 200 to 232 reservations
+    bucket to 256)."""
+    out = []
+    for name, inp in (("check", full), ("one-pod", probe_inputs(full, 16))):
+        _, _, rsv, matched, _, rank = con_inputs_for(inp, SEED + 11)
+        if name == "one-pod":
+            matched = torch.zeros_like(matched)
+            matched[0, 0] = True
+        out.append((name, (inp["nf_pods"].req, matched, inp["valid"].shape[0], rsv, rank)))
+    return out
+
+
+def rsv_calls(tr, req, matched, N, rsv, rank) -> dict:
+    """The reservation calls: the cycle's one launch (``rsv_rows``, both
+    rows) and each entry point alone."""
+    return dict(rsv_rows=lambda: tr.rsv_rows(req, matched, N, rsv, rank),
+                rsv_rscore=lambda: tr.rsv_rscore(req, rsv),
+                rsv_score=lambda: tr.rsv_score(req, matched, N, rsv, rank))
+
+
+def host_ms(fn, reps: int) -> float:
+    """The host clock around ``fn`` after a synchronise: the median of
+    ``reps``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def rsv_kernel_cases(full, reps: int) -> list:
+    """Both shapes: every call equal to its plain version first, then CUDA
+    events around one call (the median of ``reps``), the device time by
+    kernel (``torch.profiler``) and the host time (host clock around the
+    call, which only enqueues)."""
+    from koordinator_tpu_torch.core import reservation as tr
+
+    out = []
+    for name, (req, matched, N, rsv, rank) in rsv_shapes(full):
+        want = (tr.score_reservation(req, rsv), tr.reservation_score(req, matched, N, rsv))
+        calls = rsv_calls(tr, req, matched, N, rsv, rank)
+        require_equal(f"rsv_rows {name}", calls["rsv_rows"](), want)
+        require_equal(f"rsv entries {name}", (calls["rsv_rscore"](), calls["rsv_score"]()), want)
+        rec = dict(shape=name, P=req.shape[0], Rv=rsv.node.shape[0], N=N,
+                   matched=int(matched.sum()), calls={})
+        for call, fn in calls.items():
+            rec["calls"][call] = dict(ms=cuda_ms(fn, reps=reps),
+                                      device_ms=device_split(fn, RSV_GROUPS, reps=reps),
+                                      host_ms=host_ms(fn, reps))
+        out.append(rec)
+        print(f"  {name} ({rec['P']} x {rec['Rv']} x {N}, {rec['matched']} matched): "
+              + "; ".join(f"{c} call {v['ms']:.4f} ms, device {v['device_ms']}, host "
+                          f"{v['host_ms']:.4f}" for c, v in rec["calls"].items()), flush=True)
+    return out
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rsv_stage_study(dev, scalars, num_pods: int, reps: int, num_nodes: int = NUM_NODES) -> dict:
+    """The reservation stage of a constrained cycle on the host clock, over
+    ``con_store`` (``num_nodes`` nodes, 200 reservations): a real SCHEDULE
+    of ``num_pods`` pods of ``con_batch`` (one reservation each when one
+    pod, as the descheduler's bind), then ``Engine._constraint_inputs``
+    again on its arguments ``reps`` times, each after a bump of the
+    reservation store's version (every cache keyed on it misses, as in the
+    descheduler's cycles): the stage from the store's ``build`` to the
+    return (the median and range), and its split inside the same calls,
+    each step's host ms from the engine's own methods wrapped (the store's
+    ``build``, ``_rsv_match``, ``_rsv_ranks``, the one upload,
+    ``_rsv_rows_cached``: the median of each)."""
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    st = con_store(scalars, num_nodes)
+    eng = Engine(st, device=dev)
+    pods = con_batch(num_pods, "rsv", SEED + 41)
+    if num_pods == 1:
+        pods[0].reservations = pods[0].reservations[:1]
+    seen = {}
+    orig = eng._constraint_inputs
+
+    def capture(*a):
+        seen["args"] = a
+        return orig(*a)
+
+    eng._constraint_inputs = capture
+    eng.schedule(pods, now=NOW)
+    del eng._constraint_inputs
+    args = seen["args"]
+    steps = ((st.reservations, "build", "build"), (eng, "_rsv_match", "match"),
+             (eng, "_rsv_ranks", "ranks"), (eng._rsv_upload, "upload", "upload"),
+             (eng, "_rsv_rows_cached", "rows"))
+    split = {}
+
+    def timed(fn, step):
+        def call(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                split[step] = split.get(step, 0.0) + (time.perf_counter() - t0) * 1e3
+                seen.setdefault("t0", t0)
+
+        return call
+
+    for owner, attr, step in steps:
+        setattr(owner, attr, timed(getattr(owner, attr), step))
+    stage, whole, splits = [], [], []
+    for _ in range(reps):
+        st.reservations.version += 1
+        split.clear()
+        seen.pop("t0", None)
+        sync(dev)
+        t0 = time.perf_counter()
+        eng._constraint_inputs(*args)
+        t1 = time.perf_counter()
+        stage.append((t1 - seen["t0"]) * 1e3)
+        whole.append((t1 - t0) * 1e3)
+        splits.append(dict(split))
+    for owner, attr, _ in steps:
+        delattr(owner, attr)
+    sync(dev)
+    out = dict(pods=num_pods, p_bucket=args[1], stage_ms=statistics.median(stage),
+               stage_range=[min(stage), max(stage)],
+               constraint_inputs_ms=statistics.median(whole),
+               split_ms={k: statistics.median(s[k] for s in splits) for k in splits[0]})
+    if dev.type == "cuda":
+        # the device time of what the engine's own call launches there
+
+        def call():
+            st.reservations.version += 1
+            eng._constraint_inputs(*args)
+
+        out["device_ms"] = device_split(call, RSV_GROUPS, reps=reps)
+    return out
+
+
+def rsv_desched_tick(dev, scalars, num_nodes: int = NUM_NODES) -> dict:
+    """The executing DESCHEDULE tick on a card sidecar fed the sidecar
+    phase's frames that shape its store (SCORE, EXPLAIN, ECHO and the
+    refused verb left out) and the descheduler's: its ``last_split`` and,
+    for each constrained cycle the tick runs, the reservation stage on the
+    host clock (the store's ``build`` to the return of
+    ``_constraint_inputs``) with the cycle's pod and reservation buckets.
+    The collector is held out of the tick: a full collection before it,
+    none during it (``GcTimer`` shows what ran, by generation), so that two
+    trees' ticks compare without a collection landing in one of them."""
+    import gc
+
+    from koordinator_tpu_torch.service import protocol as proto
+    from koordinator_tpu_torch.service.server import SidecarServer
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    M = proto.MsgType
+    skip = ("SCORE breakdown", "EXPLAIN", "ECHO", "METRICS (refused)")
+    frames = [f for f in sidecar_frames(num_nodes, NUM_PODS) if f[0] not in skip]
+    names = [n.name for n in random_cluster(SEED, num_nodes=num_nodes, num_pods=0)[1]]
+    frames += desched_frames(names, max(len(names) // 100, 2), SEED + 31)
+    card = SidecarServer(initial_capacity=16, extra_scalars=scalars, device=dev)
+    cycles, mark = [], {}
+    try:
+        cw = Wire(card.address)
+        for label, frame in frames:
+            if label == "DESCHEDULE execute":
+                eng = card.engine
+                st = eng.state
+                orig, build = eng._constraint_inputs, st.reservations.build
+
+                def timed_build(node_index, axis, rv_bucket):
+                    mark.update(t0=time.perf_counter(), rv=rv_bucket)
+                    return build(node_index, axis, rv_bucket)
+
+                def timed(pods, p_bucket, nf_req, n_cols):
+                    mark.clear()
+                    out = orig(pods, p_bucket, nf_req, n_cols)
+                    if "t0" in mark:
+                        cycles.append(dict(pods=len(pods), p_bucket=p_bucket, rv=mark["rv"],
+                                           ms=(time.perf_counter() - mark["t0"]) * 1e3))
+                    return out
+
+                eng._constraint_inputs, st.reservations.build = timed, timed_build
+                gc.collect()
+                gc.disable()
+            try:
+                with GcTimer() as gc_timer:
+                    t0 = time.perf_counter()
+                    reply = cw.call(frame)
+                    wall = (time.perf_counter() - t0) * 1e3
+                    gc_ms = gc_timer.take()
+            finally:
+                gc.enable()
+            if decoded(reply)[0] == M.ERROR:
+                fail(f"rsv study, sidecar {label}: ERROR {decoded(reply)[2].get('error')}")
+        cw.close()
+        d = card._descheduler
+        split = {k: v * 1e3 for k, v in d.last_split.items()}
+        executed = len(d.last_migrations)
+    finally:
+        card.close()
+    one = [c["ms"] for c in cycles if c["pods"] == 1]
+    return dict(wall_ms=wall, gc_ms=gc_ms, split_ms=split, executed=executed, cycles=len(cycles),
+                one_pod_cycles=len(one), rv=sorted({c["rv"] for c in cycles}),
+                one_pod_stage_ms=statistics.median(one) if one else None,
+                one_pod_stage_sum_ms=sum(one),
+                probe_stage_ms=[c["ms"] for c in cycles if c["pods"] > 1])
+
+
+def rsv_study(dev, reps: int = 21) -> int:
+    """``--rsv``: the reservation kernels and the stage around them.
+    (1) The cycle's one launch (``rsv_rows``; each entry point alone
+    beside) at the check shape and at the descheduler's one-pod shape
+    (``rsv_shapes``), each equal to both plain versions first: events
+    around one call, the device time by kernel and the host time; (2) the reservation stage of a constrained cycle split by
+    step, at one pod and in the constraint phase's cold cycle of 1,000
+    (``rsv_stage_study``); (3) the executing DESCHEDULE tick's stages and
+    its cycles' reservation stages (``rsv_desched_tick``).  The port is
+    imported from ``--root`` when given (a checkout of this commit or a
+    later one): run two checkouts alternately in one call.  One
+    ``rsv_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    scalars = (BATCH_CPU, BATCH_MEMORY)
+    out = dict(ptxas=ptxas_report(libs["reservation"], ""))
+    for line in out["ptxas"]:
+        print(f"  ptxas reservation: {line}")
+    pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
+    full = build_inputs(pods, nodes, dev, scalars)
+    out["kernels"] = rsv_kernel_cases(full, reps)
+    del full
+    torch.cuda.empty_cache()
+    out["stage"] = [rsv_stage_study(dev, scalars, n, reps) for n in (1, NUM_PODS)]
+    for s in out["stage"]:
+        print(f"  reservation stage, {s['pods']} pods (bucket {s['p_bucket']}): "
+              f"{s['stage_ms']:.4f} ms ({s['stage_range'][0]:.4f}-{s['stage_range'][1]:.4f}) of "
+              f"_constraint_inputs' {s['constraint_inputs_ms']:.4f}; split "
+              + ", ".join(f"{k} {v:.4f}" for k, v in s["split_ms"].items())
+              + f"; device {s['device_ms']}", flush=True)
+    out["desched"] = rsv_desched_tick(dev, scalars)
+    dt = out["desched"]
+    print(f"  DESCHEDULE execute: {dt['wall_ms']:.1f} ms (the garbage collector "
+          f"{sum(dt['gc_ms'].values()):.1f} ms: {dt['gc_ms']}), executed {dt['executed']}; split "
+          + ", ".join(f"{k} {v:.1f}" for k, v in dt["split_ms"].items())
+          + f" ms; {dt['cycles']} constrained cycles ({dt['one_pod_cycles']} of one pod, "
+          f"reservation buckets {dt['rv']}): the reservation stage a one-pod cycle "
+          f"{dt['one_pod_stage_ms']} ms, {dt['one_pod_stage_sum_ms']:.2f} ms in all; the "
+          f"probe's {dt['probe_stage_ms']}", flush=True)
+    print(json.dumps({"rsv_study": out, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
     if "--root" in sys.argv:
         # time another checkout's port (a parent commit unpacked beside)
@@ -5534,6 +5932,8 @@ def main() -> int:
         return score_study(torch.device("cuda:0"))
     if "--desched" in sys.argv:
         return desched_study(torch.device("cuda:0"))
+    if "--rsv" in sys.argv:
+        return rsv_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -5583,6 +5983,7 @@ def main() -> int:
     check_extra_kernels(small, True, timed=False, commit_cap=1)
     check_strategies_small(small)
     check_score_cases(dev, small)
+    check_rsv_cases(dev)
     check_div_helper(dev)
     # the explain slice's kernels at 64 pods x 512 columns, and at a node
     # axis that is not a multiple of the block width (267) by 45 pods
@@ -5729,7 +6130,8 @@ def main() -> int:
             "steps_bound_ms", "keys_device_ms", "steps_device_ms", "ms_bench_sim",
             "plain_ms_bench_sim", "bound_ms_bench_sim", "ms_bench_sim_deviation",
             "plain_ms_bench_sim_deviation", "device_split_ms", "score_ms", "ms_run",
-            "library_ms_run", "residency_ms", "bound_over", "device_ms")
+            "library_ms_run", "residency_ms", "bound_over", "device_ms", "ms_one_pod",
+            "plain_ms_one_pod", "bound_ms_one_pod")
     kernels = []
     for rec in records:
         name = rec["name"]

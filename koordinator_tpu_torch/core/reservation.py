@@ -19,15 +19,18 @@ per-reservation arrays:
 ``order_ranks`` ranks the positive order labels by (order, index).  The
 kernels take the ranks computed once, on the host.
 
-``rsv_rscore`` and ``rsv_score`` are the wrappers of the two kernels of
-``csrc/reservation.cu``: they check their inputs' dtypes and shapes on
-every device, then CPU tensors take the plain versions here.
+``rsv_rscore`` and ``rsv_score`` are the wrappers of the two
+instantiations of ``csrc/reservation.cu``'s one template, and ``rsv_rows``
+computes both rows of a cycle in one launch: they check their inputs'
+dtypes and shapes on every device, then CPU tensors take the plain
+versions here.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from koordinator_tpu_torch import cuda
@@ -102,6 +105,16 @@ def order_ranks(order: torch.Tensor):
     return torch.where(has, rank, torch.zeros_like(rank)), sorted_idx.to(torch.int32)
 
 
+def order_ranks_host(order: np.ndarray) -> np.ndarray:
+    """``order_ranks``' ranks of a host array of order labels, [Rv] int64:
+    the same stable sort of the same keys in numpy, so the same ranks."""
+    has = order > 0
+    rank = np.zeros(order.shape[0], dtype=np.int64)
+    rank[np.argsort(np.where(has, order, _INF), kind="stable")] = np.arange(1, order.shape[0] + 1)
+    rank[~has] = 0
+    return rank
+
+
 def default_normalize_score(scores: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """DefaultNormalizeScore over the node axis: the max becomes 100; an
     all-zero row stays unchanged (or becomes all 100 when reverse)."""
@@ -171,7 +184,7 @@ def nominate_on_node(matched_row, rscore_row, rsv: ReservationArrays, host):
 # ------------------------------------------------------------------ kernels
 
 
-def _rsv_args(pod_req, rsv: ReservationArrays, rank):
+def _rsv_args(pod_req, rsv: ReservationArrays):
     dev = pod_req.device
     P, Rf = pod_req.shape
     Rv = rsv.node.shape[0]
@@ -183,8 +196,34 @@ def _rsv_args(pod_req, rsv: ReservationArrays, rank):
         cuda._checked(rsv.node, torch.int32, (Rv,), dev, "reservation node"),
         cuda._checked(rsv.allocatable, i64, (Rv, Rf), dev, "reservation allocatable"),
         cuda._checked(rsv.allocated, i64, (Rv, Rf), dev, "reservation allocated"),
-        cuda._checked(rank, i64, (Rv,), dev, "reservation rank"),
     )
+
+
+def _score_args(pod_req, matched, rsv: ReservationArrays, rank):
+    """The checked inputs of the score launch: request, node, allocatable,
+    allocated, rank, matched."""
+    dev = pod_req.device
+    P = pod_req.shape[0]
+    Rv = rsv.node.shape[0]
+    args = _rsv_args(pod_req, rsv) + (
+        cuda._checked(rank, torch.int64, (Rv,), dev, "reservation rank"),
+        cuda._checked(matched, torch.bool, (P, Rv), dev, "matched"),
+    )
+    if Rv > cuda.RSV_MAX:
+        raise ValueError(f"{Rv} reservations exceed the score kernel's {cuda.RSV_MAX}")
+    return args
+
+
+def _launch_score(args, num_nodes: int, rscore, out) -> None:
+    """One launch of the score instantiation: ``out`` [P, N] and, when
+    ``rscore`` is given, the [P, Rv] rows into it."""
+    P, Rf = args[0].shape
+    Rv = args[1].shape[0]
+    if P:
+        dev = args[0].device
+        cuda.RSV_SCORE.launch(*(a.data_ptr() for a in args), P, Rv, Rf, num_nodes,
+                              0 if rscore is None else rscore.data_ptr(), out.data_ptr(),
+                              cuda.device_index(dev), cuda.stream(dev))
 
 
 def rsv_rscore(pod_req: torch.Tensor, rsv: ReservationArrays) -> torch.Tensor:
@@ -193,13 +232,14 @@ def rsv_rscore(pod_req: torch.Tensor, rsv: ReservationArrays) -> torch.Tensor:
     ``csrc/reservation.cu`` or raise."""
     P, Rf = pod_req.shape
     Rv = rsv.node.shape[0]
-    args = _rsv_args(pod_req, rsv, torch.zeros(Rv, dtype=torch.int64, device=pod_req.device))
+    args = _rsv_args(pod_req, rsv)
     if pod_req.device.type == "cpu":
         return score_reservation(pod_req, rsv)
     out = torch.empty((P, Rv), dtype=torch.int64, device=pod_req.device)
     if P and Rv:
-        cuda.RSV_RSCORE.launch(*(a.data_ptr() for a in args[:4]), P, Rv, Rf, out.data_ptr(),
-                               cuda.device_index(pod_req.device), cuda.stream(pod_req.device))
+        cuda.RSV_RSCORE.launch(args[0].data_ptr(), *(a.data_ptr() for a in args[2:]), P, Rv, Rf,
+                               out.data_ptr(), cuda.device_index(pod_req.device),
+                               cuda.stream(pod_req.device))
     return out
 
 
@@ -209,17 +249,30 @@ def rsv_score(pod_req: torch.Tensor, matched: torch.Tensor, num_nodes: int,
     order ranks ``rank`` ([Rv] int64, ``order_ranks`` of ``rsv.order``)
     computed by the caller.  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/reservation.cu`` or raise."""
-    dev = pod_req.device
-    P, Rf = pod_req.shape
-    Rv = rsv.node.shape[0]
-    args = _rsv_args(pod_req, rsv, rank)
-    matched = cuda._checked(matched, torch.bool, (P, Rv), dev, "matched")
-    if Rv > cuda.RSV_MAX:
-        raise ValueError(f"{Rv} reservations exceed the score kernel's {cuda.RSV_MAX}")
-    if dev.type == "cpu":
+    args = _score_args(pod_req, matched, rsv, rank)
+    if pod_req.device.type == "cpu":
         return reservation_score(pod_req, matched, num_nodes, rsv)
-    out = torch.empty((P, num_nodes), dtype=torch.int64, device=dev)
-    if P and num_nodes:
-        cuda.RSV_SCORE.launch(*(a.data_ptr() for a in args), matched.data_ptr(), P, Rv, Rf,
-                              num_nodes, out.data_ptr(), cuda.device_index(dev), cuda.stream(dev))
+    out = torch.empty((pod_req.shape[0], num_nodes), dtype=torch.int64, device=pod_req.device)
+    _launch_score(args, num_nodes, None, out)
     return out
+
+
+def rsv_rows(pod_req: torch.Tensor, matched: torch.Tensor, num_nodes: int,
+             rsv: ReservationArrays, rank: torch.Tensor):
+    """A cycle's reservation rows, (``score_reservation`` [P, Rv],
+    ``reservation_score`` [P, N]), both int64, with the order ranks
+    ``rank`` computed by the caller: one set of checks, and on a card one
+    launch of the ``rsv_score`` kernel writing both.  CPU tensors take the
+    two plain versions; CUDA tensors launch ``csrc/reservation.cu`` or
+    raise."""
+    args = _score_args(pod_req, matched, rsv, rank)
+    dev = pod_req.device
+    if dev.type == "cpu":
+        return (score_reservation(pod_req, rsv),
+                reservation_score(pod_req, matched, num_nodes, rsv))
+    P, Rv = matched.shape
+    # int64 on the request's device, as the request (no dtype or device to parse)
+    rscore = pod_req.new_empty((P, Rv))
+    out = pod_req.new_empty((P, num_nodes))
+    _launch_score(args, num_nodes, rscore, out)
+    return rscore, out

@@ -225,9 +225,13 @@ DS_SCORE = Kernel("device", "koord_ds_score", [_P] * 3 + [_I] * 2 + [_P, _I, _P]
 # admission limit ``quota_limit`` (row 0 := 2**60) share one entry point
 QUOTA = Kernel("quota", "koord_quota", [_P] * 10 + [_I] * 5 + [_P, _P, _I, _P])
 QUOTA_LIMIT = Kernel("quota", "koord_quota", QUOTA.argtypes)
-# the reservation plugin's scores (csrc/reservation.cu)
-RSV_RSCORE = Kernel("reservation", "koord_rsv_rscore", [_P] * 4 + [_I] * 3 + [_P, _I, _P])
-RSV_SCORE = Kernel("reservation", "koord_rsv_score", [_P] * 6 + [_I] * 4 + [_P, _I, _P])
+# the reservation plugin's scores (csrc/reservation.cu, one template):
+# ``rsv_rscore`` (request, allocatable, allocated, P, Rv, Rf, the [P, Rv]
+# output) and ``rsv_score`` (request, node, allocatable, allocated, rank,
+# matched, P, Rv, Rf, N, the [P, Rv] rscore output or null, the [P, N]
+# output)
+RSV_RSCORE = Kernel("reservation", "koord_rsv_rscore", [_P] * 3 + [_I] * 3 + [_P, _I, _P])
+RSV_SCORE = Kernel("reservation", "koord_rsv_score", [_P] * 6 + [_I] * 4 + [_P, _P, _I, _P])
 RSV_MAX = 4096  # KOORD_RSV_MAX in csrc/reservation.cu: reservations a score launch takes
 # the per-plugin scores of SCORE's breakdown and the LoadAware library
 # entry point (csrc/breakdown.cu): the pod and node pointer tables, the
@@ -356,7 +360,10 @@ def desched_grid(N: int, Pc: int, R: int, use_deviation: bool, sms: int) -> int:
 
 
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of ``device``'s current stream, read with one C call
+    (a ``torch.cuda.Stream`` object costs a few µs of every launch's host
+    time)."""
+    return torch._C._cuda_getCurrentRawStream(device_index(device))
 
 
 def device_index(device: torch.device) -> int:

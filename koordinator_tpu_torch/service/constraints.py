@@ -509,6 +509,11 @@ class ReservationStore:
         # content version (see GangStore.version): the key the engine's
         # reservation score-row cache invalidates on
         self.version = 0
+        # ``build``'s rows: name -> its allocatable and allocated over
+        # ``_row_axis`` as int64 bytes, dropped by every mutator that
+        # changes them (the store's mutators are their only writers)
+        self._row_axis: tuple = ()
+        self._rows: Dict[str, bytes] = {}
 
     def __len__(self):
         return len(self._rsv)
@@ -523,10 +528,12 @@ class ReservationStore:
             info.allocated = prev.allocated
             info.consumed_once = info.consumed_once or prev.consumed_once
         self._rsv[info.name] = info
+        self._rows.pop(info.name, None)
 
     def remove(self, name: str) -> None:
         self.version += 1
         self._rsv.pop(name, None)
+        self._rows.pop(name, None)
 
     def get(self, name: str) -> Optional[ReservationInfo]:
         return self._rsv.get(name)
@@ -563,6 +570,7 @@ class ReservationStore:
         if info is None or pod_key in self._pod_alloc:
             return
         self.version += 1
+        self._rows.pop(rsv_name, None)
         vec = dict(consume)
         for r, v in vec.items():
             info.allocated[r] = info.allocated.get(r, 0) + v
@@ -578,6 +586,7 @@ class ReservationStore:
         and the upsert merge for the next same-named reservation."""
         self.version += 1
         self._rsv.pop(name, None)
+        self._rows.pop(name, None)
         for pod_key in [
             k for k, (n, _v) in self._pod_alloc.items() if n == name
         ]:
@@ -601,6 +610,7 @@ class ReservationStore:
         if info is None:
             return
         self.version += 1
+        self._rows.pop(rsv_name, None)
         for r, v in vec.items():
             info.allocated[r] = info.allocated.get(r, 0) - v
 
@@ -613,19 +623,36 @@ class ReservationStore:
         """Dense rows for the available reservations on known nodes; padded
         rows point at node 0 with zero allocatable (inert: zero remain adds
         no free capacity and scoreReservation's zero-cap dims drop out)."""
-        avail = [r for r in self.available() if node_index(r.node) is not None]
-        names = [r.name for r in avail]
-        Rv = rv_bucket
+        axis = tuple(axis)
+        if axis != self._row_axis:
+            self._row_axis, self._rows = axis, {}
+        cache, R = self._rows, len(axis)
+        names, nodes, orders, blobs = [], [], [], []
+        for r in self.available():
+            row = node_index(r.node)
+            if row is None:
+                continue
+            blob = cache.get(r.name)
+            if blob is None:
+                blob = cache[r.name] = np.array(
+                    [[r.allocatable.get(ax, 0) for ax in axis],
+                     [r.allocated.get(ax, 0) for ax in axis]], dtype=np.int64).tobytes()
+            names.append(r.name)
+            nodes.append(row)
+            orders.append(r.order)
+            blobs.append(blob)
+        Rv, n = rv_bucket, len(names)
         node = np.zeros(Rv, dtype=np.int32)
-        allocatable = np.zeros((Rv, len(axis)), dtype=np.int64)
-        allocated = np.zeros((Rv, len(axis)), dtype=np.int64)
+        allocatable = np.zeros((Rv, R), dtype=np.int64)
+        allocated = np.zeros((Rv, R), dtype=np.int64)
         order = np.zeros(Rv, dtype=np.int64)
-        for i, r in enumerate(avail):
-            node[i] = node_index(r.node)
-            for j, ax in enumerate(axis):
-                allocatable[i, j] = r.allocatable.get(ax, 0)
-                allocated[i, j] = r.allocated.get(ax, 0)
-            order[i] = r.order
+        if n:
+            node[:n] = nodes
+            order[:n] = orders
+        if n and R:
+            both = np.frombuffer(b"".join(blobs), dtype=np.int64).reshape(n, 2, R)
+            allocatable[:n] = both[:, 0]
+            allocated[:n] = both[:, 1]
         return (
             ReservationArrays(
                 node=node, allocatable=allocatable, allocated=allocated, order=order

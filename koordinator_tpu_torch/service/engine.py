@@ -93,7 +93,12 @@ from koordinator_tpu_torch.core.resolved import (
 )
 from koordinator_tpu_torch.service import transformers as tf
 from koordinator_tpu_torch.service.descheduler import tolerates
-from koordinator_tpu_torch.service.state import ClusterState, cpu_allocs_from, next_bucket
+from koordinator_tpu_torch.service.state import (
+    ClusterState,
+    UploadStage,
+    cpu_allocs_from,
+    next_bucket,
+)
 from koordinator_tpu_torch.snapshot import loadaware as la_snap
 from koordinator_tpu_torch.snapshot import nodefit as nf_snap
 from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
@@ -362,6 +367,13 @@ class Engine:
         self._quota_limit_val = None
         self._rsv_rows_key: Optional[tuple] = None
         self._rsv_rows_val = None
+        # the reservation rows' order ranks, cached on the store's version
+        # and the node-row mapping (``rsv_rank_builds`` counts their
+        # builds), and the one copy a cycle's reservation inputs take
+        self._rsv_rank_key: Optional[tuple] = None
+        self._rsv_rank_val: Optional[np.ndarray] = None
+        self.rsv_rank_builds = 0
+        self._rsv_upload = UploadStage()
         self.sched_warm_enabled = True
         self.sched_warm_hits = 0
         self.sched_cold_inits = 0
@@ -810,23 +822,62 @@ class Engine:
         self._quota_limit_key, self._quota_limit_val = key, val
         return val
 
-    def _rsv_rows_cached(self, req: np.ndarray, matched: np.ndarray, num_nodes: int, rsv_t,
-                         rank_t):
+    def _rsv_rows_cached(self, req: np.ndarray, matched: np.ndarray, num_nodes: int, req_t,
+                         matched_t, rsv_t, rank_t):
         """The reservation plugin's (rscore [P, Rv], scores [P, N]) on the
-        device, from the ``rsv_rscore`` and ``rsv_score`` kernels, cached on
-        (reservation-store version, node-row mapping, exact request and
-        match bytes): both kernels are pure in these inputs."""
+        device, from one ``rsv_rows`` launch over the uploaded tensors,
+        cached on (reservation-store version, node-row mapping, exact
+        request and match bytes): the rows are pure in these inputs."""
         st = self.state
         key = (st.reservations.version, st._imap.mutations, num_nodes, req.shape,
                req.tobytes(), matched.shape, matched.tobytes())
         if self._rsv_rows_key == key:
             return self._rsv_rows_val
-        req_t = convert.tensor(req, self.device)
-        matched_t = convert.tensor(matched, self.device)
-        val = (rsv_mod.rsv_rscore(req_t, rsv_t),
-               rsv_mod.rsv_score(req_t, matched_t, num_nodes, rsv_t, rank_t), matched_t)
+        val = rsv_mod.rsv_rows(req_t, matched_t, num_nodes, rsv_t, rank_t) + (matched_t,)
         self._rsv_rows_key, self._rsv_rows_val = key, val
         return val
+
+    def _rsv_ranks(self, order: np.ndarray) -> np.ndarray:
+        """``order_ranks`` of the built reservation rows' order labels, [Rv]
+        int64 on the host, cached on (reservation-store version, node-row
+        mapping, rows): computed once a change."""
+        st = self.state
+        key = (st.reservations.version, st._imap.mutations, order.shape[0])
+        if self._rsv_rank_key != key:
+            self._rsv_rank_val = rsv_mod.order_ranks_host(order)
+            self._rsv_rank_key = key
+            self.rsv_rank_builds += 1
+        return self._rsv_rank_val
+
+    @staticmethod
+    def _rsv_match(pods: List[Pod], rsv_names: List[str], p_bucket: int, rv_bucket: int):
+        """The batch's match mask [p_bucket, rv_bucket] bool and its compact
+        view (``match_index``'s layout, [p_bucket, bound] int32, ascending,
+        -1 past the last)."""
+        row_of = {n: i for i, n in enumerate(rsv_names)}
+        hits: Dict[int, set] = {}
+        for i, p in enumerate(pods):
+            for rn in p.reservations:
+                j = row_of.get(rn)
+                if j is not None:
+                    hits.setdefault(i, set()).add(j)
+        most = max(map(len, hits.values()), default=0)
+        matched = np.zeros((p_bucket, rv_bucket), dtype=bool)
+        # the compact matched view's width: the most matches of one pod,
+        # power-of-two bucketed as the JAX engine buckets it
+        midx = np.full((p_bucket, next_bucket(max(most, 1), 2)), -1, dtype=np.int32)
+        if hits:
+            # each pod's rows ascending, at their positions within the pod:
+            # one fancy assignment an array
+            rows, cols, pos = [], [], []
+            for i, h in hits.items():
+                for k, j in enumerate(sorted(h)):
+                    rows.append(i)
+                    cols.append(j)
+                    pos.append(k)
+            matched[rows, cols] = True
+            midx[rows, pos] = cols
+        return matched, midx
 
     def _constraint_inputs(self, pods: List[Pod], p_bucket: int, nf_req: np.ndarray,
                            num_nodes: int) -> _Constraints:
@@ -856,29 +907,18 @@ class Engine:
             rv_bucket = next_bucket(max(len(st.reservations), 1), 8)
             rsv_arr, rsv_names = st.reservations.build(st._imap.get, st.axis, rv_bucket)
             if rsv_names:
-                row_of = {n: i for i, n in enumerate(rsv_names)}
-                matched = np.zeros((p_bucket, rv_bucket), dtype=bool)
-                hits: List[List[int]] = [[] for _ in range(p_bucket)]
-                for i, p in enumerate(pods):
-                    for rn in p.reservations:
-                        j = row_of.get(rn)
-                        if j is not None and not matched[i, j]:
-                            matched[i, j] = True
-                            hits[i].append(j)
-                # the compact matched view's width: the most matches of one
-                # pod, power-of-two bucketed as the JAX engine buckets it
-                bound = next_bucket(max(max(len(h) for h in hits), 1), 2)
-                midx_np = np.full((p_bucket, bound), -1, dtype=np.int32)
-                for i, h in enumerate(hits):
-                    midx_np[i, :len(h)] = sorted(h)
-                rsv_t = self._tensors(rsv_mod.ReservationArrays(*rsv_arr))
-                rank = rsv_mod.order_ranks(torch.from_numpy(rsv_arr.order))[0].to(self.device)
-                rscore, scores, matched_t = self._rsv_rows_cached(nf_req, matched, num_nodes,
-                                                                  rsv_t, rank)
+                matched, midx_np = self._rsv_match(pods, rsv_names, p_bucket, rv_bucket)
+                # the request, the match mask and index, the ranks and the
+                # four reservation arrays: one copy into a fresh buffer
+                req_t, matched_t, midx, rank, *arr = self._rsv_upload.upload(
+                    (nf_req, matched, midx_np, self._rsv_ranks(rsv_arr.order)) + tuple(rsv_arr),
+                    self.device)
+                rsv_t = rsv_mod.ReservationArrays(*arr)
+                rscore, scores, matched_t = self._rsv_rows_cached(
+                    nf_req, matched, num_nodes, req_t, matched_t, rsv_t, rank)
                 rsv = ReservationInputs(rsv=rsv_t, matched=matched_t, rscore=rscore,
                                         scores=scores)
                 rsv_np = (rsv_arr, matched)
-                midx = convert.tensor(midx_np, self.device)
         return _Constraints(order=order, gang_np=(gang_pods, gang_arr), gang_names=gang_names,
                             gang=gang, quota=quota, rsv_np=rsv_np, rsv_names=rsv_names, rsv=rsv,
                             rsv_midx=midx, rsv_rank=rank)

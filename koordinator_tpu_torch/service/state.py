@@ -341,6 +341,93 @@ def dstate_scatter_plain(bufs, idx: torch.Tensor, vals) -> tuple:
     return tuple(bufs)
 
 
+UPLOAD_ALIGN = 256  # each array of an UploadStage copy starts at a multiple
+
+
+def upload_layout(nbytes) -> tuple:
+    """The packed layout of one ``UploadStage`` copy: each array from the
+    next multiple of ``UPLOAD_ALIGN`` bytes on (8-byte views for the int64
+    arrays, 16-byte loads for any reader).  Returns (each array's offset,
+    the total bytes)."""
+    offsets, end = [], 0
+    for nb in nbytes:
+        offsets.append(end)
+        end += (int(nb) + UPLOAD_ALIGN - 1) // UPLOAD_ALIGN * UPLOAD_ALIGN
+    return offsets, end
+
+
+class UploadStage:
+    """Host arrays carried to a device in one copy: packed into one host
+    buffer (``upload_layout``), copied with one ``non_blocking``
+    host->device copy into a device buffer allocated fresh each call, and
+    returned as views of it, each with its array's dtype and shape.  A
+    fresh device buffer each call: a caller may keep the views of earlier
+    calls (a cycle's cached inputs), and no later call writes them.  For a
+    card the host buffer is pinned, grown by doubling and reused; it is
+    rewritten only after the event recorded behind its last copy has
+    completed.  On the CPU the same packing fills a fresh host buffer, and
+    the views are of it (no copy)."""
+
+    def __init__(self):
+        self.copies = 0
+        self._host: Optional[torch.Tensor] = None
+        self._event = None
+        self._pending = False
+
+    def upload(self, arrays, device) -> list:
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        offsets, total = upload_layout(a.nbytes for a in arrays)
+        device = torch.device(device)
+        if device.type == "cpu":
+            buf = torch.empty(total, dtype=torch.uint8)
+            host = buf
+        else:
+            if self._pending:
+                self._event.synchronize()
+                self._pending = False
+            if self._host is None or self._host.numel() < total:
+                cap = max(4096, 1 << (max(total, 1) - 1).bit_length())
+                self._host = torch.empty(cap, dtype=torch.uint8, pin_memory=True)
+            host = self._host
+        raw = host.numpy()
+        for a, o in zip(arrays, offsets):
+            raw[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        if device.type != "cpu":
+            buf = torch.empty(total, dtype=torch.uint8, device=device)
+            buf.copy_(host[:total], non_blocking=True)
+            if self._event is None:
+                self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+            self._pending = True
+        self.copies += 1
+        # each view strided over one view of the buffer a dtype: one tensor
+        # call an array, where a slice and two views take three
+        bases: Dict[torch.dtype, torch.Tensor] = {}
+        out = []
+        for a, o in zip(arrays, offsets):
+            dt = _torch_dtype(a.dtype)
+            base = bases.get(dt)
+            if base is None:
+                base = bases[dt] = buf.view(dt)
+            out.append(base.as_strided(a.shape, _strides(a.shape), o // a.itemsize))
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def _strides(shape: tuple) -> tuple:
+    """The contiguous strides of ``shape``, in elements."""
+    out, step = [], 1
+    for n in reversed(shape):
+        out.append(step)
+        step *= n
+    return tuple(reversed(out))
+
+
+@functools.lru_cache(maxsize=None)
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
 # the staging of calls that name their buffers each time (tests, studies);
 # the residency keeps one a table
 _STAGE = ScatterStage()

@@ -334,6 +334,59 @@ def test_reservation_scoring_matches(seed):
         assert bool(tv) == bool(jv) and (not tv or int(ti) == int(ji))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rsv_rows_matches_jax(seed):
+    """``rsv_rows`` (one launch for both rows on a card) on CPU tensors
+    against the JAX package's ``score_reservation`` and
+    ``reservation_score``."""
+    rsv, matched, pod_req = _rsv_case(seed)
+    trv = trsv.ReservationArrays(*(T(a) for a in rsv))
+    rank = trsv.order_ranks(T(rsv.order))[0]
+    want = (jrsv.score_reservation(pod_req, rsv), jrsv.reservation_score(pod_req, matched, 60, rsv))
+    got = trsv.rsv_rows(T(pod_req), T(matched), 60, trv, rank)
+    assert_same(got[0], want[0], "rscore")
+    assert_same(got[1], want[1], "scores")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_order_ranks_host_equals_order_ranks(seed):
+    """The engine's host ranks (numpy) equal ``order_ranks`` and the JAX
+    package's, absent and tied orders included."""
+    rng = np.random.default_rng(seed)
+    for Rv in (1, 7, 24, 256):
+        order = np.where(rng.random(Rv) < 0.6, rng.integers(-2, 5, Rv), 0).astype(np.int64)
+        want = np.asarray(jrsv.order_ranks(jnp.asarray(order))[0])
+        assert np.array_equal(trsv.order_ranks_host(order), want)
+        assert np.array_equal(trsv.order_ranks(T(order))[0].numpy(), want)
+
+
+def test_upload_stage_views_equal_their_arrays():
+    """One pack of a cycle's host arrays (``UploadStage`` on the CPU: a
+    fresh host buffer, no copy): every view bit for bit its array, for each
+    dtype and odd lengths, every offset a multiple of 256, and the views of
+    an earlier pack untouched by a later one."""
+    from koordinator_tpu_torch.service.state import UPLOAD_ALIGN, UploadStage, upload_layout
+
+    rng = np.random.default_rng(5)
+    arrays = [rng.integers(-(1 << 62), 1 << 62, (7, 3)), rng.random((5, 11)) < 0.5,
+              rng.integers(-5, 5, 13).astype(np.int32), np.zeros((0, 4), np.int64),
+              rng.integers(0, 1 << 40, 1), rng.random(3).astype(np.float64),
+              rng.integers(-9, 9, (3, 3)).astype(np.int32)[:, ::2]]
+    offsets, total = upload_layout(a.nbytes for a in arrays)
+    assert all(o % UPLOAD_ALIGN == 0 for o in offsets) and total % UPLOAD_ALIGN == 0
+    stage = UploadStage()
+    views = stage.upload(arrays, "cpu")
+    for a, v, o in zip(arrays, views, offsets):
+        assert v.dtype == torch.from_numpy(np.ascontiguousarray(a)).dtype
+        assert tuple(v.shape) == a.shape
+        assert np.array_equal(v.numpy().view(np.uint8), np.ascontiguousarray(a).view(np.uint8))
+        assert v.storage_offset() * v.element_size() == o and o % UPLOAD_ALIGN == 0
+    keep = [v.clone() for v in views]
+    stage.upload([np.full_like(a, 1) for a in arrays], "cpu")
+    assert all(torch.equal(v, k) for v, k in zip(views, keep))
+    assert stage.copies == 2
+
+
 def test_match_index_lists_every_match():
     _, matched, _ = _rsv_case(3)
     bound = int(matched.sum(axis=1).max())
@@ -349,7 +402,47 @@ def test_constraint_wrappers_take_cpu_tensors_without_launching():
     trv = trsv.ReservationArrays(*(T(a) for a in rsv))
     trsv.rsv_score(T(pod_req), T(matched), 60, trv, trsv.order_ranks(T(rsv.order))[0])
     trsv.rsv_rscore(T(pod_req), trv)
+    trsv.rsv_rows(T(pod_req), T(matched), 60, trv, trsv.order_ranks(T(rsv.order))[0])
     snap = QuotaSnapshot(_tree("flat"), ["cpu", "memory"])
     qa = tquota.QuotaArrays(*(T(a) for a in snap.arrays()))
     tquota.quota_limit_fn(qa, snap.level_tuple(), T(np.array([9000, 300], np.int64)))
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_rank_cache_follows_the_reservation_store():
+    """The engine's order ranks are built once a change of the reservation
+    store: an upsert with a new order label rebuilds them (and they equal
+    ``order_ranks`` of the new labels); a metric update, which leaves the
+    store and the node-row mapping as they are, does not."""
+    from koordinator_tpu_torch.api.model import NodeMetric
+    from koordinator_tpu_torch.service.constraints import ReservationInfo
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.service.state import ClusterState
+    from koordinator_tpu_torch.utils import fixtures as tfx
+
+    st = ClusterState(initial_capacity=16)
+    for n in tfx.random_cluster(3, num_nodes=12, num_pods=0)[1]:
+        st.upsert_node(n)
+    for i in range(6):
+        st.reservations.upsert(ReservationInfo(name=f"r{i}", node=f"node-{i}",
+                                               allocatable={"cpu": 3000}, order=[0, 3, 3][i % 3]))
+    eng = Engine(st, device="cpu")
+    pods = [tfx.random_pod(np.random.default_rng([3, i]), f"p{i}", "pending") for i in range(4)]
+    for i, p in enumerate(pods):
+        p.reservations = [f"r{i}", f"r{i + 1}"]
+
+    def ranks():
+        eng.schedule(pods, now=tfx.NOW)
+        order = np.array([st.reservations.get(f"r{i}").order for i in range(6)] + [0, 0])
+        assert np.array_equal(eng._rsv_rank_val, trsv.order_ranks(T(order))[0].numpy())
+        return eng._rsv_rank_val.copy(), eng.rsv_rank_builds
+
+    first, builds = ranks()
+    assert builds == 1
+    st.update_metric("node-1", NodeMetric(node_usage={"cpu": 100}, update_time=tfx.NOW))
+    again, builds = ranks()
+    assert builds == 1 and np.array_equal(again, first)
+    st.reservations.upsert(ReservationInfo(name="r0", node="node-0", allocatable={"cpu": 3000},
+                                           order=1))
+    moved, builds = ranks()
+    assert builds == 2 and not np.array_equal(moved, first)

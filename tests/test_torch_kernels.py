@@ -466,6 +466,10 @@ def test_con_wrappers_refuse_before_launch():
         tr.rsv_score(req, matched[:, :-1], N, rsv, rank)
     with pytest.raises(ValueError, match="reservation rank"):
         tr.rsv_score(req, matched, N, rsv, rank.int())
+    with pytest.raises(ValueError, match="matched"):
+        tr.rsv_rows(req, matched[:, :-1], N, rsv, rank)
+    with pytest.raises(ValueError, match="reservation allocated"):
+        tr.rsv_rows(req, matched, N, rsv._replace(allocated=rsv.allocated.int()), rank)
     con = chip_smoke.con_for(x, (gangs, quota, rsv, matched, midx, rank), xs)
     args = (q_la, x["la_nodes"], x["weights"], q_nf, x["nf_nodes"], x["static"], x["valid"],
             pod_ok, salts, 16)
@@ -879,6 +883,33 @@ def test_desched_round_any_grid(card, monkeypatch, G):
     chip_smoke.require_equal(f"G={G}", chip_smoke.round_outputs(got),
                              chip_smoke.round_outputs(want))
     chip_smoke.require_same_util(f"G={G}", got.util_pct, want.util_pct)
+
+
+RSV_CASES = 14  # len(chip_smoke.rsv_cases(...))
+
+
+@pytest.mark.cuda
+def test_rsv_cases_equal_plain(card):
+    """The reservation rows' one launch (``rsv_rows``) and the two entry
+    points on their edge cases: one pod in the bucket of 16, Rv = 1, 257
+    and RSV_MAX, a pod with no match, an all-zero row, several
+    reservations on one node with and without ranks, equal rscores,
+    capacity-0 dimensions and w = 0, a pod matching every reservation, N
+    odd, N = 1 and N > 2**16, values past the fast quotients' range; each
+    equal to ``score_reservation`` and ``reservation_score``."""
+    before = {k: cuda.KERNELS[k].launches for k in ("rsv_rscore", "rsv_score")}
+    assert chip_smoke.check_rsv_cases(card) == RSV_CASES
+    assert cuda.KERNELS["rsv_score"].launches == before["rsv_score"] + 2 * RSV_CASES
+    assert cuda.KERNELS["rsv_rscore"].launches == before["rsv_rscore"] + RSV_CASES
+
+
+def test_rsv_cases_run_on_cpu_tensors():
+    """The reservation rows' edge cases on CPU tensors, where the wrappers
+    take the plain versions: the cases build and compare, and nothing
+    launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    assert chip_smoke.check_rsv_cases(torch.device("cpu")) == RSV_CASES
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
 def test_score_cases_run_on_cpu_tensors():
