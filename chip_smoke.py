@@ -22,8 +22,10 @@ Phases (any failure exits non-zero and prints no result line):
      padded indices, beside the equivalent ``index_copy_`` calls, and on
      ``scatter_cases``: rows of 1 to 56 bytes, one row, scatters back to
      back;
-     ``dstate_gate`` at NaN and boundary update times), and the
-     whole-table upload (``dstate_rows``, a transfer);
+     ``dstate_gate`` at NaN and boundary update times, and in phase 3 on
+     ``check_gate_cases``: 1, 257 and 1,001 rows, five expiry modes,
+     rebound and back), and the whole-table upload (``dstate_rows``, a
+     transfer);
   5. the cold path at 10,000 nodes x 1,000 pods (``random_cluster``) on
      host-built node arrays (``device_state=False``): ``Engine.score``,
      then three cold SCHEDULE cycles with the placements bound between
@@ -84,7 +86,9 @@ Phases (any failure exits non-zero and prints no result line):
   14. the koordlet and the sharded sidecar: ``shard_score_map`` against its
      plain version and the unsharded ``score`` kernel at 64 x 512 (S = 1, 2,
      4) and at the full shape (S = 4), under the three strategies, with and
-     without extra scores; ``aggregate_node_metrics`` against its plain
+     without extra scores, each block also launched alone into sentinel
+     buffers (and, in phase 3, on ``shard_cases``: blocks off the kernel's
+     tiles, P = 1 and 65, the generic widths); ``aggregate_node_metrics`` against its plain
      version bit for bit at 64 x 64 (empty series, NaN, ±0.0, tied times,
      counts 20 and 10), on ``agg_cases`` (T from 1 to 2,048 across both
      kernels, the compaction's boundaries, the full sort's valid 1e300,
@@ -139,6 +143,19 @@ calls at the check shape and at the descheduler's one-pod shape, the
 reservation stage of a constrained cycle split by step, and the executing
 DESCHEDULE tick's stages; one sample a run, for two checkouts alternated
 in one call.
+
+    python3 chip_smoke.py --shard [--root DIR]
+    python3 chip_smoke.py --gate [--root DIR]
+
+print one ``shard_study`` JSON line (``shard_study``: ``shard_score_map``'s
+four blocks at 1,024 x 16,384 through the public entry point and as the
+mesh launches them, beside ``score``) and one ``gate_study`` JSON line
+(``gate_study``: ``dstate_gate`` at 16,384 rows and at 1, its call split
+by step on the host clock, and ``dstate_extend`` beside ``F.pad``); one
+sample a run, for two checkouts alternated in one call (``--shard`` times
+only the public entry points and ``ShardedEngine._score_mesh``, so
+``--root`` may name a checkout from before the mesh's redesign;
+``--gate`` needs a checkout with ``GateStage``).
 """
 
 from __future__ import annotations
@@ -151,6 +168,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -3962,21 +3980,30 @@ def drive_desched_path(device, card, twin, cw, tw, names):
     return launches, records, fleet_round
 
 
-SHARD_SOURCE = "koordinator_tpu_torch/csrc/shard.cu"
+SHARD_SOURCE = "koordinator_tpu_torch/csrc/score.cu"
 METRICSAGG_SOURCE = "koordinator_tpu_torch/csrc/metricsagg.cu"
 KOORDLET_SHARDS = 4
 
 
-def mesh_blocks(fn, inp, static, extra, S: int):
+SENTINEL = -(1 << 40)  # a total no pair scores
+
+
+def sentinel_buffers(P: int, N: int, dev) -> tuple:
+    """[P, N] totals and feasibility buffers filled with a sentinel (a total
+    no pair scores, every pair feasible), so a column no block wrote
+    shows."""
+    return (torch.full((P, N), SENTINEL, dtype=torch.int64, device=dev),
+            torch.ones((P, N), dtype=torch.bool, device=dev))
+
+
+def mesh_blocks(fn, inp, static, extra, S: int, out=None):
     """One ``[P, N]`` evaluation as S mesh blocks on the inputs' device
-    through ``fn`` (``shard_score_map`` or its plain version), into buffers
-    filled with a sentinel first, so a column no block wrote shows."""
+    through ``fn`` (``shard_score_map`` or its plain version), into ``out``
+    (default fresh ``sentinel_buffers``)."""
     from koordinator_tpu_torch.service.sharding import shard_bounds
 
     P, N = inp["la_pods"].est.shape[0], inp["valid"].shape[0]
-    dev = inp["valid"].device
-    totals = torch.full((P, N), -(1 << 40), dtype=torch.int64, device=dev)
-    feasible = torch.ones((P, N), dtype=torch.bool, device=dev)
+    totals, feasible = out if out is not None else sentinel_buffers(P, N, inp["valid"].device)
     for lo, hi in shard_bounds(N, S):
         fn(inp["la_pods"], inp["la_nodes"], inp["weights"], inp["nf_pods"], inp["nf_nodes"],
            static, inp["valid"], extra, lo, hi, totals, feasible)
@@ -3996,7 +4023,12 @@ def check_shard_kernels(inp, shard_counts, timed: bool):
     P, N = inp["la_pods"].est.shape[0], inp["valid"].shape[0]
     _, extra = scan_extras(inp, SEED + 41)
     statics = [("least", inp["static"])] + strategy_statics(inp["static"])
-    err, variants = 0, {}
+    err, variants, bufs = 0, {}, {}
+
+    def fill():
+        # the sentinel buffers, allocated and filled outside the timed span
+        bufs["out"] = sentinel_buffers(P, N, inp["valid"].device)
+
     for name, static in statics:
         for x in (None, extra):
             want = score_fn(inp["la_pods"], inp["la_nodes"], inp["weights"], inp["nf_pods"],
@@ -4008,12 +4040,29 @@ def check_shard_kernels(inp, shard_counts, timed: bool):
                                              mesh_blocks(sh.shard_score_map_plain, inp, static,
                                                          x, S)))
                 require_equal(what + " against the unsharded score kernel", got, want)
+                del got
+                for lo, hi in sh.shard_bounds(N, S):
+                    # the block alone: its columns, and no other column written
+                    alone = sentinel_buffers(P, N, inp["valid"].device)
+                    sh.shard_score_map(inp["la_pods"], inp["la_nodes"], inp["weights"],
+                                       inp["nf_pods"], inp["nf_nodes"], static, inp["valid"], x,
+                                       lo, hi, *alone)
+                    require_equal(f"{what} block [{lo}, {hi}) alone",
+                                  (alone[0][:, lo:hi], alone[1][:, lo:hi]),
+                                  (want[0][:, lo:hi], want[1][:, lo:hi]))
+                    if not (bool((alone[0][:, :lo] == SENTINEL).all())
+                            and bool((alone[0][:, hi:] == SENTINEL).all())
+                            and bool(alone[1][:, :lo].all()) and bool(alone[1][:, hi:].all())):
+                        fail(f"{what} block [{lo}, {hi}) alone wrote outside its columns")
+                    del alone
             if timed:
                 S = shard_counts[-1]
                 variants[f"{name}{'+extras' if x is not None else ''}"] = cuda_ms(
-                    lambda: mesh_blocks(sh.shard_score_map, inp, static, x, S))
+                    lambda: mesh_blocks(sh.shard_score_map, inp, static, x, S, bufs["out"]),
+                    setup=fill)
     print(f"  shard_score_map at {P} x {N}, S in {list(shard_counts)}, four strategy shapes, "
-          "with and without extras: equal plain and the unsharded score kernel", flush=True)
+          "with and without extras: equal plain and the unsharded score kernel, each block "
+          "alone writing only its columns", flush=True)
     if not timed:
         return None
     S = shard_counts[-1]
@@ -4025,13 +4074,137 @@ def check_shard_kernels(inp, shard_counts, timed: bool):
     return dict(
         name="shard_score_map", source=SHARD_SOURCE,
         replaces="koordinator_tpu/service/sharding.py:480",
-        ms=cuda_ms(lambda: mesh_blocks(sh.shard_score_map, inp, static, None, S)),
-        plain_ms=cuda_ms(lambda: mesh_blocks(sh.shard_score_map_plain, inp, static, None, S)),
+        ms=cuda_ms(lambda: mesh_blocks(sh.shard_score_map, inp, static, None, S, bufs["out"]),
+                   setup=fill),
+        plain_ms=cuda_ms(lambda: mesh_blocks(sh.shard_score_map_plain, inp, static, None, S,
+                                             bufs["out"]), setup=fill),
         score_ms=cuda_ms(lambda: score_fn(la_pods, inp["la_nodes"], inp["weights"], nf_pods,
                                           inp["nf_nodes"], static, inp["valid"])),
         bound_ms=b, bound_by=by, max_abs_err=err, shape=f"{P} pods x {N} columns, {S} blocks",
         variants=variants,
     )
+
+
+# blocks of N = 300 a ``shard_score_map`` case launches alone: the last two
+# blocks of ``shard_bounds(300, 3)`` (offsets 100 and 200, off the score
+# kernel's 128-column tiles), and a block of 53 columns inside one tile
+SHARD_CASE_BLOCKS = ((100, 200), (200, 300), (37, 90))
+
+
+def shard_cases(dev) -> list:
+    """(name, inputs, lo, hi) of ``shard_score_map``'s blocks launched alone:
+    P = 1 and P = 65 (a strip boundary) at the serving widths over each of
+    ``SHARD_CASE_BLOCKS``, and the generic instantiation (R = 3) at two
+    blocks."""
+    out = []
+    for P in (1, 65):
+        inp = synthetic_inputs(dev, SEED + 50 + P, P, 300, 2, 3, 2)
+        out += [(f"P={P} [{lo}, {hi})", inp, lo, hi) for lo, hi in SHARD_CASE_BLOCKS]
+    gen = synthetic_inputs(dev, SEED + 60, 65, 300, 3, 4, 3, bypass=(False, True, True))
+    out += [(f"generic 3x4x3 P=65 [{lo}, {hi})", gen, lo, hi) for lo, hi in ((100, 200), (37, 90))]
+    return out
+
+
+def check_shard_cases(dev) -> int:
+    """Each of ``shard_cases`` under LeastAllocated, MostAllocated and both
+    RTC shapes, without and with extra scores: the block written alone into
+    ``sentinel_buffers`` equals its plain version written alone the same
+    way, its columns equal the unsharded plain ``score_batch``'s and every
+    other column keeps its sentinel (raises ``Mismatch``); returns the
+    blocks checked."""
+    from koordinator_tpu_torch.core.cycle import PluginWeights, score_batch
+    from koordinator_tpu_torch.service import sharding as sh
+
+    n = 0
+    for name, inp, lo, hi in shard_cases(dev):
+        la_pods, nf_pods = inp["la_pods"], inp["nf_pods"]
+        la_nodes, nf_nodes, valid, w = (inp["la_nodes"], inp["nf_nodes"], inp["valid"],
+                                        inp["weights"])
+        P, N = la_pods.est.shape[0], valid.shape[0]
+        xsc = torch.as_tensor(np.random.default_rng(SEED + n).integers(
+            -100, 201, (P, N)).astype(np.int64)).to(dev)
+        for sname, static in [("least", inp["static"])] + strategy_statics(inp["static"]):
+            t, f = score_batch(la_pods, la_nodes, w, nf_pods, nf_nodes, static, PluginWeights())
+            f = f & valid[None, :]
+            for extras in (None, xsc):
+                what = f"shard_score_map case {name} {sname} extras={extras is not None}"
+                got, want = sentinel_buffers(P, N, dev), sentinel_buffers(P, N, dev)
+                sh.shard_score_map(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid,
+                                   extras, lo, hi, *got)
+                sh.shard_score_map_plain(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid,
+                                         extras, lo, hi, *want)
+                require_equal(what, got, want)
+                full = t if extras is None else t + extras
+                require_equal(what + ": the block's columns against score_batch",
+                              (got[0][:, lo:hi], got[1][:, lo:hi]),
+                              (full[:, lo:hi], f[:, lo:hi]))
+                keep = torch.ones(N, dtype=torch.bool, device=dev)
+                keep[lo:hi] = False
+                if not (bool((got[0][:, keep] == SENTINEL).all())
+                        and bool(got[1][:, keep].all())):
+                    fail(f"{what}: a column outside [{lo}, {hi}) lost its sentinel")
+                n += 1
+    print(f"  shard_score_map: {n} blocks alone (offsets 100 and 200 of 300, 53 columns "
+          "inside a tile, P 1 and 65, the generic widths) x strategies x extras equal plain, "
+          "every other column its sentinel", flush=True)
+    return n
+
+
+GATE_CASE_ROWS = (1, 257, 1001)
+# (exp, fexp) of the gate's cases: an expiry, with and without the filters
+# following it, none, 0 and negative (no expiry test, NaN still expired)
+GATE_MODES = ((180, True), (180, False), (None, True), (0, True), (-5, True))
+
+
+def gate_case_rows(dev, n: int, seed: int, now: float, exp: float = 180.0) -> list:
+    """The 12 raw LoadAware rows of ``n`` nodes made with numpy from
+    ``seed``, with update times at NaN, at the expiry boundary, just inside
+    and just outside it, ahead of the clock, in turn, then random."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    ints = lambda: t(rng.integers(0, 1 << 40, size=(n, 2), dtype=np.int64))  # noqa: E731
+    bools = lambda: t(rng.random(n) < 0.6)  # noqa: E731
+    ut = now - rng.uniform(0, 400, size=n)
+    special = (np.nan, now - exp, np.nextafter(now - exp, np.inf),
+               np.nextafter(now - exp, -np.inf), now + 3.0)
+    for i in range(min(n, 40)):
+        ut[i] = special[i % len(special)]
+    return [ints(), ints(), ints(), bools(), t(ut), ints(), bools(), ints(), ints(), bools(),
+            ints(), bools()]
+
+
+def check_gate_cases(dev) -> int:
+    """``dstate_gate`` at each of ``GATE_CASE_ROWS`` in every mode of
+    ``GATE_MODES`` against its plain version, bit for bit; then rebound to
+    other rows of the same shape (and their update times moved) and back,
+    and through a ``GateStage`` of its own bound to each set in turn
+    (raises ``Mismatch``); returns the calls checked."""
+    from koordinator_tpu_torch.service import state as sm
+
+    n = 0
+    now = 1_000_010.25
+    for rows in GATE_CASE_ROWS:
+        raw = gate_case_rows(dev, rows, SEED + rows, now)
+        other = gate_case_rows(dev, rows, SEED + rows + 1, now + 7.0)
+        stage = sm.GateStage()
+        for what, r in (("rows", raw), ("other rows", other), ("rows again", raw)):
+            binds = stage.binds
+            stage.bind(r)
+            if stage.binds != binds + 1:
+                fail("a GateStage bind did not count")
+            for e, fexp in GATE_MODES:
+                want = sm.dstate_gate_plain(r, now, e, fexp)
+                require_same(f"dstate_gate {rows} {what} exp={e} fexp={fexp}",
+                             sm.dstate_gate(r, now, e, fexp), want)
+                require_same(f"GateStage {rows} {what} exp={e} fexp={fexp}",
+                             stage.gate(now, e, fexp), want)
+                n += 1
+    print(f"  dstate_gate: {n} calls (rows {list(GATE_CASE_ROWS)}, exp modes "
+          f"{[m[0] for m in GATE_MODES]}, rebound and back) equal plain", flush=True)
+    return n
 
 
 def agg_series(dev, S: int, T: int, seed: int):
@@ -5076,7 +5249,8 @@ def ptxas_report(path, name: str) -> list:
     for line in (log.read_text().splitlines() if log.exists() else []):
         if "Compiling entry function" in line:
             keep = name in line
-        if keep and any(w in line for w in ("entry function", "registers", "spill", "smem")):
+        if keep and any(w in line for w in ("entry function", "properties", "registers", "spill",
+                                            "smem")):
             out.append(line.strip())
     return out
 
@@ -5913,6 +6087,223 @@ def rsv_study(dev, reps: int = 21) -> int:
     return 0
 
 
+# ------------------------------------------------- the --shard and --gate studies
+
+def per_call_us(fn, reps: int = 21, loop: int = 100) -> float:
+    """Host microseconds a call of ``fn``: the host clock around ``loop``
+    back-to-back calls after a synchronise, divided by ``loop``; the median
+    of ``reps`` such loops after one warm-up loop."""
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(loop):
+            fn()
+        dt = (time.perf_counter() - t0) / loop * 1e6
+        if i:
+            times.append(dt)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def shard_study(dev, reps: int = 21) -> int:
+    """``--shard``: ``shard_score_map`` at 1,024 x 16,384, S = 4 blocks on one
+    card, LeastAllocated, without and with extra scores, the merged blocks
+    first held equal to the unsharded ``score`` kernel: CUDA events around
+    the four block calls (the median of ``reps``; the sentinel buffers
+    allocated and filled in ``setup``, outside the events), the profiler's
+    device time of the four launches, the host time of one block call, the
+    mesh's own four launches (``ShardedEngine._score_mesh`` on a stand-in
+    engine); and ``score``'s call, kernel and host time in the same process.
+    Nothing else of the port is called, so ``--root`` may name the parent
+    (any checkout with the mesh): run two checkouts alternately in one call.
+    One ``shard_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core.cycle import score_fn
+    from koordinator_tpu_torch.service import sharding as sh
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    out = dict(ptxas={stem: ptxas_report(libs[stem], "score_kernel")
+                      for stem in ("score", "shard") if stem in libs}, cases=[])
+    for stem, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"  ptxas {stem}: {line}")
+    pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
+    full = build_inputs(pods, nodes, dev, (BATCH_CPU, BATCH_MEMORY))
+    la_pods, nf_pods = full["la_pods"], full["nf_pods"]
+    la_nodes, nf_nodes = full["la_nodes"], full["nf_nodes"]
+    valid, w, static = full["valid"], full["weights"], full["static"]
+    P, N = la_pods.est.shape[0], valid.shape[0]
+    S = KOORDLET_SHARDS
+    bounds = sh.shard_bounds(N, S)
+    out["shape"] = dict(P=P, N=N, S=S)
+    xsc = scan_extras(full, SEED + 41)[1]
+    kernel_groups = (("score_kernel", "kernel"),)
+    mesh_self = types.SimpleNamespace(
+        engine=types.SimpleNamespace(_weights=w, _nf_static=static), devices=[dev] * S,
+        all_bounds=lambda: bounds)
+    for extras in (None, xsc):
+        bufs = {}
+
+        def fill():
+            bufs["out"] = sentinel_buffers(P, N, dev)
+
+        def blocks():
+            for lo, hi in bounds:
+                sh.shard_score_map(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid,
+                                   extras, lo, hi, *bufs["out"])
+
+        def one_block():
+            lo, hi = bounds[1]
+            sh.shard_score_map(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid, extras,
+                               lo, hi, *bufs["out"])
+
+        def score():
+            return score_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid, extras)
+
+        def mesh():
+            # the mesh's own four launches (``ShardedEngine._score_mesh``, its
+            # two output allocations included) on a stand-in engine
+            return sh.ShardedEngine._score_mesh(mesh_self, la_pods, la_nodes, nf_pods, nf_nodes,
+                                                valid, extras)
+
+        fill()
+        blocks()
+        want = score()
+        require_equal(f"shard_score_map S={S} extras={extras is not None}", bufs["out"], want)
+        require_equal(f"the mesh's blocks S={S} extras={extras is not None}", mesh(), want)
+        del want
+        rec = dict(extras=extras is not None,
+                   blocks_ms=cuda_ms(blocks, reps=reps, setup=fill),
+                   blocks_device_ms=device_split(blocks, kernel_groups, reps=reps).get("kernel"),
+                   block_host_ms=host_ms(one_block, reps),
+                   mesh_ms=cuda_ms(mesh, reps=reps),
+                   mesh_host_ms=host_ms(mesh, reps),
+                   score_ms=cuda_ms(score, reps=reps),
+                   score_device_ms=device_split(score, kernel_groups, reps=reps).get("kernel"),
+                   score_host_ms=host_ms(score, reps))
+        out["cases"].append(rec)
+        print(f"  shard_score_map S={S}{' with extras' if extras is not None else ''}: equal "
+              f"the score kernel; four blocks {rec['blocks_ms']:.4f} ms (device "
+              f"{rec['blocks_device_ms']}), one block's host {rec['block_host_ms']:.4f} ms; the "
+              f"mesh's four {rec['mesh_ms']:.4f} ms (host {rec['mesh_host_ms']:.4f}); "
+              f"score call {rec['score_ms']:.4f} ms (kernel {rec['score_device_ms']}), host "
+              f"{rec['score_host_ms']:.4f} ms", flush=True)
+    out["bound_ms"] = bound_ms(nbytes(*la_pods, *nf_pods, *la_nodes, *nf_nodes, valid)
+                               + P * N * 9, 0)[0]
+    print(json.dumps({"shard_study": out, "card": card_line()}))
+    return 0
+
+
+GATE_ROWS = 16_384  # the fleet's rows table: 10,000 nodes in a bucket of 16,384
+
+
+def gate_rows(dev, rows: int):
+    """The 12 raw LoadAware rows of a rows table at the fleet's width
+    (``scatter_table``), cut to ``rows``, on ``dev``, with update times at
+    NaN, at the expiry boundary, just inside it and ahead of the clock;
+    (raw, now, exp)."""
+    from koordinator_tpu_torch.service import state as sm
+
+    st, host, _ = scatter_table(dev, NUM_NODES)
+    raw = [t[:rows].clone() for t in sm.dstate_rows(host[:12], dev)]
+    if raw[4].shape[0] != rows:
+        fail(f"the rows table holds {raw[4].shape[0]} rows, not {rows}")
+    now = 1_000_010.0
+    exp = st.la_args.node_metric_expiration_seconds
+    k = max(1, min(64, rows // 8))
+    ut, has = raw[4], raw[3]
+    ut[:k] = float("nan")
+    ut[k:2 * k] = now - exp
+    ut[2 * k:3 * k] = float(np.nextafter(now - exp, np.inf))
+    ut[3 * k:4 * k] = now + 5.0
+    has[:4 * k] = True
+    return raw, now, exp
+
+
+def gate_host_split(sm, cuda, raw, now, exp, reps: int) -> dict:
+    """Host microseconds a call of ``dstate_gate`` by step, each in a loop of
+    its own (``per_call_us``), through a ``GateStage`` bound to ``raw``: the
+    public entry's bound check, the [4, N] output and its four rows as
+    views, the flags word, the stream, the library call (through
+    ``Kernel.launch``; the bare ctypes function beside), the result's
+    build, the stage's call (the residency's entry) and the public call.
+    (The wrapper before ``GateStage``, split by its own steps, is in
+    PERF.md §6.)"""
+    from koordinator_tpu_torch.core.loadaware import LoadAwareNodeArrays
+
+    N, dev = raw[4].shape[0], raw[4].device
+    stage = sm.GateStage()
+    stage.bind(raw)
+    rows = torch.empty((4, N), dtype=torch.bool, device=dev)
+    args = (stage._desc_ptr, float(now), float(exp),
+            cuda.GATE_HAS_EXP | cuda.GATE_EXP_POS | cuda.GATE_FEXP, rows.data_ptr(),
+            cuda.stream(dev))
+    bare = cuda.DSTATE_GATE._bind()
+    masks = rows.unbind(0)
+    sm.dstate_gate(raw, now, exp, True)
+    steps = dict(
+        bound_check=lambda: sm._GATE.bound_to(raw),
+        output=lambda: torch.empty((4, N), dtype=torch.bool, device=dev),
+        output_views=lambda: rows.unbind(0),
+        flags=lambda: ((cuda.GATE_HAS_EXP | (cuda.GATE_EXP_POS if exp > 0 else 0))
+                       if exp is not None else 0) | cuda.GATE_FEXP,
+        stream=lambda: cuda.stream(dev),
+        launch=lambda: cuda.DSTATE_GATE.launch(*args),
+        ctypes_call=lambda: bare(*args),
+        result=lambda: LoadAwareNodeArrays(raw[0], raw[1], raw[2], masks[0], raw[5], masks[1],
+                                           raw[7], raw[8], masks[2], raw[10], masks[3]),
+        stage_call=lambda: stage.gate(now, exp, True),
+        call=lambda: sm.dstate_gate(raw, now, exp, True),
+    )
+    return {name: per_call_us(fn, reps) for name, fn in steps.items()}
+
+
+def gate_study(dev, reps: int = 21) -> int:
+    """``--gate``: ``dstate_gate`` at the fleet's 16,384 rows and at 1 row
+    (the route's launch floor), each equal to the plain version in the four
+    ``exp`` modes first: CUDA events around one call (the median of
+    ``reps``), the profiler's device time, the host time of a call in a
+    loop and the call split by step on the host clock
+    (``gate_host_split``); and ``dstate_extend``'s call beside ``F.pad``'s
+    (``check_extend_kernel``).  ``--root`` takes a checkout of this commit
+    or a later one: run two checkouts alternately in one call.  One
+    ``gate_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.service import state as sm
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    cuda.build()
+    out = dict(cases=[])
+    for rows in (GATE_ROWS, 1):
+        raw, now, exp = gate_rows(dev, rows)
+        for e, fexp in ((exp, True), (exp, False), (None, True), (0, True)):
+            require_same(f"dstate_gate {rows} rows exp={e} fexp={fexp}",
+                         sm.dstate_gate(raw, now, e, fexp), sm.dstate_gate_plain(raw, now, e, fexp))
+
+        def call():
+            return sm.dstate_gate(raw, now, exp, True)
+
+        rec = dict(rows=rows, ms=cuda_ms(call, reps=reps),
+                   device_ms=device_split(call, (("gate", "kernel"),), reps=reps).get("kernel"),
+                   host_us=per_call_us(call, reps),
+                   split_us=gate_host_split(sm, cuda, raw, now, exp, reps))
+        out["cases"].append(rec)
+        print(f"  dstate_gate {rows} rows: equal plain; call {rec['ms']:.4f} ms, device "
+              f"{rec['device_ms']} ms, host {rec['host_us']:.2f} us a call; split us "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["split_us"].items()), flush=True)
+    out["dstate_extend"] = check_extend_kernel(dev, GATE_ROWS, timed=True)
+    out["extend_alloc_us"] = extend_alloc_us(dev, GATE_ROWS)
+    print(f"  dstate_extend call {out['dstate_extend']['ms']:.4f} ms, F.pad "
+          f"{out['dstate_extend']['library_ms']:.4f} ms; its outputs' host us "
+          f"{out['extend_alloc_us']}", flush=True)
+    print(json.dumps({"gate_study": out, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
     if "--root" in sys.argv:
         # time another checkout's port (a parent commit unpacked beside)
@@ -5934,6 +6325,10 @@ def main() -> int:
         return desched_study(torch.device("cuda:0"))
     if "--rsv" in sys.argv:
         return rsv_study(torch.device("cuda:0"))
+    if "--shard" in sys.argv:
+        return shard_study(torch.device("cuda:0"))
+    if "--gate" in sys.argv:
+        return gate_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -5983,6 +6378,8 @@ def main() -> int:
     check_extra_kernels(small, True, timed=False, commit_cap=1)
     check_strategies_small(small)
     check_score_cases(dev, small)
+    check_shard_cases(dev)
+    check_gate_cases(dev)
     check_rsv_cases(dev)
     check_div_helper(dev)
     # the explain slice's kernels at 64 pods x 512 columns, and at a node

@@ -8,7 +8,10 @@
 // thresholds && NodeFit fit && the live-column mask), under the default
 // profile's plugin weights, plus
 // the batch's pre-weighted extra scores (deviceshare, amplified CPU; [P, N]
-// int64, null when absent) as the JAX score_fn adds them.
+// int64, null when absent) as the JAX score_fn adds them.  Also the JAX
+// package's `shard_score_map` (koordinator_tpu/service/sharding.py:480,
+// one mesh device's block of the node axis): the same kernel over a
+// column block [col0, col0 + Nb) of N (`koord_shard_score`).
 //
 // The arithmetic is pair.cuh's pair_total, la_fit and nf_fit, term for
 // term: the same int64 results for every input, so every output is the
@@ -53,7 +56,12 @@
 //     consecutive columns of one pod row) as streaming stores, and extra
 //     scores read the same way;
 //   - 128 columns a block, 32 pods a strip, 64 registers a thread (the
-//     study's sweep, PERF.md §6).
+//     study's sweep, PERF.md §6);
+//   - a launch covers the column block [col0, col0 + Nb): the grid's x
+//     extent is ceil(Nb / 128), a tile starts at col0 + 128 blockIdx.x,
+//     and a thread past col0 + Nb stops, so a tile that crosses the
+//     block's end (col0 need not be a multiple of 128) writes nothing
+//     outside it; the whole SCORE is the block [0, N).
 #include <cuda_runtime.h>
 
 #include "pair.cuh"
@@ -211,11 +219,14 @@ __device__ __noinline__ void general_pair(const Cfg& c, const NodeIn& n, const S
   out[1] = nf_mean<STRAT>(s, acc, used_mask);
 }
 
+// Columns [col0, col0 + Nb) of N: the node rows, valid, the extra scores
+// and both outputs are indexed by the global column (the outputs at q * N +
+// j); a tile that crosses the block's end writes nothing past it.
 template <int R, int RF, int RS, int STRAT>
 __global__ void __launch_bounds__(kCols, R > 0 ? kMinBlocks : 1)
     score_kernel(__grid_constant__ const Cfg c, PodIn p, __grid_constant__ const NodeIn n,
-                 const uint8_t* valid, const long long* xsc, int P, int N, int strip,
-                 long long* totals, uint8_t* feasible) {
+                 const uint8_t* valid, const long long* xsc, int P, int N, int col0, int Nb,
+                 int strip, long long* totals, uint8_t* feasible) {
   __shared__ Stage<R, RF, RS> s;
   const int nR = Width<R>::of(c.R), nRf = Width<RF>::of(c.Rf), nRs = Width<RS>::of(c.Rs);
   const int q0 = blockIdx.y * strip;
@@ -283,8 +294,8 @@ __global__ void __launch_bounds__(kCols, R > 0 ? kMinBlocks : 1)
   }
   __syncthreads();
 
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= N || cnt <= 0) return;
+  const int j = col0 + blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= col0 + Nb || cnt <= 0) return;
 
   // The node's rows, once a thread, pinned in registers.  A node takes
   // the float estimate (`fast`) when every LoadAware capacity is in
@@ -429,30 +440,34 @@ __global__ void __launch_bounds__(kCols, R > 0 ? kMinBlocks : 1)
 
 template <int R, int RF, int RS>
 cudaError_t launch_widths(const Cfg& c, const PodIn& p, const NodeIn& n, const uint8_t* valid,
-                          const long long* xsc, int P, int N, int strip, int cols,
-                          long long* totals, uint8_t* feasible, cudaStream_t st) {
-  dim3 grid((N + cols - 1) / cols, (P + strip - 1) / strip);
+                          const long long* xsc, int P, int N, int col0, int Nb, int strip,
+                          int cols, long long* totals, uint8_t* feasible, cudaStream_t st) {
+  dim3 grid((Nb + cols - 1) / cols, (P + strip - 1) / strip);
   if (c.strategy == KOORD_MOST_ALLOCATED)
-    score_kernel<R, RF, RS, KOORD_MOST_ALLOCATED>
-        <<<grid, cols, 0, st>>>(c, p, n, valid, xsc, P, N, strip, totals, feasible);
+    score_kernel<R, RF, RS, KOORD_MOST_ALLOCATED><<<grid, cols, 0, st>>>(
+        c, p, n, valid, xsc, P, N, col0, Nb, strip, totals, feasible);
   else if (c.strategy == KOORD_REQUESTED_TO_CAPACITY_RATIO)
-    score_kernel<R, RF, RS, KOORD_REQUESTED_TO_CAPACITY_RATIO>
-        <<<grid, cols, 0, st>>>(c, p, n, valid, xsc, P, N, strip, totals, feasible);
+    score_kernel<R, RF, RS, KOORD_REQUESTED_TO_CAPACITY_RATIO><<<grid, cols, 0, st>>>(
+        c, p, n, valid, xsc, P, N, col0, Nb, strip, totals, feasible);
   else
-    score_kernel<R, RF, RS, KOORD_LEAST_ALLOCATED>
-        <<<grid, cols, 0, st>>>(c, p, n, valid, xsc, P, N, strip, totals, feasible);
+    score_kernel<R, RF, RS, KOORD_LEAST_ALLOCATED><<<grid, cols, 0, st>>>(
+        c, p, n, valid, xsc, P, N, col0, Nb, strip, totals, feasible);
   return cudaGetLastError();
 }
 
 // The instantiation for the configuration's widths: the serving
-// configurations' own, else the generic one.
+// configurations' own, else the generic one; over columns [col0, col0 +
+// Nb) of N (nothing to do when P or Nb is 0).
 int launch_score(const void* const* pods, const void* const* nodes, const long long* cfg,
-                 const void* la_w, const void* valid, const void* xsc, int P, int N, int strip,
-                 int cols, void* totals, void* feasible, int device, void* stream) {
+                 const void* la_w, const void* valid, const void* xsc, int P, int N, int col0,
+                 int Nb, int strip, int cols, void* totals, void* feasible, int device,
+                 void* stream) {
+  if (strip < 1 || strip > kMaxStrip || cols < 32 || cols > kCols || cols % 32 || P < 0 ||
+      col0 < 0 || Nb < 0 || col0 > N - Nb || (P + strip - 1) / strip > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (P == 0 || Nb == 0) return (int)cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (strip < 1 || strip > kMaxStrip || cols < 32 || cols > kCols || cols % 32)
-    return (int)cudaErrorInvalidValue;
   const Cfg c = koord_cfg(cfg, la_w);
   const PodIn p = koord_pods(pods);
   const NodeIn n = koord_nodes(nodes);
@@ -462,11 +477,11 @@ int launch_score(const void* const* pods, const void* const* nodes, const long l
   uint8_t* f = (uint8_t*)feasible;
   cudaStream_t st = (cudaStream_t)stream;
   if (c.R == 2 && c.Rf == 3 && c.Rs == 2)
-    e = launch_widths<2, 3, 2>(c, p, n, v, x, P, N, strip, cols, t, f, st);
+    e = launch_widths<2, 3, 2>(c, p, n, v, x, P, N, col0, Nb, strip, cols, t, f, st);
   else if (c.R == 2 && c.Rf == 5 && c.Rs == 2)
-    e = launch_widths<2, 5, 2>(c, p, n, v, x, P, N, strip, cols, t, f, st);
+    e = launch_widths<2, 5, 2>(c, p, n, v, x, P, N, col0, Nb, strip, cols, t, f, st);
   else
-    e = launch_widths<0, 0, 0>(c, p, n, v, x, P, N, strip, cols, t, f, st);
+    e = launch_widths<0, 0, 0>(c, p, n, v, x, P, N, col0, Nb, strip, cols, t, f, st);
   return (int)e;
 }
 
@@ -506,8 +521,8 @@ extern "C" int koord_score_tuned(const void* const* pods, const void* const* nod
                                  const long long* cfg, const void* la_w, const void* valid,
                                  const void* xsc, int P, int N, int strip, int cols,
                                  void* totals, void* feasible, int device, void* stream) {
-  return launch_score(pods, nodes, cfg, la_w, valid, xsc, P, N, strip, cols, totals, feasible,
-                      device, stream);
+  return launch_score(pods, nodes, cfg, la_w, valid, xsc, P, N, 0, N, strip, cols, totals,
+                      feasible, device, stream);
 }
 #endif
 
@@ -519,6 +534,25 @@ extern "C" int koord_score(const void* const* pods, const void* const* nodes,
                            const long long* cfg, const void* la_w, const void* valid,
                            const void* xsc, int P, int N, void* totals, void* feasible,
                            int device, void* stream) {
-  return launch_score(pods, nodes, cfg, la_w, valid, xsc, P, N, kStrip, kCols, totals, feasible,
-                      device, stream);
+  return launch_score(pods, nodes, cfg, la_w, valid, xsc, P, N, 0, N, kStrip, kCols, totals,
+                      feasible, device, stream);
+}
+
+// SCORE over one node shard of the mesh (the JAX package's
+// `shard_score_map`, koordinator_tpu/service/sharding.py:456-520, `_smap_fn`;
+// the body `build`/`blk` at :480-505: each mesh device evaluates
+// score_batch over its block of the node axis, adds the block's extra
+// scores and ANDs the block's live-column mask): the same kernel over the
+// column block [col0, col0 + Nb) of N.  pods, nodes, cfg, la_w, valid: the
+// pair tables of `koord_score` over N node columns; xsc: [P, N] int64 extra
+// scores or null; totals [P, N] int64, feasible [P, N] bool, written at
+// the block's columns only.  Every block on one card writes straight into
+// one [P, N] buffer; a block on a card of its own reads its copies of the
+// node rows (col0 = 0, N = Nb).
+extern "C" int koord_shard_score(const void* const* pods, const void* const* nodes,
+                                 const long long* cfg, const void* la_w, const void* valid,
+                                 const void* xsc, int P, int N, int col0, int Nb, void* totals,
+                                 void* feasible, int device, void* stream) {
+  return launch_score(pods, nodes, cfg, la_w, valid, xsc, P, N, col0, Nb, kStrip, kCols, totals,
+                      feasible, device, stream);
 }

@@ -208,10 +208,10 @@ SCAN_CON = Kernel("scan", "koord_scan_steps_con",
 # the buffer count, the descriptor ([n, 2] int64: destination, row bytes),
 # the pinned staging, the device buffer and its capacity in bytes, D
 DSTATE_SCATTER = Kernel("dstate", "koord_dstate_scatter", [_I, _P, _P, _P, _L, _I, _I, _P])
-DSTATE_GATE = Kernel(
-    "dstate", "koord_dstate_gate",
-    [_I, _P, _P, _P, _P, _P, _D, _I, _I, _D, _I, _P, _P, _P, _P, _I, _P],
-)
+# the gate's bound descriptor (``GateStage``: the five inputs, N, the
+# device), now, exp, the flags word, the [4, N] output, the stream
+DSTATE_GATE = Kernel("dstate", "koord_dstate_gate", [_P, _D, _D, _I, _P, _P])
+GATE_HAS_EXP, GATE_EXP_POS, GATE_FEXP = 1, 2, 4  # KOORD_GATE_* in csrc/dstate.cu
 # the buffer count, the packed descriptor ([n, 6] int64), the rows
 DSTATE_EXTEND = Kernel("dstate", "koord_dstate_extend", [_I, _P, _I, _I, _P])
 DSTATE_MAX_ARRAYS = 32  # KOORD_DSTATE_MAX_ARRAYS in csrc/dstate.cu
@@ -251,9 +251,10 @@ POD_BAND_RANK = Kernel("bandrank", "koord_band_rank", [_P, _P, _P, _P, _I, _I, _
 # valid, times, S, T, the four percentiles (float32), the [6, S] output
 AGGREGATE_NODE_METRICS = Kernel("metricsagg", "koord_aggregate_node_metrics",
                                 [_P, _P, _P, _I, _I, _P, _P, _I, _P])
-# SCORE over one mesh device's node block (csrc/shard.cu): the pair tables,
-# the extra scores, P, N, the block's first column and width, the outputs
-SHARD_SCORE_MAP = Kernel("shard", "koord_shard_score", [_P] * 6 + [_I] * 4 + [_P, _P, _I, _P])
+# SCORE over one mesh device's node block: the score kernel over a column
+# block (csrc/score.cu ``koord_shard_score``): the pair tables, the extra
+# scores, P, N, the block's first column and width, the outputs
+SHARD_SCORE_MAP = Kernel("score", "koord_shard_score", [_P] * 6 + [_I] * 4 + [_P, _P, _I, _P])
 KERNELS = {
     "score": SCORE, "schedule_keys": SCHEDULE_KEYS, "schedule_rounds": SCHEDULE_ROUNDS,
     "sched_refresh": SCHED_REFRESH, "sched_rounds": SCHED_ROUNDS,

@@ -17,13 +17,15 @@ Two execution modes share one ownership layout:
   over its block, and a mutation confined to one shard leaves every other
   shard's cached mask rows and score blocks as they were.  Each block comes
   back to the host once.
-- **mesh mode** (``shard_map=True``): the ``shard_score_map`` kernel
-  (``csrc/shard.cu``), one launch per mesh device over that device's block.
-  The mesh is ``devices`` (default ``cuda:0 .. cuda:S-1``; fewer devices
-  than shards are refused).  Blocks on the engine's own device write
-  straight into one [P, cap] buffer; a block on another card gets the pod
-  rows and its node rows copied over and comes back once.  The mask and
-  feasibility inputs still come from the per-shard caches.
+- **mesh mode** (``shard_map=True``): the ``shard_score_map`` kernel (the
+  ``score`` kernel over a column block, ``csrc/score.cu``
+  ``koord_shard_score``), one launch per mesh device over that device's
+  block.  The mesh is ``devices`` (default ``cuda:0 .. cuda:S-1``; fewer
+  devices than shards are refused).  Blocks on the engine's own device
+  write straight into one [P, cap] buffer from one validated layout of the
+  pair tables; a block on another card gets the pod rows and its node rows
+  copied over and comes back once.  The mask and feasibility inputs still
+  come from the per-shard caches.
 
 Scheduling reuses the wrapped ``Engine`` end to end: ``schedule`` hands it
 this object as its ``_inputs_provider``, so the placement-and-devices
@@ -140,7 +142,8 @@ def shard_score_map(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
     columns of ``totals`` [P, N] int64 and ``feasible`` [P, N] bool.  The
     node tables, ``valid`` [N] and ``extra_scores`` ([P, N] int64 or None)
     cover all N columns.  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/shard.cu`` (every NodeFit strategy) or raise."""
+    launch the ``score`` kernel over the block (``csrc/score.cu``
+    ``koord_shard_score``, every NodeFit strategy) or raise."""
     P, N = la_pods.est.shape[0], valid.shape[0]
     dev = valid.device
     if not 0 <= lo <= hi <= N:
@@ -156,11 +159,19 @@ def shard_score_map(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
                               extra_scores, lo, hi, totals, feasible)
         return
     args = cuda.pair_args(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static, valid)
+    _launch_block(args, extra_scores, P, N, lo, hi, totals, feasible, cuda.device_index(dev),
+                  cuda.stream(dev))
+
+
+def _launch_block(args, extra_scores, P: int, N: int, lo: int, hi: int, totals, feasible,
+                  device: int, stream: int) -> None:
+    """One ``shard_score_map`` launch over columns [lo, hi) of N from the
+    pair tables ``args`` (``cuda.pair_args``), checked by the caller."""
     if P and hi > lo:
         cuda.SHARD_SCORE_MAP.launch(
             args.pods, args.nodes, args.cfg, args.la_w, args.valid,
             0 if extra_scores is None else extra_scores.data_ptr(), P, N, lo, hi - lo,
-            totals.data_ptr(), feasible.data_ptr(), cuda.device_index(dev), cuda.stream(dev),
+            totals.data_ptr(), feasible.data_ptr(), device, stream,
         )
 
 
@@ -428,17 +439,27 @@ class ShardedEngine:
     def _score_mesh(self, la_pods, la_nodes, nf_pods, nf_nodes, valid, x_scores):
         """Mesh mode: one ``shard_score_map`` launch per mesh device over
         its block; ([P, cap] totals, [P, cap] feasible) on the engine's
-        device."""
+        device.  The blocks on the engine's own card share one check and
+        layout of the pair tables, device index and stream."""
         eng = self.engine
         home = valid.device
         P, cap = la_pods.est.shape[0], valid.shape[0]
         totals = torch.empty((P, cap), dtype=torch.int64, device=home)
         feasible = torch.empty((P, cap), dtype=torch.bool, device=home)
         x = None if x_scores is None else x_scores.contiguous()
+        home_launch = None
         for (lo, hi), dev in zip(self.all_bounds(), self.devices):
             if _same_device(dev, home):
-                shard_score_map(la_pods, la_nodes, eng._weights, nf_pods, nf_nodes,
-                                eng._nf_static, valid, x, lo, hi, totals, feasible)
+                if home.type == "cpu":
+                    shard_score_map(la_pods, la_nodes, eng._weights, nf_pods, nf_nodes,
+                                    eng._nf_static, valid, x, lo, hi, totals, feasible)
+                    continue
+                if home_launch is None:
+                    home_launch = (cuda.pair_args(la_pods, la_nodes, eng._weights, nf_pods,
+                                                  nf_nodes, eng._nf_static, valid),
+                                   cuda.device_index(home), cuda.stream(home))
+                args, index, stream = home_launch
+                _launch_block(args, x, P, cap, lo, hi, totals, feasible, index, stream)
                 continue
             # a block on a card of its own: the pod rows replicated, the
             # block's node rows copied, the result copied back once

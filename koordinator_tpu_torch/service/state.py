@@ -447,10 +447,15 @@ def dstate_scatter(bufs, idx, vals) -> tuple:
     return _STAGE.scatter(bufs, _STAGE.pack(idx, vals))
 
 
+# the raw rows the gate reads, in the kernel's descriptor order
+# (has_metric, update_time, filter_active, prod_active, has_prod_thr)
+_GATE_INPUTS = ((3, torch.bool), (4, torch.float64), (6, torch.bool), (9, torch.bool),
+                (11, torch.bool))
+
+
 def _gate_inputs(raw):
     N, dev = raw[4].shape[0], raw[4].device
-    for k, dtype in ((3, torch.bool), (4, torch.float64), (6, torch.bool), (9, torch.bool),
-                     (11, torch.bool)):
+    for k, dtype in _GATE_INPUTS:
         t = raw[k]
         if t.dtype != dtype or tuple(t.shape) != (N,) or t.device != dev:
             raise ValueError(
@@ -458,6 +463,57 @@ def _gate_inputs(raw):
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     return N, dev
+
+
+class GateStage:
+    """``dstate_gate`` over one set of raw resident rows: ``bind`` checks the
+    five gated inputs once and packs their pointers, N and the device index
+    into one host descriptor (again only when the rows are replaced);
+    ``gate`` then launches ``csrc/dstate.cu``'s gate once on a card, into a
+    fresh [4, N] bool allocation whose rows are the four masks (a fresh one
+    each call: callers may keep the arrays of earlier calls), or runs the
+    plain version on the CPU.  The stage keeps the rows it is bound to."""
+
+    def __init__(self):
+        self.binds = 0  # descriptors built
+        self.raw: tuple = ()
+        self.device: Optional[torch.device] = None
+        self.desc = None  # ctypes int64 [7]: the five inputs' pointers, N, device
+        self._ids: tuple = ()
+        self._desc_ptr = 0
+        self._n = 0
+
+    def bind(self, raw) -> None:
+        N, dev = _gate_inputs(raw)
+        self.raw, self._ids = tuple(raw), tuple(map(id, raw))
+        self.device, self._n = dev, N
+        if dev.type == "cuda":
+            self.desc = (ctypes.c_longlong * 7)(*(raw[k].data_ptr() for k, _ in _GATE_INPUTS),
+                                               N, cuda.device_index(dev))
+            self._desc_ptr = ctypes.addressof(self.desc)
+        else:
+            self.desc, self._desc_ptr = None, 0
+        self.binds += 1
+
+    def bound_to(self, raw) -> bool:
+        """Whether ``raw`` holds the very rows bound (the stage keeps them,
+        so an identity is never reused while bound)."""
+        return self._ids == tuple(map(id, raw))
+
+    def gate(self, now: float, exp, fexp: bool) -> LoadAwareNodeArrays:
+        raw = self.raw
+        if self._desc_ptr == 0:
+            return dstate_gate_plain(raw, now, exp, fexp)
+        out = torch.empty((4, self._n), dtype=torch.bool, device=self.device)
+        if self._n:
+            flags = ((cuda.GATE_HAS_EXP | (cuda.GATE_EXP_POS if exp > 0 else 0))
+                     if exp is not None else 0) | (cuda.GATE_FEXP if fexp else 0)
+            cuda.DSTATE_GATE.launch(self._desc_ptr, float(now), float(exp or 0), flags,
+                                    out.data_ptr(), cuda.stream(self.device))
+        # one call for the four row views (iterating the tensor costs more)
+        score_valid, filter_active, prod_active, has_prod_thr = out.unbind(0)
+        return LoadAwareNodeArrays(raw[0], raw[1], raw[2], score_valid, raw[5], filter_active,
+                                   raw[7], raw[8], prod_active, raw[10], has_prod_thr)
 
 
 def dstate_gate_plain(raw, now: float, exp, fexp: bool) -> LoadAwareNodeArrays:
@@ -488,30 +544,22 @@ def dstate_gate_plain(raw, now: float, exp, fexp: bool) -> LoadAwareNodeArrays:
     )
 
 
+# the stage of calls that name their rows each time (tests, studies); the
+# residency keeps one bound to its rows table
+_GATE = GateStage()
+
+
 def dstate_gate(raw, now: float, exp, fexp: bool) -> LoadAwareNodeArrays:
     """The JAX package's ``dstate_gate`` (state.py:222): the 12 raw resident
     LoadAware rows (``DeviceResidency._ROWS[:12]``) + ``now`` -> gated
     ``LoadAwareNodeArrays``.  The [N, R] rows pass through; the four gated
-    [N] masks are new tensors.  On CUDA one elementwise launch of
-    ``csrc/dstate.cu`` computes them, ``now`` and ``exp`` as doubles."""
-    N, dev = _gate_inputs(raw)
-    if dev.type == "cpu":
-        return dstate_gate_plain(raw, now, exp, fexp)
-    gated = [torch.empty(N, dtype=torch.bool, device=dev) for _ in range(4)]
-    if N:
-        cuda.DSTATE_GATE.launch(
-            N, raw[3].data_ptr(), raw[4].data_ptr(), raw[6].data_ptr(), raw[9].data_ptr(),
-            raw[11].data_ptr(), float(now), int(exp is not None),
-            int(exp is not None and exp > 0), float(exp or 0), int(bool(fexp)),
-            *(g.data_ptr() for g in gated), cuda.device_index(dev), cuda.stream(dev),
-        )
-    score_valid, filter_active, prod_active, has_prod_thr = gated
-    return LoadAwareNodeArrays(
-        alloc=raw[0], base_nonprod=raw[1], base_prod=raw[2], score_valid=score_valid,
-        filter_usage=raw[5], filter_active=filter_active, thresholds=raw[7],
-        prod_usage=raw[8], prod_filter_active=prod_active, prod_thresholds=raw[10],
-        has_prod_thresholds=has_prod_thr,
-    )
+    [N] masks are new tensors.  Through a ``GateStage``, rebound (and the
+    inputs checked) when ``raw`` holds other rows; on CUDA one elementwise
+    launch of ``csrc/dstate.cu`` computes them, ``now`` and ``exp`` as
+    doubles."""
+    if not _GATE.bound_to(raw):
+        _GATE.bind(raw)
+    return _GATE.gate(now, exp, fexp)
 
 
 _EXTEND_DTYPES = (torch.bool, torch.int32, torch.int64)
@@ -598,23 +646,29 @@ class _ResidentTable:
     the engine's warm-carry watermark: a SCORE syncs the residency without
     touching the carry)."""
 
-    __slots__ = ("attrs", "ver_attr", "bufs", "watermark", "shape_key", "audit_cursor", "stage")
+    __slots__ = ("attrs", "ver_attr", "bufs", "watermark", "shape_key", "audit_cursor", "stage",
+                 "gate")
 
-    def __init__(self, attrs: tuple, ver_attr: str):
+    def __init__(self, attrs: tuple, ver_attr: str, gated: bool = False):
         self.attrs = attrs
         self.ver_attr = ver_attr
         self.bufs: Optional[tuple] = None
         self.watermark = 0
         self.shape_key: Optional[tuple] = None
         self.audit_cursor = 0  # rotating sampled-audit window start
-        # the scatter's staging, bound to ``bufs`` whenever they are replaced
+        # the scatter's staging and (the rows table) the gate's stage over
+        # its 12 raw LoadAware rows, bound whenever ``bufs`` are replaced;
+        # a scatter writes in place and keeps both
         self.stage = ScatterStage()
+        self.gate = GateStage() if gated else None
 
     def adopt(self, bufs: tuple) -> None:
         """New resident buffers (a full upload or a widening): the scatter's
-        descriptor is rebuilt for them."""
+        descriptor and the gate's are rebuilt for them."""
         self.bufs = bufs
         self.stage.bind(bufs)
+        if self.gate is not None:
+            self.gate.bind(bufs[:12])
 
 
 def _norm_device(device) -> torch.device:
@@ -672,7 +726,7 @@ class DeviceResidency:
         self._state = state
         self.enabled = bool(enabled)
         self._tables: Dict[str, _ResidentTable] = {
-            "rows": _ResidentTable(self._ROWS, "_row_ver"),
+            "rows": _ResidentTable(self._ROWS, "_row_ver", gated=True),
             "policy": _ResidentTable(self._POLICY, "_pp_row_ver"),
             "device": _ResidentTable(self._DEVICE, "_dv_row_ver"),
         }
@@ -815,8 +869,8 @@ class DeviceResidency:
         key = float(now)
         if self._gate_key != key:
             la_args = self._state.la_args
-            self._gate_val = dstate_gate(
-                bufs[:12], now, la_args.node_metric_expiration_seconds,
+            self._gate_val = self._tables["rows"].gate.gate(
+                now, la_args.node_metric_expiration_seconds,
                 bool(la_args.filter_expired_node_metrics),
             )
             self._gate_key = key

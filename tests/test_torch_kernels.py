@@ -1013,6 +1013,45 @@ def test_desched_passes_count_the_spread():
     assert chip_smoke.desched_passes(nodes, pods, w) == (2, 4)
 
 
+SHARD_CASES = 64  # chip_smoke.check_shard_cases: 8 blocks x 4 strategy shapes x 2
+GATE_CASES = 45  # chip_smoke.check_gate_cases: 3 row counts x 3 bindings x 5 modes
+
+
+@pytest.mark.cuda
+def test_shard_cases_equal_plain(card):
+    """``shard_score_map`` blocks launched alone into sentinel buffers: at
+    offsets 100 and 200 of N = 300 and a 53-column block inside one tile,
+    P = 1 and P = 65 (a strip boundary), the generic instantiation (R = 3),
+    the three strategies (RTC under two shapes), without and with extras;
+    each equal to its plain version written alone the same way and to the
+    unsharded ``score_batch`` at its columns, every other column kept."""
+    before = cuda.KERNELS["shard_score_map"].launches
+    assert chip_smoke.check_shard_cases(card) == SHARD_CASES
+    assert cuda.KERNELS["shard_score_map"].launches == before + SHARD_CASES
+
+
+@pytest.mark.cuda
+def test_gate_cases_equal_plain(card):
+    """``dstate_gate`` at N = 1, 257 and 1,001 in five expiry modes
+    (180 with and without the filters following, None, 0, -5), bound to
+    its rows, rebound to other rows and back, through the public entry and
+    a ``GateStage`` of its own, bit for bit against its plain version."""
+    before = cuda.KERNELS["dstate_gate"].launches
+    assert chip_smoke.check_gate_cases(card) == GATE_CASES
+    assert cuda.KERNELS["dstate_gate"].launches == before + 2 * GATE_CASES
+
+
+def test_shard_and_gate_cases_run_on_cpu_tensors():
+    """The two sets of cases on CPU tensors, where the wrappers take their
+    plain versions: the cases build and compare, the sentinels hold, and
+    nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    cpu = torch.device("cpu")
+    assert chip_smoke.check_shard_cases(cpu) == SHARD_CASES
+    assert chip_smoke.check_gate_cases(cpu) == GATE_CASES
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
 KOORDLET = ("shard_score_map", "aggregate_node_metrics")
 
 

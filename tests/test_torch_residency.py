@@ -266,6 +266,76 @@ def test_gate_matches_jax_at_nan_and_boundary_times(exp, fexp):
     _same_la(got, assemble_node_arrays(*raw, args, now))
 
 
+def test_gate_stage_follows_the_rows_buffers():
+    """The rows table's gate stage is bound with its buffers: on the cold
+    upload, again after a capacity growth (a full upload of new buffers),
+    and not after a scatter (which writes the same buffers in place).  After
+    each step the served gated arrays equal the JAX residency's
+    (``dstate_gate``, koordinator_tpu/service/state.py:222), some nodes
+    expired and one metric ahead of the clock."""
+    j = JState(extra_scalars=SCALARS, initial_capacity=16)
+    t = ClusterState(extra_scalars=SCALARS, initial_capacity=16)
+    _, nodes = tfx.random_cluster(51, num_nodes=270, num_pods=0)
+    _, jnodes = jfx.random_cluster(51, num_nodes=270, num_pods=0)
+    res, table = t.residency, t.residency._tables["rows"]
+    now = NOW + 400.0
+
+    def served(step, binds):
+        j.publish(now)
+        t.publish(now)
+        got = res.serving_node_inputs(now, CPU_DEV)[0]
+        _same_la(got, j.residency.serving_node_inputs(now)[0])
+        assert table.gate.binds == binds, step
+        assert all(a is b for a, b in zip(table.gate.raw, table.bufs[:12])), step
+        return got
+
+    for st, ns in ((j, jnodes[:12]), (t, nodes[:12])):
+        for n in ns:
+            st.upsert_node(n)
+    served("cold", 1)
+    for k, (st, m) in enumerate(((j, jm), (t, tm))):
+        st.update_metric("node-3", m.NodeMetric(node_usage={jm.CPU: 900}, update_time=now + 5))
+        st.update_metric("node-4", m.NodeMetric(node_usage={jm.CPU: 900}, update_time=now - 10))
+    scatters = res.scatters
+    served("a scatter", 1)
+    assert res.scatters == scatters + 1
+    for st, ns in ((j, jnodes[12:]), (t, nodes[12:])):
+        for n in ns:
+            st.upsert_node(n)
+    uploads = res.full_uploads
+    got = served("capacity growth", 2)
+    assert res.full_uploads == uploads + 1 and got.score_valid.shape[0] == t.capacity > 256
+
+
+def test_gate_stage_rebound_on_a_device_change():
+    """The public ``dstate_gate``'s stage rebinds when its rows are on
+    another device (the CPU, then ``meta``: another device's shapes and
+    dtypes with no data, where the plain version runs without a card) and
+    when they come back; the CPU results equal the JAX package's, and a
+    well-formed call after a refused one is served from the rows given."""
+    now = NOW + 0.25
+    raw = _raw_rows(64, 8, now, 180)
+    want = jstate_mod._dstate_jits()["dstate_gate"](
+        *(jnp.asarray(a) for a in raw), np.float64(now), 180.0, True)
+    cpu = [torch.from_numpy(a) for a in raw]
+    meta = [a.to("meta") for a in cpu]
+    stage = sm._GATE
+    binds = stage.binds
+    _same_la(sm.dstate_gate(cpu, now, 180, True), want)
+    assert stage.binds == binds + 1 and stage.device == CPU_DEV
+    _same_la(sm.dstate_gate(cpu, now, 180, True), want)
+    assert stage.binds == binds + 1  # the same rows: no rebind
+    got = sm.dstate_gate(meta, now, 180, True)
+    assert stage.binds == binds + 2 and stage.device == torch.device("meta")
+    assert got.score_valid.device.type == "meta" and stage.desc is None
+    broken = list(cpu)
+    broken[4] = cpu[4].float()
+    with pytest.raises(ValueError, match="gate input 4"):
+        sm.dstate_gate(broken, now, 180, True)
+    _same_la(sm.dstate_gate(cpu, now, 180, True), want)
+    assert stage.binds == binds + 3 and stage.device == CPU_DEV
+
+
 def test_scatter_with_duplicate_padded_indices_matches_jax():
     rng = np.random.default_rng(9)
     host = [rng.integers(0, 1 << 50, size=(64, 3), dtype=np.int64),

@@ -290,6 +290,37 @@ def test_shard_score_map_plain_equals_score_fn(strategy):
             assert torch.equal(t, want[0]) and torch.equal(f, want[1])
 
 
+@pytest.mark.parametrize("lo,hi", [(100, 200), (200, 300), (37, 90)])
+def test_shard_block_alone_keeps_every_other_column(lo, hi):
+    """One block of ``shard_score_map`` written alone into sentinel buffers
+    (blocks of ``shard_bounds(300, 3)`` at offsets 100 and 200, off the
+    kernel's 128-column tiles, and a 53-column block inside one tile): its
+    columns equal the JAX engine's ``score_fn`` body (``score_batch`` + the
+    extra scores, feasibility AND ``valid``, koordinator_tpu/service/
+    engine.py:134-143) at the same columns, with extras and a ragged valid
+    mask, and every other column keeps its sentinel."""
+    from koordinator_tpu.core.cycle import score_batch as j_score_batch
+    from torch_parity import batch, to_jax, to_torch
+
+    b = batch(24, 300, 12)
+    la, la_n, w, nf, nf_n, static = to_torch(b)
+    rng = np.random.default_rng(5)
+    valid = rng.random(300) < 0.9
+    extra = rng.integers(-100, 200, (24, 300)).astype(np.int64)
+    jt, jf = j_score_batch(*to_jax(b))
+    want_t, want_f = np.asarray(jt) + extra, np.asarray(jf) & valid[None, :]
+    sentinel = -(1 << 40)
+    t = torch.full((24, 300), sentinel, dtype=torch.int64)
+    f = torch.ones((24, 300), dtype=torch.bool)
+    ts.shard_score_map(la, la_n, w, nf, nf_n, static, torch.from_numpy(valid),
+                       torch.from_numpy(extra), lo, hi, t, f)
+    assert np.array_equal(t[:, lo:hi].numpy(), want_t[:, lo:hi])
+    assert np.array_equal(f[:, lo:hi].numpy(), want_f[:, lo:hi])
+    outside = np.ones(300, dtype=bool)
+    outside[lo:hi] = False
+    assert (t.numpy()[:, outside] == sentinel).all() and f.numpy()[:, outside].all()
+
+
 def test_warm_carry_never_crosses_a_shard_layout():
     """Solo, 2 shards, 2 again, 4, solo: a carry taken under one layout
     never seeds a cycle under another (each change is a cold init), the
