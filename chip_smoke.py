@@ -24,7 +24,8 @@ Phases (any failure exits non-zero and prints no result line):
      back;
      ``dstate_gate`` at NaN and boundary update times, and in phase 3 on
      ``check_gate_cases``: 1, 257 and 1,001 rows, five expiry modes,
-     rebound and back), and the whole-table upload (``dstate_rows``, a
+     rebound and back, strided rows refused and rows moved by ``set_``
+     and ``resize_``), and the whole-table upload (``dstate_rows``, a
      transfer);
   5. the cold path at 10,000 nodes x 1,000 pods (``random_cluster``) on
      host-built node arrays (``device_state=False``): ``Engine.score``,
@@ -39,7 +40,9 @@ Phases (any failure exits non-zero and prints no result line):
      with the launches the plan names;
   7. the constraint path: gangs, quota groups and reservations through
      six cycles (``CON_CYCLES``) and ``Engine.quota_refresh``;
-  8. the placement-and-devices kernels (``placement``, ``dev_feasible``,
+  8. the placement-and-devices kernels (``placement``, also on
+     ``placement_cases`` in phase 3: N below and across the tile, unions
+     over several phases; ``dev_feasible``,
      ``ds_score``, ``dstate_extend``, and the score and schedule kernels
      with a random mask and extra scores) at the phase's shapes, then the
      placement-and-devices path: selectors, taints, anti-affinity and
@@ -75,7 +78,8 @@ Phases (any failure exits non-zero and prints no result line):
      nodes x 50 candidates (bucket 64; deviation, debounce, caps, the
      ``number_of_nodes`` gate) and at bench/bench_sim.py's 10,000 x 20,000
      (bucket 32,768), ``pod_band_rank`` at P = 64 and 32,768 (ties on every
-     key, with and without usage), integers exactly and percentiles bit for
+     key, with and without usage) and on ``band_cases`` (the one-block
+     limit less one, at it and above), integers exactly and percentiles bit for
      bit; then the descheduler path, appended to the sidecar phase: one
      ReplicaSet-owned pod a node, three dry-run DESCHEDULE ticks (the
      debounce), one with ``verify``, one executing with a total cap of 32,
@@ -155,7 +159,23 @@ by step on the host clock, and ``dstate_extend`` beside ``F.pad``); one
 sample a run, for two checkouts alternated in one call (``--shard`` times
 only the public entry points and ``ShardedEngine._score_mesh``, so
 ``--root`` may name a checkout from before the mesh's redesign;
-``--gate`` needs a checkout with ``GateStage``).
+``--gate`` needs a checkout with ``GateStage``; it also prints what the
+public entry gives on strided rows and on rows moved under their tensors,
+``gate_fault_cases``).
+
+    python3 chip_smoke.py --place [--root DIR]
+    python3 chip_smoke.py --band [--root DIR]
+    python3 chip_smoke.py --restate [--root DIR]
+
+print one ``place_study`` JSON line (``place_study``: ``placement`` at 256
+x 16,384 with a 16,384-wide label vocabulary, its call split by step,
+then every call of the placement and strategies phases replayed), one
+``band_study`` JSON line (``band_study``: ``pod_band_rank`` at P = 32,768
+with and without usage and at the descheduler path's arbitrations, with
+the study build's split by step on this tree) and one ``restate_study``
+JSON line (the kernel table's ``sched_refresh``, ``sched_refresh_con``,
+``quota`` and ``quota_limit`` rows measured again); ``--root`` takes
+another checkout of the port, with the gate's ``GateStage`` or later.
 """
 
 from __future__ import annotations
@@ -1738,6 +1758,78 @@ def check_placement_kernel(dev, M: int, N: int, Lb: int, timed: bool):
                 bound_ms=b, bound_by=by, library_ms=None)
 
 
+def placement_case(dev, M: int, N: int, widths, seed: int, per_list: int = 3,
+                   dup: bool = False):
+    """``placement``'s inputs with random node rows of the given widths
+    (labels, taints, aa_cnt, sig_cnt) and M signatures listing up to
+    ``per_list`` columns of each table (with ``dup`` one entry listed
+    twice); signature 0 lists nothing at all, signature 1 has empty
+    selector and taint lists, and every third signature counts an absent
+    selector pair in ``sel_cnt``."""
+    from koordinator_tpu_torch import convert
+    from koordinator_tpu_torch.core import placement as pl
+
+    rng = np.random.default_rng(seed)
+    Lb, Tb, Sb, Gb = widths
+    labels = rng.random((N, Lb)) < 0.7
+    taints = rng.random((N, Tb)) < 0.05
+    aa_cnt = (rng.integers(-1, 3, (N, Sb)) * (rng.random((N, Sb)) < 0.05)).astype(np.int32)
+    sig_cnt = (rng.integers(0, 3, (N, Gb)) * (rng.random((N, Gb)) < 0.05)).astype(np.int32)
+    lists = [[], [], [], []]
+    sel_cnt = np.zeros(M, dtype=np.int32)
+    for m in range(M):
+        for t, width in enumerate(widths):
+            k = 0 if m == 0 or (m == 1 and t < 2) else int(rng.integers(0, per_list + 1))
+            lst = sorted(rng.choice(width, min(k, width), replace=False).tolist()) if width else []
+            if dup and lst:
+                lst.append(lst[0])
+            lists[t].append(lst)
+        sel_cnt[m] = len(lists[0][m]) + (m % 3 == 2)
+    sigs = pl.PlacementSigs(*pl.csr(lists[0]), torch.from_numpy(sel_cnt), *pl.csr(lists[1]),
+                            *pl.csr(lists[2]), *pl.csr(lists[3]))
+    return sigs, tuple(convert.tensor(a, dev) for a in (labels, taints, aa_cnt, sig_cnt))
+
+
+def placement_cases(dev) -> list:
+    """(label, sigs, rows) of ``placement``'s edge cases: N below one tile
+    (``PLACEMENT_TILE``), N not a multiple of it, one node, one signature,
+    indices listed twice, empty vocabularies, and column unions wider than
+    one phase of the gather's shared memory (``PLACEMENT_SMEM``): an
+    int32 table split across three phases, and every table split."""
+    from koordinator_tpu_torch.core import placement as pl
+
+    T = pl.PLACEMENT_TILE
+    return [
+        ("N below one tile", *placement_case(dev, 16, T // 2 + 5, (40, 4, 16, 16), SEED + 61)),
+        ("N not a multiple of the tile", *placement_case(dev, 24, 5 * T + 17, (64, 6, 32, 32),
+                                                         SEED + 62, dup=True)),
+        ("one node, one signature", *placement_case(dev, 1, 1, (8, 2, 4, 4), SEED + 63)),
+        ("empty vocabularies", *placement_case(dev, 9, 300, (0, 0, 0, 0), SEED + 64)),
+        ("an int32 union over three phases", *placement_case(
+            dev, 40, 300, (32, 4, 512, 8), SEED + 65, per_list=120, dup=True)),
+        ("every union over its phases", *placement_case(
+            dev, 64, 2 * T + 3, (3000, 900, 400, 400), SEED + 66, per_list=400)),
+    ]
+
+
+def check_placement_cases(dev) -> int:
+    """``placement`` on ``placement_cases`` against its plain version
+    (exact), on the card each case's plan carrying a table across phases
+    where its label names phases; returns the cases checked."""
+    from koordinator_tpu_torch.core import placement as pl
+
+    cases = placement_cases(dev)
+    for label, sigs, rows in cases:
+        if dev.type == "cuda" and ("phases" in label) != pl.placement_plan(sigs, rows)[3]:
+            fail(f"placement {label}: the plan's phases do not match")
+        require_equal(f"placement {label}", (pl.placement(sigs, *rows),),
+                      (pl.placement_plain(sigs, *rows),))
+    print(f"  placement: {len(cases)} edge cases (N below and across the {pl.PLACEMENT_TILE}-"
+          "column tile, one node, duplicates, empty vocabularies, unions over several phases) "
+          "equal plain", flush=True)
+    return len(cases)
+
+
 def device_inputs(dev, M: int, N: int, Gm: int, seed: int):
     """The device kernels' inputs, made with numpy from ``seed``: a third
     of the N nodes hold 1..Gm GPUs with random free shares (padded slots
@@ -2188,6 +2280,33 @@ def device_view(st) -> tuple:
     )
 
 
+def place_cycle_ops(st, c: int, now: float, metric_nodes, flip: str) -> None:
+    """The store operations ahead of ``PLACE_CYCLES``' cycle ``c``: before
+    cycle 2 a label flipped on ``flip`` and metrics on ``metric_nodes``;
+    before cycle 3 assigned pods with new label sets, past the label-set
+    vocabulary's bucket, and one node re-inventoried with 16 GPUs."""
+    import copy
+
+    from koordinator_tpu_torch.api.model import CPU, MEMORY, AssignedPod, NodeMetric, Pod
+    from koordinator_tpu_torch.core.deviceshare import GPUDevice, RDMADevice
+
+    if c == 2:
+        spec = copy.copy(st._nodes[flip])
+        spec.labels = dict(spec.labels, flip="x")
+        st.upsert_node(spec)
+        for i, node in enumerate(metric_nodes):
+            st.update_metric(node, NodeMetric(
+                node_usage={CPU: 3000 + 11 * i, MEMORY: (3 + i % 5) * GB}, update_time=now))
+    if c == 3:
+        for k in range(st._Gb - len(st._sig_vocab) + 1):
+            st.assign_pod(f"node-{100 + 7 * k}", AssignedPod(pod=Pod(
+                name=f"grow-{k}", namespace="held", requests={CPU: 100},
+                labels={"team": f"grow-{k}"}), assign_time=now))
+        st.set_devices("node-3", [GPUDevice(minor=m, numa_node=m // 8, pcie=m // 4)
+                                  for m in range(16)],
+                       [RDMADevice(minor=m, numa_node=m, vfs_free=8) for m in range(2)])
+
+
 def drive_placement_path(device, num_nodes: int, num_pods: int, scalars):
     """The placement-and-devices phase at full width in the default serving
     configuration (resident tables, warm start on): ``placement_store``
@@ -2198,11 +2317,7 @@ def drive_placement_path(device, num_nodes: int, num_pods: int, scalars):
     device state against each other; each cycle's launches against the
     plan.  Returns (launches per kernel during this phase, per-cycle
     records)."""
-    import copy
-
     from koordinator_tpu_torch import cuda
-    from koordinator_tpu_torch.api.model import CPU, MEMORY, AssignedPod, NodeMetric, Pod
-    from koordinator_tpu_torch.core.deviceshare import GPUDevice, RDMADevice
     from koordinator_tpu_torch.service.engine import Engine
     from koordinator_tpu_torch.service.state import next_bucket
     from koordinator_tpu_torch.utils.fixtures import NOW
@@ -2226,24 +2341,7 @@ def drive_placement_path(device, num_nodes: int, num_pods: int, scalars):
         for c, (name, dt, plan, expect) in enumerate(PLACE_CYCLES):
             now = NOW + dt
             for st in stores:
-                if c == 2:
-                    spec = copy.copy(st._nodes[flip])
-                    spec.labels = dict(spec.labels, flip="x")
-                    st.upsert_node(spec)
-                    for i, node in enumerate(metric_nodes):
-                        st.update_metric(node, NodeMetric(
-                            node_usage={CPU: 3000 + 11 * i, MEMORY: (3 + i % 5) * GB},
-                            update_time=now))
-                if c == 3:
-                    # assigned pods with new label sets, past the label-set
-                    # vocabulary's bucket; one node re-inventoried with 16 GPUs
-                    for k in range(st._Gb - len(st._sig_vocab) + 1):
-                        st.assign_pod(f"node-{100 + 7 * k}", AssignedPod(pod=Pod(
-                            name=f"grow-{k}", namespace="held", requests={CPU: 100},
-                            labels={"team": f"grow-{k}"}), assign_time=now))
-                    st.set_devices("node-3", [GPUDevice(minor=m, numa_node=m // 8, pcie=m // 4)
-                                              for m in range(16)],
-                                   [RDMADevice(minor=m, numa_node=m, vfs_free=8) for m in range(2)])
+                place_cycle_ops(st, c, now, metric_nodes, flip)
                 if c == 5:
                     for e in (eng, cold, ref):
                         batch[e] = placement_batch(num_nodes, num_pods, "place-next", SEED + 33)
@@ -3372,10 +3470,8 @@ def device_split(fn, groups, reps: int = 10) -> dict:
 
 
 # kernel-name keys of the descheduler's kernels, grouped for device_split
-DESCHED_GROUPS = (("round_kernel", "the round"), ("radix_scatter", "radix scatter"),
-                  ("radix_hist", "radix histogram"),
-                  ("util_kernel", "percentile select"), ("tile_", "scans"),
-                  ("lex_gather", "key gathers"))
+DESCHED_GROUPS = (("round_kernel", "the round"), ("band_kernel", "the band order"),
+                  ("util_kernel", "percentile select"), ("tile_", "scans"))
 
 
 def check_desched_round(what: str, state, nodes, pods, low, high, weights, rounds: int = 1,
@@ -3574,6 +3670,106 @@ def band_arrays(dev, P: int, seed: int, usage: bool):
     )
 
 
+def band_passes(keys) -> tuple:
+    """(words, passes) of csrc/bandrank.cu's plan for ``keys``, mirrored on
+    the host: each key column mapped to its unsigned order key less its
+    minimum, the constant ones dropped, the rest packed minor first into
+    64-bit words while their widths fit, and an 8-bit pass for each digit
+    of a word's width that is not one value over every pod."""
+    from koordinator_tpu_torch.core.deschedule import _band_columns
+
+    mapped = []
+    for neg, c in _band_columns(keys):
+        a = c.cpu().numpy()
+        if a.dtype == np.float64:
+            x = -a
+            x = np.where(x == 0.0, 0.0, x)
+            b = x.view(np.uint64)
+            k = np.where(b >> np.uint64(63), ~b, b | np.uint64(1 << 63))
+            k = np.where(np.isnan(x), np.uint64(0xFFF8000000000000), k)
+        else:
+            v = a.astype(np.int64).view(np.uint64)
+            k = ((np.uint64(0) - v) if neg else v) ^ np.uint64(1 << 63)
+        mapped.append(k.astype(np.uint64))
+    words, cur, used = [], None, 0
+    for k in mapped:
+        k = k - k.min()
+        wd = int(k.max()).bit_length()
+        if not wd:
+            continue
+        if cur is not None and used + wd > 64:
+            words.append((cur, used))
+            cur, used = None, 0
+        cur = (k << np.uint64(used)) if cur is None else cur | (k << np.uint64(used))
+        used += wd
+    if cur is not None:
+        words.append((cur, used))
+    passes = 0
+    for v, wd in words:
+        for d in range(-(-wd // 8)):
+            digit = (v >> np.uint64(8 * d)) & np.uint64(255)
+            passes += int(digit.min() != digit.max())
+    return len(words), passes
+
+
+def band_cases(dev) -> list:
+    """(label, keys) of ``pod_band_rank``'s edge cases: one pod; every key
+    constant; keys whose spreads fit one composite word; keys that do not
+    (int64 extremes); ``-(1 << 63)`` in the negated usage column (it
+    wraps); -0.0, 0.0 and NaN creation times among equal keys; and on the
+    card the one-block limit (``cuda.BAND_SMALL_MAX``) less one, at it and
+    one above, with and without usage."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core.deschedule import BandKeys
+
+    rng = np.random.default_rng(SEED + 60)
+
+    def keys(P, prio, prio_c, k8s, qos, dele, evict, ct, usage=None):
+        def t(a, dtype):
+            return torch.as_tensor(np.broadcast_to(np.asarray(a), (P,)).copy(),
+                                   dtype=dtype).to(dev)
+        return BandKeys(t(prio_c, torch.int8), t(prio, torch.int64), t(k8s, torch.int8),
+                        t(qos, torch.int8), t(dele, torch.int64), t(evict, torch.int64),
+                        t(ct, torch.float64), None if usage is None else t(usage, torch.int64))
+
+    def small(P):
+        return rng.integers(-3, 4, P)
+
+    out = [("one pod", keys(1, 7, 2, 1, 3, -4, 9, 1.5, 12)),
+           ("every key constant", keys(300, 5, 1, 2, 3, 0, 0, 2.5, 7)),
+           ("one composite word", keys(300, small(300) * 100, small(300), small(300) % 3,
+                                       small(300) % 4, small(300), small(300),
+                                       rng.choice([0.0, -0.0, 1.0, float("nan")], 300))),
+           ("int64 extremes", keys(300, rng.choice([-(1 << 63), (1 << 63) - 1, 0], 300),
+                                   small(300), 1, 2, rng.integers(-(1 << 62), 1 << 62, 300),
+                                   rng.choice([-(1 << 63), (1 << 63) - 1], 300),
+                                   rng.standard_normal(300) * 1e300,
+                                   rng.choice([-(1 << 63), 5, (1 << 63) - 1], 300))),
+           ("-(1 << 63) negated, -0.0 and NaN", keys(
+               257, 0, 1, 1, 1, 0, 0, rng.choice([0.0, -0.0, float("nan"), -1.0], 257),
+               rng.choice([-(1 << 63), 0, 3], 257)))]
+    if dev.type == "cuda":  # the launches' sizes; the plain version takes any
+        for P in (cuda.BAND_SMALL_MAX - 1, cuda.BAND_SMALL_MAX, cuda.BAND_SMALL_MAX + 1):
+            for usage in (False, True):
+                out.append((f"P = {P}, usage {usage}", band_arrays(dev, P, SEED + P, usage)))
+    return out
+
+
+def check_band_cases(dev) -> int:
+    """``pod_band_rank`` on ``band_cases`` against its plain version
+    (exact); returns the cases checked."""
+    from koordinator_tpu_torch.core import deschedule as ds
+
+    cases = band_cases(dev)
+    for label, keys in cases:
+        require_equal(f"pod_band_rank {label}", (ds.pod_band_rank(keys),),
+                      (ds.pod_band_rank_plain(keys),))
+    print(f"  pod_band_rank: {len(cases)} edge cases (one pod, constant keys, one composite "
+          "word, int64 extremes, -(1 << 63) negated, -0.0/NaN, the one-block limit -1, 0, +1) "
+          "equal plain", flush=True)
+    return len(cases)
+
+
 def check_band_kernels(dev, timed: bool):
     """``pod_band_rank`` against its plain version at P = 64 and 32,768,
     with and without the usage key, ties on every key; returns the record
@@ -3587,8 +3783,9 @@ def check_band_kernels(dev, timed: bool):
             err = require_equal(f"pod_band_rank P={P} usage={usage}",
                                 (ds.pod_band_rank(keys),), (ds.pod_band_rank_plain(keys),))
             if timed and P > 64 and not usage:
-                ops = P * 6 * (8 * 5 + 3)  # 43 passes, 6 operations an element a pass
-                b, by = bound_ms(nbytes(*keys[:7]) + 8 * P, ops)
+                # this run's passes (band_passes), a few operations an element each
+                _, passes = band_passes(keys)
+                b, by = bound_ms(nbytes(*keys[:7]) + 8 * P, P * 6 * (passes + len(keys) - 1))
                 rec = dict(name="pod_band_rank", source=BAND_SOURCE,
                            replaces="koordinator_tpu/core/deschedule.py:223",
                            ms=cuda_ms(lambda: ds.pod_band_rank(keys)),
@@ -4176,6 +4373,52 @@ def gate_case_rows(dev, n: int, seed: int, now: float, exp: float = 180.0) -> li
             ints(), bools()]
 
 
+def gate_fault_cases(dev, rows: int = 1001) -> dict:
+    """The public ``dstate_gate`` on rows the kernel must not read through a
+    stale or base pointer, each beside the plain version on the same rows:
+    ``strided``, the five gated rows as columns of [N, 3] tables; ``set_``
+    and ``resize_``, a bound update-time and has-metric row moved to new
+    storage with new values under the same tensor between two calls.
+    Returns case -> "equal", "differs" or "refused: <the ValueError>"."""
+    from koordinator_tpu_torch.service import state as sm
+
+    now = 1_000_010.25
+    out = {}
+
+    def verdict(raw):
+        want = sm.dstate_gate_plain(raw, now, 180, True)
+        try:
+            got = sm.dstate_gate(raw, now, 180, True)
+        except ValueError as e:
+            return f"refused: {e}"
+        try:
+            require_same("gate", got, want)
+        except Mismatch:
+            return "differs"
+        return "equal"
+
+    raw = gate_case_rows(dev, rows, SEED + 40, now)
+    strided = list(raw)
+    for k in (3, 4, 6, 9, 11):
+        wide = torch.stack([raw[k].flip(0), raw[k], ~raw[k] if raw[k].dtype == torch.bool
+                            else raw[k] - 400.0], dim=1)
+        strided[k] = wide[:, 1]
+    out["strided"] = verdict(strided)
+    for move in ("set_", "resize_"):
+        raw = [t.clone() for t in gate_case_rows(dev, rows, SEED + 41, now)]
+        first = verdict(raw)
+        fresh = gate_case_rows(dev, rows, SEED + 42, now - 150.0)
+        for k in (3, 4):
+            if move == "set_":
+                raw[k].set_(fresh[k].clone())
+            else:
+                raw[k].resize_(64 * rows)
+                raw[k].resize_(rows)
+                raw[k].copy_(fresh[k])
+        out[move] = verdict(raw) if first == "equal" else f"first call {first}"
+    return out
+
+
 def check_gate_cases(dev) -> int:
     """``dstate_gate`` at each of ``GATE_CASE_ROWS`` in every mode of
     ``GATE_MODES`` against its plain version, bit for bit; then rebound to
@@ -4202,8 +4445,13 @@ def check_gate_cases(dev) -> int:
                 require_same(f"GateStage {rows} {what} exp={e} fexp={fexp}",
                              stage.gate(now, e, fexp), want)
                 n += 1
+    faults = gate_fault_cases(dev)
+    if not faults["strided"].startswith("refused") or any(
+            faults[m] != "equal" for m in ("set_", "resize_")):
+        fail(f"dstate_gate on strided or moved rows: {faults}")
     print(f"  dstate_gate: {n} calls (rows {list(GATE_CASE_ROWS)}, exp modes "
-          f"{[m[0] for m in GATE_MODES]}, rebound and back) equal plain", flush=True)
+          f"{[m[0] for m in GATE_MODES]}, rebound and back) equal plain; strided rows "
+          f"refused, rows moved by set_ and resize_ equal plain", flush=True)
     return n
 
 
@@ -6295,12 +6543,388 @@ def gate_study(dev, reps: int = 21) -> int:
         print(f"  dstate_gate {rows} rows: equal plain; call {rec['ms']:.4f} ms, device "
               f"{rec['device_ms']} ms, host {rec['host_us']:.2f} us a call; split us "
               + ", ".join(f"{k} {v:.2f}" for k, v in rec["split_us"].items()), flush=True)
+    out["faults"] = gate_fault_cases(dev)
+    print(f"  dstate_gate on strided rows and on rows moved under their tensors: "
+          f"{out['faults']}", flush=True)
     out["dstate_extend"] = check_extend_kernel(dev, GATE_ROWS, timed=True)
     out["extend_alloc_us"] = extend_alloc_us(dev, GATE_ROWS)
     print(f"  dstate_extend call {out['dstate_extend']['ms']:.4f} ms, F.pad "
           f"{out['dstate_extend']['library_ms']:.4f} ms; its outputs' host us "
           f"{out['extend_alloc_us']}", flush=True)
     print(json.dumps({"gate_study": out, "card": card_line()}))
+    return 0
+
+
+def device_events(fn, reps: int = 10) -> dict:
+    """Each device activity of a call of ``fn`` (kernels, copies, fills) by
+    name: (times a call, device milliseconds a call), from
+    ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out[e.key] = (e.count / reps, us / 1e3 / reps)
+    return out
+
+
+PLACE_STUDY = (256, 16_384)  # the kernel table's signatures and label vocabulary
+
+
+def place_path_calls(dev, num_nodes: int = NUM_NODES, num_pods: int = NUM_PODS) -> list:
+    """The ``placement`` calls the placement phase's six cycles make
+    (``PLACE_CYCLES``, one card engine over one ``placement_store``, the
+    store operations of ``place_cycle_ops``) and the strategies phase's
+    cold RequestedToCapacityRatio SCORE and SCHEDULE make, captured as the
+    engine makes them: [(where, sigs, node rows)], the rows copied."""
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import placement as pl
+    from koordinator_tpu_torch.core.config import NodeFitArgs, ScoringStrategyType
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    scalars = (BATCH_CPU, BATCH_MEMORY)
+    calls, where = [], ["?"]
+    orig = pl.placement
+
+    def record(sigs, *rows):
+        calls.append((where[0], pl.PlacementSigs(*(t.clone() for t in sigs)),
+                      tuple(r.clone() for r in rows)))
+        return orig(sigs, *rows)
+
+    pl.placement = record
+    try:
+        st = placement_store(scalars, num_nodes)
+        eng = Engine(st, device=dev)
+        batch = placement_batch(num_nodes, num_pods, "place", SEED + 31)
+        rng = np.random.default_rng(SEED + 32)
+        metric_nodes = [f"node-{int(i)}" for i in rng.choice(num_nodes, 100, replace=False)]
+        for c, (name, dt, _, expect) in enumerate(PLACE_CYCLES):
+            now = NOW + dt
+            place_cycle_ops(st, c, now, metric_nodes, f"node-{num_nodes - 2}")
+            if c == 5:
+                batch = placement_batch(num_nodes, num_pods, "place-next", SEED + 33)
+            st.publish(now)
+            where[0] = f"placement cycle {c} ({name})"
+            if c == 0:
+                eng.score(batch, now=now)
+            eng.schedule(batch, now=now, assume=bool(expect.get("assume")))
+        del eng, st
+        rtc = NodeFitArgs(strategy=ScoringStrategyType.REQUESTED_TO_CAPACITY_RATIO)
+        st = placement_store(scalars, num_nodes, nf_args=rtc)
+        eng = Engine(st, device=dev)
+        batch = placement_batch(num_nodes, num_pods, "strat", SEED + 52)
+        where[0] = "strategies: RequestedToCapacityRatio cycle 0"
+        eng.score(batch, now=NOW)
+        eng.schedule(batch, now=NOW)
+    finally:
+        pl.placement = orig
+    return calls
+
+
+def place_host_split(pl, cuda, sigs, rows, reps: int) -> dict:
+    """Host microseconds a ``placement`` call by step, each in a loop of
+    its own (``per_call_us``): the wrapper's own steps (this tree's: the
+    lists' attributes and their one host array, the library's plan, the
+    whole plan step; or the parent's: the checks, the ``cat`` of the nine
+    lists, ``pin_memory``, the copy and ``split``, the rows'
+    ``contiguous``), the [M, N] output, the library call through
+    ``Kernel.launch``, and the whole call."""
+    import ctypes
+
+    N, dev = rows[0].shape[0], rows[0].device
+    M = sigs.sel_cnt.shape[0]
+    out = torch.empty((M, N), dtype=torch.bool, device=dev)
+    if hasattr(pl, "host_lists"):  # the node tile over the column union
+        flat, dims = pl.host_lists(sigs, rows)
+        info = (ctypes.c_int * 4)()
+        pl.placement_plan(sigs, rows)
+        args = (*(t.data_ptr() for t in rows), *(t.shape[1] for t in rows), N, 0, 0,
+                out.data_ptr(), cuda.device_index(dev), cuda.stream(dev))
+        steps = dict(lists=lambda: (pl._lists_fine(sigs, rows), pl.host_lists(sigs, rows)),
+                     library_plan=lambda: cuda.PLACEMENT_PLAN(flat.data_ptr(), M, dims,
+                                                              pl.PLACEMENT_SMEM, info),
+                     plan=lambda: pl.placement_plan(sigs, rows))
+    else:
+        flat = torch.cat(list(sigs))
+        pinned = flat.pin_memory()
+        lists = pinned.to(dev, non_blocking=True).split([t.numel() for t in sigs])
+        args = (*(t.data_ptr() for t in lists), *(t.data_ptr() for t in rows),
+                *(t.shape[1] for t in rows), M, N, out.data_ptr(), cuda.device_index(dev),
+                cuda.stream(dev))
+        steps = dict(checks=lambda: pl._check_placement(sigs, *rows),
+                     cat=lambda: torch.cat(list(sigs)), pin_memory=lambda: flat.pin_memory(),
+                     copy_split=lambda: pinned.to(dev, non_blocking=True).split(
+                         [t.numel() for t in sigs]),
+                     rows_contiguous=lambda: [t.contiguous() for t in rows])
+    steps.update(output=lambda: torch.empty((M, N), dtype=torch.bool, device=dev),
+                 launch=lambda: cuda.PLACEMENT.launch(*args),
+                 call=lambda: pl.placement(sigs, *rows))
+    return {name: per_call_us(fn, reps) for name, fn in steps.items()}
+
+
+def place_call_split(pl, cuda, sigs, rows, calls: int = 400) -> dict:
+    """This tree's ``placement`` call taken apart in place: its steps run in
+    order, call after call, each timed on the host clock; the median
+    microseconds of each step over ``calls`` calls."""
+    dev = rows[0].device
+    names = ("plan", "output", "contiguous", "launch")
+    out = {n: [] for n in names}
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        t = [time.perf_counter()]
+        M, _, _, _ = pl.placement_plan(sigs, rows)
+        t.append(time.perf_counter())
+        o = torch.empty((M, rows[0].shape[0]), dtype=torch.bool, device=dev)
+        t.append(time.perf_counter())
+        rs = tuple(r.contiguous() for r in rows)
+        t.append(time.perf_counter())
+        cuda.PLACEMENT.launch(*(r.data_ptr() for r in rs), *(r.shape[1] for r in rs),
+                              rs[0].shape[0], 0, 0, o.data_ptr(), cuda.device_index(dev),
+                              cuda.stream(dev))
+        t.append(time.perf_counter())
+        for n, a, b in zip(names, t, t[1:]):
+            out[n].append((b - a) * 1e6)
+    torch.cuda.synchronize()
+    return {n: statistics.median(v) for n, v in out.items()}
+
+
+def place_record(pl, sigs, rows, reps: int) -> dict:
+    """One ``placement`` call equal to its plain version, then timed:
+    events around one call, the profiler's device activities, the host
+    time of a call in a loop."""
+    M, N = sigs.sel_cnt.shape[0], rows[0].shape[0]
+    require_equal(f"placement {M}x{N}", (pl.placement(sigs, *rows),),
+                  (pl.placement_plain(sigs, *rows),))
+
+    def call():
+        return pl.placement(sigs, *rows)
+
+    ev = device_events(call, reps)
+    from koordinator_tpu_torch import cuda
+
+    return dict(M=M, N=N, widths=[int(r.shape[1]) for r in rows],
+                list_entries=[int(t.numel()) for t in (sigs.sel_idx, sigs.tol_idx, sigs.hold_idx,
+                                                        sigs.aa_idx)],
+                ms=cuda_ms(call, reps=reps),
+                device_ms=sum(ms for k, (_, ms) in ev.items() if "placement" in k),
+                events=ev, host_us=per_call_us(call, reps),
+                in_call_us=(place_call_split(pl, cuda, sigs, rows)
+                            if hasattr(pl, "host_lists") else None))
+
+
+def place_study(dev, reps: int = 21) -> int:
+    """``--place``: ``placement`` at the kernel table's shape (256
+    signatures x 16,384 columns, a 16,384-wide label vocabulary,
+    ``placement_inputs``) with its call split by step on the host clock
+    (``place_host_split``), and each call the placement and strategies
+    phases make (``place_path_calls``) replayed on its own inputs: M, N,
+    the widths, the call, its device time and its host time.  ``--root``
+    takes another checkout with the gate's ``GateStage`` or later: run two checkouts
+    alternately in one call.  One ``place_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import placement as pl
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    cuda.build()
+    M, L = PLACE_STUDY
+    sigs, rows = placement_inputs(dev, M, GATE_ROWS, L, SEED + 20)
+    rec = place_record(pl, sigs, rows, reps)
+    rec["split_us"] = place_host_split(pl, cuda, sigs, rows, reps)
+    print(f"  placement {M} x {GATE_ROWS}, Lb {L}: equal plain; call {rec['ms']:.4f} ms, "
+          f"device {rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us; split us "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rec["split_us"].items())
+          + f"; in the call {rec['in_call_us']}", flush=True)
+    out = dict(study=rec, path=[])
+    for where, psigs, prows in place_path_calls(dev):
+        r = dict(place_record(pl, psigs, prows, reps), where=where)
+        out["path"].append(r)
+        print(f"  {where}: M {r['M']}, N {r['N']}, widths {r['widths']}, entries "
+              f"{r['list_entries']}: call {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, "
+              f"host {r['host_us']:.1f} us; in the call {r['in_call_us']}", flush=True)
+    print(json.dumps({"place_study": out, "card": card_line()}))
+    return 0
+
+
+def band_path_calls(dev, num_nodes: int = NUM_NODES, num_pods: int = NUM_PODS) -> list:
+    """The ``pod_band_rank`` calls of the descheduler path
+    (``drive_desched_path``'s frames after the sidecar phase's APPLY frames,
+    on one card sidecar), captured as the arbitrator makes them: [(tick,
+    keys)], the keys copied."""
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core.deschedule import BandKeys
+    from koordinator_tpu_torch.service import descheduler as dsm
+    from koordinator_tpu_torch.service.server import SidecarServer
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    calls, where = [], ["?"]
+    orig = dsm.pod_band_rank
+
+    def record(keys):
+        calls.append((where[0], BandKeys(*(None if t is None else t.clone() for t in keys))))
+        return orig(keys)
+
+    frames = [(lab, f) for lab, f in sidecar_frames(num_nodes, num_pods)
+              if lab.startswith("APPLY")]
+    _, fleet = random_cluster(SEED, num_nodes=num_nodes, num_pods=0)
+    frames += desched_frames([n.name for n in fleet], max(num_nodes // 100, 2), SEED + 31)
+    card = SidecarServer(initial_capacity=16, extra_scalars=(BATCH_CPU, BATCH_MEMORY), device=dev)
+    dsm.pod_band_rank = record
+    try:
+        w = Wire(card.address)
+        for label, frame in frames:
+            where[0] = label
+            w.call(frame)
+        w.close()
+    finally:
+        dsm.pod_band_rank = orig
+        card.close()
+    return calls
+
+
+def band_record(ds, keys, reps: int) -> dict:
+    """One ``pod_band_rank`` call equal to its plain version, then timed:
+    events around one call, the profiler's device activities (their count
+    a call), the host time of a call in a loop."""
+    P = keys.priority.shape[0]
+    require_equal(f"pod_band_rank P={P}", (ds.pod_band_rank(keys),),
+                  (ds.pod_band_rank_plain(keys),))
+
+    def call():
+        return ds.pod_band_rank(keys)
+
+    ev = device_events(call, reps)
+    return dict(P=P, usage=keys.usage is not None, ms=cuda_ms(call, reps=reps),
+                device_ms=sum(ms for _, ms in ev.values()),
+                device_events=sum(n for n, _ in ev.values()), events=ev,
+                host_us=per_call_us(call, reps))
+
+
+def band_split(ds, keys) -> dict:
+    """One ``pod_band_rank`` launch of the study build (csrc/bandstudy.cu):
+    block 0's global timer at each step, as microseconds from the
+    launch's start: the keys' bounds and the plan, then each word's build
+    and, in the cooperative launch, its first counts, then each pass's
+    steps (counts, the tiles' counts read, the offsets, the scatter, the
+    barrier; the one block's: counts, offsets, scatter, sync)."""
+    import ctypes
+
+    from koordinator_tpu_torch import cuda
+
+    rank = study_build("koord_band_rank", (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_void_p),
+                       "bandstudy")
+    split = cuda.HostFn("bandstudy", "koord_band_split", [ctypes.c_void_p])
+    buf = (ctypes.c_ulonglong * 256)()
+    orig = ds.cuda.POD_BAND_RANK
+    ds.cuda.POD_BAND_RANK = rank
+    try:
+        ds.pod_band_rank(keys)
+        torch.cuda.synchronize()
+        split(buf)
+        ds.pod_band_rank(keys)
+        torch.cuda.synchronize()
+        split(buf)
+    finally:
+        ds.cuda.POD_BAND_RANK = orig
+    marks = np.array(buf[:min(int(buf[255]), 255)], dtype=np.float64)
+    return dict(total_us=float(marks[-1] - marks[0]) / 1e3,
+                steps_us=[round(float(x), 2) for x in np.diff(marks) / 1e3])
+
+
+def band_study(dev, reps: int = 21) -> int:
+    """``--band``: ``pod_band_rank`` at P = 32,768 with and without the usage
+    key (``band_arrays``, ties on every key) and at each P the descheduler
+    path's arbitrations give it (``band_path_calls``), each equal to its
+    plain version first: events around one call, the profiler's device
+    time and activities a call, the host time of a call in a loop, and on
+    a tree with the study build one launch split by step (``band_split``).
+    ``--root`` takes another checkout with the gate's ``GateStage`` or later: run two
+    checkouts alternately in one call.  One ``band_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import deschedule as ds
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    cuda.build()
+    out = dict(cases=[], path=[])
+    study = "bandstudy" in cuda.STUDY  # this tree's one launch, split by step
+    for usage in (False, True):
+        keys = band_arrays(dev, 32_768, SEED + 32_768, usage)
+        rec = band_record(ds, keys, reps)
+        if study:
+            rec["split"] = band_split(ds, keys)
+        out["cases"].append(rec)
+        print(f"  pod_band_rank P 32768, usage {usage}: equal plain; call {rec['ms']:.4f} ms, "
+              f"device {rec['device_ms']:.4f} ms in {rec['device_events']:.0f} activities, "
+              f"host {rec['host_us']:.1f} us", flush=True)
+    calls = band_path_calls(dev)
+    out["path_P"] = [(where, int(k.priority.shape[0])) for where, k in calls]
+    print(f"  the descheduler path's arbitrations: {out['path_P']}", flush=True)
+    if not calls:
+        fail("the descheduler path arbitrated nothing")
+    where, keys = max(calls, key=lambda c: c[1].priority.shape[0])
+    rec = dict(band_record(ds, keys, reps), where=where, passes=band_passes(keys))
+    if study:
+        rec["split"] = band_split(ds, keys)
+    out["path"].append(rec)
+    print(f"  pod_band_rank at the path's largest P {rec['P']} ({where}): call "
+          f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms in "
+          f"{rec['device_events']:.0f} activities, host {rec['host_us']:.1f} us", flush=True)
+    print(json.dumps({"band_study": out, "card": card_line()}))
+    return 0
+
+
+def restate_study(dev) -> int:
+    """``--restate``: the kernel table's rows not redesigned since they were ported, measured
+    again, with no change to their kernels: ``sched_refresh`` and
+    ``sched_refresh_con`` at 1,024 x 16,384 (the warm and constraint
+    paths' shape, ``check_warm_kernels``, ``check_con_kernels``), and
+    ``quota`` and ``quota_limit`` on the 500-group tree
+    (``check_quota_kernels``) and on the constraint path's 100 groups
+    (``con_objects``), each equal to its plain version first.  One
+    ``restate_study`` JSON line."""
+    from koordinator_tpu_torch import convert, cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import quota as tq
+    from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    cuda.build()
+    keep = ("name", "ms", "plain_ms", "bound_ms", "dirty_rows", "groups")
+    full = build_inputs(*random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS), dev,
+                        (BATCH_CPU, BATCH_MEMORY))
+    recs = [r for r in check_warm_kernels(full, (16, 128, 1024), timed=True)[0]
+            + check_con_kernels(full, 0, timed=True) + check_quota_kernels(dev, timed=True)
+            if r["name"] in ("sched_refresh", "sched_refresh_con", "quota", "quota_limit")]
+    total, groups, _, _ = con_objects(NUM_NODES)
+    qs = QuotaSnapshot(groups, ["cpu", "memory"])
+    qa = tq.QuotaArrays(*(convert.tensor(a, dev) for a in qs.arrays()))
+    levels = qs.level_tuple()
+    lv_t = [torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev) for a in levels]
+    tot = convert.tensor(np.array([total["cpu"], total["memory"]], dtype=np.int64), dev)
+    want = tq.refresh_runtime(qa, lv_t, tot)
+    require_equal("quota (the path's tree)", (tq.quota_fn(qa, levels, tot),), (want,))
+    want[0] = tq.INF
+    require_equal("quota_limit (the path's tree)", (tq.quota_limit_fn(qa, levels, tot),), (want,))
+    for name, fn in (("quota", lambda: tq.quota_fn(qa, levels, tot)),
+                     ("quota_limit", lambda: tq.quota_limit_fn(qa, levels, tot))):
+        recs.append(dict(name=name, groups=len(groups), ms=cuda_ms(fn, reps=21),
+                         plain_ms=cuda_ms(lambda: tq.refresh_runtime(qa, lv_t, tot), reps=21)))
+    out = [{k: v for k, v in r.items() if k in keep} for r in recs]
+    for r in out:
+        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms)"
+              + (f", D {r['dirty_rows']}" if r.get("dirty_rows") else "")
+              + (f", {r['groups']} groups" if r.get("groups") else ""), flush=True)
+    print(json.dumps({"restate_study": out, "card": card_line()}))
     return 0
 
 
@@ -6329,6 +6953,12 @@ def main() -> int:
         return shard_study(torch.device("cuda:0"))
     if "--gate" in sys.argv:
         return gate_study(torch.device("cuda:0"))
+    if "--place" in sys.argv:
+        return place_study(torch.device("cuda:0"))
+    if "--band" in sys.argv:
+        return band_study(torch.device("cuda:0"))
+    if "--restate" in sys.argv:
+        return restate_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -6368,6 +6998,7 @@ def main() -> int:
     check_con_kernels(small, 0, timed=False, commit_cap=1)
     check_rsv_kernels(small, timed=False)
     check_placement_kernel(dev, 32, 600, 700, timed=False)
+    check_placement_cases(dev)
     for gm in (8, 16):
         check_device_kernels(dev, 16, 500, gm, timed=False)
     check_extend_kernel(dev, 300, timed=False)
@@ -6397,6 +7028,7 @@ def main() -> int:
     check_desched_kernels(dev, timed=False)
     check_desched_cases(dev)
     check_band_kernels(dev, timed=False)
+    check_band_cases(dev)
     # the koordlet slice's kernels at the small shapes
     check_shard_kernels(small512, (1, 2, KOORDLET_SHARDS), timed=False)
     check_metricsagg_kernels(dev)

@@ -313,11 +313,33 @@ def pod_band_rank_plain(keys: BandKeys) -> torch.Tensor:
     return lexsort([torch.arange(P, device=keys.priority.device)] + cols)
 
 
+# the cooperative launch's scratch, by (device index, stream): grown by
+# doubling, zeroed when allocated (csrc/bandrank.cu leaves its barrier's
+# count at 0); launches on one stream run in order
+_BAND_SCRATCH: dict = {}
+# koord KeyMode of csrc/bandrank.cu
+_KEY_SIGNED, _KEY_NEG_SIGNED, _KEY_NEG_F64 = 1, 2, 3
+
+
+def _band_scratch(dev, index: int, stream: int, P: int, G: int) -> int:
+    if G == 1:
+        return 0
+    need = cuda.scratch_bytes("bandrank", "koord_band_scratch_bytes", P, G)
+    buf = _BAND_SCRATCH.get((index, stream))
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(1 << (need - 1).bit_length(), dtype=torch.uint8, device=dev)
+        _BAND_SCRATCH[(index, stream)] = buf
+    return buf.data_ptr()
+
+
 def pod_band_rank(keys: BandKeys) -> torch.Tensor:
     """The ``pod_band_rank`` kernel: the PodSorter permutation of P pods
     (``band_keys``), [P] int64, bit-identical to
-    ``core.evictor.pod_sort_order``.  On CUDA stable 8-bit radix passes
-    over each key, minor to major."""
+    ``core.evictor.pod_sort_order``.  On CUDA one launch of
+    csrc/bandrank.cu (one block up to ``cuda.BAND_SMALL_MAX`` pods, a
+    cooperative grid above) through one packed descriptor: the keys less
+    their minima, packed into 64-bit words, sorted by the digits that
+    vary."""
     P = keys.priority.shape[0]
     dev = keys.priority.device
     want = {"koord_prio_rank": torch.int8, "priority": torch.int64, "k8s_qos_rank": torch.int8,
@@ -337,14 +359,13 @@ def pod_band_rank(keys: BandKeys) -> torch.Tensor:
     if P == 0:
         return out
     cols = [(neg, c.contiguous()) for neg, c in _band_columns(keys)]
-    K = len(cols)
-    # koord_radix::KeyMode: SIGNED 1, NEG_SIGNED 2, NEG_F64 3
-    modes = [(3 if c.dtype == torch.float64 else 2) if neg else 1 for neg, c in cols]
-    scratch = torch.empty(cuda.scratch_bytes("bandrank", "koord_band_scratch_bytes", P),
-                          dtype=torch.uint8, device=dev)
-    cuda.POD_BAND_RANK.launch(
-        cuda._ptr_table([c for _, c in cols]), (ctypes.c_int * K)(*[c.element_size()
-                                                                   for _, c in cols]),
-        (ctypes.c_int * K)(*modes), (ctypes.c_int * K)(*[8 * c.element_size() for _, c in cols]),
-        K, P, out.data_ptr(), scratch.data_ptr(), cuda.device_index(dev), cuda.stream(dev))
+    index, stream = cuda.device_index(dev), cuda.stream(dev)
+    G = cuda.band_grid(P, cuda.sm_count(dev))
+    words = [len(cols), P, G]
+    for neg, c in cols:
+        words += [c.data_ptr(), c.element_size(),
+                  (_KEY_NEG_F64 if c.dtype == torch.float64 else _KEY_NEG_SIGNED) if neg
+                  else _KEY_SIGNED]
+    cuda.POD_BAND_RANK.launch((ctypes.c_longlong * len(words))(*words), out.data_ptr(),
+                              _band_scratch(dev, index, stream, P, G), index, stream)
     return out

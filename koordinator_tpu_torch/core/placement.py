@@ -22,6 +22,7 @@ gather, affordable at full width.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -113,26 +114,91 @@ def _check_placement(sigs: PlacementSigs, labels, taints, aa_cnt, sig_cnt) -> tu
     return M, N, dev
 
 
+#: node columns a block of csrc/placement.cu takes (kTile), and the shared
+#: memory a phase of its gather may fill: a union of columns wider than
+#: this goes in phases (csrc/placeplan.cuh)
+PLACEMENT_TILE = 64
+PLACEMENT_SMEM = 40 * 1024
+
+
+def _lists_fine(sigs: PlacementSigs, rows) -> int:
+    """M when the node rows and the lists' dtypes, shapes and devices are
+    what ``placement`` takes, else -1 (attributes only; no data read)."""
+    labels, taints, aa_cnt, sig_cnt = rows
+    N, dev = labels.shape[0], labels.device
+    sel_cnt = sigs.sel_cnt
+    if not (sel_cnt.dtype == torch.int32 and sel_cnt.dim() == 1
+            and labels.dtype == torch.bool and taints.dtype == torch.bool
+            and aa_cnt.dtype == torch.int32 and sig_cnt.dtype == torch.int32
+            and all(t.dim() == 2 and t.shape[0] == N and t.device == dev for t in rows)):
+        return -1
+    M = sel_cnt.shape[0]
+    for t in sigs:
+        if t.dtype is not torch.int32 or t.ndim != 1 or not t.is_cpu:
+            return -1
+    if not (sigs.sel_off.shape[0] == sigs.tol_off.shape[0] == sigs.hold_off.shape[0]
+            == sigs.aa_off.shape[0] == M + 1):
+        return -1
+    return M
+
+
+def host_lists(sigs: PlacementSigs, rows) -> tuple:
+    """The plan's inputs: ONE host int32 array of the lists (the four
+    offset arrays, ``sel_cnt``, the four index arrays) and each list's
+    entries then each table's width (ctypes int32 [8])."""
+    idxs = (sigs.sel_idx, sigs.tol_idx, sigs.hold_idx, sigs.aa_idx)
+    flat = torch.cat([sigs.sel_off, sigs.tol_off, sigs.hold_off, sigs.aa_off, sigs.sel_cnt,
+                      *idxs])
+    return flat, (ctypes.c_int * 8)(*(t.shape[0] for t in idxs), *(t.shape[1] for t in rows))
+
+
+def placement_plan(sigs: PlacementSigs, rows) -> tuple:
+    """The calling thread's next launch planned by the library
+    (csrc/placeplan.cuh, ``koord_placement_plan``): the lists checked and
+    rewritten as positions in the union of the columns they name, the
+    gather's phases.  Returns (M, the int32 descriptor's words, the largest
+    phase's shared memory, whether a table spans two phases); on any fault
+    in the lists the sequential checks (``_check_placement``) raise the
+    first error in their order.  Needs the library (a CUDA toolkit)."""
+    M = _lists_fine(sigs, rows)
+    if M >= 0:
+        flat, dims = host_lists(sigs, rows)
+        info = (ctypes.c_int * 4)()
+        cuda.PLACEMENT_PLAN(flat.data_ptr(), M, dims, PLACEMENT_SMEM, info)
+        if info[0] == 0:
+            return M, info[1], info[2], bool(info[3])
+    _check_placement(sigs, *rows)
+    raise ValueError("placement: sel_cnt and the lists must be int32 host tensors")
+
+
 def placement(sigs: PlacementSigs, labels, taints, aa_cnt, sig_cnt) -> torch.Tensor:
     """The ``placement`` kernel: [M, N] bool, node open to signature m.
     Node inputs are the store's policy rows (labels [N, Lb] bool, taints
     [N, Tb] bool, aa_cnt [N, Sb] int32, sig_cnt [N, Gb] int32) on the
-    device; the signatures' lists are host tensors, checked there and
-    shipped in one copy.  On CUDA one thread per (signature, node) walks
-    the signature's lists."""
-    M, N, dev = _check_placement(sigs, labels, taints, aa_cnt, sig_cnt)
+    device; the signatures' lists are host tensors, concatenated into one
+    host array.  On CUDA the library checks and plans them on the host
+    (``placement_plan``), and one launch, its descriptor in the launch's
+    parameters, has a block a tile of node columns gather their union
+    columns into shared memory once, then evaluate every signature from
+    there.  On the CPU the checks run here and the plain version
+    computes."""
+    rows = (labels, taints, aa_cnt, sig_cnt)
+    dev = labels.device
     if dev.type == "cpu":
-        return placement_plain(sigs, labels, taints, aa_cnt, sig_cnt)
+        _check_placement(sigs, *rows)
+        return placement_plain(sigs, *rows)
+    M, words, _, carries = placement_plan(sigs, rows)
+    N = labels.shape[0]
     out = torch.empty((M, N), dtype=torch.bool, device=dev)
-    rows = [t.contiguous() for t in (labels, taints, aa_cnt, sig_cnt)]
-    flat = torch.cat(list(sigs)).pin_memory().to(dev, non_blocking=True)
-    lists = flat.split([t.numel() for t in sigs])
     if M and N:
-        cuda.PLACEMENT.launch(
-            *(t.data_ptr() for t in lists), *(t.data_ptr() for t in rows),
-            *(t.shape[1] for t in rows), M, N, out.data_ptr(), cuda.device_index(dev),
-            cuda.stream(dev),
-        )
+        rows = tuple(t.contiguous() for t in rows)
+        acc = torch.empty((M, N), dtype=torch.int64, device=dev) if carries else None
+        ddesc = (torch.empty(words, dtype=torch.int32, device=dev)
+                 if words > cuda.PLACEMENT_PARAM_WORDS else None)
+        cuda.PLACEMENT.launch(*(t.data_ptr() for t in rows), *(t.shape[1] for t in rows), N,
+                              0 if acc is None else acc.data_ptr(),
+                              0 if ddesc is None else ddesc.data_ptr(), out.data_ptr(),
+                              cuda.device_index(dev), cuda.stream(dev))
     return out
 
 

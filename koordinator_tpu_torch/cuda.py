@@ -42,10 +42,11 @@ STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRat
 # compiled in (csrc/roundstudy.cu: schedule.cu's round loop with its phase
 # split; csrc/scanstudy.cu: the scan's; csrc/scorestudy.cu: the score
 # kernel's store floor and strip sweep; csrc/deschedstudy.cu: the round's
-# split by grid barrier), built only when a study binds one of its entry
+# split by grid barrier; csrc/bandstudy.cu: the band order's split by
+# step), built only when a study binds one of its entry
 # points
 STUDY = {"roundstudy": "schedule.cu", "scanstudy": "scan.cu", "scorestudy": "score.cu",
-         "deschedstudy": "deschedule.cu"}
+         "deschedstudy": "deschedule.cu", "bandstudy": "bandrank.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -149,6 +150,23 @@ class Kernel:
         self.launches += 1
 
 
+class HostFn:
+    """A host C entry point of a ``csrc`` library (no launch, no count),
+    bound at first use; returns what the C function returns."""
+
+    def __init__(self, stem: str, symbol: str, argtypes: list):
+        self.stem, self.symbol, self.argtypes = stem, symbol, argtypes
+        self._fn = None
+
+    def __call__(self, *args) -> int:
+        if self._fn is None:
+            fn = getattr(_library(self.stem), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn(*args)
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -215,9 +233,15 @@ GATE_HAS_EXP, GATE_EXP_POS, GATE_FEXP = 1, 2, 4  # KOORD_GATE_* in csrc/dstate.c
 # the buffer count, the packed descriptor ([n, 6] int64), the rows
 DSTATE_EXTEND = Kernel("dstate", "koord_dstate_extend", [_I, _P, _I, _I, _P])
 DSTATE_MAX_ARRAYS = 32  # KOORD_DSTATE_MAX_ARRAYS in csrc/dstate.cu
-# the placement-policy mask (csrc/placement.cu): nine signature lists, the
-# four policy tables, their widths, M, N, the output
-PLACEMENT = Kernel("placement", "koord_placement", [_P] * 13 + [_I] * 6 + [_P, _I, _P])
+# the placement-policy mask (csrc/placement.cu): the calling thread's last
+# plan launched over the four policy tables, their widths, N, the carry
+# scratch and the descriptor's device buffer (each or null), the output
+PLACEMENT = Kernel("placement", "koord_placement",
+                   [_P] * 4 + [_I] * 5 + [_P, _P, _P, _I, _P])
+# ... and its host plan: the concatenated lists, M, the lists' entries and
+# the tables' widths, the phases' shared memory, the [4] result
+PLACEMENT_PLAN = HostFn("placement", "koord_placement_plan", [_P, _I, _P, _I, _P])
+PLACEMENT_PARAM_WORDS = 7680  # kParamWords: descriptor words in a launch's parameters
 # device feasibility and the deviceshare score (csrc/device.cu)
 DEV_FEASIBLE = Kernel("device", "koord_dev_feasible", [_P] * 11 + [_I] * 3 + [_P, _I, _P])
 DS_SCORE = Kernel("device", "koord_ds_score", [_P] * 3 + [_I] * 2 + [_P, _I, _P])
@@ -242,11 +266,11 @@ LA_SCORE_FILTER = Kernel("breakdown", "koord_la_score_filter",
                          [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
 # the descheduler (csrc/deschedule.cu, csrc/bandrank.cu): one LowNodeLoad
 # round (the input, output and parameter tables, the scratch; the
-# parameters end with the main blocks, ``desched_grid``), and the
-# arbitrator's band order (the key columns and their element sizes, modes
-# and widths, K, P, the permutation, the scratch)
+# parameters end with the main blocks, ``desched_grid``)
 DESCHEDULE_ROUND = Kernel("deschedule", "koord_deschedule_round", [_P, _P, _P, _P, _I, _P])
-POD_BAND_RANK = Kernel("bandrank", "koord_band_rank", [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P])
+# the band order: the packed descriptor (K, P, G, then each key column's
+# pointer, element bytes and mode), the permutation, the scratch
+POD_BAND_RANK = Kernel("bandrank", "koord_band_rank", [_P, _P, _P, _I, _P])
 # the koordlet's NodeMetric aggregation (csrc/metricsagg.cu): values,
 # valid, times, S, T, the four percentiles (float32), the [6, S] output
 AGGREGATE_NODE_METRICS = Kernel("metricsagg", "koord_aggregate_node_metrics",
@@ -358,6 +382,20 @@ def desched_grid(N: int, Pc: int, R: int, use_deviation: bool, sms: int) -> int:
     card's SMs leave beside the side blocks (a block an SM), at least 1."""
     want = -(-max(N, Pc) // DESCHED_THREADS)
     return max(1, min(want, DESCHED_MAX_GRID, sms - desched_side_blocks(R, use_deviation)))
+
+
+BAND_THREADS = 1024  # kThreads in csrc/bandrank.cu
+BAND_SMALL_MAX = 8192  # kSmallMax: pods one block sorts in shared memory
+BAND_MAX_GRID = 132  # kMaxG
+
+
+def band_grid(P: int, sms: int) -> int:
+    """Blocks of ``pod_band_rank``'s launch: one up to ``BAND_SMALL_MAX``
+    pods (shared memory), else a cooperative launch of one block a
+    ``BAND_THREADS`` pods, at most one an SM and ``BAND_MAX_GRID``."""
+    if P <= BAND_SMALL_MAX:
+        return 1
+    return max(1, min(-(-P // BAND_THREADS), sms, BAND_MAX_GRID))
 
 
 def stream(device: torch.device) -> int:

@@ -454,13 +454,17 @@ _GATE_INPUTS = ((3, torch.bool), (4, torch.float64), (6, torch.bool), (9, torch.
 
 
 def _gate_inputs(raw):
+    """Check the five gated rows: one dtype each, [N], one device, and
+    contiguous (the kernel reads each through its base pointer, so a
+    strided view is refused rather than read as other elements)."""
     N, dev = raw[4].shape[0], raw[4].device
     for k, dtype in _GATE_INPUTS:
         t = raw[k]
-        if t.dtype != dtype or tuple(t.shape) != (N,) or t.device != dev:
+        if (t.dtype != dtype or tuple(t.shape) != (N,) or t.device != dev
+                or not t.is_contiguous()):
             raise ValueError(
-                f"gate input {k}: expected {dtype} ({N},) on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"gate input {k}: expected a contiguous {dtype} ({N},) on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} stride {tuple(t.stride())} on {t.device}"
             )
     return N, dev
 
@@ -479,13 +483,13 @@ class GateStage:
         self.raw: tuple = ()
         self.device: Optional[torch.device] = None
         self.desc = None  # ctypes int64 [7]: the five inputs' pointers, N, device
-        self._ids: tuple = ()
+        self._key: tuple = ()
         self._desc_ptr = 0
         self._n = 0
 
     def bind(self, raw) -> None:
         N, dev = _gate_inputs(raw)
-        self.raw, self._ids = tuple(raw), tuple(map(id, raw))
+        self.raw, self._key = tuple(raw), self._key_of(raw)
         self.device, self._n = dev, N
         if dev.type == "cuda":
             self.desc = (ctypes.c_longlong * 7)(*(raw[k].data_ptr() for k, _ in _GATE_INPUTS),
@@ -495,10 +499,21 @@ class GateStage:
             self.desc, self._desc_ptr = None, 0
         self.binds += 1
 
+    @staticmethod
+    def _key_of(raw) -> tuple:
+        # the rows passed through are returned as the tensors they are, so
+        # their identity is enough; a gated row's pointer, length and
+        # layout are what the descriptor holds (a tensor's dtype cannot
+        # change in place)
+        return tuple(map(id, raw)) + tuple(
+            (raw[k].data_ptr(), raw[k].numel(), raw[k].is_contiguous()) for k, _ in _GATE_INPUTS)
+
     def bound_to(self, raw) -> bool:
-        """Whether ``raw`` holds the very rows bound (the stage keeps them,
-        so an identity is never reused while bound)."""
-        return self._ids == tuple(map(id, raw))
+        """Whether ``raw`` holds the very rows bound, each gated one still
+        over the same memory: a row moved to new storage under the same
+        tensor (``set_``, a ``resize_`` that reallocates) rebinds, as
+        ``ScatterStage.bound_to`` keys on its buffers' pointers."""
+        return self._key == self._key_of(raw)
 
     def gate(self, now: float, exp, fexp: bool) -> LoadAwareNodeArrays:
         raw = self.raw

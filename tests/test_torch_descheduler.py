@@ -11,6 +11,7 @@ equal, float64 percentiles and deviation means bit for bit.
 
 import copy
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -306,6 +307,48 @@ def test_pod_band_rank_matches_jax_and_pod_sort_order(seed):
         assert got == np.asarray(jd.pod_band_rank(arrays, usage_score=u)).tolist()
         assert got == pod_sort_order(arrays, usage_score=u).tolist()
         assert got == t_order(t_arrays, usage_score=u).tolist()
+
+
+def _band_case(case, P):
+    """PodSorter key columns of P pods (koord priority rank, priority, k8s
+    QoS, koord QoS, deletion cost, eviction cost, create time, usage) for
+    one edge case of the kernel's plan, made with numpy."""
+    rng = np.random.default_rng([P, len(case)])
+    small = lambda: rng.integers(-3, 4, P)  # noqa: E731
+    cols = [small() % 3, small() * 100, small() % 3, small() % 4, small(), small(),
+            rng.choice([0.0, 1.5, -2.0], P), rng.integers(0, 50, P)]
+    if case == "every key constant":
+        cols = [np.full(P, v) for v in (1, 7, 2, 3, 0, 5, 2.5, 9)]
+    elif case == "keys that do not fit one word":
+        cols[1] = rng.choice([-(1 << 63), (1 << 63) - 1, 0], P)
+        cols[5] = rng.integers(-(1 << 62), 1 << 62, P)
+        cols[6] = rng.standard_normal(P) * 1e300
+    elif case == "-(1 << 63) negated":
+        cols[7] = rng.choice([-(1 << 63), 0, 3, (1 << 63) - 1], P)
+    elif case == "-0.0 and NaN create times":
+        cols[6] = rng.choice([0.0, -0.0, float("nan"), -1.0], P)
+    dtypes = (np.int8, np.int64, np.int8, np.int8, np.int64, np.int64, np.float64, np.int64)
+    return [np.asarray(c).astype(d) for c, d in zip(cols, dtypes)]
+
+
+@pytest.mark.parametrize("case", ["every key constant", "keys in one composite word",
+                                  "keys that do not fit one word", "-(1 << 63) negated",
+                                  "-0.0 and NaN create times", "one pod"])
+@pytest.mark.parametrize("usage", [False, True])
+def test_pod_band_rank_plain_edge_cases_match_jax(case, usage):
+    """``pod_band_rank_plain`` against the JAX ``_band_rank``
+    (koordinator_tpu/core/deschedule.py:223) on the cases csrc/bandrank.cu
+    plans apart: constant keys (no pass), spreads that pack into one 64-bit
+    word, int64 extremes that take a word each, the wrapping negation of
+    -(1 << 63), -0.0 tying 0.0 with NaN last, and one pod."""
+    P = 1 if case == "one pod" else 64
+    cols = _band_case(case, P)
+    want = jd._band_rank(*(jnp.asarray(c.astype(np.int64) if c.dtype == np.int8 else c)
+                           for c in cols), has_usage=usage)
+    keys = td.BandKeys(*(torch.from_numpy(c) for c in cols[:7]),
+                       torch.from_numpy(cols[7]) if usage else None)
+    assert td.pod_band_rank_plain(keys).tolist() == np.asarray(want).tolist()
+    assert td.pod_band_rank(keys).tolist() == np.asarray(want).tolist()
 
 
 # ------------------------------------------------------------ the system

@@ -1013,8 +1013,78 @@ def test_desched_passes_count_the_spread():
     assert chip_smoke.desched_passes(nodes, pods, w) == (2, 4)
 
 
+def test_band_passes_count_the_spread():
+    """The passes ``pod_band_rank``'s bound counts (``band_passes``, the
+    kernel's plan on the host): constant keys drop out, keys pack into one
+    64-bit word while their spreads fit, and only the digits that vary
+    over the pods are passed."""
+    from koordinator_tpu_torch.core.deschedule import BandKeys
+
+    def keys(prio, ct, evict=(0, 0, 0)):
+        return BandKeys(*(torch.tensor(v, dtype=d) for v, d in (
+            ((1, 1, 1), torch.int8), (prio, torch.int64), ((2, 2, 2), torch.int8),
+            ((3, 3, 3), torch.int8), ((0, 0, 0), torch.int64), (evict, torch.int64),
+            (ct, torch.float64))))
+
+    assert chip_smoke.band_passes(keys((5, 5, 5), (1.0, 1.0, 1.0))) == (0, 0)
+    # priority spread 300: 9 bits, two digits, both varying
+    assert chip_smoke.band_passes(keys((0, 300, 7), (1.0, 1.0, -0.0 + 1.0))) == (1, 2)
+    # -0.0 ties 0.0: the create times are constant
+    assert chip_smoke.band_passes(keys((0, 1, 2), (0.0, -0.0, 0.0))) == (1, 1)
+    # eviction costs spanning 64 bits take a word of their own
+    assert chip_smoke.band_passes(keys((0, 1, 2), (0.0, 0.0, 0.0),
+                                       (-(1 << 63), 0, (1 << 63) - 1)))[0] == 2
+
+
+@pytest.mark.cuda
+def test_band_cases_equal_plain(card):
+    """``pod_band_rank`` on ``chip_smoke.band_cases``: one pod, every key
+    constant, keys in one composite word, int64 extremes that do not fit
+    one, ``-(1 << 63)`` negated, -0.0/NaN creation times, and the one-block
+    limit less one, at it and one above, with and without usage; one
+    launch a call."""
+    before = cuda.KERNELS["pod_band_rank"].launches
+    n = chip_smoke.check_band_cases(card)
+    assert cuda.KERNELS["pod_band_rank"].launches == before + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("usage", [False, True])
+def test_band_rank_at_32768(card, usage):
+    """The cooperative launch at P = 32,768, ties on every key."""
+    from koordinator_tpu_torch.core import deschedule as ds
+
+    keys = chip_smoke.band_arrays(card, 32_768, 9, usage)
+    assert torch.equal(ds.pod_band_rank(keys).cpu(), ds.pod_band_rank_plain(keys).cpu())
+
+
+@pytest.mark.cuda
+def test_placement_cases_equal_plain(card):
+    """``placement`` on ``chip_smoke.placement_cases``: N below one tile and
+    not a multiple of it, one node, duplicates, empty vocabularies, and
+    column unions wider than one phase of shared memory; one launch a
+    call."""
+    before = cuda.KERNELS["placement"].launches
+    n = chip_smoke.check_placement_cases(card)
+    assert cuda.KERNELS["placement"].launches == before + n
+
+
+def test_band_and_placement_cases_run_on_cpu_tensors():
+    """The two kernels' edge cases on CPU tensors, where the wrappers take
+    their plain versions (and ``placement`` still plans each call): the
+    cases build and compare, and nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    cpu = torch.device("cpu")
+    assert chip_smoke.check_band_cases(cpu) == 5  # the launch-size cases are the card's
+    assert chip_smoke.check_placement_cases(cpu) == 6
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
 SHARD_CASES = 64  # chip_smoke.check_shard_cases: 8 blocks x 4 strategy shapes x 2
 GATE_CASES = 45  # chip_smoke.check_gate_cases: 3 row counts x 3 bindings x 5 modes
+# and its faults' launches (chip_smoke.gate_fault_cases): two calls for each
+# of set_ and resize_, none for the refused strided rows
+GATE_FAULT_LAUNCHES = 4
 
 
 @pytest.mark.cuda
@@ -1035,10 +1105,27 @@ def test_gate_cases_equal_plain(card):
     """``dstate_gate`` at N = 1, 257 and 1,001 in five expiry modes
     (180 with and without the filters following, None, 0, -5), bound to
     its rows, rebound to other rows and back, through the public entry and
-    a ``GateStage`` of its own, bit for bit against its plain version."""
+    a ``GateStage`` of its own, bit for bit against its plain version;
+    then strided rows refused and rows moved under the same tensors equal
+    plain (``gate_fault_cases``)."""
     before = cuda.KERNELS["dstate_gate"].launches
     assert chip_smoke.check_gate_cases(card) == GATE_CASES
-    assert cuda.KERNELS["dstate_gate"].launches == before + 2 * GATE_CASES
+    assert cuda.KERNELS["dstate_gate"].launches == before + 2 * GATE_CASES + GATE_FAULT_LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2, 257, 1001])  # one row's column is contiguous
+def test_gate_refuses_strided_rows_and_follows_moved_ones(card, rows):
+    """The public ``dstate_gate`` with its five gated rows as columns of
+    [N, 3] tables raises ``ValueError`` before any launch (the kernel
+    reads a row through its base pointer); a bound row moved to new
+    storage with new values by ``set_`` or by a reallocating ``resize_``
+    is gated anew, equal to the plain version on the new values."""
+    before = cuda.KERNELS["dstate_gate"].launches
+    got = chip_smoke.gate_fault_cases(card, rows)
+    assert got["strided"].startswith("refused: gate input 3: expected a contiguous"), got
+    assert got["set_"] == got["resize_"] == "equal", got
+    assert cuda.KERNELS["dstate_gate"].launches == before + GATE_FAULT_LAUNCHES
 
 
 def test_shard_and_gate_cases_run_on_cpu_tensors():

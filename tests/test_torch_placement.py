@@ -72,6 +72,186 @@ def test_placement_refuses_bad_inputs_before_any_work():
         pl.placement(sigs._replace(tol_off=sigs.tol_off.to(torch.int64)), *rows)
 
 
+_EDGE_CASES = ("every list empty", "a signature with no lists", "indices listed twice",
+               "absent selector pairs")
+
+
+@pytest.mark.parametrize("case", _EDGE_CASES)
+def test_placement_plain_edge_cases_match_jax_jit(case):
+    """The plain version on the lists' edge cases against the JAX jit, from
+    one numpy draw: the JAX form takes each signature's list entries as
+    int32 counts over the vocabulary (an index listed twice counts two),
+    the port the lists themselves; holder counts may be negative (a sum
+    <= 0 stays open)."""
+    rng = np.random.default_rng(_EDGE_CASES.index(case) + 40)
+    M, N, widths = 7, 50, (12, 4, 6, 6)
+    lists = [[sorted(rng.choice(w, int(rng.integers(1, 4)), replace=False).tolist())
+              for _ in range(M)] for w in widths]
+    sel_cnt = np.array([len(x) for x in lists[0]], dtype=np.int32)
+    if case == "every list empty":
+        lists = [[[] for _ in range(M)] for _ in widths]
+        sel_cnt = (np.arange(M) % 2).astype(np.int32)  # the odd ones name an absent pair
+    elif case == "a signature with no lists":
+        for t in range(4):
+            lists[t][2] = []
+        sel_cnt[2] = 0
+    elif case == "indices listed twice":
+        lists = [[x + x[:1] for x in tl] for tl in lists]
+        sel_cnt = np.array([len(x) for x in lists[0]], dtype=np.int32)
+    else:
+        sel_cnt[::2] += 1
+    dense = []
+    for tl, w in zip(lists, widths):
+        a = np.zeros((M, w), dtype=np.int32)
+        for m, x in enumerate(tl):
+            np.add.at(a[m], x, 1)
+        dense.append(a)
+    labels, taints = rng.random((N, widths[0])) < 0.6, rng.random((N, widths[1])) < 0.1
+    aa_cnt = (rng.integers(-2, 3, (N, widths[2])) * (rng.random((N, widths[2])) < 0.3)
+              ).astype(np.int32)
+    sig_cnt = (rng.integers(0, 3, (N, widths[3])) * (rng.random((N, widths[3])) < 0.2)
+               ).astype(np.int32)
+    want = _shared_jits()["placement"](dense[0], sel_cnt, dense[1], dense[2], dense[3], labels,
+                                       taints, aa_cnt, sig_cnt)
+    sigs = pl.PlacementSigs(*pl.csr(lists[0]), torch.from_numpy(sel_cnt), *pl.csr(lists[1]),
+                            *pl.csr(lists[2]), *pl.csr(lists[3]))
+    rows = tuple(torch.from_numpy(a) for a in (labels, taints, aa_cnt, sig_cnt))
+    assert 0 < int(np.asarray(want).sum()) < M * N or case == "every list empty"
+    assert_same(pl.placement(sigs, *rows), want, case)
+    assert_same(pl.placement_plain(sigs, *rows), want, case)
+
+
+# ------------------------------------------------------------- the plan
+
+_PLAN_WRAP = """
+#include "placeplan.cuh"
+static koord_place::Plan g;
+extern "C" int plan(const int* flat, int M, const int* dims, int budget, int* info, int* out,
+                    int cap) {
+  info[0] = koord_place::make_plan(flat, M, dims, dims + 4, budget, g);
+  info[1] = (int)g.desc.size();
+  info[2] = g.smem;
+  info[3] = g.carries;
+  if (info[0] == 0 && info[1] <= cap) std::copy(g.desc.begin(), g.desc.end(), out);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    """csrc/placeplan.cuh (the library's host plan, plain C++) built with
+    g++ behind a one-function C wrapper."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    d = tmp_path_factory.mktemp("placeplan")
+    (d / "wrap.cpp").write_text(_PLAN_WRAP)
+    csrc = Path(pl.__file__).resolve().parent.parent / "csrc"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{csrc}", "-o",
+                    str(d / "libplan.so"), str(d / "wrap.cpp")], check=True)
+    lib = ctypes.CDLL(str(d / "libplan.so"))
+    lib.plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def _plan(lib, sigs, rows, budget):
+    import ctypes
+
+    flat, dims = pl.host_lists(sigs, rows)
+    info = (ctypes.c_int * 4)()
+    out = np.zeros(1 << 20, dtype=np.int32)
+    lib.plan(flat.data_ptr(), sigs.sel_cnt.shape[0], dims, budget, info, out.ctypes.data,
+             out.size)
+    return info[0], out[:info[1]].copy(), info[2], bool(info[3])
+
+
+_TILE_BYTES = (1, 1, 4, 4)  # an element of each table in shared memory
+_SEG_WORDS = 12  # a segment's words in the descriptor (csrc/placeplan.cuh kSegWords)
+
+
+def _read_as_the_kernel(desc, rows, smem, budget):
+    """csrc/placement.cu's ``placement_tile`` over a plan's descriptor, its
+    tiles taken at once: each phase's segments' union columns gathered
+    (their shared memory inside the plan's and the budget), each
+    signature's entries inside a segment summed, a table's sums carried
+    across phases, the verdicts ANDed.  Returns the [M, N] mask."""
+    d = desc.astype(np.int64)
+    M, P = int(d[0]), int(d[1])
+    sel = d[d[3]:d[3] + M]
+    host = [r.numpy().astype(np.int64) for r in rows]
+    N = host[0].shape[0]
+    out = np.zeros((M, N), dtype=bool)
+    acc = np.zeros((M, N), dtype=np.int64)
+    at = 4 + 2 * P
+    for ph in range(P):
+        segs = [d[at + _SEG_WORDS * s: at + _SEG_WORDS * (s + 1)].tolist()
+                for s in range(int(d[4 + 2 * ph]), int(d[5 + 2 * ph]))]
+        assert len(segs) <= 4 and len({s[0] for s in segs}) == len(segs)
+        end = cols = 0
+        for t, u0, u1, stride, off, _, _, _, _, _, _, first in segs:
+            size = (pl.PLACEMENT_TILE * stride * _TILE_BYTES[t] + 15) & ~15
+            assert stride == (u1 - u0) | 1 and off >= end and first == cols
+            cols += u1 - u0
+            if u1 > u0:
+                end = off + size
+        assert end <= smem <= budget
+        gathered = [host[t][:, d[co + u0:co + u1] - cb]
+                    for t, u0, u1, _, _, _, _, _, _, co, cb, _ in segs]
+        for m in range(M):
+            ok = np.ones(N, dtype=bool) if ph == 0 else out[m].copy()
+            for (t, u0, u1, _, _, fl, b, e, po, _, _, _), g in zip(segs, gathered):
+                p = d[po + d[b + m]:po + d[e + m]] - u0
+                p = p[(p >= 0) & (p < u1 - u0)]
+                total = g[:, p].sum(axis=1) + (0 if fl & 1 else acc[m])
+                if not fl & 2:
+                    acc[m] = total
+                else:
+                    ok &= (total == sel[m]) if t == 0 else (total <= 0)
+            out[m] = ok
+    return out
+
+
+@pytest.mark.parametrize("budget", [pl.PLACEMENT_SMEM, 1024, 256])
+def test_library_plan_read_as_the_kernel_reads_it(plan_lib, budget):
+    """The library's host plan (csrc/placeplan.cuh, built here with g++) on
+    ``chip_smoke.placement_cases`` and the kernel table's shape cut to 300
+    nodes: each descriptor read as the kernel reads it equals the plain
+    version, with the phases' shared memory inside the plan's figure and
+    the budget; budgets of 1,024 and 256 bytes split every table across
+    phases (a table's sums carried, entries outside a phase's columns left
+    to the next)."""
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    cases = chip_smoke.placement_cases(cpu) + [
+        ("the table's shape, 300 nodes", *chip_smoke.placement_inputs(cpu, 64, 300, 16_384,
+                                                                         27))]
+    for label, sigs, rows in cases:
+        status, desc, smem, carries = _plan(plan_lib, sigs, rows, budget)
+        assert status == 0, label
+        if budget == pl.PLACEMENT_SMEM:
+            assert carries == ("phases" in label), label
+        got = _read_as_the_kernel(desc, rows, smem, budget)
+        assert np.array_equal(got, pl.placement_plain(sigs, *rows).numpy()), label
+
+
+def test_library_plan_refuses_what_the_checks_refuse(plan_lib):
+    """Offsets that are not a partition and indices outside a table are
+    refused by the library's plan as by the sequential checks."""
+    sigs, rows = _tiny_sigs()
+    assert _plan(plan_lib, sigs, rows, pl.PLACEMENT_SMEM)[0] == 0
+    for bad in (sigs._replace(sel_idx=torch.tensor([99], dtype=torch.int32)),
+                sigs._replace(sel_idx=torch.tensor([-1], dtype=torch.int32)),
+                sigs._replace(sel_off=torch.tensor([0, 2], dtype=torch.int32)),
+                sigs._replace(tol_off=torch.tensor([1, 0], dtype=torch.int32))):
+        assert _plan(plan_lib, bad, rows, pl.PLACEMENT_SMEM)[0] == -1
+        with pytest.raises(ValueError):
+            pl.placement(bad, *rows)
+
+
 def _tiny_sigs():
     sigs = pl.PlacementSigs(*pl.csr([[0]]), torch.tensor([1], dtype=torch.int32), *pl.csr([[]]),
                             *pl.csr([[]]), *pl.csr([[]]))

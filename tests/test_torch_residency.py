@@ -307,6 +307,54 @@ def test_gate_stage_follows_the_rows_buffers():
     assert res.full_uploads == uploads + 1 and got.score_valid.shape[0] == t.capacity > 256
 
 
+@pytest.mark.parametrize("move", ["set_", "resize_"])
+def test_gate_stage_rebinds_when_a_row_moves_under_the_same_tensor(move):
+    """A bound row given new storage and new values under the same tensor
+    (``set_``, or a ``resize_`` that reallocates and back) rebinds the
+    stage, as a scatter's buffers rebind theirs, and the public
+    ``dstate_gate`` then gates the new values: equal to the JAX
+    package's ``dstate_gate`` (koordinator_tpu/service/state.py:222) on
+    them.  A strided row (a column of an [N, k] table) is refused before
+    any work, whatever the device: the kernel reads a row through its
+    base pointer."""
+    now = NOW + 0.25
+    raw = _raw_rows(64, 11, now, 180)
+    rows = [torch.from_numpy(a).clone() for a in raw]
+    stage = sm.GateStage()
+    stage.bind(rows)
+    assert stage.bound_to(rows) and stage.binds == 1
+    fresh = _raw_rows(64, 12, now, 180)
+    ident = [id(t) for t in rows]
+    if move == "set_":
+        rows[4].set_(torch.from_numpy(fresh[4].copy()))
+        rows[3].set_(torch.from_numpy(fresh[3].copy()))
+    else:
+        for k in (3, 4):
+            rows[k].resize_(4096)
+            rows[k].resize_(64)
+            rows[k].copy_(torch.from_numpy(fresh[k]))
+    assert [id(t) for t in rows] == ident and not stage.bound_to(rows)
+    moved = raw[:3] + (fresh[3], fresh[4]) + raw[5:]
+    want = jstate_mod._dstate_jits()["dstate_gate"](
+        *(jnp.asarray(a) for a in moved), np.float64(now), 180.0, True)
+    binds = sm._GATE.binds
+    _same_la(sm.dstate_gate(rows, now, 180, True), want)
+    assert sm._GATE.binds == binds + 1 and sm._GATE.bound_to(rows)
+    stage.bind(rows)
+    _same_la(stage.gate(now, 180, True), want)
+    # strided rows: each gated row a column of an [N, 3] table
+    for k in (3, 4, 6, 9, 11):
+        wide = torch.stack([rows[k]] * 3, dim=1)
+        strided = list(rows)
+        strided[k] = wide[:, 1]
+        assert not strided[k].is_contiguous()
+        with pytest.raises(ValueError, match=f"gate input {k}: expected a contiguous"):
+            sm.dstate_gate(strided, now, 180, True)
+        with pytest.raises(ValueError, match="contiguous"):
+            sm.GateStage().bind(strided)
+    _same_la(sm.dstate_gate(rows, now, 180, True), want)
+
+
 def test_gate_stage_rebound_on_a_device_change():
     """The public ``dstate_gate``'s stage rebinds when its rows are on
     another device (the CPU, then ``meta``: another device's shapes and
