@@ -176,6 +176,21 @@ the study build's split by step on this tree) and one ``restate_study``
 JSON line (the kernel table's ``sched_refresh``, ``sched_refresh_con``,
 ``quota`` and ``quota_limit`` rows measured again); ``--root`` takes
 another checkout of the port, with the gate's ``GateStage`` or later.
+
+    python3 chip_smoke.py --refresh [--root DIR]
+    python3 chip_smoke.py --quota [--root DIR]
+
+print one ``refresh_study`` JSON line (``refresh_study``: ``sched_refresh``
+and ``sched_refresh_con`` at 1,024 x 16,384, without and with extras, at
+D = 64, 128, 1,024 and 4,096, each held equal to its plain version first:
+the call, its device time and activities, its host time, with the
+cycle's launch arguments built beside as the engine builds them, and at
+D = 128 the call split by step) and one ``quota_study`` JSON line
+(``quota_study``: ``quota`` and ``quota_limit`` on the 500-group tree, the
+constraint path's 100 groups and a 6,000-group tree past the shared-memory
+tier, with their split, and the engine's cache miss); ``--root`` takes
+another checkout of the port: one from before the planned refreshes
+(with ``core.quota.flat_levels``) or a later one.
 """
 
 from __future__ import annotations
@@ -1228,11 +1243,35 @@ def check_con_kernels(inp, cpd: int, timed: bool, commit_cap: int = 16):
     return recs
 
 
+def big_quota_tree(groups: int = 6000, seed: int = SEED + 41):
+    """A tree of ``groups`` quota groups past the quota kernel's shared-memory
+    tier at two dimensions: 60 under the root, the rest under them, mixed
+    lending, scaled mins and an absent max."""
+    from koordinator_tpu_torch.api.quota import ROOT_QUOTA, QuotaGroup
+
+    rng = np.random.default_rng(seed)
+    res = ("cpu", "memory")
+    out = []
+    for i in range(groups):
+        top = i < 60
+        mx = {r: int(rng.integers(2000, 90000)) for r in res}
+        if rng.random() < 0.2:
+            mx.pop("cpu")
+        out.append(QuotaGroup(
+            name=f"g{i}", parent=ROOT_QUOTA if top else f"g{int(rng.integers(0, 60))}",
+            min={r: int(rng.integers(0, 9000)) for r in res}, max=mx,
+            allow_lent=bool(rng.random() < 0.7), enable_scale_min=bool(rng.random() < 0.5),
+            pod_requests={} if top else {r: int(rng.integers(0, 20000)) for r in res},
+            is_parent=top))
+    return out
+
+
 def quota_trees():
     """(name, groups) of the quota checks: the 500-group tree of the JAX
     package's service benchmark (bench/bench_service.py:205-222: 20 groups
-    under the root, 480 under them), and a tree with absent max
-    dimensions, non-lending groups and scaled mins."""
+    under the root, 480 under them), a tree with absent max dimensions,
+    non-lending groups and scaled mins, and a tree past the kernel's
+    shared-memory tier (``big_quota_tree``)."""
     from koordinator_tpu_torch.api.quota import ROOT_QUOTA, QuotaGroup
 
     rng = np.random.default_rng(SEED + 13)
@@ -1259,13 +1298,16 @@ def quota_trees():
             pod_requests={} if top else {r: int(rng.integers(0, 60000)) for r in res},
             is_parent=top,
         ))
-    return [("bench 500 groups", bench), ("absent max, scaled mins", mixed)]
+    return [("bench 500 groups", bench), ("absent max, scaled mins", mixed),
+            ("6,000 groups", big_quota_tree())]
 
 
 def check_quota_kernels(dev, timed: bool):
     """``quota`` and ``quota_limit`` against ``refresh_runtime`` on the same
-    device tensors (raises ``Mismatch``); returns the records of the
-    500-group tree when ``timed``."""
+    device tensors (raises ``Mismatch``), each tree through a stage in its
+    own memory tier, a stage forced to the global tier (budget 0) and no
+    stage (the call plans its tree); returns the records of the 500-group
+    tree, timed through its stage as the engine calls it, when ``timed``."""
     from koordinator_tpu_torch import convert
     from koordinator_tpu_torch.core import quota as tq
     from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
@@ -1273,34 +1315,42 @@ def check_quota_kernels(dev, timed: bool):
     recs = []
     for name, groups in quota_trees():
         qs = QuotaSnapshot(groups, ["cpu", "memory"])
-        qa = tq.QuotaArrays(*(convert.tensor(a, dev) for a in qs.arrays()))
+        qd = tq.QuotaArrays(*(convert.tensor(a, dev) for a in qs.arrays()))
+        qa = qd._replace(parent=qs.parent)  # the parent rows on the host, as the engine's
         levels = qs.level_tuple()
         lv_t = [torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev) for a in levels]
+        stage = tq.QuotaStage().bind(qs.parent, levels, dev)
+        stages = (stage, tq.QuotaStage(budget=0).bind(qs.parent, levels, dev), None)
         errs = {}
         for total in (np.array([1_000_000, 1_000_000]), np.array([40_000, 30_000])):
             tot = convert.tensor(total.astype(np.int64), dev)
-            for scale in (True, False):
-                errs["quota"] = require_equal(
-                    f"quota ({name}, total {total.tolist()}, scale {scale})",
-                    (tq.quota_fn(qa, levels, tot, scale),),
-                    (tq.refresh_runtime(qa, lv_t, tot, scale),))
-            want = tq.refresh_runtime(qa, lv_t, tot)
-            want[0] = tq.INF
-            errs["quota_limit"] = require_equal(f"quota_limit ({name})",
-                                                (tq.quota_limit_fn(qa, levels, tot),), (want,))
-        print(f"  quota tree '{name}' ({len(groups)} groups, {len(levels)} levels): quota and "
-              f"quota_limit equal plain")
+            want = {scale: tq.refresh_runtime(qd, lv_t, tot, scale) for scale in (True, False)}
+            limit = want[True].clone()
+            limit[0] = tq.INF
+            for st in stages:  # without a stage, the parent rows read back from the card
+                tier = "no stage" if st is None else f"{st.tier(2)} tier"
+                q = qd if st is None else qa
+                for scale in (True, False):
+                    errs["quota"] = require_equal(
+                        f"quota ({name}, total {total.tolist()}, scale {scale}, {tier})",
+                        (tq.quota_fn(q, levels, tot, scale, stage=st),), (want[scale],))
+                errs["quota_limit"] = require_equal(
+                    f"quota_limit ({name}, {tier})",
+                    (tq.quota_limit_fn(q, levels, tot, stage=st),), (limit,))
+        print(f"  quota tree '{name}' ({len(groups)} groups, {len(levels)} levels, "
+              f"{stage.tier(2)} tier): quota and quota_limit equal plain in both tiers")
         if timed and not recs:
             Q, R = qs.min.shape
-            b, by = bound_ms(nbytes(*qa) + 2 * 8 + (Q + len(levels) + 1) * 4 + Q * R * 8,
+            b, by = bound_ms(nbytes(*qd) + 2 * 8 + (Q + len(levels) + 1) * 4 + Q * R * 8,
                              40 * Q * R)
-            for kname, fn in (("quota", lambda: tq.quota_fn(qa, levels, tot)),
-                              ("quota_limit", lambda: tq.quota_limit_fn(qa, levels, tot))):
+            for kname, fn in (("quota", lambda: tq.quota_fn(qa, levels, tot, stage=stage)),
+                              ("quota_limit",
+                               lambda: tq.quota_limit_fn(qa, levels, tot, stage=stage))):
                 recs.append(dict(
                     name=kname, source="koordinator_tpu_torch/csrc/quota.cu",
                     replaces=("koordinator_tpu/core/quota.py:138" if kname == "quota"
                               else "koordinator_tpu/service/engine.py:316"),
-                    ms=cuda_ms(fn), plain_ms=cuda_ms(lambda: tq.refresh_runtime(qa, lv_t, tot)),
+                    ms=cuda_ms(fn), plain_ms=cuda_ms(lambda: tq.refresh_runtime(qd, lv_t, tot)),
                     bound_ms=b, bound_by=by, max_abs_err=errs[kname], library_ms=None,
                     groups=Q - 1,
                 ))
@@ -6577,6 +6627,15 @@ def device_events(fn, reps: int = 10) -> dict:
     return out
 
 
+def device_activities(ev: dict) -> float:
+    """The device activities a call of ``device_events``' record: kernels,
+    copies and fills, without the host operators that launched them (an
+    ``aten::`` operator shows the device time of its kernel) and the
+    profiler's own buffer requests."""
+    return sum(n for k, (n, _) in ev.items()
+               if not k.startswith("aten::") and k != "Activity Buffer Request")
+
+
 PLACE_STUDY = (256, 16_384)  # the kernel table's signatures and label vocabulary
 
 
@@ -6928,6 +6987,444 @@ def restate_study(dev) -> int:
     return 0
 
 
+# ------------------------------------------------ the --refresh and --quota studies
+
+REFRESH_DIRTY = (64, 128, 1024, 4096)  # the warm paths' buckets, and the warm limit's
+
+
+def refresh_setup(full, con: bool, extras: bool, BS: int = 16):
+    """The warm refresh's inputs at ``full``'s shape in queue order: the
+    cold carry (``schedule_keys``, node blocks of BS), the constraint inputs of
+    ``check_con_kernels`` when ``con``, the extras of
+    ``check_extra_kernels`` when ``extras``, and the plain version's pod
+    mask."""
+    from koordinator_tpu_torch.core import resolved as rs
+
+    la_pods, nf_pods, valid = full["la_pods"], full["nf_pods"], full["valid"]
+    xs, q_la, q_nf, salts, pod_ok = rs.kernel_queue(la_pods, nf_pods, valid, full["p_real"],
+                                                    full["order"])
+    c = con_for(full, con_inputs_for(full, SEED + 11), xs) if con else None
+    xin = rs.extra_inputs(*extras_for(full, SEED + 23), xs) if extras else None
+    q_extra = pod_ok[:, None] & valid[None, :]
+    if con:
+        q_extra = q_extra & rs.gang_pass(c)[:, None]
+    q_extra, q_xsc = rs._q_extras(xin, q_extra)
+    carry = rs.schedule_keys(q_la, full["la_nodes"], full["weights"], q_nf, full["nf_nodes"],
+                             full["static"], valid, pod_ok, salts, BS, c, xin)
+    return dict(q_la=q_la, q_nf=q_nf, salts=salts, pod_ok=pod_ok, con=c, xin=xin,
+                q_extra=q_extra, q_xsc=q_xsc, carry=carry)
+
+
+def check_refresh_case(inp, con: bool, extras: bool, D: int, seed: int = SEED + 43,
+                       BS: int = 16) -> dict:
+    """One ``schedule_refresh`` of a padded index of D rows (D - 3 random
+    rows, among them the first and the last column, perturbed as a metric
+    update perturbs them; ``padded``) in node blocks of BS, plain or
+    constrained, without or with extras, against ``refresh_plain`` and a
+    cold key build (raises ``Mismatch``).  Returns the launches the call
+    took (0 on CPU tensors), the distinct node blocks of the index and the
+    words of its plan (which parameter block or device copy carries it)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+
+    s = refresh_setup(inp, con, extras, BS)
+    w, static, valid = inp["weights"], inp["static"], inp["valid"]
+    dev, N = valid.device, valid.shape[0]
+    rng = np.random.default_rng(seed)
+    real = np.unique(np.r_[0, N - 1, rng.choice(N, size=min(D, N) - 5, replace=False)])
+    real = real[:D - 3].astype(np.int32)
+    idx = padded(real)
+    la2, nf2 = perturbed_nodes(inp["la_nodes"], inp["nf_nodes"],
+                               torch.from_numpy(real).to(dev).long())
+    args = (s["q_la"], la2, w, s["q_nf"], nf2, static, valid, s["pod_ok"], s["salts"], BS,
+            s["con"], s["xin"])
+    clone = lambda c: tuple(a.clone() for a in c)  # noqa: E731
+    kernel = cuda.KERNELS["sched_refresh_con" if con else "sched_refresh"]
+    before = kernel.launches
+    got = rs.schedule_refresh(clone(s["carry"]), idx, *args)
+    launched = kernel.launches - before
+    what = f"{'sched_refresh_con' if con else 'sched_refresh'} D={idx.size} extras={extras}"
+    require_equal(what, got, rs.refresh_plain(
+        *clone(s["carry"]), torch.from_numpy(idx).to(dev), s["q_la"], la2, w, s["q_nf"], nf2,
+        static, PluginWeights(), s["q_extra"], s["salts"], BS,
+        rs.rsv_view(s["con"]) if con else None, s["q_xsc"]))
+    require_equal(f"{what} against a cold key build", got,
+                  rs.schedule_keys(*args[:9], BS, s["con"], s["xin"]))
+    blocks = int(np.unique(idx // BS).size)
+    return dict(launches=launched, D=int(idx.size), blocks=blocks,
+                plan_words=blocks * (1 + -(-BS // 32)))
+
+
+def refresh_launch(rs, cuda, full, s, idx, la2, nf2, kernel=None):
+    """A ``schedule_refresh`` launch with its arguments built once: the
+    entry point (``kernel``, this library's by default) launched on the
+    carry in place with the host index; on a tree that copies the index to
+    the card first, a copy made once."""
+    w, static, valid = full["weights"], full["static"], full["valid"]
+    dev, P, N, BS = valid.device, s["q_la"].est.shape[0], valid.shape[0], 16
+    con, Rf = s["con"], s["q_nf"].req.shape[1]
+    args = cuda.pair_args(s["q_la"], la2, w, s["q_nf"], nf2, static, valid)
+    xf, xsc, xkeep = rs._xin_args(s["xin"], P, N, dev)
+    head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, s["pod_ok"].data_ptr(),
+            s["salts"].data_ptr(), xf, xsc, P, N, BS, rs.tie_base(N))
+    con_t = () if con is None else rs._con_launch_args(con, P, N, Rf, dev, False, 0, 1,
+                                                       rs.PluginWeights().reservation)
+    if kernel is None:
+        kernel = cuda.SCHED_REFRESH if con is None else cuda.SCHED_REFRESH_CON
+    M, Mb, feas = s["carry"]
+    tail = (M.data_ptr(), Mb.data_ptr(), feas.data_ptr(), cuda.device_index(dev),
+            cuda.stream(dev))
+    if (cuda.CSRC / "refreshplan.cuh").exists():  # one launch over a plan of the host index
+        d, ptr = idx, idx.ctypes.data
+    else:
+        d = torch.from_numpy(idx).pin_memory().to(dev, non_blocking=True)
+        ptr = d.data_ptr()
+
+    def launch(keep=(args, xkeep, con_t, d)):  # the tables the pointers point into
+        kernel.launch(*head, *con_t[:2], ptr, int(idx.size), *tail)
+    return launch
+
+
+def refresh_host_split(rs, cuda, full, s, idx, la2, nf2, reps: int) -> dict:
+    """Host microseconds of a ``schedule_refresh`` call by step, each in a
+    loop of its own (``per_call_us``): the carry's checks, the dirty
+    index's checks, the constraint table (constrained), the extras'
+    pointers, the pair arguments, the pod mask's and salts' checks, the
+    index's pinned copy (a tree that moves the index so), the launch with
+    its arguments built, and the whole call."""
+    w, static, valid = full["weights"], full["static"], full["valid"]
+    dev, P, N, BS = valid.device, s["q_la"].est.shape[0], valid.shape[0], 16
+    carry, con, xin = s["carry"], s["con"], s["xin"]
+    Rf, w_rsv = s["q_nf"].req.shape[1], rs.PluginWeights().reservation
+
+    def dirty():
+        if hasattr(rs, "_host_index"):
+            return rs._host_index(idx, N)
+        d = torch.as_tensor(idx)
+        return d.dtype == torch.int32 and int(d.min()) >= 0 and int(d.max()) < N
+
+    steps = dict(
+        check_carry=lambda: rs._check_carry(carry, N, P, BS, dev), dirty=dirty,
+        xin_args=lambda: rs._xin_args(xin, P, N, dev),
+        pair_args=lambda: cuda.pair_args(s["q_la"], la2, w, s["q_nf"], nf2, static, valid),
+        pod_checks=lambda: (cuda._checked(s["pod_ok"], torch.bool, (P,), dev, "pod_ok"),
+                            cuda._checked(s["salts"], torch.int32, (P,), dev, "salts")))
+    if con is not None:
+        steps["con_args"] = lambda: rs._con_launch_args(con, P, N, Rf, dev, False, 0, 1, w_rsv)
+    if hasattr(rs, "warm_args"):
+        steps["warm_args"] = lambda: rs.warm_args(s["q_la"], la2, w, s["q_nf"], nf2, static,
+                                                  valid, s["pod_ok"], s["salts"], con)
+    if not (cuda.CSRC / "refreshplan.cuh").exists():
+        steps["pin_copy"] = lambda: torch.from_numpy(idx).pin_memory().to(dev, non_blocking=True)
+    steps["launch"] = refresh_launch(rs, cuda, full, s, idx, la2, nf2)
+    steps["call"] = lambda: rs.schedule_refresh(carry, idx, s["q_la"], la2, w, s["q_nf"], nf2,
+                                                static, valid, s["pod_ok"], s["salts"], BS, con,
+                                                xin)
+    return {name: per_call_us(fn, reps) for name, fn in steps.items()}
+
+
+def refresh_tiers(rs, cuda, full, s, idx, la2, nf2, reps: int) -> dict:
+    """The refresh's launch on one plan with its words in the 2-KB
+    parameter block (the library the paths load) and in the 28-KB one (the
+    study build csrc/refreshstudy.cu): events around a launch (``ms``) and
+    the host time a launch (``host_us``), each measured in two rounds
+    alternated, small block first; the medians of the rounds."""
+    name = "koord_sched_refresh_con" if s["con"] is not None else "koord_sched_refresh"
+    base = cuda.SCHED_REFRESH_CON if s["con"] is not None else cuda.SCHED_REFRESH
+    launches = {"small": refresh_launch(rs, cuda, full, s, idx, la2, nf2),
+                "large": refresh_launch(rs, cuda, full, s, idx, la2, nf2,
+                                        study_build(name, tuple(base.argtypes), "refreshstudy"))}
+    got = {k: dict(ms=[], host_us=[]) for k in launches}
+    for _ in range(2):
+        for k, fn in launches.items():
+            got[k]["ms"].append(cuda_ms(fn, reps=reps))
+            got[k]["host_us"].append(per_call_us(fn, reps))
+    return {k: {m: float(np.median(v)) for m, v in r.items()} for k, r in got.items()}
+
+
+def refresh_cycle(rs, cuda, s, args, idx):
+    """What a warm cycle pays for its refresh and for laying out its round
+    loop's launch arguments, the round loop's launch itself left out.  On a
+    tree with ``resolved.warm_args``: the cycle's arguments built once, the
+    refresh given them, the round loop's private node rows
+    (``cuda.with_private_nodes``) and, constrained, its constraint pointers
+    from the shared tables.  On an older tree: the refresh building its
+    own, then the round loop's node-row clones, pair arguments, pod checks
+    and, constrained, constraint tables, built again.  Returns a function
+    of the carry."""
+    q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts = args[:9]
+    con = s["con"]
+    dev, P, N = valid.device, q_la.est.shape[0], valid.shape[0]
+    rnd = (P, N, q_nf.req.shape[1], dev, True, 0, 8, rs.PluginWeights().reservation)
+    if hasattr(rs, "warm_args"):
+        def cycle(c):
+            wa = rs.warm_args(*args[:9], con)
+            rs.schedule_refresh(c, idx, *args, args=wa)
+            keep = [cuda.with_private_nodes(wa.pair)]
+            if con is not None:
+                keep.append(rs._con_launch_args(con, *rnd, tables=wa.con))
+            return keep
+        return cycle
+
+    def cycle(c):
+        rs.schedule_refresh(c, idx, *args)
+        la_mut = la_nodes._replace(base_nonprod=la_nodes.base_nonprod.clone(),
+                                   base_prod=la_nodes.base_prod.clone())
+        nf_mut = nf_nodes._replace(requested=nf_nodes.requested.clone(),
+                                   req_score=nf_nodes.req_score.clone(),
+                                   num_pods=nf_nodes.num_pods.clone())
+        keep = [cuda.pair_args(q_la, la_mut, la_w, q_nf, nf_mut, nf_static, valid),
+                cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok"),
+                cuda._checked(salts, torch.int32, (P,), dev, "salts")]
+        if con is not None:
+            keep.append(rs._con_launch_args(con, *rnd))
+        return keep
+    return cycle
+
+
+def refresh_study(dev, reps: int = 21) -> int:
+    """``--refresh``: ``sched_refresh`` and ``sched_refresh_con`` at 1,024 x
+    16,384 without and with extras, at D = 64, 128, 1,024 and 4,096 dirty
+    rows (a padded index, ``padded``, of random rows perturbed as a metric
+    update perturbs them), each first held equal to ``refresh_plain`` and,
+    at D = 128, to a cold key build: events around one call (the carry
+    cloned outside the span), the profiler's device time and device
+    activities a call, the host time a call in a loop, events around a
+    run of 100 calls over 100 (``run_ms``), the distinct node blocks; the
+    same with the cycle's launch arguments built beside, as the engine
+    builds them (``path_*``); what the warm cycle pays for its refresh and
+    its round loop's launch arguments (``cycle_*``, ``refresh_cycle``: the
+    span that holds what the engine shares, on either tree); at D = 128
+    the call split by step (``refresh_host_split``); at D = 64 and 128
+    without extras the launch with its plan in the 2-KB and the 28-KB
+    parameter block (``refresh_tiers``, this tree only).
+    ``--root`` takes another checkout of the port (one from before the
+    planned refreshes, with ``core.quota.flat_levels``, or a later one):
+    run two checkouts alternately in one call.  One ``refresh_study``
+    JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import resolved as rs
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    cuda.build()
+    full = build_inputs(*random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS), dev,
+                        (BATCH_CPU, BATCH_MEMORY))
+    w, static, valid = full["weights"], full["static"], full["valid"]
+    N, BS = valid.shape[0], 16
+    rng = np.random.default_rng(SEED + 40)
+    clone = lambda c: tuple(a.clone() for a in c)  # noqa: E731
+    out = []
+    for con, extras in ((False, False), (False, True), (True, False), (True, True)):
+        s = refresh_setup(full, con, extras)
+        name = "sched_refresh_con" if con else "sched_refresh"
+        for D in REFRESH_DIRTY:
+            real = rng.choice(N, size=D - 3, replace=False).astype(np.int32)
+            idx = padded(real)
+            la2, nf2 = perturbed_nodes(full["la_nodes"], full["nf_nodes"],
+                                       torch.from_numpy(real).to(dev).long())
+            args = (s["q_la"], la2, w, s["q_nf"], nf2, static, valid, s["pod_ok"], s["salts"],
+                    BS, s["con"], s["xin"])
+
+            def call(c, wa=None):
+                return rs.schedule_refresh(c, idx, *args, **({} if wa is None else {"args": wa}))
+
+            got = call(clone(s["carry"]))
+            require_equal(f"{name} D={D} extras={extras}", got, rs.refresh_plain(
+                *clone(s["carry"]), torch.from_numpy(idx).to(dev), s["q_la"], la2, w, s["q_nf"],
+                nf2, static, PluginWeights(), s["q_extra"], s["salts"], BS,
+                rs.rsv_view(s["con"]) if con else None, s["q_xsc"]))
+            if D == 128:
+                require_equal(f"{name} D={D} extras={extras} against a cold key build", got,
+                              rs.schedule_keys(*args[:9], BS, s["con"], s["xin"]))
+            work = {"c": clone(s["carry"])}
+            ev = device_events(lambda: call(work["c"]), reps)
+            rec = dict(name=name, extras=extras, D=D, blocks=int(np.unique(idx // BS).size),
+                       ms=cuda_ms(lambda: call(work["c"]), reps=reps,
+                                  setup=lambda: work.update(c=clone(s["carry"]))),
+                       device_ms=sum(ms for k, (_, ms) in ev.items() if not k.startswith("aten::")),
+                       device_events=device_activities(ev), events=ev,
+                       host_us=per_call_us(lambda: call(work["c"]), reps),
+                       run_ms=run_ms(lambda: call(work["c"])))
+            if hasattr(rs, "warm_args"):  # the call as the engine makes it: the cycle's
+                # launch arguments built once, beside (shared with its round loop)
+                wa = rs.warm_args(*args[:9], s["con"])
+                ev = device_events(lambda: call(work["c"], wa), reps)
+                rec.update(path_ms=cuda_ms(lambda: call(work["c"], wa), reps=reps,
+                                           setup=lambda: work.update(c=clone(s["carry"]))),
+                           path_device_events=device_activities(ev), path_events=ev,
+                           path_host_us=per_call_us(lambda: call(work["c"], wa), reps),
+                           path_run_ms=run_ms(lambda: call(work["c"], wa)))
+            cycle = refresh_cycle(rs, cuda, s, args, idx)
+            rec.update(cycle_ms=cuda_ms(lambda: cycle(work["c"]), reps=reps,
+                                        setup=lambda: work.update(c=clone(s["carry"]))),
+                       cycle_host_us=per_call_us(lambda: cycle(work["c"]), reps))
+            if D == 128:
+                rec["split_us"] = refresh_host_split(rs, cuda, full, dict(s, carry=work["c"]),
+                                                     idx, la2, nf2, reps)
+            if D in (64, 128) and not extras and "refreshstudy" in cuda.STUDY:
+                rec["tiers"] = refresh_tiers(rs, cuda, full, dict(s, carry=work["c"]), idx, la2,
+                                             nf2, reps)
+            out.append(rec)
+            print(f"  {name} D {D} ({rec['blocks']} blocks), extras {extras}: equal plain; call "
+                  f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms in "
+                  f"{rec['device_events']:.0f} activities, host {rec['host_us']:.1f} us"
+                  + (f"; with the cycle's arguments call {rec['path_ms']:.4f} ms in "
+                     f"{rec['path_device_events']:.0f} activities, host "
+                     f"{rec['path_host_us']:.1f} us" if "path_ms" in rec else "")
+                  + f"; the cycle's refresh and round-loop arguments {rec['cycle_ms']:.4f} ms, "
+                  f"host {rec['cycle_host_us']:.1f} us"
+                  + ("; launch with the 2-KB / 28-KB parameter block " + ", ".join(
+                      f"{k} {v['ms']:.4f} ms host {v['host_us']:.1f} us"
+                      for k, v in rec["tiers"].items()) if "tiers" in rec else "")
+                  + (f"; split us " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                rec["split_us"].items())
+                     if "split_us" in rec else ""), flush=True)
+    print(json.dumps({"refresh_study": out, "card": card_line()}))
+    return 0
+
+
+def quota_study_trees():
+    """(name, groups, cluster total) of the ``--quota`` study: the 500-group
+    tree of ``check_quota_kernels``, the constraint path's 100 groups
+    (``con_objects``) and a tree past the shared-memory tier
+    (``big_quota_tree``)."""
+    total, groups, _, _ = con_objects(NUM_NODES)
+    return [("bench 500 groups", quota_trees()[0][1], np.array([1_000_000, 1_000_000])),
+            ("the constraint path's 100 groups", groups,
+             np.array([total["cpu"], total["memory"]])),
+            ("6,000 groups", big_quota_tree(), np.array([40_000_000, 40_000_000]))]
+
+
+def quota_host_split(tq, cuda, qa, parent, levels, tot, stage, reps: int) -> dict:
+    """Host microseconds of a ``quota_limit`` call by step, each in a loop
+    of its own (``per_call_us``): this tree's (the per-call checks, the
+    stage's bind on an unchanged tree, the output, the launch) or the
+    parent's (the checks and level block, ``flat_levels`` alone, the
+    block's pinned copy, the output and scratch, the launch), and the whole
+    call."""
+    dev = qa.min.device
+    Q, R = qa.min.shape
+    out = torch.empty((Q, R), dtype=torch.int64, device=dev)
+    if stage is not None:
+        args = tq.quota_launch_args(qa, tot, stage)
+        steps = dict(checks=lambda: tq.quota_launch_args(qa, tot, stage),
+                     bind=lambda: stage.bind(parent, levels, dev),
+                     output=lambda: torch.empty((Q, R), dtype=torch.int64, device=dev),
+                     launch=lambda: cuda.QUOTA_LIMIT.launch(*args, 1, 1, out.data_ptr(),
+                                                            cuda.device_index(dev),
+                                                            cuda.stream(dev)),
+                     call=lambda: tq.quota_limit_fn(qa, levels, tot, stage=stage))
+    else:
+        a, lv, L = tq._quota_args(qa, levels, tot)
+        lv_d = torch.from_numpy(lv).pin_memory().to(dev, non_blocking=True)
+        scratch = torch.empty((tq.QUOTA_SCRATCH, Q, R), dtype=torch.int64, device=dev)
+        steps = dict(
+            checks=lambda: tq._quota_args(qa, levels, tot),
+            flat_levels=lambda: tq.flat_levels(levels),
+            pin_copy=lambda: torch.from_numpy(lv).pin_memory().to(dev, non_blocking=True),
+            outputs=lambda: (torch.empty((Q, R), dtype=torch.int64, device=dev),
+                             torch.empty((tq.QUOTA_SCRATCH, Q, R), dtype=torch.int64,
+                                         device=dev)),
+            launch=lambda: cuda.QUOTA_LIMIT.launch(*(t.data_ptr() for t in a), lv_d.data_ptr(),
+                                                   L, Q, R, 1, 1, out.data_ptr(),
+                                                   scratch.data_ptr(), cuda.device_index(dev),
+                                                   cuda.stream(dev)),
+            call=lambda: tq.quota_limit_fn(qa, levels, tot))
+    return {name: per_call_us(fn, reps) for name, fn in steps.items()}
+
+
+def quota_study(dev, reps: int = 21) -> int:
+    """``--quota``: ``quota`` and ``quota_limit`` on the 500-group tree, the
+    constraint path's 100 groups (R = 2) and a 6,000-group tree past the
+    shared-memory tier (``quota_study_trees``), each first held equal to
+    ``refresh_runtime`` (scaled mins on and off for ``quota``): events
+    around one call, the profiler's device time and activities a call,
+    the host time a call in a loop, and the ``quota_limit`` call split by
+    step (``quota_host_split``); on a tree with ``QuotaStage`` the calls
+    take a stage bound once, as the engine's do, and the engine's cache
+    miss (``Engine._quota_limit_cached`` on a store of the constraint
+    path's groups and a 1,000-pod batch) is timed too.  ``--root`` takes
+    another checkout of the port (one from before the planned refreshes,
+    with ``core.quota.flat_levels``, or a later one): run two
+    checkouts alternately in one call.  One ``quota_study`` JSON line."""
+    from koordinator_tpu_torch import convert, cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import quota as tq
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.service.state import ClusterState
+    from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    cuda.build()
+    staged = hasattr(tq, "QuotaStage")
+    out = dict(trees=[])
+    for name, groups, total in quota_study_trees():
+        qs = QuotaSnapshot(groups, ["cpu", "memory"])
+        qd = tq.QuotaArrays(*(convert.tensor(a, dev) for a in qs.arrays()))
+        # this tree's calls take the parent rows on the host, as the engine's do
+        qa = qd._replace(parent=qs.parent) if staged else qd
+        levels = qs.level_tuple()
+        lv_t = [torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev) for a in levels]
+        tot = convert.tensor(total.astype(np.int64), dev)
+        stage = tq.QuotaStage().bind(qs.parent, levels, dev) if staged else None
+        kw = {"stage": stage} if staged else {}
+        for scale in (True, False):
+            require_equal(f"quota ({name}, scale {scale})",
+                          (tq.quota_fn(qa, levels, tot, scale, **kw),),
+                          (tq.refresh_runtime(qd, lv_t, tot, scale),))
+        want = tq.refresh_runtime(qd, lv_t, tot)
+        want[0] = tq.INF
+        require_equal(f"quota_limit ({name})", (tq.quota_limit_fn(qa, levels, tot, **kw),),
+                      (want,))
+        rec = dict(tree=name, groups=len(groups), levels=len(levels),
+                   tier=stage.tier(2) if staged else None)
+        for kname, fn in (("quota", lambda: tq.quota_fn(qa, levels, tot, **kw)),
+                          ("quota_limit", lambda: tq.quota_limit_fn(qa, levels, tot, **kw))):
+            ev = device_events(fn, reps)
+            rec[kname] = dict(ms=cuda_ms(fn, reps=reps), run_ms=run_ms(fn),
+                              device_ms=sum(ms for k, (_, ms) in ev.items()
+                                            if not k.startswith("aten::")),
+                              device_events=device_activities(ev), events=ev,
+                              host_us=per_call_us(fn, reps))
+        rec["plain_ms"] = cuda_ms(lambda: tq.refresh_runtime(qd, lv_t, tot), reps=5)
+        rec["split_us"] = quota_host_split(tq, cuda, qa, qs.parent, levels, tot, stage, reps)
+        if staged:  # a call that plans its own tree: a fresh stage each call, the parent
+            # rows read back from the card
+            rec["unstaged_ms"] = cuda_ms(lambda: tq.quota_limit_fn(qd, levels, tot), reps=reps)
+        out["trees"].append(rec)
+        print(f"  {name} ({len(groups)} groups, {len(levels)} levels"
+              + (f", {stage.tier(2)} tier" if staged else "") + "): equal plain; "
+              + "; ".join(f"{k} call {rec[k]['ms']:.4f} ms, device {rec[k]['device_ms']:.4f} ms "
+                          f"in {rec[k]['device_events']:.0f} activities, host "
+                          f"{rec[k]['host_us']:.1f} us" for k in ("quota", "quota_limit"))
+              + "; split us " + ", ".join(f"{k} {v:.2f}" for k, v in rec["split_us"].items()),
+              flush=True)
+    # the engine's cache miss on the constraint path's groups
+    total, groups, _, _ = con_objects(NUM_NODES)
+    st = ClusterState(extra_scalars=(BATCH_CPU, BATCH_MEMORY))
+    st.quota.set_total(total)
+    for g in groups:
+        st.quota.upsert(g)
+    eng = Engine(st, device=dev)
+    batch = con_batch(NUM_PODS, "quota", SEED + 42)
+    qs = st.quota.snapshot()
+
+    def miss():
+        eng._quota_limit_key = None
+        return eng._quota_limit_cached(qs, batch)
+
+    out["engine_miss"] = dict(ms=cuda_ms(miss, reps=reps), host_us=per_call_us(miss, reps, 20))
+    print(f"  the engine's cache miss (100 groups, {NUM_PODS} pods): call "
+          f"{out['engine_miss']['ms']:.4f} ms, host {out['engine_miss']['host_us']:.1f} us",
+          flush=True)
+    print(json.dumps({"quota_study": out, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
     if "--root" in sys.argv:
         # time another checkout's port (a parent commit unpacked beside)
@@ -6959,6 +7456,10 @@ def main() -> int:
         return band_study(torch.device("cuda:0"))
     if "--restate" in sys.argv:
         return restate_study(torch.device("cuda:0"))
+    if "--refresh" in sys.argv:
+        return refresh_study(torch.device("cuda:0"))
+    if "--quota" in sys.argv:
+        return quota_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster

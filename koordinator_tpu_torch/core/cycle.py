@@ -480,12 +480,8 @@ def scan_steps(M, Mb, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, po
         return scan_steps_plain(M, Mb, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
                                 pod_ok, salts, block_size, con, check_parent_depth,
                                 ancestor_depth, xin)
-    la_mut = la_nodes._replace(base_nonprod=la_nodes.base_nonprod.clone(),
-                               base_prod=la_nodes.base_prod.clone())
-    nf_mut = nf_nodes._replace(requested=nf_nodes.requested.clone(),
-                               req_score=nf_nodes.req_score.clone(),
-                               num_pods=nf_nodes.num_pods.clone())
-    args = cuda.pair_args(q_la, la_mut, la_w, q_nf, nf_mut, nf_static, valid)
+    args = cuda.with_private_nodes(
+        cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid))
     pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
     salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
     xf, xsc, xkeep = rs._xin_args(xin, P, N, dev)

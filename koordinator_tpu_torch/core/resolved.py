@@ -70,8 +70,10 @@ them; CUDA tensors launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from koordinator_tpu_torch import cuda
@@ -832,18 +834,30 @@ def _xin_args(xin: Optional[ExtraInputs], P: int, N: int, dev) -> tuple:
             (feas, sc))
 
 
-def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool, cpd: int,
-                     ad: int, w_rsv: int, words: Optional[int] = None):
-    """The constrained kernels' (pointer table, int64 parameter block,
-    tensors to keep alive), laid out as ``koord_con`` in csrc/pair.cuh
-    reads them.  The round and scan kernels (``rounds``) get private copies
-    of the quota aggregates and the reservation allocations, which they
-    update, and a zeroed global scratch of ``words`` int64 words (the
-    round kernel's ``con_scratch_words`` when None)."""
+@functools.lru_cache(maxsize=16)
+def _absent(dev: torch.device) -> torch.Tensor:
+    """One int64 word on ``dev`` standing for a constraint the launch does
+    not have (no kernel reads it: ``has_quota``/``has_rsv`` are 0) and for
+    the scratch of a launch that takes none; allocated once a device."""
+    return torch.zeros(1, dtype=torch.int64, device=dev)
+
+
+class ConTables(NamedTuple):
+    """The constraint inputs checked and laid out in ``koord_con``'s order
+    (csrc/pair.cuh), without the launch's own scratch: ``tabs`` [25]
+    tensors, then (G, Q, Rq, Rv, Mm) and whether quota and reservations
+    are present."""
+
+    tabs: tuple
+    dims: tuple
+    has_quota: bool
+    has_rsv: bool
+
+
+def _con_tables(con: ConInputs, P: int, N: int, Rf: int, dev) -> ConTables:
     i64, i32, b = torch.int64, torch.int32, torch.bool
     g = con.gangs
     G = g.min_member.shape[0]
-    dummy = torch.zeros(1, dtype=i64, device=dev)
     tabs = [
         cuda._checked(con.gang_row, i32, (P,), dev, "gang rows"),
         cuda._checked(g.min_member, i64, (G,), dev, "gang min_member"),
@@ -860,35 +874,28 @@ def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool,
         Q, Rq = q.used.shape
         if Rq > cuda.MAXR:
             raise ValueError(f"{Rq} quota dimensions exceed {cuda.MAXR}")
-        if not 0 <= cpd < ad <= 16:
-            raise ValueError(f"the kernels take 0 <= check_parent_depth < ancestor_depth <= 16, "
-                             f"got {cpd}, {ad}")
-        used, npu = q.used, q.npu
-        if rounds:
-            used, npu = used.clone(), npu.clone()
         tabs += [
             cuda._checked(q.pods.quota, i32, (P,), dev, "quota rows"),
             cuda._checked(q.pods.req, i64, (P, Rq), dev, "quota req"),
             cuda._checked(q.pods.present, b, (P, Rq), dev, "quota present"),
             cuda._checked(q.pods.non_preemptible, b, (P,), dev, "quota non_preemptible"),
-            cuda._checked(used, i64, (Q, Rq), dev, "quota used"),
-            cuda._checked(npu, i64, (Q, Rq), dev, "quota npu"),
+            cuda._checked(q.used, i64, (Q, Rq), dev, "quota used"),
+            cuda._checked(q.npu, i64, (Q, Rq), dev, "quota npu"),
             cuda._checked(q.limit, i64, (Q, Rq), dev, "quota limit"),
             cuda._checked(q.min, i64, (Q, Rq), dev, "quota min"),
             cuda._checked(q.parent, i32, (Q,), dev, "quota parent"),
         ]
     else:
-        tabs += [dummy] * 9
+        tabs += [_absent(dev)] * 9
     Rv = Mm = 0
     if con.rsv is not None:
         r = con.rsv
         Rv, Mm = r.node.shape[0], con.rsv_midx.shape[1]
         P_sub = con.rsv_scores.shape[0]
-        allocated = r.allocated.clone() if rounds else r.allocated
         tabs += [
             cuda._checked(r.node, i32, (Rv,), dev, "reservation node"),
             cuda._checked(r.allocatable, i64, (Rv, Rf), dev, "reservation allocatable"),
-            cuda._checked(allocated, i64, (Rv, Rf), dev, "reservation allocated"),
+            cuda._checked(r.allocated, i64, (Rv, Rf), dev, "reservation allocated"),
             cuda._checked(con.rsv_rank, i64, (Rv,), dev, "reservation rank"),
             cuda._checked(con.rsv_midx, i32, (P, Mm), dev, "reservation match index"),
             cuda._checked(con.rsv_rscore, i64, (P_sub, Rv), dev, "reservation rscore"),
@@ -896,14 +903,75 @@ def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool,
             cuda._checked(con.xs.to(i32), i32, (P,), dev, "queue order"),
         ]
     else:
-        tabs += [dummy] * 8
-    if words is None:
-        words = con_scratch_words(P, Q, Rq, G, cpd, ad) if rounds else 1
-    tabs.append(torch.zeros(max(words, 1), dtype=i64, device=dev))
+        tabs += [_absent(dev)] * 8
+    return ConTables(tuple(tabs), (G, Q, Rq, Rv, Mm), q is not None, con.rsv is not None)
+
+
+def _con_launch_args(con: ConInputs, P: int, N: int, Rf: int, dev, rounds: bool, cpd: int,
+                     ad: int, w_rsv: int, words: Optional[int] = None,
+                     tables: Optional[ConTables] = None):
+    """The constrained kernels' (pointer table, int64 parameter block,
+    tensors to keep alive), laid out as ``koord_con`` in csrc/pair.cuh
+    reads them; ``tables`` the inputs already checked (``_con_tables``).
+    The round and scan kernels (``rounds``) get private copies of the
+    quota aggregates and the reservation allocations, which they update,
+    and a zeroed global scratch of ``words`` int64 words (the round
+    kernel's ``con_scratch_words`` when None); the other launches read
+    neither."""
+    if tables is None:
+        tables = _con_tables(con, P, N, Rf, dev)
+    G, Q, Rq, Rv, Mm = tables.dims
+    if tables.has_quota and not 0 <= cpd < ad <= 16:
+        raise ValueError(f"the kernels take 0 <= check_parent_depth < ancestor_depth <= 16, "
+                         f"got {cpd}, {ad}")
+    tabs = list(tables.tabs)
+    if rounds:
+        if tables.has_quota:  # the quota used and non-preemptible used
+            tabs[12], tabs[13] = tabs[12].clone(), tabs[13].clone()
+        if tables.has_rsv:  # the reservation allocations
+            tabs[19] = tabs[19].clone()
+        if words is None:
+            words = con_scratch_words(P, Q, Rq, G, cpd, ad)
+        tabs.append(torch.zeros(max(words, 1), dtype=torch.int64, device=dev))
+    else:
+        tabs.append(_absent(dev))
     ptrs = (ctypes.c_void_p * _CON_PTRS)(*(t.data_ptr() for t in tabs))
-    ints = (ctypes.c_longlong * _CON_INTS)(G, Q, Rq, Rv, Mm, cpd, ad, w_rsv, int(q is not None),
-                                            int(con.rsv is not None))
+    ints = (ctypes.c_longlong * _CON_INTS)(G, Q, Rq, Rv, Mm, cpd, ad, w_rsv,
+                                            int(tables.has_quota), int(tables.has_rsv))
     return ptrs, ints, (tabs, ptrs, ints)
+
+
+class WarmArgs(NamedTuple):
+    """A warm cycle's launch arguments, checked and laid out once
+    (``warm_args``) and shared by its refresh and its round loop: the
+    pair tables, the pod mask and salts, the constraint tables (or
+    None), and the refresh's constraint pointer table and parameter block
+    (or None)."""
+
+    pair: cuda.PairArgs
+    pod_ok: torch.Tensor
+    salts: torch.Tensor
+    con: Optional[ConTables]
+    refresh_con: Optional[tuple]
+
+
+def warm_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts,
+              con: Optional[ConInputs] = None) -> Optional[WarmArgs]:
+    """Check and lay out a warm cycle's launch arguments once, for its
+    ``schedule_refresh`` and ``schedule_rounds_warm`` (their ``args``);
+    None on the CPU, where both take their plain versions."""
+    dev = valid.device
+    if dev.type == "cpu":
+        return None
+    P, N = q_la.est.shape[0], valid.shape[0]
+    pair = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
+    tables = refresh_con = None
+    if con is not None:
+        tables = _con_tables(con, P, N, q_nf.req.shape[1], dev)
+        refresh_con = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, 0, 1,
+                                       PluginWeights().reservation, tables=tables)
+    return WarmArgs(pair, cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok"),
+                    cuda._checked(salts, torch.int32, (P,), dev, "salts"), tables, refresh_con)
 
 
 def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts,
@@ -962,10 +1030,14 @@ def schedule_keys(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok
 
 def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
                    valid, pod_ok, salts, commit_cap: int, block_size: int, con=None,
-                   check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
+                   check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None,
+                   args: Optional[WarmArgs] = None):
     """One cooperative launch of the round-loop kernel on CUDA tensors,
     counted on ``kernel``; ``M``/``Mb`` are updated in place.  The grid
-    spreads the pods over up to one block a SM (``cuda.rounds_grid``)."""
+    spreads the pods over up to one block a SM (``cuda.rounds_grid``).
+    ``args``: the inputs already checked (``warm_args``); the kernel's
+    private copies of the node state it commits into are made here either
+    way (``cuda.with_private_nodes``)."""
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     K = min(commit_cap, max(P, 1))
@@ -977,16 +1049,13 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     if smem > cuda.MAX_SMEM:
         raise ValueError(f"{P} pods exceed the round kernel's shared memory")
     NB = -(-N // block_size)
-    la_mut = la_nodes._replace(
-        base_nonprod=la_nodes.base_nonprod.clone(), base_prod=la_nodes.base_prod.clone()
-    )
-    nf_mut = nf_nodes._replace(
-        requested=nf_nodes.requested.clone(), req_score=nf_nodes.req_score.clone(),
-        num_pods=nf_nodes.num_pods.clone(),
-    )
-    args = cuda.pair_args(q_la, la_mut, la_w, q_nf, nf_mut, nf_static, valid)
-    pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
-    salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
+    if args is None:
+        pa = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
+        pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
+        salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
+    else:
+        pa, pod_ok, salts = args.pair, args.pod_ok, args.salts
+    pa = cuda.with_private_nodes(pa)
     M = cuda._checked(M, kdt, (NB * block_size, P), dev, "M")
     Mb = cuda._checked(Mb, kdt, (NB, P), dev, "Mb")
     la_feas_T = cuda._checked(la_feas_T, torch.bool, (N, P), dev, "la_feas_T")
@@ -995,7 +1064,7 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     scores = torch.zeros(P, dtype=torch.int64, device=dev)
     scratch = torch.empty(cuda.rounds_scratch_words(P, K, N), dtype=torch.int64, device=dev)
     G = cuda.rounds_grid(P, N, block_size, K, cuda.sm_count(dev)) if P and N else 1
-    head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
+    head = (pa.pods, pa.nodes, pa.cfg, pa.la_w, pa.valid, pod_ok.data_ptr(),
             salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N), K, G)
     if con is None:
         rounds = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -1010,7 +1079,8 @@ def _launch_rounds(kernel, M, Mb, la_feas_T, q_la, la_nodes, la_w, q_nf, nf_node
     rounds = torch.zeros(2, dtype=torch.int32, device=dev)
     ptrs, ints, keep = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, True,
                                         check_parent_depth, ancestor_depth,
-                                        PluginWeights().reservation)
+                                        PluginWeights().reservation,
+                                        tables=None if args is None else args.con)
     if P and N:
         kernel.launch(
             *head, ptrs, ints, M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(),
@@ -1093,75 +1163,88 @@ def _check_carry(carry, N: int, P: int, block_size: int, dev) -> tuple:
 
 def schedule_rounds_warm(carry, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok,
                          salts, commit_cap: int, block_size: int, con=None,
-                         check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None):
+                         check_parent_depth: int = 0, ancestor_depth: int = 8, xin=None,
+                         args: Optional[WarmArgs] = None):
     """The ``sched_rounds`` kernel: the round loop from a warm carry
     (M, Mb, la_feas_T), launched on COPIES of M and Mb — the carry seeds
-    the next cycle and is never written.  Returns what ``schedule_rounds``
-    returns."""
+    the next cycle and is never written; ``args`` the cycle's launch
+    arguments (``warm_args`` over the same inputs), when its refresh built
+    them.  Returns what ``schedule_rounds`` returns."""
     cuda.require_least_allocated(nf_static, "the warm round loop")
     P, N = q_la.est.shape[0], valid.shape[0]
     M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, valid.device)
-    args = (M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-            valid, pod_ok, salts, commit_cap, block_size, con, check_parent_depth,
-            ancestor_depth, xin)
+    rargs = (M.clone(), Mb.clone(), la_feas_T, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
+             valid, pod_ok, salts, commit_cap, block_size, con, check_parent_depth,
+             ancestor_depth, xin)
     if valid.device.type == "cpu":
         if con is not None:
             _con_launch_args(con, P, N, q_nf.req.shape[1], valid.device, False,
                              check_parent_depth, ancestor_depth, 1)
-        return _plain_rounds(*args)
-    return _launch_rounds(cuda.SCHED_ROUNDS if con is None else cuda.SCHED_ROUNDS_CON, *args)
+        return _plain_rounds(*rargs)
+    return _launch_rounds(cuda.SCHED_ROUNDS if con is None else cuda.SCHED_ROUNDS_CON, *rargs,
+                          args=args)
+
+
+def _host_index(dirty, N: int) -> np.ndarray:
+    """The refresh's dirty rows as a contiguous 1-D int32 host array inside
+    [0, N), checked before any launch."""
+    d = dirty.numpy() if torch.is_tensor(dirty) and dirty.device.type == "cpu" else dirty
+    if not isinstance(d, np.ndarray) or d.dtype != np.int32 or d.ndim != 1:
+        raise ValueError(f"dirty: expected a 1-D int32 host index, got "
+                         f"{getattr(d, 'dtype', type(d))} {tuple(getattr(d, 'shape', ()))}"
+                         f" on {getattr(dirty, 'device', 'the host')}")
+    d = np.ascontiguousarray(d)
+    if d.size and d.view(np.uint32).max() >= N:  # a negative row reads as >= 2**31
+        raise ValueError(f"dirty rows outside [0, {N})")
+    return d
 
 
 def schedule_refresh(carry, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid,
                      pod_ok, salts, block_size: int, con: Optional[ConInputs] = None,
-                     xin: Optional[ExtraInputs] = None):
+                     xin: Optional[ExtraInputs] = None, args: Optional[WarmArgs] = None):
     """The ``sched_refresh`` kernel: rebuild the carry's rows of the node
-    columns ``dirty`` ([D] int32 on the host, a power-of-two bucket padded
-    by repeating a real row) against the current node inputs, in place;
-    ``con`` adds the gang prefilter and the reservation restore and scores
-    at the batch-start allocations (quota never enters the carry), ``xin``
-    the batch's placement-and-devices mask and scores.  Returns the carry
-    (M, Mb, la_feas_T)."""
+    columns ``dirty`` ([D] int32 on the host, in any order, duplicates
+    allowed: the engine's padded bucket repeats a real row) against the
+    current node inputs, in place; ``con`` adds the
+    gang prefilter and the reservation restore and scores at the
+    batch-start allocations (quota never enters the carry), ``xin`` the
+    batch's placement-and-devices mask and scores; ``args`` the cycle's
+    launch arguments (``warm_args`` over the same inputs), built here when
+    None.  On the card one launch planned on the host: the distinct node
+    blocks with masks of their dirty rows (csrc/refreshplan.cuh).  Returns
+    the carry (M, Mb, la_feas_T)."""
     cuda.require_least_allocated(nf_static, "the warm refresh")
     P, N = q_la.est.shape[0], valid.shape[0]
     dev = valid.device
     M, Mb, la_feas_T = _check_carry(carry, N, P, block_size, dev)
-    dirty = torch.as_tensor(dirty)
-    if dirty.dtype != torch.int32 or dirty.dim() != 1 or dirty.device.type != "cpu":
-        raise ValueError(f"dirty: expected a 1-D int32 host index, got {dirty.dtype} "
-                         f"{tuple(dirty.shape)} on {dirty.device}")
-    if dirty.numel() and (int(dirty.min()) < 0 or int(dirty.max()) >= N):
-        raise ValueError(f"dirty rows outside [0, {N})")
-    if con is not None:
-        con_args = _con_launch_args(con, P, N, q_nf.req.shape[1], dev, False, 0, 1,
-                                    PluginWeights().reservation)
+    d = _host_index(dirty, N)
     xf, xsc, xkeep = _xin_args(xin, P, N, dev)
     if dev.type == "cpu":
         q_extra = pod_ok[:, None] & valid[None, :]
         rsv = None
         if con is not None:
+            _con_tables(con, P, N, q_nf.req.shape[1], dev)  # checked on every device
             q_extra = q_extra & gang_pass(con)[:, None]
             if con.rsv is not None:
                 rsv = rsv_view(con)
         q_extra, q_xsc = _q_extras(xin, q_extra)
         return refresh_plain(
-            M, Mb, la_feas_T, dirty, q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static,
-            PluginWeights(), q_extra, salts, block_size, rsv, q_xsc,
+            M, Mb, la_feas_T, torch.from_numpy(d), q_la, la_nodes, la_w, q_nf, nf_nodes,
+            nf_static, PluginWeights(), q_extra, salts, block_size, rsv, q_xsc,
         )
-    args = cuda.pair_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid)
-    pod_ok = cuda._checked(pod_ok, torch.bool, (P,), dev, "pod_ok")
-    salts = cuda._checked(salts, torch.int32, (P,), dev, "salts")
-    if P and dirty.numel():
-        d = dirty.pin_memory().to(dev, non_blocking=True)
-        head = (args.pods, args.nodes, args.cfg, args.la_w, args.valid, pod_ok.data_ptr(),
-                salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N))
-        tail = (d.data_ptr(), int(d.shape[0]), M.data_ptr(), Mb.data_ptr(),
-                la_feas_T.data_ptr(), cuda.device_index(dev), cuda.stream(dev))
+    if args is None:
+        args = warm_args(q_la, la_nodes, la_w, q_nf, nf_nodes, nf_static, valid, pod_ok, salts,
+                         con)
+    pa = args.pair
+    if P and d.size:
+        head = (pa.pods, pa.nodes, pa.cfg, pa.la_w, pa.valid, args.pod_ok.data_ptr(),
+                args.salts.data_ptr(), xf, xsc, P, N, block_size, tie_base(N))
+        tail = (d.ctypes.data, int(d.size), M.data_ptr(), Mb.data_ptr(), la_feas_T.data_ptr(),
+                cuda.device_index(dev), cuda.stream(dev))
         if con is None:
             cuda.SCHED_REFRESH.launch(*head, *tail)
         else:
-            ptrs, ints, keep = con_args
-            cuda.SCHED_REFRESH_CON.launch(*head, ptrs, ints, *tail)
+            cuda.SCHED_REFRESH_CON.launch(*head, *args.refresh_con[:2], *tail)
     return M, Mb, la_feas_T
 
 

@@ -95,16 +95,23 @@
 //    evaluation's int64 divisions and the sweep, each a few microseconds.
 //    rounds_kernel below gives the phases and the protocol.
 //
-// 3. refresh_rows + refresh_blocks: the warm carry's delta refresh.  For
-//    each dirty node row j (a power-of-two index padded by repeating a
-//    real row) and each pod, the real LoadAware filter into la_feas_T[j]
-//    and the packed key into M[j] through the same pair function as the
-//    cold build (under CON with the batch-start reservation allocations:
-//    quota never enters the carry), so a refreshed key equals a cold-built
-//    one bit for bit; then, after a kernel boundary, the block maximum of
-//    every block that holds a dirty row.  In place.  Duplicate rows and
-//    blocks write identical values.  Bound on an H100: bytes; at D = 128
-//    and 1,024 pods launch latency dominates.
+// 3. refresh_kernel: the warm carry's delta refresh, one launch a call.
+//    The host plans the dirty node rows (a power-of-two index padded by
+//    repeating a real row) into their distinct node blocks, each with a
+//    mask of its dirty rows (refreshplan.cuh), and the plan rides in the
+//    launch's parameters (a plan past 7,168 words, at 57,344 node columns
+//    or more, in a device copy).  A block of the launch takes one plan
+//    entry and 128 pods: it issues the loads of the block's clean rows of
+//    M, evaluates the real LoadAware filter into la_feas_T[j] and the
+//    packed key into M[j] of each dirty row j through the same pair
+//    function while they are in flight (under CON with the batch-start
+//    reservation allocations: quota never enters the carry), so a
+//    refreshed key equals a cold-built one bit for bit, and writes the
+//    block maximum from registers.  In place.  Each dirty row is evaluated
+//    once and each block maximum written once, however many padding
+//    duplicates or dirty rows a block holds.  Bound on an H100: bytes (at
+//    D = 128 and 1,024 pods ~1.2 MB); at that size the launch's own
+//    latency dominates.
 //
 // The warm rounds (`sched_rounds`) are the rounds kernel launched on copies
 // of the carry's M and Mb (core/resolved.py schedule_rounds_warm).
@@ -116,9 +123,12 @@
 // is at all times the pure function of its node's current state.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <mutex>
+#include <vector>
 
 #include "pair.cuh"
+#include "refreshplan.cuh"
 
 namespace {
 
@@ -981,32 +991,57 @@ __global__ void __launch_bounds__(kRoundThreads) sync_loop(unsigned int* sync, i
 }
 #endif
 
-// grid (pods / 128, min(D, 65535)); blockIdx.y strides over the dirty rows
-template <bool CON>
-__global__ void refresh_rows(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
-                             const uint8_t* pod_ok, const int* salt, int P, int N, long long TB,
-                             const int* dirty, int D, int* M, uint8_t* la_feas_T) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+// One block a (plan entry, 128 pods), the plan's words in the launch's
+// parameters or, past them, in a device copy (`words`).  A node block's
+// rows go in chunks of 16: each thread issues the loads of its pod's keys
+// of the chunk's clean rows first, evaluates its pod on the chunk's dirty
+// rows (the entry's mask) through the pair function while those loads are
+// in flight, writes the dirty rows' keys and LoadAware filter, and only
+// then folds the clean keys into the block maximum, which it writes from
+// registers.  The node rows are read where they lie: staging the block's
+// rows with their reciprocals, as the cold build does, measured slower here
+// (a block evaluates about one row a pod at D = 128; PERF.md §6).
+template <int CAP>
+struct RefreshPlan {
+  int entries;  // the plan's entries
+  int stride;   // words an entry: kHead + mask_words(BS)
+  unsigned int w[CAP];
+};
+
+constexpr int kRefreshChunk = 16;  // rows a thread has in flight: one mask half-word
+
+template <bool CON, int CAP>
+__global__ void refresh_kernel(Cfg c, PodIn p, NodeIn n, ConIn k, XIn x, const uint8_t* valid,
+                               const uint8_t* pod_ok, const int* salt, int P, int N, int BS,
+                               long long TB, const __grid_constant__ RefreshPlan<CAP> plan,
+                               const unsigned int* words, int* M, int* Mb, uint8_t* la_feas_T) {
+  const unsigned int* e = (words ? words : plan.w) + (size_t)blockIdx.x * plan.stride;
+  const int b = (int)e[0], j0 = b * BS;
+  const unsigned int* mask = e + koord_refresh::kHead;
+  const int q = blockIdx.y * blockDim.x + threadIdx.x;
   if (q >= P) return;
   const bool ok = pod_pass<CON>(pod_ok, k, q);
-  for (int d = blockIdx.y; d < D; d += gridDim.y) {
-    const int j = dirty[d];
-    const bool laf = la_fit(c, p, n, q, j);
-    la_feas_T[(size_t)j * P + q] = laf;
-    M[(size_t)j * P + q] =
-        key_of<CON, int>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
+  int best = KOORD_NEGK;
+  for (int c0 = 0; c0 < BS; c0 += kRefreshChunk) {
+    const int rows = min(kRefreshChunk, BS - c0);
+    const unsigned int dirty = (mask[c0 >> 5] >> (c0 & 31)) & ((1u << rows) - 1u);
+    int clean[kRefreshChunk];
+#pragma unroll
+    for (int i = 0; i < kRefreshChunk; ++i)
+      clean[i] = i < rows && !((dirty >> i) & 1u) ? M[(size_t)(j0 + c0 + i) * P + q] : KOORD_NEGK;
+    for (unsigned int bits = dirty; bits; bits &= bits - 1u) {
+      const int j = j0 + c0 + __ffs(bits) - 1;
+      const bool laf = la_fit(c, p, n, q, j);
+      la_feas_T[(size_t)j * P + q] = laf;
+      const int key =
+          key_of<CON, int>(c, p, n, k, x, P, q, j, laf && valid[j] && ok, salt[q], N, TB);
+      M[(size_t)j * P + q] = key;
+      best = max(best, key);
+    }
+#pragma unroll
+    for (int i = 0; i < kRefreshChunk; ++i) best = max(best, clean[i]);
   }
-}
-
-__global__ void refresh_blocks(const int* M, int* Mb, const int* dirty, int D, int P, int BS) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= P) return;
-  for (int d = blockIdx.y; d < D; d += gridDim.y) {
-    const int b = dirty[d] / BS;
-    int m = KOORD_NEGK;
-    for (int i = 0; i < BS; ++i) m = max(m, M[(size_t)(b * BS + i) * P + q]);
-    Mb[(size_t)b * P + q] = m;
-  }
+  Mb[(size_t)b * P + q] = best;
 }
 
 // the round loop's dynamic shared memory for key lanes of `kb` bytes: the
@@ -1121,25 +1156,84 @@ int launch_rounds(bool con, const void* const* pods, const void* const* nodes,
   return (int)cudaGetLastError();
 }
 
+constexpr int kRefreshLarge = 7168;  // plan words of the large parameter block (28 KB; a
+                                     // launch takes 32,764 B)
+// ... of the small one (2 KB), which the study build leaves out to time the
+// large block on the same plans (csrc/refreshstudy.cu)
+#ifdef KOORD_REFRESH_STUDY
+constexpr int kRefreshSmall = 0;
+#else
+constexpr int kRefreshSmall = 512;
+#endif
+
+// the calling thread's last refresh plan, and the large parameter block
+thread_local std::vector<unsigned int> g_refresh_words;
+thread_local koord_refresh::Scratch g_refresh_scratch;
+thread_local RefreshPlan<kRefreshLarge> g_refresh_large;
+
+template <int CAP>
+cudaError_t refresh_launch(bool con, const RefreshPlan<CAP>& plan, const unsigned int* words,
+                           const Cfg& c, const PodIn& p, const NodeIn& n, const ConIn& k,
+                           const XIn& x, const void* valid, const void* pod_ok, const void* salt,
+                           int P, int N, int BS, long long TB, void* M, void* Mb, void* la_feas_T,
+                           cudaStream_t st) {
+  auto kernel = con ? refresh_kernel<true, CAP> : refresh_kernel<false, CAP>;
+  const int threads = 128;
+  kernel<<<dim3(plan.entries, (P + threads - 1) / threads), threads, 0, st>>>(
+      c, p, n, k, x, (const uint8_t*)valid, (const uint8_t*)pod_ok, (const int*)salt, P, N, BS,
+      TB, plan, words, (int*)M, (int*)Mb, (uint8_t*)la_feas_T);
+  return cudaGetLastError();
+}
+
+// The warm refresh of the D host rows `dirty`: planned on the host
+// (refreshplan.cuh), then one launch.  The plan rides in the launch's
+// parameters (the 2-KB block up to kRefreshSmall words, else the 28-KB
+// one); a plan past kRefreshLarge words (3,584 blocks at BS <= 32, at
+// least 57,344 node columns) is copied into a stream-ordered device buffer
+// first, freed behind the launch.
 int launch_refresh(bool con, const void* const* pods, const void* const* nodes,
                    const long long* cfg, const void* la_w, const ConIn& k, const XIn& x,
                    const void* valid, const void* pod_ok, const void* salt, int P, int N, int BS,
-                   long long TB, const void* dirty, int D, void* M, void* Mb, void* la_feas_T, int device,
-                   void* stream) {
+                   long long TB, const int* dirty, int D, void* M, void* Mb, void* la_feas_T,
+                   int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int threads = 128;
-  dim3 grid((P + threads - 1) / threads, D < 65535 ? D : 65535);
-  auto kernel = con ? refresh_rows<true> : refresh_rows<false>;
-  kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, la_w), koord_pods(pods), koord_nodes(nodes), k, x, (const uint8_t*)valid,
-      (const uint8_t*)pod_ok, (const int*)salt, P, N, TB, (const int*)dirty, D, (int*)M,
-      (uint8_t*)la_feas_T);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  refresh_blocks<<<grid, threads, 0, (cudaStream_t)stream>>>((const int*)M, (int*)Mb,
-                                                             (const int*)dirty, D, P, BS);
-  return (int)cudaGetLastError();
+  const int entries =
+      koord_refresh::build(dirty, D, BS, N, g_refresh_words, g_refresh_scratch);
+  if (entries < 0 || P > 65535 * 128) return (int)cudaErrorInvalidValue;
+  if (entries == 0 || P == 0) return (int)cudaSuccess;
+  const Cfg c = koord_cfg(cfg, la_w);
+  const PodIn p = koord_pods(pods);
+  const NodeIn n = koord_nodes(nodes);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int stride = koord_refresh::kHead + koord_refresh::mask_words(BS);
+  const size_t words = (size_t)entries * stride;
+  const unsigned int* w = g_refresh_words.data();
+  if (words <= (size_t)kRefreshSmall) {
+    RefreshPlan<kRefreshSmall ? kRefreshSmall : 1> plan;
+    plan.entries = entries;
+    plan.stride = stride;
+    std::copy(w, w + words, plan.w);
+    return (int)refresh_launch(con, plan, nullptr, c, p, n, k, x, valid, pod_ok, salt, P, N, BS,
+                               TB, M, Mb, la_feas_T, st);
+  }
+  RefreshPlan<kRefreshLarge>& plan = g_refresh_large;
+  plan.entries = entries;
+  plan.stride = stride;
+  if (words <= (size_t)kRefreshLarge) {
+    std::copy(w, w + words, plan.w);
+    return (int)refresh_launch(con, plan, nullptr, c, p, n, k, x, valid, pod_ok, salt, P, N, BS,
+                               TB, M, Mb, la_feas_T, st);
+  }
+  // pageable to device: the call returns once the host words are staged
+  unsigned int* dw = nullptr;
+  if ((e = cudaMallocAsync((void**)&dw, words * 4, st)) != cudaSuccess) return (int)e;
+  e = cudaMemcpyAsync(dw, w, words * 4, cudaMemcpyHostToDevice, st);
+  if (e == cudaSuccess)
+    e = refresh_launch(con, plan, dw, c, p, n, k, x, valid, pod_ok, salt, P, N, BS, TB, M, Mb,
+                       la_feas_T, st);
+  const cudaError_t f = cudaFreeAsync(dw, st);
+  return (int)(e != cudaSuccess ? e : f);
 }
 
 ConIn no_con() {
@@ -1219,7 +1313,8 @@ extern "C" int koord_sched_refresh(const void* const* pods, const void* const* n
                                    const void* dirty, int D, void* M, void* Mb, void* la_feas_T,
                                    int device, void* stream) {
   return launch_refresh(false, pods, nodes, cfg, la_w, no_con(), x_in(xfeas, xsc), valid, pod_ok,
-                        salt, P, N, BS, TB, dirty, D, M, Mb, la_feas_T, device, stream);
+                        salt, P, N, BS, TB, (const int*)dirty, D, M, Mb, la_feas_T, device,
+                        stream);
 }
 
 extern "C" int koord_sched_refresh_con(const void* const* pods, const void* const* nodes,
@@ -1230,8 +1325,8 @@ extern "C" int koord_sched_refresh_con(const void* const* pods, const void* cons
                                        const void* dirty, int D, void* M, void* Mb,
                                        void* la_feas_T, int device, void* stream) {
   return launch_refresh(true, pods, nodes, cfg, la_w, koord_con(con, con_ints), x_in(xfeas, xsc),
-                        valid, pod_ok, salt, P, N, BS, TB, dirty, D, M, Mb, la_feas_T, device,
-                        stream);
+                        valid, pod_ok, salt, P, N, BS, TB, (const int*)dirty, D, M, Mb, la_feas_T,
+                        device, stream);
 }
 
 // The int64-key matrix engine: the same launches over int64 key lanes

@@ -43,10 +43,11 @@ STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRat
 # split; csrc/scanstudy.cu: the scan's; csrc/scorestudy.cu: the score
 # kernel's store floor and strip sweep; csrc/deschedstudy.cu: the round's
 # split by grid barrier; csrc/bandstudy.cu: the band order's split by
-# step), built only when a study binds one of its entry
-# points
+# step; csrc/refreshstudy.cu: the warm refresh with its large parameter
+# block only), built only when a study binds one of its entry points
 STUDY = {"roundstudy": "schedule.cu", "scanstudy": "scan.cu", "scorestudy": "score.cu",
-         "deschedstudy": "deschedule.cu", "bandstudy": "bandrank.cu"}
+         "deschedstudy": "deschedule.cu", "bandstudy": "bandrank.cu",
+         "refreshstudy": "schedule.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -186,8 +187,11 @@ SCHEDULE_ROUNDS = Kernel(
     "schedule", "koord_sched_rounds",
     _SCHED_HEAD + [_I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 )
-# the warm carry: the delta refresh, and the round loop launched on copies
-# of the carry (the same entry point as the cold rounds, counted apart)
+REFRESH_PARAM_WORDS = 7168  # kRefreshLarge: refresh plan words a launch's parameters carry
+# the warm carry: the delta refresh (... TB, [the constraint table and
+# block,] the dirty rows' int32 host index and its length, M, Mb,
+# la_feas_T), and the round loop launched on copies of the carry (the same
+# entry point as the cold rounds, counted apart)
 SCHED_REFRESH = Kernel(
     "schedule", "koord_sched_refresh",
     _SCHED_HEAD + [_I, _I, _I, _L, _P, _I, _P, _P, _P, _I, _P],
@@ -246,8 +250,11 @@ PLACEMENT_PARAM_WORDS = 7680  # kParamWords: descriptor words in a launch's para
 DEV_FEASIBLE = Kernel("device", "koord_dev_feasible", [_P] * 11 + [_I] * 3 + [_P, _I, _P])
 DS_SCORE = Kernel("device", "koord_ds_score", [_P] * 3 + [_I] * 2 + [_P, _I, _P])
 # the quota tree's runtime refresh (csrc/quota.cu): ``quota`` and the
-# admission limit ``quota_limit`` (row 0 := 2**60) share one entry point
-QUOTA = Kernel("quota", "koord_quota", [_P] * 10 + [_I] * 5 + [_P, _P, _I, _P])
+# admission limit ``quota_limit`` (row 0 := 2**60) share one entry point:
+# the eight per-group arrays and the total, the tree's plan and its words,
+# L, runs, Q, R, the global tier's scratch (0: shared memory), the flags,
+# the output
+QUOTA = Kernel("quota", "koord_quota", [_P] * 9 + [_I] * 5 + [_P, _I, _I, _P, _I, _P])
 QUOTA_LIMIT = Kernel("quota", "koord_quota", QUOTA.argtypes)
 # the reservation plugin's scores (csrc/reservation.cu, one template):
 # ``rsv_rscore`` (request, allocatable, allocated, P, Rv, Rf, the [P, Rv]
@@ -587,6 +594,19 @@ def pair_args(la_pods, la_nodes, la_weights, nf_pods, nf_nodes, nf_static,
     return _pair_args(la_p + nf_p, la_n + nf_n, cfg,
                       la_w=_checked(la_weights, torch.int64, (R,), dev, "LoadAware weights"),
                       valid=_checked(valid, torch.bool, (N,), dev, "valid"))
+
+
+# the node table's entries the round loops commit into (base_nonprod,
+# base_prod, requested, num_pods, the NodeFit score's requested)
+_MUTABLE_NODE_PTRS = (1, 2, 12, 13, 16)
+
+
+def with_private_nodes(args: PairArgs) -> PairArgs:
+    """``args`` (``pair_args``) with the round loop's private copies of the
+    node state it commits into, cloned from the checked tensors."""
+    pods, nodes, la_w, valid, _, _, cfg = args.keep
+    nodes = tuple(t.clone() if i in _MUTABLE_NODE_PTRS else t for i, t in enumerate(nodes))
+    return _pair_args(pods, nodes, cfg, la_w=la_w, valid=valid)
 
 
 _GRID_Y_MAX = 65_535  # the pod axis rides the grid's y dimension

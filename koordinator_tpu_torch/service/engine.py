@@ -90,6 +90,7 @@ from koordinator_tpu_torch.core.resolved import (
     schedule_fn,
     schedule_refresh,
     schedule_rounds_warm,
+    warm_args,
 )
 from koordinator_tpu_torch.service import transformers as tf
 from koordinator_tpu_torch.service.descheduler import tolerates
@@ -365,6 +366,12 @@ class Engine:
         # cached on the exact inputs it is a pure function of
         self._quota_limit_key: Optional[tuple] = None
         self._quota_limit_val = None
+        # the quota refreshes' one copy a call, and their trees' plans (the
+        # admission limit's and the QUOTA_REFRESH verb's), each kept on the
+        # device until its tree changes
+        self._quota_upload = UploadStage()
+        self._quota_stage = quota_mod.QuotaStage()
+        self._quota_refresh_stage = quota_mod.QuotaStage()
         self._rsv_rows_key: Optional[tuple] = None
         self._rsv_rows_val = None
         # the reservation rows' order ranks, cached on the store's version
@@ -791,34 +798,41 @@ class Engine:
     def _tensors(self, nt):
         return type(nt)(*(None if a is None else convert.tensor(a, self.device) for a in nt))
 
-    def _batch_req(self, pods: List[Pod]) -> Dict[str, np.ndarray]:
+    def _batch_req(self, pods: List[Pod]) -> Dict[str, tuple]:
         """Per-group request vectors of a pending batch (accrued into the
-        runtime refresh like the reference accrues pending pods)."""
-        st = self.state
-        batch_req: Dict[str, np.ndarray] = {}
+        runtime refresh like the reference accrues pending pods), as
+        tuples of ints in the store's resource order."""
+        res = self.state.quota.resources
+        acc: Dict[str, list] = {}
         for p in pods:
             if p.quota:
-                vec = np.array([p.requests.get(r, 0) for r in st.quota.resources],
-                               dtype=np.int64)
-                batch_req[p.quota] = batch_req.get(p.quota, 0) + vec
-        return batch_req
+                vec = acc.get(p.quota)
+                if vec is None:
+                    vec = acc[p.quota] = [0] * len(res)
+                req = p.requests
+                for k, r in enumerate(res):
+                    vec[k] += req.get(r, 0)
+        return {name: tuple(vec) for name, vec in acc.items()}
 
     def _quota_limit_cached(self, qs: QuotaSnapshot, pods: List[Pod]) -> torch.Tensor:
         """The admission limit ([Q, R] runtime refresh, row 0 unlimited) on
         the device, from the ``quota_limit`` kernel, cached on (quota-store
         version, exact batch demand): a hit is bit-identical by
-        construction, and a miss launches without a host sync."""
+        construction, and a miss launches without a host sync: the
+        refresh's per-group arrays go up in one copy, and the tree's plan
+        is the stage's, built once a tree from the host parent rows."""
         st = self.state
         batch_req = self._batch_req(pods)
-        key = (st.quota.version, tuple(sorted(
-            (name, tuple(int(v) for v in vec)) for name, vec in batch_req.items())))
+        key = (st.quota.version, tuple(sorted(batch_req.items())))
         if self._quota_limit_key == key:
             return self._quota_limit_val
         total = np.array([st.quota.cluster_total.get(r, 0) for r in st.quota.resources],
                          dtype=np.int64)
-        qa = qs.arrays()._replace(own_request=st.quota.request_arrays(qs, batch_req))
-        val = quota_mod.quota_limit_fn(self._tensors(quota_mod.QuotaArrays(*qa)),
-                                       qs.level_tuple(), convert.tensor(total, self.device))
+        qa = qs.arrays()._replace(own_request=st.quota.request_arrays(
+            qs, {name: np.array(vec, dtype=np.int64) for name, vec in batch_req.items()}))
+        *arrs, total_t = self._quota_upload.upload(tuple(qa[1:]) + (total,), self.device)
+        val = quota_mod.quota_limit_fn(quota_mod.QuotaArrays(qa.parent, *arrs),
+                                       qs.level_tuple(), total_t, stage=self._quota_stage)
         self._quota_limit_key, self._quota_limit_val = key, val
         return val
 
@@ -1058,14 +1072,18 @@ class Engine:
                               ancestor_depth=ANCESTOR_DEPTH)
             node_args = (la_nodes, self._weights, q_nf, nf_nodes, self._nf_static, valid, pod_ok,
                          salts)
+            # the refresh and the round loop share one check and layout of
+            # their launch arguments
+            args = warm_args(q_la, *node_args, con_kw.get("con"))
             if dirty.size:
-                # pow2-bucketed, padded by repeating a real row
+                # pow2-bucketed, padded by repeating a real row (the JAX
+                # engine's bucket; the kernel's plan collapses the repeats)
                 idx = np.full(next_bucket(int(dirty.size), 16), dirty[0], dtype=np.int32)
                 idx[: dirty.size] = dirty
                 warm = schedule_refresh(warm, idx, q_la, *node_args, BLOCK_SIZE,
-                                        con_kw.get("con"), xin)
+                                        con_kw.get("con"), xin, args)
             out = schedule_rounds_warm(warm, q_la, *node_args, COMMIT_CAP, BLOCK_SIZE, xin=xin,
-                                       **con_kw)
+                                       args=args, **con_kw)
             self.sched_warm_hits += 1
             if cin.constrained:
                 hosts_q, scores_q, pre_q, rounds = out
@@ -1169,8 +1187,10 @@ class Engine:
         kernel: (QuotaSnapshot, runtime [Q, R] numpy)."""
         qs = QuotaSnapshot(groups, resources)
         total = np.array([cluster_total.get(r, 0) for r in resources], dtype=np.int64)
-        runtime = quota_mod.quota_fn(self._tensors(quota_mod.QuotaArrays(*qs.arrays())),
-                                     qs.level_tuple(), convert.tensor(total, self.device))
+        qa = qs.arrays()
+        *arrs, total_t = self._quota_upload.upload(tuple(qa[1:]) + (total,), self.device)
+        runtime = quota_mod.quota_fn(quota_mod.QuotaArrays(qa.parent, *arrs), qs.level_tuple(),
+                                     total_t, stage=self._quota_refresh_stage)
         return qs, runtime.cpu().numpy()
 
 

@@ -435,6 +435,81 @@ def test_quota_and_reservation_kernels_equal_plain(card):
     assert all(cuda.KERNELS[k].launches > before[k] for k in ("quota", "quota_limit"))
 
 
+REFRESH_CASES = [(False, False), (False, True), (True, False), (True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64, 128, 1024])
+@pytest.mark.parametrize("con,extras", REFRESH_CASES)
+def test_refresh_one_launch_equals_plain(card, con, extras, D):
+    """The one-launch refresh, plain and constrained, without and with
+    extras, at the warm paths' buckets and above: equal to its plain
+    version and to a cold key build, the first and last columns among the
+    dirty rows, one launch a call."""
+    rec = chip_smoke.check_refresh_case(_inputs(card, 2000, 200), con, extras, D)
+    assert rec["launches"] == 1 and rec["D"] == D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("con", [False, True])
+@pytest.mark.parametrize("nodes,D,route", [(2000, 1024, "large"), (5000, 4096, "copy")])
+def test_refresh_plan_past_the_small_block(card, con, nodes, D, route):
+    """Node blocks of one row, so that the plan has an entry a dirty row:
+    ~1,021 entries ride in the 28-KB parameter block, ~4,093 (past its
+    7,168 words) in a device copy; equal to the plain version and a cold
+    key build, one launch a call either way."""
+    rec = chip_smoke.check_refresh_case(_inputs(card, nodes, 200), con, False, D, BS=1)
+    words = cuda.REFRESH_PARAM_WORDS
+    assert rec["launches"] == 1 and (rec["plan_words"] > words) == (route == "copy")
+    assert rec["plan_words"] > 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("con", [False, True])
+def test_refresh_is_one_device_activity(card, con):
+    """A refresh call with the cycle's launch arguments (``warm_args``, as
+    the engine calls it) is one device activity: no copy, no fill, one
+    kernel."""
+    x = _inputs(card, 1000, 200)
+    s = chip_smoke.refresh_setup(x, con, False)
+    args = (s["q_la"], x["la_nodes"], x["weights"], s["q_nf"], x["nf_nodes"], x["static"],
+            x["valid"], s["pod_ok"], s["salts"])
+    wa = resolved.warm_args(*args, s["con"])
+    idx = chip_smoke.padded(np.arange(3, 900, 7, dtype=np.int32))
+    ev = chip_smoke.device_events(
+        lambda: resolved.schedule_refresh(s["carry"], idx, *args, 16, s["con"], None, wa), 5)
+    assert chip_smoke.device_activities(ev) == 1, ev
+
+
+@pytest.mark.cuda
+def test_quota_tiers_equal_plain(card):
+    """``quota`` and ``quota_limit`` in both memory tiers: each tree through
+    its own tier (the 6,000-group tree past the shared memory) and forced to
+    the global one, and without a stage."""
+    from koordinator_tpu_torch.core import quota as tq
+    from koordinator_tpu_torch.snapshot.quota import QuotaSnapshot
+
+    tiers = {QuotaSnapshot(g, ["cpu", "memory"]).min.shape[0]: name
+             for name, g in chip_smoke.quota_trees()}
+    stages = {q: tq.QuotaStage().bind(np.zeros(q, dtype=np.int32), (), card).tier(2)
+              for q in tiers}
+    assert sorted(stages.values()) == ["global", "shared", "shared"], (tiers, stages)
+    before = {k: cuda.KERNELS[k].launches for k in ("quota", "quota_limit")}
+    chip_smoke.check_quota_kernels(card, timed=False)
+    assert all(cuda.KERNELS[k].launches > before[k] for k in ("quota", "quota_limit"))
+
+
+def test_refresh_cases_run_on_cpu_tensors():
+    """``chip_smoke.check_refresh_case`` on CPU tensors, where the wrapper
+    takes its plain version: the comparison logic, and no launch."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    x = _inputs(torch.device("cpu"), 300, 50)
+    for con, extras in REFRESH_CASES:
+        rec = chip_smoke.check_refresh_case(x, con, extras, 64)
+        assert rec["launches"] == 0 and rec["D"] == 64
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
 def test_con_checks_run_on_cpu_tensors():
     """``chip_smoke``'s constraint checks on CPU tensors, where every
     wrapper takes its plain version: the comparison logic, and no launch."""
