@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
      at a small shape across commit caps, then the round loop's edge cases
      over a grid of many blocks (``ROUND_CASES`` and ``hot_node`` at 2,000
      nodes), the reservation rows' edge cases (``rsv_cases``; one launch
-     writes both rows, ``rsv_rows``), then at the main path's full shape
+     writes both rows, ``rsv_rows``), the LoadAware strip's (``la_cases``:
+     ``la_score`` and ``loadaware_score_and_filter``), then at the main
+     path's full shape
      (1,024 pods x 16,384 node columns, and the reservation rows at the
      descheduler's one-pod shape), with each one's time, and the round
      loop under its four knob settings and at the one-pod probe
@@ -64,7 +66,11 @@ Phases (any failure exits non-zero and prints no result line):
      every SCHEDULE a cold scan;
   11. the explain slice's kernels (``la_score``, ``nf_score`` under the
      three strategies, ``loadaware_score_and_filter``) against their plain
-     versions at 64 x 512 and at the full shape (phase 3 and 9's places);
+     versions at 64 x 512 and at the full shape (phase 3 and 9's places;
+     the LoadAware strip's records with events around a run of 100 calls
+     over 100, ``ms_run``: its device time where the host keeps ahead; and
+     the ``fill_`` floor of its outputs, one call and a run: the profiler
+     read no device time for them late in a full run);
      the LoadAware library call ``loadaware_score_and_filter`` at full
      width from the snapshot builders;
   12. the sidecar path: the port's ``SidecarServer`` on the card and a
@@ -191,6 +197,19 @@ constraint path's 100 groups and a 6,000-group tree past the shared-memory
 tier, with their split, and the engine's cache miss); ``--root`` takes
 another checkout of the port: one from before the planned refreshes
 (with ``core.quota.flat_levels``) or a later one.
+
+    python3 chip_smoke.py --la [--root DIR]
+
+prints one ``la_study`` JSON line (``la_study``): ``la_score`` and
+``loadaware_score_and_filter`` through ``core.loadaware``'s entry points
+at 1,024 x 16,384, at the library path's 1,000 x 10,000 and at the
+sidecar breakdown SCORE's shape, each equal to its plain version first:
+the call, its device time and activities, its host time, the call split
+by step and the ``fill_`` floor of its outputs; the ``-Xptxas -v`` lines
+of the breakdown library and of ``score_kernel``; the edge cases of
+``la_cases`` with any mismatch recorded.  ``--root`` takes another
+checkout of the port (one from before the strip kernel or a later one):
+run two checkouts alternately in one call.
 """
 
 from __future__ import annotations
@@ -2679,6 +2698,115 @@ def check_score_cases(dev, small=None) -> int:
     return n
 
 
+def la_cases(dev, small=None) -> list:
+    """(name, (la_pods, la_nodes, weights)) of the LoadAware strip's edge
+    cases (``la_score`` and ``loadaware_score_and_filter``), made with numpy
+    from fixed seeds: a ragged 267 x 45 (from ``small`` when given); one
+    pod, and a pod axis that is not a multiple of the strip; the quotient
+    boundaries; the generic widths R = 1 and 3; rows off the float
+    estimate's range (capacities of 0 and of 2**55 or more, negative and
+    huge est, negative bases); weights with a negative entry, a zero entry
+    and a sum of 2**22 or more; nodes without a live NodeMetric; DaemonSet
+    pods; prod-class pods on nodes with all-zero prod thresholds and on
+    nodes without them; both filters off; usages whose 200 u + t wraps."""
+    rng = np.random.default_rng(SEED + 60)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=a.dtype)).to(dev)
+
+    def case(seed, P, N, R=2):
+        x = synthetic_inputs(dev, seed, P, N, R, 1, 1)
+        return x["la_pods"], x["la_nodes"], x["weights"]
+
+    def host(a):
+        return a.cpu().numpy().copy()
+
+    out = []
+    if small is not None:
+        x = ragged(small, 267, 45)
+        out.append(("267x45", (x["la_pods"], x["la_nodes"], x["weights"])))
+    out.append(("one pod", case(SEED + 61, 1, 300)))
+    out.append(("70x333", case(SEED + 62, 70, 333)))
+    x = boundary_inputs(dev, SEED + 2)
+    out.append(("boundaries", (x["la_pods"], x["la_nodes"], x["weights"])))
+    out.append(("generic R=1", case(SEED + 63, 33, 129, 1)))
+    out.append(("generic R=3", case(SEED + 64, 45, 200, 3)))
+    # columns by j mod 8: 0 capacity 0, 1 capacity in [2**55, 2**56) with
+    # bases below it, 2 negative non-prod bases, 3 negative prod bases;
+    # pods by q mod 5: 1 negative est; pod 7 an est of 2**58
+    pods, nodes, w = case(SEED + 65, 40, 280)
+    col = (np.arange(280) % 8)[:, None]
+    big = rng.integers(2**55, 2**56, (280, 2))
+    frac = rng.random((280, 2))
+    alloc = np.where(col == 0, 0, np.where(col == 1, big, host(nodes.alloc)))
+    bnp = np.where(col == 1, (big * frac).astype(np.int64), host(nodes.base_nonprod))
+    bp = np.where(col == 1, (big * frac * 0.9).astype(np.int64), host(nodes.base_prod))
+    bnp = np.where(col == 2, -rng.integers(1, 20000, (280, 2)), bnp)
+    bp = np.where(col == 3, -rng.integers(1, 20000, (280, 2)), bp)
+    est = np.where((np.arange(40) % 5 == 1)[:, None], -rng.integers(1, 5000, (40, 2)),
+                   host(pods.est))
+    est[7] = (2**58, 3)
+    out.append(("off the estimate's range", (
+        pods._replace(est=t(est), is_prod_score=t(np.arange(40) % 2 == 0)),
+        nodes._replace(alloc=t(alloc), base_nonprod=t(bnp), base_prod=t(bp)), w)))
+    pods, nodes, _ = case(SEED + 66, 40, 300)
+    for name, wv in (("negative", [-1, 3]), ("zero", [0, 3]), ("2**22", [2**21, 2**21 + 3])):
+        out.append((f"weights {name}", (pods, nodes, t(np.array(wv, dtype=np.int64)))))
+    pods, nodes, w = case(SEED + 67, 40, 300)
+    out.append(("no live NodeMetric", (pods, nodes._replace(
+        score_valid=t(np.arange(300) % 3 == 0)), w)))
+    out.append(("DaemonSet pods", (pods._replace(is_daemonset=t(np.arange(40) % 2 == 0)), nodes,
+                                   w)))
+    has = np.arange(300) % 2 == 0
+    prod_thr = host(nodes.prod_thresholds)
+    prod_thr[has] = 0
+    on = np.ones(300, dtype=bool)
+    out.append(("prod class, zero prod thresholds", (
+        pods._replace(is_prod_class=t(np.arange(40) % 2 == 0)),
+        nodes._replace(has_prod_thresholds=t(has), prod_thresholds=t(prod_thr),
+                       filter_active=t(on), prod_filter_active=t(on)), w)))
+    out.append(("filters off", (pods, nodes._replace(filter_active=t(~on),
+                                                     prod_filter_active=t(~on)), w)))
+    # usages of 2**56 and more on even columns: 200 u wraps past 2**63
+    pods, nodes, w = case(SEED + 68, 40, 300)
+    wide = (np.arange(300) % 2 == 0)[:, None]
+    out.append(("200u + t wraps", (pods._replace(is_prod_class=t(np.arange(40) % 3 == 0)),
+                                   nodes._replace(
+        filter_usage=t(np.where(wide, rng.integers(2**56, 2**62, (300, 2)),
+                                host(nodes.filter_usage))),
+        prod_usage=t(np.where(wide, rng.integers(2**56, 2**62, (300, 2)),
+                              host(nodes.prod_usage))),
+        thresholds=t(rng.integers(1, 100, (300, 2))),
+        prod_thresholds=t(rng.integers(1, 100, (300, 2))),
+        filter_active=t(on), prod_filter_active=t(on)), w)))
+    return out
+
+
+def check_la_cases(dev, small=None) -> int:
+    """``la_score`` and ``loadaware_score_and_filter`` on ``la_cases``, each
+    against ``loadaware_score_plain`` and ``loadaware_filter`` exactly
+    (raises ``Mismatch``); returns the cases checked.  Fails where a case
+    does not build what it names (a negative score under a negative
+    weight, every pair feasible with the filters off)."""
+    from koordinator_tpu_torch.core import loadaware as la
+
+    n = 0
+    for name, (pods, nodes, w) in la_cases(dev, small):
+        P, N = pods.est.shape[0], nodes.alloc.shape[0]
+        score, feasible = la.loadaware_score_plain(pods, nodes, w), la.loadaware_filter(pods, nodes)
+        require_equal(f"la case {name} ({P}x{N}): la_score", (la.loadaware_score(pods, nodes, w),),
+                      (score,))
+        require_equal(f"la case {name} ({P}x{N}): loadaware_score_and_filter",
+                      la.loadaware_score_and_filter(pods, nodes, w), (score, feasible))
+        if name == "weights negative" and not bool((score < 0).any()):
+            fail("la case weights negative: no negative score")
+        if name == "filters off" and not bool(feasible.all()):
+            fail("la case filters off: a pair is infeasible")
+        n += 1
+    print(f"  la_score and loadaware_score_and_filter: {n} edge cases equal plain", flush=True)
+    return n
+
+
 def scan_extras(inp, seed: int):
     """A placement-and-devices mask (about 90% open) and extra scores in
     [-100, 200] (negative like an amplified-CPU delta) at [P, N]."""
@@ -3408,10 +3536,12 @@ def check_breakdown_kernels(inp, timed: bool):
     nf_in = nbytes(nf_pods.req_score, nf_nodes.alloc_score, nf_nodes.req_score)
     recs = []
     b, by = bound_ms(la_in + P * N * 8, P * N * (9 * R + 2))
+    floor = la_floor(P, N, la_pods.est.device, False)
     recs.append(dict(name="la_score", source=BREAKDOWN_SOURCE,
                      replaces="koordinator_tpu/core/loadaware.py:77 (engine.py:1173)",
                      ms=cuda_ms(la_kernel), plain_ms=cuda_ms(la_plain), bound_ms=b, bound_by=by,
-                     max_abs_err=err["la_score"]))
+                     max_abs_err=err["la_score"], ms_run=run_ms(la_kernel),
+                     floor_ms=cuda_ms(floor), floor_ms_run=run_ms(floor)))
     b, by = bound_ms(nf_in + P * N * 8, P * N * (10 * Rs + 2))
     recs.append(dict(name="nf_score", source=BREAKDOWN_SOURCE,
                      replaces="koordinator_tpu/core/nodefit.py:84 (engine.py:1169)",
@@ -3420,10 +3550,12 @@ def check_breakdown_kernels(inp, timed: bool):
                      strategies_ms={k: {"ms": v[0], "plain_ms": v[1]} for k, v in nf_ms.items()
                                     if k != "least"}))
     b, by = bound_ms(la_in + filt_in + P * N * 9, P * N * (9 * R + 2 + 7 * R + 3))
+    floor = la_floor(P, N, la_pods.est.device, True)
     recs.append(dict(name="loadaware_score_and_filter", source=BREAKDOWN_SOURCE,
                      replaces="koordinator_tpu/core/loadaware.py:133", ms=cuda_ms(fused_kernel),
                      plain_ms=cuda_ms(fused_plain), bound_ms=b, bound_by=by,
-                     max_abs_err=err["loadaware_score_and_filter"]))
+                     max_abs_err=err["loadaware_score_and_filter"], ms_run=run_ms(fused_kernel),
+                     floor_ms=cuda_ms(floor), floor_ms_run=run_ms(floor)))
     return recs
 
 
@@ -5933,6 +6065,13 @@ def score_study(dev, reps: int = 21) -> int:
 DESCHED_STUDY_GROUPS = (("thresholds_kernel", "thresholds"),) + DESCHED_GROUPS
 
 
+def table_address(table):
+    """What a launch takes for a pointer table of ``cuda._ptr_table``: the
+    address of an ``array.array`` (a ctypes array, on a checkout from before
+    the strip kernel, passes as it is)."""
+    return table.buffer_info()[0] if hasattr(table, "buffer_info") else table
+
+
 def desched_split(kernel, want, cuda, device_ms: float) -> dict:
     """The round's split from the study build ``csrc/deschedstudy.cu`` (the
     port's launch pointed at it for one call, equal to the plain version's
@@ -6010,7 +6149,8 @@ def desched_host_split(st, nodes, pods, low, high, w, kw, reps: int = 201) -> di
                         [t.contiguous() for t in (*st, *nodes, *pods, low, high, w)]),
         outputs=lambda: ds._packed_outputs(N, Pc, R, dev), scratch=scratch_stage,
         tables=lambda: (cuda._ptr_table(ins), cuda._ptr_table(outs)),
-        launch=lambda: cuda.DESCHEDULE_ROUND.launch(in_tab, out_tab, params, scratch.data_ptr(),
+        launch=lambda: cuda.DESCHEDULE_ROUND.launch(table_address(in_tab), table_address(out_tab),
+                                                    params, scratch.data_ptr(),
                                                     cuda.device_index(dev), cuda.stream(dev)),
         call=lambda: ds.deschedule_round(st, nodes, pods, low, high, w, **kw))
     out = {}
@@ -6634,6 +6774,27 @@ def device_activities(ev: dict) -> float:
     profiler's own buffer requests."""
     return sum(n for k, (n, _) in ev.items()
                if not k.startswith("aten::") and k != "Activity Buffer Request")
+
+
+def device_time(ev: dict) -> float:
+    """The device milliseconds a call of ``device_events``' record, without
+    the host operators (an ``aten::`` operator shows its kernel's time)."""
+    return sum(ms for k, (_, ms) in ev.items() if not k.startswith("aten::"))
+
+
+def la_floor(P: int, N: int, dev, fused: bool):
+    """The LoadAware entry points' store floor: a function that runs
+    ``fill_`` on outputs like theirs ([P, N] int64, and [P, N] bool when
+    ``fused``: 8 or 9 bytes a pair written, nothing read)."""
+    outs = [torch.empty((P, N), dtype=torch.int64, device=dev)]
+    if fused:
+        outs.append(torch.empty((P, N), dtype=torch.bool, device=dev))
+
+    def floor():
+        for o in outs:
+            o.fill_(1)
+
+    return floor
 
 
 PLACE_STUDY = (256, 16_384)  # the kernel table's signatures and label vocabulary
@@ -7425,6 +7586,166 @@ def quota_study(dev, reps: int = 21) -> int:
     return 0
 
 
+def la_study_shapes(dev) -> list:
+    """(name, (la_pods, la_nodes, weights)) of the ``--la`` study: the kernel
+    table's 1,024 x 16,384 (``build_inputs`` as ``check_breakdown_kernels``
+    gets it), the library path's 1,000 x 10,000 from the snapshot builders
+    (``drive_library_path``) and the sidecar's breakdown SCORE (its fleet
+    and batch as ``sidecar_frames`` sends them, laid out as
+    ``Engine.score_breakdown`` lays them out)."""
+    from koordinator_tpu_torch import convert
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core.config import LoadAwareArgs
+    from koordinator_tpu_torch.snapshot import loadaware as la_snap
+    from koordinator_tpu_torch.utils.fixtures import NOW, random_cluster
+
+    scalars = (BATCH_CPU, BATCH_MEMORY)
+    pods, nodes = random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS)
+    full = build_inputs(pods, nodes, dev, scalars)
+    args = LoadAwareArgs()
+    library = (convert.la_pods(la_snap.build_pod_arrays(pods, args), dev),
+               convert.la_nodes(la_snap.build_node_arrays(nodes, args, NOW), dev),
+               convert.weights(la_snap.build_weights(args), dev))
+    side = build_inputs(con_batch(NUM_PODS, "side", SEED + 21),
+                        random_cluster(SEED, num_nodes=NUM_NODES, num_pods=0)[1], dev, scalars)
+    return [("table", (full["la_pods"], full["la_nodes"], full["weights"])),
+            ("library", library),
+            ("sidecar", (side["la_pods"], side["la_nodes"], side["weights"]))]
+
+
+def la_host_split(la, cuda, pods, nodes, w, fused: bool, reps: int) -> dict:
+    """Host microseconds of a LoadAware call by step, each in a loop of its
+    own (``per_call_us``): the pod and node tables' checks (``_la_tables``),
+    the weights' check, the configuration block (the per-R block where the
+    tree has ``loadaware_cfg``, else ``cfg_array``), the pointer tables,
+    ``loadaware_args`` whole, the outputs, the launch with its arguments
+    built, and the whole call."""
+    dev = pods.est.device
+    P, R = pods.est.shape
+    N = nodes.alloc.shape[0]
+    cfg = getattr(cuda, "loadaware_cfg", None) or (lambda r: cuda.cfg_array(r, 0, 0, None))
+    tabs = cuda._la_tables(pods, nodes, P, N, dev)
+    args = cuda.loadaware_args(pods, nodes, w)
+
+    def outputs():
+        s = torch.empty((P, N), dtype=torch.int64, device=dev)
+        return (s, torch.empty((P, N), dtype=torch.bool, device=dev)) if fused else (s,)
+
+    outs = outputs()
+    tail = (*(o.data_ptr() for o in outs), cuda.device_index(dev), cuda.stream(dev))
+    kernel = cuda.LA_SCORE_FILTER if fused else cuda.LA_SCORE
+    entry = la.loadaware_score_and_filter if fused else la.loadaware_score
+    steps = dict(
+        tables=lambda: cuda._la_tables(pods, nodes, P, N, dev),
+        weights=lambda: cuda._checked(w, torch.int64, (R,), dev, "LoadAware weights"),
+        cfg=lambda: cfg(R),
+        pointer_tables=lambda: cuda._pair_args(
+            tabs[0] + (None,) * cuda._NF_POD_PTRS, tabs[1] + (None,) * cuda._NF_NODE_PTRS,
+            cfg(R), la_w=w),
+        loadaware_args=lambda: cuda.loadaware_args(pods, nodes, w),
+        outputs=outputs,
+        launch=lambda: kernel.launch(args.pods, args.nodes, args.cfg, args.la_w, P, N, *tail),
+        call=lambda: entry(pods, nodes, w))
+    return {name: per_call_us(fn, reps) for name, fn in steps.items()}
+
+
+def la_record(la, cuda, pods, nodes, w, fused: bool, reps: int) -> dict:
+    """One entry point at one shape, equal to its plain version first: CUDA
+    events around one call, the profiler's device time and device
+    activities, the host time (host clock around a call after a
+    synchronise), the call split by step, the store floor (``fill_`` of the
+    same outputs: 8 bytes a pair, 9 fused) and the bytes bound; medians of
+    ``reps``."""
+    P, N = pods.est.shape[0], nodes.alloc.shape[0]
+    name = "loadaware_score_and_filter" if fused else "la_score"
+    score = la.loadaware_score_plain(pods, nodes, w)
+    if fused:
+        call = lambda: la.loadaware_score_and_filter(pods, nodes, w)  # noqa: E731
+        require_equal(f"{name} {P}x{N}", call(), (score, la.loadaware_filter(pods, nodes)))
+    else:
+        call = lambda: la.loadaware_score(pods, nodes, w)  # noqa: E731
+        require_equal(f"{name} {P}x{N}", (call(),), (score,))
+    del score
+    ev = device_events(call, reps)
+    floor = la_floor(P, N, pods.est.device, fused)
+    floor_ms, floor_device_ms = cuda_ms(floor, reps=reps), device_time(device_events(floor, reps))
+    in_b = nbytes(pods.est, pods.is_prod_score, w, nodes.alloc, nodes.base_nonprod,
+                  nodes.base_prod, nodes.score_valid)
+    if fused:
+        in_b += nbytes(pods.is_prod_class, pods.is_daemonset, nodes.filter_usage,
+                       nodes.filter_active, nodes.thresholds, nodes.prod_usage,
+                       nodes.prod_filter_active, nodes.prod_thresholds,
+                       nodes.has_prod_thresholds)
+    return dict(name=name, P=P, N=N, ms=cuda_ms(call, reps=reps), device_ms=device_time(ev),
+                device_events=device_activities(ev), events=ev, host_ms=host_ms(call, reps),
+                split_us=la_host_split(la, cuda, pods, nodes, w, fused, reps),
+                floor_ms=floor_ms, floor_device_ms=floor_device_ms,
+                bound_ms=bound_ms(in_b + P * N * (9 if fused else 8), 0)[0])
+
+
+def la_case_faults(dev, small) -> dict:
+    """``check_la_cases`` case by case, a mismatch recorded instead of
+    raised: case and entry point -> the mismatch's message (its first
+    differing indices)."""
+    from koordinator_tpu_torch.core import loadaware as la
+
+    out = {}
+    for name, (pods, nodes, w) in la_cases(dev, small):
+        score, feasible = la.loadaware_score_plain(pods, nodes, w), la.loadaware_filter(pods, nodes)
+        for entry, got, want in (
+                ("la_score", lambda: (la.loadaware_score(pods, nodes, w),), (score,)),
+                ("loadaware_score_and_filter",
+                 lambda: la.loadaware_score_and_filter(pods, nodes, w), (score, feasible))):
+            try:
+                require_equal(f"la case {name}: {entry}", got(), want)
+            except Mismatch as e:
+                out[f"{name}: {entry}"] = str(e)
+    return out
+
+
+def la_study(dev, reps: int = 21) -> int:
+    """``--la``: ``la_score`` and ``loadaware_score_and_filter`` through the
+    public entry points (``core.loadaware``) at the kernel table's 1,024 x
+    16,384, the library path's 1,000 x 10,000 and the sidecar breakdown
+    SCORE's shape (``la_study_shapes``), each record a ``la_record``; the
+    ``-Xptxas -v`` lines of the breakdown library and of ``score_kernel``;
+    the edge cases of ``la_cases`` with any mismatch recorded
+    (``la_case_faults``).  ``--root`` takes another checkout of the port
+    (the parent of the strip kernel or a later one): run two checkouts
+    alternately in one call.  One ``la_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import loadaware as la
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    out = dict(ptxas={"breakdown": ptxas_report(libs["breakdown"], ""),
+                      "score_kernel": ptxas_report(libs["score"], "score_kernel")}, cases=[])
+    for lib, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"  ptxas {lib}: {line}")
+    for shape, (pods, nodes, w) in la_study_shapes(dev):
+        for fused in (False, True):
+            rec = dict(la_record(la, cuda, pods, nodes, w, fused, reps), shape=shape)
+            out["cases"].append(rec)
+            print(f"  {rec['name']} {shape} {rec['P']}x{rec['N']}: equal plain; call "
+                  f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms in "
+                  f"{rec['device_events']:.0f} activities, host {rec['host_ms'] * 1e3:.1f} us; "
+                  f"fill_ floor {rec['floor_ms']:.4f} ms (device {rec['floor_device_ms']:.4f}); "
+                  f"bound {rec['bound_ms']:.4f} ms; split us " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in rec["split_us"].items()), flush=True)
+        del pods, nodes, w
+        torch.cuda.empty_cache()
+    small = build_inputs(*random_cluster(SEED, num_nodes=300, num_pods=50), dev,
+                         (BATCH_CPU, BATCH_MEMORY))
+    out["case_faults"] = la_case_faults(dev, small)
+    print(f"  edge cases: {len(la_cases(dev, small))}, mismatches "
+          f"{out['case_faults'] or 'none'}", flush=True)
+    print(json.dumps({"la_study": out, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
     if "--root" in sys.argv:
         # time another checkout's port (a parent commit unpacked beside)
@@ -7460,6 +7781,8 @@ def main() -> int:
         return refresh_study(torch.device("cuda:0"))
     if "--quota" in sys.argv:
         return quota_study(torch.device("cuda:0"))
+    if "--la" in sys.argv:
+        return la_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -7510,6 +7833,7 @@ def main() -> int:
     check_extra_kernels(small, True, timed=False, commit_cap=1)
     check_strategies_small(small)
     check_score_cases(dev, small)
+    check_la_cases(dev, small)
     check_shard_cases(dev)
     check_gate_cases(dev)
     check_rsv_cases(dev)
@@ -7661,7 +7985,7 @@ def main() -> int:
             "plain_ms_bench_sim", "bound_ms_bench_sim", "ms_bench_sim_deviation",
             "plain_ms_bench_sim_deviation", "device_split_ms", "score_ms", "ms_run",
             "library_ms_run", "residency_ms", "bound_over", "device_ms", "ms_one_pod",
-            "plain_ms_one_pod", "bound_ms_one_pod")
+            "plain_ms_one_pod", "bound_ms_one_pod", "floor_ms", "floor_ms_run")
     kernels = []
     for rec in records:
         name = rec["name"]

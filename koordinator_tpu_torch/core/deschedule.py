@@ -235,7 +235,8 @@ def deschedule_round(state: AnomalyState, nodes: LNLNodeArrays, pods: LNLPodArra
     index, stream = cuda.device_index(dev), cuda.stream(dev)
     scratch = _scratch(index, stream, N, Pc, R, G)
     in_tab, out_tab = cuda._ptr_table(ins), cuda._ptr_table(outs)
-    cuda.DESCHEDULE_ROUND.launch(in_tab, out_tab, params, scratch.data_ptr(), index, stream)
+    cuda.DESCHEDULE_ROUND.launch(in_tab.buffer_info()[0], out_tab.buffer_info()[0], params,
+                                 scratch.data_ptr(), index, stream)
     return DeschedRound(
         state=AnomalyState(o["anomaly"], o["ab"], o["norm"]), evicted=o["evicted"],
         rank=o["rank"], under=o["under"], over=o["over"], source=o["source"],

@@ -6,8 +6,9 @@ Here the plain PyTorch version produces the full [P, N] score matrix and the
 [P, N] feasibility mask at once; the CUDA kernels of ``core.cycle`` and
 ``core.resolved`` evaluate the same arithmetic per pair (``csrc/pair.cuh``).
 The wrappers ``loadaware_score`` (the ``la_score`` kernel) and
-``loadaware_score_and_filter`` launch ``csrc/breakdown.cu`` for CUDA tensors
-and run the plain versions for CPU tensors.
+``loadaware_score_and_filter`` launch ``csrc/breakdown.cu``'s LoadAware
+strip (``la_strip_kernel``, one launch a call) for CUDA tensors and run the
+plain versions for CPU tensors.
 
   score(p, n) = sum_r w_r * lrs(est_p[r] + base_n[r], alloc_n[r])  /  sum_r w_r
   lrs(u, c)   = 0 if c == 0 or u > c else (c - u) * 100 / c        (load_aware.go:388-397)

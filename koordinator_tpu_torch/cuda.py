@@ -15,6 +15,7 @@ a CUDA toolkit, where only the plain PyTorch versions run.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import hashlib
@@ -426,6 +427,9 @@ def sm_count(device: torch.device) -> int:
     return _sm_count(device_index(device))
 
 
+CFG_LEN = 3 + 3 * MAXR + 2 + 2 * MAX_SHAPE  # KOORD_CFG_LEN in csrc/pair.cuh
+
+
 @functools.lru_cache(maxsize=64)
 def cfg_array(R: int, Rf: int, Rs: int, nf_static) -> ctypes.Array:
     """The kernels' host configuration block, laid out as ``koord_cfg`` in
@@ -435,8 +439,7 @@ def cfg_array(R: int, Rf: int, Rs: int, nf_static) -> ctypes.Array:
     and their utilizations and (0..100-scaled) scores, each padded to
     ``MAX_SHAPE``.  It depends only on static config, so it is built once
     per configuration and never read back from the card.  The blocks are
-    read-only.  ``nf_static`` None (a LoadAware-only kernel) leaves the
-    NodeFit half zero.  Raises ``ValueError`` on an unknown strategy or a shape the
+    read-only.  Raises ``ValueError`` on an unknown strategy or a shape the
     reference would not build (RequestedToCapacityRatio needs 1 to 101
     points with strictly increasing utilizations in 0..100)."""
 
@@ -444,8 +447,6 @@ def cfg_array(R: int, Rf: int, Rs: int, nf_static) -> ctypes.Array:
         vals = [int(v) for v in vals]
         return vals + [0] * (width - len(vals))
 
-    if nf_static is None:  # a LoadAware-only kernel: the NodeFit half is zeros
-        return (ctypes.c_longlong * (3 + 3 * MAXR + 2 + 2 * MAX_SHAPE))(R, Rf, Rs)
     strategy = STRATEGY_IDS.get(nf_static.strategy)
     if strategy is None:
         raise ValueError(f"unknown NodeFit scoring strategy {nf_static.strategy!r}")
@@ -456,11 +457,21 @@ def cfg_array(R: int, Rf: int, Rs: int, nf_static) -> ctypes.Array:
                 0 <= us[0] and us[-1] <= 100):
             raise ValueError(f"RequestedToCapacityRatio shape {shape}: 1 to {MAX_SHAPE} points "
                              "with strictly increasing utilizations in 0..100")
-    return (ctypes.c_longlong * (3 + 3 * MAXR + 2 + 2 * MAX_SHAPE))(
+    return (ctypes.c_longlong * CFG_LEN)(
         R, Rf, Rs, *pad(nf_static.weights), *pad(nf_static.always_check),
         *pad(nf_static.scalar_bypass), strategy, len(shape),
         *pad([u for u, _ in shape], MAX_SHAPE), *pad([s for _, s in shape], MAX_SHAPE),
     )
+
+
+@functools.lru_cache(maxsize=MAXR + 1)
+def loadaware_cfg(R: int) -> ctypes.Array:
+    """The LoadAware-only kernels' configuration block (``la_score``,
+    ``loadaware_score_and_filter``): ``cfg_array``'s layout with (R, 0, 0)
+    and a NodeFit half of zeros.  It depends on R alone, so it is built once
+    per R, shared by every call and never written (the strip kernel reads
+    only R from it)."""
+    return (ctypes.c_longlong * CFG_LEN)(R, 0, 0)
 
 
 def require_least_allocated(nf_static, what: str) -> None:
@@ -486,10 +497,13 @@ class PairArgs(NamedTuple):
     keep: tuple
 
 
-def _ptr_table(tensors) -> ctypes.Array:
-    """A pointer table for a launch; a ``None`` entry (a half the kernel
-    does not read) is a null pointer."""
-    return (ctypes.c_void_p * len(tensors))(*(0 if t is None else t.data_ptr() for t in tensors))
+def _ptr_table(tensors) -> array.array:
+    """A pointer table for a launch: the tensors' 64-bit addresses in a
+    buffer whose own address is ``table.buffer_info()[0]``, kept alive by
+    the caller until the launch has read it; a ``None`` entry (a half the
+    kernel does not read) is a null pointer.  (An ``array.array`` fills in
+    about a third of the host time of a ctypes array of ``c_void_p``.)"""
+    return array.array("Q", [0 if t is None else t.data_ptr() for t in tensors])
 
 
 def _checked(t: torch.Tensor, dtype: torch.dtype, shape: tuple, device, what: str):
@@ -568,8 +582,8 @@ def _nf_tables(nf_pods, nf_nodes, P: int, N: int, dev):
 def _pair_args(pods, nodes, cfg, la_w=None, valid=None) -> PairArgs:
     pod_tab, node_tab = _ptr_table(pods), _ptr_table(nodes)
     return PairArgs(
-        pods=ctypes.addressof(pod_tab),
-        nodes=ctypes.addressof(node_tab),
+        pods=pod_tab.buffer_info()[0],
+        nodes=node_tab.buffer_info()[0],
         cfg=ctypes.addressof(cfg),
         la_w=0 if la_w is None else la_w.data_ptr(),
         valid=0 if valid is None else valid.data_ptr(),
@@ -614,17 +628,18 @@ _GRID_Y_MAX = 65_535  # the pod axis rides the grid's y dimension
 
 def loadaware_args(la_pods, la_nodes, la_weights) -> PairArgs:
     """Validate the LoadAware inputs on one CUDA device and lay them out
-    for the ``breakdown.cu`` kernels (``la_score``,
+    for the ``breakdown.cu`` strip kernel (``la_score``,
     ``loadaware_score_and_filter``); the NodeFit entries of the pointer
-    tables are null.  The weights must sum to > 0, as the reference
-    requires (the caller's contract; the kernel divides by their sum)."""
+    tables are null and the configuration block is ``loadaware_cfg(R)``.
+    The weights must sum to > 0, as the reference requires (the caller's
+    contract; the kernel divides by their sum)."""
     dev = _cuda_device(la_pods.est)
     P, R = la_pods.est.shape
     if P > _GRID_Y_MAX:
         raise ValueError(f"LoadAware: {P} pods exceed the launch's {_GRID_Y_MAX}")
     pods, nodes = _la_tables(la_pods, la_nodes, P, la_nodes.alloc.shape[0], dev)
     return _pair_args(pods + (None,) * _NF_POD_PTRS, nodes + (None,) * _NF_NODE_PTRS,
-                      cfg_array(R, 0, 0, None),
+                      loadaware_cfg(R),
                       la_w=_checked(la_weights, torch.int64, (R,), dev, "LoadAware weights"))
 
 

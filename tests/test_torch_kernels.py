@@ -846,6 +846,59 @@ def test_breakdown_wrappers_refuse_before_launch():
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
+LA = ("la_score", "loadaware_score_and_filter")
+LA_CASES = 15  # len(chip_smoke.la_cases(..., small))
+
+
+@pytest.mark.cuda
+def test_la_cases_equal_plain(card):
+    """The LoadAware strip (``la_score`` and ``loadaware_score_and_filter``)
+    on its edge cases: a ragged 267 x 45, one pod, a pod axis off the
+    strip, the quotient boundaries, R = 1 and 3, rows off the float
+    estimate's range, negative, zero and large weights, nodes without a
+    live NodeMetric, DaemonSet pods, zero prod thresholds, both filters off
+    and wrapping usages; each equal to its plain versions, one launch a
+    call."""
+    before = {k: cuda.KERNELS[k].launches for k in LA}
+    assert chip_smoke.check_la_cases(card, _inputs(card, 300, 50)) == LA_CASES
+    assert all(cuda.KERNELS[k].launches == before[k] + LA_CASES for k in LA)
+
+
+def test_la_cases_run_on_cpu_tensors():
+    """The LoadAware strip's edge cases on CPU tensors, where the wrappers
+    take the plain versions: the cases build and compare (none of them
+    mismatches), and nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    cpu = torch.device("cpu")
+    small = _inputs(cpu, 300, 50)
+    assert chip_smoke.check_la_cases(cpu, small) == LA_CASES
+    assert chip_smoke.la_case_faults(cpu, small) == {}
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_loadaware_args_layout(monkeypatch):
+    """``loadaware_args`` lays out what the strip kernel reads: the pod and
+    node tables' LoadAware entries at the tensors' addresses and null
+    NodeFit entries, the weights, and the configuration block of R, which
+    is built once per R and shared (``loadaware_cfg``)."""
+    import ctypes
+
+    monkeypatch.setattr(cuda, "_cuda_device", lambda t: t.device)  # lay out CPU tensors
+    x = _inputs(torch.device("cpu"), 40, 10)
+    la_pods, la_nodes, w = x["la_pods"], x["la_nodes"], x["weights"]
+    R = la_pods.est.shape[1]
+    args = cuda.loadaware_args(la_pods, la_nodes, w)
+    pods = list((ctypes.c_uint64 * 7).from_address(args.pods))
+    nodes = list((ctypes.c_uint64 * 17).from_address(args.nodes))
+    assert pods == [t.data_ptr() for t in la_pods] + [0] * 3
+    assert nodes == [t.data_ptr() for t in la_nodes] + [0] * 6
+    assert args.la_w == w.data_ptr() and args.valid == 0
+    block = cuda.loadaware_cfg(R)
+    assert args.cfg == ctypes.addressof(block) and cuda.loadaware_cfg(R) is block
+    assert list(block) == [R, 0, 0] + [0] * (cuda.CFG_LEN - 3)
+    assert cuda.loadaware_cfg(3) is not block and list(cuda.loadaware_cfg(3))[:3] == [3, 0, 0]
+
+
 def test_library_and_sidecar_phases_run_on_cpu():
     """``chip_smoke``'s library call and sidecar phase at a small fleet on
     the CPU (the "card's" sidecar on the CPU too): every reply of the two

@@ -3,6 +3,10 @@
 JAX package (core/loadaware.py, core/nodefit.py, core/cycle.py) on the
 same numpy-made inputs, bit for bit."""
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,6 +31,77 @@ def test_loadaware_score_and_filter(P, N, seed):
                 "loadaware_score")
     assert_same(tla.loadaware_filter(t[0], t[1]), jla.loadaware_filter(j[0], j[1]),
                 "loadaware_filter")
+
+
+LA_CASES = 15  # len(chip_smoke.la_cases(cpu, small)): the LoadAware strip's edge cases
+
+
+@functools.lru_cache(maxsize=1)
+def _la_cases():
+    """``chip_smoke.la_cases`` on CPU tensors, with the ragged case cut from
+    the fleet ``chip_smoke.py`` cuts it from: the very inputs the strip
+    kernel is held to its plain versions on."""
+    import chip_smoke
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.utils.fixtures import random_cluster as t_random_cluster
+
+    cpu = torch.device("cpu")
+    small = chip_smoke.build_inputs(
+        *t_random_cluster(chip_smoke.SEED, num_nodes=300, num_pods=50), cpu,
+        (BATCH_CPU, BATCH_MEMORY))
+    return chip_smoke.la_cases(cpu, small)
+
+
+def _exact_score(pods, nodes, w):
+    """The LoadAware score in numpy, every quotient floored exactly and
+    every sum and product wrapping as int64 does, beside the pairs on which
+    the JAX function's ``floor_div_fixup`` is inside its domain (0 <= x <=
+    100 d for each quotient: a used capacity in [0, cap] with cap > 0, or a
+    guarded resource, and a weighted sum in [0, 100 * sum(w)] with sum(w) >
+    0), where its estimate-and-fix-up is the floor."""
+    with np.errstate(over="ignore"):
+        base = np.where(pods.is_prod_score[:, None, None], nodes.base_prod[None],
+                        nodes.base_nonprod[None])
+        used = pods.est[:, None, :] + base
+        cap = nodes.alloc[None]
+        guard = (cap == 0) | (used > cap)
+        free100 = (cap - used) * 100
+        per = np.where(guard, 0, np.floor_divide(free100, np.where(cap == 0, 1, cap)))
+        acc = (per * w).sum(axis=-1)
+        wsum = w.sum()
+        score = np.where(nodes.score_valid[None], np.floor_divide(acc, wsum), 0)
+        ok = guard | ((cap > 0) & (used >= 0) & (free100 // 100 == cap - used))
+        dom = ok.all(axis=-1) & (wsum > 0) & (acc >= 0) & (acc <= 100 * wsum)
+    return score, dom
+
+
+@pytest.mark.parametrize("case", range(LA_CASES))
+def test_loadaware_cases_match_jax(case):
+    """The plain versions against the JAX package's ``loadaware_score`` and
+    ``loadaware_filter`` on the strip kernel's edge cases
+    (``chip_smoke.la_cases``), exactly.  The filter is compared on every
+    pair.  The score is compared on every pair where the JAX function's
+    ``floor_div_fixup`` is inside its documented domain: every pair of a
+    case whose est, bases and weights are all non-negative, and outside it
+    (a negative est, base or weight puts a quotient past 100 or a weighted
+    sum below 0, where the fix-up's clip is not the floor) the plain version
+    equals the exact floor computed in numpy, as it does on every pair."""
+    assert len(_la_cases()) == LA_CASES
+    name, (pods, nodes, w) = _la_cases()[case]
+    np_pods = jla.LoadAwarePodArrays(*(a.numpy() for a in pods))
+    np_nodes = jla.LoadAwareNodeArrays(*(a.numpy() for a in nodes))
+    jp, jn = jax.tree.map(jnp.asarray, np_pods), jax.tree.map(jnp.asarray, np_nodes)
+    got = tla.loadaware_score_plain(pods, nodes, w).numpy()
+    want = np.asarray(jla.loadaware_score(jp, jn, jnp.asarray(w.numpy())))
+    exact, dom = _exact_score(np_pods, np_nodes, w.numpy())
+    assert_same(got, exact, f"{name}: loadaware_score_plain against the exact floor")
+    assert dom.any(), name
+    assert_same(got[dom], want[dom], f"{name}: loadaware_score inside the JAX domain")
+    if all((a >= 0).all() for a in (np_pods.est, np_nodes.base_nonprod, np_nodes.base_prod,
+                                    w.numpy())):
+        assert dom.all(), f"{name}: a pair left the JAX function's domain"
+    assert_same(tla.loadaware_filter(pods, nodes), jla.loadaware_filter(jp, jn),
+                f"{name}: loadaware_filter")
 
 
 def test_loadaware_guards():
