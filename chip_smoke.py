@@ -210,6 +210,23 @@ of the breakdown library and of ``score_kernel``; the edge cases of
 ``la_cases`` with any mismatch recorded.  ``--root`` takes another
 checkout of the port (one from before the strip kernel or a later one):
 run two checkouts alternately in one call.
+
+    python3 chip_smoke.py --nf [--root DIR]
+    python3 chip_smoke.py --dev [--root DIR]
+
+print one ``nf_study`` JSON line (``nf_study``: ``nf_score`` at 1,024 x
+16,384 under the four strategy shapes and at the sidecar breakdown
+SCORE's shape, with the call, device time and activities, host time and
+split, the ``fill_`` floor; the ``ptxas`` lines of the breakdown
+library, ``score_kernel`` and ``rounds_kernel``; the mismatches of
+``nf_cases`` and ``repair_cases``) and one ``dev_study`` JSON line
+(``dev_study``: ``dev_feasible`` at 16 x 16,384 with Gm 8 and 16 and at
+128 and 200 signatures, with ``DeviceSigs`` and the packed block; the
+engine's dense device block at the placement path's shapes; the device
+library's ``ptxas`` lines; ``dev_cases`` and the rows' binding).
+``--root`` takes another checkout of the port, from before the NodeFit
+strip or a later one (the older ``dev_feasible`` takes its signatures on
+the card).
 """
 
 from __future__ import annotations
@@ -1903,7 +1920,8 @@ def device_inputs(dev, M: int, N: int, Gm: int, seed: int):
     """The device kernels' inputs, made with numpy from ``seed``: a third
     of the N nodes hold 1..Gm GPUs with random free shares (padded slots
     -1) and 0..16 VFs; M signatures of partial shares, whole-GPU counts,
-    GPU+RDMA draws, RDMA alone and one invalid count, and M GPU requests."""
+    GPU+RDMA draws, RDMA alone and one invalid count (host data, CPU
+    tensors), and M GPU requests."""
     from koordinator_tpu_torch import convert
     from koordinator_tpu_torch.core import placement as pl
 
@@ -1924,7 +1942,8 @@ def device_inputs(dev, M: int, N: int, Gm: int, seed: int):
         has, multi, cnt, c, r, rd = kinds[m % len(kinds)]
         for k, v in enumerate((has, multi, cnt, c + m % 3, r, rd, m != 7)):
             cols[k].append(v)
-    sigs = pl.DeviceSigs(*(T(np.array(c, dtype=bool if k in (0, 1, 6) else np.int32))
+    sigs = pl.DeviceSigs(*(torch.from_numpy(np.array(c, dtype=bool if k in (0, 1, 6)
+                                                     else np.int32))
                            for k, c in enumerate(cols)))
     alloc2 = np.repeat((100 * ng)[:, None], 2, axis=1).astype(np.int64)
     used2 = np.stack([np.where(slot, 100 - core, 0).sum(1), np.where(slot, 100 - mem, 0).sum(1)],
@@ -1936,7 +1955,8 @@ def device_inputs(dev, M: int, N: int, Gm: int, seed: int):
 
 def check_device_kernels(dev, M: int, N: int, Gm: int, timed: bool):
     """``dev_feasible`` and ``ds_score`` against their plain versions
-    (exact); their records when ``timed``."""
+    (exact); their records when ``timed`` (``dev_feasible`` on the packed
+    block of its signatures, as the engine passes them)."""
     from koordinator_tpu_torch.core import placement as pl
 
     feas_in, score_in = device_inputs(dev, M, N, Gm, SEED + 21 + Gm)
@@ -1950,12 +1970,14 @@ def check_device_kernels(dev, M: int, N: int, Gm: int, timed: bool):
     if not timed:
         return []
     core, mem, full, vfs, sigs = feas_in
+    # timed as the engine calls it: the signatures packed into one block
+    packed = (core, mem, full, vfs, pl.pack_device_sigs(sigs))
     b1 = bound_ms(nbytes(core, mem, full, vfs, *sigs) + M * N, M * N * (2 * Gm + 4))
     b2 = bound_ms(nbytes(*score_in) + M * N * 8, M * N * 12)
     return [
         dict(name="dev_feasible", source="koordinator_tpu_torch/csrc/device.cu",
              replaces="koordinator_tpu/service/engine.py:292", max_abs_err=err["dev_feasible"],
-             ms=cuda_ms(lambda: pl.dev_feasible(*feas_in)),
+             ms=cuda_ms(lambda: pl.dev_feasible(*packed)),
              plain_ms=cuda_ms(lambda: pl.dev_feasible_plain(*feas_in)), bound_ms=b1[0],
              bound_by=b1[1], library_ms=None, gm=Gm),
         dict(name="ds_score", source="koordinator_tpu_torch/csrc/device.cu",
@@ -2807,6 +2829,413 @@ def check_la_cases(dev, small=None) -> int:
     return n
 
 
+# ------------------------------------------------ the division repairs
+
+# LoadAware and NodeFit weights whose int64 sum wraps to 1
+WRAP_WEIGHTS = (2**63 - 1, 2**63 - 1, 3)
+
+
+def repair_cases(dev) -> list:
+    """(name, inputs) of the floored divisions' and the weight sums'
+    repairs: full input dicts (the queue in pod order, every pod real) of 40
+    pods x 300 nodes made with numpy from fixed seeds.  "la weights
+    negative": LoadAware weights [-1, 3]; "nf weights negative": NodeFit
+    weights (-1, 3); "requests negative": every third pod's scoring
+    requests below minus any node's requested score, so req_score +
+    nreq_score < 0 on every column (MostAllocated's req * 100 < 0); "weights
+    wrap": LoadAware weights ``WRAP_WEIGHTS`` at R = 3 and NodeFit's the
+    same at Rs = 3, whose int64 sums wrap to 1."""
+    import dataclasses
+
+    rng = np.random.default_rng(SEED + 80)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    def queued(x):
+        # the constraint inputs (con_inputs_for) read the filter axis' names
+        P = x["la_pods"].est.shape[0]
+        return dict(x, order=torch.arange(P, device=dev), p_real=P,
+                    state=types.SimpleNamespace(axis=("cpu", "memory", "ephemeral-storage")))
+
+    out = []
+    x = synthetic_inputs(dev, SEED + 81, 40, 300, 2, 3, 2)
+    out.append(("la weights negative", queued(dict(x, weights=t(np.array([-1, 3], np.int64))))))
+    x = synthetic_inputs(dev, SEED + 82, 40, 300, 2, 3, 2)
+    out.append(("nf weights negative",
+                queued(dict(x, static=dataclasses.replace(x["static"], weights=(-1, 3))))))
+    x = synthetic_inputs(dev, SEED + 83, 40, 300, 2, 3, 2)
+    rs = x["nf_pods"].req_score.cpu().numpy().copy()
+    neg = np.arange(40) % 3 == 1
+    rs[neg] = -rng.integers(70_001, 200_000, (int(neg.sum()), 2))
+    out.append(("requests negative",
+                queued(dict(x, nf_pods=x["nf_pods"]._replace(req_score=t(rs))))))
+    x = synthetic_inputs(dev, SEED + 84, 40, 300, 3, 3, 3)
+    out.append(("weights wrap", queued(dict(
+        x, weights=t(np.array(WRAP_WEIGHTS, dtype=np.int64)),
+        static=dataclasses.replace(x["static"], weights=WRAP_WEIGHTS)))))
+    return out
+
+
+def repair_property(name: str, inp) -> None:
+    """Fail unless a repair case builds what it names: a negative LoadAware
+    score, a negative NodeFit score, a negative request total and a
+    negative MostAllocated score, weight sums that wrap to 1."""
+    from koordinator_tpu_torch.core import loadaware as la
+    from koordinator_tpu_torch.core import nodefit as nf
+
+    statics = [inp["static"]] + [s for _, s in strategy_statics(inp["static"])]
+    if name == "la weights negative" and not bool(
+            (la.loadaware_score_plain(inp["la_pods"], inp["la_nodes"], inp["weights"]) < 0).any()):
+        fail("repair case la weights negative: no negative LoadAware score")
+    if name == "nf weights negative" and not any(
+            bool((nf.nodefit_score_plain(inp["nf_pods"], inp["nf_nodes"], s) < 0).any())
+            for s in statics):
+        fail("repair case nf weights negative: no negative NodeFit score")
+    if name == "requests negative":
+        tot = inp["nf_pods"].req_score[:, None, :] + inp["nf_nodes"].req_score[None]
+        most = nf.nodefit_score_plain(inp["nf_pods"], inp["nf_nodes"], statics[1])
+        if not (bool((tot < 0).any()) and bool((most < 0).any())):
+            fail("repair case requests negative: no negative total with a negative "
+                 "MostAllocated score")
+    if name == "weights wrap" and not (
+            int(inp["weights"].sum()) == 1
+            and int(torch.tensor(inp["static"].weights, dtype=torch.int64).sum()) == 1):
+        fail("repair case weights wrap: the weight sums do not wrap to 1")
+
+
+def repair_checks(name: str, inp) -> list:
+    """(kernels, check) of one repair case: each check runs its kernels on
+    the case under LeastAllocated, MostAllocated and both RTC shapes where
+    they take them, against their plain versions (raises ``Mismatch``):
+    ``score``; ``shard_score_map`` over two column blocks; ``nf_score``; the
+    key build and the round loop (``check_kernels``, LeastAllocated); every
+    key build (``check_key_builds``: MostAllocated and RTC, plain and
+    constrained, both key lanes); the scan (both plain routes, both layers;
+    under the wrapping weights, whose totals leave the keys' range, its own
+    plain route and both layers); ``sched_refresh`` plain and
+    constrained."""
+    from koordinator_tpu_torch.core import nodefit as nf
+    from koordinator_tpu_torch.core.cycle import PluginWeights, score_batch, score_fn
+    from koordinator_tpu_torch.service import sharding as sh
+
+    la_pods, nf_pods, la_nodes, nf_nodes, valid, w = (
+        inp["la_pods"], inp["nf_pods"], inp["la_nodes"], inp["nf_nodes"], inp["valid"],
+        inp["weights"])
+    statics = [("least", inp["static"])] + strategy_statics(inp["static"])
+    P, N, dev = la_pods.est.shape[0], valid.shape[0], valid.device
+    tag = f"repair case {name}"
+
+    def score():
+        for sname, static in statics:
+            t, f = score_batch(la_pods, la_nodes, w, nf_pods, nf_nodes, static, PluginWeights())
+            require_equal(f"{tag}: score {sname}",
+                          score_fn(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid),
+                          (t, f & valid[None, :]))
+
+    def shard():
+        for sname, static in statics:
+            for lo, hi in ((100, 200), (37, 90)):
+                got, want = sentinel_buffers(P, N, dev), sentinel_buffers(P, N, dev)
+                sh.shard_score_map(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid, None,
+                                   lo, hi, *got)
+                sh.shard_score_map_plain(la_pods, la_nodes, w, nf_pods, nf_nodes, static, valid,
+                                         None, lo, hi, *want)
+                require_equal(f"{tag}: shard_score_map {sname} [{lo}, {hi})", got, want)
+
+    def nf_score():
+        for sname, static in statics:
+            require_equal(f"{tag}: nf_score {sname}",
+                          (nf.nodefit_score(nf_pods, nf_nodes, static),),
+                          (nf.nodefit_score_plain(nf_pods, nf_nodes, static),))
+
+    def scan():
+        for sname, static in statics:
+            if name != "weights wrap":
+                check_scan_kernels(inp, static, False, "salted", False, False, what=f" ({tag})")
+                continue
+            # totals near 2**63 leave the keys' range (score * TB wraps), so
+            # the plain scan over totals is no reference: the kernel against
+            # its own plain route, and layer by layer
+            case = scan_case(inp, static, False, "salted", False)
+            require_equal(f"{tag}: scan {sname} against the plain route", case["kernel"](),
+                          case["steps"]())
+            case["layers"](f"{tag}: scan {sname}")
+
+    def refresh():
+        for con in (False, True):
+            check_refresh_case(inp, con, False, 16)
+
+    return [("score", score), ("shard_score_map", shard), ("nf_score", nf_score),
+            ("schedule_keys, schedule_rounds", lambda: check_kernels(inp, 16, timed=False)),
+            ("key builds", lambda: check_key_builds(inp, False)), ("scan", scan),
+            ("sched_refresh", refresh)]
+
+
+def check_repair_cases(dev) -> int:
+    """Every ``repair_cases`` case through every kernel of ``repair_checks``,
+    each equal to its plain version, after its ``repair_property`` (raises
+    ``Mismatch``); returns the checks run."""
+    n = 0
+    for name, inp in repair_cases(dev):
+        repair_property(name, inp)
+        for _, check in repair_checks(name, inp):
+            check()
+            n += 1
+    print(f"  the division repairs: {n} checks (negative LoadAware and NodeFit weights, negative "
+          "request totals, wrapping weight sums through score, shard_score_map, nf_score, the "
+          "key builds, the round loop, the scan and sched_refresh) equal plain", flush=True)
+    return n
+
+
+def repair_case_faults(dev) -> dict:
+    """``check_repair_cases`` check by check, a mismatch recorded instead of
+    raised: case and kernels -> the mismatch's message (its first
+    differing indices)."""
+    out = {}
+    for name, inp in repair_cases(dev):
+        for kernels, check in repair_checks(name, inp):
+            try:
+                check()
+            except Mismatch as e:
+                out[f"{name}: {kernels}"] = str(e)
+    return out
+
+
+# ------------------------------------------------- the NodeFit strip
+
+def nf_cases(dev, small=None) -> list:
+    """(name, (nf_pods, nf_nodes, static)) of the NodeFit strip's edge cases
+    (``nf_score``), made with numpy from fixed seeds: a ragged 267 x 45
+    (from ``small`` when given); one pod; a pod axis that is not a multiple
+    of the strip (70 x 333); the quotient boundaries; Rs = 3 and 5 and the
+    generic widths 1 and 8; rows off the float estimate's range (capacities
+    of 0 and of 2**55 or more, negative requested scores, negative and huge
+    requests); negative, zero, all-zero, 2**22 and large-sum weights; the
+    wrapping weights at Rs = 3; bypassed resources with zero requests."""
+    import dataclasses
+
+    rng = np.random.default_rng(SEED + 90)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=a.dtype)).to(dev)
+
+    def case(seed, P, N, Rs=2, bypass=None):
+        x = synthetic_inputs(dev, seed, P, N, 2, 1, Rs, bypass=bypass)
+        return x["nf_pods"], x["nf_nodes"], x["static"]
+
+    def weighted(c, wv):
+        return c[0], c[1], dataclasses.replace(c[2], weights=tuple(wv))
+
+    out = []
+    if small is not None:
+        x = ragged(small, 267, 45)
+        out.append(("267x45", (x["nf_pods"], x["nf_nodes"], x["static"])))
+    out.append(("one pod", case(SEED + 91, 1, 300)))
+    out.append(("70x333", case(SEED + 92, 70, 333)))
+    x = boundary_inputs(dev, SEED + 2)
+    out.append(("boundaries", (x["nf_pods"], x["nf_nodes"], x["static"])))
+    out.append(("Rs=3", case(SEED + 93, 45, 200, 3)))
+    out.append(("Rs=5", case(SEED + 94, 45, 200, 5, bypass=(False, False, True, True, False))))
+    out.append(("generic Rs=1", case(SEED + 95, 33, 129, 1)))
+    out.append(("generic Rs=8", case(SEED + 96, 33, 129, 8, bypass=(False, True) * 4)))
+    # columns by j mod 8: 0 capacity 0, 1 capacity in [2**55, 2**56) with
+    # requested scores below it, 2 negative requested scores; pods by q mod
+    # 5: 1 negative requests; pod 7 a request of 2**58
+    pods, nodes, static = case(SEED + 97, 40, 280)
+    col = (np.arange(280) % 8)[:, None]
+    big = rng.integers(2**55, 2**56, (280, 2))
+    alloc = np.where(col == 0, 0, np.where(col == 1, big, nodes.alloc_score.cpu().numpy()))
+    nreq = np.where(col == 1, (big * rng.random((280, 2))).astype(np.int64),
+                    nodes.req_score.cpu().numpy())
+    nreq = np.where(col == 2, -rng.integers(1, 20000, (280, 2)), nreq)
+    req = np.where((np.arange(40) % 5 == 1)[:, None], -rng.integers(1, 5000, (40, 2)),
+                   pods.req_score.cpu().numpy())
+    req[7] = (2**58, 3)
+    out.append(("off the estimate's range", (pods._replace(req_score=t(req)),
+                                             nodes._replace(alloc_score=t(alloc),
+                                                            req_score=t(nreq)), static)))
+    base = case(SEED + 98, 40, 300)
+    for name, wv in (("negative", (-1, 3)), ("zero", (0, 3)), ("all zero", (0, 0)),
+                     ("2**22", (2**22, 1)), ("sum 2**22", (2**21, 2**21 + 3))):
+        out.append((f"weights {name}", weighted(base, wv)))
+    out.append(("weights wrap", weighted(case(SEED + 99, 40, 300, 3), WRAP_WEIGHTS)))
+    out.append(("bypass, zero requests", case(SEED + 100, 50, 300, 2, bypass=(True, True))))
+    return out
+
+
+def nf_case_statics(static) -> list:
+    """The four strategy shapes a NodeFit case runs under."""
+    return [("least", static)] + strategy_statics(static)
+
+
+def check_nf_cases(dev, small=None) -> int:
+    """``nf_score`` on ``nf_cases`` under LeastAllocated, MostAllocated and
+    both RTC shapes, each against ``nodefit_score_plain`` exactly (raises
+    ``Mismatch``); returns the calls checked.  Fails where a case does not
+    build what it names (a negative score under a negative weight, a
+    bypassed resource with a zero request)."""
+    from koordinator_tpu_torch.core import nodefit as nf
+
+    n = 0
+    for name, (pods, nodes, static) in nf_cases(dev, small):
+        P, N = pods.req.shape[0], nodes.alloc.shape[0]
+        neg = False
+        for sname, st in nf_case_statics(static):
+            want = nf.nodefit_score_plain(pods, nodes, st)
+            require_equal(f"nf case {name} {sname} ({P}x{N})", (nf.nodefit_score(pods, nodes, st),),
+                          (want,))
+            neg = neg or bool((want < 0).any())
+            n += 1
+        if name == "weights negative" and not neg:
+            fail("nf case weights negative: no negative score")
+        if name.startswith("bypass") and not bool((pods.req_score == 0).any()):
+            fail("nf case bypass: no zero request")
+    print(f"  nf_score: {n} edge cases x strategies equal plain", flush=True)
+    return n
+
+
+def nf_case_faults(dev, small) -> dict:
+    """``check_nf_cases`` call by call, a mismatch recorded instead of
+    raised: case and strategy -> the mismatch's message."""
+    from koordinator_tpu_torch.core import nodefit as nf
+
+    out = {}
+    for name, (pods, nodes, static) in nf_cases(dev, small):
+        for sname, st in nf_case_statics(static):
+            try:
+                require_equal(f"nf case {name} {sname}", (nf.nodefit_score(pods, nodes, st),),
+                              (nf.nodefit_score_plain(pods, nodes, st),))
+            except Mismatch as e:
+                out[f"{name}: {sname}"] = str(e)
+    return out
+
+
+# ------------------------------------------- the device feasibility
+
+def dev_sigs_for(pl, sigs, dev):
+    """``sigs`` (host ``DeviceSigs``) as ``pl.dev_feasible`` takes them: on
+    the host (a tree with ``DeviceStage``), else on the rows' device."""
+    if hasattr(pl, "DeviceStage"):
+        return sigs
+    return pl.DeviceSigs(*(t.to(dev) for t in sigs))
+
+
+def dev_cases(dev) -> list:
+    """(name, (core, mem, full, vfs, sigs)) of the device feasibility's
+    edge cases, from ``device_inputs`` and fixed seeds: Gm = 1, 8, 16 and 6
+    (not a multiple of 4); M = 0, M = 1 and M = 200, above the launch
+    parameters' 128; N = 0 and N = 333 (not a multiple of the block's 128);
+    every signature an invalid whole-GPU count; RDMA-only signatures; nodes
+    with every slot padded (-1)."""
+    out = []
+    for gm in (1, 8, 16, 6):
+        out.append((f"Gm={gm}", device_inputs(dev, 16, 333, gm, SEED + 100 + gm)[0]))
+    core, mem, full, vfs, sigs = device_inputs(dev, 200, 500, 8, SEED + 110)[0]
+    out.append(("M=200", (core, mem, full, vfs, sigs)))
+    out.append(("M=1", (core, mem, full, vfs, type(sigs)(*(s[:1] for s in sigs)))))
+    out.append(("M=0", (core, mem, full, vfs, type(sigs)(*(s[:0] for s in sigs)))))
+    out.append(("N=0", (core[:0], mem[:0], full[:0], vfs[:0], sigs)))
+    M = 16
+    on, off = torch.ones(M, dtype=torch.bool), torch.zeros(M, dtype=torch.bool)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32))  # noqa: E731
+    out.append(("invalid counts", (core, mem, full, vfs, type(sigs)(
+        on, on, i32(np.arange(M) % 4 + 1), i32(np.zeros(M)), i32(np.zeros(M)),
+        i32(np.zeros(M)), off))))
+    out.append(("RDMA only", (core, mem, full, vfs, type(sigs)(
+        off, off, i32(np.zeros(M)), i32(np.zeros(M)), i32(np.zeros(M)),
+        i32(np.arange(M) % 18), on))))
+    sig16 = device_inputs(dev, M, 500, 8, SEED + 111)[0][4]
+    pad = torch.full_like(core, -1)
+    out.append(("every slot padded", (pad, pad.clone(), torch.zeros_like(full), vfs, sig16)))
+    return out
+
+
+def dev_fault_cases(pl, dev, Gm: int = 8, N: int = 333) -> dict:
+    """The device rows' binding on ``pl``'s tree: "strided rows" — core as
+    a column slice of a wider table ("refused" when ``dev_feasible`` raises
+    ``ValueError``, else "equal" or "differs" against the plain version on
+    a contiguous copy); "moved row" — ``dev_feasible`` on the rows, then on
+    the same tensors after core moved to new storage with new values
+    (``set_``): "equal" when the second call equals the plain version on the
+    new values, else "differs"."""
+    core, mem, full, vfs, sigs = device_inputs(dev, 16, N, Gm, SEED + 112)[0]
+    s = dev_sigs_for(pl, sigs, dev)
+    out = {}
+    wide = torch.cat([core, core], dim=1)[:, :Gm]
+    try:
+        got = pl.dev_feasible(wide, mem, full, vfs, s)
+        out["strided rows"] = "equal" if torch.equal(
+            got, pl.dev_feasible_plain(wide.contiguous(), mem, full, vfs, s)) else "differs"
+    except ValueError:
+        out["strided rows"] = "refused"
+    pl.dev_feasible(core, mem, full, vfs, s)
+    moved = torch.where(core >= 0, 100 - core, core).contiguous()
+    core.set_(moved.untyped_storage(), 0, moved.shape, moved.stride())
+    got = pl.dev_feasible(core, mem, full, vfs, s)
+    out["moved row"] = "equal" if torch.equal(
+        got, pl.dev_feasible_plain(moved.clone(), mem, full, vfs, s)) else "differs"
+    return out
+
+
+def check_dev_cases(dev) -> int:
+    """``dev_feasible`` on ``dev_cases``, each against
+    ``dev_feasible_plain`` exactly, then ``dev_fault_cases`` (strided rows
+    refused, a moved row rebound) and a signature tensor on the card
+    refused before any launch (raises ``Mismatch``); returns the cases
+    checked.  Fails where a case does not build what it names."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import placement as pl
+
+    n = 0
+    for name, (core, mem, full, vfs, sigs) in dev_cases(dev):
+        want = pl.dev_feasible_plain(core, mem, full, vfs, sigs)
+        require_equal(f"dev case {name}", (pl.dev_feasible(core, mem, full, vfs, sigs),), (want,))
+        if name == "invalid counts" and bool(want.any()):
+            fail("dev case invalid counts: a pair is feasible")
+        if name == "RDMA only" and not (bool(want.any()) and not bool(want.all())):
+            fail("dev case RDMA only: the VF totals decide nothing")
+        if name == "every slot padded" and bool(want[~sigs.is_multi & sigs.has_gpu].any()):
+            fail("dev case every slot padded: a partial share passes")
+        if name == "M=200" and sigs.has_gpu.shape[0] <= cuda.DEV_SIG_CAP:
+            fail("dev case M=200: not above the launch parameters' cap")
+        n += 1
+    faults = dev_fault_cases(pl, dev)
+    if faults != {"strided rows": "refused", "moved row": "equal"}:
+        fail(f"dev_feasible's rows: {faults}")
+    if dev.type == "cuda":
+        core, mem, full, vfs, sigs = device_inputs(dev, 4, 50, 8, SEED + 113)[0]
+        before = cuda.KERNELS["dev_feasible"].launches
+        try:
+            pl.dev_feasible(core, mem, full, vfs, type(sigs)(*(t.to(dev) for t in sigs)))
+            fail("dev_feasible took signatures on the card")
+        except ValueError:
+            pass
+        if cuda.KERNELS["dev_feasible"].launches != before:
+            fail("dev_feasible launched before refusing signatures on the card")
+    print(f"  dev_feasible: {n} edge cases (Gm 1, 6, 8, 16; M 0, 1, 200; N 0, 333; invalid "
+          "counts; RDMA only; every slot padded) equal plain; strided rows refused, a moved "
+          "row rebound, signatures on the card refused", flush=True)
+    return n
+
+
+def dev_case_faults(dev) -> dict:
+    """``check_dev_cases`` case by case on the imported tree, a mismatch
+    recorded instead of raised, and ``dev_fault_cases``' outcomes."""
+    from koordinator_tpu_torch.core import placement as pl
+
+    out = {}
+    for name, (core, mem, full, vfs, sigs) in dev_cases(dev):
+        s = dev_sigs_for(pl, sigs, dev)
+        try:
+            require_equal(f"dev case {name}", (pl.dev_feasible(core, mem, full, vfs, s),),
+                          (pl.dev_feasible_plain(core, mem, full, vfs, s),))
+        except (Mismatch, RuntimeError, ValueError) as e:
+            out[name] = str(e)
+    out.update(dev_fault_cases(pl, dev))
+    return out
+
+
 def scan_extras(inp, seed: int):
     """A placement-and-devices mask (about 90% open) and extra scores in
     [-100, 200] (negative like an amplified-CPU delta) at [P, N]."""
@@ -3076,12 +3505,13 @@ def check_key_builds(inp, timed: bool) -> dict:
 
 def check_div_helper(dev) -> int:
     """pair.cuh's exact division (``div_cap`` with ``koord_rcp``, and the
-    32-bit ``div_small``) against `/` on the card, from the scan's study
-    build: divisors 1, 2, 2**k - 1, 2**k, 2**k + 1 up to 2**62 and random
-    ones; for each, numerators 0, 1, d - 1, d, d + 1, 2d - 1, 2d, 3d, random
-    multiples and their neighbours, 2**31 - 1, 2**32 - 1, 2**32, 2**63 - 1,
-    random ones, and negatives (which keep `/`), each quotient also against
-    Python's exact truncated division.  Returns the pairs checked."""
+    32-bit ``div_small``) against ``floor_div`` on the card, from the scan's
+    study build: divisors 1, 2, 2**k - 1, 2**k, 2**k + 1 up to 2**62 and
+    random ones; for each, numerators 0, 1, d - 1, d, d + 1, 2d - 1, 2d, 3d,
+    random multiples and their neighbours, 2**31 - 1, 2**32 - 1, 2**32,
+    2**63 - 1, random ones, and negatives (which take ``floor_div``), each
+    quotient also against Python's exact floor division, as the plain
+    versions divide.  Returns the pairs checked."""
     from koordinator_tpu_torch import cuda
 
     rng = np.random.default_rng(SEED + 71)
@@ -3110,12 +3540,12 @@ def check_div_helper(dev) -> int:
                 "scanstudy").launch(n.data_ptr(), d.data_ptr(), out.data_ptr(), len(ns),
                                     cuda.device_index(dev), cuda.stream(dev))
     got = out.cpu().tolist()
-    for (fast, slash, small), a, b in zip(got, ns, ds):
-        exact = abs(a) // b * (1 if a >= 0 else -1)
-        if not fast == slash == small == exact:
-            fail(f"division {a} / {b}: div_cap {fast}, div_small {small}, `/` {slash}, "
+    for (fast, slow, small), a, b in zip(got, ns, ds):
+        exact = a // b
+        if not fast == slow == small == exact:
+            fail(f"division {a} / {b}: div_cap {fast}, div_small {small}, floor_div {slow}, "
                  f"exact {exact}")
-    print(f"  pair.cuh's division helpers equal `/` on {len(ns)} operand pairs "
+    print(f"  pair.cuh's division helpers equal the floor on {len(ns)} operand pairs "
           f"({len(divs)} divisors)", flush=True)
     return len(ns)
 
@@ -5521,7 +5951,11 @@ def scan_study(dev) -> int:
     P, N = full["la_pods"].est.shape[0], full["valid"].shape[0]
     groups = (("build_keys", "keys"), ("scan", "steps"))
     out = dict(shape=[P, N], scans=[], keys=[], block_sizes=[])
-    out["div_pairs"] = check_div_helper(dev)
+    try:
+        out["div_pairs"] = check_div_helper(dev)
+    except Mismatch as e:  # a tree from before the floored divisions (--root)
+        out["div_fault"] = str(e)
+        print(f"  the division check: {e}", flush=True)
     statics = strategy_statics(full["static"])
     cases = [(name, static, con, "salted", True, full) for name, static in statics
              for con in (False, True)]
@@ -7746,6 +8180,322 @@ def la_study(dev, reps: int = 21) -> int:
     return 0
 
 
+def nf_study_shapes(dev) -> list:
+    """(name, (nf_pods, nf_nodes, static)) of the ``--nf`` study: the kernel
+    table's 1,024 x 16,384 (``build_inputs`` as ``check_breakdown_kernels``
+    gets it) under LeastAllocated, MostAllocated and both RTC shapes, and
+    the sidecar breakdown SCORE's shape (its fleet and batch as
+    ``sidecar_frames`` sends them, LeastAllocated)."""
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    scalars = (BATCH_CPU, BATCH_MEMORY)
+    full = build_inputs(*random_cluster(SEED, num_nodes=NUM_NODES, num_pods=NUM_PODS), dev,
+                        scalars)
+    out = [(f"table {sname}", (full["nf_pods"], full["nf_nodes"], static))
+           for sname, static in nf_case_statics(full["static"])]
+    side = build_inputs(con_batch(NUM_PODS, "side", SEED + 21),
+                        random_cluster(SEED, num_nodes=NUM_NODES, num_pods=0)[1], dev, scalars)
+    out.append(("sidecar least", (side["nf_pods"], side["nf_nodes"], side["static"])))
+    return out
+
+
+def nf_host_split(nf, cuda, pods, nodes, static, reps: int) -> dict:
+    """Host microseconds of an ``nf_score`` call by step, each in a loop of
+    its own (``per_call_us``): the pod and node tables' checks
+    (``_nf_tables``), the configuration block (``cfg_array``'s memoised
+    block), the pointer
+    tables, ``nodefit_args`` whole, the output, the launch with its
+    arguments built, and the whole call."""
+    dev = pods.req.device
+    P, Rf = pods.req.shape
+    Rs, N = pods.req_score.shape[1], nodes.alloc.shape[0]
+    cfg = functools.partial(cuda.cfg_array, 0, 0, Rs, static)
+    tabs = cuda._nf_tables(pods, nodes, P, N, dev)
+    args = cuda.nodefit_args(pods, nodes, static)
+    out = torch.empty((P, N), dtype=torch.int64, device=dev)
+    steps = dict(
+        tables=lambda: cuda._nf_tables(pods, nodes, P, N, dev),
+        cfg=cfg,
+        pointer_tables=lambda: cuda._pair_args((None,) * cuda._LA_POD_PTRS + tabs[0],
+                                               (None,) * cuda._LA_NODE_PTRS + tabs[1], cfg()),
+        nodefit_args=lambda: cuda.nodefit_args(pods, nodes, static),
+        outputs=lambda: torch.empty((P, N), dtype=torch.int64, device=dev),
+        launch=lambda: cuda.NF_SCORE.launch(args.pods, args.nodes, args.cfg, P, N,
+                                            out.data_ptr(), cuda.device_index(dev),
+                                            cuda.stream(dev)),
+        call=lambda: nf.nodefit_score(pods, nodes, static))
+    return {name: per_call_us(fn, reps) for name, fn in steps.items()}
+
+
+def nf_record(nf, cuda, pods, nodes, static, reps: int) -> dict:
+    """``nf_score`` at one shape and strategy, equal to its plain version
+    first: CUDA events around one call, the profiler's device time and
+    device activities, the host time, the call split by step, the store
+    floor (``fill_`` of the same [P, N] int64 output) and the bytes bound;
+    medians of ``reps``."""
+    P, N = pods.req.shape[0], nodes.alloc.shape[0]
+    call = lambda: nf.nodefit_score(pods, nodes, static)  # noqa: E731
+    require_equal(f"nf_score {static.strategy} {P}x{N}", (call(),),
+                  (nf.nodefit_score_plain(pods, nodes, static),))
+    ev = device_events(call, reps)
+    floor = la_floor(P, N, pods.req.device, False)
+    in_b = nbytes(pods.req_score, nodes.alloc_score, nodes.req_score)
+    return dict(name="nf_score", P=P, N=N, strategy=static.strategy, ms=cuda_ms(call, reps=reps),
+                ms_run=run_ms(call), device_ms=device_time(ev),
+                device_events=device_activities(ev), events=ev, host_ms=host_ms(call, reps),
+                split_us=nf_host_split(nf, cuda, pods, nodes, static, reps),
+                floor_ms=cuda_ms(floor, reps=reps), floor_ms_run=run_ms(floor),
+                floor_device_ms=device_time(device_events(floor, reps)),
+                bound_ms=bound_ms(in_b + P * N * 8, 0)[0])
+
+
+def nf_study(dev, reps: int = 21) -> int:
+    """``--nf``: ``nf_score`` through the public entry point
+    (``core.nodefit``) at ``nf_study_shapes``, each record a ``nf_record``;
+    the ``-Xptxas -v`` lines of the breakdown library, of ``score_kernel``
+    and of the round loop; the edge cases of ``nf_cases`` and the division
+    repairs of ``repair_cases`` with any mismatch recorded.  ``--root``
+    takes another checkout of the port: run two checkouts alternately in
+    one call.  One ``nf_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import nodefit as nf
+    from koordinator_tpu_torch.utils.fixtures import random_cluster
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    out = dict(ptxas={"breakdown": ptxas_report(libs["breakdown"], ""),
+                      "score_kernel": ptxas_report(libs["score"], "score_kernel"),
+                      "rounds_kernel": ptxas_report(libs["schedule"], "rounds_kernel")},
+               cases=[])
+    for lib, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"  ptxas {lib}: {line}")
+    for shape, (pods, nodes, static) in nf_study_shapes(dev):
+        rec = dict(nf_record(nf, cuda, pods, nodes, static, reps), shape=shape)
+        out["cases"].append(rec)
+        print(f"  nf_score {shape} {rec['P']}x{rec['N']}: equal plain; call {rec['ms']:.4f} ms "
+              f"(run {rec['ms_run']:.4f}), device {rec['device_ms']:.4f} ms in "
+              f"{rec['device_events']:.0f} activities, host {rec['host_ms'] * 1e3:.1f} us; "
+              f"fill_ floor {rec['floor_ms']:.4f} ms (run {rec['floor_ms_run']:.4f}, device "
+              f"{rec['floor_device_ms']:.4f}); bound {rec['bound_ms']:.4f} ms; split us "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["split_us"].items()), flush=True)
+    torch.cuda.empty_cache()
+    small = build_inputs(*random_cluster(SEED, num_nodes=300, num_pods=50), dev,
+                         (BATCH_CPU, BATCH_MEMORY))
+    out["case_faults"] = nf_case_faults(dev, small)
+    print(f"  nf edge cases: {len(nf_cases(dev, small))}, mismatches "
+          f"{out['case_faults'] or 'none'}", flush=True)
+    out["repair_faults"] = repair_case_faults(dev)
+    print(f"  repair cases: {len(repair_cases(dev))}, mismatches "
+          f"{json.dumps(out['repair_faults'], indent=1) if out['repair_faults'] else 'none'}",
+          flush=True)
+    print(json.dumps({"nf_study": out, "card": card_line()}))
+    return 0
+
+
+def dev_host_split(pl, cuda, rows, sigs, reps: int) -> dict:
+    """Host microseconds of a ``dev_feasible`` call by step, each in a loop
+    of its own: this tree's (the signatures packed, the stage's key test,
+    the output, the launch from the bound stage with the block uploaded
+    beforehand past the parameters' cap, the whole call) or the
+    parent's (the eleven tensors' checks, the rows' ``contiguous``, the
+    output, the launch with its 17 arguments, the whole call)."""
+    core, mem, full, vfs = rows
+    dev = core.device
+    M, N = sigs.has_gpu.shape[0], core.shape[0]
+    s = dev_sigs_for(pl, sigs, dev)
+    out = torch.empty((M, N), dtype=torch.bool, device=dev)
+    if hasattr(pl, "DeviceStage"):
+        stage = pl.DeviceStage()
+        stage.bind(rows)
+        block = pl.pack_device_sigs(sigs)
+        dblock = torch.from_numpy(block).to(dev) if M > cuda.DEV_SIG_CAP else None
+        dptr = 0 if dblock is None else dblock.data_ptr()
+        steps = dict(pack=lambda: pl.pack_device_sigs(sigs),
+                     bound_to=lambda: stage.bound_to(rows),
+                     output=lambda: torch.empty((M, N), dtype=torch.bool, device=dev),
+                     launch=lambda: cuda.DEV_FEASIBLE.launch(
+                         stage._desc_ptr, block.__array_interface__["data"][0], dptr, M,
+                         out.data_ptr(), cuda.stream(dev)),
+                     call=lambda: pl.dev_feasible(*rows, s))
+    else:
+        crow = [t.contiguous() for t in rows]
+        Gm = core.shape[1]
+        steps = dict(checks=lambda: pl._check_device(*rows, s),
+                     contiguous=lambda: [t.contiguous() for t in rows],
+                     output=lambda: torch.empty((M, N), dtype=torch.bool, device=dev),
+                     launch=lambda: cuda.DEV_FEASIBLE.launch(
+                         *(t.data_ptr() for t in crow), *(t.data_ptr() for t in s), M, N, Gm,
+                         out.data_ptr(), cuda.device_index(dev), cuda.stream(dev)),
+                     call=lambda: pl.dev_feasible(*rows, s))
+    return {name: per_call_us(fn, reps) for name, fn in steps.items()}
+
+
+def dev_record(pl, cuda, M: int, N: int, Gm: int, reps: int) -> dict:
+    """``dev_feasible`` at M signatures x N nodes, Gm slots, equal to its
+    plain version first: CUDA events around one call (and a run of 100),
+    the profiler's device time and activities, the host time, the call
+    split by step and the bytes bound; medians of ``reps``."""
+    (core, mem, full, vfs, sigs), _ = device_inputs(torch.device("cuda:0"), M, N, Gm,
+                                                    SEED + 21 + Gm)
+    rows = (core, mem, full, vfs)
+    s = dev_sigs_for(pl, sigs, core.device)
+    call = lambda: pl.dev_feasible(*rows, s)  # noqa: E731
+    require_equal(f"dev_feasible {M}x{N} Gm={Gm}", (call(),),
+                  (pl.dev_feasible_plain(*rows, s),))
+    ev = device_events(call, reps)
+    rec = dict(name="dev_feasible", M=M, N=N, Gm=Gm, ms=cuda_ms(call, reps=reps),
+               ms_run=run_ms(call), device_ms=device_time(ev),
+               device_events=device_activities(ev), events=ev, host_ms=host_ms(call, reps),
+               split_us=dev_host_split(pl, cuda, rows, sigs, reps),
+               bound_ms=bound_ms(nbytes(core, mem, full, vfs) + M * 20 + M * N, 0)[0])
+    if hasattr(pl, "pack_device_sigs"):
+        # the signatures as the engine passes them: one packed host block
+        block = pl.pack_device_sigs(sigs)
+        packed = lambda: pl.dev_feasible(*rows, block)  # noqa: E731
+        rec.update(ms_block=cuda_ms(packed, reps=reps), host_ms_block=host_ms(packed, reps))
+    return rec
+
+
+def parent_dense_block(eng, pl, dense, cols=None):
+    """The dense device block as the engine built it before the packed
+    signatures (``Engine._compute_device_rows`` at commit 20f1c81,
+    service/engine.py:595-623):
+    seven numpy arrays of the signatures padded to a bucket of 8, seven
+    uploads, ``dev_feasible`` on the device rows' column slices.  For a
+    tree without ``Engine._dense_device_rows``."""
+    from koordinator_tpu_torch import convert
+    from koordinator_tpu_torch.service.state import next_bucket
+
+    Mb = next_bucket(len(dense), 8)
+    has_gpu, is_multi, sig_valid = (np.zeros(Mb, dtype=bool) for _ in range(3))
+    count, core_req, ratio_req, rdma_need = (np.zeros(Mb, dtype=np.int32) for _ in range(4))
+    for m, (greq, rdma_req, _cs, _bp, _ep) in enumerate(dense):
+        sig_valid[m] = True
+        if greq is not None:
+            has_gpu[m] = True
+            c, r = greq
+            if c >= 100:
+                is_multi[m] = True
+                count[m] = c // 100
+                if c % 100:
+                    sig_valid[m] = False
+            else:
+                core_req[m] = c
+                ratio_req[m] = r
+            rdma_need[m] = 1 if rdma_req > 0 else 0
+        else:
+            rdma_need[m] = rdma_req
+    lo, hi = (0, eng.state.capacity) if cols is None else cols
+    core, mem, full, vfs = (t[lo:hi] for t in eng._device_node_rows()[:4])
+    sigs = pl.DeviceSigs(*(convert.tensor(a, eng.device) for a in (
+        has_gpu, is_multi, count, core_req, ratio_req, rdma_need, sig_valid)))
+    return pl.dev_feasible(core, mem, full, vfs, sigs)
+
+
+def dev_engine_block(dev, reps: int) -> dict:
+    """The engine's dense device block at the placement path's shapes: a
+    card engine over ``placement_store`` at ``NUM_NODES`` schedules the
+    placement phase's batch once (building the caches), and its cpuset-free
+    device signatures are captured as ``_compute_device_rows`` receives
+    them; then, host clock around a call after a synchronise, medians of
+    ``reps``: the dense block alone (``Engine._dense_device_rows``, or on a
+    tree without it ``parent_dense_block``: the signatures' build, their
+    uploads or their packing, the ``dev_feasible`` call), each equal to the
+    other form's result, and the whole ``_compute_device_rows`` over them
+    into a fresh cache (the dense block and the per-signature candidate
+    masks)."""
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import placement as pl
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    st = placement_store((BATCH_CPU, BATCH_MEMORY), NUM_NODES)
+    eng = Engine(st, device=dev)
+    batch = placement_batch(NUM_NODES, NUM_PODS, "place", SEED + 31)
+    seen = []
+    orig = eng._compute_device_rows
+
+    def record(sig_list, sig_rep, cap, *a, **k):
+        seen.append((list(sig_list), dict(sig_rep), cap))
+        return orig(sig_list, sig_rep, cap, *a, **k)
+
+    eng._compute_device_rows = record
+    st.publish(NOW)
+    eng.schedule(batch, now=NOW)
+    eng._compute_device_rows = orig
+    sig_list, sig_rep, cap = seen[0]
+    dense = [s for s in sig_list if s[2] is None]
+    if hasattr(eng, "_dense_device_rows"):
+        block = lambda: eng._dense_device_rows(dense)  # noqa: E731
+    else:
+        block = lambda: parent_dense_block(eng, pl, dense)  # noqa: E731
+    got = block()
+    require_equal("the dense device block", (got[:len(dense)],),
+                  (pl.dev_feasible_plain(*(t for t in eng._device_node_rows()[:4]),
+                                         _dense_sigs_host(pl, dense, dev)),))
+    return dict(signatures=len(dense), nodes=cap, ms=host_ms(block, reps),
+                rows_ms=host_ms(lambda: eng._compute_device_rows(dense, sig_rep, cap, out={}),
+                                reps))
+
+
+def _dense_sigs_host(pl, dense, dev):
+    """The dense signatures as ``DeviceSigs`` for the plain version (on the
+    rows' device, which both trees' plain versions take)."""
+    cols = [[] for _ in range(7)]
+    for greq, rdma_req, _cs, _bp, _ep in dense:
+        c, r = greq if greq is not None else (0, 0)
+        multi = greq is not None and c >= 100
+        vals = (greq is not None, multi, c // 100 if multi else 0, 0 if multi else c,
+                0 if multi else r, (1 if rdma_req > 0 else 0) if greq is not None else rdma_req,
+                not (multi and c % 100))
+        for k, v in enumerate(vals):
+            cols[k].append(v)
+    return pl.DeviceSigs(*(torch.tensor(c, dtype=torch.bool if k in (0, 1, 6) else torch.int32,
+                                        device=dev) for k, c in enumerate(cols)))
+
+
+def dev_study(dev, reps: int = 21) -> int:
+    """``--dev``: ``dev_feasible`` through the public entry point
+    (``core.placement``) at the kernel table's 16 x 16,384 with Gm 8 and 16
+    and at 128 and 200 signatures (the launch parameters' cap and past it),
+    each record a ``dev_record``; the engine's dense device block at the
+    placement path's shapes (``dev_engine_block``); the ``-Xptxas -v``
+    lines of the device library; the edge cases of ``dev_cases`` and the
+    rows' binding (``dev_case_faults``).  ``--root`` takes another
+    checkout of the port: run two checkouts alternately in one call.  One
+    ``dev_study`` JSON line."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import placement as pl
+
+    print(f"package: {cuda.CSRC.parent}", flush=True)
+    libs = cuda.build()
+    out = dict(ptxas=ptxas_report(libs["device"], ""), cases=[])
+    for line in out["ptxas"]:
+        print(f"  ptxas device: {line}")
+    for M, Gm in ((16, 8), (16, 16), (128, 8), (200, 8)):
+        rec = dev_record(pl, cuda, M, 16_384, Gm, reps)
+        out["cases"].append(rec)
+        print(f"  dev_feasible {M}x{rec['N']} Gm {Gm}: equal plain; call {rec['ms']:.4f} ms "
+              f"(a packed block {rec.get('ms_block', float('nan')):.4f}, host "
+              f"{rec.get('host_ms_block', float('nan')) * 1e3:.1f} us) "
+              f"(run {rec['ms_run']:.4f}), device {rec['device_ms']:.4f} ms in "
+              f"{rec['device_events']:.0f} activities, host {rec['host_ms'] * 1e3:.1f} us; "
+              f"bound {rec['bound_ms']:.5f} ms; split us "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["split_us"].items()), flush=True)
+    out["engine_block"] = dev_engine_block(dev, reps)
+    eb = out["engine_block"]
+    print(f"  the engine's dense device block: {eb['signatures']} signatures x {eb['nodes']} "
+          f"nodes, {eb['ms']:.4f} ms; _compute_device_rows over them {eb['rows_ms']:.4f} ms",
+          flush=True)
+    out["case_faults"] = dev_case_faults(dev)
+    print(f"  dev edge cases: {len(dev_cases(dev))}; outcomes {out['case_faults']}", flush=True)
+    print(json.dumps({"dev_study": out, "card": card_line()}))
+    return 0
+
+
 def main() -> int:
     if "--root" in sys.argv:
         # time another checkout's port (a parent commit unpacked beside)
@@ -7783,6 +8533,10 @@ def main() -> int:
         return quota_study(torch.device("cuda:0"))
     if "--la" in sys.argv:
         return la_study(torch.device("cuda:0"))
+    if "--nf" in sys.argv:
+        return nf_study(torch.device("cuda:0"))
+    if "--dev" in sys.argv:
+        return dev_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -7834,6 +8588,9 @@ def main() -> int:
     check_strategies_small(small)
     check_score_cases(dev, small)
     check_la_cases(dev, small)
+    check_nf_cases(dev, small)
+    check_dev_cases(dev)
+    check_repair_cases(dev)
     check_shard_cases(dev)
     check_gate_cases(dev)
     check_rsv_cases(dev)

@@ -17,14 +17,18 @@ The placement kernel's pod side is sparse: the JAX form multiplies
 signature's selector pairs, untolerated taints, matching holder selectors
 and selected label sets are CSR index lists (``PlacementSigs``) built on
 the host from the same vocabulary walk, and the plain version is the same
-gather, affordable at full width.
+gather, affordable at full width.  ``dev_feasible``'s signatures are host
+data too: packed into one int32 block (``pack_device_sigs``), they ride in
+the launch's parameters, and its node rows are bound once in a
+``DeviceStage``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from koordinator_tpu_torch import cuda
@@ -204,7 +208,7 @@ def placement(sigs: PlacementSigs, labels, taints, aa_cnt, sig_cnt) -> torch.Ten
 
 class DeviceSigs(NamedTuple):
     """M device-request signatures of the policy-free dense check, each
-    [M] (bool or int32)."""
+    [M] (bool or int32), host data (numpy arrays or CPU tensors)."""
 
     has_gpu: torch.Tensor
     is_multi: torch.Tensor
@@ -215,12 +219,79 @@ class DeviceSigs(NamedTuple):
     sig_valid: torch.Tensor
 
 
+#: a packed signature's int32 words (csrc/device.cu kSigWords): the flags,
+#: count, core_req, ratio_req, rdma_need
+SIG_WORDS = 5
+SIG_FLAGS, SIG_COUNT, SIG_CORE_REQ, SIG_RATIO_REQ, SIG_RDMA_NEED = range(SIG_WORDS)
+#: the flags word's bits (csrc/device.cu SigFlag)
+SIG_HAS_GPU, SIG_IS_MULTI, SIG_VALID = 1, 2, 4
+_SIG_BOOL = {"has_gpu": SIG_HAS_GPU, "is_multi": SIG_IS_MULTI, "sig_valid": SIG_VALID}
+_SIG_INT = {"count": SIG_COUNT, "core_req": SIG_CORE_REQ, "ratio_req": SIG_RATIO_REQ,
+            "rdma_need": SIG_RDMA_NEED}
+_SIG_FIELD = {name: k for k, name in enumerate(DeviceSigs._fields)}
+_BOOL, _INT32 = np.dtype(np.bool_), np.dtype(np.int32)
+
+
+def _host_array(name: str, t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        if not t.is_cpu:
+            raise ValueError(f"{name}: the signatures are host data (numpy or CPU tensors), "
+                             f"got a tensor on {t.device}")
+        return t.numpy()
+    return np.asarray(t)
+
+
+def pack_device_sigs(sigs: DeviceSigs) -> np.ndarray:
+    """The signatures as one host block, [M, ``SIG_WORDS``] int32 (the flags
+    word, then count, core_req, ratio_req and rdma_need), as
+    ``csrc/device.cu`` reads them from the launch's parameters.  Raises
+    ``ValueError`` on a field of another dtype or length, or on the card."""
+    cols = [_host_array(name, t) for name, t in zip(DeviceSigs._fields, sigs)]
+    M = cols[0].shape[0] if cols[0].ndim == 1 else -1
+    for name, a in zip(DeviceSigs._fields, cols):
+        want = _BOOL if name in _SIG_BOOL else _INT32
+        if a.dtype != want or a.shape != (M,):
+            raise ValueError(f"{name}: expected {want} ({M},), got {a.dtype} {a.shape}")
+    block = np.empty((M, SIG_WORDS), dtype=np.int32)
+    block[:, SIG_FLAGS] = (cols[0].view(np.uint8) | (cols[1].view(np.uint8) << 1)
+                           | (cols[6].view(np.uint8) << 2))
+    for name, k in _SIG_INT.items():
+        block[:, k] = cols[_SIG_FIELD[name]]
+    return block
+
+
+def unpack_device_sigs(block: np.ndarray) -> DeviceSigs:
+    """``pack_device_sigs``' inverse: the seven fields as CPU tensors."""
+    flags = block[:, SIG_FLAGS]
+    return DeviceSigs(*(
+        torch.from_numpy((flags & _SIG_BOOL[name]) != 0) if name in _SIG_BOOL
+        else torch.from_numpy(np.ascontiguousarray(block[:, _SIG_INT[name]]))
+        for name in DeviceSigs._fields))
+
+
+def _sig_block(sigs) -> np.ndarray:
+    """A call's signatures as the packed host block: ``DeviceSigs`` are
+    packed, a block (numpy [M, ``SIG_WORDS``] int32, C order) is taken as it
+    is."""
+    if (type(sigs) is np.ndarray and sigs.dtype == np.int32 and sigs.ndim == 2
+            and sigs.shape[1] == SIG_WORDS and sigs.flags.c_contiguous):
+        return sigs
+    if isinstance(sigs, DeviceSigs):
+        return pack_device_sigs(sigs)
+    block = _host_array("signatures", sigs)
+    if block.dtype != np.int32 or block.ndim != 2 or block.shape[1] != SIG_WORDS:
+        raise ValueError(f"signatures: expected a DeviceSigs or an int32 [M, {SIG_WORDS}] "
+                         f"block, got {block.dtype} {block.shape}")
+    return np.ascontiguousarray(block)
+
+
 def dev_feasible_plain(core, mem, full, vfs, sigs: DeviceSigs) -> torch.Tensor:
     """[M, N] bool joint-allocation feasibility for policy-free nodes: a
     partial share needs ONE device with enough core and memory ratio, a
     multi-GPU request ``count`` fully free devices, then the VF total and
     the signature's validity.  Padded device slots hold -1 and never
-    pass."""
+    pass.  The signatures go to the rows' device."""
+    sigs = DeviceSigs(*(torch.as_tensor(t).to(core.device) for t in sigs))
     partial = ((core[None, :, :] >= sigs.core_req[:, None, None])
                & (mem[None, :, :] >= sigs.ratio_req[:, None, None])).any(dim=-1)
     multi = full[None, :] >= sigs.count[:, None]
@@ -229,40 +300,114 @@ def dev_feasible_plain(core, mem, full, vfs, sigs: DeviceSigs) -> torch.Tensor:
     return gpu_ok & (vfs[None, :] >= sigs.rdma_need[:, None]) & sigs.sig_valid[:, None]
 
 
-def _check_device(core, mem, full, vfs, sigs: DeviceSigs) -> tuple:
+def _device_rows(rows) -> tuple:
+    """Check the node rows a ``DeviceStage`` binds: core and mem [N, Gm]
+    int32, full and vfs [N] int32, one device, each contiguous (the kernel
+    reads each through its base pointer, so a strided view is refused
+    rather than read as other elements).  Returns (N, Gm, device)."""
+    core = rows[0]
     N, dev = core.shape[0], core.device
     Gm = core.shape[1] if core.dim() == 2 else -1
-    M = sigs.has_gpu.shape[0]
-    for what, t, dtype, shape in (("core", core, torch.int32, (N, Gm)),
-                                  ("mem", mem, torch.int32, (N, Gm)),
-                                  ("full", full, torch.int32, (N,)),
-                                  ("vfs", vfs, torch.int32, (N,))):
-        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
-            raise ValueError(f"{what}: expected {dtype} {shape} on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    for name, t in zip(DeviceSigs._fields, sigs):
-        want = torch.bool if name in ("has_gpu", "is_multi", "sig_valid") else torch.int32
-        if t.dtype != want or tuple(t.shape) != (M,) or t.device != dev:
-            raise ValueError(f"{name}: expected {want} ({M},) on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    return M, N, Gm, dev
+    for what, t, shape in (("core", core, (N, Gm)), ("mem", rows[1], (N, Gm)),
+                           ("full", rows[2], (N,)), ("vfs", rows[3], (N,))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: expected a contiguous int32 {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} stride {tuple(t.stride())} on "
+                             f"{t.device}")
+    return N, Gm, dev
 
 
-def dev_feasible(core, mem, full, vfs, sigs: DeviceSigs) -> torch.Tensor:
+class DeviceStage:
+    """``dev_feasible`` over one set of device rows: ``bind`` checks the
+    rows (core, mem, full, vfs, and any rows after them, as the residency's
+    device table holds ``ds_score``'s aggregates) once and packs the four
+    rows' pointers at the column range ``cols`` (a node shard's, or all),
+    its width, Gm and the device index into one host descriptor, again only
+    when the rows are replaced or moved; ``feasible`` then launches
+    ``csrc/device.cu`` once on a card, the signatures in the launch's
+    parameters (past ``cuda.DEV_SIG_CAP`` of them, uploaded in one copy),
+    into a fresh [M, n] bool output, or runs the plain version on the CPU.
+    The stage keeps the rows it is bound to."""
+
+    def __init__(self):
+        self.binds = 0  # descriptors built
+        self.rows: tuple = ()
+        self.cols: Optional[tuple] = None
+        self.device: Optional[torch.device] = None
+        self.desc = None  # ctypes int64 [7]: the four rows' pointers, n, Gm, device
+        self._key: tuple = ()
+        self._desc_ptr = 0
+        self._n = 0
+
+    def bind(self, rows, cols: Optional[tuple] = None) -> None:
+        N, Gm, dev = _device_rows(rows)
+        lo, hi = (0, N) if cols is None else cols
+        if not 0 <= lo <= hi <= N:
+            raise ValueError(f"columns [{lo}, {hi}) outside the {N} rows")
+        self.rows, self.cols, self._key = tuple(rows), cols, self._key_of(rows, cols)
+        self.device, self._n = dev, hi - lo
+        if dev.type == "cuda":
+            core, mem, full, vfs = rows[:4]
+            self.desc = (ctypes.c_longlong * 7)(
+                core.data_ptr() + lo * Gm * 4, mem.data_ptr() + lo * Gm * 4,
+                full.data_ptr() + lo * 4, vfs.data_ptr() + lo * 4, hi - lo, Gm,
+                cuda.device_index(dev))
+            self._desc_ptr = ctypes.addressof(self.desc)
+        else:
+            self.desc, self._desc_ptr = None, 0
+        self.binds += 1
+
+    @staticmethod
+    def _key_of(rows, cols) -> tuple:
+        # the rows' identity, and each bound row's pointer, length and
+        # layout (what the descriptor holds; a dtype cannot change in place)
+        return tuple(map(id, rows)) + tuple(
+            (t.data_ptr(), t.numel(), t.is_contiguous()) for t in rows[:4]) + (cols,)
+
+    def bound_to(self, rows, cols: Optional[tuple] = None) -> bool:
+        """Whether ``rows`` are the very rows bound at ``cols``, each still
+        over the same memory: a row moved to new storage under the same
+        tensor (``set_``, a ``resize_`` that reallocates) rebinds."""
+        return self._key == self._key_of(rows, cols)
+
+    def feasible(self, sigs) -> torch.Tensor:
+        """[M, n] bool for the signatures (``DeviceSigs`` of host arrays, or
+        their packed block); a signature on the card raises ``ValueError``
+        before any launch."""
+        block = _sig_block(sigs)
+        M = block.shape[0]
+        if self._desc_ptr == 0:
+            lo, hi = (0, self._n) if self.cols is None else self.cols
+            return dev_feasible_plain(*(t[lo:hi] for t in self.rows[:4]),
+                                      unpack_device_sigs(block))
+        out = torch.empty((M, self._n), dtype=torch.bool, device=self.device)
+        if M and self._n:
+            # past the launch parameters' cap, the block in one copy
+            dblock = (torch.from_numpy(block).to(self.device) if M > cuda.DEV_SIG_CAP
+                      else None)
+            cuda.DEV_FEASIBLE.launch(self._desc_ptr, block.__array_interface__["data"][0],
+                                     0 if dblock is None else dblock.data_ptr(), M,
+                                     out.data_ptr(), cuda.stream(self.device))
+        return out
+
+
+# the stage of calls that name their rows each time (tests, studies); the
+# residency keeps one bound to its device table
+_DEV = DeviceStage()
+
+
+def dev_feasible(core, mem, full, vfs, sigs) -> torch.Tensor:
     """The ``dev_feasible`` kernel: [M, N] bool from the device rows (core,
-    mem [N, Gm] int32, full, vfs [N] int32).  On CUDA one thread per
-    (signature, node) loops over the node's Gm device slots."""
-    M, N, Gm, dev = _check_device(core, mem, full, vfs, sigs)
-    if dev.type == "cpu":
-        return dev_feasible_plain(core, mem, full, vfs, sigs)
-    out = torch.empty((M, N), dtype=torch.bool, device=dev)
-    rows = [t.contiguous() for t in (core, mem, full, vfs)]
-    if M and N:
-        cuda.DEV_FEASIBLE.launch(
-            *(t.data_ptr() for t in rows), *(t.data_ptr() for t in sigs), M, N, Gm,
-            out.data_ptr(), cuda.device_index(dev), cuda.stream(dev),
-        )
-    return out
+    mem [N, Gm] int32, full, vfs [N] int32, contiguous) and the signatures
+    on the host (``DeviceSigs`` of numpy arrays or CPU tensors, or their
+    ``pack_device_sigs`` block).  Through a ``DeviceStage``, rebound when the
+    rows change or move; on CUDA one launch, a thread a node column over a
+    block row's signatures, the signatures in the launch's parameters."""
+    rows = (core, mem, full, vfs)
+    if not _DEV.bound_to(rows):
+        _DEV.bind(rows)
+    return _DEV.feasible(sigs)
 
 
 #: the deviceshare scorer's static: MostAllocated (binpack) over (core,

@@ -45,15 +45,44 @@
 //     by the weight sum with div32, and under FILTER one select.  A pair
 //     outside the estimate's proven range (a capacity of 0 or of 2**55 or
 //     more, a negative or huge est or base, a negative weight or a weight
-//     sum outside [1, 2**22)) takes la_general, out of line: the pair
-//     function's arithmetic with `/`, floored;
+//     sum outside [1, 2**22)) takes strip.cuh's la_general, out of line:
+//     the pair function's arithmetic, floored;
 //   - R is a template parameter for the width every serving configuration
 //     reaches (2), so the loops unroll and the rows stay in registers; a
 //     generic instantiation (up to KOORD_MAXR) takes every other width;
 //   - both outputs are written once, coalesced (consecutive threads on
 //     consecutive columns of one pod row), as streaming stores;
 //   - it reads no NodeFit entry of the pointer tables (they are null).
-// nf_score stays one thread a pair over pair.cuh's nf_score.
+//
+// nf_score is the NodeFit-only strip kernel nf_strip_kernel<RS, STRAT>, the
+// same design over the scoring axis (score.cu's NodeFit half, without
+// LoadAware and without the fit); its arithmetic is pair.cuh's nf_least,
+// nf_most and nf_rtc, term for term, with the plain version's floor
+// division and int64 wrapping: the same int64 results for every input.
+// One thread a pair calling nf_score read the node's rows again for every
+// pod and ran Rs 64-bit `/` subroutines with runtime widths and a 64-bit
+// division by the weight sum.  Here:
+//   - a block stages the strip's scoring rows (req_score, 100 times it and
+//     its float, whether each is in [0, 2**55), the mask of bypassed
+//     resources the pod does not request), the weight sum of every
+//     included-resource mask with its 32-bit reciprocal and, under RTC,
+//     the shape at every utilisation in 0..100 in shared memory once
+//     (strip.cuh stage_nf_row, stage_nf_tables);
+//   - a thread pins its node's capacities, 100 (cap - requested) (100
+//     times the requested score under MostAllocated) with its float and
+//     fl(100 / fl(cap)) in registers once;
+//   - a pair costs Rs calls of quot100, a 32-bit weighted sum, one 32-bit
+//     division by its weight sum (on a node with every capacity non-zero
+//     the pod's own, staged beside its row; else the mask's, nf_mean) and
+//     one streaming store;
+//     a pair outside the estimate's proven range (a capacity of 2**55 or
+//     more, a negative or huge request, a weight outside [0, 2**22) or a
+//     weight sum of 2**22 or more) takes strip.cuh's nf_general, out of
+//     line;
+//   - RS is a template parameter for the scoring width every serving
+//     configuration reaches (2, with and without batch scalars), the
+//     strategy one for each of the three; a generic instantiation (up to
+//     KOORD_MAXR) takes every other width.
 #include <cuda_runtime.h>
 
 #include "pair.cuh"
@@ -65,13 +94,6 @@ constexpr int kCols = 128;  // node columns a block, a thread each (at most)
 constexpr int kStrip = 32;  // pods a block walks
 // blocks of kCols an SM: at most 64 registers a thread (32 warps an SM)
 constexpr int kMinBlocks = 8;
-
-// floor(a / b), as the plain version's torch.div(rounding_mode="floor")
-// divides (b != 0)
-__device__ __forceinline__ long long floor_div(long long a, long long b) {
-  const long long q = a / b;
-  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
-}
 
 // The strip's pod rows and the block's weights, staged once a block.
 template <int R>
@@ -85,29 +107,6 @@ struct LaStage {
   unsigned wsum, wrcp;          // their sum and its rcp32, when small_w
   bool small_w;                 // every weight in [0, 2**22), their sum in [1, 2**22)
 };
-
-// A pair outside the float estimate's range: pair.cuh's la_score with its
-// `/` floored as the plain version floors, and its sums and products
-// wrapping as int64 wraps there, over node j's rows read again (rare: a
-// node or pod with a row out of range, or weights out of range).  Out of
-// line, so the fast path's registers do not carry it; the node table is
-// the kernel's __grid_constant__ parameter, referenced in place.
-template <class S>
-__device__ __noinline__ long long la_general(const NodeIn& n, const S& s, int nR, int i, int j) {
-  const bool prod = s.flags[i] & 1;
-  unsigned long long acc = 0, wsum = 0;
-  for (int r = 0; r < nR; ++r) {
-    const size_t o = (size_t)j * nR + r;
-    const long long cap = n.la_alloc[o];
-    const unsigned long long b = prod ? n.base_prod[o] : n.base_nonprod[o];
-    const unsigned long long used = (unsigned long long)s.est[i][r] + b;
-    const long long free100 = (long long)(((unsigned long long)cap - used) * 100ULL);
-    const long long sc = (cap == 0 || (long long)used > cap) ? 0 : floor_div(free100, cap);
-    acc += (unsigned long long)sc * (unsigned long long)s.la_w[r];
-    wsum += (unsigned long long)s.la_w[r];
-  }
-  return floor_div((long long)acc, (long long)wsum);
-}
 
 template <int R, bool FILTER>
 __global__ void __launch_bounds__(kCols, R > 0 ? kMinBlocks : 1)
@@ -245,14 +244,170 @@ int launch_la(const void* const* pods, const void* const* nodes, const long long
   return (int)cudaGetLastError();
 }
 
-__global__ void nf_score_kernel(Cfg c, PodIn p, NodeIn n, int P, int N, long long* out) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int q = blockIdx.y;
-  if (j >= N || q >= P) return;
-  out[(size_t)q * N + j] = nf_score(c, p, n, q, j);
+// The NodeFit strip's pod rows and the block's tables, staged once a
+// block (strip.cuh stage_nf_row, stage_nf_tables).
+template <int RS>
+struct NfStage {
+  long long rs[kStrip][Width<RS>::cap];
+  long long rs100[kStrip][Width<RS>::cap];
+  float rsf[kStrip][Width<RS>::cap];
+  // Rs bits: a bypassed resource the pod does not request; bit 8: every
+  // req_score in [0, 2**55)
+  unsigned short flags[kStrip];
+  uint2 pw[kStrip];                     // the weight sum of every resource the pod does not
+                                        // bypass and its rcp32 (not under RTC)
+  long long wsum[1 << Width<RS>::cap];  // weight sum of an included-resource mask (RTC: 2x)
+  unsigned wrcp[1 << Width<RS>::cap];   // its rcp32
+  int shape[101];                       // RTC: the shape at utilisation 0..100
+  bool small_w;                         // strip.cuh small_nf_weights
+};
+
+template <int RS, int STRAT>
+__global__ void __launch_bounds__(kCols, RS > 0 ? kMinBlocks : 1)
+    nf_strip_kernel(__grid_constant__ const Cfg c, PodIn p, __grid_constant__ const NodeIn n,
+                    int P, int N, long long* out) {
+  __shared__ NfStage<RS> s;
+  const int nRs = Width<RS>::of(c.Rs);
+  const int q0 = blockIdx.y * kStrip;
+  const int cnt = min(kStrip, P - q0);
+  const unsigned full = (1u << nRs) - 1;
+  // stage the strip's pods and the tables
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    unsigned excl = 0;
+    const bool small =
+        stage_nf_row<RS>(s, i, p.req_score + (size_t)(q0 + i) * nRs, c, nRs, excl);
+    s.flags[i] = (unsigned short)(excl | (small ? 0x100u : 0u));
+    if (STRAT != KOORD_REQUESTED_TO_CAPACITY_RATIO) {
+      long long w = 0;
+      for (int r = 0; r < nRs; ++r)
+        if (!((excl >> r) & 1)) w += c.nf_w[r];
+      s.pw[i] = make_uint2((unsigned)w, rcp32(w));
+    }
+  }
+  stage_nf_tables<STRAT>(s, c, nRs);
+  if (threadIdx.x == 0) s.small_w = small_nf_weights(c, nRs);
+  __syncthreads();
+
+  const int j = blockIdx.x * kCols + threadIdx.x;
+  if (j >= N) return;
+
+  // The node's rows, once a thread, pinned in registers.  A node takes the
+  // float estimate (`fast`) when every capacity is 0 or in [1, 2**55) and
+  // every requested score in [0, 2**55), and the block's weights are
+  // small; a pair then takes it when its pod's requests are in [0, 2**55)
+  // too: no sum and no 100-fold product wraps, a free capacity is negative
+  // exactly when its 100-fold is, every free or requested capacity it
+  // divides is in [0, cap], and the weighted sum is below 2**29.  Every
+  // other pair takes nf_general.  a: 100 (cap - requested) for the free
+  // quotients (100 times the requested score for MostAllocated's), f: its
+  // float.
+  long long acap[Width<RS>::cap], aa[Width<RS>::cap], ac100[Width<RS>::cap];
+  float af[Width<RS>::cap], arcf[Width<RS>::cap];
+  unsigned inc = 0;  // Rs bits: a resource with a non-zero capacity
+  bool fast = s.small_w;
+#pragma unroll
+  for (int r = 0; r < Width<RS>::cap; ++r)
+    if (r < nRs) {
+      const size_t o = (size_t)j * nRs + r;
+      acap[r] = n.alloc_score[o];
+      const long long nreq = n.nreq_score[o];
+      inc |= (unsigned)(acap[r] != 0) << r;
+      const long long d = STRAT == KOORD_MOST_ALLOCATED ? nreq : acap[r] - nreq;
+      aa[r] = (long long)((unsigned long long)d * 100ULL);
+      ac100[r] = (long long)((unsigned long long)acap[r] * 100ULL);
+      af[r] = __ll2float_rn(d);
+      arcf[r] = __fdiv_rn(100.0f, __ll2float_rn(acap[r]));
+      fast = fast && in_fast(acap[r]) && in_fast(nreq);
+      pin(aa[r]);
+      pin(ac100[r]);
+      pin(af[r]);
+      pin(arcf[r]);
+    }
+
+  // every capacity non-zero (the rule): a pod's included resources, and
+  // so its weight sum, are its own (pw), not the node's
+  const bool all_inc = inc == full;
+
+  for (int i = 0; i < cnt; ++i) {
+    const unsigned f = s.flags[i];
+    const unsigned mask = inc & ~f & full;
+    long long nf;
+    if (fast && (f >> 8)) {
+      unsigned acc = 0, used_mask = mask;
+#pragma unroll
+      for (int r = 0; r < Width<RS>::cap; ++r)
+        if (r < nRs && ((mask >> r) & 1)) {
+          const unsigned w = (unsigned)c.nf_w[r];
+          if (STRAT == KOORD_MOST_ALLOCATED) {
+            const long long n100 = aa[r] + s.rs100[i][r];  // 100 req
+            const int q = n100 > ac100[r]
+                              ? 100
+                              : quot100(af[r] + s.rsf[i][r], arcf[r], n100, acap[r]);
+            acc += (unsigned)q * w;
+          } else {
+            const long long n100 = aa[r] - s.rs100[i][r];  // 100 (cap - req)
+            const int q = n100 >= 0 ? quot100(af[r] - s.rsf[i][r], arcf[r], n100, acap[r]) : 0;
+            if (STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO) {
+              const int sc = s.shape[n100 >= 0 ? 100 - q : 100];
+              if (sc > 0)
+                acc += (unsigned)sc * w;
+              else
+                used_mask &= ~(1u << r);
+            } else {
+              acc += (unsigned)q * w;
+            }
+          }
+        }
+      if (STRAT != KOORD_REQUESTED_TO_CAPACITY_RATIO && all_inc) {
+        const uint2 pw = s.pw[i];
+        nf = pw.x == 0 ? 0 : div32(acc, pw.x, pw.y);
+      } else {
+        nf = nf_mean<STRAT>(s, acc, used_mask);
+      }
+    } else {
+      nf = nf_general<STRAT>(c, n, s, nRs, i, j, mask);
+    }
+    // written once and read by no one here: a streaming store
+    __stcs(&out[(size_t)(q0 + i) * N + j], nf);
+  }
 }
 
-const int kThreads = 256;
+template <int RS>
+void launch_nf_widths(const Cfg& c, const PodIn& p, const NodeIn& n, int P, int N, long long* o,
+                      cudaStream_t st) {
+  const dim3 grid((N + kCols - 1) / kCols, (P + kStrip - 1) / kStrip);
+  if (c.strategy == KOORD_MOST_ALLOCATED)
+    nf_strip_kernel<RS, KOORD_MOST_ALLOCATED><<<grid, kCols, 0, st>>>(c, p, n, P, N, o);
+  else if (c.strategy == KOORD_REQUESTED_TO_CAPACITY_RATIO)
+    nf_strip_kernel<RS, KOORD_REQUESTED_TO_CAPACITY_RATIO>
+        <<<grid, kCols, 0, st>>>(c, p, n, P, N, o);
+  else
+    nf_strip_kernel<RS, KOORD_LEAST_ALLOCATED><<<grid, kCols, 0, st>>>(c, p, n, P, N, o);
+}
+
+// The NodeFit strip's launch: the instantiation for the configuration's
+// scoring width (cfg[2]: 2, the serving configurations' with and without
+// batch scalars, or the generic one) and strategy; nothing to do when P
+// or N is 0.
+int launch_nf(const void* const* pods, const void* const* nodes, const long long* cfg, int P,
+              int N, void* out, int device, void* stream) {
+  const int Rs = (int)cfg[2];
+  if (P < 0 || N < 0 || Rs < 0 || Rs > KOORD_MAXR || (P + kStrip - 1) / kStrip > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (P == 0 || N == 0) return (int)cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const Cfg c = koord_cfg(cfg, nullptr);
+  const PodIn p = koord_pods(pods);
+  const NodeIn n = koord_nodes(nodes);
+  long long* o = (long long*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Rs == 2)
+    launch_nf_widths<2>(c, p, n, P, N, o, st);
+  else
+    launch_nf_widths<0>(c, p, n, P, N, o, st);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -271,12 +426,7 @@ extern "C" int koord_la_score(const void* const* pods, const void* const* nodes,
 extern "C" int koord_nf_score(const void* const* pods, const void* const* nodes,
                               const long long* cfg, int P, int N, void* out, int device,
                               void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + kThreads - 1) / kThreads, P);
-  nf_score_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      koord_cfg(cfg, nullptr), koord_pods(pods), koord_nodes(nodes), P, N, (long long*)out);
-  return (int)cudaGetLastError();
+  return launch_nf(pods, nodes, cfg, P, N, out, device, stream);
 }
 
 extern "C" int koord_la_score_filter(const void* const* pods, const void* const* nodes,

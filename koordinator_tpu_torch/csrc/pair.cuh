@@ -12,22 +12,26 @@
 // strategies (core/nodefit.py:163-234), chosen by the strategy id in Cfg:
 //   total = loadaware_score + nodefit_score
 //   feasible = loadaware_filter && nodefit_filter (&& caller's masks)
-// Every division but one has non-negative operands, so C++ truncation
-// equals the floor the reference computes.  The exception is the
+// Every division floors, as the plain versions' torch.div(...,
+// rounding_mode="floor") does (floor_div): a dividend is negative under a
+// negative weight, a negative request total or a product that wrapped, and
+// there C++ `/` would truncate.  The exception is the
 // RequestedToCapacityRatio shape's interpolation on a decreasing segment,
 // whose numerator is negative: there the reference truncates toward zero
-// as Go does, and so does C++ `/`.  The packed keys are decoded with floor
-// division (key_floor_mod), since extra scores may make a total negative.
+// as Go does, and so does C++ `/`.  Sums and products wrap as the plain
+// versions' int64 tensors wrap (they are formed in unsigned arithmetic).
+// The packed keys are decoded with floor division (key_floor_mod), since
+// extra scores may make a total negative.
 //
 // The score functions are templates over RCP.  RCP = false divides with
-// `/`: the H100 has no 64-bit integer divide instruction, so each is a
-// subroutine of tens of instructions.  RCP = true (the key build and the
+// floor_div: the H100 has no 64-bit integer divide instruction, so each is
+// a subroutine of tens of instructions.  RCP = true (the key build and the
 // scan's rescoring, which stage node rows beside their reciprocals) divides
 // by a node's capacity with div_cap and the weight sums and the RTC
 // interpolation in 32 bits where their operands are proven to fit
-// (div_small, broken_linear); every other operand keeps `/`.  Both give
-// the same quotient for every input, so a key rescored by one equals a key
-// built by the other.
+// (div_small, broken_linear); every other operand keeps floor_div.  Both
+// give the same quotient for every input, so a key rescored by one equals
+// a key built by the other.
 #pragma once
 
 #include <climits>
@@ -159,6 +163,32 @@ inline NodeIn koord_nodes(const void* const* p) {
   return o;
 }
 
+// floor(a / b) for b != 0, as the plain versions' torch.div(...,
+// rounding_mode="floor") divides, out of line: the rare case of every
+// caller (a negative operand; under RCP any fallback)
+__host__ __device__ __noinline__ long long floor_div_slow(long long a, long long b) {
+  const long long q = a / b;  // one division; the remainder from it
+  return (a - q * b != 0 && (a ^ b) < 0) ? q - 1 : q;
+}
+
+// floor(a / b) for b != 0: both operands non-negative (the rule) take the
+// unsigned division, cheaper than the signed one `/` is
+__host__ __device__ __forceinline__ long long floor_div(long long a, long long b) {
+  if ((a | b) >= 0) return (long long)((unsigned long long)a / (unsigned long long)b);
+  return floor_div_slow(a, b);
+}
+
+// a + b, a - b and a * b as int64 tensors compute them: wrapping modulo 2**64
+__host__ __device__ __forceinline__ long long wrap_add(long long a, long long b) {
+  return (long long)((unsigned long long)a + (unsigned long long)b);
+}
+__host__ __device__ __forceinline__ long long wrap_sub(long long a, long long b) {
+  return (long long)((unsigned long long)a - (unsigned long long)b);
+}
+__host__ __device__ __forceinline__ long long wrap_mul(long long a, long long b) {
+  return (long long)((unsigned long long)a * (unsigned long long)b);
+}
+
 // Division by an invariant integer (after Granlund and Montgomery): the
 // reciprocal of a divisor d >= 1 is m = floor((2**64 - 1) / d), computed
 // once per staged node row; 0 stands for d <= 0, which no caller divides by.
@@ -166,33 +196,36 @@ __host__ __device__ __forceinline__ unsigned long long koord_rcp(long long d) {
   return d > 0 ? ~0ULL / (unsigned long long)d : 0ULL;
 }
 
-// n / d for d >= 1 with m = koord_rcp(d).  For 0 <= n < 2**63 the high
-// word of n * m is the quotient q or q - 1: m * d > 2**64 - 1 - d, so
-// n / d - n * m / 2**64 < n * (d + 1) / (d * 2**64) <= 2 n / 2**64 < 1; one
-// correction step on the remainder makes it exact.  A negative n (a product
-// that wrapped) keeps `/`.
+// floor(n / d) for d != 0 with m = koord_rcp(d).  For 0 <= n < 2**63 and
+// d >= 1 the high word of n * m is the quotient q or q - 1: m * d > 2**64 -
+// 1 - d, so n / d - n * m / 2**64 < n * (d + 1) / (d * 2**64) <= 2 n /
+// 2**64 < 1; one correction step on the remainder makes it exact.  A
+// negative n (a product that wrapped, a negative request) or d keeps
+// floor_div.
 template <bool RCP>
 __device__ __forceinline__ long long div_cap(long long n, long long d, unsigned long long m) {
   if constexpr (RCP) {
-    if (n >= 0) {
+    if (n >= 0 && d > 0) {
       const unsigned long long u = (unsigned long long)n, v = (unsigned long long)d;
       unsigned long long q = __umul64hi(u, m);
       if (u - q * v >= v) ++q;
       return (long long)q;
     }
+    return floor_div_slow(n, d);
   }
-  return n / d;
+  return floor_div(n, d);
 }
 
-// n / d for d >= 1: in 32 bits when both are in [0, 2**32) (the weight sums
-// and what they divide), else `/`
+// floor(n / d) for d != 0: in 32 bits when both are in [0, 2**32) (the
+// weight sums and what they divide), else floor_div
 template <bool RCP>
 __device__ __forceinline__ long long div_small(long long n, long long d) {
   if constexpr (RCP) {
     if ((((unsigned long long)n | (unsigned long long)d) >> 32) == 0)
       return (long long)((unsigned)n / (unsigned)d);
+    return floor_div_slow(n, d);
   }
-  return n / d;
+  return floor_div(n, d);
 }
 
 // loadaware_score (core/loadaware.py:77): weighted least-requested over
@@ -207,13 +240,13 @@ __device__ __forceinline__ long long la_score(const Cfg& c, const PodIn& p, cons
   for (int r = 0; r < c.R; ++r) {
     const size_t o = (size_t)j * c.R + r;
     long long cap = n.la_alloc[o];
-    long long used = p.est[(size_t)q * c.R + r] + base[o];
-    long long s = (cap == 0 || used > cap)
-                      ? 0
-                      : div_cap<RCP>((cap - used) * 100, cap, RCP ? n.la_rcp[o] : 0);
+    long long used = wrap_add(p.est[(size_t)q * c.R + r], base[o]);
+    long long s = (cap == 0 || used > cap) ? 0
+                                           : div_cap<RCP>(wrap_mul(wrap_sub(cap, used), 100), cap,
+                                                          RCP ? n.la_rcp[o] : 0);
     long long w = c.la_w[r];
-    acc += s * w;
-    wsum += w;
+    acc = wrap_add(acc, wrap_mul(s, w));
+    wsum = wrap_add(wsum, w);
   }
   return div_small<RCP>(acc, wsum);
 }
@@ -229,10 +262,12 @@ __device__ __forceinline__ long long nf_least(const Cfg& c, const PodIn& p, cons
     long long cap = n.alloc_score[o];
     long long preq = p.req_score[(size_t)q * c.Rs + r];
     if (cap == 0 || (c.bypass[r] && preq == 0)) continue;
-    long long req = preq + n.nreq_score[o];
-    long long s = req > cap ? 0 : div_cap<RCP>((cap - req) * 100, cap, RCP ? n.as_rcp[o] : 0);
-    acc += s * c.nf_w[r];
-    wsum += c.nf_w[r];
+    long long req = wrap_add(preq, n.nreq_score[o]);
+    long long s = req > cap ? 0
+                            : div_cap<RCP>(wrap_mul(wrap_sub(cap, req), 100), cap,
+                                           RCP ? n.as_rcp[o] : 0);
+    acc = wrap_add(acc, wrap_mul(s, c.nf_w[r]));
+    wsum = wrap_add(wsum, c.nf_w[r]);
   }
   return wsum == 0 ? 0 : div_small<RCP>(acc, wsum);
 }
@@ -249,10 +284,11 @@ __device__ __forceinline__ long long nf_most(const Cfg& c, const PodIn& p, const
     long long cap = n.alloc_score[o];
     long long preq = p.req_score[(size_t)q * c.Rs + r];
     if (cap == 0 || (c.bypass[r] && preq == 0)) continue;
-    long long req = preq + n.nreq_score[o];
+    long long req = wrap_add(preq, n.nreq_score[o]);
     if (req > cap) req = cap;
-    acc += div_cap<RCP>(req * 100, cap, RCP ? n.as_rcp[o] : 0) * c.nf_w[r];
-    wsum += c.nf_w[r];
+    acc = wrap_add(acc, wrap_mul(div_cap<RCP>(wrap_mul(req, 100), cap, RCP ? n.as_rcp[o] : 0),
+                                 c.nf_w[r]));
+    wsum = wrap_add(wsum, c.nf_w[r]);
   }
   return wsum == 0 ? 0 : div_small<RCP>(acc, wsum);
 }
@@ -290,16 +326,17 @@ __device__ __forceinline__ long long nf_rtc(const Cfg& c, const PodIn& p, const 
     long long cap = n.alloc_score[o];
     long long preq = p.req_score[(size_t)q * c.Rs + r];
     if (cap == 0 || (c.bypass[r] && preq == 0)) continue;
-    long long req = preq + n.nreq_score[o];
-    long long util =
-        req > cap ? 100 : 100 - div_cap<RCP>((cap - req) * 100, cap, RCP ? n.as_rcp[o] : 0);
+    long long req = wrap_add(preq, n.nreq_score[o]);
+    long long util = req > cap ? 100
+                               : wrap_sub(100, div_cap<RCP>(wrap_mul(wrap_sub(cap, req), 100),
+                                                            cap, RCP ? n.as_rcp[o] : 0));
     long long s = broken_linear<RCP>(c, util);
     if (s > 0) {
-      acc += s * c.nf_w[r];
-      wsum += c.nf_w[r];
+      acc = wrap_add(acc, wrap_mul(s, c.nf_w[r]));
+      wsum = wrap_add(wsum, c.nf_w[r]);
     }
   }
-  return wsum == 0 ? 0 : div_small<RCP>(2 * acc + wsum, 2 * wsum);
+  return wsum == 0 ? 0 : div_small<RCP>(wrap_add(wrap_mul(2, acc), wsum), wrap_mul(2, wsum));
 }
 
 // nodefit_score (core/nodefit.py:71): the configured strategy
@@ -349,7 +386,7 @@ __device__ __forceinline__ bool la_fit(const Cfg& c, const PodIn& p, const NodeI
 template <bool RCP = false>
 __device__ __forceinline__ long long pair_total(const Cfg& c, const PodIn& p, const NodeIn& n,
                                                 int q, int j) {
-  return la_score<RCP>(c, p, n, q, j) + nf_score<RCP>(c, p, n, q, j);
+  return wrap_add(la_score<RCP>(c, p, n, q, j), nf_score<RCP>(c, p, n, q, j));
 }
 
 // ------------------------------------------------------------ constraints
@@ -545,7 +582,8 @@ __device__ __forceinline__ KT pair_key(const Cfg& c, const PodIn& p, const NodeI
   const int jn = row < 0 ? j : row;
   if (!pre || !nf_fit(c, p, n, q, jn)) return KeyLane<KT>::neg;
   const long long rot = rot_of<RCP>(j, salt, N);
-  return (KT)((pair_total<RCP>(c, p, n, q, jn) + xadd) * TB + (TB - 1 - rot));
+  return (KT)wrap_add(wrap_mul(wrap_add(pair_total<RCP>(c, p, n, q, jn), xadd), TB),
+                     TB - 1 - rot);
 }
 
 // pair_key under the constraints: the gang prefilter is in ``pre``; the
@@ -557,10 +595,12 @@ __device__ __forceinline__ KT pair_key_con(const Cfg& c, const PodIn& p, const N
                                            long long TB, long long xadd, int row = -1) {
   if (!k.has_rsv) return pair_key<KT, RCP>(c, p, n, q, j, pre, salt, N, TB, xadd, row);
   if (!pre || !nf_fit_rsv<L2>(c, p, n, k, q, j, row)) return KeyLane<KT>::neg;
-  const long long total = pair_total<RCP>(c, p, n, q, row < 0 ? j : row) +
-                          k.rscores[(size_t)k.xs[q] * N + j] * k.w_rsv + xadd;
+  const long long total =
+      wrap_add(wrap_add(pair_total<RCP>(c, p, n, q, row < 0 ? j : row),
+                        wrap_mul(k.rscores[(size_t)k.xs[q] * N + j], k.w_rsv)),
+               xadd);
   const long long rot = rot_of<RCP>(j, salt, N);
-  return (KT)(total * TB + (TB - 1 - rot));
+  return (KT)wrap_add(wrap_mul(total, TB), TB - 1 - rot);
 }
 
 // the key of pod q on node j: the extra mask joins ``pre`` and the extra

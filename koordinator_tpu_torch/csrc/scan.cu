@@ -93,14 +93,14 @@ constexpr int kRsvThread = 160;
 constexpr int kSplitPhases = 4;
 __device__ long long g_scan_split[kSplitPhases];
 
-// pair.cuh's divisions against `/` on the caller's operands (d >= 1):
-// out[i] = (div_cap, `/`, div_small) of n[i] / d[i]
+// pair.cuh's divisions against floor_div on the caller's operands (d >=
+// 1): out[i] = (div_cap, floor_div, div_small) of n[i] / d[i]
 __global__ void div_check(const long long* n, const long long* d, long long* out, int count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
   const long long a = n[i], b = d[i];
   out[3 * i] = div_cap<true>(a, b, koord_rcp(b));
-  out[3 * i + 1] = a / b;
+  out[3 * i + 1] = floor_div(a, b);
   out[3 * i + 2] = div_small<true>(a, b);
 }
 #endif

@@ -45,8 +45,10 @@
 //     table of every included-resource mask's sum; RTC: also the shape at
 //     every utilisation in 0..100), and the fit compares.  A pair outside the
 //     estimate's proven range (a capacity of 2**55 or more, a negative
-//     request or base, large or negative weights) takes general_pair, out
-//     of line: the pair function's own arithmetic with `/`;
+//     request or base, a weight outside [0, 2**22)) takes general_pair,
+//     out of line: the pair function's own arithmetic (strip.cuh's
+//     la_exact and nf_exact), every quotient floored and every sum
+//     wrapping as the plain version's;
 //   - R, Rf and Rs are template parameters for the widths the serving
 //     configurations reach (2, 3, 2 without batch scalars; 2, 5, 2 with
 //     them), so the loops unroll and the rows stay in registers; a generic
@@ -77,20 +79,6 @@ constexpr int kMaxMasks = 1 << KOORD_MAXR;
 // 80 registers at 6 blocks and 98 at 5 were no faster on the H100)
 constexpr int kMinBlocks = 8;
 
-// n / d as C's `/` computes it: with m = floor((2**32 - 1) / d) (0 when d
-// is outside [1, 2**32)) in 32 bits for 0 <= n < 2**31, where the high
-// word of n * m is the quotient or one less (m * d > 2**32 - 1 - d, so
-// n / d - n * m / 2**32 < 2 n / 2**32 < 1), else `/`
-__device__ __forceinline__ long long div_w(long long n, long long d, unsigned m) {
-  if (m != 0 && (unsigned long long)n < (1ULL << 31)) {
-    const unsigned u = (unsigned)n, v = (unsigned)d;
-    unsigned q = __umulhi(u, m);
-    if (u - q * v >= v) ++q;
-    return q;
-  }
-  return n / d;
-}
-
 // The strip's pod rows and the block's tables, staged once a block: each
 // request beside 100 times it and its float.
 template <int R, int RF, int RS>
@@ -110,65 +98,17 @@ struct Stage {
   unsigned wrcp[kMaxMasks];        // its rcp32
   int shape[101];                  // RTC: the shape at utilisation 0..100
   long long la_w[KOORD_MAXR];      // the LoadAware weights
-  bool small_w;                    // every weight >= 0 and each plugin's sum < 2**22
+  bool small_w;                    // every weight in [0, 2**22), each plugin's sum < 2**22
 };
 
-// the NodeFit score from its weighted sum over the resources in `mask`
-template <int STRAT, class S>
-__device__ __forceinline__ long long nf_mean(const S& s, long long acc, unsigned mask) {
-  const long long ws = s.wsum[mask];
-  if (ws == 0) return 0;
-  return div_w(STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO ? 2 * acc + ws / 2 : acc, ws,
-               s.wrcp[mask]);
-}
-
-// A pair outside the float estimate's range: the pair function's
-// arithmetic as it stands, `/` for every quotient, over node j's rows read
-// again (rare: a node or pod with a row out of range).  Out of line, so the
-// fast path's registers do not carry it; the configuration and the node
-// table are the kernel's __grid_constant__ parameters, referenced in
-// place.
+// A pair outside the float estimate's range: strip.cuh's la_exact and
+// nf_exact (the pair function's arithmetic, floored and wrapping), in one
+// out-of-line call so that the fast path's registers carry neither.
 template <int R, int RS, int STRAT, class S>
 __device__ __noinline__ void general_pair(const Cfg& c, const NodeIn& n, const S& s, int i, int j,
                                           unsigned mask, bool sv, long long* out) {
-  const int nR = Width<R>::of(c.R), nRs = Width<RS>::of(c.Rs);
-  const bool prod = s.flags[i] & 1;
-  long long la = 0;
-  if (sv) {
-    long long acc = 0, wsum = 0;
-    for (int r = 0; r < nR; ++r) {
-      const size_t o = (size_t)j * nR + r;
-      const long long cap = n.la_alloc[o];
-      const long long used = s.est[i][r] + (prod ? n.base_prod[o] : n.base_nonprod[o]);
-      const long long sc = (cap == 0 || used > cap) ? 0 : (cap - used) * 100 / cap;
-      acc += sc * s.la_w[r];
-      wsum += s.la_w[r];
-    }
-    la = acc / wsum;
-  }
-  long long acc = 0;
-  unsigned used_mask = mask;
-  for (int r = 0; r < nRs; ++r) {
-    if (!((mask >> r) & 1)) continue;
-    const size_t o = (size_t)j * nRs + r;
-    const long long cap = n.alloc_score[o];
-    const long long req = s.rs[i][r] + n.nreq_score[o];
-    if (STRAT == KOORD_MOST_ALLOCATED) {
-      acc += (req > cap ? cap : req) * 100 / cap * c.nf_w[r];
-    } else if (STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO) {
-      const long long util = req > cap ? 100 : 100 - (cap - req) * 100 / cap;
-      const long long sc =
-          (unsigned long long)util <= 100 ? s.shape[util] : broken_linear<false>(c, util);
-      if (sc > 0)
-        acc += sc * c.nf_w[r];
-      else
-        used_mask &= ~(1u << r);
-    } else {
-      acc += (req > cap ? 0 : (cap - req) * 100 / cap) * c.nf_w[r];
-    }
-  }
-  out[0] = la;
-  out[1] = nf_mean<STRAT>(s, acc, used_mask);
+  out[0] = sv ? la_exact(n, s, Width<R>::of(c.R), i, j) : 0;
+  out[1] = nf_exact<STRAT>(c, n, s, Width<RS>::of(c.Rs), i, j, mask);
 }
 
 // Columns [col0, col0 + Nb) of N: the node rows, valid, the extra scores
@@ -204,45 +144,22 @@ __global__ void __launch_bounds__(kCols, R > 0 ? kMinBlocks : 1)
         s.req[i][r] = v;
         need |= (unsigned)(c.always[r] || v > 0) << r;
       }
-#pragma unroll
-    for (int r = 0; r < Width<RS>::cap; ++r)
-      if (r < nRs) {
-        const long long v = p.req_score[(size_t)q * nRs + r];
-        s.rs[i][r] = v;
-        s.rs100[i][r] = (long long)((unsigned long long)v * 100ULL);
-        s.rsf[i][r] = __ll2float_rn(v);
-        small = small && in_fast(v);
-        excl |= (unsigned)(c.bypass[r] && v == 0) << r;
-      }
+    small = stage_nf_row<RS>(s, i, p.req_score + (size_t)q * nRs, c, nRs, excl) && small;
     s.flags[i] = (p.prod_score[q] ? 1 : 0) | (p.prod_class[q] ? 2 : 0) |
                  (p.daemonset[q] ? 4 : 0) | (p.has_any[q] ? 8 : 0) | (small ? 16 : 0);
     s.need[i] = (unsigned char)need;
     s.excl[i] = (unsigned char)excl;
   }
-  for (int m = threadIdx.x; m < (1 << nRs); m += blockDim.x) {
-    long long w = 0;
-    for (int r = 0; r < nRs; ++r)
-      if ((m >> r) & 1) w += c.nf_w[r];
-    if (STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO) w *= 2;
-    s.wsum[m] = w;
-    s.wrcp[m] = rcp32(w);
-  }
-  if (STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO)
-    for (int u = threadIdx.x; u <= 100; u += blockDim.x)
-      s.shape[u] = (int)broken_linear<false>(c, u);
+  stage_nf_tables<STRAT>(s, c, nRs);
   if (threadIdx.x == 0) {
     bool small_w = true;
-    long long la_sum = 0, nf_sum = 0;
+    long long la_sum = 0;  // below 2**25 when every weight is in [0, 2**22)
     for (int r = 0; r < nR; ++r) {
       s.la_w[r] = c.la_w[r];
-      small_w = small_w && s.la_w[r] >= 0;
-      la_sum += s.la_w[r];
+      small_w = small_w && s.la_w[r] >= 0 && s.la_w[r] < (1 << 22);
+      if (small_w) la_sum += s.la_w[r];
     }
-    for (int r = 0; r < nRs; ++r) {
-      small_w = small_w && c.nf_w[r] >= 0;
-      nf_sum += c.nf_w[r];
-    }
-    s.small_w = small_w && la_sum >= 1 && la_sum < (1 << 22) && nf_sum < (1 << 22);
+    s.small_w = small_w && la_sum >= 1 && la_sum < (1 << 22) && small_nf_weights(c, nRs);
   }
   __syncthreads();
 
@@ -365,10 +282,7 @@ __global__ void __launch_bounds__(kCols, R > 0 ? kMinBlocks : 1)
             }
           }
         }
-      const unsigned ws = (unsigned)s.wsum[used_mask];
-      if (ws != 0)
-        nf = div32(STRAT == KOORD_REQUESTED_TO_CAPACITY_RATIO ? 2 * acc + ws / 2 : acc, ws,
-                   s.wrcp[used_mask]);
+      nf = nf_mean<STRAT>(s, acc, used_mask);
     } else {
       long long both[2];
       general_pair<R, RS, STRAT>(c, n, s, i, j, mask, sv, both);

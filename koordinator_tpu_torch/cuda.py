@@ -247,8 +247,13 @@ PLACEMENT = Kernel("placement", "koord_placement",
 # the tables' widths, the phases' shared memory, the [4] result
 PLACEMENT_PLAN = HostFn("placement", "koord_placement_plan", [_P, _I, _P, _I, _P])
 PLACEMENT_PARAM_WORDS = 7680  # kParamWords: descriptor words in a launch's parameters
-# device feasibility and the deviceshare score (csrc/device.cu)
-DEV_FEASIBLE = Kernel("device", "koord_dev_feasible", [_P] * 11 + [_I] * 3 + [_P, _I, _P])
+# device feasibility and the deviceshare score (csrc/device.cu):
+# ``dev_feasible`` takes a ``DeviceStage``'s descriptor (the four node rows'
+# pointers, N, Gm, the device), the host block of packed signatures, its
+# copy on the card past ``DEV_SIG_CAP`` signatures (else null), M, the
+# output and the stream
+DEV_FEASIBLE = Kernel("device", "koord_dev_feasible", [_P, _P, _P, _I, _P, _P])
+DEV_SIG_CAP = 128  # kSigCap in csrc/device.cu: signatures a launch's parameters carry
 DS_SCORE = Kernel("device", "koord_ds_score", [_P] * 3 + [_I] * 2 + [_P, _I, _P])
 # the quota tree's runtime refresh (csrc/quota.cu): ``quota`` and the
 # admission limit ``quota_limit`` (row 0 := 2**60) share one entry point:
@@ -645,12 +650,15 @@ def loadaware_args(la_pods, la_nodes, la_weights) -> PairArgs:
 
 def nodefit_args(nf_pods, nf_nodes, nf_static) -> PairArgs:
     """Validate the NodeFit inputs on one CUDA device and lay them out for
-    the ``nf_score`` kernel (every strategy; the LoadAware entries of the
-    pointer tables are null).  Raises on a bad NodeFit configuration."""
+    the ``breakdown.cu`` NodeFit strip (``nf_score``, every strategy; the
+    LoadAware entries of the pointer tables are null and the configuration
+    block is ``cfg_array``'s of (0, 0, Rs) and the static, one per (Rs,
+    static), which is all the strip reads).  Raises on a bad NodeFit
+    configuration."""
     dev = _cuda_device(nf_pods.req)
     P = nf_pods.req.shape[0]
     if P > _GRID_Y_MAX:
         raise ValueError(f"NodeFit: {P} pods exceed the launch's {_GRID_Y_MAX}")
     pods, nodes = _nf_tables(nf_pods, nf_nodes, P, nf_nodes.alloc.shape[0], dev)
-    cfg = cfg_array(0, nf_pods.req.shape[1], nf_pods.req_score.shape[1], nf_static)
+    cfg = cfg_array(0, 0, nf_pods.req_score.shape[1], nf_static)
     return _pair_args((None,) * _LA_POD_PTRS + pods, (None,) * _LA_NODE_PTRS + nodes, cfg)

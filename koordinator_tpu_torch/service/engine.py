@@ -394,6 +394,9 @@ class Engine:
         self._sel_rows_key: Optional[tuple] = None
         self._dev_rows: Dict[tuple, tuple] = {}
         self._dev_rows_key: Optional[tuple] = None
+        # the DeviceStages over node shards' columns (and every node's when
+        # the residency is off)
+        self._dev_stages: Dict[Optional[tuple], pl.DeviceStage] = {}
         self._ds_rows: Dict[tuple, torch.Tensor] = {}
         self._ds_rows_key: Optional[tuple] = None
         # (fingerprint id, signature) -> (ok, admitted NUMA set) of the exact
@@ -581,10 +584,11 @@ class Engine:
     def _compute_device_rows(self, sig_list, sig_rep, cap: int, out=None, cols=None) -> None:
         """Feasibility rows for the signatures missing from the epoch cache:
         one ``dev_feasible`` launch over every node for the cpuset-free
-        signatures, then on the card the candidate mask and the exact-walk
-        overrides (fingerprint-grouped, memoized), before the row is
-        cached.  ``out``/``cols``: one node shard's rows, ``cols=(lo, hi)``,
-        into the sharded engine's cache ``out`` (the exact walks' memo is
+        signatures (``_dense_device_rows``), then on the card the candidate
+        mask and the exact-walk overrides (fingerprint-grouped, memoized),
+        before the row is cached.
+        ``out``/``cols``: one node shard's rows, ``cols=(lo, hi)``, into the
+        sharded engine's cache ``out`` (the exact walks' memo is
         shard-agnostic: it keys on device fingerprints)."""
         st = self.state
         lo, hi = (0, cap) if cols is None else cols
@@ -592,35 +596,7 @@ class Engine:
         dense_sigs = [s for s in sig_list if s[2] is None]  # no cpuset
         drows: Dict[tuple, torch.Tensor] = {}
         if dense_sigs:
-            Mb = next_bucket(len(dense_sigs), 8)
-            has_gpu = np.zeros(Mb, dtype=bool)
-            is_multi = np.zeros(Mb, dtype=bool)
-            count = np.zeros(Mb, dtype=np.int32)
-            core_req = np.zeros(Mb, dtype=np.int32)
-            ratio_req = np.zeros(Mb, dtype=np.int32)
-            rdma_need = np.zeros(Mb, dtype=np.int32)
-            sig_valid = np.zeros(Mb, dtype=bool)
-            for m, (greq, rdma_req, _cs, _bp, _ep) in enumerate(dense_sigs):
-                sig_valid[m] = True
-                if greq is not None:
-                    has_gpu[m] = True
-                    c, r = greq
-                    if c >= 100:
-                        is_multi[m] = True
-                        count[m] = c // 100
-                        if c % 100:
-                            sig_valid[m] = False  # ValidateDeviceRequest
-                    else:
-                        core_req[m] = c
-                        ratio_req[m] = r
-                    # the joint draw takes ONE VF whatever the count
-                    rdma_need[m] = 1 if rdma_req > 0 else 0
-                else:
-                    rdma_need[m] = rdma_req
-            core, mem, full, vfs = (t[lo:hi] for t in self._device_node_rows()[:4])
-            sigs = pl.DeviceSigs(*(convert.tensor(a, self.device) for a in (
-                has_gpu, is_multi, count, core_req, ratio_req, rdma_need, sig_valid)))
-            dense = pl.dev_feasible(core, mem, full, vfs, sigs)
+            dense = self._dense_device_rows(dense_sigs, cols)
             for m, sg in enumerate(dense_sigs):
                 drows[sg] = dense[m]
         if len(self._dev_exact_memo) > 200_000:
@@ -664,6 +640,48 @@ class Engine:
                     if ok_by[inv[k]] and mn is not None:
                         sig_masks[st._imap._names[lo + int(exact_cols[k])]] = mn
             dst[sig] = (row, sig_masks)
+
+    def _dense_device_rows(self, dense_sigs, cols=None) -> torch.Tensor:
+        """[M, n] bool of the cpuset-free signatures over the device rows at
+        ``cols``: the signatures packed into one host block, which rides in
+        the ``dev_feasible`` kernel's launch parameters, through
+        ``_device_stage``."""
+        block = np.zeros((len(dense_sigs), pl.SIG_WORDS), dtype=np.int32)
+        for m, (greq, rdma_req, _cs, _bp, _ep) in enumerate(dense_sigs):
+            flags = pl.SIG_VALID
+            if greq is not None:
+                flags |= pl.SIG_HAS_GPU
+                c, r = greq
+                if c >= 100:
+                    flags |= pl.SIG_IS_MULTI
+                    block[m, pl.SIG_COUNT] = c // 100
+                    if c % 100:
+                        flags &= ~pl.SIG_VALID  # ValidateDeviceRequest
+                else:
+                    block[m, pl.SIG_CORE_REQ] = c
+                    block[m, pl.SIG_RATIO_REQ] = r
+                # the joint draw takes ONE VF whatever the count
+                block[m, pl.SIG_RDMA_NEED] = 1 if rdma_req > 0 else 0
+            else:
+                block[m, pl.SIG_RDMA_NEED] = rdma_req
+            block[m, pl.SIG_FLAGS] = flags
+        return self._device_stage(cols).feasible(block)
+
+    def _device_stage(self, cols=None) -> "pl.DeviceStage":
+        """The ``DeviceStage`` over the device rows at ``cols`` (a node
+        shard's ``(lo, hi)``, or every node): the residency's own for every
+        node, else this engine's for ``cols``, rebound when the rows are
+        replaced or moved."""
+        st = self.state
+        if cols is None and st.residency.enabled:
+            return st.residency.device_stage(self.device)
+        rows = self._device_node_rows()
+        stage = self._dev_stages.get(cols)
+        if stage is None:
+            stage = self._dev_stages[cols] = pl.DeviceStage()
+        if not stage.bound_to(rows, cols):
+            stage.bind(rows, cols)
+        return stage
 
     def _compute_device_score_rows(self, greqs, cap: int, out=None, cols=None) -> None:
         """deviceshare binpack score rows per distinct GPU request from the

@@ -44,6 +44,7 @@ from koordinator_tpu_torch.core.config import LoadAwareArgs, NodeFitArgs
 from koordinator_tpu_torch.core.loadaware import LoadAwareNodeArrays
 from koordinator_tpu_torch.core.nodefit import NodeFitNodeArrays
 from koordinator_tpu_torch.core.numa import CPUAlloc, CPUTopology
+from koordinator_tpu_torch.core.placement import DeviceStage
 from koordinator_tpu_torch.service.constraints import GangStore, QuotaStore, ReservationStore
 from koordinator_tpu_torch.snapshot import loadaware as la_snap
 from koordinator_tpu_torch.snapshot import nodefit as nf_snap
@@ -662,28 +663,33 @@ class _ResidentTable:
     touching the carry)."""
 
     __slots__ = ("attrs", "ver_attr", "bufs", "watermark", "shape_key", "audit_cursor", "stage",
-                 "gate")
+                 "gate", "dev")
 
-    def __init__(self, attrs: tuple, ver_attr: str, gated: bool = False):
+    def __init__(self, attrs: tuple, ver_attr: str, gated: bool = False, devices: bool = False):
         self.attrs = attrs
         self.ver_attr = ver_attr
         self.bufs: Optional[tuple] = None
         self.watermark = 0
         self.shape_key: Optional[tuple] = None
         self.audit_cursor = 0  # rotating sampled-audit window start
-        # the scatter's staging and (the rows table) the gate's stage over
-        # its 12 raw LoadAware rows, bound whenever ``bufs`` are replaced;
-        # a scatter writes in place and keeps both
+        # the scatter's staging, (the rows table) the gate's stage over its
+        # 12 raw LoadAware rows and (the device table) ``dev_feasible``'s
+        # stage over its rows, bound whenever ``bufs`` are replaced; a
+        # scatter writes in place and keeps them all
         self.stage = ScatterStage()
         self.gate = GateStage() if gated else None
+        self.dev = DeviceStage() if devices else None
 
     def adopt(self, bufs: tuple) -> None:
-        """New resident buffers (a full upload or a widening): the scatter's
-        descriptor and the gate's are rebuilt for them."""
+        """New resident buffers (a full upload, a capacity growth or a
+        widening): the scatter's descriptor, the gate's and the device
+        stage's are rebuilt for them."""
         self.bufs = bufs
         self.stage.bind(bufs)
         if self.gate is not None:
             self.gate.bind(bufs[:12])
+        if self.dev is not None:
+            self.dev.bind(bufs)
 
 
 def _norm_device(device) -> torch.device:
@@ -701,7 +707,8 @@ class DeviceResidency:
     - ``policy`` — the taint/label/anti-affinity rows (``_pp_row_ver``),
       the ``placement`` kernel's node inputs;
     - ``device`` — the device-inventory aggregates (``_dv_row_ver``), the
-      ``dev_feasible`` and ``ds_score`` kernels' node inputs.
+      ``dev_feasible`` and ``ds_score`` kernels' node inputs, with the
+      ``DeviceStage`` that ``dev_feasible`` launches through.
 
     The tables live on one explicit device, bound by the first read; a
     read asking for another device raises.  A cold table adopts wholesale
@@ -743,7 +750,7 @@ class DeviceResidency:
         self._tables: Dict[str, _ResidentTable] = {
             "rows": _ResidentTable(self._ROWS, "_row_ver", gated=True),
             "policy": _ResidentTable(self._POLICY, "_pp_row_ver"),
-            "device": _ResidentTable(self._DEVICE, "_dv_row_ver"),
+            "device": _ResidentTable(self._DEVICE, "_dv_row_ver", devices=True),
         }
         self.device: Optional[torch.device] = None
         # one-entry gated-la cache: SCORE and SCHEDULE in one cycle share
@@ -902,6 +909,13 @@ class DeviceResidency:
         freshly synced: the ``dev_feasible`` / ``ds_score`` node inputs."""
         self._bind(device)
         return self._sync("device")
+
+    def device_stage(self, device) -> DeviceStage:
+        """The ``DeviceStage`` bound to the device table resident on
+        ``device``, freshly synced: ``dev_feasible`` over every node."""
+        self._bind(device)
+        self._sync("device")
+        return self._tables["device"].dev
 
     def verify(self, tables: Optional[tuple] = None, sample: Optional[int] = None) -> int:
         """Bit-compare the warm resident tables against the live host arrays

@@ -48,6 +48,137 @@ def test_dev_feasible_and_ds_score_match_jax(M, N, Gm, seed):
     assert_same(pl.ds_score(*score_in), jds, "ds_score")
 
 
+def _jax_feasible(core, mem, full, vfs, sigs):
+    # copies: a tensor whose memory numpy still views cannot be resized
+    return _shared_jits()["dev_feasible"](*(t.clone().numpy() for t in (core, mem, full, vfs,
+                                                                       *sigs)))
+
+
+def test_device_sigs_pack_round_trip():
+    """The signatures' host block (``pack_device_sigs``): its flags word and
+    four int32 words give back ``DeviceSigs``' seven fields, from CPU
+    tensors and from numpy arrays alike; a field of another dtype or
+    length, or on another device, is refused."""
+    import chip_smoke
+
+    sigs = chip_smoke.device_inputs(torch.device("cpu"), 37, 5, 8, 4)[0][4]
+    block = pl.pack_device_sigs(sigs)
+    assert block.dtype == np.int32 and block.shape == (37, pl.SIG_WORDS)
+    back = pl.unpack_device_sigs(block)
+    for name, a, b in zip(pl.DeviceSigs._fields, sigs, back):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert np.array_equal(pl.pack_device_sigs(pl.DeviceSigs(*(t.numpy() for t in sigs))), block)
+    assert ((block[:, pl.SIG_FLAGS] & pl.SIG_VALID) != 0).sum() == int(sigs.sig_valid.sum())
+    with pytest.raises(ValueError, match="core_req"):
+        pl.pack_device_sigs(sigs._replace(core_req=sigs.core_req.long()))
+    with pytest.raises(ValueError, match="rdma_need"):
+        pl.pack_device_sigs(sigs._replace(rdma_need=sigs.rdma_need[:3]))
+    with pytest.raises(ValueError, match="host data"):
+        pl.pack_device_sigs(sigs._replace(is_multi=sigs.is_multi.to("meta")))
+
+
+def test_dev_feasible_takes_host_signatures_only():
+    """``dev_feasible`` takes its signatures on the host, as ``DeviceSigs``
+    of CPU tensors or numpy arrays or as their packed block, each equal to
+    the JAX package's ``dev_feasible``; signatures on another device are
+    refused with a ``ValueError`` before any launch."""
+    import chip_smoke
+    from koordinator_tpu_torch import cuda
+
+    (core, mem, full, vfs, sigs), _ = chip_smoke.device_inputs(torch.device("cpu"), 16, 90, 8, 5)
+    want = _jax_feasible(core, mem, full, vfs, sigs)
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    for form in (sigs, pl.DeviceSigs(*(t.numpy() for t in sigs)), pl.pack_device_sigs(sigs)):
+        assert_same(pl.dev_feasible(core, mem, full, vfs, form), want, "dev_feasible")
+    meta = pl.DeviceSigs(*(t.to("meta") for t in sigs))
+    with pytest.raises(ValueError, match="host data"):
+        pl.dev_feasible(core, mem, full, vfs, meta)
+    with pytest.raises(ValueError, match="host data"):
+        pl.dev_feasible(core, mem, full, vfs, torch.from_numpy(pl.pack_device_sigs(sigs)).to(
+            "meta"))
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+@pytest.mark.parametrize("move", ["set_", "resize_"])
+def test_device_stage_rebinds_when_a_row_moves_under_the_same_tensor(move):
+    """A bound device row given new storage and new values under the same
+    tensor (``set_``, or a ``resize_`` that reallocates and back) rebinds
+    the stage, as the gate's does, and the public ``dev_feasible`` then
+    reads the new values: equal to the JAX package's ``dev_feasible`` on
+    them.  A strided row (a column slice of a wider table) is refused
+    before any work; a stage bound at a node shard's columns equals the
+    JAX function on those columns."""
+    import chip_smoke
+
+    (core, mem, full, vfs, sigs), _ = chip_smoke.device_inputs(torch.device("cpu"), 16, 64, 8, 6)
+    rows = [t.clone() for t in (core, mem, full, vfs)]  # resizable storage
+    core, mem, full, vfs = rows
+    stage = pl.DeviceStage()
+    stage.bind(rows)
+    assert stage.bound_to(rows) and stage.binds == 1
+    assert_same(stage.feasible(sigs), _jax_feasible(core, mem, full, vfs, sigs))
+    fresh = torch.where(core >= 0, 100 - core, core)
+    ident = [id(t) for t in rows]
+    if move == "set_":
+        core.set_(fresh.clone())
+        full.set_(torch.flip(full, (0,)).clone())
+    else:
+        for t, new in ((core, fresh), (full, torch.flip(full, (0,)))):
+            new = new.clone()
+            t.resize_(4096, *t.shape[1:])
+            t.resize_(new.shape)
+            t.copy_(new)
+    assert [id(t) for t in rows] == ident and not stage.bound_to(rows)
+    want = _jax_feasible(core, mem, full, vfs, sigs)
+    binds = pl._DEV.binds
+    assert_same(pl.dev_feasible(core, mem, full, vfs, sigs), want, "dev_feasible after the move")
+    assert pl._DEV.binds == binds + 1 and pl._DEV.bound_to(rows)
+    stage.bind(rows)
+    assert_same(stage.feasible(sigs), want)
+    stage.bind(rows, (10, 50))
+    assert stage.bound_to(rows, (10, 50)) and not stage.bound_to(rows)
+    assert_same(stage.feasible(sigs), _jax_feasible(core[10:50], mem[10:50], full[10:50],
+                                                    vfs[10:50], sigs))
+    wide = torch.cat([core, core], dim=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        pl.dev_feasible(wide[:, :8], mem, full, vfs, sigs)
+    with pytest.raises(ValueError, match="contiguous"):
+        stage.bind([core, mem, torch.stack([full, full], 1)[:, 0], vfs])
+
+
+def test_residency_rebinds_its_device_stage():
+    """The residency's device table keeps one ``DeviceStage`` bound to its
+    resident rows: a warm sync's scatter keeps it (in place), a capacity
+    growth rebuilds the table and rebinds it; its output equals the JAX
+    package's ``dev_feasible`` on the store's host rows each time."""
+    import chip_smoke
+
+    from torch_parity import device_cluster
+
+    st = device_cluster(pkg("torch"), initial_capacity=16)
+    cpu = torch.device("cpu")
+    sigs = chip_smoke.device_inputs(cpu, 8, 5, 4, 7)[0][4]
+
+    def check():
+        stage = st.residency.device_stage(cpu)
+        host = [getattr(st, a) for a in st.residency._DEVICE[:4]]
+        assert stage.bound_to(st.residency._tables["device"].bufs)
+        if host[0].shape[1] == 4:
+            assert_same(stage.feasible(sigs), _jax_feasible(*host, sigs))
+        return stage.binds
+
+    binds = check()
+    st.set_devices("ep-1", [pkg("torch").GPUDevice(minor=m, numa_node=0, pcie=0)
+                            for m in range(4)], [])
+    assert check() == binds
+    k = pkg("torch")
+    cap = st.capacity
+    for i in range(12, cap + 1):
+        st.upsert_node(k.Node(name=f"ep-{i}", allocatable={"cpu": 64000, "memory": 512 * GB,
+                                                           "pods": 64}))
+    assert st.capacity > cap and check() == binds + 1
+
+
 def test_amplify_and_amplified_score_match_jax():
     """float64 ceil(origin * ratio), the ratio <= 1 identity, and the
     amplified NodeFit score under both scorers."""

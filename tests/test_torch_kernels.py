@@ -876,6 +876,112 @@ def test_la_cases_run_on_cpu_tensors():
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
+NF_CASES = 16 * 4  # len(chip_smoke.nf_cases(..., small)) x the four strategy shapes
+
+
+@pytest.mark.cuda
+def test_nf_cases_equal_plain(card):
+    """The NodeFit strip (``nf_score``) on its edge cases under
+    LeastAllocated, MostAllocated and both RTC shapes: a ragged 267 x 45,
+    one pod, a pod axis off the strip, the quotient boundaries, Rs = 1, 3, 5
+    and 8, rows off the float estimate's range, negative, zero, large and
+    wrapping weights, bypassed zero requests; each equal to
+    ``nodefit_score_plain``, one launch a call."""
+    before = cuda.KERNELS["nf_score"].launches
+    assert chip_smoke.check_nf_cases(card, _inputs(card, 300, 50)) == NF_CASES
+    assert cuda.KERNELS["nf_score"].launches == before + NF_CASES
+
+
+def test_nf_cases_run_on_cpu_tensors():
+    """The NodeFit strip's edge cases on CPU tensors, where the wrapper
+    takes the plain version: the cases build and compare (none of them
+    mismatches), and nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    cpu = torch.device("cpu")
+    small = _inputs(cpu, 300, 50)
+    assert chip_smoke.check_nf_cases(cpu, small) == NF_CASES
+    assert chip_smoke.nf_case_faults(cpu, small) == {}
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+DEV_CASES = 11  # len(chip_smoke.dev_cases(...))
+
+
+@pytest.mark.cuda
+def test_dev_cases_equal_plain(card):
+    """``dev_feasible`` on its edge cases: Gm 1, 6, 8 and 16, M 0, 1 and
+    200 (past the launch parameters' cap), N 0 and 333, invalid counts,
+    RDMA-only signatures, every slot padded; each equal to
+    ``dev_feasible_plain``; strided rows refused, a moved row rebound,
+    signatures on the card refused before any launch."""
+    before = cuda.KERNELS["dev_feasible"].launches
+    assert chip_smoke.check_dev_cases(card) == DEV_CASES
+    assert cuda.KERNELS["dev_feasible"].launches > before
+
+
+def test_dev_cases_run_on_cpu_tensors():
+    """The device feasibility's edge cases on CPU tensors, where the stage
+    takes the plain version: the cases build and compare, the strided rows
+    are refused and the moved row rebound, and nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    cpu = torch.device("cpu")
+    assert chip_smoke.check_dev_cases(cpu) == DEV_CASES
+    assert chip_smoke.dev_case_faults(cpu) == {"strided rows": "refused", "moved row": "equal"}
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+REPAIR = ("score", "shard_score_map", "nf_score", "schedule_keys", "schedule_rounds",
+          "schedule_keys64", "schedule_keys_con", "scan", "sched_refresh", "sched_refresh_con")
+
+
+@pytest.mark.cuda
+def test_repair_cases_equal_plain(card):
+    """The floored divisions and the bounded weights: negative LoadAware
+    and NodeFit weights, negative request totals and weight sums that wrap
+    to 1, through ``score``, ``shard_score_map``, ``nf_score``, the key
+    builds, the round loop, the scan and ``sched_refresh``, each equal to
+    its plain version."""
+    before = {k: cuda.KERNELS[k].launches for k in REPAIR}
+    assert chip_smoke.check_repair_cases(card) == 4 * 7
+    assert all(cuda.KERNELS[k].launches > before[k] for k in REPAIR)
+
+
+def test_repair_cases_run_on_cpu_tensors():
+    """The repair cases on CPU tensors, where every wrapper takes its plain
+    version: each case builds what it names, the checks compare, and
+    nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    assert chip_smoke.check_repair_cases(torch.device("cpu")) == 4 * 7
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def test_nodefit_args_layout(monkeypatch):
+    """``nodefit_args`` lays out what the NodeFit strip reads: null
+    LoadAware entries and the NodeFit tables at the tensors' addresses, and
+    the configuration block of (0, 0, Rs) and the static, built once per
+    (Rs, static) and shared (``cfg_array``'s cache)."""
+    import ctypes
+    import dataclasses
+
+    monkeypatch.setattr(cuda, "_cuda_device", lambda t: t.device)  # lay out CPU tensors
+    x = _inputs(torch.device("cpu"), 40, 10)
+    nf_pods, nf_nodes, static = x["nf_pods"], x["nf_nodes"], x["static"]
+    Rs = nf_pods.req_score.shape[1]
+    args = cuda.nodefit_args(nf_pods, nf_nodes, static)
+    pods = list((ctypes.c_uint64 * 7).from_address(args.pods))
+    nodes = list((ctypes.c_uint64 * 17).from_address(args.nodes))
+    assert pods == [0] * 4 + [t.data_ptr() for t in nf_pods]
+    assert nodes == [0] * 11 + [t.data_ptr() for t in nf_nodes]
+    block = cuda.cfg_array(0, 0, Rs, static)
+    assert args.cfg == ctypes.addressof(block)
+    assert list(block)[:3] == [0, 0, Rs]
+    assert list(block)[3:3 + Rs] == list(static.weights)
+    assert cuda.nodefit_args(nf_pods, nf_nodes, static).cfg == args.cfg
+    most = dataclasses.replace(static, strategy="MostAllocated")
+    assert cuda.nodefit_args(nf_pods, nf_nodes, most).cfg != args.cfg
+    assert cuda.cfg_array(0, 0, Rs, most)[3 + 3 * cuda.MAXR] == 1
+
+
 def test_loadaware_args_layout(monkeypatch):
     """``loadaware_args`` lays out what the strip kernel reads: the pod and
     node tables' LoadAware entries at the tensors' addresses and null

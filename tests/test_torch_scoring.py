@@ -104,6 +104,112 @@ def test_loadaware_cases_match_jax(case):
                 f"{name}: loadaware_filter")
 
 
+NF_CASES = 16  # len(chip_smoke.nf_cases(cpu, small)): the NodeFit strip's edge cases
+
+
+@functools.lru_cache(maxsize=1)
+def _nf_cases():
+    """``chip_smoke.nf_cases`` on CPU tensors, the ragged case cut from the
+    fleet ``chip_smoke.py`` cuts it from."""
+    import chip_smoke
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.utils.fixtures import random_cluster as t_random_cluster
+
+    cpu = torch.device("cpu")
+    small = chip_smoke.build_inputs(
+        *t_random_cluster(chip_smoke.SEED, num_nodes=300, num_pods=50), cpu,
+        (BATCH_CPU, BATCH_MEMORY))
+    return chip_smoke.nf_cases(cpu, small)
+
+
+def _broken_linear_np(u, shape):
+    """The shape at utilisation u, each segment's interpolation truncated
+    toward zero as Go divides (the plain version's ``_broken_linear``)."""
+    out = np.full_like(u, shape[-1][1])
+    for i in range(len(shape) - 1, 0, -1):
+        (u0, s0), (u1, s1) = shape[i - 1], shape[i]
+        num = (s1 - s0) * (u - u0)
+        out = np.where(u <= u1, s0 + np.sign(num) * (np.abs(num) // (u1 - u0)), out)
+    return np.where(u <= shape[0][0], shape[0][1], out)
+
+
+def _exact_nf(pods, nodes, static):
+    """The NodeFit score in numpy under ``static``'s strategy, every quotient
+    floored exactly and every sum and product wrapping as int64 does,
+    beside the pairs on which the JAX functions' ``floor_div_fixup`` is
+    inside its domain (0 <= x <= 100 d for each quotient that counts and
+    for the weighted mean, every weight below 2**31 in magnitude so that no
+    sum wraps), where its estimate-and-fix-up is the floor."""
+    with np.errstate(over="ignore"):
+        rs, cap = pods.req_score[:, None, :], nodes.alloc_score[None]
+        req = rs + nodes.req_score[None]
+        w = np.array(static.weights, dtype=np.int64)
+        bypass = np.array(static.scalar_bypass, dtype=bool)
+        inc = (cap != 0) & ~(bypass & (rs == 0))
+        safe = np.where(cap == 0, 1, cap)
+        if static.strategy == "MostAllocated":
+            used = np.minimum(req, cap)
+            per = np.where(cap == 0, 0, np.floor_divide(used * 100, safe))
+            ok = (cap > 0) & (used >= 0) & ((used * 100) // 100 == used)
+        else:
+            over = (cap == 0) | (req > cap)
+            free = cap - np.where(over, 0, req)
+            q = np.floor_divide(free * 100, safe)
+            ok = over | ((cap > 0) & (req >= 0) & ((free * 100) // 100 == free))
+            if static.strategy == "RequestedToCapacityRatio":
+                per = _broken_linear_np(np.where(over, 100, 100 - q), static.shape)
+                inc = inc & (per > 0)
+            else:
+                per = np.where(over, 0, q)
+        acc = np.where(inc, per * w, 0).sum(axis=-1)
+        wsum = np.where(inc, w, 0).sum(axis=-1)
+        safe_w = np.where(wsum == 0, 1, wsum)
+        if static.strategy == "RequestedToCapacityRatio":
+            num, den = 2 * acc + safe_w, 2 * safe_w
+        else:
+            num, den = acc, safe_w
+        score = np.where(wsum == 0, 0, np.floor_divide(num, den))
+        dom = (np.abs(w) < 2**31).all() & (~inc | ok).all(axis=-1) & (
+            (wsum == 0) | ((wsum > 0) & (num >= 0) & (num <= 100 * den)))
+    return score, dom
+
+
+@pytest.mark.parametrize("case", range(NF_CASES))
+def test_nodefit_cases_match_jax(case):
+    """The plain ``nodefit_score`` against the JAX package's on the NodeFit
+    strip's edge cases (``chip_smoke.nf_cases``) under LeastAllocated,
+    MostAllocated and both RTC shapes, exactly: on every pair where the JAX
+    function's ``floor_div_fixup`` is inside its documented domain (every
+    pair of a case whose requests, requested scores and weights are
+    non-negative and below 2**31), and outside it (a negative request or
+    weight, a product or a weight sum that wraps) the plain version equals
+    the exact floor computed in numpy, as it does on every pair."""
+    import chip_smoke
+
+    assert len(_nf_cases()) == NF_CASES
+    name, (pods, nodes, static) = _nf_cases()[case]
+    np_pods = jnf.NodeFitPodArrays(*(a.numpy() for a in pods))
+    np_nodes = jnf.NodeFitNodeArrays(*(a.numpy() for a in nodes))
+    jp, jn = jax.tree.map(jnp.asarray, np_pods), jax.tree.map(jnp.asarray, np_nodes)
+    small_w = all(abs(v) < 2**31 for v in static.weights)
+    for sname, st in chip_smoke.nf_case_statics(static):
+        got = tnf.nodefit_score_plain(pods, nodes, st).numpy()
+        exact, dom = _exact_nf(np_pods, np_nodes, st)
+        assert_same(got, exact, f"{name} {sname}: nodefit_score_plain against the exact floor")
+        if not small_w:
+            assert not dom.any(), f"{name} {sname}"
+            continue
+        assert dom.any(), f"{name} {sname}"
+        want = np.asarray(jnf.nodefit_score(jp, jn, jnf.NodeFitStatic(**vars(st))))
+        assert_same(got[dom], want[dom], f"{name} {sname}: nodefit_score inside the JAX domain")
+        # (RTC's rounded mean reaches 100.5 times its divisor, past the
+        # documented domain, on pairs scoring 100 on every resource)
+        rows = (np_pods.req_score, np_nodes.req_score, np_nodes.alloc_score)
+        if (min(st.weights) >= 0 and all((a >= 0).all() for a in rows)
+                and not sname.startswith("rtc")):
+            assert dom.all(), f"{name} {sname}: a pair left the JAX function's domain"
+
+
 def test_loadaware_guards():
     """Zero allocatable, over-used nodes and a prod-threshold branch, on
     hand-set rows the fixtures rarely hit."""
