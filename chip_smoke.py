@@ -670,6 +670,7 @@ def check_warm_kernels(inp, dirty_sizes, timed: bool, commit_cap: int = 16):
     # the residency: the store's raw rows, resident on the device
     st = inp["state"]
     host = [getattr(st, a) for a in sm.DeviceResidency._ROWS]
+    check_adoption(sm, host, dev)
     bufs0 = sm.dstate_rows(host, dev)
     rows = host[0].shape[0]
     real = rng.choice(rows, size=min(100, rows // 4), replace=False).astype(np.int32)
@@ -785,11 +786,53 @@ def check_warm_kernels(inp, dirty_sizes, timed: bool, commit_cap: int = 16):
     up_b = sum(a.nbytes for a in host)
     transfers = [dict(
         name="dstate_rows", replaces="koordinator_tpu/service/state.py:194",
-        what="transfer, no arithmetic: one pinned copy_ per resident array",
+        what="transfer, no arithmetic: the arrays packed into one reused pinned staging, one "
+             "copy into one slab of 256-byte-aligned views",
         bytes=up_b, ms=cuda_ms(lambda: sm.dstate_rows(host, dev)),
+        library_ms=cuda_ms(lambda: [torch.from_numpy(a).to(dev) for a in host]),
         bound_ms=up_b / PCIE_BYTES_PER_S * 1e3, bound_by="bytes over PCIe Gen5 x16",
     )]
     return recs, transfers
+
+
+def slab_fault(bufs, dev):
+    """What is wrong with one adoption's buffers as views of one slab, or
+    None: each must start 256-byte aligned (on a card at its address, the
+    slab being an allocation of the caching allocator, 512-byte aligned;
+    on the CPU at its offset in the slab, whose own start is 64-byte
+    aligned) and all must share one storage."""
+    for k, b in enumerate(bufs):
+        if not b.numel():
+            continue  # an empty view's data_ptr is 0
+        at = b.data_ptr() - (b.untyped_storage().data_ptr() if dev.type == "cpu" else 0)
+        if at % 256:
+            return f"buffer {k} not 256-byte aligned"
+    if len({b.untyped_storage().data_ptr() for b in bufs if b.numel()}) > 1:
+        return "the buffers are not views of one slab"
+    return None
+
+
+def check_adoption(sm, host, dev) -> None:
+    """``dstate_rows`` twice back to back, the second on changed arrays
+    (each reversed and moved: ``~`` for bool, + 1 otherwise) issued right
+    after the first with no synchronisation, as two adoptions share the
+    module's staging: every buffer of both equals its host array byte for
+    byte and both are 256-byte-aligned views of one slab each
+    (``slab_fault``; raises ``Mismatch``)."""
+    changed = [np.ascontiguousarray(~h[::-1] if h.dtype == bool else h[::-1] + 1) for h in host]
+    first = sm.dstate_rows(host, dev)
+    second = sm.dstate_rows(changed, dev)
+    for what, arrays, bufs in (("first", host, first), ("second", changed, second)):
+        for k, (a, b) in enumerate(zip(arrays, bufs)):
+            same = b.dtype == torch.from_numpy(a).dtype and tuple(b.shape) == a.shape
+            if not (same and np.array_equal(b.cpu().numpy().view(np.uint8),
+                                            np.ascontiguousarray(a).view(np.uint8))):
+                fail(f"dstate_rows, {what} adoption: buffer {k} differs from its host array")
+        fault = slab_fault(bufs, dev)
+        if fault:
+            fail(f"dstate_rows, {what} adoption: {fault}")
+    print(f"  dstate_rows: two adoptions of {len(host)} arrays back to back, each buffer equal "
+          "to its host array, 256-byte aligned, one slab an adoption", flush=True)
 
 
 def drive_main_path(device, num_nodes: int, num_pods: int, pods, scalars):
@@ -1953,25 +1996,58 @@ def device_inputs(dev, M: int, N: int, Gm: int, seed: int):
     return (T(core), T(mem), T(full), T(vfs), sigs), (T(req), T(alloc2), T(used2))
 
 
+def check_ds_stage(dev, N: int, Gm: int, seed: int) -> int:
+    """``DeviceStage.score`` over the six device rows against
+    ``ds_score_plain`` times the weight (exact), at M = 16, at the launch
+    parameters' cap and past it, with weight 1, the engine's numa weight, 7
+    and -3; returns the largest difference (0)."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import placement as pl
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+
+    err = 0
+    for M in (16, cuda.DS_REQ_CAP, cuda.DS_REQ_CAP + 72):
+        (core, mem, full, vfs, _), (req, alloc2, used2) = device_inputs(dev, M, N, Gm, seed + M)
+        stage = pl.DeviceStage()
+        stage.bind((core, mem, full, vfs, alloc2, used2))
+        want = pl.ds_score_plain(req, alloc2, used2)
+        block = np.ascontiguousarray(req.cpu().numpy())
+        for w in sorted({1, PluginWeights().numa, 7, -3}):
+            err = max(err, require_equal(f"ds_score stage {M}x{N} Gm={Gm} weight {w}",
+                                         (stage.score(block, w),), (want * w,)))
+    return err
+
+
 def check_device_kernels(dev, M: int, N: int, Gm: int, timed: bool):
     """``dev_feasible`` and ``ds_score`` against their plain versions
-    (exact); their records when ``timed`` (``dev_feasible`` on the packed
-    block of its signatures, as the engine passes them)."""
+    (exact; ``ds_score`` also through a ``DeviceStage`` at the parameters'
+    cap and past it, times each weight: ``check_ds_stage``); their records
+    when ``timed``, each timed as the engine calls it: ``dev_feasible`` on
+    the packed block of its signatures, ``ds_score`` through the stage on
+    the host block of its requests with the numa weight."""
     from koordinator_tpu_torch.core import placement as pl
+    from koordinator_tpu_torch.core.cycle import PluginWeights
 
     feas_in, score_in = device_inputs(dev, M, N, Gm, SEED + 21 + Gm)
     err = {"dev_feasible": require_equal(f"dev_feasible {M}x{N} Gm={Gm}",
                                          (pl.dev_feasible(*feas_in),),
                                          (pl.dev_feasible_plain(*feas_in),)),
-           "ds_score": require_equal(f"ds_score {M}x{N} Gm={Gm}", (pl.ds_score(*score_in),),
-                                     (pl.ds_score_plain(*score_in),))}
+           "ds_score": max(require_equal(f"ds_score {M}x{N} Gm={Gm}", (pl.ds_score(*score_in),),
+                                         (pl.ds_score_plain(*score_in),)),
+                           check_ds_stage(dev, N, Gm, SEED + 23 + Gm))}
     print(f"  dev_feasible and ds_score {M} signatures x {N} nodes, Gm {Gm}: equal plain, "
-          f"{int(pl.dev_feasible_plain(*feas_in).sum())} feasible pairs")
+          f"{int(pl.dev_feasible_plain(*feas_in).sum())} feasible pairs; ds_score through the "
+          "stage at 16, 128 and 200 requests, weights 1, numa, 7 and -3: equal plain")
     if not timed:
         return []
     core, mem, full, vfs, sigs = feas_in
-    # timed as the engine calls it: the signatures packed into one block
+    req, alloc2, used2 = score_in
+    # timed as the engine calls them: the signatures packed into one block,
+    # the requests a host block through the device table's stage
     packed = (core, mem, full, vfs, pl.pack_device_sigs(sigs))
+    stage = pl.DeviceStage()
+    stage.bind((core, mem, full, vfs, alloc2, used2))
+    block, numa = np.ascontiguousarray(req.cpu().numpy()), PluginWeights().numa
     b1 = bound_ms(nbytes(core, mem, full, vfs, *sigs) + M * N, M * N * (2 * Gm + 4))
     b2 = bound_ms(nbytes(*score_in) + M * N * 8, M * N * 12)
     return [
@@ -1982,8 +2058,8 @@ def check_device_kernels(dev, M: int, N: int, Gm: int, timed: bool):
              bound_by=b1[1], library_ms=None, gm=Gm),
         dict(name="ds_score", source="koordinator_tpu_torch/csrc/device.cu",
              replaces="koordinator_tpu/service/engine.py:384", max_abs_err=err["ds_score"],
-             ms=cuda_ms(lambda: pl.ds_score(*score_in)),
-             plain_ms=cuda_ms(lambda: pl.ds_score_plain(*score_in)), bound_ms=b2[0],
+             ms=cuda_ms(lambda: stage.score(block, numa)),
+             plain_ms=cuda_ms(lambda: pl.ds_score_plain(*score_in) * numa), bound_ms=b2[0],
              bound_by=b2[1], library_ms=None),
     ]
 
@@ -3178,12 +3254,105 @@ def dev_fault_cases(pl, dev, Gm: int = 8, N: int = 333) -> dict:
     return out
 
 
+def ds_cases(dev) -> list:
+    """(name, (alloc2, used2, req)) of ``ds_score``'s edge cases, made with
+    numpy from fixed seeds at 333 nodes (not a multiple of the block's 128)
+    and 24 requests (core percent, memory ratio): a capacity of 0 in one
+    dimension; requests of 0 in one dimension and in both; used above the
+    capacity (the clamp); negative used (the floor of a negative total);
+    negative capacities; totals past 2**31 / 100 and capacities past 2**31
+    (the general path), products that wrap; rows at an 8-byte offset (the
+    generic instantiation); M = 0, N = 0."""
+    rng = np.random.default_rng(SEED + 120)
+    N, M = 333, 24
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)  # noqa: E731
+    ng = rng.integers(0, 9, N)
+    alloc = np.repeat((100 * ng)[:, None], 2, axis=1)
+    used = np.minimum(alloc, rng.integers(0, 800, (N, 2)))
+    req = np.array([[(100, 100), (50, 50), (400, 400), (30, 60), (0, 40), (70, 0)][m % 6]
+                    for m in range(M)])
+    out = []
+    one = alloc.copy()
+    one[::2, 0], one[1::2, 1] = 0, 0
+    out.append(("capacity 0 in one dimension", (one, used, req)))
+    zero = req.copy()
+    zero[::3], zero[1::3, 0], zero[2::3, 1] = 0, 0, 0
+    out.append(("requests of 0", (alloc, used, zero)))
+    out.append(("used above capacity", (alloc, alloc + rng.integers(1, 500, (N, 2)), req)))
+    neg = -rng.integers(1, 1000, (N, 2))
+    out.append(("negative used", (alloc, neg, req + np.array([[0, 0], [-700, 3]] * (M // 2)))))
+    out.append(("negative capacity", (-alloc - 1, used, req)))
+    big = rng.integers(2 ** 31 // 100, 2 ** 40, (N, 2))
+    big[::5] = rng.integers(2 ** 31, 2 ** 62, (len(big[::5]), 2))
+    big[1::7] = rng.integers(2 ** 61, 2 ** 62, (len(big[1::7]), 2))
+    bused = np.maximum(big - rng.integers(0, 1 << 20, (N, 2)), 0)  # totals past 2**63 / 100 wrap
+    out.append(("totals past 2**31 / 100", (big, bused, req * 1000)))
+    out.append(("unaligned rows", (alloc, used, req)))
+    out.append(("M=0", (alloc, used, req[:0])))
+    out.append(("N=0", (alloc[:0], used[:0], req)))
+    cases = []
+    for name, (a, u, r) in out:
+        a2, u2 = T(a), T(u)
+        if name == "unaligned rows":
+            # each row one int64 past a 16-byte boundary
+            flat = torch.empty(2 * a.size + 3, dtype=torch.int64, device=dev)
+            a2, u2 = flat[1:1 + a.size].view(-1, 2), flat[3 + a.size:].view(-1, 2)
+            a2.copy_(T(a))
+            u2.copy_(T(u))
+        cases.append((name, (a2, u2, T(r))))
+    return cases
+
+
+def check_ds_cases(dev) -> int:
+    """``ds_score`` on ``ds_cases`` through the public entry point and
+    through a ``DeviceStage`` over the aggregates alone at weights 1, 7
+    and -3, each against ``ds_score_plain`` (times the weight) exactly;
+    then a request block on the card refused before any launch (raises
+    ``Mismatch``); returns the cases checked.  Fails where a case does not
+    build what it names."""
+    from koordinator_tpu_torch import cuda
+    from koordinator_tpu_torch.core import placement as pl
+
+    n = 0
+    for name, (alloc2, used2, req) in ds_cases(dev):
+        want = pl.ds_score_plain(req, alloc2, used2)
+        require_equal(f"ds case {name}", (pl.ds_score(req, alloc2, used2),), (want,))
+        stage = pl.DeviceStage()
+        stage.bind((None,) * 4 + (alloc2, used2))
+        block = np.ascontiguousarray(req.cpu().numpy())
+        for w in (1, 7, -3):
+            require_equal(f"ds case {name} weight {w}", (stage.score(block, w),), (want * w,))
+        aligned = ((alloc2.data_ptr() | used2.data_ptr()) & 15) == 0
+        if (name == "unaligned rows") == aligned and alloc2.numel():
+            fail(f"ds case {name}: rows {'' if aligned else 'not '}16-byte aligned")
+        if name == "totals past 2**31 / 100" and not bool((alloc2 >= 2 ** 31).any()):
+            fail("ds case totals past 2**31 / 100: no capacity past 2**31")
+        n += 1
+    if dev.type == "cuda":
+        alloc2, used2, req = ds_cases(dev)[0][1]
+        stage = pl.DeviceStage()
+        stage.bind((None,) * 4 + (alloc2, used2))
+        before = cuda.KERNELS["ds_score"].launches
+        try:
+            stage.score(req, 1)
+            fail("ds_score took requests on the card")
+        except ValueError:
+            pass
+        if cuda.KERNELS["ds_score"].launches != before:
+            fail("ds_score launched before refusing requests on the card")
+    print(f"  ds_score: {n} edge cases (a capacity of 0, requests of 0, used above capacity, "
+          "negative used and capacities, totals past 2**31 / 100, unaligned rows, M 0, N 0) "
+          "equal plain at weights 1, 7, -3; requests on the card refused", flush=True)
+    return n
+
+
 def check_dev_cases(dev) -> int:
     """``dev_feasible`` on ``dev_cases``, each against
     ``dev_feasible_plain`` exactly, then ``dev_fault_cases`` (strided rows
     refused, a moved row rebound) and a signature tensor on the card
-    refused before any launch (raises ``Mismatch``); returns the cases
-    checked.  Fails where a case does not build what it names."""
+    refused before any launch, then ``ds_score``'s (``check_ds_cases``;
+    raises ``Mismatch``); returns the ``dev_feasible`` cases checked.
+    Fails where a case does not build what it names."""
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.core import placement as pl
 
@@ -3216,6 +3385,7 @@ def check_dev_cases(dev) -> int:
     print(f"  dev_feasible: {n} edge cases (Gm 1, 6, 8, 16; M 0, 1, 200; N 0, 333; invalid "
           "counts; RDMA only; every slot padded) equal plain; strided rows refused, a moved "
           "row rebound, signatures on the card refused", flush=True)
+    check_ds_cases(dev)
     return n
 
 
@@ -8490,9 +8660,312 @@ def dev_study(dev, reps: int = 21) -> int:
     print(f"  the engine's dense device block: {eb['signatures']} signatures x {eb['nodes']} "
           f"nodes, {eb['ms']:.4f} ms; _compute_device_rows over them {eb['rows_ms']:.4f} ms",
           flush=True)
+    out["ds_cases"] = []
+    for M, N in DS_SHAPES:
+        rec = ds_record(pl, cuda, dev, M, N, reps)
+        out["ds_cases"].append(rec)
+        print(f"  ds_score {M}x{N}: equal plain; call {rec['ms']:.4f} ms (run "
+              f"{rec['ms_run']:.4f}), device {rec['device_ms']:.4f} ms in "
+              f"{rec['device_events']:.0f} activities, host {rec['host_ms'] * 1e3:.1f} us; stage "
+              f"{rec.get('ms_stage', float('nan')):.4f} ms (run "
+              f"{rec.get('ms_stage_run', float('nan')):.4f}, device "
+              f"{rec.get('device_ms_stage', float('nan')):.4f} in "
+              f"{rec.get('device_events_stage', float('nan')):.0f}, host "
+              f"{rec.get('host_ms_stage', float('nan')) * 1e3:.1f} us); bound "
+              f"{rec['bound_ms']:.5f} ms; split us "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["split_us"].items()), flush=True)
+    out["ds_engine_block"] = ds_engine_block(dev, reps)
+    eb = out["ds_engine_block"]
+    print(f"  the engine's ds score block: {eb['requests']} requests x {eb['nodes']} nodes, "
+          f"{eb['ms']:.4f} ms; device {eb['device_ms']:.4f} ms in {eb['device_events']:.0f} "
+          "activities", flush=True)
     out["case_faults"] = dev_case_faults(dev)
     print(f"  dev edge cases: {len(dev_cases(dev))}; outcomes {out['case_faults']}", flush=True)
     print(json.dumps({"dev_study": out, "card": card_line()}))
+    return 0
+
+
+DS_SHAPES = ((16, 16_384), (200, 16_384))  # the kernel table's shape, and past the parameters' cap
+
+
+def ds_inputs(dev, M: int, N: int, seed: int):
+    """``ds_score``'s inputs at M requests x N nodes (``device_inputs``,
+    Gm 8): the six device rows a ``DeviceStage`` binds (core, mem, full,
+    vfs, alloc2, used2) and the [M, 2] int64 requests on ``dev``."""
+    (core, mem, full, vfs, _), (req, alloc2, used2) = device_inputs(dev, M, N, 8, seed)
+    return (core, mem, full, vfs, alloc2, used2), req
+
+
+def ds_host_split(pl, cuda, rows, req, reps: int) -> dict:
+    """Host microseconds of a ``ds_score`` call by step, each in a loop of
+    its own: this tree's (the requests packed into their host block as the
+    engine packs them, the stage's key test, the output, the launch from the
+    bound stage with the block uploaded beforehand past the parameters'
+    cap, the stage's call, the public call on requests on the card) or the
+    parent's (the three inputs' ``contiguous``, the output, the launch with
+    its eight arguments, the public call)."""
+    alloc2, used2 = rows[4:]
+    dev = alloc2.device
+    M, N = req.shape[0], alloc2.shape[0]
+    out = torch.empty((M, N), dtype=torch.int64, device=dev)
+    if hasattr(pl.DeviceStage, "score"):
+        stage = pl.DeviceStage()
+        stage.bind(rows)
+        block = np.ascontiguousarray(req.cpu().numpy())
+        greqs = [tuple(int(v) for v in r) for r in block]
+        dblock = torch.from_numpy(block).to(dev) if M > cuda.DS_REQ_CAP else None
+        dptr = 0 if dblock is None else dblock.data_ptr()
+        steps = dict(pack=lambda: np.array(greqs, dtype=np.int64),
+                     bound_to=lambda: stage.bound_to(rows),
+                     output=lambda: torch.empty((M, N), dtype=torch.int64, device=dev),
+                     launch=lambda: cuda.DS_SCORE.launch(
+                         stage._desc_ptr, block.__array_interface__["data"][0], dptr, M, 1,
+                         out.data_ptr(), cuda.stream(dev)),
+                     stage=lambda: stage.score(block, 1),
+                     call=lambda: pl.ds_score(req, alloc2, used2))
+    else:
+        steps = dict(contiguous=lambda: [t.contiguous() for t in (req, alloc2, used2)],
+                     output=lambda: torch.empty((M, N), dtype=torch.int64, device=dev),
+                     launch=lambda: cuda.DS_SCORE.launch(
+                         req.data_ptr(), alloc2.data_ptr(), used2.data_ptr(), M, N,
+                         out.data_ptr(), cuda.device_index(dev), cuda.stream(dev)),
+                     call=lambda: pl.ds_score(req, alloc2, used2))
+    return {name: per_call_us(fn, reps) for name, fn in steps.items()}
+
+
+def ds_record(pl, cuda, dev, M: int, N: int, reps: int) -> dict:
+    """``ds_score`` at M requests x N nodes, equal to its plain version
+    first: the public call (events around one call and a run of 100, the
+    profiler's device time and activities, the host time, the split by
+    step) and, on a tree whose ``DeviceStage`` scores, the stage's call on
+    the requests' host block as the engine makes it (weights 1 and the
+    numa weight equal to the plain version times the weight); the bytes
+    bound; medians of ``reps``."""
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+
+    rows, req = ds_inputs(dev, M, N, SEED + 22)
+    alloc2, used2 = rows[4:]
+    want = pl.ds_score_plain(req, alloc2, used2)
+    call = lambda: pl.ds_score(req, alloc2, used2)  # noqa: E731
+    require_equal(f"ds_score {M}x{N}", (call(),), (want,))
+    ev = device_events(call, reps)
+    rec = dict(name="ds_score", M=M, N=N, ms=cuda_ms(call, reps=reps), ms_run=run_ms(call),
+               device_ms=device_time(ev), device_events=device_activities(ev), events=ev,
+               host_ms=host_ms(call, reps), split_us=ds_host_split(pl, cuda, rows, req, reps),
+               bound_ms=bound_ms(nbytes(alloc2, used2, req) + M * N * 8, 0)[0])
+    if hasattr(pl.DeviceStage, "score"):
+        stage = pl.DeviceStage()
+        stage.bind(rows)
+        block = np.ascontiguousarray(req.cpu().numpy())
+        for w in sorted({1, PluginWeights().numa, 7}):
+            require_equal(f"ds_score stage {M}x{N} weight {w}", (stage.score(block, w),),
+                          (want * w,))
+        scall = lambda: stage.score(block, PluginWeights().numa)  # noqa: E731
+        sev = device_events(scall, reps)
+        rec.update(ms_stage=cuda_ms(scall, reps=reps), ms_stage_run=run_ms(scall),
+                   host_ms_stage=host_ms(scall, reps), device_ms_stage=device_time(sev),
+                   device_events_stage=device_activities(sev), events_stage=sev)
+    return rec
+
+
+def ds_engine_block(dev, reps: int) -> dict:
+    """The engine's deviceshare score block at the placement path's shapes:
+    a card engine over ``placement_store`` at ``NUM_NODES`` schedules the
+    placement phase's batch once, and the GPU requests are captured as
+    ``_compute_device_score_rows`` receives them; its rows into a fresh
+    cache equal the plain version times the numa weight, zero off the GPU
+    nodes; then the host clock around the block after a synchronise
+    (medians of ``reps``) and its device activities."""
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.core import placement as pl
+    from koordinator_tpu_torch.core.cycle import PluginWeights
+    from koordinator_tpu_torch.service.engine import Engine
+    from koordinator_tpu_torch.utils.fixtures import NOW
+
+    st = placement_store((BATCH_CPU, BATCH_MEMORY), NUM_NODES)
+    eng = Engine(st, device=dev)
+    batch = placement_batch(NUM_NODES, NUM_PODS, "place", SEED + 31)
+    seen = []
+    orig = eng._compute_device_score_rows
+
+    def record(greqs, cap, *a, **k):
+        seen.append((list(greqs), cap))
+        return orig(greqs, cap, *a, **k)
+
+    eng._compute_device_score_rows = record
+    st.publish(NOW)
+    eng.schedule(batch, now=NOW)
+    eng._compute_device_score_rows = orig
+    greqs, cap = seen[0]
+    out: dict = {}
+    eng._compute_device_score_rows(greqs, cap, out=out)
+    alloc2, used2 = eng._device_node_rows()[4:6]
+    req = torch.tensor(greqs, dtype=torch.int64, device=dev)
+    off = torch.from_numpy(~st._dv_in_gpus[:cap]).to(dev)
+    want = torch.where(off, torch.zeros((), dtype=torch.int64, device=dev),
+                       pl.ds_score_plain(req, alloc2, used2) * PluginWeights().numa)
+    require_equal("the engine's ds rows", tuple(out[g] for g in greqs), tuple(want))
+    block = lambda: eng._compute_device_score_rows(greqs, cap, out={})  # noqa: E731
+    ev = device_events(block, reps)
+    return dict(requests=len(greqs), nodes=cap, ms=host_ms(block, reps),
+                device_ms=device_time(ev), device_events=device_activities(ev), events=ev)
+
+
+ADOPT_TABLES = ("rows", "policy", "device")
+
+
+def adopt_host_split(sm, host, dev, reps: int = 5, loop: int = 20) -> dict:
+    """Host microseconds of one table's adoption by step, each in a loop of
+    its own: this tree's (the arrays packed into the reused pinned staging
+    as ``UploadStage`` packs them, on ``PACK_THREADS`` host threads, and by
+    the calling thread alone; the one copy's issue into a fresh slab; the
+    whole ``dstate_rows``) or the parent's (each array pinned afresh, the
+    per-array copies' issue from arrays pinned beforehand, the whole
+    ``dstate_rows``)."""
+    if hasattr(sm, "_ADOPT"):
+        stage, pin = sm.UploadStage(), dev.type != "cpu"
+        _, total = stage._pack(host, pin)
+        staged = stage._host
+
+        def pack_alone():
+            keep = sm.PACK_THREADS
+            sm.PACK_THREADS = 1
+            try:
+                stage._pack(host, pin)
+            finally:
+                sm.PACK_THREADS = keep
+
+        steps = dict(pack=lambda: stage._pack(host, pin), pack_one_thread=pack_alone,
+                     copy=lambda: torch.empty(total, dtype=torch.uint8, device=dev).copy_(
+                         staged[:total], non_blocking=True))
+    else:
+        pinned = [sm._host_tensor(a).pin_memory() for a in host]
+        steps = dict(pin=lambda: [sm._host_tensor(a).pin_memory() for a in host],
+                     copy=lambda: [torch.empty(p.shape, dtype=p.dtype, device=dev).copy_(
+                         p, non_blocking=True) for p in pinned])
+    steps["call"] = lambda: sm.dstate_rows(host, dev)
+    return {name: per_call_us(fn, reps, loop) for name, fn in steps.items()}
+
+
+def adopt_record(sm, res, st, name: str, dev, reps: int) -> dict:
+    """One resident table's cold adoption at the store's capacity: through
+    the residency (``invalidate`` then ``_sync``: the adoption and the
+    stages' binds) and ``dstate_rows`` alone, CUDA events around one call
+    (the host's packing and the copy's issue included) and the host clock,
+    the split by step, one PyTorch call per array from pageable memory
+    (``torch.from_numpy(a).to(dev)``, the library column) and the PCIe
+    bound; the buffers equal the host arrays byte for byte first and, on a
+    tree with the adoption stage, sit in one slab at 256-byte offsets."""
+    t = res._tables[name]
+    host = [getattr(st, a) for a in t.attrs]
+    size = sum(a.nbytes for a in host)
+
+    def residency():
+        res.invalidate(name)
+        res._sync(name)
+
+    residency()
+    if res.verify((name,)) != len(host):
+        fail(f"adoption of the {name} table: the audit checked the wrong arrays")
+    bufs = sm.dstate_rows(host, dev)
+    for a, b in zip(host, bufs):
+        if not np.array_equal(b.cpu().numpy().view(np.uint8), np.ascontiguousarray(a).view(
+                np.uint8)):
+            fail(f"dstate_rows {name}: a buffer differs from its host array")
+    rec = dict(table=name, arrays=len(host), bytes=size, rows=host[0].shape[0])
+    if hasattr(sm, "_ADOPT"):
+        fault = slab_fault(bufs, dev)
+        if fault:
+            fail(f"dstate_rows {name}: {fault}")
+    library = lambda: [torch.from_numpy(a).to(dev) for a in host]  # noqa: E731
+    rows_call = lambda: sm.dstate_rows(host, dev)  # noqa: E731
+    rec.update(ms=cuda_ms(residency, reps=reps), host_ms=host_ms(residency, reps),
+               ms_rows=cuda_ms(rows_call, reps=reps), host_ms_rows=host_ms(rows_call, reps),
+               split_us=adopt_host_split(sm, host, dev), library_ms=cuda_ms(library, reps=reps),
+               bound_ms=size / PCIE_BYTES_PER_S * 1e3, bound_by="bytes over PCIe Gen5 x16")
+    return rec
+
+
+class AdoptionCount:
+    """Cold adoptions (``DeviceResidency.full_uploads``) of the card's
+    residencies made while installed: ``take`` returns the sum over the
+    residencies bound to a card since the last take (a CPU twin's are not
+    counted)."""
+
+    def __enter__(self):
+        from koordinator_tpu_torch.service import state as sm
+
+        self._cls, self._orig, self._made = sm.DeviceResidency, sm.DeviceResidency.__init__, []
+        orig, made = self._orig, self._made
+
+        def init(res, *a, **k):
+            orig(res, *a, **k)
+            made.append(res)
+
+        self._cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__init__ = self._orig
+
+    def take(self) -> int:
+        n = sum(r.full_uploads for r in self._made
+                if r.device is not None and r.device.type == "cuda")
+        self._made.clear()
+        return n
+
+
+def adoption_paths(dev, scalars) -> dict:
+    """Each path of the full run driven once (``--paths``), its cold
+    adoptions counted (``AdoptionCount``); the cold path runs on host-built
+    arrays and adopts nothing, so it is not driven."""
+    out = {}
+    with AdoptionCount() as count:
+        for path, drive in (("warm", drive_warm_path), ("constraints", drive_con_path),
+                            ("placement", drive_placement_path),
+                            ("strategies", drive_strategy_path),
+                            ("sidecar+descheduler", drive_sidecar_path),
+                            ("koordlet", drive_koordlet_path)):
+            t0 = time.perf_counter()
+            drive(dev, NUM_NODES, NUM_PODS, scalars)
+            out[path] = count.take()
+            print(f"  {path}: {out[path]} cold adoptions ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+        drive_library_path(dev, NUM_NODES, NUM_PODS)
+        out["library"] = count.take()
+    return out
+
+
+def adopt_study(dev, reps: int = 21) -> int:
+    """``--adopt``: the three resident tables' cold adoption at
+    ``NUM_NODES`` (``placement_store``: 16,384 rows, devices and policies),
+    each an ``adopt_record``; with ``--paths``, each path's cold adoptions
+    (``adoption_paths``).  ``--root`` takes another checkout of the port:
+    run two checkouts alternately in one call.  One ``adopt_study`` JSON
+    line."""
+    from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
+    from koordinator_tpu_torch.service import state as sm
+
+    print(f"package: {sm.__file__}", flush=True)
+    scalars = (BATCH_CPU, BATCH_MEMORY)
+    st = placement_store(scalars, NUM_NODES)
+    res = st.residency
+    res._bind(dev)
+    out = dict(tables=[])
+    for name in ADOPT_TABLES:
+        rec = adopt_record(sm, res, st, name, dev, reps)
+        out["tables"].append(rec)
+        print(f"  {name}: {rec['arrays']} arrays, {rec['bytes']} bytes at {rec['rows']} rows; "
+              f"residency {rec['ms']:.4f} ms (host {rec['host_ms']:.4f}), dstate_rows "
+              f"{rec['ms_rows']:.4f} (host {rec['host_ms_rows']:.4f}); library "
+              f"{rec['library_ms']:.4f}; bound {rec['bound_ms']:.4f}; split us "
+              + ", ".join(f"{k} {v:.1f}" for k, v in rec["split_us"].items()), flush=True)
+    if "--paths" in sys.argv:
+        from koordinator_tpu_torch import cuda
+
+        cuda.build()
+        out["full_uploads_by_path"] = adoption_paths(dev, scalars)
+    print(json.dumps({"adopt_study": out, "card": card_line()}))
     return 0
 
 
@@ -8537,6 +9010,8 @@ def main() -> int:
         return nf_study(torch.device("cuda:0"))
     if "--dev" in sys.argv:
         return dev_study(torch.device("cuda:0"))
+    if "--adopt" in sys.argv:
+        return adopt_study(torch.device("cuda:0"))
     from koordinator_tpu_torch import cuda
     from koordinator_tpu_torch.api.model import BATCH_CPU, BATCH_MEMORY
     from koordinator_tpu_torch.utils.fixtures import random_cluster
@@ -8666,46 +9141,57 @@ def main() -> int:
     del full
     torch.cuda.empty_cache()
 
-    print(f"cold path: {NUM_NODES} nodes x {NUM_PODS} pods, host-built node arrays", flush=True)
-    cold_launches, main_ms, main_kernel_ms = drive_main_path(dev, NUM_NODES, NUM_PODS, pods,
-                                                             scalars)
-    print(f"warm path: {NUM_NODES} nodes x {NUM_PODS} pods, resident node tables", flush=True)
-    warm_launches, warm_cycles = drive_warm_path(dev, NUM_NODES, NUM_PODS, scalars)
-    print(f"constraint path: {NUM_NODES} nodes x {NUM_PODS} pods, gangs, quota and "
-          f"reservations, resident node tables", flush=True)
-    con_launches, con_cycles = drive_con_path(dev, NUM_NODES, NUM_PODS, scalars)
-    print(f"placement-and-devices path: {NUM_NODES} nodes x {NUM_PODS} pods, selectors, taints, "
-          f"anti-affinity, GPU/RDMA/cpuset pods, resident node tables", flush=True)
-    place_launches, place_cycles = drive_placement_path(dev, NUM_NODES, NUM_PODS, scalars)
-    print(f"strategies path: {NUM_NODES} nodes x {NUM_PODS} pods, MostAllocated over gangs, "
-          f"quota and reservations; RequestedToCapacityRatio over selectors, taints, "
-          f"anti-affinity and GPU/RDMA/cpuset pods; the scan kernel", flush=True)
-    strat_launches, strat_cycles = drive_strategy_path(dev, NUM_NODES, NUM_PODS, scalars)
-    print(f"library path: loadaware_score_and_filter over {NUM_NODES} nodes x {NUM_PODS} pods",
-          flush=True)
-    lib_launches, lib_ms = drive_library_path(dev, NUM_NODES, NUM_PODS)
-    print(f"sidecar path: {NUM_NODES} nodes x {NUM_PODS} pods over the KTPU wire, the card's "
-          "sidecar against a CPU twin; then the descheduler path over the same fleet",
-          flush=True)
-    side_launches, side_verbs, (desched_launches, desched_ticks, fleet_round) = \
-        drive_sidecar_path(dev, NUM_NODES, NUM_PODS, scalars)
-    # the round at the fleet's own shape, on the pool's inputs after the
-    # last tick; bench_sim's shape beside it
-    want, rec = check_desched_round(
-        "fleet", fleet_round["state"], fleet_round["nodes"], fleet_round["pods"],
-        fleet_round["low"], fleet_round["high"], fleet_round["weights"], timed=True,
-        **fleet_round["kw"])
-    records.append(dict(rec, ms_bench_sim=desched_bench["ms"],
-                        plain_ms_bench_sim=desched_bench["plain_ms"],
-                        bound_ms_bench_sim=desched_bench["bound_ms"],
-                        ms_bench_sim_deviation=desched_bench["ms_deviation"],
-                        plain_ms_bench_sim_deviation=desched_bench["plain_ms_deviation"]))
-    print(f"  deschedule_round at the fleet's shape ({rec['shape']}): equal plain, "
-          f"{int(want.evicted.sum())} evictions, {rec['ms']:.3f} ms (plain "
-          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms)", flush=True)
-    print(f"koordlet path: {NUM_NODES} nodes' koordlets report into a sidecar with shards="
-          f"{KOORDLET_SHARDS}; the mesh in process", flush=True)
-    kl_launches, kl_records, kl_windows = drive_koordlet_path(dev, NUM_NODES, NUM_PODS, scalars)
+    # each path's cold adoptions (the cold path's arrays are host-built)
+    with AdoptionCount() as adoptions:
+        adopted = {}
+        print(f"cold path: {NUM_NODES} nodes x {NUM_PODS} pods, host-built node arrays", flush=True)
+        cold_launches, main_ms, main_kernel_ms = drive_main_path(dev, NUM_NODES, NUM_PODS, pods,
+                                                                 scalars)
+        adopted["cold"] = adoptions.take()
+        print(f"warm path: {NUM_NODES} nodes x {NUM_PODS} pods, resident node tables", flush=True)
+        warm_launches, warm_cycles = drive_warm_path(dev, NUM_NODES, NUM_PODS, scalars)
+        adopted["warm"] = adoptions.take()
+        print(f"constraint path: {NUM_NODES} nodes x {NUM_PODS} pods, gangs, quota and "
+              f"reservations, resident node tables", flush=True)
+        con_launches, con_cycles = drive_con_path(dev, NUM_NODES, NUM_PODS, scalars)
+        adopted["constraints"] = adoptions.take()
+        print(f"placement-and-devices path: {NUM_NODES} nodes x {NUM_PODS} pods, selectors, "
+              f"taints, anti-affinity, GPU/RDMA/cpuset pods, resident node tables", flush=True)
+        place_launches, place_cycles = drive_placement_path(dev, NUM_NODES, NUM_PODS, scalars)
+        adopted["placement"] = adoptions.take()
+        print(f"strategies path: {NUM_NODES} nodes x {NUM_PODS} pods, MostAllocated over gangs, "
+              f"quota and reservations; RequestedToCapacityRatio over selectors, taints, "
+              f"anti-affinity and GPU/RDMA/cpuset pods; the scan kernel", flush=True)
+        strat_launches, strat_cycles = drive_strategy_path(dev, NUM_NODES, NUM_PODS, scalars)
+        adopted["strategies"] = adoptions.take()
+        print(f"library path: loadaware_score_and_filter over {NUM_NODES} nodes x {NUM_PODS} pods",
+              flush=True)
+        lib_launches, lib_ms = drive_library_path(dev, NUM_NODES, NUM_PODS)
+        adopted["library"] = adoptions.take()
+        print(f"sidecar path: {NUM_NODES} nodes x {NUM_PODS} pods over the KTPU wire, the card's "
+              "sidecar against a CPU twin; then the descheduler path over the same fleet",
+              flush=True)
+        side_launches, side_verbs, (desched_launches, desched_ticks, fleet_round) = \
+            drive_sidecar_path(dev, NUM_NODES, NUM_PODS, scalars)
+        adopted["sidecar+descheduler"] = adoptions.take()
+        # the round at the fleet's own shape, on the pool's inputs after the
+        # last tick; bench_sim's shape beside it
+        want, rec = check_desched_round(
+            "fleet", fleet_round["state"], fleet_round["nodes"], fleet_round["pods"],
+            fleet_round["low"], fleet_round["high"], fleet_round["weights"], timed=True,
+            **fleet_round["kw"])
+        records.append(dict(rec, ms_bench_sim=desched_bench["ms"],
+                            plain_ms_bench_sim=desched_bench["plain_ms"],
+                            bound_ms_bench_sim=desched_bench["bound_ms"],
+                            ms_bench_sim_deviation=desched_bench["ms_deviation"],
+                            plain_ms_bench_sim_deviation=desched_bench["plain_ms_deviation"]))
+        print(f"  deschedule_round at the fleet's shape ({rec['shape']}): equal plain, "
+              f"{int(want.evicted.sum())} evictions, {rec['ms']:.3f} ms (plain "
+              f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms)", flush=True)
+        print(f"koordlet path: {NUM_NODES} nodes' koordlets report into a sidecar with shards="
+              f"{KOORDLET_SHARDS}; the mesh in process", flush=True)
+        kl_launches, kl_records, kl_windows = drive_koordlet_path(dev, NUM_NODES, NUM_PODS, scalars)
+        adopted["koordlet"] = adoptions.take()
     rec = check_metricsagg_kernels(dev, kl_windows, timed=True)
     del kl_windows
     records.append(rec)
@@ -8756,6 +9242,8 @@ def main() -> int:
         rec = dict(rec, route="cuda", launches=sum(by_path.values()), launches_by_path=by_path)
         rec.setdefault("library_ms", None)
         kernels.append({k: v for k, v in rec.items() if k in keys})
+    transfers[0]["full_uploads_by_path"] = adopted
+    print(f"  cold adoptions by path {adopted}", flush=True)
     print(json.dumps({"kernels": kernels, "transfers": transfers, "card": card,
                       "main_path_ms": main_ms, "main_path_kernel_ms": main_kernel_ms,
                       "warm_cycles": warm_cycles, "constraint_cycles": con_cycles,

@@ -17,15 +17,17 @@ The placement kernel's pod side is sparse: the JAX form multiplies
 signature's selector pairs, untolerated taints, matching holder selectors
 and selected label sets are CSR index lists (``PlacementSigs``) built on
 the host from the same vocabulary walk, and the plain version is the same
-gather, affordable at full width.  ``dev_feasible``'s signatures are host
-data too: packed into one int32 block (``pack_device_sigs``), they ride in
-the launch's parameters, and its node rows are bound once in a
-``DeviceStage``.
+gather, affordable at full width.  ``dev_feasible``'s signatures and
+``ds_score``'s requests are host data too: packed into one block each
+(``pack_device_sigs``, an int64 [M, 2] block), they ride in the launch's
+parameters, and both kernels' node rows (the residency's device table) are
+bound once in a ``DeviceStage``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -300,45 +302,83 @@ def dev_feasible_plain(core, mem, full, vfs, sigs: DeviceSigs) -> torch.Tensor:
     return gpu_ok & (vfs[None, :] >= sigs.rdma_need[:, None]) & sigs.sig_valid[:, None]
 
 
+_FEAS_ROWS = (("core", 2), ("mem", 2), ("full", 1), ("vfs", 1))
+_AGG_ROWS = ("alloc2", "used2")
+
+
 def _device_rows(rows) -> tuple:
-    """Check the node rows a ``DeviceStage`` binds: core and mem [N, Gm]
-    int32, full and vfs [N] int32, one device, each contiguous (the kernel
-    reads each through its base pointer, so a strided view is refused
-    rather than read as other elements).  Returns (N, Gm, device)."""
-    core = rows[0]
-    N, dev = core.shape[0], core.device
-    Gm = core.shape[1] if core.dim() == 2 else -1
-    for what, t, shape in (("core", core, (N, Gm)), ("mem", rows[1], (N, Gm)),
-                           ("full", rows[2], (N,)), ("vfs", rows[3], (N,))):
-        if (t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != dev
+    """Check the node rows a ``DeviceStage`` binds: ``dev_feasible``'s core
+    and mem [N, Gm] int32, full and vfs [N] int32 (four ``None`` for a
+    stage that only scores), then ``ds_score``'s aggregates alloc2 and
+    used2 [N, 2] int64 where given; one device, each contiguous (the
+    kernels read each through its base pointer, so a strided view is
+    refused rather than read as other elements).  Returns (N, Gm, device),
+    Gm 0 without the feasibility rows."""
+    feas, aggs = rows[0] is not None, len(rows) > 4
+    if not feas and (not aggs or any(t is not None for t in rows[:4])):
+        raise ValueError("device rows: expected core, mem, full and vfs, or four None before "
+                         "alloc2 and used2")
+    ref = rows[0] if feas else rows[4]
+    N, dev = ref.shape[0], ref.device
+    Gm = (ref.shape[1] if ref.dim() == 2 else -1) if feas else 0
+    checks = []
+    if feas:
+        checks += [(what, t, torch.int32, (N, Gm) if dims == 2 else (N,))
+                   for (what, dims), t in zip(_FEAS_ROWS, rows)]
+    if aggs:
+        checks += [(what, t, torch.int64, (N, 2)) for what, t in zip(_AGG_ROWS, rows[4:6])]
+    for what, t, dtype, shape in checks:
+        if (t is None or t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
                 or not t.is_contiguous()):
-            raise ValueError(f"{what}: expected a contiguous int32 {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} stride {tuple(t.stride())} on "
-                             f"{t.device}")
+            got = ("None" if t is None else f"{t.dtype} {tuple(t.shape)} stride "
+                   f"{tuple(t.stride())} on {t.device}")
+            raise ValueError(f"{what}: expected a contiguous {dtype} {shape} on {dev}, got {got}")
     return N, Gm, dev
 
 
+def _req_block(reqs) -> np.ndarray:
+    """A call's requests as one host block, [M, 2] int64 in C order (core
+    percent, memory ratio), as ``csrc/device.cu`` reads them from the
+    launch's parameters: a numpy block is taken as it is, a CPU tensor
+    viewed; requests on a card raise ``ValueError``."""
+    if (type(reqs) is np.ndarray and reqs.dtype == np.int64 and reqs.ndim == 2
+            and reqs.shape[1] == 2 and reqs.flags.c_contiguous):
+        return reqs
+    block = _host_array("requests", reqs)
+    if block.dtype != np.int64 or block.ndim != 2 or block.shape[1] != 2:
+        raise ValueError(f"requests: expected an int64 [M, 2] block, got {block.dtype} "
+                         f"{block.shape}")
+    return np.ascontiguousarray(block)
+
+
 class DeviceStage:
-    """``dev_feasible`` over one set of device rows: ``bind`` checks the
-    rows (core, mem, full, vfs, and any rows after them, as the residency's
-    device table holds ``ds_score``'s aggregates) once and packs the four
-    rows' pointers at the column range ``cols`` (a node shard's, or all),
-    its width, Gm and the device index into one host descriptor, again only
-    when the rows are replaced or moved; ``feasible`` then launches
-    ``csrc/device.cu`` once on a card, the signatures in the launch's
-    parameters (past ``cuda.DEV_SIG_CAP`` of them, uploaded in one copy),
-    into a fresh [M, n] bool output, or runs the plain version on the CPU.
-    The stage keeps the rows it is bound to."""
+    """``dev_feasible`` and ``ds_score`` over one set of device rows:
+    ``bind`` checks the rows (core, mem, full, vfs, then the aggregates
+    alloc2 and used2 where given, as the residency's device table holds
+    them) once and packs their pointers at the column range ``cols`` (a
+    node shard's, or all), its width, Gm and the device index into one host
+    descriptor, again only when the rows are replaced or moved.
+    ``feasible`` then launches ``csrc/device.cu``'s feasibility once on a
+    card, the signatures in the launch's parameters (past
+    ``cuda.DEV_SIG_CAP`` of them, uploaded in one copy), into a fresh [M,
+    n] bool output; ``score`` launches its deviceshare score once, the
+    requests in the launch's parameters (past ``cuda.DS_REQ_CAP``, one
+    upload) and the weight applied in the kernel, into a fresh [M, n] int64
+    output.  On the CPU both run their plain versions.  The stage keeps the
+    rows it is bound to."""
 
     def __init__(self):
         self.binds = 0  # descriptors built
         self.rows: tuple = ()
         self.cols: Optional[tuple] = None
         self.device: Optional[torch.device] = None
-        self.desc = None  # ctypes int64 [7]: the four rows' pointers, n, Gm, device
+        # ctypes int64 [9]: the four feasibility rows' pointers, n, Gm, the
+        # device, the two aggregates' pointers (0 for rows not bound)
+        self.desc = None
         self._key: tuple = ()
         self._desc_ptr = 0
         self._n = 0
+        self._feas = self._aggs = False
 
     def bind(self, rows, cols: Optional[tuple] = None) -> None:
         N, Gm, dev = _device_rows(rows)
@@ -347,12 +387,15 @@ class DeviceStage:
             raise ValueError(f"columns [{lo}, {hi}) outside the {N} rows")
         self.rows, self.cols, self._key = tuple(rows), cols, self._key_of(rows, cols)
         self.device, self._n = dev, hi - lo
+        self._feas, self._aggs = rows[0] is not None, len(rows) > 4
         if dev.type == "cuda":
-            core, mem, full, vfs = rows[:4]
-            self.desc = (ctypes.c_longlong * 7)(
-                core.data_ptr() + lo * Gm * 4, mem.data_ptr() + lo * Gm * 4,
-                full.data_ptr() + lo * 4, vfs.data_ptr() + lo * 4, hi - lo, Gm,
-                cuda.device_index(dev))
+            # each row's pointer at column lo (bytes a node: core and mem 4
+            # Gm, full and vfs 4, alloc2 and used2 16); 0 where not bound
+            ptrs = [t.data_ptr() + lo * math.prod(t.shape[1:]) * t.element_size()
+                    if t is not None else 0
+                    for t in tuple(rows[:6]) + (None,) * (6 - len(rows))]
+            self.desc = (ctypes.c_longlong * 9)(*ptrs[:4], hi - lo, Gm, cuda.device_index(dev),
+                                                *ptrs[4:])
             self._desc_ptr = ctypes.addressof(self.desc)
         else:
             self.desc, self._desc_ptr = None, 0
@@ -363,7 +406,8 @@ class DeviceStage:
         # the rows' identity, and each bound row's pointer, length and
         # layout (what the descriptor holds; a dtype cannot change in place)
         return tuple(map(id, rows)) + tuple(
-            (t.data_ptr(), t.numel(), t.is_contiguous()) for t in rows[:4]) + (cols,)
+            (t.data_ptr(), t.numel(), t.is_contiguous()) for t in rows[:6] if t is not None
+        ) + (cols,)
 
     def bound_to(self, rows, cols: Optional[tuple] = None) -> bool:
         """Whether ``rows`` are the very rows bound at ``cols``, each still
@@ -371,16 +415,21 @@ class DeviceStage:
         tensor (``set_``, a ``resize_`` that reallocates) rebinds."""
         return self._key == self._key_of(rows, cols)
 
+    def _cols(self, rows) -> tuple:
+        lo, hi = (0, self._n) if self.cols is None else self.cols
+        return tuple(t[lo:hi] for t in rows)
+
     def feasible(self, sigs) -> torch.Tensor:
         """[M, n] bool for the signatures (``DeviceSigs`` of host arrays, or
         their packed block); a signature on the card raises ``ValueError``
-        before any launch."""
+        before any launch, as does a stage bound without the feasibility
+        rows."""
+        if not self._feas:
+            raise ValueError("this DeviceStage binds no feasibility rows (core, mem, full, vfs)")
         block = _sig_block(sigs)
         M = block.shape[0]
         if self._desc_ptr == 0:
-            lo, hi = (0, self._n) if self.cols is None else self.cols
-            return dev_feasible_plain(*(t[lo:hi] for t in self.rows[:4]),
-                                      unpack_device_sigs(block))
+            return dev_feasible_plain(*self._cols(self.rows[:4]), unpack_device_sigs(block))
         out = torch.empty((M, self._n), dtype=torch.bool, device=self.device)
         if M and self._n:
             # past the launch parameters' cap, the block in one copy
@@ -391,10 +440,35 @@ class DeviceStage:
                                      out.data_ptr(), cuda.stream(self.device))
         return out
 
+    def score(self, reqs, weight: int = 1) -> torch.Tensor:
+        """[M, n] int64: the deviceshare binpack score of the GPU requests
+        (host data: an int64 [M, 2] numpy block of (core percent, memory
+        ratio), or a CPU tensor) times ``weight``, wrapping as int64; a
+        request block on the card raises ``ValueError`` before any launch,
+        as does a stage bound without the aggregates."""
+        if not self._aggs:
+            raise ValueError("this DeviceStage binds no aggregates (alloc2, used2)")
+        block = _req_block(reqs)
+        M, weight = block.shape[0], int(weight)
+        if self._desc_ptr == 0:
+            alloc2, used2 = self._cols(self.rows[4:6])
+            return ds_score_plain(torch.from_numpy(block).to(alloc2.device), alloc2,
+                                  used2) * weight
+        out = torch.empty((M, self._n), dtype=torch.int64, device=self.device)
+        if M and self._n:
+            # past the launch parameters' cap, the block in one copy
+            dblock = (torch.from_numpy(block).to(self.device) if M > cuda.DS_REQ_CAP
+                      else None)
+            cuda.DS_SCORE.launch(self._desc_ptr, block.__array_interface__["data"][0],
+                                 0 if dblock is None else dblock.data_ptr(), M, weight,
+                                 out.data_ptr(), cuda.stream(self.device))
+        return out
 
-# the stage of calls that name their rows each time (tests, studies); the
+
+# the stages of calls that name their rows each time (tests, studies); the
 # residency keeps one bound to its device table
 _DEV = DeviceStage()
+_DS = DeviceStage()
 
 
 def dev_feasible(core, mem, full, vfs, sigs) -> torch.Tensor:
@@ -433,20 +507,20 @@ def ds_score_plain(req, alloc2, used2) -> torch.Tensor:
 
 def ds_score(req, alloc2, used2) -> torch.Tensor:
     """The ``ds_score`` kernel: the deviceshare binpack score of M GPU
-    requests (req [M, 2] int64, core and memory ratio) against the device
-    aggregates (alloc2, used2 [N, 2] int64), rounded as ``core/nodefit.py``
-    rounds.  On CUDA one thread per (request, node)."""
+    requests (req [M, 2] int64, core and memory ratio, on the aggregates'
+    device) against the device aggregates (alloc2, used2 [N, 2] int64,
+    contiguous), rounded as ``core/nodefit.py`` rounds.  Through a
+    ``DeviceStage`` bound to the aggregates alone, rebound when they change
+    or move; on CUDA the requests are read back into the launch's
+    parameters (the engine passes its own host block to its stage), one
+    launch, a thread a node column."""
     M, N, dev = req.shape[0], alloc2.shape[0], alloc2.device
     for what, t, shape in (("req", req, (M, 2)), ("alloc2", alloc2, (N, 2)),
                            ("used2", used2, (N, 2))):
         if t.dtype != torch.int64 or tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"{what}: expected int64 {shape} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if dev.type == "cpu":
-        return ds_score_plain(req, alloc2, used2)
-    out = torch.empty((M, N), dtype=torch.int64, device=dev)
-    rows = [t.contiguous() for t in (req, alloc2, used2)]
-    if M and N:
-        cuda.DS_SCORE.launch(*(t.data_ptr() for t in rows), M, N, out.data_ptr(),
-                             cuda.device_index(dev), cuda.stream(dev))
-    return out
+    rows = (None,) * 4 + (alloc2, used2)
+    if not _DS.bound_to(rows):
+        _DS.bind(rows)
+    return _DS.score(req.cpu())

@@ -33,13 +33,32 @@
 //
 // 2. ds_score replaces `ds_score` (engine.py:384, core/nodefit.py
 //    nodefit_score) under the deviceshare static the engine passes
-//    (engine.py:925-936): MostAllocated over the (core, memory ratio)
+//    (engine.py:925-936), with the engine's numa weight applied
+//    (engine.py:899-944): MostAllocated over the (core, memory ratio)
 //    aggregates, weights (1, 1), a dimension bypassed when the request
-//    asks none of it or the node has no capacity there.  An overcommitted
-//    dimension clamps to the capacity.  The divisions floor, as the
-//    reference's integer division does, also should a used share exceed the
-//    inventory's.  One thread per (request, node); bound by bytes (32 read,
-//    8 written).
+//    asks none of it or the node has no capacity there, the result times
+//    `weight`.  An overcommitted dimension clamps to the capacity.  The
+//    divisions floor, as the reference's integer division does, also
+//    should a used share exceed the inventory's; sums and products wrap as
+//    the plain version's int64 tensors do.  What bounds it on an H100 is
+//    the launch: its bytes (32 read a node, 8 written a pair) take under a
+//    microsecond at 16 x 16,384.  The design, dev_feasible's:
+//   - a thread owns one node column of a chunk of kReqChunk requests: it
+//     reads the node's alloc2 and used2 rows once (one 16-byte load each
+//     when both rows are 16-byte aligned, a generic instantiation
+//     otherwise) into registers and scores the chunk from them;
+//   - the requests ride in the launch's parameters as int64 pairs, up to
+//     kReqCap of them (past that, one upload the caller made); a block row
+//     takes a chunk and stages it in shared memory once, and row m of the
+//     [M, N] output is written coalesced;
+//   - on the store's rows a capacity is 100 x the device count, so a
+//     dimension whose total and capacity fit (0 <= total x 100 < 2**31,
+//     0 < cap < 2**31) divides in 32 bits; any other takes floor_div.
+//     The mean over one or two dimensions is the sum or its floor half
+//     (an arithmetic shift), so no division remains there;
+//   - the rows are the DeviceStage's (its descriptor holds their pointers
+//     beside dev_feasible's), so a call passes the descriptor, the host
+//     block of requests, M, the weight and the output.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -152,23 +171,85 @@ void launch_feasible(const DevRows& r, int M, const SigBlock& sb, const int* dsi
 // the calling thread's parameter block
 thread_local SigBlock g_sigs;
 
-__global__ void ds_score_kernel(const long long* req, const long long* alloc2,
-                                const long long* used2, int M, int N, long long* out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int m = blockIdx.y;
-  if (j >= N || m >= M) return;
-  long long acc = 0, wsum = 0;
-  for (int r = 0; r < 2; ++r) {
-    const long long cap = alloc2[(size_t)j * 2 + r];
-    const long long preq = req[(size_t)m * 2 + r];
-    if (cap == 0 || preq == 0) continue;  // no capacity, or bypassed
-    long long tot = preq + used2[(size_t)j * 2 + r];
-    if (tot > cap) tot = cap;  // the overcommit clamp
-    acc += floor_div(tot * 100, cap);
-    wsum += 1;
-  }
-  out[(size_t)m * N + j] = wsum == 0 ? 0 : floor_div(acc, wsum);
+// requests the launch's parameters carry (2,048 bytes); more go to the
+// card in one copy
+constexpr int kReqCap = 128;
+// requests a block row takes: at 16 requests x 16,384 nodes a chunk of 16
+// gave 128 blocks, four warps an SM, too few to hide each thread's run of
+// divisions (device 0.0063 ms against the old thread-a-pair kernel's
+// 0.0036 on an NVIDIA H100 80GB HBM3 at 700 W); 4 gives 512 blocks
+constexpr int kReqChunk = 4;
+constexpr int kScoreThreads = 128;
+
+struct ReqBlock {
+  long long w[kReqCap * 2];
+};
+
+// the aggregates' rows at the stage's columns (the descriptor's words 7
+// and 8), N and the device
+struct AggRows {
+  const long long* alloc2;  // [N, 2]
+  const long long* used2;   // [N, 2]
+  int N;
+};
+
+// one dimension's MostAllocated share, req * 100 / cap after the clamp;
+// the caller has excluded cap == 0 and preq == 0
+__device__ __forceinline__ long long ds_dim(long long preq, long long used, long long cap) {
+  long long tot = wrap_add(preq, used);
+  if (tot > cap) tot = cap;  // the overcommit clamp
+  if ((unsigned long long)tot <= 21474836ULL && (unsigned long long)cap - 1ULL < 0x7fffffffULL)
+    return (long long)((unsigned)(tot * 100) / (unsigned)cap);
+  return floor_div(wrap_mul(tot, 100), cap);
 }
+
+// VEC: the node's two rows as one 16-byte load each; DEV: the requests in
+// device memory (`dreq`), not in the parameters
+template <bool VEC, bool DEV>
+__global__ void __launch_bounds__(kScoreThreads)
+    ds_score_kernel(const AggRows r, int M, long long weight, const __grid_constant__ ReqBlock rb,
+                    const long long* dreq, long long* out) {
+  __shared__ long long sr[kReqChunk * 2];
+  const int s0 = blockIdx.y * kReqChunk, cnt = min(M - s0, kReqChunk);
+  const long long* src = (DEV ? dreq : rb.w) + (size_t)s0 * 2;
+  for (int t = threadIdx.x; t < cnt * 2; t += kScoreThreads) sr[t] = src[t];
+  __syncthreads();
+  const int j = blockIdx.x * kScoreThreads + threadIdx.x;
+  if (j >= r.N) return;
+  long long c0, c1, u0, u1;
+  if constexpr (VEC) {
+    const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(r.alloc2) + j);
+    const longlong2 u = __ldg(reinterpret_cast<const longlong2*>(r.used2) + j);
+    c0 = a.x, c1 = a.y, u0 = u.x, u1 = u.y;
+  } else {
+    c0 = r.alloc2[(size_t)j * 2], c1 = r.alloc2[(size_t)j * 2 + 1];
+    u0 = r.used2[(size_t)j * 2], u1 = r.used2[(size_t)j * 2 + 1];
+  }
+  long long* o = out + (size_t)s0 * r.N + j;
+  for (int s = 0; s < cnt; ++s) {
+    const long long q0 = sr[2 * s], q1 = sr[2 * s + 1];
+    long long acc = 0;
+    int wsum = 0;
+    if (c0 != 0 && q0 != 0) acc = ds_dim(q0, u0, c0), wsum = 1;
+    if (c1 != 0 && q1 != 0) acc = wrap_add(acc, ds_dim(q1, u1, c1)), ++wsum;
+    // floor(acc / 2) is the arithmetic shift, for any sign
+    const long long score = wsum == 2 ? (acc >> 1) : acc;
+    o[(size_t)s * r.N] = wrap_mul(score, weight);
+  }
+}
+
+template <bool DEV>
+void launch_score(const AggRows& r, int M, long long weight, const ReqBlock& rb,
+                  const long long* dreq, long long* out, cudaStream_t st) {
+  const dim3 grid((r.N + kScoreThreads - 1) / kScoreThreads, (M + kReqChunk - 1) / kReqChunk);
+  if ((((uintptr_t)r.alloc2 | (uintptr_t)r.used2) & 15) == 0)
+    ds_score_kernel<true, DEV><<<grid, kScoreThreads, 0, st>>>(r, M, weight, rb, dreq, out);
+  else
+    ds_score_kernel<false, DEV><<<grid, kScoreThreads, 0, st>>>(r, M, weight, rb, dreq, out);
+}
+
+// the calling thread's parameter block
+thread_local ReqBlock g_reqs;
 
 }  // namespace
 
@@ -202,14 +283,29 @@ extern "C" int koord_dev_feasible(const long long* desc, const int* sigs, const 
   return (int)cudaGetLastError();
 }
 
-extern "C" int koord_ds_score(const void* req, const void* alloc2, const void* used2, int M,
-                              int N, void* out, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+// ds_score over the aggregates of `desc` (DeviceStage's int64 [9]: core,
+// mem, full, vfs, N, Gm, the device, alloc2, used2) for M requests (int64
+// [M, 2]: core percent, memory ratio) into the [M, N] int64 output, each
+// score times `weight`; nothing to do when M or N is 0.  Up to kReqCap
+// requests ride in the launch's parameters, copied from the host block
+// `reqs`; more are read from `dreqs`, the same block the caller uploaded.
+extern "C" int koord_ds_score(const long long* desc, const long long* reqs,
+                              const long long* dreqs, int M, long long weight, void* out,
+                              void* stream) {
+  const AggRows r = {(const long long*)desc[7], (const long long*)desc[8], (int)desc[4]};
+  if (M < 0 || r.N < 0 || !r.alloc2 || !r.used2 || (M > kReqCap && !dreqs) ||
+      (M + kReqChunk - 1) / kReqChunk > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || r.N == 0) return (int)cudaSuccess;
+  const cudaError_t e = cudaSetDevice((int)desc[6]);
   if (e != cudaSuccess) return (int)e;
-  const int threads = 256;
-  dim3 grid((N + threads - 1) / threads, M);
-  ds_score_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const long long*)req, (const long long*)alloc2, (const long long*)used2, M, N,
-      (long long*)out);
+  const cudaStream_t st = (cudaStream_t)stream;
+  long long* o = (long long*)out;
+  if (M <= kReqCap) {
+    std::copy(reqs, reqs + (size_t)M * 2, g_reqs.w);
+    launch_score<false>(r, M, weight, g_reqs, nullptr, o, st);
+  } else {
+    launch_score<true>(r, M, weight, g_reqs, dreqs, o, st);
+  }
   return (int)cudaGetLastError();
 }

@@ -247,14 +247,17 @@ PLACEMENT = Kernel("placement", "koord_placement",
 # the tables' widths, the phases' shared memory, the [4] result
 PLACEMENT_PLAN = HostFn("placement", "koord_placement_plan", [_P, _I, _P, _I, _P])
 PLACEMENT_PARAM_WORDS = 7680  # kParamWords: descriptor words in a launch's parameters
-# device feasibility and the deviceshare score (csrc/device.cu):
-# ``dev_feasible`` takes a ``DeviceStage``'s descriptor (the four node rows'
-# pointers, N, Gm, the device), the host block of packed signatures, its
-# copy on the card past ``DEV_SIG_CAP`` signatures (else null), M, the
-# output and the stream
+# device feasibility and the deviceshare score (csrc/device.cu), each from
+# a ``DeviceStage``'s descriptor (the four node rows' pointers, N, Gm, the
+# device, the two aggregates' pointers): ``dev_feasible`` takes the host
+# block of packed signatures, its copy on the card past ``DEV_SIG_CAP``
+# signatures (else null), M, the output and the stream; ``ds_score`` the
+# host block of requests, its copy past ``DS_REQ_CAP`` (else null), M, the
+# weight, the output and the stream
 DEV_FEASIBLE = Kernel("device", "koord_dev_feasible", [_P, _P, _P, _I, _P, _P])
 DEV_SIG_CAP = 128  # kSigCap in csrc/device.cu: signatures a launch's parameters carry
-DS_SCORE = Kernel("device", "koord_ds_score", [_P] * 3 + [_I] * 2 + [_P, _I, _P])
+DS_SCORE = Kernel("device", "koord_ds_score", [_P, _P, _P, _I, _L, _P, _P])
+DS_REQ_CAP = 128  # kReqCap in csrc/device.cu: requests a launch's parameters carry
 # the quota tree's runtime refresh (csrc/quota.cu): ``quota`` and the
 # admission limit ``quota_limit`` (row 0 := 2**60) share one entry point:
 # the eight per-group arrays and the total, the tree's plan and its words,

@@ -684,23 +684,22 @@ class Engine:
         return stage
 
     def _compute_device_score_rows(self, greqs, cap: int, out=None, cols=None) -> None:
-        """deviceshare binpack score rows per distinct GPU request from the
-        ``ds_score`` kernel over the device aggregates, times the numa
-        weight, zero on nodes without GPUs.  ``out``/``cols``: one node
-        shard's rows into the sharded engine's cache."""
-        lo, hi = (0, cap) if cols is None else cols
+        """deviceshare binpack score rows per distinct GPU request, times
+        the numa weight, zero on nodes without GPUs: the requests packed
+        into one host block and one ``ds_score`` launch through
+        ``_device_stage`` over the device aggregates, the weight applied in
+        the kernel; each request's row is a view of the one output.  A node
+        without GPUs holds the aggregates (0, 0) (every writer of the device
+        rows keeps it so), which score 0 with no mask.  ``cap`` columns, or
+        ``out``/``cols``: one node shard's rows into the sharded engine's
+        cache."""
         dst = self._ds_rows if out is None else out
-        w = PluginWeights()
-        Mb = next_bucket(len(greqs), 8)
-        req = np.zeros((Mb, 2), dtype=np.int64)
-        for m, (c, r) in enumerate(greqs):
-            req[m] = (c, r)
-        _, _, _, _, alloc2, used2 = self._device_node_rows()
-        ds = pl.ds_score(convert.tensor(req, self.device), alloc2[lo:hi], used2[lo:hi])
-        off = convert.tensor(~self.state._dv_in_gpus[lo:hi], self.device)
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        block = np.array(greqs, dtype=np.int64).reshape(-1, 2)
+        ds = self._device_stage(cols).score(block, PluginWeights().numa)
+        if ds.shape[1] != (cap if cols is None else cols[1] - cols[0]):
+            raise ValueError(f"the device rows hold {ds.shape[1]} columns, not {cap}")
         for m, g in enumerate(greqs):
-            dst[g] = torch.where(off, zero, ds[m] * w.numa)
+            dst[g] = ds[m]
 
     def _device_view(self, name: str, sig: tuple):
         """The node-local inputs the exact walk reads (live objects,

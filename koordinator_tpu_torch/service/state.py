@@ -33,6 +33,8 @@ import functools
 import heapq
 import itertools
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
@@ -144,25 +146,21 @@ class Snapshot(NamedTuple):
 # transfer with no arithmetic.
 
 
-def _host_tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a))
-
-
 def dstate_rows(arrays, device: torch.device) -> tuple:
     """Whole-table adoption (the JAX package's ``dstate_rows``, an identity
-    on the device): one ``copy_`` per array from pinned host memory into a
-    fresh resident buffer.  On the CPU the resident buffers are private
-    copies, never views of the store's arrays."""
-    out = []
-    for a in arrays:
-        host = _host_tensor(a)
-        if device.type == "cpu":
-            out.append(host.clone())
-            continue
-        buf = torch.empty(host.shape, dtype=host.dtype, device=device)
-        buf.copy_(host.pin_memory(), non_blocking=True)
-        out.append(buf)
-    return tuple(out)
+    on the device, a transfer with no arithmetic) through a module
+    ``UploadStage``; the residency keeps one a table.  The arrays are
+    packed at 256-byte offsets (``upload_layout``, as ``cudaMalloc`` aligns
+    an allocation, so the device kernels' 16-byte loads keep their vector
+    instantiations) into the stage's staging, pinned for a card and reused
+    across adoptions, and ONE ``non_blocking`` copy moves it into one fresh
+    device ``uint8`` slab; the resident buffers are typed, contiguous views
+    of the slab, private copies, never views of the store's arrays (on the
+    CPU, views of one copy of the staging).  The slab's cost: a buffer that
+    ``dstate_extend`` later widens is replaced by a buffer of its own and
+    leaves its old bytes in the slab until the table's next adoption, at
+    most one table's size."""
+    return tuple(_ADOPT.upload(arrays, device))
 
 
 def scatter_layout(row_bytes, D: int) -> tuple:
@@ -343,6 +341,14 @@ def dstate_scatter_plain(bufs, idx: torch.Tensor, vals) -> tuple:
 
 
 UPLOAD_ALIGN = 256  # each array of an UploadStage copy starts at a multiple
+# the packing's host threads (numpy's copies release the GIL) and the bytes
+# a thread takes at least: below two shares the caller packs alone.  Small
+# shares lose to the threads' hand-offs: on the host of an NVIDIA H100
+# 80GB HBM3 (700 W) 4.1 MB in seven shares packed in 0.92-1.20 ms
+# against 0.34-0.42 on the caller alone, while 273 MB in eight took
+# 11.1-14.4 ms against 27.6-39.5
+PACK_THREADS = min(8, os.cpu_count() or 1)
+PACK_SHARE_BYTES = 1 << 24
 
 
 def upload_layout(nbytes) -> tuple:
@@ -357,49 +363,99 @@ def upload_layout(nbytes) -> tuple:
     return offsets, end
 
 
+def _pack_shares(srcs, offsets) -> list:
+    """The packing's copies, (staging offset, uint8 source) pairs, cut into
+    up to ``PACK_THREADS`` shares of about equal bytes, each at least
+    ``PACK_SHARE_BYTES`` (an array may span two shares); one share, or
+    none, below twice that."""
+    size = sum(src.size for src in srcs)
+    n = max(1, min(PACK_THREADS, size // PACK_SHARE_BYTES))
+    per = -(-size // n) if size else 0
+    shares, job, room = [], [], per
+    for src, o in zip(srcs, offsets):
+        pos = 0
+        while pos < src.size:
+            take = min(room, src.size - pos)
+            job.append((o + pos, src[pos:pos + take]))
+            pos, room = pos + take, room - take
+            if room == 0:
+                shares.append(job)
+                job, room = [], per
+    if job:
+        shares.append(job)
+    return shares
+
+
+def _copy_into(raw: np.ndarray, job) -> None:
+    for o, src in job:
+        raw[o:o + src.size] = src
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(PACK_THREADS - 1, "koord-pack")
+
+
 class UploadStage:
     """Host arrays carried to a device in one copy: packed into one host
-    buffer (``upload_layout``), copied with one ``non_blocking``
+    staging buffer (``upload_layout``), copied with one ``non_blocking``
     host->device copy into a device buffer allocated fresh each call, and
     returned as views of it, each with its array's dtype and shape.  A
     fresh device buffer each call: a caller may keep the views of earlier
-    calls (a cycle's cached inputs), and no later call writes them.  For a
-    card the host buffer is pinned, grown by doubling and reused; it is
-    rewritten only after the event recorded behind its last copy has
-    completed.  On the CPU the same packing fills a fresh host buffer, and
-    the views are of it (no copy)."""
+    calls (a cycle's cached inputs, a table's old buffers), and no later
+    call writes them.  The staging is grown by doubling and reused call
+    after call, pinned for a card; it is rewritten only after the event
+    recorded behind its last copy has completed.  On the CPU the same
+    packing fills the same staging, unpinned, and the views are of one
+    copy of it."""
 
     def __init__(self):
         self.copies = 0
+        self.grows = 0  # staging buffers allocated
         self._host: Optional[torch.Tensor] = None
+        self._pinned = False
         self._event = None
         self._pending = False
 
+    def _pack(self, arrays, pin: bool) -> tuple:
+        """The contiguous ``arrays`` into the staging (pinned when ``pin``),
+        after the last copy out of it has completed; returns (each array's
+        offset, the total bytes)."""
+        offsets, total = upload_layout(a.nbytes for a in arrays)
+        if self._pending:
+            self._event.synchronize()
+            self._pending = False
+        if self._host is None or self._host.numel() < total or self._pinned != pin:
+            # at least double the old staging (a table's capacity doubles),
+            # the first one to its need, in whole pages
+            old = 0 if self._host is None or self._pinned != pin else self._host.numel()
+            cap = max((total + 4095) // 4096 * 4096, 2 * old, 4096)
+            self._host = torch.empty(cap, dtype=torch.uint8, pin_memory=pin)
+            self._pinned = pin
+            self.grows += 1
+        raw = self._host.numpy()
+        shares = _pack_shares([a.reshape(-1).view(np.uint8) for a in arrays], offsets)
+        rest = [_pack_pool().submit(_copy_into, raw, job) for job in shares[1:]]
+        for job in shares[:1]:
+            _copy_into(raw, job)  # the caller packs the first share
+        for f in rest:
+            f.result()
+        return offsets, total
+
     def upload(self, arrays, device) -> list:
         arrays = [np.ascontiguousarray(a) for a in arrays]
-        offsets, total = upload_layout(a.nbytes for a in arrays)
         device = torch.device(device)
-        if device.type == "cpu":
-            buf = torch.empty(total, dtype=torch.uint8)
-            host = buf
-        else:
-            if self._pending:
-                self._event.synchronize()
-                self._pending = False
-            if self._host is None or self._host.numel() < total:
-                cap = max(4096, 1 << (max(total, 1) - 1).bit_length())
-                self._host = torch.empty(cap, dtype=torch.uint8, pin_memory=True)
-            host = self._host
-        raw = host.numpy()
-        for a, o in zip(arrays, offsets):
-            raw[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-        if device.type != "cpu":
+        card = device.type != "cpu"
+        offsets, total = self._pack(arrays, card)
+        if card:
             buf = torch.empty(total, dtype=torch.uint8, device=device)
-            buf.copy_(host[:total], non_blocking=True)
+            buf.copy_(self._host[:total], non_blocking=True)
             if self._event is None:
                 self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(device))
             self._pending = True
+        else:
+            buf = self._host[:total].clone()
         self.copies += 1
         # each view strided over one view of the buffer a dtype: one tensor
         # call an array, where a slice and two views take three
@@ -429,9 +485,10 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
-# the staging of calls that name their buffers each time (tests, studies);
-# the residency keeps one a table
+# the stagings of calls that name their buffers or arrays each time (tests,
+# studies); the residency keeps one of each a table
 _STAGE = ScatterStage()
+_ADOPT = UploadStage()
 
 
 def dstate_scatter(bufs, idx, vals) -> tuple:
@@ -662,8 +719,8 @@ class _ResidentTable:
     the engine's warm-carry watermark: a SCORE syncs the residency without
     touching the carry)."""
 
-    __slots__ = ("attrs", "ver_attr", "bufs", "watermark", "shape_key", "audit_cursor", "stage",
-                 "gate", "dev")
+    __slots__ = ("attrs", "ver_attr", "bufs", "watermark", "shape_key", "audit_cursor", "upload",
+                 "stage", "gate", "dev")
 
     def __init__(self, attrs: tuple, ver_attr: str, gated: bool = False, devices: bool = False):
         self.attrs = attrs
@@ -672,10 +729,16 @@ class _ResidentTable:
         self.watermark = 0
         self.shape_key: Optional[tuple] = None
         self.audit_cursor = 0  # rotating sampled-audit window start
-        # the scatter's staging, (the rows table) the gate's stage over its
-        # 12 raw LoadAware rows and (the device table) ``dev_feasible``'s
-        # stage over its rows, bound whenever ``bufs`` are replaced; a
-        # scatter writes in place and keeps them all
+        # the cold adoption's staging (``dstate_rows``: one pinned staging
+        # reused across adoptions, one copy a table; it holds page-locked
+        # host memory of the largest adoption's size, up to twice it, as
+        # long as the residency lives); the scatter's
+        # staging, (the rows table) the gate's stage over its 12 raw
+        # LoadAware rows and (the device table) the stage of
+        # ``dev_feasible`` and ``ds_score`` over its rows, bound whenever
+        # ``bufs`` are replaced; a scatter writes in place and keeps them
+        # all
+        self.upload = UploadStage()
         self.stage = ScatterStage()
         self.gate = GateStage() if gated else None
         self.dev = DeviceStage() if devices else None
@@ -708,11 +771,12 @@ class DeviceResidency:
       the ``placement`` kernel's node inputs;
     - ``device`` — the device-inventory aggregates (``_dv_row_ver``), the
       ``dev_feasible`` and ``ds_score`` kernels' node inputs, with the
-      ``DeviceStage`` that ``dev_feasible`` launches through.
+      ``DeviceStage`` both launch through.
 
     The tables live on one explicit device, bound by the first read; a
     read asking for another device raises.  A cold table adopts wholesale
-    (``dstate_rows``); a warm one ships only the rows whose stamp moved
+    (``dstate_rows``: one pinned staging of its own, reused, and one copy
+    into one slab of views); a warm one ships only the rows whose stamp moved
     past its watermark in one ``dstate_scatter``, gathered straight into
     the table's ``ScatterStage``; past
     ``scatter_max_frac`` of the capacity it re-uploads wholesale.  A
@@ -841,12 +905,12 @@ class DeviceResidency:
     def _sync(self, name: str) -> tuple:
         t, st = self._tables[name], self._state
         host = [getattr(st, a) for a in t.attrs]
-        shape_key = tuple((a.shape, a.dtype.str) for a in host)
+        shape_key = tuple((a.shape, a.dtype) for a in host)
         ver = getattr(st, t.ver_attr)
         if t.bufs is None or t.shape_key != shape_key:
             if not self._vocab_extend(t, host, shape_key):
                 # cold (first touch, capacity growth, invalidation)
-                t.adopt(dstate_rows(host, self.device))
+                t.adopt(tuple(t.upload.upload(host, self.device)))
                 t.shape_key = shape_key
                 t.watermark = int(ver.max(initial=0))
                 self.full_uploads += 1
@@ -857,9 +921,10 @@ class DeviceResidency:
                 return t.bufs
             # widened warm: the rows whose stamps moved scatter below, at
             # the new width
-        dirty = np.flatnonzero(ver > t.watermark)
-        if dirty.size == 0:
+        # a clean table's check: one max over the stamps, no index list
+        if ver.max(initial=0) <= t.watermark:
             return t.bufs
+        dirty = np.flatnonzero(ver > t.watermark)
         self.last_dirty_rows = int(dirty.size)
         if dirty.size >= self.scatter_max_frac * ver.shape[0]:
             t.bufs = None  # dense churn: re-upload wholesale
@@ -912,7 +977,8 @@ class DeviceResidency:
 
     def device_stage(self, device) -> DeviceStage:
         """The ``DeviceStage`` bound to the device table resident on
-        ``device``, freshly synced: ``dev_feasible`` over every node."""
+        ``device``, freshly synced: ``dev_feasible`` and ``ds_score`` over
+        every node."""
         self._bind(device)
         self._sync("device")
         return self._tables["device"].dev

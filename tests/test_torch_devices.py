@@ -26,9 +26,17 @@ GPU_CORE, GPU_RATIO, RDMA = ("koordinator.sh/gpu-core", "koordinator.sh/gpu-memo
 # ------------------------------------------------------------------ kernels
 
 
-@pytest.mark.parametrize("M,N,Gm,seed", [(8, 40, 8, 0), (16, 300, 16, 1), (8, 1, 8, 2)])
+@pytest.mark.parametrize("M,N,Gm,seed", [(8, 40, 8, 0), (16, 300, 16, 1), (8, 1, 8, 2),
+                                         (128, 70, 8, 3), (200, 333, 16, 4)])
 def test_dev_feasible_and_ds_score_match_jax(M, N, Gm, seed):
+    """Both kernels' public calls on the same numpy-made inputs as the JAX
+    jits; ``ds_score`` also through a ``DeviceStage`` bound to the six
+    device rows, on the requests' host block, at weight 1, the engine's
+    numa weight and 3, over every node and at a shard's columns: the JAX
+    ``ds_score`` times the weight (M 128 and 200: the launch parameters'
+    cap and past it on a card)."""
     import chip_smoke
+    from koordinator_tpu_torch.core.cycle import PluginWeights
 
     feas_in, score_in = chip_smoke.device_inputs(torch.device("cpu"), M, N, Gm, seed)
     core, mem, full, vfs, sigs = feas_in
@@ -46,6 +54,15 @@ def test_dev_feasible_and_ds_score_match_jax(M, N, Gm, seed):
         NodeFitStatic(always_check=(False, False), scalar_bypass=(True, True), weights=(1, 1),
                       strategy="MostAllocated"))
     assert_same(pl.ds_score(*score_in), jds, "ds_score")
+    stage = pl.DeviceStage()
+    rows = (core, mem, full, vfs, score_in[1], score_in[2])
+    lo, hi = N // 3, N - N // 4
+    for w in (1, PluginWeights().numa, 3):
+        stage.bind(rows)
+        assert_same(stage.score(req, w), np.asarray(jds) * w, f"the stage's ds_score, weight {w}")
+        stage.bind(rows, (lo, hi))
+        assert_same(stage.score(req, w), np.asarray(jds)[:, lo:hi] * w,
+                    f"the stage's ds_score at columns [{lo}, {hi}), weight {w}")
 
 
 def _jax_feasible(core, mem, full, vfs, sigs):
@@ -179,6 +196,42 @@ def test_residency_rebinds_its_device_stage():
     assert st.capacity > cap and check() == binds + 1
 
 
+def test_ds_score_stage_takes_host_requests_only():
+    """The stage's ``score`` takes its requests on the host (an int64 [M,
+    2] numpy block or CPU tensor); requests on another device, of another
+    dtype or shape, and a stage bound without the aggregates are refused
+    with a ``ValueError`` before any launch, as is a stage bound without
+    the feasibility rows asked for ``feasible``."""
+    import chip_smoke
+    from koordinator_tpu_torch import cuda
+
+    (core, mem, full, vfs, sigs), (req, alloc2, used2) = chip_smoke.device_inputs(
+        torch.device("cpu"), 16, 90, 8, 8)
+    want = pl.ds_score_plain(req, alloc2, used2)
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    scoring = pl.DeviceStage()
+    scoring.bind((None,) * 4 + (alloc2, used2))
+    for form in (req, req.numpy(), np.asfortranarray(req.numpy())):
+        assert_same(scoring.score(form, 2), want * 2, "ds_score")
+    with pytest.raises(ValueError, match="host data"):
+        scoring.score(req.to("meta"))
+    with pytest.raises(ValueError, match="int64"):
+        scoring.score(req.int())
+    with pytest.raises(ValueError, match="int64"):
+        scoring.score(req[:, :1])
+    with pytest.raises(ValueError, match="feasibility rows"):
+        scoring.feasible(sigs)
+    feasing = pl.DeviceStage()
+    feasing.bind((core, mem, full, vfs))
+    with pytest.raises(ValueError, match="aggregates"):
+        feasing.score(req)
+    with pytest.raises(ValueError, match="alloc2"):
+        feasing.bind((core, mem, full, vfs, alloc2.int(), used2))
+    with pytest.raises(ValueError, match="used2"):
+        feasing.bind((None,) * 4 + (alloc2, used2[:5]))
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
 def test_amplify_and_amplified_score_match_jax():
     """float64 ceil(origin * ratio), the ratio <= 1 identity, and the
     amplified NodeFit score under both scorers."""
@@ -270,6 +323,112 @@ def test_numa_device_inputs_match_jax_and_host_oracle(policy):
             for name in st["jax"]._nodes:
                 want = got["jax"][2].get((i, name))
                 assert got["torch"][2].get((i, name)) == want == ref[2].get((i, name))
+
+
+def _gpu_writers_cluster(k, late_ops: bool):
+    """Ten nodes through every writer of the device rows: GPUs with
+    grants held (n-0 to n-3), ``gpus=None`` (n-4 never given devices, n-5
+    a topology alone, n-6 RDMA alone through ``set_devices`` with no
+    GPUs: ``gpus=[]``), GPUs removed (n-7), a zeroed row reused (n-8
+    removed, n-late upserted into its row), and n-9 with 2 GPUs; with
+    ``late_ops`` also a grant moved, an inventory reset and a removal
+    after the first read."""
+    st = k.ClusterState(initial_capacity=16)
+    for i in range(10):
+        st.upsert_node(k.Node(name=f"n-{i}", allocatable={CPU: 32000, MEMORY: 128 * GB,
+                                                          "pods": 64}))
+    for i in (0, 1, 2, 3, 7, 8):
+        st.set_devices(f"n-{i}", [k.GPUDevice(minor=m, numa_node=m % 2, pcie=m // 2)
+                                  for m in range(4 if i != 3 else 8)],
+                       [k.RDMADevice(minor=0, vfs_free=2)])
+    st.set_devices("n-9", [k.GPUDevice(minor=m) for m in range(2)])
+    st.set_topology("n-5", k.NodeTopologyInfo(topo=k.CPUTopology(
+        sockets=1, nodes_per_socket=2, cores_per_node=4, cpus_per_core=2)))
+    st.set_devices("n-6", [], [k.RDMADevice(minor=0, vfs_free=4)])
+    st.note_device_alloc("default/a", "n-1", [(0, 100, 100), (1, 30, 50)], [], [])
+    st.note_device_alloc("default/b", "n-2", [(2, 70, 20)], [(0, 1)], [])
+    st.note_device_alloc("default/c", "n-9", [(0, 100, 100), (1, 100, 100)], [], [])
+    st.remove_devices("n-7")
+    st.remove_node("n-8")
+    st.upsert_node(k.Node(name="n-late", allocatable={CPU: 8000, MEMORY: 32 * GB, "pods": 8}))
+    if late_ops:
+        st.note_device_alloc("default/d", "n-0", [(3, 40, 40)], [], [])
+        st.set_devices("n-2", [k.GPUDevice(minor=m) for m in range(3)])
+        st.remove_devices("n-1")
+        st.remove_node("n-3")
+    return st
+
+
+GREQS = [(100, 100), (50, 40), (200, 100), (30, 0), (0, 60), (400, 100), (800, 100)]
+
+
+@pytest.mark.parametrize("late_ops", [False, True])
+def test_gpu_free_rows_hold_zero_aggregates(late_ops):
+    """Every writer of the device rows leaves a node without GPUs (``gpus``
+    None, ``gpus=[]``, GPUs removed, a removed node's row reused) at
+    aggregates (0, 0), in the port's store and its resident device table,
+    as in the JAX package's store: so ``ds_score`` scores such a node 0
+    and the engine needs no mask of ``_dv_in_gpus``."""
+    cpu = torch.device("cpu")
+    for which in ("jax", "torch"):
+        st = _gpu_writers_cluster(pkg(which), late_ops)
+        off = ~st._dv_in_gpus
+        assert off[st._imap.get("n-4")] and off[st._imap.get("n-5")] and off[st._imap.get("n-7")]
+        gpu_free = off | (st._dv_alloc2 == 0).all(axis=1)
+        assert gpu_free.sum() > off.sum()  # n-6's gpus=[] is in the GPU mask, at (0, 0)
+        assert not st._dv_alloc2[off].any(), which
+        if which == "torch":
+            alloc2 = st.residency.device_rows(cpu)[4]
+            assert not alloc2.numpy()[off].any()
+            score = pl.ds_score_plain(torch.tensor(GREQS), alloc2, st.residency.device_rows(
+                cpu)[5])
+            assert not score.numpy()[:, gpu_free].any()
+
+
+@pytest.mark.parametrize("late_ops", [False, True])
+@pytest.mark.parametrize("shards", [0, 4])
+def test_engine_ds_rows_match_jax(late_ops, shards):
+    """The port engine's deviceshare score rows (one ``ds_score`` launch
+    through the device table's stage, the numa weight in the launch, no
+    mask) equal the JAX engine's ``_compute_device_score_rows`` rows
+    (the kernel, the weight and the ``~_dv_in_gpus`` mask) on the
+    ``_gpu_writers_cluster`` stores, over every node and (``shards``) at
+    each shard's columns of a ``ShardedEngine``, whose merged device
+    inputs equal the JAX sharded engine's."""
+    from koordinator_tpu.core.cycle import PluginWeights as JWeights
+    from koordinator_tpu.service.sharding import ShardedEngine as JSharded
+    from koordinator_tpu_torch.service.sharding import ShardedEngine as TSharded
+
+    sides = {w: pkg(w) for w in ("jax", "torch")}
+    st = {w: _gpu_writers_cluster(k, late_ops) for w, k in sides.items()}
+    eng = {w: engine_of(sides[w], st[w]) for w in sides}
+    cap = st["torch"].capacity
+    assert cap == st["jax"].capacity
+    if not shards:
+        eng["jax"]._compute_device_score_rows(GREQS, cap, JWeights())
+        eng["torch"]._compute_device_score_rows(GREQS, cap)
+        for g in GREQS:
+            assert_same(eng["torch"]._ds_rows[g], eng["jax"]._ds_rows[g], f"ds row {g}")
+        assert sum(int(np.count_nonzero(eng["jax"]._ds_rows[g])) for g in GREQS) >= 10
+        return
+    sharded = {"jax": JSharded(st["jax"], num_shards=shards, engine=eng["jax"]),
+               "torch": TSharded(st["torch"], num_shards=shards, engine=eng["torch"])}
+    bounds = sharded["torch"].all_bounds()
+    assert bounds == sharded["jax"].all_bounds() and len(bounds) == shards
+    for lo, hi in bounds:
+        jout, tout = {}, {}
+        eng["jax"]._compute_device_score_rows(GREQS, cap, JWeights(), out=jout, cols=(lo, hi))
+        eng["torch"]._compute_device_score_rows(GREQS, cap, out=tout, cols=(lo, hi))
+        for g in GREQS:
+            assert_same(tout[g], jout[g], f"ds row {g} at [{lo}, {hi})")
+    pods = {w: _device_batch(k) for w, k in sides.items()}
+    got = {}
+    for w in sides:
+        st[w].publish(NOW)
+        xs, xf, _ = sharded[w]._numa_device_inputs(pods[w], 16, cap)
+        got[w] = (host(xs), host(xf))
+    assert_same(got["torch"][0], got["jax"][0], "sharded device scores")
+    assert_same(got["torch"][1], got["jax"][1], "sharded device feasibility")
 
 
 # ------------------------------------------------------------ engine twins

@@ -304,10 +304,11 @@ def test_entry_points_default_to_cuda():
 def test_port_runs_with_jax_unavailable():
     """The port imports nothing of JAX or the JAX package: a SCORE, a cold
     and a warm SCHEDULE cycle over the resident tables, a constrained cycle
-    with ``assume=True``, a placement-and-devices cycle, and the koordlet
-    slice (a NodeMetric report, sharded SCORE in slice and mesh mode, a
-    sharded SCHEDULE, a predictor checkpoint) run in a process where
-    importing jax fails."""
+    with ``assume=True``, a placement-and-devices cycle, the device
+    table's ``ds_score`` stage and a ``dstate_rows`` adoption, and the
+    koordlet slice (a NodeMetric report, sharded SCORE in slice and mesh
+    mode, a sharded SCHEDULE, a predictor checkpoint) run in a process
+    where importing jax fails."""
     code = textwrap.dedent(
         """
         import sys
@@ -362,6 +363,15 @@ def test_port_runs_with_jax_unavailable():
         assert snap.names[h4[0]] == nodes[1].name and al4[0]["devices"]["gpu"]
         assert snap.names[h4[1]] == nodes[1].name and al4[1]["cpuset"] and h4[2] == -1
         assert st.residency.verify() == 19 + 4 + 6
+        # the device table's two entry points: the stage's deviceshare score
+        # (requests a host block, the weight in the call) and an adoption
+        import numpy as np
+        from koordinator_tpu_torch.service.state import dstate_rows
+        sc = st.residency.device_stage("cpu").score(np.array([[100, 100], [50, 40]]), 2)
+        assert sc.shape == (2, st.capacity) and sc.any() and not (sc % 2).any()
+        bufs = dstate_rows([st._dv_alloc2, st._dv_used2, st._valid], "cpu")
+        assert all((b.numpy() == a).all() for b, a in zip(bufs, (st._dv_alloc2, st._dv_used2,
+                                                                 st._valid)))
         # the koordlet's reports into a sharded engine: a store, produce,
         # slice mode and the mesh over four CPU "devices"
         from koordinator_tpu_torch.service.koordlet import (MetricSeriesStore,

@@ -930,6 +930,76 @@ def test_dev_cases_run_on_cpu_tensors():
     assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
 
 
+DS_CASES = 9  # len(chip_smoke.ds_cases(...))
+
+
+@pytest.mark.cuda
+def test_ds_cases_equal_plain(card):
+    """``ds_score`` on its edge cases (a capacity of 0 in one dimension,
+    requests of 0, used above capacity, negative used and capacities,
+    totals past 2**31 / 100, unaligned rows, M 0, N 0) through the public
+    call and a ``DeviceStage`` at weights 1, 7 and -3, and through a stage
+    over the six device rows at M = 16, the launch parameters' cap and
+    past it, Gm 8 and 16, at weight 1, the numa weight, 7 and -3: each
+    equal to ``ds_score_plain`` times the weight; requests on the card
+    refused before any launch."""
+    before = cuda.KERNELS["ds_score"].launches
+    assert chip_smoke.check_ds_cases(card) == DS_CASES
+    for Gm in (8, 16):
+        assert chip_smoke.check_ds_stage(card, 333, Gm, 50 + Gm) == 0
+    assert cuda.KERNELS["ds_score"].launches > before
+
+
+def test_ds_cases_run_on_cpu_tensors():
+    """The deviceshare score's edge cases and the stage's requests counts
+    on CPU tensors, where the stage takes the plain version: the cases
+    build what they name and compare, and nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    cpu = torch.device("cpu")
+    assert chip_smoke.check_ds_cases(cpu) == DS_CASES
+    assert chip_smoke.check_ds_stage(cpu, 90, 8, 3) == 0
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
+def _adoption_host():
+    """The rows a store's three resident tables hold, at 300 nodes."""
+    from koordinator_tpu_torch.service.state import ClusterState
+
+    st = ClusterState(extra_scalars=SCALARS)
+    for node in random_cluster(9, num_nodes=300, num_pods=0)[1]:
+        st.upsert_node(node)
+    return st, [getattr(st, a) for a in sm.DeviceResidency._ROWS + sm.DeviceResidency._POLICY
+                + sm.DeviceResidency._DEVICE]
+
+
+@pytest.mark.cuda
+def test_adoption_on_the_card(card):
+    """``dstate_rows`` on the card: two adoptions back to back, the second
+    on changed arrays with no synchronisation between them (they share the
+    module's pinned staging), each buffer equal to its host array byte for
+    byte, 256-byte aligned, one slab an adoption; a store's residency on
+    the card adopts its three tables so, and its audit passes."""
+    st, host = _adoption_host()
+    chip_smoke.check_adoption(sm, host, card)
+    res = st.residency
+    res.serving_node_inputs(1.0, card)
+    res.policy_rows(card)
+    res.device_rows(card)
+    for name, t in res._tables.items():
+        assert chip_smoke.slab_fault(t.bufs, card) is None, name
+    assert res.full_uploads == 3 and res.verify() == len(host)
+
+
+def test_adoption_checks_run_on_cpu_tensors():
+    """The adoption's card check on the CPU route, which packs as the
+    card's does: two adoptions back to back equal their host arrays and
+    are aligned views of one slab each; nothing launches."""
+    before = {k: v.launches for k, v in cuda.KERNELS.items()}
+    _, host = _adoption_host()
+    chip_smoke.check_adoption(sm, host, torch.device("cpu"))
+    assert {k: v.launches for k, v in cuda.KERNELS.items()} == before
+
+
 REPAIR = ("score", "shard_score_map", "nf_score", "schedule_keys", "schedule_rounds",
           "schedule_keys64", "schedule_keys_con", "scan", "sched_refresh", "sched_refresh_con")
 

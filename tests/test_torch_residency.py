@@ -100,6 +100,144 @@ def test_resident_tables_equal_host_and_jax_after_ops(seed, num_nodes):
         assert t.sched_versions() == j.sched_versions(), step
     assert t.residency.scatters > 0
     assert t.residency.full_uploads == (2 if num_nodes > 256 else 1)  # growth re-uploads
+    # a cold adoption after the growth (an audit's invalidation), on both
+    # sides: the table's one staging reused, the buffers one new slab of
+    # 256-byte-aligned views equal to the host and to the JAX package's
+    staging = t.residency._tables["rows"].upload
+    grows = staging.grows
+    now = NOW + 100
+    for st in (j, t):
+        st.publish(now)
+        st.residency.invalidate("rows")
+    jla, jnf, jvalid = j.residency.serving_node_inputs(now)
+    tla, tnf, tvalid = t.residency.serving_node_inputs(now, CPU_DEV)
+    _same_la(tla, jla)
+    for f in jnf._fields:
+        assert_same(getattr(tnf, f), getattr(jnf, f), f"cold adoption: {f}")
+    assert_same(tvalid, jvalid, "cold adoption: valid")
+    bufs = t.residency._tables["rows"].bufs
+    _assert_slab(bufs, [getattr(t, a) for a in sm.DeviceResidency._ROWS])
+    for buf, jbuf in zip(bufs, _jax_rows(j)):
+        assert np.array_equal(np_of(buf), jbuf, equal_nan=jbuf.dtype.kind == "f")
+    assert staging.grows == grows and staging.copies == t.residency.full_uploads
+    assert t.residency.full_uploads == j.residency.full_uploads
+    assert t.residency.h2d_bytes_total == j.residency.h2d_bytes_total
+
+
+def _assert_slab(bufs, host):
+    """``bufs`` are one adoption's: typed, contiguous views of one slab,
+    each at its ``upload_layout`` offset (a multiple of 256 bytes), equal
+    to its host array byte for byte."""
+    bufs = list(bufs)
+    offsets, total = sm.upload_layout(a.nbytes for a in host)
+    slab = bufs[0].untyped_storage()
+    assert slab.nbytes() == total
+    for k, (a, b, o) in enumerate(zip(host, bufs, offsets)):
+        if b.numel():  # an empty view's data_ptr is 0
+            assert b.untyped_storage().data_ptr() == slab.data_ptr(), k
+            assert b.data_ptr() - slab.data_ptr() == o and o % 256 == 0, k
+        assert b.dtype == torch.from_numpy(a).dtype and tuple(b.shape) == a.shape, k
+        assert b.is_contiguous(), k
+        assert np.array_equal(b.numpy().view(np.uint8).reshape(-1),
+                              np.ascontiguousarray(a).view(np.uint8).reshape(-1)), k
+
+
+def test_upload_layout_aligns_each_array_to_256_bytes():
+    """Each array of an adoption starts at the next multiple of 256 bytes
+    (as ``cudaMalloc`` aligns an allocation); an empty array takes no
+    room."""
+    assert sm.upload_layout([]) == ([], 0)
+    assert sm.upload_layout([0, 1, 256, 257, 8, 0]) == ([0, 0, 256, 512, 1024, 1280], 1280)
+    assert sm.upload_layout(np.array([16384 * 8, 16384])) == ([0, 131072], 147456)
+
+
+def test_adoption_is_one_slab_of_aligned_private_views():
+    """``dstate_rows`` on the CPU route, which packs as a card's does: the
+    buffers are typed, contiguous views of one slab at 256-byte-aligned
+    offsets, equal to their host arrays byte for byte (any dtype, a
+    strided source included), and private: writing the store's arrays
+    after the adoption, or adopting again into the same staging, leaves
+    them as they were."""
+    rng = np.random.default_rng(11)
+    host = [rng.integers(-1 << 40, 1 << 40, (37, 3)), rng.random(37) < 0.5,
+            rng.integers(-9, 9, (37, 5)).astype(np.int32), rng.random((37, 2)),
+            rng.integers(0, 9, 5).astype(np.int16), np.zeros((0, 4), np.int64),
+            rng.integers(0, 9, (37, 8)).astype(np.int32)[:, ::2]]
+    host[3][0, 0] = np.nan
+    bufs = sm.dstate_rows(host, CPU_DEV)
+    _assert_slab(bufs, host)
+    kept = [a.copy() for a in host]
+    for a in host:
+        a[...] = 0 if a.dtype != bool else True
+    again = sm.dstate_rows(host, CPU_DEV)
+    _assert_slab(again, host)
+    _assert_slab(bufs, kept)
+    assert again[0].untyped_storage().data_ptr() != bufs[0].untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("threads", [1, 3, 8])
+def test_packing_shares_cover_every_byte_once(threads, monkeypatch):
+    """The packing's shares (``_pack_shares``): at most ``PACK_THREADS`` of
+    them, each but the last at least ``PACK_SHARE_BYTES``, together every
+    byte of every array once at its layout offset, an array cut across two
+    shares where a share ends in it; a several-MB adoption packed on the
+    host threads equals its arrays (shares of 512 KB here, so that a few
+    MB take several)."""
+    monkeypatch.setattr(sm, "PACK_THREADS", threads)
+    monkeypatch.setattr(sm, "PACK_SHARE_BYTES", 1 << 19)
+    rng = np.random.default_rng(12)
+    host = [rng.integers(-1 << 40, 1 << 40, (70_000, 3)), rng.random(300_000) < 0.5,
+            np.zeros(0, np.int32), rng.random((50_000, 5)), rng.integers(0, 9, 7).astype(np.int16)]
+    srcs = [a.reshape(-1).view(np.uint8) for a in host]
+    offsets, total = sm.upload_layout(a.nbytes for a in host)
+    shares = sm._pack_shares(srcs, offsets)
+    size = sum(a.nbytes for a in host)
+    assert len(shares) == min(threads, size // sm.PACK_SHARE_BYTES)
+    sizes = [sum(src.size for _, src in job) for job in shares]
+    assert sum(sizes) == size and all(n >= sm.PACK_SHARE_BYTES for n in sizes[:-1])
+    raw = np.zeros(total, np.uint8)
+    hits = np.zeros(total, np.int64)
+    for job in shares:
+        for o, src in job:
+            raw[o:o + src.size] = src
+            hits[o:o + src.size] += 1
+    for a, o in zip(host, offsets):
+        assert np.array_equal(raw[o:o + a.nbytes], a.reshape(-1).view(np.uint8))
+        assert (hits[o:o + a.nbytes] == 1).all()
+    assert hits.sum() == size
+    _assert_slab(sm.UploadStage().upload(host, CPU_DEV), host)
+
+
+def test_adoption_staging_is_reused_and_grows_with_the_capacity():
+    """A table's adoption stage keeps one staging: a second cold adoption
+    at the same capacity reuses it (no new staging), a capacity growth
+    grows it at least twofold, once; each adoption's buffers stay equal
+    to the host arrays they were adopted from while the next adoptions
+    reuse the staging."""
+    st = _store(n=120, initial_capacity=128)
+    res = st.residency
+    rows = res._tables["rows"]
+    res.serving_node_inputs(NOW, CPU_DEV)
+    first, first_host = rows.bufs, [getattr(st, a).copy() for a in rows.attrs]
+    staging = rows.upload._host
+    assert rows.upload.grows == 1 and res.full_uploads == 1
+    res.invalidate("rows")
+    st.update_metric("node-3", tm.NodeMetric(node_usage={jm.CPU: 999, jm.MEMORY: 1 << 30},
+                                             update_time=NOW - 1))
+    st.publish(NOW + 1)
+    res.serving_node_inputs(NOW + 1, CPU_DEV)
+    assert rows.upload.grows == 1 and rows.upload._host is staging
+    assert rows.bufs is not first and res.full_uploads == 2
+    cap = st.capacity
+    for node in tfx.random_cluster(42, num_nodes=cap + 10, num_pods=0)[1][120:]:
+        st.upsert_node(node)
+    assert st.capacity > cap
+    st.publish(NOW + 2)
+    res.serving_node_inputs(NOW + 2, CPU_DEV)
+    assert rows.upload.grows == 2 and rows.upload._host.numel() >= 2 * staging.numel()
+    _assert_slab(rows.bufs, [getattr(st, a) for a in rows.attrs])
+    _assert_slab(first, first_host)
+    assert res.verify() == len(sm.DeviceResidency._ROWS)
 
 
 def _store(n=120, **kw):
